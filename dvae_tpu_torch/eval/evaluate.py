@@ -1,0 +1,192 @@
+"""Inference summary and north-star metrics of the PyTorch port (numpy and
+scipy only).
+
+Counterpart of dvae_tpu/eval/evaluate.py:34-287:
+  * ``summarize_inference`` — mmidas/eval_models.py:8-134
+  * ``mutinfo`` / ``avg_consensus`` / ``avg_max`` — evaluation.py:25-66
+``mutinfo`` runs the numpy expected-MI path; the port does not load the
+JAX package's native helpers.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Optional
+
+import numpy as np
+
+from dvae_tpu_torch.eval.metrics import (compute_confmat, confmat_mean,
+                                         confmat_normalize,
+                                         per_category_agreement)
+
+
+def _lngamma_table(n: int) -> np.ndarray:
+    """T[k] = ln k! for k = 0..n."""
+    t = np.empty(n + 1)
+    t[0] = 0.0
+    np.cumsum(np.log(np.arange(1, n + 1)), out=t[1:])
+    return t
+
+
+def _emi_cell(a: np.ndarray, b: np.ndarray, N: int, T: np.ndarray,
+              chunk: int = 4096) -> np.ndarray:
+    """Expected-MI contribution of one cell of a 2x2 contingency table,
+    E[(k/N)·ln(N·k/(a·b))] over k ~ Hypergeom(N, a, b), summed over a
+    ±(12σ+25) window around the mean (Vinh et al. 2010)."""
+    a, b = np.broadcast_arrays(a, b)
+    shape = a.shape
+    a = a.ravel().astype(np.int64)
+    b = b.ravel().astype(np.int64)
+    out = np.zeros(a.size)
+    lo_sup = np.maximum(1, a + b - N)
+    hi_sup = np.minimum(a, b)
+    af, bf = a.astype(np.float64), b.astype(np.float64)
+    mu = af * bf / N
+    sig = np.sqrt(np.maximum(
+        af * bf * (N - af) * (N - bf) / (float(N) * N * max(N - 1, 1)), 0.0))
+    w = 12.0 * sig + 25.0
+    lo = np.maximum(lo_sup, np.floor(mu - w).astype(np.int64))
+    hi = np.minimum(hi_sup, np.ceil(mu + w).astype(np.int64))
+    ln_const = T[N] - T[a] - T[N - a]
+    for s in range(0, a.size, chunk):
+        e = min(s + chunk, a.size)
+        al, bl = a[s:e, None], b[s:e, None]
+        lol, hil = lo[s:e], hi[s:e]
+        span = int(max(0, (hil - lol).max())) + 1 if e > s else 0
+        if span <= 0 or (hil < lol).all():
+            continue
+        k = lol[:, None] + np.arange(span)[None, :]
+        valid = k <= hil[:, None]
+        k = np.where(valid, k, 1)
+        ln_pmf = ((T[bl] - T[k] - T[np.maximum(bl - k, 0)])
+                  + (T[np.maximum(N - bl, 0)] - T[np.maximum(al - k, 0)]
+                     - T[np.maximum(N - bl - al + k, 0)])
+                  - ln_const[s:e, None])
+        with np.errstate(divide="ignore"):
+            term = ((k / N) * (np.log(N * k) - np.log(al * bl))
+                    * np.exp(ln_pmf))
+        out[s:e] = np.where(valid, term, 0.0).sum(axis=1)
+    return out.reshape(shape)
+
+
+def mutinfo(probs: np.ndarray, targets: np.ndarray) -> np.ndarray:
+    """Per-(reference-type, discovered-cluster) adjusted mutual information
+    of one arm's (N, C) posterior against (N, F) one-hot reference labels:
+    the (F, C_used) matrix of reference evaluation.py:25-41, from 2x2
+    contingency counts in closed form (sklearn's 'arithmetic' AMI)."""
+    preds = np.argmax(probs, axis=1)
+    uniq, prediction = np.unique(preds, return_inverse=True)
+    C = len(uniq)
+    t_int = np.argmax(targets, axis=-1)
+    F = len(np.unique(t_int))
+    N = len(prediction)
+
+    fcols = np.asarray(targets[:, :F])
+    n11 = np.empty((F, C), np.int64)
+    tf = np.empty(F, np.int64)
+    for f in range(F):
+        mask = fcols[:, f] != 0
+        tf[f] = int(mask.sum())
+        n11[f] = np.bincount(prediction[mask], minlength=C)
+    pc = np.bincount(prediction, minlength=C).astype(np.int64)
+    n10 = tf[:, None] - n11
+    n01 = pc[None, :] - n11
+    n00 = N - tf[:, None] - pc[None, :] + n11
+
+    def _mi_cell(n, aa, bb):
+        n = n.astype(np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (n / N) * (np.log(N * n) - np.log(aa * bb))
+        return np.where(n > 0, t, 0.0)
+
+    af, bf = tf[:, None].astype(np.float64), pc[None, :].astype(np.float64)
+    mi = (_mi_cell(n11, af, bf) + _mi_cell(n10, af, N - bf)
+          + _mi_cell(n01, N - af, bf) + _mi_cell(n00, N - af, N - bf))
+
+    def _h2(cnt):
+        p = cnt / N
+        with np.errstate(divide="ignore", invalid="ignore"):
+            h = -(p * np.log(p) + (1 - p) * np.log1p(-p))
+        return np.where((cnt > 0) & (cnt < N), h, 0.0)
+
+    h_u = _h2(tf.astype(np.float64))[:, None]
+    h_v = _h2(pc.astype(np.float64))[None, :]
+    T = _lngamma_table(N)
+    emi = (_emi_cell(tf[:, None], pc[None, :], N, T)
+           + _emi_cell(tf[:, None], N - pc[None, :], N, T)
+           + _emi_cell(N - tf[:, None], pc[None, :], N, T)
+           + _emi_cell(N - tf[:, None], N - pc[None, :], N, T))
+
+    normalizer = 0.5 * (h_u + h_v)
+    denom = normalizer - emi
+    eps = np.finfo(np.float64).eps
+    denom = np.where(denom < 0, np.minimum(denom, -eps),
+                     np.maximum(denom, eps))
+    ami = (mi - emi) / denom
+    single_u = (tf == 0) | (tf == N)
+    both_single = single_u[:, None] & np.full((1, C), C == 1)
+    return np.where(both_single, 1.0, ami)
+
+
+def avg_max(a: np.ndarray) -> float:
+    """Mean over rows of the row max (reference ``avg``, evaluation.py:43)."""
+    return float(np.mean(np.max(a, axis=-1)))
+
+
+def avg_consensus(labels: np.ndarray) -> dict:
+    """Exact-agreement consensus of (A, N) labels (evaluation.py:46-66):
+    'pairwise' = mean over arm pairs of the agreeing fraction, 'all' =
+    fraction of samples where every arm agrees."""
+    A = labels.shape[0]
+    if A == 1:
+        return {"all": 1.0, "pairwise": 1.0}
+    pairs = [float(np.mean(labels[i] == labels[j]))
+             for i in range(A) for j in range(i + 1, A)]
+    all_agree = float(np.mean(np.all(labels == labels[0], axis=0)))
+    return {"all": all_agree, "pairwise": sum(pairs) / len(pairs)}
+
+
+def summarize_inference(cpl, files, x, saving_file: Optional[str] = None
+                        ) -> dict:
+    """Load checkpoint(s) into ``cpl`` (a CplMixVAE), run batched eval over
+    ``x`` and build the consensus summary (reference eval_models.py:8-134).
+    Confusion matrices and consensus are restricted to unpruned
+    categories."""
+    if isinstance(files, (str, bytes)):
+        files = [files]
+    summaries = []
+    for f in files:
+        cpl.load_model(f)
+        K = cpl.cfg.n_categories
+        res = cpl.eval_model(x)
+        labels = res["pred_label"]
+        A = labels.shape[0]
+        active = np.where(np.asarray(res["mask"]) > 0)[0]
+        conf, cons = {}, {}
+        for a in range(A):
+            for b in range(a + 1, A):
+                cm = confmat_normalize(
+                    compute_confmat(labels[a], labels[b], K))
+                cm = cm[np.ix_(active, active)]
+                conf[(a, b)] = cm
+                cons[(a, b)] = confmat_mean(cm)
+        summaries.append({
+            "file": f,
+            "c_prob": res["c_prob"],
+            "state_mu": res["state_mu"],
+            "state_logvar": res["state_logvar"],
+            "x_low": res["x_low"],
+            "pred_label": labels,
+            "armA_vs_armB": conf,
+            "consensus_per_pair": cons,
+            "consensus": res["consensus"],
+            "per_category_agreement": per_category_agreement(labels, K),
+            "total_loss_rec": res["total_loss_rec"],
+            "mask": res["mask"],
+            "nprune_indx": active,
+        })
+    out = summaries[0] if len(summaries) == 1 else {"runs": summaries}
+    if saving_file:
+        with open(saving_file, "wb") as fh:
+            pickle.dump(out, fh, protocol=pickle.HIGHEST_PROTOCOL)
+    return out

@@ -1,0 +1,490 @@
+"""The PyTorch port's serving path (dvae_tpu_torch) against the JAX package.
+
+Small shapes (A=3 arms, B=16, D=40, F=16, L=8, C=6, S=2).  Inputs, weights
+and noise are made with numpy or by the JAX package and handed to both
+sides through the weight bridge (utils/checkpoint.params_from_jax).  JAX
+runs on the CPU as the JAX tests run it; its fused recon kernel runs in
+interpret mode.  Tolerances, with their reason:
+
+  * ``TIGHT`` (rtol 1e-5): f32 values from the same operations summed in
+    another order (XLA's and torch's CPU matmuls block differently);
+  * ``SHARP`` (rtol 1e-4, atol 1e-6): values downstream of the
+    tau = 0.005 sharpening, which multiplies rounding differences of the
+    logits by 1/tau = 200;
+  * labels and one-hot samples: exact.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import dvae_tpu.config as jcfg
+from dvae_tpu.eval import evaluate as jevaluate
+from dvae_tpu.eval import metrics as jmetrics
+from dvae_tpu.models import losses as jlosses
+from dvae_tpu.models import mixvae as jmixvae
+from dvae_tpu.models import sampling as jsampling
+from dvae_tpu.train.cpl_mixvae import CplMixVAE as JaxCplMixVAE
+
+import dvae_tpu_torch.config as tcfg_mod
+from dvae_tpu_torch.data.anndata_io import synthetic_dataset
+from dvae_tpu_torch.eval import evaluate as tevaluate
+from dvae_tpu_torch.eval import metrics as tmetrics
+from dvae_tpu_torch.models import losses as tlosses
+from dvae_tpu_torch.models import mixvae as tmixvae
+from dvae_tpu_torch.models import sampling as tsampling
+from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+from dvae_tpu_torch.utils import checkpoint as tckpt
+
+TIGHT = dict(rtol=1e-5, atol=1e-6)
+SHARP = dict(rtol=1e-4, atol=1e-6)
+A, B, D, F, L, C, S = 3, 16, 40, 16, 8, 6, 2
+DIMS = dict(n_arm=A, input_dim=D, fc_dim=F, lowD_dim=L, n_categories=C,
+            state_dim=S)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfgs(**kw):
+    kw = {**DIMS, **kw}
+    return jcfg.VAEConfig(**kw), tcfg_mod.VAEConfig(**kw)
+
+
+def _model(seed=0):
+    """JAX-initialised weights with non-trivial BN running statistics, as
+    numpy trees, plus a (B, D) batch."""
+    cfg, _ = _cfgs()
+    params = jax.tree_util.tree_map(
+        np.asarray, jmixvae.init_params(jax.random.key(seed), cfg))
+    rng = np.random.default_rng(seed)
+    bn = {k: {"mean": (0.1 * rng.normal(size=v["mean"].shape)).astype(np.float32),
+              "var": rng.uniform(0.5, 1.5, v["var"].shape).astype(np.float32)}
+          for k, v in jax.tree_util.tree_map(
+              np.asarray, jmixvae.init_bn_state(cfg)).items()}
+    x = synthetic_dataset(B, D, C, seed=seed).log1p
+    return params, bn, x
+
+
+def _jax_noise(key, n_rows=B):
+    """The reparameterization noise JAX's eval forward draws from ``key``:
+    split → split(·, (A, 3))[a, 1] → normal (dvae_tpu/models/mixvae.py:356-359)."""
+    _, k_rest = jax.random.split(key)
+    arm_keys = jax.random.split(k_rest, (A, 3))
+    return np.stack([np.asarray(jax.random.normal(arm_keys[a, 1], (n_rows, S)))
+                     for a in range(A)])
+
+
+def _mask(pruned):
+    m = np.ones(C, np.float32)
+    if pruned:
+        m[-2:] = 0.0
+    return m
+
+
+def _both_forward(jc, tc, params, bn, x, mask, skip_recon, prior=None,
+                  key_seed=7):
+    key = jax.random.key(key_seed)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A,) + x.shape)
+    jout, _ = jmixvae.apply(params, bn, jc, xs, key, train=False,
+                            mask=None if mask is None else jnp.asarray(mask),
+                            prior_c=None if prior is None else jnp.asarray(prior),
+                            skip_recon=skip_recon)
+    tout, _ = tmixvae.apply(
+        tckpt.params_from_jax(params), tckpt.bn_from_jax(bn), tc,
+        torch.from_numpy(x), train=False,
+        mask=None if mask is None else torch.from_numpy(mask),
+        prior_c=None if prior is None else torch.from_numpy(prior),
+        skip_recon=skip_recon, noise=torch.from_numpy(_jax_noise(key)))
+    return jout, tout
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["GAUSSIAN", "UNIFORM"])
+def test_reparameterize_matches_jax(kind):
+    key = jax.random.key(3)
+    rng = np.random.default_rng(3)
+    mean = rng.normal(size=(B, S)).astype(np.float32)
+    logvar = rng.normal(size=(B, S)).astype(np.float32)
+    want = jsampling.reparameterize(key, mean, logvar,
+                                    getattr(jcfg.ReparamNoise, kind))
+    draw = jax.random.uniform if kind == "UNIFORM" else jax.random.normal
+    e = np.array(draw(key, (B, S)))
+    got = tsampling.reparameterize(torch.from_numpy(mean),
+                                   torch.from_numpy(logvar),
+                                   getattr(tcfg_mod.ReparamNoise, kind),
+                                   e=torch.from_numpy(e))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TIGHT)
+
+
+def test_reparameterize_draws_from_generator():
+    mean, logvar = torch.zeros(4, S), torch.zeros(4, S)
+    uni = tcfg_mod.ReparamNoise.UNIFORM
+    a = tsampling.reparameterize(mean, logvar, uni,
+                                 generator=torch.Generator().manual_seed(1))
+    b = tsampling.reparameterize(mean, logvar, uni,
+                                 generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and bool(((a >= 0) & (a < 1)).all())
+
+
+@pytest.mark.parametrize("form", ["eval", "soft", "hard"])
+def test_gumbel_softmax_matches_jax(form):
+    key = jax.random.key(5)
+    rng = np.random.default_rng(5)
+    phi = rng.dirichlet(np.ones(C), size=(A, B)).astype(np.float32)
+    noisy = form != "eval"
+    hard = form != "soft"
+    want = jsampling.gumbel_softmax(key, phi, 0.7, 1e-8, hard=hard,
+                                    gumbel_noise=noisy)
+    u = torch.from_numpy(np.array(jax.random.uniform(key, phi.shape)))
+    got = tsampling.gumbel_softmax(torch.from_numpy(phi), 0.7, 1e-8,
+                                   hard=hard, gumbel_noise=noisy, u=u)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SHARP)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("skip_recon", [False, True])
+@pytest.mark.parametrize("pruned", [False, True])
+@pytest.mark.parametrize("variational", [True, False])
+def test_apply_eval_matches_jax(variational, pruned, skip_recon):
+    jc, tc = _cfgs(variational=variational)
+    params, bn, x = _model()
+    jout, tout = _both_forward(jc, tc, params, bn, x, _mask(pruned),
+                               skip_recon)
+    for name in ("x_low", "c_prob", "s_mean", "s_logvar", "s_smp", "x_rec"):
+        np.testing.assert_allclose(getattr(tout, name).numpy(),
+                                   np.asarray(getattr(jout, name)), **SHARP,
+                                   err_msg=name)
+    np.testing.assert_allclose(tout.c.numpy(), np.asarray(jout.c), **SHARP)
+    np.testing.assert_array_equal(tout.c_smp.numpy(), np.asarray(jout.c_smp))
+    if pruned:
+        assert float(tout.c[..., -2:].max()) == 0.0
+
+
+def test_apply_shared_and_per_arm_batches_agree():
+    _, tc = _cfgs()
+    params, bn, x = _model(1)
+    p, s = tckpt.params_from_jax(params), tckpt.bn_from_jax(bn)
+    noise = torch.zeros(A, B, S)
+    xt = torch.from_numpy(x)
+    shared, _ = tmixvae.apply(p, s, tc, xt, noise=noise)
+    per_arm, _ = tmixvae.apply(p, s, tc, xt.expand(A, B, D).contiguous(),
+                               noise=noise)
+    for a, b in zip(shared, per_arm):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TIGHT)
+
+
+def test_apply_refuses_train_mode():
+    _, tc = _cfgs()
+    params, bn, x = _model()
+    with pytest.raises(NotImplementedError):
+        tmixvae.apply(tckpt.params_from_jax(params), tckpt.bn_from_jax(bn),
+                      tc, torch.from_numpy(x), train=True)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bce_metric", [True, False])
+@pytest.mark.parametrize("ref_prior", [False, True])
+@pytest.mark.parametrize("fused", [False, True])
+def test_loss_matches_jax(fused, ref_prior, bce_metric):
+    jc, tc = _cfgs(ref_prior=ref_prior, recon_bce_metric=bce_metric,
+                   fused_recon=fused)
+    params, bn, x = _model(2)
+    prior = (np.random.default_rng(2).dirichlet(np.ones(C), size=B)
+             .astype(np.float32) if ref_prior else None)
+    jout, tout = _both_forward(jc, tc, params, bn, x, None, fused, prior)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A,) + x.shape)
+    want = jlosses.mixvae_loss(
+        jc, jout, xs, None if prior is None else jnp.asarray(prior),
+        fused_recon_args=(params, jnp.asarray(x)) if fused else None)
+    xt = torch.from_numpy(x)
+    got = tlosses.mixvae_loss(
+        tc, tout, xt, None if prior is None else torch.from_numpy(prior),
+        fused_recon_args=((tckpt.params_from_jax(params), xt) if fused
+                          else None))
+    for name in tlosses.LossOutputs._fields:
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)), **SHARP,
+                                   err_msg=name)
+
+
+def test_fused_and_unfused_losses_agree():
+    _, tc = _cfgs()
+    params, bn, x = _model(3)
+    p, s = tckpt.params_from_jax(params), tckpt.bn_from_jax(bn)
+    xt, noise = torch.from_numpy(x), torch.zeros(A, B, S)
+    outs_u, _ = tmixvae.apply(p, s, tc, xt, noise=noise)
+    outs_f, _ = tmixvae.apply(p, s, tc, xt, noise=noise, skip_recon=True)
+    unfused = tlosses.mixvae_loss(tc, outs_u, xt)
+    fused = tlosses.mixvae_loss(tc, outs_f, xt, fused_recon_args=(p, xt))
+    for a, b in zip(unfused, fused):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), **TIGHT)
+
+
+def test_loss_matches_naive_oracles():
+    jc, tc = _cfgs(ref_prior=False)
+    params, bn, x = _model(4)
+    jout, tout = _both_forward(jc, tc, params, bn, x, None, False)
+    xt = torch.from_numpy(x)
+    total = tlosses.mixvae_loss(tc, tout, xt).total
+    naive = tlosses.mixvae_loss_naive(tc, tout, xt)
+    np.testing.assert_allclose(naive.numpy(), total.numpy(), **TIGHT)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A,) + x.shape)
+    np.testing.assert_allclose(
+        naive.numpy(), np.asarray(jlosses.mixvae_loss_naive(jc, jout, xs)),
+        **SHARP)
+    np.testing.assert_allclose(
+        tlosses.coupling_distance(tout.c, tc.eps).numpy(),
+        tlosses.coupling_distance_naive(tout.c, tc.eps).numpy(), rtol=1e-4)
+
+
+def test_pair_sums_survive_dead_categories():
+    """Centring keeps the pair sum exact when every arm carries the same
+    huge constant in dead categories (dvae_tpu/models/losses.py:175-180)."""
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=(A, B, C)).astype(np.float32)
+    v[..., -2:] = -1.8e5
+    got = tlosses._pair_sums_from_gram(torch.from_numpy(v))
+    want = jlosses.l2_pair_sum_naive(jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints and the serving path end to end
+# ---------------------------------------------------------------------------
+
+N_CELLS, EVAL_B = 53, 16   # one 3-batch runner chunk plus a 5-row tail
+
+
+@pytest.fixture(scope="module")
+def jax_checkpoints(tmp_path_factory):
+    """Checkpoints written by the JAX CplMixVAE (fused and unfused), and the
+    JAX eval_model results read back from them by a fresh instance."""
+    x = synthetic_dataset(N_CELLS, D, C, seed=11).log1p
+    out = {}
+    for fused in (True, False):
+        folder = str(tmp_path_factory.mktemp(f"jax_fused{fused}"))
+        trainer = JaxCplMixVAE(saving_folder=folder, seed=9)
+        trainer.init_model(**DIMS, variational=False, fused=fused,
+                           batch_size=EVAL_B)
+        path = trainer.save_checkpoint("epoch_0")
+        server = JaxCplMixVAE()
+        server.load_model(path)
+        out[fused] = {"path": path,
+                      "eval": server.eval_model(x, batch_size=EVAL_B),
+                      "validate": server.validate(x, batch_size=EVAL_B),
+                      "summary": jevaluate.summarize_inference(
+                          JaxCplMixVAE(), path, x)}
+    return x, out
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_eval_model_from_jax_checkpoint(jax_checkpoints, fused):
+    x, ckpts = jax_checkpoints
+    want = ckpts[fused]["eval"]
+    cpl = CplMixVAE(device="cpu")
+    cpl.load_model(ckpts[fused]["path"])
+    assert cpl.cfg.fused_recon == fused
+    got = cpl.eval_model(x, batch_size=EVAL_B)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got["pred_label"], want["pred_label"])
+    np.testing.assert_array_equal(got["mask"], want["mask"])
+    for k in ("c_prob", "state_mu", "state_logvar", "x_low",
+              "total_loss_rec", "total_loss"):
+        np.testing.assert_allclose(got[k], want[k], **SHARP, err_msg=k)
+    assert got["consensus"] == pytest.approx(want["consensus"], abs=1e-12)
+    np.testing.assert_array_equal(
+        cpl._predict_labels(x, 1.0, batch_size=EVAL_B), want["pred_label"])
+
+
+def test_validate_from_jax_checkpoint(jax_checkpoints):
+    x, ckpts = jax_checkpoints
+    cpl = CplMixVAE(device="cpu")
+    cpl.load_model(ckpts[True]["path"])
+    got = cpl.validate(x, batch_size=EVAL_B)
+    want = ckpts[True]["validate"]
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], **SHARP, err_msg=k)
+
+
+def test_summarize_inference_matches_jax(jax_checkpoints):
+    x, ckpts = jax_checkpoints
+    want = ckpts[True]["summary"]
+    got = tevaluate.summarize_inference(CplMixVAE(device="cpu"),
+                                        ckpts[True]["path"], x)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got["pred_label"], want["pred_label"])
+    np.testing.assert_array_equal(got["nprune_indx"], want["nprune_indx"])
+    np.testing.assert_allclose(got["per_category_agreement"],
+                               want["per_category_agreement"], atol=1e-12)
+    assert got["consensus_per_pair"] == pytest.approx(
+        want["consensus_per_pair"], abs=1e-12)
+    for pair, cm in want["armA_vs_armB"].items():
+        np.testing.assert_allclose(got["armA_vs_armB"][pair], cm, atol=1e-12)
+
+
+def test_host_metrics_match_jax():
+    rng = np.random.default_rng(6)
+    labels = rng.integers(0, C, size=(A, 200))
+    probs = rng.dirichlet(np.ones(C), size=200)
+    targets = np.eye(4)[rng.integers(0, 4, size=200)].astype(int)
+    np.testing.assert_allclose(tevaluate.mutinfo(probs, targets),
+                               jevaluate.mutinfo(probs, targets), atol=1e-10)
+    assert tevaluate.avg_consensus(labels) == jevaluate.avg_consensus(labels)
+    assert tevaluate.avg_max(probs) == jevaluate.avg_max(probs)
+    assert tmetrics.consensus_from_labels(labels, C) == pytest.approx(
+        jmetrics.consensus_from_labels(labels, C), abs=1e-12)
+    np.testing.assert_allclose(
+        tmetrics.per_category_agreement(labels, C),
+        jmetrics.per_category_agreement(labels, C), atol=1e-12)
+    got = tmetrics.consensus_device_both(torch.from_numpy(labels), C)
+    want = jmetrics.consensus_device_both(jnp.asarray(labels), C)
+    np.testing.assert_allclose([float(v) for v in got],
+                               [float(v) for v in want], rtol=1e-6)
+
+
+def _assert_trees_equal(a, b):
+    if isinstance(a, dict):
+        assert set(a) == set(b)
+        for k in a:
+            _assert_trees_equal(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for u, v in zip(a, b):
+            _assert_trees_equal(u, v)
+    elif a is None:
+        assert b is None
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+def test_checkpoint_roundtrip_is_bit_exact(tmp_path):
+    cpl = CplMixVAE(saving_folder=str(tmp_path), device="cpu", seed=123)
+    cpl.init_model(**DIMS, n_pr=1)
+    path = cpl.save_checkpoint("a")
+    again = CplMixVAE(saving_folder=str(tmp_path), device="cpu")
+    again.load_model(path)
+    assert again.cfg == cpl.cfg and again.tcfg == cpl.tcfg
+    assert again.state.seed == 123
+    _assert_trees_equal(tckpt.params_to_jax(again.state.params),
+                        tckpt.params_to_jax(cpl.state.params))
+    _assert_trees_equal(tckpt.bn_to_jax(again.state.bn),
+                        tckpt.bn_to_jax(cpl.state.bn))
+    tree_a, meta_a = tckpt.load_checkpoint(path)
+    tree_b, meta_b = tckpt.load_checkpoint(again.save_checkpoint("b"))
+    _assert_trees_equal(tree_a, tree_b)
+    assert meta_a == meta_b
+
+
+def test_jax_checkpoint_survives_a_port_roundtrip(jax_checkpoints, tmp_path):
+    """Optimizer state comes back as numpy stand-ins and is written back
+    unchanged; configs map onto the port's own classes."""
+    _, ckpts = jax_checkpoints
+    tree, meta = tckpt.load_checkpoint(ckpts[True]["path"])
+    assert isinstance(meta["cfg"]["reparam_noise"], tcfg_mod.ReparamNoise)
+    kinds = {s.kind for s in tree["opt_state"]
+             if isinstance(s, tckpt.ForeignState)}
+    assert "optax._src.transform.ScaleByAdamState" in kinds
+    cpl = CplMixVAE(saving_folder=str(tmp_path), device="cpu")
+    cpl.load_model(ckpts[True]["path"])
+    tree2, _ = tckpt.load_checkpoint(cpl.save_checkpoint("resaved"))
+    _assert_trees_equal(tree2["opt_state"], tree["opt_state"])
+    _assert_trees_equal(tree2["params"], tree["params"])
+    np.testing.assert_array_equal(tree2["key_data"], tree["key_data"])
+
+
+def test_bf16_eval_returns_f32_fields():
+    cpl = CplMixVAE(device="cpu")
+    cpl.init_model(**DIMS, bf16=True, fused=True)
+    x = synthetic_dataset(N_CELLS, D, C, seed=12).log1p
+    got = cpl.eval_model(x, batch_size=EVAL_B)
+    ref = CplMixVAE(device="cpu")
+    ref.init_model(**DIMS, fused=True)
+    want = ref.eval_model(x, batch_size=EVAL_B)
+    for k in ("c_prob", "state_mu", "x_low"):
+        assert got[k].dtype == np.float32 and np.isfinite(got[k]).all()
+    # bf16 keeps ~3 significant digits through the encoder
+    np.testing.assert_allclose(got["total_loss_rec"], want["total_loss_rec"],
+                               rtol=2e-2)
+
+
+def test_cuda_entry_points_fail_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CplMixVAE()
+
+
+# ---------------------------------------------------------------------------
+# The port stands alone
+# ---------------------------------------------------------------------------
+
+_GUARD = """
+import json, sys
+import torch
+torch.set_num_threads(1)
+from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+cpl = CplMixVAE(device="cpu")
+cpl.load_model(sys.argv[1])
+res = cpl.eval_model(__import__("numpy").ones((20, {D}), "float32"), batch_size=8)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu"))
+print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape}}))
+""".format(D=D)
+
+
+def _run_port(args, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax(jax_checkpoints, tmp_path):
+    """A fresh interpreter imports the port, reads a JAX-written checkpoint
+    and runs a tiny eval without loading JAX, optax or dvae_tpu."""
+    _, ckpts = jax_checkpoints
+    proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"bad": [], "labels": [A, 20]}
+
+
+def test_cli_evaluate_on_cpu(jax_checkpoints, tmp_path):
+    _, ckpts = jax_checkpoints
+    proc = _run_port(["-m", "dvae_tpu_torch.cli", "evaluate", "--device",
+                      "cpu", "--ckpt", ckpts[True]["path"], "--synthetic",
+                      "--syn_cells", "30", "--syn_genes", str(D),
+                      "--syn_types", str(C), "--n_arm", str(A),
+                      "--out_dir", str(tmp_path / "evaluation")],
+                     str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["arms"] == A and len(res["mi"]) == A
+    assert 0.0 <= res["consensus"] <= 1.0
+    assert (tmp_path / "evaluation" / f"A{A}-RUN0-E0.npy").exists()
