@@ -4,33 +4,47 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Phases (any failure exits non-zero and prints no result line):
-  1. build every CUDA kernel of the serving path from ``dvae_tpu_torch/csrc``;
+  1. build every CUDA kernel of the port from ``dvae_tpu_torch/csrc`` (one
+     nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version at the shapes the
-     serving path gives it (f32 and bf16, shared and per-arm targets, a
-     ragged batch), and time kernel, plain version and library call;
+     serving and training paths give it (f32 and bf16, shared and per-arm
+     x, B=5000 and the ragged 2,000), check the in-kernel dropout mask
+     (bit for bit against its numpy version, keep fraction, forward and
+     backward fed the materialised mask) and that repeated launches are
+     bit-identical, and time kernel, plain version and library call;
   3. drive the serving path end to end at the production width (A=5 arms,
      D=5032 genes, F=100, L=10, C=92, S=2; random weights from a seed):
      init → save_checkpoint → a fresh CplMixVAE.load_model → eval_model over
      42,000 synthetic cells (one 8-batch runner chunk plus a 2,000-row
      tail), with launch counts reset just before and read just after, and
      check the result against the port's CPU path on a small input;
-  4. print the kernels line, the card's name and power limit, and last the
+  4. drive the training path at the same width: init_model → train over
+     40,000 cells with 2,000 for validation, 4 epochs in chunks of 2
+     (32 steps), counts reset just before and read just after; resume from
+     the last checkpoint; one step against the port's CPU path with the
+     same explicit noise; warm throughput, a profiler breakdown of one
+     chunk and its count of synchronising calls;
+  5. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
-Imports nothing of JAX or of the JAX package.
+``--kernels-only`` stops after phase 2 (a short first run of new kernels;
+it prints no result line).  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 SEED = 0
+DEV = "cuda"
 A, B, F, D, C = 5, 5000, 100, 5032, 92
 N_CELLS, TAIL = 42000, 2000
 N_SMALL = 2000
@@ -39,6 +53,15 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 TOL_SUMSQ = {"float32": 1e-5, "bfloat16": 1e-4}   # relative, per arm
 TOL_MISM = 1e-5                                    # × B·D, per arm
+# kernel vs plain, max |Δ| / max |plain|: f32 sums in another order; bf16
+# outputs (y1) one bf16 rounding step; bf16 gradients: gm rounded to bf16
+# on both sides from f32 values that differ in their last bits
+TOL_REL = {"float32": 1e-5, "bfloat16": 1e-3}
+TOL_Y_BF16 = 8e-3
+RATE = 0.5                                         # x_drop of the model
+N_TRAIN, N_VAL = 40000, 2000
+N_PARITY = 2000
+LR = 1e-3
 
 
 class Checks:
@@ -67,16 +90,48 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def flops_bound_ms(flops, nbytes, dtype_name: str):
+    """(bound_ms, bound_by): the larger of the operations over the card's
+    peak for the type and the bytes over its memory rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def recon_bound_ms(a, b, f, d, dtype_name: str, per_arm_x: bool):
     """(bound_ms, bound_by) of one fused recon forward: operands read once,
     the (A, 2) output written once; 2·A·B·F·D operations of the product."""
     item = 4 if dtype_name == "float32" else 2
     x_elems = (a if per_arm_x else 1) * b * d
     nbytes = (a * b * f + a * f * d + a * d + x_elems) * item + a * 2 * 4
-    flops = 2.0 * a * b * f * d
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+    return flops_bound_ms(2.0 * a * b * f * d, nbytes, dtype_name)
+
+
+def plain_ms(torch, fn, iters: int = 3) -> float:
+    return cuda_ms(torch, fn, iters=iters, warmup=1)
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got − want| / max |want|, in f32."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def launch_counts() -> dict:
+    from dvae_tpu_torch.ops import encoder, recon
+    return {"recon_fwd": recon.fused_recon_mse.launches,
+            "recon_fwdbwd": recon.recon_fwdbwd.launches,
+            "encoder_fwd": encoder.encoder_fwd.launches,
+            "encoder_bwd": encoder.encoder_bwd.launches}
+
+
+def reset_launch_counts() -> None:
+    from dvae_tpu_torch.ops import encoder, recon
+    recon.fused_recon_mse.launches = 0
+    recon.recon_fwdbwd.launches = 0
+    encoder.encoder_fwd.launches = 0
+    encoder.encoder_bwd.launches = 0
 
 
 def card_line() -> str:
@@ -105,8 +160,8 @@ def phase_kernels(torch, check) -> dict:
     """Kernel vs plain version; returns the record of the main case."""
     from dvae_tpu_torch.ops.recon import fused_recon_mse, recon_mse_reference
     print("phase 2: recon_fwd kernel vs plain version")
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    dev = "cuda"
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    dev = DEV
     record = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -156,6 +211,197 @@ def phase_kernels(torch, check) -> dict:
     return record
 
 
+def phase_encoder(torch, check) -> dict:
+    """Kernels #4/#5 vs their plain versions; returns the records of the
+    main case (f32, shared x, B=5000, the mask drawn in the kernel)."""
+    import numpy as np
+    from dvae_tpu_torch.ops import encoder as enc
+    print("phase 2: encoder_fwd / encoder_bwd kernels vs plain version")
+    dev = DEV
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    # the in-kernel mask: bit for bit against its numpy version ...
+    small = (A, 64, 203)
+    km = enc.kernel_keep_mask(7, small, RATE, dev).cpu().numpy().astype(bool)
+    check(bool(np.array_equal(km, enc.philox_keep_mask(7, small, RATE))),
+          f"in-kernel Philox mask {small} equals its numpy version bit for bit")
+    # ... its keep fraction over the A·B·D draws of one production step ...
+    full = enc.kernel_keep_mask(7, (A, B, D), RATE, dev)
+    n = full.numel()
+    frac = full.sum(dtype=torch.int64).item() / n
+    sigma = math.sqrt(RATE * (1 - RATE) / n)
+    check(abs(frac - (1 - RATE)) <= 5 * sigma,
+          f"keep fraction {frac:.6f} over {n} draws within 5 sigma "
+          f"({5 * sigma:.1e}) of {1 - RATE}")
+    del full
+    # ... and forward/backward with it equal the plain version fed the
+    # materialised mask
+    xs = torch.relu(torch.randn((300, 203), generator=g, device=dev))
+    ws = torch.randn((A, 203, F), generator=g, device=dev) * 0.05
+    bs = torch.randn((A, F), generator=g, device=dev) * 0.05
+    gs = torch.randn((A, 300, F), generator=g, device=dev)
+    m = enc.kernel_keep_mask(7, (A, 300, 203), RATE, dev)
+    e_y = rel_err(torch, enc.encoder_fwd(7, xs, ws, bs, RATE),
+                  enc.dropout_fc1_reference(xs, ws, bs, RATE, m))
+    dw, db = enc.encoder_bwd(7, xs, gs, RATE)
+    dw0, db0 = enc.dropout_fc1_grad_reference(xs, gs, RATE, m)
+    e_w = max(rel_err(torch, dw, dw0), rel_err(torch, db, db0))
+    check(e_y <= TOL_REL["float32"] and e_w <= TOL_REL["float32"],
+          f"in-kernel mask: forward rel err {e_y:.2e}, backward {e_w:.2e} "
+          f"against the plain version fed that mask (tol 1e-05)")
+
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        item = 4 if dtype == torch.float32 else 2
+        for rows in (B, TAIL):
+            for per_arm in (False, True):
+                tag = f"{dname} B={rows} x={'per-arm' if per_arm else 'shared'}"
+                shape = (A, rows, D) if per_arm else (rows, D)
+                x = torch.relu(torch.randn(shape, generator=g, device=dev))
+                w = torch.randn((A, D, F), generator=g, device=dev) * 0.02
+                b = torch.randn((A, F), generator=g, device=dev) * 0.02
+                gy = torch.randn((A, rows, F), generator=g, device=dev)
+                x, w, b, gy = (t.to(dtype).contiguous() for t in (x, w, b, gy))
+                mask = torch.rand((A, rows, D), generator=g,
+                                  device=dev) < (1 - RATE)
+                y = enc.encoder_fwd(11, x, w, b, RATE, mask)
+                y0 = enc.dropout_fc1_reference(x, w, b, RATE, mask)
+                tol_y = TOL_REL["float32"] if item == 4 else TOL_Y_BF16
+                e_y = rel_err(torch, y, y0)
+                check(y.dtype == dtype and e_y <= tol_y,
+                      f"{tag}: encoder_fwd rel err {e_y:.2e} (tol {tol_y:.0e})")
+                dw, db = enc.encoder_bwd(11, x, gy, RATE, mask)
+                dw0, db0 = enc.dropout_fc1_grad_reference(x, gy, RATE, mask)
+                e_w = max(rel_err(torch, dw, dw0), rel_err(torch, db, db0))
+                # bf16 operands are exact in f32: only the order differs
+                check(e_w <= TOL_REL["float32"],
+                      f"{tag}: encoder_bwd rel err {e_w:.2e} (tol 1e-05)")
+                y2 = enc.encoder_fwd(11, x, w, b, RATE, mask)
+                dw2, db2 = enc.encoder_bwd(11, x, gy, RATE, mask)
+                y3 = enc.encoder_fwd(11, x, w, b, RATE)
+                dw3, _ = enc.encoder_bwd(11, x, gy, RATE)
+                y4 = enc.encoder_fwd(11, x, w, b, RATE)
+                dw4, _ = enc.encoder_bwd(11, x, gy, RATE)
+                check(bool(torch.equal(y, y2) and torch.equal(dw, dw2)
+                           and torch.equal(db, db2) and torch.equal(y3, y4)
+                           and torch.equal(dw3, dw4)),
+                      f"{tag}: repeated launches bit-identical (explicit "
+                      "and in-kernel mask)")
+                if rows == B and not per_arm:
+                    # timed as the training step runs them: mask in-kernel
+                    f_ms = cuda_ms(torch, lambda: enc.encoder_fwd(
+                        11, x, w, b, RATE))
+                    b_ms = cuda_ms(torch, lambda: enc.encoder_bwd(
+                        11, x, gy, RATE))
+                    f_plain = plain_ms(torch, lambda: enc.dropout_fc1_reference(
+                        x, w, b, RATE, mask))
+                    b_plain = plain_ms(torch,
+                                       lambda: enc.dropout_fc1_grad_reference(
+                                           x, gy, RATE, mask))
+                    f_lib = cuda_ms(torch, lambda: torch.matmul(x, w),
+                                    iters=10)
+                    xt = x.t()
+                    b_lib = cuda_ms(torch, lambda: torch.matmul(xt, gy),
+                                    iters=10)
+                    flops = 2.0 * A * rows * D * F
+                    f_bound = flops_bound_ms(
+                        flops, (rows * D + A * D * F + A * F + A * rows * F)
+                        * item, dname)
+                    b_bound = flops_bound_ms(
+                        flops, (rows * D + A * rows * F) * item
+                        + (A * D * F + A * F) * 4, dname)
+                    for name, ms, pl, lib, (bound, by), err in (
+                            ("encoder_fwd", f_ms, f_plain, f_lib, f_bound,
+                             (y.float() - y0.float()).abs().max().item()),
+                            ("encoder_bwd", b_ms, b_plain, b_lib, b_bound,
+                             max((dw - dw0).abs().max().item(),
+                                 (db - db0).abs().max().item()))):
+                        print(f"  {tag}: {name} kernel_ms {ms:.4f} plain_ms "
+                              f"{pl:.4f} library_ms(matmul product) "
+                              f"{lib:.4f} bound_ms {bound:.4f} ({by}) "
+                              f"share_of_bound {bound / ms:.3f}")
+                        if item == 4:
+                            records[name] = {
+                                "max_abs_err": err, "ms": ms, "plain_ms": pl,
+                                "bound_ms": bound, "bound_by": by,
+                                "library_ms": lib}
+                del x, w, b, gy, mask, y, y0, dw, dw0
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_recon_fwdbwd(torch, check) -> dict:
+    """Kernel #2 vs its plain version; returns the record of the main
+    case (f32, shared x, B=5000)."""
+    from dvae_tpu_torch.ops.recon import recon_fwdbwd, recon_fwdbwd_reference
+    print("phase 2: recon_fwdbwd kernel vs plain version")
+    dev = DEV
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    record = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        item = 4 if dtype == torch.float32 else 2
+        for rows in (B, TAIL):
+            for per_arm in (False, True):
+                tag = f"{dname} B={rows} x={'per-arm' if per_arm else 'shared'}"
+                h = torch.rand((A, rows, F), generator=g, device=dev)
+                w = (torch.rand((A, F, D), generator=g, device=dev) - 0.5) * 0.2
+                b = (torch.rand((A, D), generator=g, device=dev) - 0.5) * 0.2
+                shape = (A, rows, D) if per_arm else (rows, D)
+                x = torch.relu(torch.randn(shape, generator=g, device=dev))
+                h, w, b, x = (t.to(dtype).contiguous() for t in (h, w, b, x))
+                got = recon_fwdbwd(h, w, b, x)
+                want = recon_fwdbwd_reference(h, w, b, x)
+                torch.cuda.synchronize()
+                rel = ((got[0] - want[0]).abs() / want[0].abs()).max().item()
+                dm = (got[1] - want[1]).abs().max().item()
+                check(rel <= TOL_SUMSQ[dname],
+                      f"{tag}: sumsq max rel err {rel:.3e} "
+                      f"(tol {TOL_SUMSQ[dname]:.0e})")
+                check(dm <= TOL_MISM * rows * D,
+                      f"{tag}: mism max abs diff {dm:.0f} "
+                      f"(tol {TOL_MISM * rows * D:.0f})")
+                errs = [rel_err(torch, a, e) for a, e in zip(got[2:], want[2:])]
+                check(max(errs) <= TOL_REL[dname],
+                      f"{tag}: dh/dW/db rel err "
+                      + "/".join(f"{e:.2e}" for e in errs)
+                      + f" (tol {TOL_REL[dname]:.0e})")
+                again = recon_fwdbwd(h, w, b, x)
+                check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                      f"{tag}: repeated launch bit-identical")
+                if rows == B and not per_arm:
+                    ms = cuda_ms(torch, lambda: recon_fwdbwd(h, w, b, x))
+                    pl = plain_ms(torch,
+                                  lambda: recon_fwdbwd_reference(h, w, b, x))
+                    gm = torch.randn((A, rows, D), generator=g,
+                                     device=dev).to(dtype)
+                    bias3, wt, ht = b[:, None, :], w.transpose(1, 2), \
+                        h.transpose(1, 2)
+                    lib = cuda_ms(torch, lambda: (
+                        torch.baddbmm(bias3, h, w), torch.bmm(gm, wt),
+                        torch.bmm(ht, gm)), iters=10)
+                    del gm
+                    nbytes = ((A * rows * F + A * F * D + A * D + rows * D)
+                              * item + (A * 2 + A * rows * F + A * F * D
+                                        + A * D) * 4)
+                    bound, by = flops_bound_ms(6.0 * A * rows * F * D,
+                                               nbytes, dname)
+                    err = max([abs(got[0] - want[0]).max().item(), dm]
+                              + [(a - e).abs().max().item()
+                                 for a, e in zip(got[2:], want[2:])])
+                    print(f"  {tag}: kernel_ms {ms:.4f} plain_ms {pl:.4f} "
+                          f"library_ms(three products) {lib:.4f} "
+                          f"bound_ms {bound:.4f} ({by}) "
+                          f"share_of_bound {bound / ms:.3f}")
+                    if item == 4:
+                        record = {"max_abs_err": err, "ms": ms,
+                                  "plain_ms": pl, "bound_ms": bound,
+                                  "bound_by": by, "library_ms": lib}
+                del h, w, b, x, got, want, again
+    torch.cuda.empty_cache()
+    return record
+
+
 def phase_breakdown(torch, server, x) -> None:
     """Where the serving time goes: a warm eval_model run timed on the host
     clock, then one under torch.profiler with device time by kernel name
@@ -193,37 +439,38 @@ def phase_breakdown(torch, server, x) -> None:
         print(f"    {t / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
 
 
-def phase_serving(torch, check, tmp) -> int:
-    """Serving path end to end; returns the kernel's launch count."""
+def phase_serving(torch, check, tmp):
+    """Serving path end to end; returns (launch counts of the run, the
+    dataset, the dataset on the card)."""
     import numpy as np
     from dvae_tpu_torch.data.anndata_io import synthetic_dataset
-    from dvae_tpu_torch.ops.recon import fused_recon_mse
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
     print("phase 3: serving path end to end")
-    trainer = CplMixVAE(saving_folder=tmp, device="cuda", seed=SEED)
+    trainer = CplMixVAE(saving_folder=tmp, device=DEV, seed=SEED)
     trainer.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
                        lowD_dim=10, state_dim=2, batch_size=B)
     ckpt = trainer.save_checkpoint("smoke")
     del trainer
-    server = CplMixVAE(device="cuda")
+    server = CplMixVAE(device=DEV)
     server.load_model(ckpt)
     check(server.cfg.fused_recon, "loaded model serves through the kernel")
 
     t0 = time.perf_counter()
     ds = synthetic_dataset(n_cells=N_CELLS, n_genes=D, n_types=C, seed=SEED)
-    x = torch.as_tensor(ds.log1p).to("cuda")
+    x = torch.as_tensor(ds.log1p).to(DEV)
     torch.cuda.synchronize()
     print(f"  synthetic dataset {tuple(x.shape)} resident on the card "
           f"({time.perf_counter() - t0:.1f} s to make)")
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
-    fused_recon_mse.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = server.eval_model(x, batch_size=B)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_recon_mse.launches
+    counts = launch_counts()
+    launches = counts["recon_fwd"]
     rise = torch.cuda.max_memory_allocated() - base
 
     print(f"  eval_model: {N_CELLS} cells in {wall:.4f} s = "
@@ -231,6 +478,9 @@ def phase_serving(torch, check, tmp) -> int:
           f"total_loss {res['total_loss']:.6g}")
     check(launches == 9, f"recon_fwd launches on the serving path: {launches} "
                          "(expect 9: one 8-batch chunk + the tail)")
+    check(counts["recon_fwdbwd"] == counts["encoder_fwd"]
+          == counts["encoder_bwd"] == 0,
+          f"no training kernel on the serving path: {counts}")
     limit = A * B * D * 4
     check(rise < limit, f"peak allocated rise over the resident dataset "
                         f"{rise / 1e6:.1f} MB (limit one (A,B,D) f32 "
@@ -269,10 +519,164 @@ def phase_serving(torch, check, tmp) -> int:
                       / np.abs(want["total_loss_rec"])))
     check(rl <= 1e-3, f"total_loss_rec vs CPU path: max rel diff {rl:.2e} "
                       "(tol 1e-3)")
-    return launches
+    return counts, ds, x
+
+
+def phase_parity_step(torch, check, path, x) -> None:
+    """One train step from the same checkpoint with the same explicit noise
+    on the card (kernels) and on the CPU (plain versions)."""
+    import numpy as np
+    from dvae_tpu_torch.models.mixvae import Noise
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    from dvae_tpu_torch.train.step import make_train_step
+    gpu, cpu = CplMixVAE(device=DEV), CplMixVAE(device="cpu")
+    gpu.load_model(path)
+    cpu.load_model(path)
+    rng = np.random.default_rng(SEED)
+    n, s_keep = N_PARITY, 1 - gpu.cfg.s_drop
+    noise = Noise(
+        x_mask=torch.from_numpy(rng.random((A, n, D), np.float32) < 1 - RATE),
+        gumbel_u=torch.from_numpy(rng.random((A, n, C), np.float32)),
+        reparam_e=torch.from_numpy(rng.standard_normal((A, n, 2), np.float32)),
+        s_mask=torch.from_numpy(rng.random((A, n, 2), np.float32) < s_keep))
+    xb = x[:n].contiguous()
+    sg, mg, _ = make_train_step(gpu.cfg, gpu.tcfg, gpu.tx)(
+        gpu.state, xb, None, 1.0, noise=Noise(*(t.to(DEV) for t in noise)))
+    sc, mc, _ = make_train_step(cpu.cfg, cpu.tcfg, cpu.tx)(
+        cpu.state, xb.cpu(), None, 1.0, noise=noise)
+    lg, lc = mg.total.item(), mc.total.item()
+    rel = abs(lg - lc) / abs(lc)
+    check(rel <= 1e-4, f"one step, {n} cells, card vs CPU path: loss "
+                       f"{lg:.6g} vs {lc:.6g}, rel {rel:.2e} (tol 1e-4)")
+    dmax, n_far, n_all = 0.0, 0, 0
+    for name in sg.params:
+        for leaf in sg.params[name]:
+            d = (sg.params[name][leaf].cpu() - sc.params[name][leaf]).abs()
+            dmax = max(dmax, d.max().item())
+            n_far += int((d > 1e-5).sum())
+            n_all += d.numel()
+    check(dmax <= 2 * LR and n_far <= 1e-3 * n_all,
+          f"parameters after Adam, card vs CPU: max |diff| {dmax:.2e} "
+          f"(tol 2*lr = {2 * LR:.0e}), {n_far} of {n_all} entries beyond "
+          f"1e-5 (tol 0.1%)")
+
+
+def phase_chunk_breakdown(torch, trainer, x_train) -> None:
+    """Warm throughput of one 2-epoch chunk, its synchronising calls, and
+    a torch.profiler breakdown by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    from dvae_tpu_torch.train.step import make_epoch_runner
+    run = make_epoch_runner(trainer.cfg, trainer.tcfg, trainer.tx, N_TRAIN,
+                            epochs_per_chunk=2)
+    steps = 2 * (N_TRAIN // B)
+    state = trainer.state
+    state, ems = run(state, x_train, None, 1.0)
+    ems.total.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, ems = run(state, x_train, None, 1.0)
+    ems.total.cpu()
+    warm = time.perf_counter() - t0
+    print(f"  warm chunk: {steps} steps in {warm:.4f} s = "
+          f"{steps * B / warm:.1f} cells/s, {warm / steps * 1e3:.3f} ms/step")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, ems = run(state, x_train, None, 1.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n_sync = sum("called a synchronizing" in str(w.message) for w in caught)
+    ems.total.cpu()
+    print(f"  synchronising calls inside one chunk: {n_sync}")
+    for w in caught[:3]:
+        print(f"    {str(w.message)[:100]} ({os.path.basename(w.filename)}"
+              f":{w.lineno})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, ems = run(state, x_train, None, 1.0)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages() if e.device_type == cuda),
+                     reverse=True)
+    busy = sum(k[0] for k in kernels)
+    if not busy:
+        print("  profiler: no device time recorded (not measured)")
+        return
+    print(f"  profiled chunk: device busy {busy / 1e3:.3f} ms = "
+          f"{busy / (warm * 1e6):.3f} of the warm chunk's wall "
+          f"({busy / 1e3 / steps:.3f} ms/step)")
+    for t, n, name in kernels[:12]:
+        print(f"    {t / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
+
+
+def phase_training(torch, check, tmp, x) -> dict:
+    """Training path end to end; returns the launch counts of the run."""
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print("phase 4: training path end to end")
+    folder = os.path.join(tmp, "train")
+    trainer = CplMixVAE(saving_folder=folder, device=DEV, seed=SEED)
+    trainer.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                       lowD_dim=10, state_dim=2, batch_size=B,
+                       epochs_per_jit=2, eval_every=2, ckpt_every=2)
+    check(trainer.cfg.fused_encoder and trainer.cfg.fused_recon,
+          "the kernels are on by default on CUDA")
+    x_train, x_val = x[:N_TRAIN], x[N_TRAIN:N_TRAIN + N_VAL]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    path = trainer.train(x_train, x_val=x_val, n_epoch=4,
+                         early_stop_consensus=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    rise = torch.cuda.max_memory_allocated() - base
+    steps = 4 * (N_TRAIN // B)
+    print(f"  train: 4 epochs, {steps} steps, {N_TRAIN} cells, 2 validations "
+          f"in {wall:.4f} s (cold, checkpoints included)")
+    want = {"encoder_fwd": steps, "encoder_bwd": steps,
+            "recon_fwdbwd": steps, "recon_fwd": 2}
+    check(counts == want, f"launches on the training path: {counts} "
+                          f"(expect {want})")
+    with open(os.path.join(folder, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    print(f"  epoch losses: {losses}")
+    check(len(losses) == 4 and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0],
+          "loss finite, last epoch's mean below the first's")
+    val = [r for r in rows if "val/loss" in r]
+    check(len(val) == 2 and all(math.isfinite(r["val/loss"]) for r in val),
+          f"2 validations with finite loss ({len(val)})")
+    limit = A * B * D * 4
+    check(rise < limit, f"peak allocated rise over the resident dataset "
+                        f"{rise / 1e6:.1f} MB (limit one (A,B,D) f32 "
+                        f"tensor, {limit / 1e6:.0f} MB)")
+    p = trainer.state.params
+    check(all(bool(torch.isfinite(v).all()) for layer in p.values()
+              for v in layer.values()), "parameters finite")
+
+    resumed = CplMixVAE(saving_folder=os.path.join(tmp, "resume"),
+                        device=DEV)
+    epoch = resumed.load_model(path)
+    resumed.train(x_train, n_epoch=2, early_stop_consensus=0)
+    check(epoch == 4 and resumed.state.epoch == 6
+          and resumed.state.opt_state.count == 6 * (N_TRAIN // B),
+          f"resume from {os.path.basename(path)}: epoch {epoch} -> "
+          f"{resumed.state.epoch}, Adam steps "
+          f"{resumed.state.opt_state.count}")
+    phase_parity_step(torch, check, path, x)
+    phase_chunk_breakdown(torch, resumed, x_train)
+    del trainer, resumed
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
+    kernels_only = "--kernels-only" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -299,8 +703,12 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_build(check)
-        record = phase_kernels(torch, check)
-        launches = phase_serving(torch, check, tmp)
+        records = {"recon_fwd": phase_kernels(torch, check)}
+        records.update(phase_encoder(torch, check))
+        records["recon_fwdbwd"] = phase_recon_fwdbwd(torch, check)
+        if not kernels_only:
+            served, _, x = phase_serving(torch, check, tmp)
+            trained = phase_training(torch, check, tmp, x)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -310,10 +718,26 @@ def main() -> int:
         for what in check.failed:
             print(f"  {what}", file=sys.stderr)
         return 1
-    kernels = [{"name": "recon_fwd", "route": "cuda",
-                "source": "dvae_tpu_torch/csrc/recon_fwd.cu",
-                "replaces": "dvae_tpu/ops/recon_pallas.py:72",
-                "launches": launches, **record}]
+    if kernels_only:
+        print("chip_smoke: --kernels-only: kernel checks passed; the paths "
+              "were not driven", file=sys.stderr)
+        return 3
+    sources = {
+        "recon_fwd": ("recon_fwd.cu", "dvae_tpu/ops/recon_pallas.py:72"),
+        "recon_fwdbwd": ("recon_fwdbwd.cu",
+                         "dvae_tpu/ops/recon_pallas.py:239"),
+        "encoder_fwd": ("encoder_fc1.cu",
+                        "dvae_tpu/ops/encoder_pallas.py:81"),
+        "encoder_bwd": ("encoder_fc1.cu",
+                        "dvae_tpu/ops/encoder_pallas.py:137"),
+    }
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"dvae_tpu_torch/csrc/{src}", "replaces": rep,
+                "launches": served[name] + trained[name],
+                "launches_by_path": {"serving": served[name],
+                                     "training": trained[name]},
+                **records[name]}
+               for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

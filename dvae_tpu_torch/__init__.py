@@ -5,10 +5,13 @@ counterpart is easy to find.  It imports torch, numpy and scipy, never JAX
 and nothing of ``dvae_tpu``.  Kernels the JAX package writes in Pallas are
 hand-written CUDA here (``csrc/``), built with ``nvcc`` at first use.
 
-This slice ports the serving path: ``CplMixVAE.load_model`` →
-``eval_model`` (eval-mode forward, loss with the fused recon-loss forward
-kernel, consensus), ``eval.evaluate.summarize_inference`` and the
-``evaluate`` command (``python -m dvae_tpu_torch.cli evaluate``).
+Ported so far: the serving path (``CplMixVAE.load_model`` →
+``eval_model``, ``eval.evaluate.summarize_inference``, the ``evaluate``
+command) and the MSE training path on one device (``CplMixVAE.init_model``
+→ ``train``: train-mode forward, gradients through the fused dropout+fc1
+and recon-loss kernels, Adam, the on-device epoch runner, validation,
+checkpoints, pruning, resume; the ``train`` command).  Run either with
+``python -m dvae_tpu_torch.cli {train,evaluate} --device {cuda,cpu}``.
 """
 
 from dvae_tpu_torch.config import (MeshConfig, ReparamNoise, ShardingStrategy,

@@ -1,16 +1,20 @@
-"""Command-line entry point of the PyTorch port: ``evaluate``.
+"""Command-line entry points of the PyTorch port: ``train`` and ``evaluate``.
 
-Counterpart of ``dvae_tpu.cli evaluate`` (dvae_tpu/cli.py:185-215,
-reference evaluation.py:92-127):
+Counterparts of ``dvae_tpu.cli train`` and ``evaluate`` (dvae_tpu/cli.py
+:92-164, :185-215; reference train.py:172-267, evaluation.py:92-127):
 
+    python -m dvae_tpu_torch.cli train --n_arm 2 --n_epoch 1000 ...
     python -m dvae_tpu_torch.cli evaluate --ckpt model.ckpt --synthetic
 
-loads a checkpoint written by either package, runs batched inference
-over the dataset, and prints the consensus and adjusted-MI metrics as one
-JSON line (also saved to ``evaluation/A{n}-RUN{run}-E{epoch}.npy``).
-The model runs on ``--device`` (default ``cuda``).  The dataset is the
-synthetic one (``--syn_cells``/``--syn_genes``/``--syn_types``); reading
-``.h5ad`` files is not ported yet.
+``train`` trains in an auto-numbered ``{saving_folder}K…_RUN{n}`` folder
+and, with ``--resume``, continues the newest such folder from its latest
+checkpoint.  ``evaluate`` loads a checkpoint written by either package,
+runs batched inference over the dataset, and prints the consensus and
+adjusted-MI metrics as one JSON line (also saved to
+``evaluation/A{n}-RUN{run}-E{epoch}.npy``).  The model runs on
+``--device`` (default ``cuda``).  The dataset is the synthetic one
+(``--syn_cells``/``--syn_genes``/``--syn_types``); reading ``.h5ad`` files
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +25,59 @@ import os
 import sys
 
 import numpy as np
+
+
+def cmd_train(args) -> int:
+    from dvae_tpu_torch.data.anndata_io import synthetic_dataset
+    from dvae_tpu_torch.data.pipeline import stratified_split_indices
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    from dvae_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                 latest_run_dir,
+                                                 make_run_dir,
+                                                 newest_checkpoint)
+
+    ds = synthetic_dataset(n_cells=args.syn_cells, n_genes=args.syn_genes,
+                           n_types=args.syn_types, seed=args.seed)
+    prefix = (f"K{args.n_categories}_S{args.state_dim}_AUGFalse"
+              f"_LR{args.lr}_A{args.n_arm}_B{args.batch_size}"
+              f"_E{args.n_epoch}_Ep{args.n_epoch_p}")
+    base = args.saving_folder or "results/"
+    folder = latest_run_dir(base, prefix) if args.resume else None
+    if args.resume and folder is None:
+        print("--resume: no existing run folder; starting fresh")
+    folder = folder or make_run_dir(base, prefix)
+    print(f"run folder: {folder}")
+
+    tr, te = stratified_split_indices(ds.cluster_label, 0.9, args.seed)
+    cpl = CplMixVAE(saving_folder=folder, seed=args.seed, device=args.device)
+    cpl.init_model(
+        n_categories=args.n_categories, state_dim=args.state_dim,
+        input_dim=ds.log1p.shape[1], fc_dim=args.fc_dim,
+        lowD_dim=args.latent_dim, x_drop=args.p_drop, s_drop=args.s_drop,
+        lr=args.lr, lam=args.lam, lam_pc=args.lam_pc, n_arm=args.n_arm,
+        temp=args.temp, tau=args.tau, beta=args.beta, hard=args.hard,
+        ref_prior=args.ref_pc, trained_model=args.pretrained_model,
+        n_pr=args.n_pr, batch_size=args.batch_size,
+        epochs_per_jit=args.epochs_per_jit, bf16=args.bf16,
+        optimizer=args.optimizer,
+        fused={"auto": None, "on": True, "off": False}[args.fused],
+        shuffle_block=args.shuffle_block, ckpt_every=args.ckpt_every,
+        eval_every=args.eval_every)
+    done = 0
+    if args.resume:
+        ckpt = latest_checkpoint(folder) or newest_checkpoint(folder)
+        if ckpt:
+            epoch = cpl.load_model(ckpt)
+            done = int(cpl.resume_progress.get("main_epochs", epoch))
+            print(f"resumed from {ckpt} (epoch {epoch}, main epochs done "
+                  f"{done})")
+    path = cpl.train(ds.log1p[tr], x_val=ds.log1p[te],
+                     n_epoch=max(args.n_epoch - done, 0),
+                     n_epoch_p=args.n_epoch_p, c_p=ds.c_p, train_idx=tr,
+                     val_idx=te, min_con=args.min_con,
+                     max_prun_it=args.max_prun_it, temp=args.temp)
+    print(f"final checkpoint: {path}")
+    return 0
 
 
 def cmd_evaluate(args) -> int:
@@ -60,6 +117,44 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="dvae_tpu_torch",
                                      description=__doc__.splitlines()[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    pt = sub.add_parser("train", help="train a coupled mixVAE")
+    for flag, typ, default in (
+            ("--n_categories", int, 92), ("--state_dim", int, 2),
+            ("--n_arm", int, 2), ("--temp", float, 1.0),
+            ("--tau", float, 0.005), ("--beta", float, 1.0),
+            ("--lam", float, 1.0), ("--lam_pc", float, 1.0),
+            ("--latent_dim", int, 10), ("--fc_dim", int, 100),
+            ("--p_drop", float, 0.5), ("--s_drop", float, 0.2),
+            ("--lr", float, 1e-3), ("--n_pr", int, 0),
+            ("--n_epoch", int, 50000), ("--n_epoch_p", int, 0),
+            ("--max_prun_it", int, 0), ("--min_con", float, 0.99),
+            ("--batch_size", int, 5000), ("--epochs_per_jit", int, 10),
+            ("--ckpt_every", int, 10), ("--eval_every", int, 10),
+            ("--shuffle_block", int, 1), ("--seed", int, 546),
+            ("--syn_cells", int, 5000), ("--syn_genes", int, 500),
+            ("--syn_types", int, 20)):
+        pt.add_argument(flag, type=typ, default=default)
+    pt.add_argument("--hard", action="store_true")
+    pt.add_argument("--ref_pc", action="store_true",
+                    help="couple to the reference prior (ref_prior mode)")
+    pt.add_argument("--pretrained_model", type=str, default=None)
+    pt.add_argument("--optimizer", type=str, default="adam",
+                    choices=["adam", "adamw"])
+    pt.add_argument("--bf16", action="store_true")
+    pt.add_argument("--fused", type=str, default="auto",
+                    choices=["auto", "on", "off"],
+                    help="hand-written kernels (auto: on for cuda)")
+    pt.add_argument("--saving_folder", type=str, default="")
+    pt.add_argument("--resume", action="store_true",
+                    help="continue the newest matching _RUN{n} folder from "
+                         "its latest checkpoint")
+    pt.add_argument("--synthetic", action="store_true",
+                    help="use the synthetic dataset (the only input the "
+                         "port reads so far)")
+    pt.add_argument("--device", type=str, default="cuda",
+                    help="torch device of the model (cuda or cpu)")
+    pt.set_defaults(fn=cmd_train)
     pe = sub.add_parser("evaluate", help="consensus + adjusted-MI metrics")
     pe.add_argument("--ckpt", type=str, default=None)
     pe.add_argument("--saving_folder", type=str, default="")

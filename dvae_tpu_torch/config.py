@@ -8,10 +8,13 @@ nothing from the JAX package, not even this stdlib-only module.
 
 The field comments of the JAX package describe TPU measurements; they are
 left out here.  The flags keep their meaning: ``fused_recon`` routes the
-MSE reconstruction loss through the hand-written forward kernel
-(``ops/recon.py``).  ``fused_encoder``, ``fused_decoder``, ``use_pallas``
-and ``bn_groups`` are carried for checkpoint compatibility; their kernels
-belong to later slices of the port and eval mode does not read them.
+MSE reconstruction loss through the hand-written kernels of
+``ops/recon.py`` (the forward in eval, the forward+backward in training);
+``fused_encoder`` runs train-mode input dropout and fc1 through those of
+``ops/encoder.py``; ``bn_groups`` > 1 is ghost batch norm in train mode.
+``fused_decoder`` and ``use_pallas`` are carried for checkpoint
+compatibility: their kernels belong to later slices of the port, and the
+model refuses them rather than ignore them.
 """
 
 from __future__ import annotations

@@ -1,0 +1,435 @@
+// Fused reconstruction-loss forward AND backward of the training step:
+// decoder output layer + ReLU + MSE + binarized-mismatch count, with the
+// unscaled gradients of the loss sum, without materialising the (A, B, D)
+// reconstruction or its cotangent.  Hand-written for Hopper (sm_90a),
+// bound with ctypes.
+//
+// Replaces the TPU kernel dvae_tpu/ops/recon_pallas.py `_fwdbwd_kernel`
+// (:239), launched by `_fwdbwd_call` (:299, pallas_call at :310).  Per arm
+// a, with r = relu(h_a W_a + bias_a) and the row/column mask of the edge
+// tiles (:288-296),
+//
+//     sumsq_a = sum (r - x)^2,   mism_a = #{ (r > thr) != (x > thr) }
+//     gm      = 2 * 1[r > 0] * (r - x)                       (never stored)
+//     dh_a    = gm W_a^T,  dW_a = h_a^T gm,  db_a = sum_rows gm
+//
+// gm is rounded to h's dtype for the two products and kept in f32 for db
+// and the sums, as the TPU kernel does (:270, :281).  The gradients are
+// those of the loss sum with cotangent 1; the autograd backward scales
+// them by the per-arm cotangent (recon_pallas.py:366-383).
+//
+// Operands: h (A,B,F), W (A,F,D), bias (A,D), x (B,D) shared (arm stride 0)
+// or per-arm (A,B,D); all f32 or all bf16.  Outputs, all f32: (A,2) sums,
+// dh (A,B,F), dW (A,F,D), db (A,D).  F <= 128.
+//
+// Bound at the production shape (A=5, B=5000, F=100, D=5032), one launch:
+//   three products of 2*A*B*F*D = 25.2 GFLOP each, 75.5 GFLOP -> 1.127 ms
+//   in f32 on the FP32 cores (67 TFLOP/s); bytes (operands read once,
+//   outputs written once, 142 MB f32) -> 0.042 ms.  Bound by operations.
+// Design.  dh reduces over D and dW over B, so no single tiling finishes
+// both without an (A,B,D)-sized scratch (about 400 MB of partials here).
+// Two passes instead, each deterministic:
+//   pass 1, blocks (arm, 64-row tile) walking every 64-column tile of D:
+//     r tile = h W (K = F), loss epilogue into block partials, gm tile
+//     into shared memory, dh += gm W^T (K = the tile's columns) in
+//     registers; dh is complete when the walk ends;
+//   pass 2, blocks (arm, 64-column tile) walking every 64-row tile of B:
+//     r tile recomputed, gm into shared memory, dW += h^T gm (K = the
+//     tile's rows) in registers, db summed in f32.
+// The recompute costs a fourth product (1.50 ms at the f32 FP32-core
+// rate), the price of keeping both reductions inside one block each.  The
+// block partials of the sums are reduced per arm in a fixed order (double
+// and 64-bit integer), so repeated launches agree bit for bit.  Products
+// run as SIMT FMAs on operands staged in shared memory as f32 (4x4 and
+// 4x8 / 8x4 outputs per thread); no tensor cores yet.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 64;        // rows (cells) of a tile
+constexpr int BN = 64;        // columns (genes) of a tile
+constexpr int FP = 128;       // hidden width held in shared memory (F <= FP)
+constexpr int THREADS = 256;  // 16 x 16 threads
+constexpr int APAD = 4;       // keeps float4 alignment, spreads banks
+constexpr int LDM = BM + APAD;
+constexpr int LDN = BN + APAD;
+constexpr int REDUCE_THREADS = 256;
+constexpr size_t SMEM_BYTES =
+    sizeof(float) * ((size_t)FP * LDM + (size_t)FP * LDN + (size_t)BM * LDN);
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+// v rounded to the operand type and back: the TPU kernel's gm16
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Hs[k][m] = h[a, m0 + m, k], zero outside the arrays (k < FP, m < BM).
+template <typename T>
+__device__ __forceinline__ void load_h_tile(const T* __restrict__ ha, int m0,
+                                            int B, int F, float (*Hs)[LDM]) {
+  for (int idx = threadIdx.x; idx < BM * FP; idx += THREADS) {
+    const int m = idx / FP, k = idx % FP;
+    const int row = m0 + m;
+    Hs[k][m] = (row < B && k < F) ? to_f32(ha[(long long)row * F + k]) : 0.f;
+  }
+}
+
+// Ws[k][n] = W[a, k, n0 + n], zero outside the arrays (k < FP, n < BN).
+template <typename T>
+__device__ __forceinline__ void load_w_tile(const T* __restrict__ wa, int n0,
+                                            int F, int D, float (*Ws)[LDN]) {
+  for (int idx = threadIdx.x; idx < FP * BN; idx += THREADS) {
+    const int k = idx / BN, n = idx % BN;
+    const int col = n0 + n;
+    Ws[k][n] = (k < F && col < D) ? to_f32(wa[(long long)k * D + col]) : 0.f;
+  }
+}
+
+// acc[i][j] = sum_{k<F} Hs[k][ty*4+i] * Ws[k][tx*4+j]: the pre-bias r tile.
+__device__ __forceinline__ void product_hw(float (*Hs)[LDM],
+                                           float (*Ws)[LDN], int F,
+                                           int tx, int ty, float acc[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k = 0; k < F; ++k) {
+    const float4 av = *reinterpret_cast<const float4*>(&Hs[k][ty * 4]);
+    const float4 bv = *reinterpret_cast<const float4*>(&Ws[k][tx * 4]);
+    const float a4[4] = {av.x, av.y, av.z, av.w};
+    const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
+  }
+}
+
+// Loss epilogue of one thread's 4x4 outputs: adds to the sums and returns
+// gm (f32; 0 outside the arrays).
+template <typename T>
+__device__ __forceinline__ void loss_epilogue(
+    float acc[4][4], const T* __restrict__ ba,
+    const T* __restrict__ xa, int m0, int n0, int B, int D, float thr,
+    int with_mism, int tx, int ty, float& s, int& mm, float gm[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + tx * 4 + j;
+    const bool col_ok = col < D;
+    const float bj = col_ok ? to_f32(ba[col]) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + ty * 4 + i;
+      float g = 0.f;
+      if (col_ok && row < B) {
+        const float y = acc[i][j] + bj;
+        const float r = (y < 0.f) ? 0.f : y;  // NaN propagates, like relu
+        const float xv = to_f32(xa[(long long)row * D + col]);
+        const float e = r - xv;
+        s = fmaf(e, e, s);
+        if (with_mism) mm += ((r > thr) != (xv > thr)) ? 1 : 0;
+        g = (r > 0.f) ? 2.f * e : 0.f;
+      }
+      gm[i][j] = g;
+    }
+  }
+}
+
+// Pass 1: grid (ceil(B/BM), A).  Sums partials and the complete dh.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+recon_fwdbwd_rows(const T* __restrict__ h, const T* __restrict__ w,
+                  const T* __restrict__ bias, const T* __restrict__ x,
+                  long long x_arm_stride, int B, int F, int D, float thr,
+                  int with_mism, float* __restrict__ part_sum,
+                  int* __restrict__ part_mism, float* __restrict__ dh) {
+  extern __shared__ __align__(16) float smem[];
+  float(*Hs)[LDM] = reinterpret_cast<float(*)[LDM]>(smem);
+  float(*Ws)[LDN] = reinterpret_cast<float(*)[LDN]>(smem + FP * LDM);
+  float(*Gt)[LDM] = reinterpret_cast<float(*)[LDM]>(smem + FP * LDM + FP * LDN);
+
+  const int a = blockIdx.y;
+  const int m0 = blockIdx.x * BM;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const T* wa = w + (long long)a * F * D;
+  const T* ba = bias + (long long)a * D;
+  const T* xa = x + (long long)a * x_arm_stride;
+  const T* tag = nullptr;
+
+  load_h_tile(h + (long long)a * B * F, m0, B, F, Hs);
+
+  float dacc[4][8];  // dh rows ty*4+i, hidden units tx + 16*j
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dacc[i][j] = 0.f;
+  float s = 0.f;
+  int mm = 0;
+
+  for (int n0 = 0; n0 < D; n0 += BN) {
+    load_w_tile(wa, n0, F, D, Ws);
+    __syncthreads();
+    float acc[4][4], gm[4][4];
+    product_hw(Hs, Ws, F, tx, ty, acc);
+    loss_epilogue(acc, ba, xa, m0, n0, B, D, thr, with_mism, tx, ty, s, mm,
+                  gm);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Gt[tx * 4 + j][ty * 4 + i] = round_as(gm[i][j], tag);
+    __syncthreads();
+    // dh[m][f] += sum_n gm[m][n] * W[f][n]
+    const int kmax = min(BN, D - n0);
+    for (int k = 0; k < kmax; ++k) {
+      const float4 gv = *reinterpret_cast<const float4*>(&Gt[k][ty * 4]);
+      const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float wv = Ws[tx + 16 * j][k];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dacc[i][j] = fmaf(g4[i], wv, dacc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* dha = dh + (long long)a * B * F;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+    if (row >= B) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int f = tx + 16 * j;
+      if (f < F) dha[(long long)row * F + f] = dacc[i][j];
+    }
+  }
+
+  // block reduction of the sums in a fixed order
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_down_sync(0xffffffffu, s, off);
+    mm += __shfl_down_sync(0xffffffffu, mm, off);
+  }
+  __shared__ float warp_s[THREADS / 32];
+  __shared__ int warp_m[THREADS / 32];
+  const int lane = tid % 32, warp = tid / 32;
+  if (lane == 0) {
+    warp_s[warp] = s;
+    warp_m[warp] = mm;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float bs = 0.f;
+    int bm = 0;
+    for (int i = 0; i < THREADS / 32; ++i) {
+      bs += warp_s[i];
+      bm += warp_m[i];
+    }
+    const long long p = (long long)a * gridDim.x + blockIdx.x;
+    part_sum[p] = bs;
+    part_mism[p] = bm;
+  }
+}
+
+// Pass 2: grid (ceil(D/BN), A).  dW and db of one column tile.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+recon_fwdbwd_cols(const T* __restrict__ h, const T* __restrict__ w,
+                  const T* __restrict__ bias, const T* __restrict__ x,
+                  long long x_arm_stride, int B, int F, int D,
+                  float* __restrict__ dw, float* __restrict__ db) {
+  extern __shared__ __align__(16) float smem[];
+  float(*Ws)[LDN] = reinterpret_cast<float(*)[LDN]>(smem);
+  float(*Hs)[LDM] = reinterpret_cast<float(*)[LDM]>(smem + FP * LDN);
+  float(*Gs)[LDN] = reinterpret_cast<float(*)[LDN]>(smem + FP * LDN + FP * LDM);
+
+  const int a = blockIdx.y;
+  const int n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const T* ha = h + (long long)a * B * F;
+  const T* ba = bias + (long long)a * D;
+  const T* xa = x + (long long)a * x_arm_stride;
+  const T* tag = nullptr;
+
+  load_w_tile(w + (long long)a * F * D, n0, F, D, Ws);
+
+  float wacc[8][4];  // dW hidden units ty + 16*i, columns tx*4+j
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wacc[i][j] = 0.f;
+  float dbp[4] = {0.f, 0.f, 0.f, 0.f};
+  float s_unused = 0.f;
+  int mm_unused = 0;
+
+  for (int m0 = 0; m0 < B; m0 += BM) {
+    load_h_tile(ha, m0, B, F, Hs);
+    __syncthreads();
+    float acc[4][4], gm[4][4];
+    product_hw(Hs, Ws, F, tx, ty, acc);
+    loss_epilogue(acc, ba, xa, m0, n0, B, D, 0.f, 0, tx, ty, s_unused,
+                  mm_unused, gm);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dbp[j] += gm[i][j];
+        Gs[ty * 4 + i][tx * 4 + j] = round_as(gm[i][j], tag);
+      }
+    __syncthreads();
+    // dW[f][n] += sum_m h[m][f] * gm[m][n]
+    const int kmax = min(BM, B - m0);
+    for (int k = 0; k < kmax; ++k) {
+      const float4 gv = *reinterpret_cast<const float4*>(&Gs[k][tx * 4]);
+      const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float hv = Hs[ty + 16 * i][k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wacc[i][j] = fmaf(hv, g4[j], wacc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* dwa = dw + (long long)a * F * D;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int f = ty + 16 * i;
+    if (f >= F) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (col < D) dwa[(long long)f * D + col] = wacc[i][j];
+    }
+  }
+
+  // db: the 16 row groups' column sums, added in a fixed order
+  float(*red)[LDN] = Gs;  // free after the last product
+#pragma unroll
+  for (int j = 0; j < 4; ++j) red[ty][tx * 4 + j] = dbp[j];
+  __syncthreads();
+  if (tid < BN && n0 + tid < D) {
+    float t = 0.f;
+    for (int r = 0; r < 16; ++r) t += red[r][tid];
+    db[(long long)a * D + n0 + tid] = t;
+  }
+}
+
+// One block per arm sums that arm's partials in a fixed order.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+recon_fwdbwd_reduce(const float* __restrict__ part_sum,
+                    const int* __restrict__ part_mism, int n_per_arm,
+                    float* __restrict__ out) {
+  const int a = blockIdx.x;
+  const int tid = threadIdx.x;
+  double s = 0.0;
+  long long m = 0;
+  for (int i = tid; i < n_per_arm; i += REDUCE_THREADS) {
+    s += (double)part_sum[(long long)a * n_per_arm + i];
+    m += (long long)part_mism[(long long)a * n_per_arm + i];
+  }
+  __shared__ double ss[REDUCE_THREADS];
+  __shared__ long long sm[REDUCE_THREADS];
+  ss[tid] = s;
+  sm[tid] = m;
+  __syncthreads();
+  for (int stride = REDUCE_THREADS / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) {
+      ss[tid] += ss[tid + stride];
+      sm[tid] += sm[tid + stride];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    out[2 * a] = (float)ss[0];
+    out[2 * a + 1] = (float)sm[0];
+  }
+}
+
+template <typename T>
+int launch(const void* h, const void* w, const void* bias, const void* x,
+           long long x_arm_stride, int A, int B, int F, int D, float thr,
+           int with_mism, void* part_sum, void* part_mism, void* out,
+           void* dh, void* dw, void* db, void* stream) {
+  if (F > FP || F < 1 || A > 65535) return (int)cudaErrorInvalidValue;
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        recon_fwdbwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(recon_fwdbwd_cols<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    attrs_set = true;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* hp = static_cast<const T*>(h);
+  const T* wp = static_cast<const T*>(w);
+  const T* bp = static_cast<const T*>(bias);
+  const T* xp = static_cast<const T*>(x);
+  const dim3 g1((B + BM - 1) / BM, A);
+  recon_fwdbwd_rows<T><<<g1, THREADS, SMEM_BYTES, st>>>(
+      hp, wp, bp, xp, x_arm_stride, B, F, D, thr, with_mism,
+      static_cast<float*>(part_sum), static_cast<int*>(part_mism),
+      static_cast<float*>(dh));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 g2((D + BN - 1) / BN, A);
+  recon_fwdbwd_cols<T><<<g2, THREADS, SMEM_BYTES, st>>>(
+      hp, wp, bp, xp, x_arm_stride, B, F, D, static_cast<float*>(dw),
+      static_cast<float*>(db));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  recon_fwdbwd_reduce<<<A, REDUCE_THREADS, 0, st>>>(
+      static_cast<const float*>(part_sum), static_cast<const int*>(part_mism),
+      (int)g1.x, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of block partials the scratch buffers hold for each arm.
+long long recon_fwdbwd_partials_per_arm(int B) {
+  return (long long)((B + BM - 1) / BM);
+}
+
+// Largest hidden width F the kernel takes.
+int recon_fwdbwd_max_f() { return FP; }
+
+int recon_fwdbwd_f32(const void* h, const void* w, const void* bias,
+                     const void* x, long long x_arm_stride, int A, int B,
+                     int F, int D, float thr, int with_mism, void* part_sum,
+                     void* part_mism, void* out, void* dh, void* dw, void* db,
+                     void* stream) {
+  return launch<float>(h, w, bias, x, x_arm_stride, A, B, F, D, thr,
+                       with_mism, part_sum, part_mism, out, dh, dw, db,
+                       stream);
+}
+
+int recon_fwdbwd_bf16(const void* h, const void* w, const void* bias,
+                      const void* x, long long x_arm_stride, int A, int B,
+                      int F, int D, float thr, int with_mism, void* part_sum,
+                      void* part_mism, void* out, void* dh, void* dw,
+                      void* db, void* stream) {
+  return launch<__nv_bfloat16>(h, w, bias, x, x_arm_stride, A, B, F, D, thr,
+                               with_mism, part_sum, part_mism, out, dh, dw,
+                               db, stream);
+}
+
+}  // extern "C"

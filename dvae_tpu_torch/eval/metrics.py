@@ -2,8 +2,10 @@
 
 Counterpart of dvae_tpu/eval/metrics.py (reference mmidas/_utils.py):
 the numpy host functions on their numpy path (the port does not load the
-JAX package's native helpers), and ``consensus_device_both`` as one-hot
-matmuls on the tensors' device.
+JAX package's native helpers), and the device functions
+(``confmat_device``, ``consensus_device``, ``consensus_device_both``) as
+scatter-added counts on the tensors' device, which read nothing back to
+the host.
 """
 
 from __future__ import annotations
@@ -67,11 +69,34 @@ def per_category_agreement(labels: np.ndarray, K: int) -> np.ndarray:
 # Device (torch)
 # ---------------------------------------------------------------------------
 
+def _pair_counts(labels1: torch.Tensor, labels2: torch.Tensor,
+                 K: int) -> torch.Tensor:
+    """(P, K·K) co-occurrence counts of P label-vector pairs (P, N), added
+    with ``scatter_add_``: integer counts, exact in f32 below 2**24 and so
+    the same whatever the order of the atomic adds; no one-hot tensor and
+    no read back to the host."""
+    idx = labels1.long() * K + labels2.long()
+    out = torch.zeros((idx.shape[0], K * K), device=idx.device)
+    return out.scatter_add_(1, idx, torch.ones((1, 1), device=idx.device)
+                            .expand_as(idx))
+
+
+def confmat_device(labels1: torch.Tensor, labels2: torch.Tensor,
+                   K: int) -> torch.Tensor:
+    """(K, K) confusion matrix of two label vectors on their device
+    (dvae_tpu/eval/metrics.py:197-204)."""
+    return _pair_counts(labels1[None], labels2[None], K).view(K, K)
+
+
 def pairwise_confmats_device(labels: torch.Tensor, K: int) -> torch.Tensor:
     """(A, A, K, K) confusion matrices of (A, N) labels; only the a<b
-    triangle is meaningful.  One batched one-hot matmul."""
-    oh = torch.nn.functional.one_hot(labels.long(), K).float()  # (A, N, K)
-    return torch.einsum("ank,bnm->abkm", oh, oh)
+    triangle is meaningful.  The JAX package's one-hot einsum would hold
+    (A, N, K) one-hots (74 MB at A=5, N=40,000, K=92, and as much again in
+    copies); the counts need an (A·A, N) index only."""
+    A, N = labels.shape
+    l1 = labels[:, None, :].expand(A, A, N).reshape(A * A, N)
+    l2 = labels[None, :, :].expand(A, A, N).reshape(A * A, N)
+    return _pair_counts(l1, l2, K).view(A, A, K, K)
 
 
 def consensus_device_both(labels: torch.Tensor, K: int):
@@ -97,3 +122,11 @@ def consensus_device_both(labels: torch.Tensor, K: int):
     per_pair_active = norm_diag.sum(dim=-1) / n_active
     return (per_pair_all[iu[0], iu[1]].mean(),
             per_pair_active[iu[0], iu[1]].mean())
+
+
+def consensus_device(labels: torch.Tensor, K: int,
+                     active_only: bool = False) -> torch.Tensor:
+    """Mean pairwise consensus of (A, N) labels on their device (one
+    variant of ``consensus_device_both``; dvae_tpu/eval/metrics.py:246-252)."""
+    both = consensus_device_both(labels, K)
+    return both[1] if active_only else both[0]

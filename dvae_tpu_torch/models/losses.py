@@ -1,4 +1,4 @@
-"""Loss of the coupled mixVAE, vectorized over arms — value path.
+"""Loss of the coupled mixVAE, vectorized over arms.
 
 Counterpart of dvae_tpu/models/losses.py (reference ``mixVAE_model.loss``,
 mmidas/nn_model.py:495-598).  The O(A²) coupling terms come from one
@@ -6,7 +6,12 @@ mmidas/nn_model.py:495-598).  The O(A²) coupling terms come from one
 naive pair-loop versions stay beside them as oracles.  ``mixvae_loss``
 takes the batch ``x`` as (B, D), shared by every arm, or (A, B, D).
 
-ZINB mode and gradients arrive with later slices of the port.
+Gradients come from torch autograd.  The fused reconstruction branch goes
+through the autograd op ``ops/recon.fused_recon_mse`` (the fused
+forward+backward kernel when a gradient is asked for), and the
+binarized-BCE metric is detached in both branches, as in the JAX package
+(dvae_tpu/models/losses.py:105, :353).  ZINB mode arrives with a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -103,7 +108,9 @@ def _pair_sums_from_gram(v: torch.Tensor) -> torch.Tensor:
     v = v - v.mean(dim=(0, 1))
     A, B = v.shape[0], v.shape[1]
     g = torch.einsum("abc,dbc->ad", v, v) / B
-    return A * torch.trace(g) - g.sum()
+    # diagonal().sum(), not torch.trace: trace's backward reads the
+    # gradient back to the host, a device synchronisation every step
+    return A * g.diagonal().sum() - g.sum()
 
 
 def coupling_distance(c: torch.Tensor, eps: float) -> torch.Tensor:
@@ -184,8 +191,9 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
                                       0.1, cfg.recon_bce_metric)
         loss_rec = 0.5 * sumsq / B
         if cfg.recon_bce_metric:
-            # BCE on hard-binarized inputs ≡ 100 · mismatch fraction
-            loss_rec = loss_rec + 50.0 * mism / (B * D)
+            # BCE on hard-binarized inputs ≡ 100 · mismatch fraction; a
+            # metric without gradient
+            loss_rec = loss_rec + (50.0 * mism / (B * D)).detach()
         ll = sumsq / (B * D) + B * math.log(2 * math.pi)
     else:
         if cfg.recon_bce_metric:

@@ -1,4 +1,4 @@
-"""Multi-arm coupled mixture VAE — the PyTorch port's model (eval mode).
+"""Multi-arm coupled mixture VAE — the PyTorch port's model.
 
 Counterpart of dvae_tpu/models/mixvae.py, itself the reference
 ``mixVAE_model`` (mmidas/nn_model.py:89-493).  The layout is the JAX one:
@@ -10,8 +10,13 @@ A batch that every arm shares (no augmentation) stays ``(B, D)``: the
 input layer fc1 is one ``(B, D) @ (D, A·F)`` GEMM, so the ``(A, B, D)``
 broadcast the JAX package gets for free from XLA is never materialised.
 
-Train mode (dropout, batch-norm statistic updates, Gumbel noise) arrives
-with the training slice of the port; ``apply`` raises for it.
+Train mode draws input dropout, Gumbel noise, the reparameterization
+noise and state dropout, and normalises with batch statistics while it
+updates the running ones.  Every draw comes from an explicit ``Noise``
+bundle (parity tests hand both packages the same numbers) or else from a
+``torch.Generator``.  Under ``cfg.fused_encoder`` input dropout and fc1 run
+as one hand-written kernel (``ops/encoder.fused_dropout_fc1``) that draws
+its mask in-kernel from a seed, so no (A, B, D) dropped input exists.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from dvae_tpu_torch.config import VAEConfig
-from dvae_tpu_torch.models.sampling import gumbel_softmax, reparameterize
+from dvae_tpu_torch.models.sampling import (dropout, gumbel_softmax,
+                                            reparameterize)
 
 
 class MixVAEOutputs(NamedTuple):
@@ -38,6 +44,18 @@ class MixVAEOutputs(NamedTuple):
     s_mean: torch.Tensor     # (A, B, S)
     s_logvar: torch.Tensor   # (A, B, S)
     c_prob: torch.Tensor     # (A, B, C) pre-sharpening softmax probs
+
+
+class Noise(NamedTuple):
+    """Explicit random numbers of one forward; each field may be None (then
+    it is drawn from the generator).  Shapes: x_mask (A, B, D) keep-mask of
+    input dropout, gumbel_u (A, B, C) uniforms, reparam_e (A, B, S),
+    s_mask (A, B, S) keep-mask of state dropout."""
+
+    x_mask: Optional[torch.Tensor] = None
+    gumbel_u: Optional[torch.Tensor] = None
+    reparam_e: Optional[torch.Tensor] = None
+    s_mask: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -109,25 +127,103 @@ def _fc1(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y + p["b"][:, None, :]
 
 
-def _batch_norm_eval(h: torch.Tensor, stats: dict, eps: float) -> torch.Tensor:
-    """BatchNorm1d(affine=False) in eval mode: normalise with the running
-    statistics in f32, with ``cfg.eps`` (1e-8), not torch's default 1e-5."""
-    mean = stats["mean"].float()[:, None, :]
-    var = stats["var"].float()[:, None, :]
-    return ((h.float() - mean) * torch.rsqrt(var + eps)).to(h.dtype)
+class _NormalizeTrain(torch.autograd.Function):
+    """x̂ = (x − mean) · rsqrt(var + eps) over the rows of each (arm, row
+    block, feature) of an f32 (A, G, n, F) tensor, biased variance.
+    Autograd of that expression would keep x − mean alive for the backward
+    as well, one more (A, B, F) tensor per layer; this keeps x (which the
+    ReLU before it keeps anyway), the mean and rsqrt only and recomputes x̂.
+    Returns (x̂, mean, var); mean and var carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, xg, eps):
+        mean = xg.mean(dim=2, keepdim=True)
+        var = xg.var(dim=2, unbiased=False, keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(xg, mean, rstd)
+        ctx.mark_non_differentiable(mean, var)
+        return (xg - mean) * rstd, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        xg, mean, rstd = ctx.saved_tensors
+        xhat = (xg - mean) * rstd
+        gx = gy - gy.mean(dim=2, keepdim=True) \
+            - xhat * (gy * xhat).mean(dim=2, keepdim=True)
+        return gx * rstd, None
 
 
-def _encoder(params, bn, x, cfg: VAEConfig):
-    """(x_low, c_prob) — reference mmidas/nn_model.py:263-269, eval mode."""
-    eps = cfg.eps
-    h = _batch_norm_eval(torch.relu(_fc1(params["fc1"], x)), bn["bn1"], eps)
+def _batch_norm(h: torch.Tensor, stats: dict, train: bool, momentum: float,
+                eps: float, groups: int = 1):
+    """BatchNorm1d(affine=False) with torch semantics on (A, B, F), per arm
+    (dvae_tpu/models/mixvae.py:146-208), in f32 with ``cfg.eps`` (1e-8,
+    not torch's default 1e-5).  Returns (y in h's dtype, new stats).
+
+    Train: normalise with the biased batch variance, update the running
+    variance with the unbiased one; ``groups`` > 1 is ghost batch norm,
+    statistics per contiguous row block, running stats updated with the
+    blocks' mean.  Eval: normalise with the running statistics."""
+    if not train:
+        mean = stats["mean"].float()[:, None, :]
+        var = stats["var"].float()[:, None, :]
+        return ((h.float() - mean) * torch.rsqrt(var + eps)).to(h.dtype), stats
+    A, n, F = h.shape
+    if n % groups:
+        raise ValueError(f"batch {n} not divisible by bn_groups={groups}")
+    ng = n // groups
+    y, mean_g, var_g = _NormalizeTrain.apply(
+        h.float().reshape(A, groups, ng, F), eps)
+    mean = mean_g.mean(dim=(1, 2))
+    unbiased = (var_g * (ng / max(ng - 1, 1))).mean(dim=(1, 2))
+    new = {"mean": (1 - momentum) * stats["mean"] + momentum * mean,
+           "var": (1 - momentum) * stats["var"] + momentum * unbiased}
+    return y.reshape(A, n, F).to(h.dtype), new
+
+
+def _fused_fc1(params, x, cfg: VAEConfig, noise: Noise, generator,
+               enc_seed: Optional[int]) -> torch.Tensor:
+    """fc1 pre-activation through the fused dropout+fc1 kernel.  On the CPU
+    the mask is drawn on the host, as the JAX package does off the TPU
+    (dvae_tpu/models/mixvae.py:369-371); on CUDA the kernel draws it from
+    ``enc_seed``."""
+    from dvae_tpu_torch.ops.encoder import (dropout_mask_host,
+                                            fused_dropout_fc1)
+    A, D = cfg.n_arm, cfg.input_dim
+    mask = noise.x_mask
+    if mask is None and x.device.type == "cpu" and cfg.x_drop > 0:
+        mask = dropout_mask_host(generator, (A, x.shape[-2], D), cfg.x_drop)
+    if enc_seed is None:
+        dev = generator.device if generator is not None else x.device
+        enc_seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                                     device=dev))
+    return fused_dropout_fc1(enc_seed, x, params["fc1"]["w"],
+                             params["fc1"]["b"], cfg.x_drop,
+                             None if mask is None else mask.to(x.device))
+
+
+def _encoder(params, bn, x, cfg: VAEConfig, train: bool = False,
+             noise: Noise = Noise(), generator=None,
+             enc_seed: Optional[int] = None):
+    """(x_low, c_prob, new_bn) — reference mmidas/nn_model.py:263-269."""
+    eps, mom, g = cfg.eps, cfg.momentum, cfg.bn_groups
+    if train and cfg.fused_encoder:
+        y1 = _fused_fc1(params, x, cfg, noise, generator, enc_seed)
+    elif train and (cfg.x_drop > 0 or noise.x_mask is not None):
+        xs = x if x.dim() == 3 else x.expand(cfg.n_arm, *x.shape)
+        y1 = _linear(params["fc1"], dropout(xs, cfg.x_drop, generator,
+                                            noise.x_mask))
+    else:
+        y1 = _fc1(params["fc1"], x)
+    new_bn = {}
+    h, new_bn["bn1"] = _batch_norm(torch.relu(y1), bn["bn1"], train, mom, eps,
+                                   g)
     for layer, norm in (("fc2", "bn2"), ("fc3", "bn3"), ("fc4", "bn4")):
-        h = _batch_norm_eval(torch.relu(_linear(params[layer], h)),
-                             bn[norm], eps)
-    x_low = _batch_norm_eval(torch.relu(_linear(params["fc5"], h)),
-                             bn["bn5"], eps)
+        h, new_bn[norm] = _batch_norm(torch.relu(_linear(params[layer], h)),
+                                      bn[norm], train, mom, eps, g)
+    x_low, new_bn["bn5"] = _batch_norm(torch.relu(_linear(params["fc5"], h)),
+                                       bn["bn5"], train, mom, eps, g)
     c_prob = torch.softmax(_linear(params["fcc"], x_low), dim=-1)
-    return x_low, c_prob
+    return x_low, c_prob, new_bn
 
 
 def _decode_hidden(params, c_smp, s):
@@ -147,36 +243,54 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
           mask: Optional[torch.Tensor] = None,
           prior_c: Optional[torch.Tensor] = None,
           skip_recon: bool = False,
-          noise: Optional[torch.Tensor] = None,
-          generator: Optional[torch.Generator] = None):
-    """Eval-mode forward of all A arms at once.
+          noise=None,
+          generator: Optional[torch.Generator] = None,
+          enc_seed: Optional[int] = None):
+    """Forward of all A arms at once.
 
     Args:
       params, bn_state: from ``init_params`` / ``init_bn_state`` (or a
         checkpoint through ``utils.checkpoint.params_from_jax``).
       x: (B, D) batch shared by every arm, or (A, B, D) per-arm views.
+      train: dropout, batch statistics (and their running update) and
+        Gumbel noise; else eval semantics.
       mask: optional (C,) keep-mask for category pruning.
       prior_c: optional (B, C) reference prior (ref_prior mode).
       skip_recon: stop the decoder before fc11; the (A, B, F) pre-output
         hidden rides in the ``x_rec`` slot for the fused recon-loss kernel.
-      noise: (A, B, S) reparameterization noise.  Variational mode draws
-        it even in eval (dvae_tpu/models/mixvae.py:288-293); without
-        ``noise`` it comes from ``generator``.
+      noise: a ``Noise`` bundle, or an (A, B, S) tensor of
+        reparameterization noise (variational mode draws it even in eval,
+        dvae_tpu/models/mixvae.py:288-293).  What it leaves out comes from
+        ``generator``.
+      enc_seed: the fused encoder kernel's mask seed (train mode under
+        ``cfg.fused_encoder``); drawn from ``generator`` when None.
 
-    Returns (MixVAEOutputs, bn_state) — eval leaves the statistics as they
-    are.
+    Returns (MixVAEOutputs, bn_state) — the updated running statistics in
+    train mode, the given ones in eval.
     """
-    if train:
-        raise NotImplementedError(
-            "train mode (dropout, BN updates, Gumbel noise) is not ported "
-            "yet; the port serves eval mode only")
     if cfg.mode != "MSE":
-        raise NotImplementedError(f"mode {cfg.mode!r} is not ported yet")
+        raise NotImplementedError(
+            f"mode {cfg.mode!r} arrives with the ZINB slice of the port")
+    if cfg.use_pallas:
+        raise NotImplementedError(
+            "use_pallas (the Gumbel and coupling kernels) arrives with a "
+            "later slice of the port")
+    if cfg.fused_decoder:
+        raise NotImplementedError(
+            "fused_decoder (the whole-decoder kernel) arrives with a later "
+            "slice of the port")
+    if noise is None:
+        noise = Noise()
+    elif isinstance(noise, torch.Tensor):
+        noise = Noise(reparam_e=noise)
     A = cfg.n_arm
     if x.dim() == 3 and x.shape[0] != A:
         raise ValueError(f"expected leading arm axis {A}, got {tuple(x.shape)}")
 
-    x_low, c_prob = _encoder(params, bn_state, x, cfg)
+    x_low, c_prob, new_bn = _encoder(params, bn_state, x, cfg, train, noise,
+                                     generator, enc_seed)
+    if not train:
+        new_bn = bn_state
 
     # tau-sharpened posterior in f32; pruned categories → -inf
     # (reference mmidas/nn_model.py:332-345)
@@ -185,7 +299,12 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
         logits_tau = torch.where(mask > 0, logits_tau,
                                  torch.full_like(logits_tau, -torch.inf))
     c = torch.softmax(logits_tau, dim=-1)
-    c_smp = gumbel_softmax(c, temp, cfg.eps, hard=True, gumbel_noise=False)
+    if train:
+        c_smp = gumbel_softmax(c, temp, cfg.eps, hard=cfg.hard,
+                               generator=generator, u=noise.gumbel_u)
+    else:
+        c_smp = gumbel_softmax(c, temp, cfg.eps, hard=True,
+                               gumbel_noise=False)
     c_in = c_smp.to(x_low.dtype)
 
     y_cat = (prior_c.to(x_low.dtype).expand(A, *prior_c.shape)
@@ -196,12 +315,14 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
         s_var = torch.sigmoid(_linear(params["fc_sigma"], y))
         s_logvar = torch.log(s_var + cfg.eps)
         s_smp = reparameterize(s_mean, s_logvar, cfg.reparam_noise,
-                               generator=generator, e=noise)
+                               generator=generator, e=noise.reparam_e)
     else:
         s_logvar = torch.zeros_like(s_mean)
         s_smp = s_mean
 
-    h_dec = _decode_hidden(params, c_in, s_smp)
+    s_dec = (dropout(s_smp, cfg.s_drop, generator, noise.s_mask)
+             if train else s_smp)
+    h_dec = _decode_hidden(params, c_in, s_dec)
     if skip_recon:
         x_rec = h_dec
         small = h_dec.new_zeros(h_dec.shape[:-1] + (1,))
@@ -212,4 +333,4 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
         p_x = r_x = x_rec.new_zeros(()).expand_as(x_rec)
     outs = MixVAEOutputs(x_rec, p_x, r_x, x_low, c, s_smp, c_smp,
                          s_mean, s_logvar, c_prob)
-    return outs, bn_state
+    return outs, new_bn

@@ -5,6 +5,8 @@ explicit ``torch.Generator`` or an explicit noise tensor: torch and JAX
 never share a bitstream, so parity tests hand both sides the same numbers.
 
 Reference semantics:
+  * ``dropout``         — dvae_tpu/models/mixvae.py:211-216 (inverted
+    dropout, ``where(mask, x / keep, 0)``)
   * ``gumbel_softmax``  — mmidas/nn_model.py:457-493 (straight-through
     one-hot at :487-493; eval form at :341-343)
   * ``reparameterize``  — mmidas/nn_model.py:413-428 (uniform-noise quirk
@@ -29,6 +31,23 @@ def _draw(kind: str, shape, like: torch.Tensor,
     fn = torch.rand if kind == "uniform" else torch.randn
     e = fn(shape, generator=generator, device=dev, dtype=torch.float32)
     return e.to(device=like.device, dtype=like.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Train-mode inverted dropout: ``where(mask, x / keep, 0)`` in x's
+    dtype, with the keep-mask given or drawn from ``generator`` with
+    P(keep) = 1 − rate.  ``rate`` 0 without a mask returns x itself."""
+    keep = 1.0 - rate
+    if mask is None:
+        if rate <= 0.0:
+            return x
+        dev = generator.device if generator is not None else x.device
+        mask = (torch.rand(x.shape, generator=generator, device=dev)
+                < keep).to(x.device)
+    return torch.where(mask.bool(), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def sample_gumbel(shape, like: torch.Tensor, eps: float,

@@ -1,22 +1,28 @@
-"""Fused reconstruction-loss forward: decoder output layer + ReLU + MSE +
-binarized-mismatch count, without materialising the (A, B, D)
-reconstruction.
+"""Fused reconstruction loss: decoder output layer + ReLU + MSE +
+binarized-mismatch count, forward and backward, without materialising the
+(A, B, D) reconstruction or its cotangent.
 
-Counterpart of dvae_tpu/ops/recon_pallas.py.  This slice ports the
-value-only forward that eval runs (``_fwd_kernel``, recon_pallas.py:72)
-as the hand-written CUDA kernel ``csrc/recon_fwd.cu``; its source note
-states the bound and the design.  The fused forward+backward of training
-is a later slice.
+Counterpart of dvae_tpu/ops/recon_pallas.py.  Two hand-written CUDA
+kernels carry it; each source note states its bound and its design:
+
+  * ``csrc/recon_fwd.cu`` — the value-only forward that eval runs
+    (``_fwd_kernel``, recon_pallas.py:72); launched by ``fused_recon_mse``
+    when no gradient is asked for, counted by ``fused_recon_mse.launches``;
+  * ``csrc/recon_fwdbwd.cu`` — the training forward with the unscaled
+    gradients in the same call (``_fwdbwd_kernel``, recon_pallas.py:239);
+    launched by ``recon_fwdbwd``, counted by ``recon_fwdbwd.launches``.
 
     sumsq_a = Σ_{b,d} (relu(h_a @ W_a + bias_a) − x)²
     mism_a  = #{binarize(relu(...)) ≠ binarize(x)}
 
 ``100·mism/(B·D)`` is the reference's binarized-BCE metric term
-(mmidas/nn_model.py:544-545; see dvae_tpu/ops/recon_pallas.py:14-19).
+(mmidas/nn_model.py:544-545; see dvae_tpu/ops/recon_pallas.py:14-19); it
+carries no gradient.
 
-On CPU tensors ``fused_recon_mse`` runs the plain version
-``recon_mse_reference``; on CUDA tensors it launches the kernel or raises.
-``fused_recon_mse.launches`` counts kernel launches.
+Under autograd ``fused_recon_mse`` runs the fused forward+backward and
+stashes dh/dW/db; its backward scales them by the per-arm cotangent of
+``sumsq`` (recon_pallas.py:366-383).  On CPU tensors every wrapper runs
+its plain version; on CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from dvae_tpu_torch.ops._common import check_kernel_operands, on_cpu
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 \
     + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+_FWDBWD_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 4
 
 
 def _lib() -> ctypes.CDLL:
@@ -42,6 +49,20 @@ def _lib() -> ctypes.CDLL:
         lib.recon_fwd_partials_per_arm.restype = ctypes.c_longlong
         lib.recon_fwd_max_rows.argtypes = []
         lib.recon_fwd_max_rows.restype = ctypes.c_longlong
+        lib._dvae_bound = True
+    return lib
+
+
+def _lib_fwdbwd() -> ctypes.CDLL:
+    lib = _build.load("recon_fwdbwd")
+    if not getattr(lib, "_dvae_bound", False):
+        for fn in (lib.recon_fwdbwd_f32, lib.recon_fwdbwd_bf16):
+            fn.argtypes = _FWDBWD_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.recon_fwdbwd_partials_per_arm.argtypes = [ctypes.c_int]
+        lib.recon_fwdbwd_partials_per_arm.restype = ctypes.c_longlong
+        lib.recon_fwdbwd_max_f.argtypes = []
+        lib.recon_fwdbwd_max_f.restype = ctypes.c_int
         lib._dvae_bound = True
     return lib
 
@@ -73,6 +94,10 @@ def recon_mse_reference(h, w, b, x, thr: float = 0.1):
 def fused_recon_mse(h, w, b, x, thr: float = 0.1, with_mism: bool = True):
     """Per-arm (sumsq, mismatch_count) of relu(h @ W + bias) against x.
 
+    With grad enabled and any of h, w, b requiring it, the training form
+    (``recon_fwdbwd`` inside an autograd function); otherwise the
+    value-only forward.
+
     Args:
       h: (A, B, F) decoder pre-output hidden activations.
       w: (A, F, D) fc11 weights.  b: (A, D) fc11 bias.
@@ -82,6 +107,13 @@ def fused_recon_mse(h, w, b, x, thr: float = 0.1, with_mism: bool = True):
 
     Returns (sumsq (A,) f32, mism (A,) f32); 0.5·sumsq/B is the MSE term.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (h, w, b)):
+        return _FusedReconMSE.apply(h, w, b, x, thr, with_mism)
+    return _recon_value(h, w, b, x, thr, with_mism)
+
+
+def _recon_value(h, w, b, x, thr, with_mism):
+    """Value-only forward: kernel #1 on CUDA, the plain version on CPU."""
     A, B, F, D = _check_shapes(h, w, b, x)
     if on_cpu(h, w, b, x):
         sumsq, mism = recon_mse_reference(h, w, b, x, thr)
@@ -110,3 +142,87 @@ def fused_recon_mse(h, w, b, x, thr: float = 0.1, with_mism: bool = True):
 
 
 fused_recon_mse.launches = 0
+
+
+def recon_fwdbwd_reference(h, w, b, x, thr: float = 0.1):
+    """Plain version of the training kernel: (sumsq, mism, dh, dw, db), the
+    gradients of Σ sumsq unscaled, in f32.  gm is rounded to h's dtype for
+    the two products, as the kernel does; db sums the f32 gm."""
+    r = torch.relu(torch.baddbmm(b.float()[:, None, :], h.float(), w.float()))
+    xf = x.float()
+    e = r - xf
+    sumsq = (e * e).sum(dim=(1, 2))
+    mism = ((r > thr) != (xf > thr)).sum(dim=(1, 2)).float()
+    gm = torch.where(r > 0, 2.0 * e, torch.zeros_like(e))
+    gm16 = gm.to(h.dtype).float()
+    dh = torch.bmm(gm16, w.float().transpose(1, 2))
+    dw = torch.bmm(h.float().transpose(1, 2), gm16)
+    db = gm.sum(dim=1)
+    return sumsq, mism, dh, dw, db
+
+
+def recon_fwdbwd(h, w, b, x, thr: float = 0.1, with_mism: bool = True):
+    """Per-arm (sumsq, mism) and the unscaled gradients (dh (A,B,F),
+    dw (A,F,D), db (A,D), f32) of Σ_a sumsq_a in one call: kernel #2 on
+    CUDA tensors, ``recon_fwdbwd_reference`` on CPU tensors."""
+    A, B, F, D = _check_shapes(h, w, b, x)
+    if on_cpu(h, w, b, x):
+        sumsq, mism, dh, dw, db = recon_fwdbwd_reference(h, w, b, x, thr)
+        return sumsq, mism if with_mism else torch.zeros_like(mism), dh, dw, db
+    dtype = check_kernel_operands(("h", "w", "b", "x"), (h, w, b, x))
+    if A == 0 or B == 0 or D == 0:
+        raise ValueError(f"empty operand: A={A}, B={B}, D={D}")
+    lib = _lib_fwdbwd()
+    if F > lib.recon_fwdbwd_max_f():
+        raise ValueError(f"F={F} exceeds the kernel's hidden width "
+                         f"{lib.recon_fwdbwd_max_f()}")
+    n_part = int(lib.recon_fwdbwd_partials_per_arm(B))
+    dev = h.device
+    part_sum = torch.empty(A * n_part, device=dev, dtype=torch.float32)
+    part_mism = torch.empty(A * n_part, device=dev, dtype=torch.int32)
+    out = torch.empty((A, 2), device=dev, dtype=torch.float32)
+    dh = torch.empty((A, B, F), device=dev, dtype=torch.float32)
+    dw = torch.empty((A, F, D), device=dev, dtype=torch.float32)
+    db = torch.empty((A, D), device=dev, dtype=torch.float32)
+    fn = (lib.recon_fwdbwd_f32 if dtype == torch.float32
+          else lib.recon_fwdbwd_bf16)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(),
+                 0 if x.dim() == 2 else B * D, A, B, F, D, float(thr),
+                 int(bool(with_mism)), part_sum.data_ptr(),
+                 part_mism.data_ptr(), out.data_ptr(), dh.data_ptr(),
+                 dw.data_ptr(), db.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"recon_fwdbwd kernel launch failed: CUDA error {err}")
+    recon_fwdbwd.launches += 1
+    return out[:, 0], out[:, 1], dh, dw, db
+
+
+recon_fwdbwd.launches = 0
+
+
+class _FusedReconMSE(torch.autograd.Function):
+    """The fused training op: forward = ``recon_fwdbwd``; backward scales
+    the stashed gradients by the per-arm cotangent of sumsq.  ``mism`` is
+    a metric without gradient (recon_pallas.py:378)."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, x, thr, with_mism):
+        sumsq, mism, dh, dw, db = recon_fwdbwd(h, w, b, x, thr, with_mism)
+        ctx.save_for_backward(dh, dw, db)
+        ctx.dtypes = (h.dtype, w.dtype, b.dtype)
+        ctx.mark_non_differentiable(mism)
+        return sumsq, mism
+
+    @staticmethod
+    def backward(ctx, g_sumsq, g_mism):
+        dh, dw, db = ctx.saved_tensors
+        h_dt, w_dt, b_dt = ctx.dtypes
+        if g_sumsq is None:
+            return None, None, None, None, None, None
+        ga = g_sumsq.float()
+        # scaled in place: the stash is used once
+        return (dh.mul_(ga[:, None, None]).to(h_dt),
+                dw.mul_(ga[:, None, None]).to(w_dt),
+                db.mul_(ga[:, None]).to(b_dt), None, None, None)

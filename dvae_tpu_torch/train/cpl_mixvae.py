@@ -1,22 +1,33 @@
-"""CplMixVAE of the PyTorch port — the serving half.
+"""CplMixVAE of the PyTorch port: model lifecycle, training and serving.
 
 Counterpart of dvae_tpu/train/cpl_mixvae.py (reference ``cpl_mixVAE``,
-mmidas/cpl_mixvae.py:152-1650): ``init_model``, the standalone
-``load_model`` that rebuilds the configs from a checkpoint's metadata,
-``save_checkpoint``, and the eval surfaces ``_eval_batches``,
-``_predict_labels``, ``validate`` and ``eval_model``.  Training, pruning
-and the augmenter arrive with later slices.
+mmidas/cpl_mixvae.py:152-1650): ``init_model``, ``load_model`` (a fresh
+instance rebuilds the configs from a checkpoint's metadata),
+``save_checkpoint``, ``train`` with its phases (the chunked epoch loop,
+validation, checkpoint cadence, the consensus early stop, the NaN halt,
+the pruning loop, SIGTERM-safe stops and resume), and the eval surfaces
+``_eval_batches``, ``_predict_labels``, ``validate`` and ``eval_model``.
 
 The model runs on ``device`` (default ``"cuda"``; pass ``"cpu"``
-explicitly).  On CUDA in MSE mode the reconstruction loss goes through the
-hand-written fused kernel (``ops/recon.py``), as the JAX package turns its
-Pallas kernels on by default on a TPU.
+explicitly).  On CUDA in MSE mode the hand-written kernels are on by
+default, as the JAX package turns its Pallas kernels on on a TPU: the
+fused dropout+fc1 forward and backward (``ops/encoder.py``) and the fused
+recon-loss forward+backward (``ops/recon.py``) in training, the recon-loss
+forward in eval.
+
+Not ported yet, and refused with ``NotImplementedError`` rather than
+ignored: the augmenter (``aug_file``), streaming (``stream``, and the
+switch to it when the dataset does not fit the device), cross-arm
+alignment, a mesh of several devices, ZINB mode, ``use_pallas``,
+``fused_decoder`` and ``save_plots``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import signal
+import time
 from typing import Optional
 
 import numpy as np
@@ -25,15 +36,25 @@ import torch
 from dvae_tpu_torch.config import (MeshConfig, ShardingStrategy, TrainConfig,
                                    VAEConfig)
 from dvae_tpu_torch.eval.metrics import (consensus_device_both,
-                                         consensus_from_labels)
-from dvae_tpu_torch.models import mixvae
-from dvae_tpu_torch.train.step import (TrainState, make_eval_runner,
-                                       make_eval_step)
-from dvae_tpu_torch.utils.checkpoint import (bn_from_jax, load_checkpoint,
+                                         consensus_from_labels,
+                                         per_category_agreement)
+from dvae_tpu_torch.train.step import (AdamState, TrainState,
+                                       init_train_state, make_epoch_runner,
+                                       make_eval_runner, make_eval_step,
+                                       make_optimizer)
+from dvae_tpu_torch.utils.checkpoint import (adam_state_from_jax,
+                                             adam_state_to_jax, bn_from_jax,
+                                             latest_checkpoint,
+                                             load_checkpoint,
+                                             newest_checkpoint,
                                              params_from_jax, save_checkpoint)
+from dvae_tpu_torch.utils.logging import (MetricLogger, device_memory_mb,
+                                          mprint)
 
 _EVAL_FLUSH_BYTES = 1 << 30  # eval_model drains device accumulators to
                              # host past this many retained bytes
+_DEVICE_DATASET_FRACTION = 0.7  # a resident dataset above this share of
+                                # the card's memory needs streaming
 
 
 def _resolve_device(device) -> torch.device:
@@ -57,11 +78,51 @@ def _key_data_from_seed(seed: int) -> np.ndarray:
     return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
 
 
-class CplMixVAE:
-    """Coupled mixture-VAE: model lifecycle and batched inference."""
+def _not_ported(what: str, slice_name: str):
+    return NotImplementedError(f"{what} is not ported yet: it arrives with "
+                               f"the {slice_name} slice of the port")
 
-    def __init__(self, saving_folder: str = "", device="cuda",
-                 seed: int = 546):
+
+class PreemptionGuard:
+    """Trap SIGTERM, let the running chunk finish, checkpoint and stop
+    (dvae_tpu/train/cpl_mixvae.py:62-105).  ``_run_phase`` polls
+    ``tripped`` at every chunk boundary.  No-op outside the main thread;
+    ``signals=()`` disables trapping."""
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self.tripped = False
+        self._signals = tuple(signals)
+        self._prev: dict = {}
+
+    def __enter__(self):
+        for sig in self._signals:
+            try:
+                self._prev[sig] = signal.signal(sig, self._handler)
+            except ValueError:  # not the main thread
+                pass
+        return self
+
+    def _handler(self, signum, frame):
+        self.tripped = True
+        mprint(f"caught signal {signum}: checkpointing at the next chunk "
+               "boundary, then stopping")
+
+    def __exit__(self, *exc):
+        for sig, prev in self._prev.items():
+            # a handler installed outside Python reads back as None: the
+            # default action keeps the process terminable
+            signal.signal(sig, prev if prev is not None else signal.SIG_DFL)
+        return False
+
+
+class CplMixVAE:
+    """Coupled mixture-VAE: model lifecycle, training and batched
+    inference."""
+
+    def __init__(self, saving_folder: str = "", aug_file: Optional[str] = None,
+                 device="cuda", seed: int = 546):
+        if aug_file:
+            raise _not_ported("the augmenter (aug_file)", "augmenter")
         self.folder = saving_folder
         if saving_folder:
             os.makedirs(saving_folder, exist_ok=True)
@@ -70,7 +131,10 @@ class CplMixVAE:
         self.cfg: Optional[VAEConfig] = None
         self.tcfg: Optional[TrainConfig] = None
         self.state: Optional[TrainState] = None
+        self.tx = None
         self.temp = 1.0
+        self.resume_progress: dict = {}
+        self._preempt: Optional[PreemptionGuard] = None
         self._eval_step = None
         self._eval_runner = None
 
@@ -79,50 +143,89 @@ class CplMixVAE:
     def _fused_default(self) -> bool:
         return self.device.type == "cuda"
 
+    @staticmethod
+    def _refuse_later_slices(cfg: VAEConfig, tcfg: TrainConfig) -> None:
+        if cfg.mode != "MSE":
+            raise _not_ported(f"mode {cfg.mode!r}", "ZINB")
+        if cfg.use_pallas:
+            raise _not_ported("use_pallas (the Gumbel and coupling kernels)",
+                              "opt-in kernels")
+        if cfg.fused_decoder:
+            raise _not_ported("fused_decoder (the whole-decoder kernel)",
+                              "opt-in kernels")
+        if tcfg.stream:
+            raise _not_ported("streaming (stream=True)", "streaming")
+        if tcfg.align_arms_every > 0:
+            raise _not_ported("cross-arm alignment (align_arms_every)",
+                              "alignment")
+        if tcfg.mesh.n_devices > 1:
+            raise _not_ported("a mesh of several devices", "multi-GPU")
+
     def init_model(self, n_categories: int = 92, state_dim: int = 2,
                    input_dim: int = 5032, fc_dim: int = 100,
-                   lowD_dim: int = 10, lam: float = 1.0, lam_pc: float = 1.0,
-                   n_arm: int = 2, temp: float = 1.0, tau: float = 0.005,
-                   beta: float = 1.0, variational: bool = True,
-                   ref_prior: bool = False, n_pr: int = 0,
-                   mode: str = "MSE", batch_size: int = 5000,
-                   bf16: bool = False, fused: Optional[bool] = None,
-                   **extra) -> None:
-        """Build the configs and a freshly initialised state (reference
-        ``init_model``, cpl_mixvae.py:193-286), restricted to the fields eval
-        reads; ``extra`` passes any other ``VAEConfig`` field.  ``fused``
-        enables the fused recon-loss kernel; None turns it on on CUDA."""
+                   lowD_dim: int = 10, x_drop: float = 0.5,
+                   s_drop: float = 0.2, lr: float = 1e-3, lam: float = 1.0,
+                   lam_pc: float = 1.0, n_arm: int = 2, temp: float = 1.0,
+                   tau: float = 0.005, beta: float = 1.0, hard: bool = False,
+                   variational: bool = True, ref_prior: bool = False,
+                   trained_model: Optional[str] = None, n_pr: int = 0,
+                   mode: str = "MSE", optimizer: str = "adam",
+                   batch_size: int = 5000, epochs_per_jit: int = 10,
+                   sharding="no", mesh: Optional[MeshConfig] = None,
+                   bf16: bool = False, rng_impl: str = "threefry2x32",
+                   fused: Optional[bool] = None, shuffle_block: int = 1,
+                   stream: bool = False, ckpt_every: int = 10,
+                   eval_every: int = 10, align_arms_every: int = 0,
+                   local_bn_stats: bool = False, **extra) -> None:
+        """Build the configs, the optimizer and a fresh state (reference
+        ``init_model``, cpl_mixvae.py:193-286; the JAX package's signature).
+        ``fused`` turns on the fused encoder and recon-loss kernels; None
+        turns them on on CUDA.  ``rng_impl`` names a JAX PRNG and is kept
+        for the checkpoint's metadata: the port draws from
+        ``torch.Generator`` whatever it says.  ``extra`` passes any other
+        ``VAEConfig`` field."""
         if fused is None:
             fused = self._fused_default()
         extra.setdefault("fused_recon", fused)
-        self.cfg = VAEConfig(
+        extra.setdefault("fused_encoder", fused)
+        mesh = mesh or MeshConfig()
+        if local_bn_stats:
+            extra.setdefault("bn_groups", max(1, mesh.data * mesh.fsdp))
+        cfg = VAEConfig(
             n_categories=n_categories, state_dim=state_dim,
-            input_dim=input_dim, fc_dim=fc_dim, lowD_dim=lowD_dim, lam=lam,
-            lam_pc=lam_pc, n_arm=n_arm, temp=temp, tau=tau, beta=beta,
-            variational=variational, ref_prior=ref_prior, n_pr=n_pr,
-            mode=mode, **extra)
-        self.tcfg = TrainConfig(batch_size=batch_size, bf16=bf16,
-                                seed=self.seed)
-        self.temp = temp
-        gen = torch.Generator(device="cpu").manual_seed(self.seed)
-        params = mixvae.init_params(gen, self.cfg, device=self.device)
-        mask = torch.ones(n_categories, device=self.device)
+            input_dim=input_dim, fc_dim=fc_dim, lowD_dim=lowD_dim,
+            x_drop=x_drop, s_drop=s_drop, lr=lr, lam=lam, lam_pc=lam_pc,
+            n_arm=n_arm, temp=temp, tau=tau, beta=beta, hard=hard,
+            variational=variational, ref_prior=ref_prior,
+            trained_model=trained_model, n_pr=n_pr, mode=mode, **extra)
+        tcfg = TrainConfig(
+            batch_size=batch_size, epochs_per_jit=epochs_per_jit,
+            optimizer=optimizer, sharding=ShardingStrategy(sharding),
+            mesh=mesh, bf16=bf16, seed=self.seed, rng_impl=rng_impl,
+            shuffle_block=shuffle_block, stream=stream,
+            ckpt_every=ckpt_every, eval_every=eval_every,
+            align_arms_every=align_arms_every)
+        self._refuse_later_slices(cfg, tcfg)
+        self.cfg, self.tcfg, self.temp = cfg, tcfg, temp
+        self.tx = make_optimizer(cfg, optimizer)
+        self.state = init_train_state(self.seed, cfg, self.tx, self.device)
         if n_pr > 0:
-            mask[-n_pr:] = 0.0
-        self.state = TrainState(
-            params=params, bn=mixvae.init_bn_state(self.cfg, self.device),
-            mask=mask, seed=self.seed, epoch=0)
+            # start with the n_pr last categories pruned (reference n_pr)
+            self.state.mask[-n_pr:] = 0.0
         self._reset_eval_fns()
+        if trained_model:
+            self.load_model(trained_model)
 
     def _reset_eval_fns(self) -> None:
         self._eval_step = None
         self._eval_runner = None
 
     def load_model(self, filename: str) -> int:
-        """Restore the model state from a checkpoint written by either
-        package (reference ``load_model``, cpl_mixvae.py:317).  On a fresh
-        instance the configs are rebuilt from the metadata.  Returns the
-        stored epoch (or -1)."""
+        """Restore the model and optimizer state from a checkpoint written
+        by either package (reference ``load_model``, cpl_mixvae.py:317).  On
+        a fresh instance the configs are rebuilt from the metadata.  The
+        checkpoint's phase progress is kept in ``resume_progress`` for the
+        next ``train``.  Returns the stored epoch (or -1)."""
         tree, meta = load_checkpoint(filename)
         if self.cfg is None:
             if not meta.get("cfg"):
@@ -137,32 +240,283 @@ class CplMixVAE:
             self.cfg = VAEConfig(**cfg_d)
             self.tcfg = TrainConfig(**tcfg_d)
             self.temp = self.cfg.temp
+            if self.tcfg.mesh.n_devices > 1:
+                mprint(f"checkpoint was trained on a "
+                       f"{self.tcfg.mesh.n_devices}-device mesh; loading it "
+                       "onto one device")
+                self.tcfg = self.tcfg.replace(mesh=MeshConfig())
             if self.cfg.mode == "MSE" and self._fused_default():
-                # how the model was trained does not decide how it is
-                # served: on CUDA the kernel is the serving path
-                self.cfg = self.cfg.replace(fused_recon=True)
+                # how the model was trained does not decide how it runs
+                # here: on CUDA the kernels are the path
+                self.cfg = self.cfg.replace(fused_recon=True,
+                                            fused_encoder=True)
+            self.tx = make_optimizer(self.cfg, self.tcfg.optimizer)
         seed = (_seed_from_key_data(tree["key_data"]) if "key_data" in tree
-                else self.seed)
+                else self.seed + int(meta.get("epoch", 0)))
+        params = params_from_jax(tree["params"], self.device)
+        adam = adam_state_from_jax(tree.get("opt_state"))
+        if adam is None:
+            opt_state = self.tx.init(params)
+        else:
+            count, mu, nu = adam
+            opt_state = AdamState(count, params_from_jax(mu, self.device),
+                                  params_from_jax(nu, self.device))
         self.state = TrainState(
-            params=params_from_jax(tree["params"], self.device),
-            bn=bn_from_jax(tree["bn"], self.device),
+            params=params, bn=bn_from_jax(tree["bn"], self.device),
             mask=torch.from_numpy(np.array(tree["mask"])).to(self.device),
-            seed=seed, epoch=int(meta.get("epoch", 0)),
-            opt_state=tree.get("opt_state"))
+            seed=seed, epoch=int(meta.get("epoch", 0)), opt_state=opt_state)
+        self.resume_progress = dict(
+            meta.get("progress")
+            or {"main_epochs": int(meta.get("epoch", 0)), "pr_it": 0})
         self._reset_eval_fns()
         return int(meta.get("epoch", -1))
 
     def save_checkpoint(self, tag: str) -> str:
-        """Write the state in the JAX package's checkpoint format."""
+        """Write the state in the JAX package's checkpoint format: the
+        optimizer state as optax's, the noise seed as raw key words, and
+        the phase progress for a resume."""
         path = os.path.join(self.folder or ".", f"cpl_mixVAE_model_{tag}.ckpt")
         st = self.state
-        tree = {"params": st.params, "bn": st.bn, "opt_state": st.opt_state,
+        opt = st.opt_state
+        if isinstance(opt, AdamState):
+            opt = adam_state_to_jax(
+                opt.count, opt.mu, opt.nu,
+                n_empty=2 if self.tcfg.optimizer == "adamw" else 1)
+        tree = {"params": st.params, "bn": st.bn, "opt_state": opt,
                 "mask": st.mask, "key_data": _key_data_from_seed(st.seed)}
         meta = {"epoch": int(st.epoch),
+                "progress": {"main_epochs": int(getattr(self, "_main_done", 0)),
+                             "pr_it": int(getattr(self, "_pr_it", 0)),
+                             "prune_epochs": int(getattr(self, "_prune_done",
+                                                         0))},
                 "cfg": dict(self.cfg.__dict__),
                 "tcfg": {**dataclasses.asdict(self.tcfg),
                          "sharding": self.tcfg.sharding.value}}
         return save_checkpoint(path, tree, meta)
+
+    # -- training -----------------------------------------------------------
+
+    def _preempted(self) -> bool:
+        return self._preempt is not None and self._preempt.tripped
+
+    def _resident(self, x, dtype) -> torch.Tensor:
+        """The dataset on the model's device in ``dtype`` (used in place
+        when it is there already).  Refuses a dataset that would not leave
+        room for training on the card: streaming is a later slice."""
+        if hasattr(x, "toarray"):  # the resident path is dense
+            x = x.toarray()
+        if self.device.type == "cuda" and not (
+                isinstance(x, torch.Tensor) and x.device == self.device):
+            nbytes = int(np.prod(x.shape)) * torch.empty(
+                (), dtype=dtype).element_size()
+            total = torch.cuda.get_device_properties(self.device).total_memory
+            if nbytes > _DEVICE_DATASET_FRACTION * total:
+                raise _not_ported(
+                    f"a dataset of {nbytes / 2**30:.1f} GiB on a "
+                    f"{total / 2**30:.0f} GiB card (streaming)", "streaming")
+        return torch.as_tensor(x).to(device=self.device, dtype=dtype)
+
+    def train(self, x_train, x_val=None, n_epoch: int = 100,
+              n_epoch_p: int = 0, c_p: Optional[np.ndarray] = None,
+              train_idx: Optional[np.ndarray] = None,
+              val_idx: Optional[np.ndarray] = None,
+              min_con: float = 0.99, max_prun_it: int = 0,
+              temp: Optional[float] = None,
+              early_stop_consensus: Optional[float] = None,
+              run_name: Optional[str] = None,
+              save_plots: bool = False) -> str:
+        """Main and pruning phases (reference ``train``,
+        cpl_mixvae.py:323-1448; dvae_tpu/train/cpl_mixvae.py:420-600).
+        Returns the final checkpoint's path.
+
+        ``x_train`` (N, D): numpy, or a tensor (used in place when it is on
+        the model's device in the storage dtype, f32 or bf16 under
+        ``bf16``).  ``c_p``: the (N_total, C) ref-prior table gathered by
+        ``train_idx`` (and ``val_idx`` for validation) under ref_prior.
+        After ``load_model`` the checkpoint's progress carries over:
+        completed main epochs and prune iterations count.  ``run_name`` is
+        accepted for the JAX signature (it named a wandb run)."""
+        if self.state is None:
+            raise RuntimeError("call init_model or load_model first")
+        if save_plots:
+            raise _not_ported("save_plots", "plots")
+        cfg, tcfg = self.cfg, self.tcfg
+        self._refuse_later_slices(cfg, tcfg)
+        temp = self.temp if temp is None else temp
+        prog = self.resume_progress or {}
+        self._main_done = int(prog.get("main_epochs", 0))
+        self._pr_it = int(prog.get("pr_it", 0))
+        self._prune_done = int(prog.get("prune_epochs", 0))
+        self.resume_progress = {}
+        self._halted = False
+        stop_con = (tcfg.good_enuf_consensus if early_stop_consensus is None
+                    else early_stop_consensus)
+        logger = MetricLogger(
+            jsonl_path=(os.path.join(self.folder, "metrics.jsonl")
+                        if self.folder else None),
+            config={**cfg.__dict__, "n_epoch": n_epoch})
+
+        n_train = x_train.shape[0]
+        store = torch.bfloat16 if tcfg.bf16 else torch.float32
+        x_all = self._resident(x_train, store)
+        prior_all = prior_val = None
+        if cfg.ref_prior and c_p is not None:
+            idx = np.arange(n_train) if train_idx is None else train_idx
+            prior_all = self._resident(np.asarray(c_p)[idx], torch.float32)
+        runners = {}
+
+        def runner(n_chunk: int):
+            if n_chunk not in runners:
+                runners[n_chunk] = make_epoch_runner(
+                    cfg, tcfg, self.tx, n_train, epochs_per_chunk=n_chunk)
+            return runners[n_chunk]
+
+        self._reset_eval_fns()
+        if x_val is not None:
+            x_val = self._resident(x_val, self._eval_dtype())
+            if cfg.ref_prior and c_p is not None:
+                if val_idx is not None:
+                    prior_val = np.asarray(c_p)[val_idx]
+                else:
+                    mprint("ref_prior: no val_idx given — validation runs "
+                           "without the prior")
+
+        self._preempt = PreemptionGuard()
+        try:
+            with self._preempt:
+                self._run_phase(runner, x_all, prior_all, x_val, n_epoch,
+                                temp, stop_con, logger, phase="train",
+                                prior_val=prior_val)
+                if (n_epoch_p > 0 and max_prun_it > 0
+                        and not self._preempted() and not self._halted):
+                    self._prune(runner, x_all, prior_all, x_val, n_epoch_p,
+                                temp, stop_con, logger, prior_val, min_con,
+                                max_prun_it)
+                if self._halted:
+                    # never save the NaN-poisoned state: point at the last
+                    # good checkpoint instead
+                    path = ((latest_checkpoint(self.folder)
+                             if self.folder else None)
+                            or newest_checkpoint(self.folder) or "")
+                else:
+                    path = self.save_checkpoint(f"epoch_{self.state.epoch}")
+        finally:
+            self._preempt = None
+            logger.finish()
+        return path
+
+    def _prune(self, runner, x_all, prior_all, x_val, n_epoch_p, temp,
+               stop_con, logger, prior_val, min_con, max_prun_it) -> None:
+        """Pruning phase (reference cpl_mixvae.py:996-1444): remove the
+        active category whose arms agree least, retrain, repeat."""
+        cfg = self.cfg
+        pr_it = self._pr_it
+        # a run stopped during a retraining finishes that iteration first
+        if self._prune_done < n_epoch_p and pr_it > 0:
+            self._run_phase(runner, x_all, prior_all, x_val,
+                            n_epoch_p - self._prune_done, temp, stop_con,
+                            logger, phase=f"prune{pr_it - 1}",
+                            prior_val=prior_val)
+        while (pr_it < max_prun_it and not self._preempted()
+               and not self._halted):
+            labels = self._predict_labels(x_all, temp)
+            agreement = per_category_agreement(labels, cfg.n_categories)
+            mask = self.state.mask.cpu().numpy().copy()
+            active = np.where(mask > 0)[0]
+            agree_active = agreement[active]
+            if float(np.min(agree_active)) > min_con:
+                mprint("No more pruning!")
+                break
+            kill = active[int(np.argmin(agree_active))]
+            mask[kill] = 0.0
+            mprint(f"pruning iteration {pr_it}: pruned category {kill} "
+                   f"(agreement {agreement[kill]:.3f}); "
+                   f"{int(mask.sum())}/{cfg.n_categories} remain")
+            self.state = self.state._replace(
+                mask=torch.from_numpy(mask).to(self.state.mask))
+            self._pr_it = pr_it + 1
+            self._prune_done = 0
+            self.save_checkpoint(f"before_pruning_{pr_it}_A{cfg.n_arm}")
+            self._run_phase(runner, x_all, prior_all, x_val, n_epoch_p, temp,
+                            stop_con, logger, phase=f"prune{pr_it}",
+                            prior_val=prior_val)
+            pr_it += 1
+
+    def _run_phase(self, runner, x_all, prior_all, x_val, n_epoch, temp,
+                   stop_con, logger, phase: str, prior_val=None) -> None:
+        """Chunks of ``epochs_per_jit`` epochs (dvae_tpu/train/
+        cpl_mixvae.py:619-765): the host reads the chunk's metrics once,
+        then logs, validates, checkpoints and decides to stop."""
+        cfg, tcfg = self.cfg, self.tcfg
+        E = tcfg.epochs_per_jit
+        done = 0
+        best_con = -1.0
+
+        def crossed(cadence: int) -> bool:
+            c = max(cadence, 1)
+            return (done // c) > ((done - n_chunk) // c)
+
+        while done < n_epoch:
+            n_chunk = min(E, n_epoch - done)
+            t0 = time.perf_counter()
+            self.state, ems = runner(n_chunk)(self.state, x_all, prior_all,
+                                              temp)
+            ems = {k: v.cpu().numpy() for k, v in ems._asdict().items()}
+            dt = time.perf_counter() - t0
+            total, cons = ems["total"], ems["consensus"]
+            mem = device_memory_mb(self.device)
+            base = self.state.epoch - n_chunk
+            for e in range(n_chunk):
+                logger.log({
+                    f"{phase}/loss": float(total[e]),
+                    f"{phase}/loss_joint": float(ems["loss_joint"][e]),
+                    f"{phase}/neg_joint_entropy": float(ems["neg_entropy"][e]),
+                    f"{phase}/simplex_distance": float(ems["c_dist"][e]),
+                    f"{phase}/l2_distance": float(ems["c_l2_dist"][e]),
+                    f"{phase}/consensus": float(cons[e]),
+                    f"{phase}/epoch_time_s": dt / n_chunk,
+                    f"{phase}/device_mb": mem,
+                    **{f"{phase}/rec_loss_arm{a}": float(ems["loss_rec"][e, a])
+                       for a in range(cfg.n_arm)},
+                }, step=base + e)
+            done += n_chunk
+            if phase == "train":
+                self._main_done += n_chunk
+            elif phase.startswith("prune"):
+                self._prune_done += n_chunk
+            epoch = self.state.epoch
+            mprint(f"[{phase}] epoch {epoch}: loss={total[-1]:.3f} "
+                   f"consensus={cons[-1]:.3f} ({dt / n_chunk:.3f}s/epoch)")
+
+            # a non-finite loss poisons the Adam moments: stop the run; the
+            # checkpoint trail keeps the last good state
+            if tcfg.halt_on_nan and not np.isfinite(total[-1]):
+                mprint(f"HALT: non-finite loss at epoch {epoch} "
+                       f"(total={total[-1]}); the last good checkpoint is the "
+                       "newest best_/epoch_ file")
+                self._halted = True
+                break
+
+            if x_val is not None and crossed(tcfg.eval_every):
+                val = self.validate(x_val, temp, c_p=prior_val)
+                logger.log({f"val/{k}": v for k, v in val.items()},
+                           step=epoch)
+                mprint(f"[val] loss={val['loss']:.3f} "
+                       f"consensus={val['consensus']:.3f}")
+            if crossed(tcfg.ckpt_every):
+                self.save_checkpoint(f"epoch_{epoch}")
+            if float(cons[-1]) > best_con:
+                best_con = float(cons[-1])
+                self.save_checkpoint(f"best_{phase}")
+            # consensus early stop (reference cpl_mixvae.py:851-927)
+            if stop_con and float(cons[-1]) >= stop_con:
+                mprint(f"early stop: consensus {cons[-1]:.3f} >= {stop_con}")
+                self.save_checkpoint(f"epoch_{epoch}")
+                break
+            if self._preempted():
+                self.save_checkpoint(f"preempt_epoch_{epoch}")
+                mprint(f"preempted: checkpointed at epoch {epoch}")
+                break
 
     # -- evaluation ---------------------------------------------------------
 

@@ -10,7 +10,14 @@ references instead:
 
   * ``dvae_tpu.config.*`` → this package's own ``config``;
   * ``optax.*`` → ``ForeignState``, a tuple stand-in that keeps the
-    optimizer leaves as numpy for the training slice.
+    optimizer leaves as numpy.
+
+Writing goes the other way (``_PortPickler``): the port's config classes
+are pickled under ``dvae_tpu.config`` and the stand-ins under their optax
+names, so the JAX package reads a checkpoint of the port with plain
+``pickle`` and resumes it, optimizer state included.
+``adam_state_from_jax`` / ``adam_state_to_jax`` map optax's
+``ScaleByAdamState(count, mu, nu)`` to and from the port's Adam state.
 
 ``params_from_jax`` / ``bn_from_jax`` turn the numpy pytrees into tensors
 (and ``*_to_jax`` back): the weight bridge between the two packages.  The
@@ -41,7 +48,7 @@ class ForeignState(tuple):
         return tuple.__new__(cls, fields)
 
     def __reduce__(self):
-        return foreign_state, (self.kind, tuple(self))
+        return type(self), tuple(self)
 
     def __repr__(self):
         return f"ForeignState[{self.kind}]{tuple.__repr__(self)}"
@@ -54,6 +61,53 @@ def _foreign_class(kind: str) -> type:
 
 def foreign_state(kind: str, fields: tuple) -> ForeignState:
     return _foreign_class(kind)(*fields)
+
+
+def adam_state_to_jax(count: int, mu, nu, n_empty: int = 1) -> tuple:
+    """optax's state of adam (``n_empty`` = 1) or adamw (2):
+    (ScaleByAdamState(count, mu, nu), EmptyState(), ...) with numpy leaves."""
+    adam = foreign_state(_ADAM_KIND, (np.asarray(count, np.int32),
+                                      _to_numpy(mu), _to_numpy(nu)))
+    return (adam,) + tuple(foreign_state(_EMPTY_KIND, ())
+                           for _ in range(n_empty))
+
+
+def adam_state_from_jax(opt_state) -> Optional[tuple]:
+    """(count, mu, nu) of the ScaleByAdamState inside a loaded optax state
+    (numpy trees), or None when it holds none."""
+    for part in opt_state or ():
+        if isinstance(part, ForeignState) and part.kind == _ADAM_KIND:
+            count, mu, nu = part
+            return int(np.asarray(count)), mu, nu
+    return None
+
+
+_ADAM_KIND = "optax._src.transform.ScaleByAdamState"
+_EMPTY_KIND = "optax._src.base.EmptyState"
+
+
+def _global_name(obj) -> Optional[tuple]:
+    """(module, name) under which the port pickles ``obj``, or None."""
+    if isinstance(obj, type) and issubclass(obj, ForeignState):
+        return tuple(obj.kind.rsplit(".", 1))
+    if getattr(obj, "__module__", None) == "dvae_tpu_torch.config":
+        return "dvae_tpu.config", obj.__qualname__
+    return None
+
+
+class _PortPickler(pickle._Pickler):
+    """Pickles the stand-ins and the port's config classes under the names
+    the JAX package knows (written as a STACK_GLOBAL of the two names:
+    neither optax nor dvae_tpu is imported to write them)."""
+
+    def save_global(self, obj, name=None):
+        target = _global_name(obj)
+        if target is None:
+            return super().save_global(obj, name)
+        self.save(target[0])
+        self.save(target[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
 
 
 class _PortUnpickler(pickle.Unpickler):
@@ -93,8 +147,8 @@ def save_checkpoint(path: str, tree: Any,
     package's pickle-of-numpy format.  Returns the written path."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        pickle.dump({"tree": _to_numpy(tree), "metadata": metadata or {}}, f,
-                    protocol=pickle.HIGHEST_PROTOCOL)
+        _PortPickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(
+            {"tree": _to_numpy(tree), "metadata": metadata or {}})
     return path
 
 
@@ -159,3 +213,42 @@ def latest_checkpoint(folder: str, pattern: str = "*_epoch_*") -> Optional[str]:
     files = [f for f in glob.glob(os.path.join(folder, pattern))
              if parse_epoch(f) >= 0]
     return max(files, key=parse_epoch) if files else None
+
+
+def newest_checkpoint(folder: str, pattern: str = "*.ckpt") -> Optional[str]:
+    """Newest checkpoint by mtime, tag-only ones (``best_*``) included; None
+    for an empty ``folder`` argument."""
+    if not folder:
+        return None
+    files = glob.glob(os.path.join(folder, pattern))
+    return max(files, key=os.path.getmtime) if files else None
+
+
+def _run_base(base: str, prefix: str) -> str:
+    """``base`` and ``prefix`` joined; a bare directory base gets a path
+    separator (dvae_tpu/utils/checkpoint.py:139-147)."""
+    if base and not base.endswith(os.sep):
+        return base + os.sep + prefix
+    return f"{base}{prefix}"
+
+
+def make_run_dir(base: str, prefix: str = "") -> str:
+    """Create and return the next ``{base}{prefix}_RUN{n}`` folder."""
+    stem = _run_base(base, prefix)
+    n = 0
+    while os.path.exists(f"{stem}_RUN{n}"):
+        n += 1
+    path = f"{stem}_RUN{n}"
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def latest_run_dir(base: str, prefix: str = "") -> Optional[str]:
+    """Newest existing ``{base}{prefix}_RUN{n}`` folder, or None."""
+    def num(p: str) -> int:
+        m = re.search(r"_RUN(\d+)$", p)
+        return int(m.group(1)) if m else -1
+
+    runs = [r for r in glob.glob(f"{_run_base(base, prefix)}_RUN*")
+            if num(r) >= 0]
+    return max(runs, key=num) if runs else None

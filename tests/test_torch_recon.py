@@ -1,6 +1,7 @@
-"""The port's fused recon-loss forward (dvae_tpu_torch/ops/recon.py) against
-the JAX package's Pallas kernel (dvae_tpu/ops/recon_pallas.py), which runs
-in interpret mode on the CPU as the JAX tests run it.
+"""The port's fused recon loss (dvae_tpu_torch/ops/recon.py), forward and
+forward+backward, against the JAX package's Pallas kernels
+(dvae_tpu/ops/recon_pallas.py), which run in interpret mode on the CPU as
+the JAX tests run them.
 
 On CPU tensors the port's wrapper runs its plain version; the CUDA kernel
 itself is held against that plain version on the card by chip_smoke.py.
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dvae_tpu.ops import recon_pallas
@@ -18,6 +20,10 @@ from dvae_tpu_torch.ops import _build, _common, recon
 
 # f32 sums of the same products in another order: relative 1e-5.  The
 # mismatch count is an integer count of the same comparisons: exact.
+# Gradients (rtol 1e-4, atol 1e-4 · max|grad|): sums over up to 520 rows or
+# 40 columns of products, in another order; under bf16 gm is rounded to
+# bf16 for the products on both sides, so a gm near a rounding boundary
+# moves a product by one bf16 step (2^-8): rtol 2e-2 of max|grad|.
 RTOL_SUMSQ = 1e-5
 
 
@@ -59,6 +65,71 @@ def test_fused_recon_matches_pallas(B, per_arm, with_mism, dtype):
     np.testing.assert_allclose(plain_s.numpy(), np.asarray(ref_s),
                                rtol=RTOL_SUMSQ)
     np.testing.assert_array_equal(plain_m.numpy(), np.asarray(ref_m))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("per_arm", [False, True])
+@pytest.mark.parametrize("B", [16, 520])
+def test_fused_recon_grads_match_pallas(B, per_arm, dtype):
+    """dh/dW/db of Σ_a g_a·sumsq_a (a per-arm cotangent) against jax.grad
+    of the Pallas op, whose vjp runs its fused forward+backward kernel."""
+    ops = _operands(B + 1, 3, B, 16, 40, per_arm)
+    ga = np.array([0.5, -1.25, 2.0], np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jh, jw, jb, jx = (jnp.asarray(o, jd) for o in ops)
+
+    def f(h, w, b):
+        sumsq, mism = recon_pallas.fused_recon_mse(h, w, b, jx, 0.1, True)
+        return jnp.sum(jnp.asarray(ga) * sumsq) + 0.0 * jnp.sum(mism)
+
+    want = jax.grad(f, (0, 1, 2))(jh, jw, jb)
+    th, tw, tb, tx = (torch.from_numpy(o).to(td) for o in ops)
+    for t in (th, tw, tb):
+        t.requires_grad_()
+    sumsq, mism = recon.fused_recon_mse(th, tw, tb, tx, 0.1, True)
+    assert not mism.requires_grad
+    (torch.from_numpy(ga) * sumsq).sum().backward()
+    want_s, want_m = recon_pallas.fused_recon_mse(jh, jw, jb, jx, 0.1, True)
+    np.testing.assert_allclose(sumsq.detach().numpy(), np.asarray(want_s),
+                               rtol=RTOL_SUMSQ)
+    np.testing.assert_array_equal(mism.numpy(), np.asarray(want_m))
+    for t, w_ in zip((th, tw, tb), want):
+        assert t.grad.dtype == td
+        w_ = np.asarray(w_, np.float32)
+        scale = np.abs(w_).max()
+        if dtype == "float32":
+            np.testing.assert_allclose(t.grad.numpy(), w_, rtol=1e-4,
+                                       atol=1e-4 * scale)
+        else:
+            err = np.abs(t.grad.float().numpy() - w_).max()
+            assert err <= 2e-2 * scale, (err, scale)
+
+
+def test_fwdbwd_plain_version_matches_the_fused_jax_call():
+    ops = _operands(5, 2, 37, 8, 24, False)
+    out, dh, dw, db = recon_pallas._fwdbwd_call(
+        *(jnp.asarray(o) for o in ops), 0.1, True)
+    got = recon.recon_fwdbwd(*(torch.from_numpy(o) for o in ops))
+    for g_, w_ in zip(got, (out[0], out[1], dh, dw, db)):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-5,
+                                   atol=1e-4)
+
+
+def test_value_only_calls_keep_the_forward_kernel_path():
+    """Without a gradient the op takes the value-only path, and under
+    autograd the training path; on the CPU neither counts a launch."""
+    tt = [torch.from_numpy(o) for o in _operands(4, 2, 8, 4, 12, False)]
+    counts = (recon.fused_recon_mse.launches, recon.recon_fwdbwd.launches)
+    s0, _ = recon.fused_recon_mse(*tt)
+    assert s0.grad_fn is None
+    tt[1].requires_grad_()
+    s1, _ = recon.fused_recon_mse(*tt)
+    assert s1.grad_fn is not None
+    with torch.no_grad():
+        assert recon.fused_recon_mse(*tt)[0].grad_fn is None
+    assert torch.equal(s0, s1.detach())
+    assert (recon.fused_recon_mse.launches,
+            recon.recon_fwdbwd.launches) == counts
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():

@@ -195,11 +195,18 @@ def test_apply_shared_and_per_arm_batches_agree():
 
 
 def test_apply_refuses_train_mode():
+    """Train mode runs (tests/test_torch_train.py holds it to JAX); what it
+    refuses are the flags of later slices of the port."""
     _, tc = _cfgs()
     params, bn, x = _model()
-    with pytest.raises(NotImplementedError):
-        tmixvae.apply(tckpt.params_from_jax(params), tckpt.bn_from_jax(bn),
-                      tc, torch.from_numpy(x), train=True)
+    p, s, xt = tckpt.params_from_jax(params), tckpt.bn_from_jax(bn), \
+        torch.from_numpy(x)
+    outs, new_bn = tmixvae.apply(p, s, tc, xt, train=True,
+                                 generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(outs.x_rec).all() and new_bn is not s
+    for flag in ("use_pallas", "fused_decoder"):
+        with pytest.raises(NotImplementedError):
+            tmixvae.apply(p, s, tc.replace(**{flag: True}), xt, train=True)
 
 
 # ---------------------------------------------------------------------------
@@ -447,15 +454,20 @@ def test_cuda_entry_points_fail_without_a_card():
 
 _GUARD = """
 import json, sys
+import numpy as np
 import torch
 torch.set_num_threads(1)
 from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
 cpl = CplMixVAE(device="cpu")
 cpl.load_model(sys.argv[1])
-res = cpl.eval_model(__import__("numpy").ones((20, {D}), "float32"), batch_size=8)
+x = np.random.default_rng(0).random((20, {D})).astype("float32")
+res = cpl.eval_model(x, batch_size=8)
+cpl.tcfg = cpl.tcfg.replace(batch_size=8, epochs_per_jit=1)
+cpl.train(x, n_epoch=2, early_stop_consensus=0)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu"))
-print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape}}))
+print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
+                  "steps": cpl.state.opt_state.count}}))
 """.format(D=D)
 
 
@@ -466,13 +478,14 @@ def _run_port(args, cwd):
 
 
 def test_port_imports_no_jax(jax_checkpoints, tmp_path):
-    """A fresh interpreter imports the port, reads a JAX-written checkpoint
-    and runs a tiny eval without loading JAX, optax or dvae_tpu."""
+    """A fresh interpreter imports the port, reads a JAX-written checkpoint,
+    runs a tiny eval and a few training steps (4: two epochs of two
+    batches) without loading JAX, optax or dvae_tpu."""
     _, ckpts = jax_checkpoints
     proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"bad": [], "labels": [A, 20]}
+    assert out == {"bad": [], "labels": [A, 20], "steps": 4}
 
 
 def test_cli_evaluate_on_cpu(jax_checkpoints, tmp_path):

@@ -1,0 +1,443 @@
+"""The PyTorch port's training path (dvae_tpu_torch) against the JAX package.
+
+Small shapes (A=3 arms, B=70, D=120, F=24, L=6, C=10, S=2, the shapes of
+tests/test_ops.py:270).  Weights come from the JAX package through the
+weight bridge; every random number of a train-mode forward (dropout masks,
+Gumbel uniforms, reparameterization noise) is rebuilt from the JAX key the
+way dvae_tpu/models/mixvae.apply splits it, and handed to the port as a
+``Noise`` bundle.  JAX runs on the CPU; its Pallas kernels run in interpret
+mode.  Tolerances, with their reason:
+
+  * ``SHARP`` (rtol 1e-4, atol 1e-5): values downstream of the tau = 0.005
+    sharpening, which multiplies rounding differences by 1/tau = 200, and
+    of five train-mode batch norms, whose outputs of order 1 carry
+    absolute rounding differences up to 1e-5 near zero;
+  * ``GRAD`` (rtol 5e-4, atol 1e-5): loss gradients, as
+    tests/test_ops.py:297-300 holds the fused path against the unfused,
+    with the atol taken relative to the largest gradient of each leaf: at
+    tau = 0.005 the encoder gradients reach 1e11 (the sharpening and the
+    coupling term's precision scaling) and are sums of such terms that
+    cancel, so an entry near zero carries the last bits of 1e11-sized
+    terms summed in another order;
+  * Adam against optax on the same gradients (rtol 1e-5, atol 1e-7): the
+    same arithmetic, a few f32 roundings apart (bias corrections, square
+    root, division, fused multiply-adds); where random gradients of
+    opposite signs cancel in the first moment, those roundings reach 1e-4
+    of an update of size lr = 1e-3;
+  * the loss over k = 3 steps (``TRAJ``, rtol 1e-3): Adam's first update
+    is about −lr·sign(g), so gradients near zero whose sign differs in the
+    last bit move single weights by up to 2·lr; the trajectory, not the
+    weights, is what stays comparable.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import optax
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import dvae_tpu.config as jcfg
+from dvae_tpu.eval import metrics as jmetrics
+from dvae_tpu.models import mixvae as jmixvae
+from dvae_tpu.ops import encoder_pallas
+from dvae_tpu.train import step as jstep
+from dvae_tpu.train.cpl_mixvae import CplMixVAE as JaxCplMixVAE
+
+import dvae_tpu_torch.config as tcfg_mod
+from dvae_tpu_torch.data.anndata_io import synthetic_dataset
+from dvae_tpu_torch.data import pipeline as tpipeline
+from dvae_tpu_torch.eval import metrics as tmetrics
+from dvae_tpu_torch.models import mixvae as tmixvae
+from dvae_tpu_torch.train import step as tstep
+from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+from dvae_tpu_torch.utils import checkpoint as tckpt
+
+SHARP = dict(rtol=1e-4, atol=1e-5)
+GRAD = dict(rtol=5e-4, atol=1e-5)
+ADAM = dict(rtol=1e-5, atol=1e-7)
+TRAJ = 1e-3
+A, B, D, F, L, C, S = 3, 70, 120, 24, 6, 10, 2
+DIMS = dict(n_arm=A, input_dim=D, fc_dim=F, lowD_dim=L, n_categories=C,
+            state_dim=S)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfgs(**kw):
+    kw = {**DIMS, **kw}
+    return jcfg.VAEConfig(**kw), tcfg_mod.VAEConfig(**kw)
+
+
+def _model(seed=0, n=B):
+    cfg, _ = _cfgs()
+    params = jax.tree_util.tree_map(
+        np.array, jmixvae.init_params(jax.random.key(seed), cfg))
+    bn = jax.tree_util.tree_map(np.array, jmixvae.init_bn_state(cfg))
+    x = np.maximum(np.random.default_rng(seed + 1).normal(0.5, 1, (n, D)),
+                   0).astype(np.float32)
+    return params, bn, x
+
+
+def _noise(key, cfg, n_rows=B):
+    """The random numbers JAX's train-mode apply draws from ``key``
+    (dvae_tpu/models/mixvae.py:336-423), as a port ``Noise`` bundle."""
+    A, D, C, S = cfg.n_arm, cfg.input_dim, cfg.n_categories, cfg.state_dim
+    k_gumbel, k_rest = jax.random.split(key)
+    arm_keys = jax.random.split(k_rest, (A, 3))
+    if cfg.fused_encoder:
+        seed = jax.random.bits(jax.random.fold_in(k_gumbel, 1),
+                               dtype=jnp.uint32).astype(jnp.int32)
+        x_mask = encoder_pallas.dropout_mask_host(seed, (A, n_rows, D),
+                                                  cfg.x_drop)
+    else:
+        x_mask = jnp.stack([jax.random.bernoulli(
+            arm_keys[a, 0], 1 - cfg.x_drop, (n_rows, D)) for a in range(A)])
+    u = jax.random.uniform(k_gumbel, (A, n_rows, C))
+    e = jnp.stack([jax.random.normal(arm_keys[a, 1], (n_rows, S))
+                   for a in range(A)])
+    s_mask = jnp.stack([jax.random.bernoulli(
+        arm_keys[a, 2], 1 - cfg.s_drop, (n_rows, S)) for a in range(A)])
+    return tmixvae.Noise(*(torch.from_numpy(np.array(v))
+                           for v in (x_mask, u, e, s_mask)))
+
+
+def _tree_close(got, want, scaled=False, **tol):
+    """Leaf-wise assert_allclose; ``scaled`` multiplies the atol by each
+    leaf's largest magnitude."""
+    for name in want:
+        for leaf in want[name]:
+            w = np.asarray(want[name][leaf])
+            t = dict(tol)
+            if scaled:
+                t["atol"] = tol["atol"] * float(np.abs(w).max())
+            np.testing.assert_allclose(np.asarray(got[name][leaf]), w,
+                                       err_msg=f"{name}.{leaf}", **t)
+
+
+# ---------------------------------------------------------------------------
+# Forward and loss
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_train_apply_matches_jax(groups, fused):
+    jc, tc = _cfgs(bn_groups=groups, fused_encoder=fused, fused_recon=fused)
+    params, bn, x = _model(groups)
+    key = jax.random.key(11)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A, B, D))
+    jout, jbn = jmixvae.apply(params, bn, jc, xs, key, train=True,
+                              skip_recon=fused,
+                              x_shared=jnp.asarray(x) if fused else None)
+    tout, tbn = tmixvae.apply(tckpt.params_from_jax(params),
+                              tckpt.bn_from_jax(bn), tc, torch.from_numpy(x),
+                              train=True, skip_recon=fused,
+                              noise=_noise(key, jc))
+    for name in ("x_low", "c_prob", "c", "c_smp", "s_mean", "s_logvar",
+                 "s_smp", "x_rec"):
+        np.testing.assert_allclose(getattr(tout, name).detach().numpy(),
+                                   np.asarray(getattr(jout, name)), **SHARP,
+                                   err_msg=name)
+    _tree_close(tbn, jbn, **SHARP)
+    assert any(not np.allclose(tbn[k]["var"], 1.0) for k in tbn)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_loss_fn_value_and_grads_match_jax(fused):
+    jc, tc = _cfgs(fused_encoder=fused, fused_recon=fused)
+    params, bn, x = _model(3)
+    key = jax.random.key(7)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A, B, D))
+    mask = np.ones(C, np.float32)
+    (jt, (jaux, jbn, jlab)), jg = jax.value_and_grad(
+        jstep.loss_fn, has_aux=True)(params, bn, jc, xs, key, 1.0,
+                                     jnp.asarray(mask), None, None,
+                                     jnp.asarray(x))
+    live = {n: {k: v.requires_grad_() for k, v in layer.items()}
+            for n, layer in tckpt.params_from_jax(params).items()}
+    tt, (taux, tbn, tlab) = tstep.loss_fn(
+        live, tckpt.bn_from_jax(bn), tc, torch.from_numpy(x), 1.0,
+        torch.from_numpy(mask), None, noise=_noise(key, jc))
+    leaves = tstep.tree_leaves(live)
+    grads = tstep.tree_like(live, torch.autograd.grad(tt, leaves))
+    np.testing.assert_allclose(float(tt.detach()), float(jt), rtol=1e-5)
+    for name in ("loss_rec", "kl", "c_dist", "neg_entropy", "c_l2_dist"):
+        np.testing.assert_allclose(getattr(taux, name).detach().numpy(),
+                                   np.asarray(getattr(jaux, name)), **SHARP,
+                                   err_msg=name)
+    np.testing.assert_array_equal(tlab.numpy(), np.asarray(jlab))
+    _tree_close(tbn, jbn, **SHARP)
+    _tree_close(grads, jax.tree_util.tree_map(np.asarray, jg), scaled=True,
+                **GRAD)
+
+
+def test_mask_params_and_grads_match_jax():
+    jc, tc = _cfgs()
+    params, _, _ = _model(4)
+    mask = np.ones(C, np.float32)
+    mask[[2, 7]] = 0.0
+    want = jstep._mask_params(params, jnp.asarray(mask), jc)
+    tp = tckpt.params_from_jax(params)
+    got = tstep._mask_params(tp, torch.from_numpy(mask), tc)
+    _tree_close(got, want, rtol=0, atol=0)
+    _tree_close(tstep._mask_grads(tp, torch.from_numpy(mask), tc),
+                jstep._mask_grads(params, jnp.asarray(mask), jc),
+                rtol=0, atol=0)
+    tstep._mask_params(tp, torch.from_numpy(mask), tc, inplace=True)
+    _tree_close(tp, want, rtol=0, atol=0)
+
+
+def test_device_consensus_matches_jax():
+    rng = np.random.default_rng(6)
+    labels = rng.integers(0, C, size=(A, 300))
+    want = jmetrics.consensus_device(jnp.asarray(labels), C)
+    got = tmetrics.consensus_device(torch.from_numpy(labels), C)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    np.testing.assert_allclose(
+        float(tmetrics.consensus_device(torch.from_numpy(labels), C, True)),
+        float(jmetrics.consensus_device(jnp.asarray(labels), C, True)),
+        rtol=1e-6)
+    np.testing.assert_array_equal(
+        tmetrics.confmat_device(torch.from_numpy(labels[0]),
+                                torch.from_numpy(labels[1]), C).numpy(),
+        np.asarray(jmetrics.confmat_device(jnp.asarray(labels[0]),
+                                           jnp.asarray(labels[1]), C)))
+
+
+# ---------------------------------------------------------------------------
+# Optimizer and steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+def test_adam_matches_optax_on_the_same_gradients(name):
+    jc, tc = _cfgs()
+    params, _, _ = _model(5)
+    tx = jstep.make_optimizer(jc, name)
+    opt = tstep.make_optimizer(tc, name)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    js = tx.init(jp)
+    tp = tckpt.params_from_jax(params)
+    ts = opt.init(tp)
+    rng = np.random.default_rng(8)
+    for _ in range(3):
+        g = jax.tree_util.tree_map(
+            lambda p: rng.normal(size=p.shape).astype(np.float32), params)
+        upd, js = tx.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
+        jp = optax.apply_updates(jp, upd)
+        ts = opt.update(tckpt.params_from_jax(g), ts, tp)
+    _tree_close(tp, jp, **ADAM)
+    assert ts.count == int(js[0].count) == 3
+    _tree_close(ts.mu, js[0].mu, **ADAM)
+    _tree_close(ts.nu, js[0].nu, **ADAM)
+
+
+def _jax_then_port_steps(jstate, tstate, jc, tc, xb, k):
+    """k train steps on the same batches from the same state in both
+    packages; the port's noise is rebuilt from the JAX step's key."""
+    tcfg = jcfg.TrainConfig(batch_size=xb.shape[1])
+    tx = jstep.make_optimizer(jc)
+    jfn = jax.jit(jstep.make_train_step(jc, tcfg, tx))
+    tfn = tstep.make_train_step(tc, tcfg_mod.TrainConfig(
+        batch_size=xb.shape[1]), tstep.make_optimizer(tc))
+    jl, tl = [], []
+    for i in range(k):
+        _, _, k_fwd = jax.random.split(jstate.key, 3)
+        noise = _noise(k_fwd, jc, xb.shape[1])
+        jstate, jm, _ = jfn(jstate, jnp.asarray(xb[i]), None, 1.0)
+        tstate, tm, _ = tfn(tstate, torch.from_numpy(xb[i]), None, 1.0,
+                            noise=noise)
+        jl.append(float(jm.total))
+        tl.append(float(tm.total))
+    return jstate, tstate, np.array(jl), np.array(tl)
+
+
+def test_k_step_loss_trajectory_matches_jax():
+    jc, tc = _cfgs(fused_encoder=True, fused_recon=True)
+    tx = jstep.make_optimizer(jc)
+    jstate = jstep.init_train_state(jax.random.key(2), jc, tx)
+    params = jax.tree_util.tree_map(np.array, jstate.params)
+    opt = tstep.make_optimizer(tc)
+    tp = tckpt.params_from_jax(params)
+    tstate = tstep.TrainState(
+        tp, tckpt.bn_from_jax(jax.tree_util.tree_map(np.array, jstate.bn)),
+        torch.ones(C), 0, 0, opt.init(tp))
+    xb = np.stack([_model(10 + i)[2] for i in range(3)])
+    _, tstate, jl, tl = _jax_then_port_steps(jstate, tstate, jc, tc, xb, 3)
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ)
+    assert tstate.opt_state.count == 3
+
+
+def test_epoch_runner_shapes_and_noise_chain():
+    _, tc = _cfgs()
+    tcfg = tcfg_mod.TrainConfig(batch_size=32, epochs_per_jit=2,
+                                shuffle_block=4)
+    opt = tstep.make_optimizer(tc)
+    x = torch.from_numpy(_model(6, n=100)[2])
+    run = tstep.make_epoch_runner(tc, tcfg, opt, 100)
+    s0 = tstep.init_train_state(1, tc, opt)
+    s1, ems = run(s0, x, None, 1.0)
+    assert s1.epoch == 2 and s1.opt_state.count == 6
+    assert tuple(ems.total.shape) == (2,) and tuple(ems.kl.shape) == (2, A)
+    assert ((ems.consensus >= 0) & (ems.consensus <= 1)).all()
+    # the next chunk draws other noise than the first (seeded by epoch)
+    g0, _ = tstep.chunk_rngs(1, 0, "cpu")
+    g2, _ = tstep.chunk_rngs(1, 2, "cpu")
+    assert not torch.equal(torch.rand(8, generator=g0),
+                           torch.rand(8, generator=g2))
+
+
+def test_splits_match_jax():
+    from dvae_tpu.data import pipeline as jpipeline
+    labels = np.random.default_rng(1).integers(0, 5, 97).astype(str)
+    for a, b in zip(tpipeline.stratified_split_indices(labels, 0.9, 3),
+                    jpipeline.stratified_split_indices(labels, 0.9, 3)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(tpipeline.train_test_split_indices(97, 0.8, 3),
+                    jpipeline.train_test_split_indices(97, 0.8, 3)):
+        np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints across the two packages, the trainer, the CLI
+# ---------------------------------------------------------------------------
+
+SMALL = dict(n_arm=2, input_dim=40, fc_dim=16, lowD_dim=6, n_categories=5,
+             state_dim=2)
+
+
+@pytest.fixture(scope="module")
+def small_data():
+    return synthetic_dataset(96, 40, 5, seed=4).log1p
+
+
+@pytest.fixture(scope="module")
+def jax_trained(small_data, tmp_path_factory):
+    """A checkpoint of the JAX trainer after 2 epochs (Adam state with
+    count 4)."""
+    folder = str(tmp_path_factory.mktemp("jax_train"))
+    cpl = JaxCplMixVAE(saving_folder=folder, seed=3)
+    cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=2, fused=False)
+    path = cpl.train(small_data[:64], n_epoch=2, save_plots=False,
+                     early_stop_consensus=0)
+    return path
+
+
+def test_jax_checkpoint_resumes_in_the_port(jax_trained, small_data):
+    """The port resumes a JAX checkpoint with its Adam state: two more
+    steps on the same batches and noise give JAX's losses."""
+    jcpl = JaxCplMixVAE()
+    jcpl.load_model(jax_trained)
+    tcpl = CplMixVAE(device="cpu")
+    assert tcpl.load_model(jax_trained) == 2
+    assert tcpl.resume_progress["main_epochs"] == 2
+    adam = tcpl.state.opt_state
+    assert adam.count == int(jcpl.state.opt_state[0].count) == 4
+    _tree_close(adam.mu, jcpl.state.opt_state[0].mu, rtol=0, atol=0)
+    xb = np.stack([small_data[64:96], small_data[:32]])
+    _, tstate, jl, tl = _jax_then_port_steps(
+        jcpl.state, tcpl.state, jcpl.cfg, tcpl.cfg, xb, 2)
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ)
+    assert tstate.opt_state.count == 6
+
+
+def test_port_checkpoint_trains_on_in_jax(small_data, tmp_path):
+    cpl = CplMixVAE(saving_folder=str(tmp_path), device="cpu", seed=5)
+    cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=2,
+                   optimizer="adamw")
+    path = cpl.train(small_data[:64], x_val=small_data[64:], n_epoch=2,
+                     early_stop_consensus=0)
+    assert os.path.basename(path) == "cpl_mixVAE_model_epoch_2.ckpt"
+    assert cpl.state.opt_state.count == 4
+    jcpl = JaxCplMixVAE(saving_folder=str(tmp_path / "jax"))
+    assert jcpl.load_model(path) == 2
+    assert jcpl.cfg.reparam_noise == jcfg.ReparamNoise.GAUSSIAN
+    adam = jcpl.state.opt_state[0]
+    assert int(adam.count) == 4 and len(jcpl.state.opt_state) == 3
+    _tree_close(adam.nu, tckpt.params_to_jax(cpl.state.opt_state.nu),
+                rtol=0, atol=0)
+    _tree_close(jcpl.state.params, tckpt.params_to_jax(cpl.state.params),
+                rtol=0, atol=0)
+    out = jcpl.train(small_data[:64], n_epoch=1, save_plots=False,
+                     early_stop_consensus=0)
+    assert int(jcpl.state.epoch) == 3 and os.path.exists(out)
+    assert int(jcpl.state.opt_state[0].count) == 6
+
+
+def test_trainer_phases_on_the_cpu(small_data, tmp_path):
+    """Checkpoint cadence, best_ files, a pruning iteration, the metrics
+    log, resume of the progress, and later-slice flags refused."""
+    cpl = CplMixVAE(saving_folder=str(tmp_path), device="cpu", seed=2)
+    cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=1, ckpt_every=2,
+                   eval_every=1)
+    path = cpl.train(small_data[:64], x_val=small_data[64:], n_epoch=2,
+                     n_epoch_p=1, max_prun_it=1, min_con=1.1,
+                     early_stop_consensus=0)
+    names = sorted(os.listdir(tmp_path))
+    assert "cpl_mixVAE_model_epoch_2.ckpt" in names
+    assert "cpl_mixVAE_model_best_train.ckpt" in names
+    assert "cpl_mixVAE_model_before_pruning_0_A2.ckpt" in names
+    assert os.path.basename(path) == "cpl_mixVAE_model_epoch_3.ckpt"
+    assert int(cpl.state.mask.sum()) == SMALL["n_categories"] - 1
+    with open(tmp_path / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert any("val/consensus" in r for r in rows)
+    again = CplMixVAE(device="cpu")
+    again.load_model(path)
+    assert again.resume_progress == {"main_epochs": 2, "pr_it": 1,
+                                     "prune_epochs": 1}
+    for kw in ({"stream": True}, {"align_arms_every": 5},
+               {"mode": "ZINB"}, {"use_pallas": True},
+               {"fused_decoder": True},
+               {"mesh": tcfg_mod.MeshConfig(data=2)}):
+        with pytest.raises(NotImplementedError):
+            CplMixVAE(device="cpu").init_model(**SMALL, **kw)
+    with pytest.raises(NotImplementedError):
+        cpl.train(small_data[:64], n_epoch=1, save_plots=True)
+    with pytest.raises(NotImplementedError):
+        CplMixVAE(device="cpu", aug_file="augmenter.ckpt")
+
+
+def test_nan_halt_keeps_the_last_good_checkpoint(small_data, tmp_path):
+    cpl = CplMixVAE(saving_folder=str(tmp_path), device="cpu", seed=2)
+    cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=1, ckpt_every=1)
+    cpl.train(small_data[:64], n_epoch=1, early_stop_consensus=0)
+    x = small_data[:64].copy()
+    x[3, 5] = np.nan
+    path = cpl.train(x, n_epoch=3, early_stop_consensus=0)
+    assert cpl._halted and cpl.state.epoch == 2
+    assert os.path.basename(path) == "cpl_mixVAE_model_epoch_1.ckpt"
+    assert not os.path.exists(tmp_path / "cpl_mixVAE_model_epoch_2.ckpt")
+
+
+def _run_port(args, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_cli_train_on_cpu(tmp_path):
+    args = ["-m", "dvae_tpu_torch.cli", "train", "--device", "cpu",
+            "--synthetic", "--syn_cells", "120", "--syn_genes", "40",
+            "--syn_types", "5", "--n_categories", "5", "--n_arm", "2",
+            "--fc_dim", "16", "--latent_dim", "6", "--batch_size", "32",
+            "--n_epoch", "2", "--epochs_per_jit", "1", "--eval_every", "1",
+            "--saving_folder", str(tmp_path) + "/"]
+    proc = _run_port(args, str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    assert "epoch 2:" in proc.stdout
+    final = proc.stdout.strip().splitlines()[-1]
+    assert final.startswith("final checkpoint:") and final.endswith(
+        "cpl_mixVAE_model_epoch_2.ckpt")
