@@ -6,12 +6,16 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build every CUDA kernel of the port from ``dvae_tpu_torch/csrc`` (one
      nvcc per source, all started together);
-  2. hold each kernel against its plain PyTorch version at the shapes the
-     serving and training paths give it (f32 and bf16, shared and per-arm
-     x, B=5000 and the ragged 2,000), check the in-kernel dropout mask
+  2. hold each of the eight kernels against its plain PyTorch version at
+     the shapes the serving and training paths give it (f32 and bf16,
+     shared and per-arm x, B=5000 and the ragged 2,000; the ZINB kernels
+     on inputs with exact zeros, non-positive rates, x up to log1p(1e6)
+     and a column of counts beyond 5e9), check the in-kernel dropout mask
      (bit for bit against its numpy version, keep fraction, forward and
-     backward fed the materialised mask) and that repeated launches are
-     bit-identical, and time kernel, plain version and library call;
+     backward fed the materialised mask), that the separate backward
+     kernels at cotangent 1 reproduce the fused kernels' gradients and
+     that repeated launches are bit-identical, and time kernel, plain
+     version and library call;
   3. drive the serving path end to end at the production width (A=5 arms,
      D=5032 genes, F=100, L=10, C=92, S=2; random weights from a seed):
      init → save_checkpoint → a fresh CplMixVAE.load_model → eval_model over
@@ -24,7 +28,14 @@ Phases (any failure exits non-zero and prints no result line):
      the last checkpoint; one step against the port's CPU path with the
      same explicit noise; warm throughput, a profiler breakdown of one
      chunk and its count of synchronising calls;
-  5. print the kernels line, the card's name and power limit, and last the
+  5. drive ZINB mode at the same width on hard synthetic count data made
+     with the port's own sampler: init_model(mode="ZINB") → train over
+     20,000 cells with 2,000 for validation, 4 epochs in chunks of 2
+     (16 steps), counts reset just before and read just after; resume;
+     save → a fresh load_model → eval_model over the 22,000 cells, counts
+     again; one training step and one served batch against the port's CPU
+     path; warm throughput, profiler breakdown, synchronising calls;
+  6. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
 ``--kernels-only`` stops after phase 2 (a short first run of new kernels;
@@ -58,8 +69,21 @@ TOL_MISM = 1e-5                                    # × B·D, per arm
 # on both sides from f32 values that differ in their last bits
 TOL_REL = {"float32": 1e-5, "bfloat16": 1e-3}
 TOL_Y_BF16 = 8e-3
+# ZINB kernels vs their plain versions.  Loss sums, relative, per arm: f32
+# sums in another order (bf16 operands are exact in f32, so one limit).
+# Gradients, max |Δ| / max |plain|: the kernel fuses multiply-adds where
+# ATen rounds twice, and the sums run in another order (f32); gm rounded to
+# bf16 on both sides from f32 values that differ in their last bits (bf16).
+TOL_ZINB_LOSS = 1e-5
+TOL_ZINB_GRAD = {"float32": 1e-4, "bfloat16": 1e-3}
+ZINB_EPS = 1e-6
+X_MAX = 13.8                                       # log1p(1e6), logcpm's top
+X_HUGE = 22.5                                      # expm1 = 5.9e9 > P4's overflow
 RATE = 0.5                                         # x_drop of the model
 N_TRAIN, N_VAL = 40000, 2000
+# hard synthetic counts: fewer cells than the MSE phases, because the
+# numpy half of the generator runs on the host (seconds for 22,000 cells)
+N_ZINB_TRAIN, N_ZINB_VAL = 20000, 2000
 N_PARITY = 2000
 LR = 1e-3
 
@@ -119,19 +143,24 @@ def rel_err(torch, got, want) -> float:
 
 
 def launch_counts() -> dict:
-    from dvae_tpu_torch.ops import encoder, recon
-    return {"recon_fwd": recon.fused_recon_mse.launches,
-            "recon_fwdbwd": recon.recon_fwdbwd.launches,
-            "encoder_fwd": encoder.encoder_fwd.launches,
-            "encoder_bwd": encoder.encoder_bwd.launches}
+    return {name: fn.launches for name, fn in _counted_wrappers().items()}
+
+
+def _counted_wrappers() -> dict:
+    from dvae_tpu_torch.ops import encoder, recon, zinb
+    return {"recon_fwd": recon.fused_recon_mse,
+            "recon_fwdbwd": recon.recon_fwdbwd,
+            "recon_bwd": recon.recon_bwd,
+            "encoder_fwd": encoder.encoder_fwd,
+            "encoder_bwd": encoder.encoder_bwd,
+            "zinb_fwd": zinb.fused_zinb,
+            "zinb_fwdbwd": zinb.zinb_fwdbwd,
+            "zinb_bwd": zinb.zinb_bwd}
 
 
 def reset_launch_counts() -> None:
-    from dvae_tpu_torch.ops import encoder, recon
-    recon.fused_recon_mse.launches = 0
-    recon.recon_fwdbwd.launches = 0
-    encoder.encoder_fwd.launches = 0
-    encoder.encoder_bwd.launches = 0
+    for fn in _counted_wrappers().values():
+        fn.launches = 0
 
 
 def card_line() -> str:
@@ -402,7 +431,240 @@ def phase_recon_fwdbwd(torch, check) -> dict:
     return record
 
 
+def phase_recon_bwd(torch, check) -> dict:
+    """Kernel #3 (the separate recon backward) vs its plain version and vs
+    the fused kernel's unscaled gradients; returns the record of the main
+    case (f32, shared x, B=5000)."""
+    from dvae_tpu_torch.ops.recon import (recon_bwd, recon_bwd_reference,
+                                          recon_fwdbwd)
+    print("phase 2: recon_bwd kernel vs plain version")
+    dev = DEV
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    record = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        item = 4 if dtype == torch.float32 else 2
+        for rows in (B, TAIL):
+            for per_arm in (False, True):
+                tag = f"{dname} B={rows} x={'per-arm' if per_arm else 'shared'}"
+                h = torch.rand((A, rows, F), generator=g, device=dev)
+                w = (torch.rand((A, F, D), generator=g, device=dev) - 0.5) * 0.2
+                b = (torch.rand((A, D), generator=g, device=dev) - 0.5) * 0.2
+                shape = (A, rows, D) if per_arm else (rows, D)
+                x = torch.relu(torch.randn(shape, generator=g, device=dev))
+                h, w, b, x = (t.to(dtype).contiguous() for t in (h, w, b, x))
+                cot = torch.linspace(-1.5, 2.5, A, device=dev)
+                got = recon_bwd(cot, h, w, b, x)
+                want = recon_bwd_reference(cot, h, w, b, x)
+                torch.cuda.synchronize()
+                errs = [rel_err(torch, a, e) for a, e in zip(got, want)]
+                check(max(errs) <= TOL_REL[dname],
+                      f"{tag}: recon_bwd(g) dh/dW/db rel err "
+                      + "/".join(f"{e:.2e}" for e in errs)
+                      + f" (tol {TOL_REL[dname]:.0e})")
+                ones = recon_bwd(torch.ones(A, device=dev), h, w, b, x)
+                fused = recon_fwdbwd(h, w, b, x)[2:]
+                check(all(torch.equal(u, v) for u, v in zip(ones, fused)),
+                      f"{tag}: recon_bwd(ones) equals recon_fwdbwd's "
+                      "gradients bit for bit")
+                again = recon_bwd(cot, h, w, b, x)
+                check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                      f"{tag}: repeated launch bit-identical")
+                if rows == B and not per_arm:
+                    ms = cuda_ms(torch, lambda: recon_bwd(cot, h, w, b, x))
+                    pl = plain_ms(torch, lambda: recon_bwd_reference(
+                        cot, h, w, b, x))
+                    gm = torch.randn((A, rows, D), generator=g,
+                                     device=dev).to(dtype)
+                    bias3, wt, ht = b[:, None, :], w.transpose(1, 2), \
+                        h.transpose(1, 2)
+                    lib = cuda_ms(torch, lambda: (
+                        torch.baddbmm(bias3, h, w), torch.bmm(gm, wt),
+                        torch.bmm(ht, gm)), iters=10)
+                    del gm
+                    nbytes = ((A * rows * F + A * F * D + A * D + rows * D)
+                              * item + (A + A * rows * F + A * F * D
+                                        + A * D) * 4)
+                    bound, by = flops_bound_ms(6.0 * A * rows * F * D,
+                                               nbytes, dname)
+                    err = max((a - e).abs().max().item()
+                              for a, e in zip(got, want))
+                    print(f"  {tag}: kernel_ms {ms:.4f} plain_ms {pl:.4f} "
+                          f"library_ms(three products) {lib:.4f} "
+                          f"bound_ms {bound:.4f} ({by}) "
+                          f"share_of_bound {bound / ms:.3f}")
+                    if item == 4:
+                        record = {"max_abs_err": err, "ms": ms,
+                                  "plain_ms": pl, "bound_ms": bound,
+                                  "bound_by": by, "library_ms": lib}
+                del h, w, b, x, got, want, again, ones, fused
+    torch.cuda.empty_cache()
+    return record
+
+
+def zinb_inputs(torch, g, dtype, rows, per_arm, huge=False):
+    """Operands of the ZINB kernels that hit the hard places: a non-negative
+    hidden with every 97th row zero (there y = bias, half of them <= 0),
+    pre-activations of both signs, half of x exactly zero, x up to X_MAX,
+    and with ``huge`` one column whose counts pass P4's f32 overflow."""
+    dev = DEV
+    h = torch.rand((A, rows, F), generator=g, device=dev)
+    h[:, ::97] = 0.0
+    heads = []
+    for _ in range(3):
+        heads.append((torch.rand((A, F, D), generator=g, device=dev) - 0.5)
+                     * 0.2)
+        heads.append((torch.rand((A, D), generator=g, device=dev) - 0.5) * 0.2)
+    shape = (A, rows, D) if per_arm else (rows, D)
+    x = torch.relu(torch.randn(shape, generator=g, device=dev) * 2.0 + 0.5)
+    x = x * (torch.rand(shape, generator=g, device=dev) > 0.5)
+    x[..., ::53, 3] = X_MAX
+    if huge:
+        x[..., 7] = X_HUGE
+    return [t.to(dtype).contiguous() for t in (h, *heads, x)]
+
+
+def phase_zinb(torch, check) -> dict:
+    """Kernels #6, #7, #8 vs their plain versions; returns the records of
+    the main case (f32, shared x, B=5000)."""
+    from dvae_tpu_torch.ops import zinb
+    print("phase 2: zinb_fwd / zinb_fwdbwd / zinb_bwd kernels vs plain "
+          "version")
+    dev = DEV
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    records = {}
+
+    def flat(out):
+        return [out[0], *out[1], *out[2], *out[3]]
+
+    cases = [(dt, rows, pa, False) for dt in (torch.float32, torch.bfloat16)
+             for rows in (B, TAIL) for pa in (False, True)]
+    cases += [(dt, TAIL, False, True)
+              for dt in (torch.float32, torch.bfloat16)]
+    for dtype, rows, per_arm, huge in cases:
+        dname = str(dtype).split(".")[-1]
+        item = 4 if dtype == torch.float32 else 2
+        tag = (f"{dname} B={rows} x={'per-arm' if per_arm else 'shared'}"
+               + (" counts>=5e9 column" if huge else ""))
+        ops = zinb_inputs(torch, g, dtype, rows, per_arm, huge)
+        h, x = ops[0], ops[7]
+        heads = tuple(zip(ops[1:7:2], ops[2:7:2]))
+        cot = torch.linspace(-1.5, 2.5, A, device=dev)
+        tol_g = TOL_ZINB_GRAD[dname]
+
+        v = zinb.fused_zinb(*ops, ZINB_EPS)
+        v0 = zinb.zinb_heads_plain(*ops, ZINB_EPS)
+        fb = zinb.zinb_fwdbwd(*ops, ZINB_EPS)
+        fb0 = zinb.zinb_grads_plain(*ops, ZINB_EPS)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (v, fb[0], *flat(fb[1:])))
+        check(finite, f"{tag}: loss and gradients finite")
+        e_v = ((v - v0).abs() / v0.abs()).max().item()
+        e_l = ((fb[0] - fb0[0]).abs() / fb0[0].abs()).max().item()
+        check(e_v <= TOL_ZINB_LOSS and e_l <= TOL_ZINB_LOSS,
+              f"{tag}: loss max rel err zinb_fwd {e_v:.3e}, zinb_fwdbwd "
+              f"{e_l:.3e} (tol {TOL_ZINB_LOSS:.0e})")
+        errs = [rel_err(torch, a, e)
+                for a, e in zip(flat(fb[1:]), flat(fb0[1:]))]
+        check(max(errs) <= tol_g,
+              f"{tag}: zinb_fwdbwd dh,dW_r,db_r,dW_p,db_p,dW_z,db_z rel err "
+              + "/".join(f"{e:.1e}" for e in errs) + f" (tol {tol_g:.0e})")
+        err_fb = max([(fb[0] - fb0[0]).abs().max().item()]
+                     + [(a - e).abs().max().item()
+                        for a, e in zip(flat(fb[1:]), flat(fb0[1:]))])
+        del fb0
+        ones = zinb.zinb_bwd(torch.ones(A, device=dev), h, heads, x, ZINB_EPS)
+        errs = [rel_err(torch, a, e)
+                for a, e in zip(flat(ones), flat(fb[1:]))]
+        check(max(errs) <= tol_g,
+              f"{tag}: zinb_bwd(ones) vs zinb_fwdbwd's gradients rel err "
+              f"{max(errs):.1e} (tol {tol_g:.0e}: two digamma calls against "
+              "their shared difference)")
+        del ones
+        bw = zinb.zinb_bwd(cot, h, heads, x, ZINB_EPS)
+        bw0 = zinb.zinb_bwd_plain(cot, h, heads, x, ZINB_EPS)
+        errs = [rel_err(torch, a, e) for a, e in zip(flat(bw), flat(bw0))]
+        check(max(errs) <= tol_g,
+              f"{tag}: zinb_bwd(g) rel err "
+              + "/".join(f"{e:.1e}" for e in errs) + f" (tol {tol_g:.0e})")
+        err_bw = max((a - e).abs().max().item()
+                     for a, e in zip(flat(bw), flat(bw0)))
+        del bw0
+        v2 = zinb.fused_zinb(*ops, ZINB_EPS)
+        fb2 = zinb.zinb_fwdbwd(*ops, ZINB_EPS)
+        bw2 = zinb.zinb_bwd(cot, h, heads, x, ZINB_EPS)
+        check(bool(torch.equal(v, v2) and torch.equal(fb[0], fb2[0])
+                   and all(torch.equal(a, e) for a, e in zip(
+                       flat(fb[1:]) + flat(bw), flat(fb2[1:]) + flat(bw2)))),
+              f"{tag}: repeated launches of the three kernels bit-identical")
+        del fb2, bw2
+        if rows == B and not per_arm and not huge:
+            x_elems = rows * D
+            in_bytes = (A * rows * F + 3 * A * F * D + 3 * A * D
+                        + x_elems) * item
+            grad_bytes = (A * rows * F + 3 * A * F * D + 3 * A * D) * 4
+            prod = 2.0 * A * rows * F * D
+            gm = torch.randn((A, rows, D), generator=g, device=dev).to(dtype)
+            hT = h.transpose(1, 2)
+
+            def lib_fwd():
+                return [torch.baddbmm(b[:, None, :], h, w) for w, b in heads]
+
+            def lib_nine():
+                return (lib_fwd(),
+                        [torch.bmm(gm, w.transpose(1, 2)) for w, _ in heads],
+                        [torch.bmm(hT, gm) for _ in heads])
+
+            lib3 = cuda_ms(torch, lib_fwd, iters=10)
+            lib9 = cuda_ms(torch, lib_nine, iters=10)
+            del gm
+            timed = (
+                ("zinb_fwd", lambda: zinb.fused_zinb(*ops, ZINB_EPS),
+                 lambda: zinb.zinb_heads_plain(*ops, ZINB_EPS), lib3,
+                 "three products", 3 * prod, in_bytes + A * 4,
+                 (v - v0).abs().max().item()),
+                ("zinb_fwdbwd", lambda: zinb.zinb_fwdbwd(*ops, ZINB_EPS),
+                 lambda: zinb.zinb_grads_plain(*ops, ZINB_EPS), lib9,
+                 "nine products", 9 * prod, in_bytes + A * 4 + grad_bytes,
+                 err_fb),
+                ("zinb_bwd",
+                 lambda: zinb.zinb_bwd(cot, h, heads, x, ZINB_EPS),
+                 lambda: zinb.zinb_bwd_plain(cot, h, heads, x, ZINB_EPS),
+                 lib9, "nine products", 9 * prod,
+                 in_bytes + A * 4 + grad_bytes, err_bw))
+            for name, kern, plain, lib, lib_what, flops, nbytes, err in timed:
+                ms = cuda_ms(torch, kern, iters=10)
+                pl = plain_ms(torch, plain)
+                bound, by = flops_bound_ms(flops, nbytes, dname)
+                print(f"  {tag}: {name} kernel_ms {ms:.4f} plain_ms {pl:.4f} "
+                      f"library_ms({lib_what}) {lib:.4f} bound_ms "
+                      f"{bound:.4f} ({by}) share_of_bound {bound / ms:.3f}")
+                if item == 4:
+                    records[name] = {"max_abs_err": err, "ms": ms,
+                                     "plain_ms": pl, "bound_ms": bound,
+                                     "bound_by": by, "library_ms": lib}
+            if item == 4:
+                # what the element math costs: the same launch with every
+                # count zero (no lgamma/digamma difference) and with every
+                # count positive (all of them)
+                for what, xv in (("all x = 0", torch.zeros_like(x)),
+                                 ("all x > 0", x + 1.0)):
+                    alt = ops[:7] + [xv]
+                    f_ms = cuda_ms(torch, lambda: zinb.fused_zinb(
+                        *alt, ZINB_EPS), iters=10)
+                    t_ms = cuda_ms(torch, lambda: zinb.zinb_fwdbwd(
+                        *alt, ZINB_EPS), iters=10)
+                    print(f"  {tag}: {what}: zinb_fwd {f_ms:.4f} ms, "
+                          f"zinb_fwdbwd {t_ms:.4f} ms")
+                    del alt, xv
+        del ops, h, x, heads, v, v0, fb, bw, v2
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_breakdown(torch, server, x) -> None:
+    n_cells = x.shape[0]
     """Where the serving time goes: a warm eval_model run timed on the host
     clock, then one under torch.profiler with device time by kernel name
     and the device-busy share of the profiled wall time."""
@@ -411,7 +673,8 @@ def phase_breakdown(torch, server, x) -> None:
     server.eval_model(x, batch_size=B)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    print(f"  warm eval_model: {warm:.4f} s = {N_CELLS / warm:.1f} cells/s")
+    print(f"  warm eval_model: {n_cells} cells in {warm:.4f} s = "
+          f"{n_cells / warm:.1f} cells/s")
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -478,9 +741,8 @@ def phase_serving(torch, check, tmp):
           f"total_loss {res['total_loss']:.6g}")
     check(launches == 9, f"recon_fwd launches on the serving path: {launches} "
                          "(expect 9: one 8-batch chunk + the tail)")
-    check(counts["recon_fwdbwd"] == counts["encoder_fwd"]
-          == counts["encoder_bwd"] == 0,
-          f"no training kernel on the serving path: {counts}")
+    check(counts == {**dict.fromkeys(counts, 0), "recon_fwd": launches},
+          f"no other kernel on the serving path: {counts}")
     limit = A * B * D * 4
     check(rise < limit, f"peak allocated rise over the resident dataset "
                         f"{rise / 1e6:.1f} MB (limit one (A,B,D) f32 "
@@ -498,16 +760,22 @@ def phase_serving(torch, check, tmp):
           "consensus in [0, 1], total loss finite")
 
     phase_breakdown(torch, server, x)
+    serving_parity(check, server, ckpt, ds.log1p[:N_SMALL], x[:N_SMALL])
+    return counts, ds, x
 
-    # reference: the port's CPU path (plain PyTorch) on a small input
-    small = ds.log1p[:N_SMALL]
+
+def serving_parity(check, server, ckpt, small, small_dev) -> None:
+    """One served batch on the card against the port's CPU path (plain
+    PyTorch) from the same checkpoint."""
+    import numpy as np
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
     ref = CplMixVAE(device="cpu")
     ref.load_model(ckpt)
     want = ref.eval_model(small, batch_size=B)
-    got = server.eval_model(x[:N_SMALL], batch_size=B)
+    got = server.eval_model(small_dev, batch_size=B)
     agree = got["pred_label"] == want["pred_label"]
     check(float(agree.mean()) >= 0.999,
-          f"labels vs CPU path on {N_SMALL} cells: agreement "
+          f"labels vs CPU path on {small.shape[0]} cells: agreement "
           f"{float(agree.mean()):.6f} (min 0.999)")
     rows = np.all(agree, axis=0)
     dc = float(np.abs(got["c_prob"][:, rows] - want["c_prob"][:, rows]).max())
@@ -519,7 +787,6 @@ def phase_serving(torch, check, tmp):
                       / np.abs(want["total_loss_rec"])))
     check(rl <= 1e-3, f"total_loss_rec vs CPU path: max rel diff {rl:.2e} "
                       "(tol 1e-3)")
-    return counts, ds, x
 
 
 def phase_parity_step(torch, check, path, x) -> None:
@@ -562,13 +829,14 @@ def phase_parity_step(torch, check, path, x) -> None:
 
 
 def phase_chunk_breakdown(torch, trainer, x_train) -> None:
+    n_train = x_train.shape[0]
     """Warm throughput of one 2-epoch chunk, its synchronising calls, and
     a torch.profiler breakdown by kernel name."""
     from torch.profiler import ProfilerActivity, profile
     from dvae_tpu_torch.train.step import make_epoch_runner
-    run = make_epoch_runner(trainer.cfg, trainer.tcfg, trainer.tx, N_TRAIN,
+    run = make_epoch_runner(trainer.cfg, trainer.tcfg, trainer.tx, n_train,
                             epochs_per_chunk=2)
-    steps = 2 * (N_TRAIN // B)
+    steps = 2 * (n_train // B)
     state = trainer.state
     state, ems = run(state, x_train, None, 1.0)
     ems.total.cpu()
@@ -637,8 +905,8 @@ def phase_training(torch, check, tmp, x) -> dict:
     steps = 4 * (N_TRAIN // B)
     print(f"  train: 4 epochs, {steps} steps, {N_TRAIN} cells, 2 validations "
           f"in {wall:.4f} s (cold, checkpoints included)")
-    want = {"encoder_fwd": steps, "encoder_bwd": steps,
-            "recon_fwdbwd": steps, "recon_fwd": 2}
+    want = {**dict.fromkeys(counts, 0), "encoder_fwd": steps,
+            "encoder_bwd": steps, "recon_fwdbwd": steps, "recon_fwd": 2}
     check(counts == want, f"launches on the training path: {counts} "
                           f"(expect {want})")
     with open(os.path.join(folder, "metrics.jsonl")) as f:
@@ -675,6 +943,132 @@ def phase_training(torch, check, tmp, x) -> dict:
     return counts
 
 
+def phase_zinb_path(torch, check, tmp) -> dict:
+    """ZINB mode end to end at full width: training, resume, serving, the
+    card against the CPU path.  Returns {"training": counts, "serving":
+    counts} of the two counted runs."""
+    import numpy as np
+    from dvae_tpu_torch.data.anndata_io import hard_synthetic_dataset
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print("phase 5: ZINB mode end to end")
+    n_cells = N_ZINB_TRAIN + N_ZINB_VAL
+    t0 = time.perf_counter()
+    ds = hard_synthetic_dataset(n_cells=n_cells, n_genes=D, n_types=C,
+                                seed=SEED, device=DEV)
+    x = torch.as_tensor(ds.log1p).to(DEV)
+    torch.cuda.synchronize()
+    zeros = float((x == 0).float().mean())
+    print(f"  hard synthetic counts {tuple(x.shape)}, {ds.n_type} types, "
+          f"{zeros:.3f} zeros, max {float(x.max()):.2f}, resident on the "
+          f"card ({time.perf_counter() - t0:.1f} s to make)")
+    check(ds.n_type == C and 0.3 < zeros < 0.95 and bool(
+        torch.isfinite(x).all()), "the data are sparse, finite counts of "
+                                  f"{C} types")
+
+    folder = os.path.join(tmp, "zinb")
+    trainer = CplMixVAE(saving_folder=folder, device=DEV, seed=SEED)
+    trainer.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                       lowD_dim=10, state_dim=2, mode="ZINB", batch_size=B,
+                       epochs_per_jit=2, eval_every=2, ckpt_every=2)
+    check(trainer.cfg.mode == "ZINB" and trainer.cfg.fused_encoder
+          and trainer.cfg.fused_recon,
+          "ZINB mode with the kernels on by default on CUDA")
+    x_train, x_val = x[:N_ZINB_TRAIN], x[N_ZINB_TRAIN:]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    path = trainer.train(x_train, x_val=x_val, n_epoch=4,
+                         early_stop_consensus=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trained = launch_counts()
+    rise = torch.cuda.max_memory_allocated() - base
+    steps = 4 * (N_ZINB_TRAIN // B)
+    print(f"  train: 4 epochs, {steps} steps, {N_ZINB_TRAIN} cells, 2 "
+          f"validations in {wall:.4f} s (cold, checkpoints included)")
+    want = {**dict.fromkeys(trained, 0), "encoder_fwd": steps,
+            "encoder_bwd": steps, "zinb_fwdbwd": steps, "zinb_fwd": 2}
+    check(trained == want, f"launches on the ZINB training path: {trained} "
+                           f"(expect {want})")
+    with open(os.path.join(folder, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    rec = [float(np.mean([r[f"train/rec_loss_arm{a}"] for a in range(A)]))
+           for r in rows if "train/loss" in r]
+    print(f"  epoch losses: {losses}")
+    print(f"  epoch mean rec_nll over arms: {rec}")
+    check(len(losses) == 4 and all(math.isfinite(v) for v in losses + rec)
+          and rec[-1] < rec[0],
+          "loss finite, last epoch's mean rec_nll below the first's")
+    val = [r for r in rows if "val/loss" in r]
+    check(len(val) == 2 and all(
+        math.isfinite(r["val/loss"]) and math.isfinite(r["val/rec_loss_arm0"])
+        for r in val), f"2 validations with finite loss ({len(val)})")
+    limit = A * B * D * 4
+    check(rise < limit, f"peak allocated rise over the resident dataset "
+                        f"{rise / 1e6:.1f} MB (limit one (A,B,D) f32 "
+                        f"tensor, {limit / 1e6:.0f} MB; the ZINB kernels "
+                        "take no workspace beyond their block partials)")
+    check(all(bool(torch.isfinite(v).all())
+              for layer in trainer.state.params.values()
+              for v in layer.values()), "parameters finite")
+
+    resumed = CplMixVAE(saving_folder=os.path.join(tmp, "zinb_resume"),
+                        device=DEV)
+    epoch = resumed.load_model(path)
+    final = resumed.train(x_train, n_epoch=2, early_stop_consensus=0)
+    per_epoch = N_ZINB_TRAIN // B
+    check(epoch == 4 and resumed.state.epoch == 6
+          and resumed.state.opt_state.count == 6 * per_epoch
+          and resumed.cfg.mode == "ZINB",
+          f"resume from {os.path.basename(path)}: epoch {epoch} -> "
+          f"{resumed.state.epoch}, Adam steps "
+          f"{resumed.state.opt_state.count}")
+
+    server = CplMixVAE(device=DEV)
+    server.load_model(final)
+    check(server.cfg.mode == "ZINB" and server.cfg.fused_recon,
+          "a fresh instance serves the ZINB checkpoint through the kernel")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = server.eval_model(x, batch_size=B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = launch_counts()
+    rise = torch.cuda.max_memory_allocated() - base
+    n_launch = -(-n_cells // B)
+    print(f"  eval_model: {n_cells} cells in {wall:.4f} s = "
+          f"{n_cells / wall:.1f} cells/s; consensus {res['consensus']:.6f}; "
+          f"rec_nll {np.asarray(res['total_loss_rec'])}")
+    check(served == {**dict.fromkeys(served, 0), "zinb_fwd": n_launch},
+          f"launches on the ZINB serving path: {served} (expect zinb_fwd "
+          f"{n_launch}: one {n_cells // B}-batch chunk + the tail)")
+    check(rise < limit, f"serving peak allocated rise {rise / 1e6:.1f} MB "
+                        f"(limit {limit / 1e6:.0f} MB)")
+    shapes = {"c_prob": (A, n_cells, C), "state_mu": (A, n_cells, 2),
+              "x_low": (A, n_cells, 10), "pred_label": (A, n_cells),
+              "total_loss_rec": (A,)}
+    for k, shp in shapes.items():
+        v = np.asarray(res[k])
+        check(v.shape == shp and bool(np.all(np.isfinite(v))),
+              f"{k}: shape {v.shape}, finite")
+    check(0.0 <= res["consensus"] <= 1.0 and math.isfinite(res["total_loss"]),
+          "consensus in [0, 1], total loss finite")
+
+    phase_breakdown(torch, server, x)
+    serving_parity(check, server, final, ds.log1p[:N_SMALL], x[:N_SMALL])
+    phase_parity_step(torch, check, final, x)
+    phase_chunk_breakdown(torch, resumed, x_train)
+    del trainer, resumed, server
+    torch.cuda.empty_cache()
+    return {"training": trained, "serving": served}
+
+
 def main() -> int:
     kernels_only = "--kernels-only" in sys.argv[1:]
     try:
@@ -706,9 +1100,22 @@ def main() -> int:
         records = {"recon_fwd": phase_kernels(torch, check)}
         records.update(phase_encoder(torch, check))
         records["recon_fwdbwd"] = phase_recon_fwdbwd(torch, check)
+        records["recon_bwd"] = phase_recon_bwd(torch, check)
+        records.update(phase_zinb(torch, check))
         if not kernels_only:
             served, _, x = phase_serving(torch, check, tmp)
-            trained = phase_training(torch, check, tmp, x)
+            paths = {"serving": served,
+                     "training": phase_training(torch, check, tmp, x)}
+            del x
+            torch.cuda.empty_cache()
+            zinb = phase_zinb_path(torch, check, tmp)
+            paths["zinb_training"] = zinb["training"]
+            paths["zinb_serving"] = zinb["serving"]
+            on_path = ("recon_fwd", "recon_fwdbwd", "encoder_fwd",
+                       "encoder_bwd", "zinb_fwd", "zinb_fwdbwd")
+            for name in on_path:
+                n = sum(c[name] for c in paths.values())
+                check(n > 0, f"{name}: {n} launches on the driven paths")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -726,19 +1133,29 @@ def main() -> int:
         "recon_fwd": ("recon_fwd.cu", "dvae_tpu/ops/recon_pallas.py:72"),
         "recon_fwdbwd": ("recon_fwdbwd.cu",
                          "dvae_tpu/ops/recon_pallas.py:239"),
+        "recon_bwd": ("recon_fwdbwd.cu", "dvae_tpu/ops/recon_pallas.py:143"),
         "encoder_fwd": ("encoder_fc1.cu",
                         "dvae_tpu/ops/encoder_pallas.py:81"),
         "encoder_bwd": ("encoder_fc1.cu",
                         "dvae_tpu/ops/encoder_pallas.py:137"),
+        "zinb_fwd": ("zinb_fwd.cu", "dvae_tpu/ops/zinb_pallas.py:269"),
+        "zinb_fwdbwd": ("zinb_fwdbwd.cu", "dvae_tpu/ops/zinb_pallas.py:450"),
+        "zinb_bwd": ("zinb_fwdbwd.cu", "dvae_tpu/ops/zinb_pallas.py:338"),
     }
-    kernels = [{"name": name, "route": "cuda",
-                "source": f"dvae_tpu_torch/csrc/{src}", "replaces": rep,
-                "launches": served[name] + trained[name],
-                "launches_by_path": {"serving": served[name],
-                                     "training": trained[name]},
-                **records[name]}
-               for name, (src, rep) in sources.items()]
-    print(json.dumps({"kernels": kernels}))
+    entries = {name: {"name": name, "route": "cuda",
+                      "source": f"dvae_tpu_torch/csrc/{src}", "replaces": rep,
+                      "launches": sum(c[name] for c in paths.values()),
+                      "launches_by_path": {k: c[name]
+                                           for k, c in paths.items()},
+                      **records[name]}
+               for name, (src, rep) in sources.items()}
+    # the separate backward kernels have no caller on any path of either
+    # package (the fused kernels took their place); they are held against
+    # their plain versions in phase 2 and listed apart, with the same keys
+    print(json.dumps({
+        "kernels": [entries[n] for n in on_path],
+        "kernels_off_path": [entries[n] for n in sources
+                             if n not in on_path]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,13 @@ checkpoint.  ``evaluate`` loads a checkpoint written by either package,
 runs batched inference over the dataset, and prints the consensus and
 adjusted-MI metrics as one JSON line (also saved to
 ``evaluation/A{n}-RUN{run}-E{epoch}.npy``).  The model runs on
-``--device`` (default ``cuda``).  The dataset is the synthetic one
-(``--syn_cells``/``--syn_genes``/``--syn_types``); reading ``.h5ad`` files
-is not ported yet.
+``--device`` (default ``cuda``).  ``train --loss_mode ZINB`` trains the
+zero-inflated negative-binomial reconstruction (``evaluate`` takes the
+mode from the checkpoint).  The dataset is a synthetic one
+(``--syn_cells``/``--syn_genes``/``--syn_types``): planted Gaussian
+programs, or with ``--syn_hard`` (alias ``--hard_synthetic``) ZINB counts
+with library-size variation, dropout and overlapping types; reading
+``.h5ad`` files is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,8 +31,19 @@ import sys
 import numpy as np
 
 
+def _load_dataset(args):
+    from dvae_tpu_torch.data.anndata_io import (hard_synthetic_dataset,
+                                                synthetic_dataset)
+    if args.syn_hard:
+        print("using HARD synthetic dataset (ZINB counts)")
+        return hard_synthetic_dataset(
+            n_cells=args.syn_cells, n_genes=args.syn_genes,
+            n_types=args.syn_types, seed=args.seed)
+    return synthetic_dataset(n_cells=args.syn_cells, n_genes=args.syn_genes,
+                             n_types=args.syn_types, seed=args.seed)
+
+
 def cmd_train(args) -> int:
-    from dvae_tpu_torch.data.anndata_io import synthetic_dataset
     from dvae_tpu_torch.data.pipeline import stratified_split_indices
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
     from dvae_tpu_torch.utils.checkpoint import (latest_checkpoint,
@@ -36,8 +51,7 @@ def cmd_train(args) -> int:
                                                  make_run_dir,
                                                  newest_checkpoint)
 
-    ds = synthetic_dataset(n_cells=args.syn_cells, n_genes=args.syn_genes,
-                           n_types=args.syn_types, seed=args.seed)
+    ds = _load_dataset(args)
     prefix = (f"K{args.n_categories}_S{args.state_dim}_AUGFalse"
               f"_LR{args.lr}_A{args.n_arm}_B{args.batch_size}"
               f"_E{args.n_epoch}_Ep{args.n_epoch_p}")
@@ -57,7 +71,7 @@ def cmd_train(args) -> int:
         lr=args.lr, lam=args.lam, lam_pc=args.lam_pc, n_arm=args.n_arm,
         temp=args.temp, tau=args.tau, beta=args.beta, hard=args.hard,
         ref_prior=args.ref_pc, trained_model=args.pretrained_model,
-        n_pr=args.n_pr, batch_size=args.batch_size,
+        n_pr=args.n_pr, mode=args.loss_mode, batch_size=args.batch_size,
         epochs_per_jit=args.epochs_per_jit, bf16=args.bf16,
         optimizer=args.optimizer,
         fused={"auto": None, "on": True, "off": False}[args.fused],
@@ -81,7 +95,6 @@ def cmd_train(args) -> int:
 
 
 def cmd_evaluate(args) -> int:
-    from dvae_tpu_torch.data.anndata_io import synthetic_dataset
     from dvae_tpu_torch.eval.evaluate import (avg_consensus, avg_max,
                                               mutinfo, summarize_inference)
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
@@ -91,8 +104,7 @@ def cmd_evaluate(args) -> int:
     if not ckpt:
         print("no checkpoint found", file=sys.stderr)
         return 1
-    ds = synthetic_dataset(n_cells=args.syn_cells, n_genes=args.syn_genes,
-                           n_types=args.syn_types, seed=args.seed)
+    ds = _load_dataset(args)
     # a fresh instance: load_model rebuilds cfg/tcfg from the metadata
     cpl = CplMixVAE(saving_folder=args.saving_folder or ".",
                     device=args.device)
@@ -138,6 +150,8 @@ def main(argv=None) -> int:
     pt.add_argument("--hard", action="store_true")
     pt.add_argument("--ref_pc", action="store_true",
                     help="couple to the reference prior (ref_prior mode)")
+    pt.add_argument("--loss_mode", type=str, default="MSE",
+                    choices=["MSE", "ZINB"])
     pt.add_argument("--pretrained_model", type=str, default=None)
     pt.add_argument("--optimizer", type=str, default="adam",
                     choices=["adam", "adamw"])
@@ -167,6 +181,12 @@ def main(argv=None) -> int:
     pe.add_argument("--syn_cells", type=int, default=5000)
     pe.add_argument("--syn_genes", type=int, default=500)
     pe.add_argument("--syn_types", type=int, default=20)
+    for p in (pt, pe):
+        p.add_argument("--syn_hard", "--hard_synthetic", action="store_true",
+                       help="the hard-mode ZINB-count synthetic generator "
+                            "(library-size variation, dropout, "
+                            "hierarchically overlapping types) instead of "
+                            "the planted-Gaussian one")
     pe.add_argument("--run", type=int, default=0)
     pe.add_argument("--n_epoch", type=int, default=0)
     pe.add_argument("--seed", type=int, default=546)

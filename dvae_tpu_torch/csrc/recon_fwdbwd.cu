@@ -18,6 +18,12 @@
 // those of the loss sum with cotangent 1; the autograd backward scales
 // them by the per-arm cotangent (recon_pallas.py:366-383).
 //
+// The same two passes also serve as the separate backward for a given
+// per-arm cotangent g (A,), replacing `_bwd_kernel` (:143), launched by
+// `_bwd_call` (:190, pallas_call at :202): gm = 2 g_a 1[r > 0] (r - x), no
+// sums (entry points recon_bwd_*).  Its bound is that of the fused call:
+// the forward product is recomputed in the kernel by definition.
+//
 // Operands: h (A,B,F), W (A,F,D), bias (A,D), x (B,D) shared (arm stride 0)
 // or per-arm (A,B,D); all f32 or all bf16.  Outputs, all f32: (A,2) sums,
 // dh (A,B,F), dW (A,F,D), db (A,D).  F <= 128.
@@ -113,12 +119,14 @@ __device__ __forceinline__ void product_hw(float (*Hs)[LDM],
 }
 
 // Loss epilogue of one thread's 4x4 outputs: adds to the sums and returns
-// gm (f32; 0 outside the arrays).
+// gm = two_g 1[r > 0] (r - x) (f32; 0 outside the arrays); two_g is 2, or
+// 2 g_a for a given cotangent.
 template <typename T>
 __device__ __forceinline__ void loss_epilogue(
     float acc[4][4], const T* __restrict__ ba,
     const T* __restrict__ xa, int m0, int n0, int B, int D, float thr,
-    int with_mism, int tx, int ty, float& s, int& mm, float gm[4][4]) {
+    int with_mism, float two_g, int tx, int ty, float& s, int& mm,
+    float gm[4][4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int col = n0 + tx * 4 + j;
@@ -135,21 +143,23 @@ __device__ __forceinline__ void loss_epilogue(
         const float e = r - xv;
         s = fmaf(e, e, s);
         if (with_mism) mm += ((r > thr) != (xv > thr)) ? 1 : 0;
-        g = (r > 0.f) ? 2.f * e : 0.f;
+        g = (r > 0.f) ? two_g * e : 0.f;
       }
       gm[i][j] = g;
     }
   }
 }
 
-// Pass 1: grid (ceil(B/BM), A).  Sums partials and the complete dh.
-template <typename T>
+// Pass 1: grid (ceil(B/BM), A).  Sums partials (unless SEPARATE: the
+// backward for a given cotangent g) and the complete dh.
+template <typename T, bool SEPARATE>
 __global__ void __launch_bounds__(THREADS)
 recon_fwdbwd_rows(const T* __restrict__ h, const T* __restrict__ w,
                   const T* __restrict__ bias, const T* __restrict__ x,
-                  long long x_arm_stride, int B, int F, int D, float thr,
-                  int with_mism, float* __restrict__ part_sum,
-                  int* __restrict__ part_mism, float* __restrict__ dh) {
+                  long long x_arm_stride, const float* __restrict__ g, int B,
+                  int F, int D, float thr, int with_mism,
+                  float* __restrict__ part_sum, int* __restrict__ part_mism,
+                  float* __restrict__ dh) {
   extern __shared__ __align__(16) float smem[];
   float(*Hs)[LDM] = reinterpret_cast<float(*)[LDM]>(smem);
   float(*Ws)[LDN] = reinterpret_cast<float(*)[LDN]>(smem + FP * LDM);
@@ -163,6 +173,7 @@ recon_fwdbwd_rows(const T* __restrict__ h, const T* __restrict__ w,
   const T* ba = bias + (long long)a * D;
   const T* xa = x + (long long)a * x_arm_stride;
   const T* tag = nullptr;
+  const float two_g = SEPARATE ? 2.f * g[a] : 2.f;
 
   load_h_tile(h + (long long)a * B * F, m0, B, F, Hs);
 
@@ -179,8 +190,8 @@ recon_fwdbwd_rows(const T* __restrict__ h, const T* __restrict__ w,
     __syncthreads();
     float acc[4][4], gm[4][4];
     product_hw(Hs, Ws, F, tx, ty, acc);
-    loss_epilogue(acc, ba, xa, m0, n0, B, D, thr, with_mism, tx, ty, s, mm,
-                  gm);
+    loss_epilogue(acc, ba, xa, m0, n0, B, D, thr, with_mism, two_g, tx, ty, s,
+                  mm, gm);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -214,6 +225,7 @@ recon_fwdbwd_rows(const T* __restrict__ h, const T* __restrict__ w,
     }
   }
 
+  if (SEPARATE) return;  // the separate backward writes no sums
   // block reduction of the sums in a fixed order
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -242,12 +254,13 @@ recon_fwdbwd_rows(const T* __restrict__ h, const T* __restrict__ w,
 }
 
 // Pass 2: grid (ceil(D/BN), A).  dW and db of one column tile.
-template <typename T>
+template <typename T, bool SEPARATE>
 __global__ void __launch_bounds__(THREADS)
 recon_fwdbwd_cols(const T* __restrict__ h, const T* __restrict__ w,
                   const T* __restrict__ bias, const T* __restrict__ x,
-                  long long x_arm_stride, int B, int F, int D,
-                  float* __restrict__ dw, float* __restrict__ db) {
+                  long long x_arm_stride, const float* __restrict__ g, int B,
+                  int F, int D, float* __restrict__ dw,
+                  float* __restrict__ db) {
   extern __shared__ __align__(16) float smem[];
   float(*Ws)[LDN] = reinterpret_cast<float(*)[LDN]>(smem);
   float(*Hs)[LDM] = reinterpret_cast<float(*)[LDM]>(smem + FP * LDN);
@@ -261,6 +274,7 @@ recon_fwdbwd_cols(const T* __restrict__ h, const T* __restrict__ w,
   const T* ba = bias + (long long)a * D;
   const T* xa = x + (long long)a * x_arm_stride;
   const T* tag = nullptr;
+  const float two_g = SEPARATE ? 2.f * g[a] : 2.f;
 
   load_w_tile(w + (long long)a * F * D, n0, F, D, Ws);
 
@@ -278,7 +292,7 @@ recon_fwdbwd_cols(const T* __restrict__ h, const T* __restrict__ w,
     __syncthreads();
     float acc[4][4], gm[4][4];
     product_hw(Hs, Ws, F, tx, ty, acc);
-    loss_epilogue(acc, ba, xa, m0, n0, B, D, 0.f, 0, tx, ty, s_unused,
+    loss_epilogue(acc, ba, xa, m0, n0, B, D, 0.f, 0, two_g, tx, ty, s_unused,
                   mm_unused, gm);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -358,19 +372,19 @@ recon_fwdbwd_reduce(const float* __restrict__ part_sum,
   }
 }
 
-template <typename T>
+template <typename T, bool SEPARATE>
 int launch(const void* h, const void* w, const void* bias, const void* x,
-           long long x_arm_stride, int A, int B, int F, int D, float thr,
-           int with_mism, void* part_sum, void* part_mism, void* out,
-           void* dh, void* dw, void* db, void* stream) {
+           long long x_arm_stride, const void* g, int A, int B, int F, int D,
+           float thr, int with_mism, void* part_sum, void* part_mism,
+           void* out, void* dh, void* dw, void* db, void* stream) {
   if (F > FP || F < 1 || A > 65535) return (int)cudaErrorInvalidValue;
   static bool attrs_set = false;
   if (!attrs_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        recon_fwdbwd_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_BYTES);
+        recon_fwdbwd_rows<T, SEPARATE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(recon_fwdbwd_cols<T>,
+    e = cudaFuncSetAttribute(recon_fwdbwd_cols<T, SEPARATE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
@@ -381,19 +395,20 @@ int launch(const void* h, const void* w, const void* bias, const void* x,
   const T* wp = static_cast<const T*>(w);
   const T* bp = static_cast<const T*>(bias);
   const T* xp = static_cast<const T*>(x);
+  const float* gp = static_cast<const float*>(g);
   const dim3 g1((B + BM - 1) / BM, A);
-  recon_fwdbwd_rows<T><<<g1, THREADS, SMEM_BYTES, st>>>(
-      hp, wp, bp, xp, x_arm_stride, B, F, D, thr, with_mism,
+  recon_fwdbwd_rows<T, SEPARATE><<<g1, THREADS, SMEM_BYTES, st>>>(
+      hp, wp, bp, xp, x_arm_stride, gp, B, F, D, thr, with_mism,
       static_cast<float*>(part_sum), static_cast<int*>(part_mism),
       static_cast<float*>(dh));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 g2((D + BN - 1) / BN, A);
-  recon_fwdbwd_cols<T><<<g2, THREADS, SMEM_BYTES, st>>>(
-      hp, wp, bp, xp, x_arm_stride, B, F, D, static_cast<float*>(dw),
+  recon_fwdbwd_cols<T, SEPARATE><<<g2, THREADS, SMEM_BYTES, st>>>(
+      hp, wp, bp, xp, x_arm_stride, gp, B, F, D, static_cast<float*>(dw),
       static_cast<float*>(db));
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || SEPARATE) return (int)err;
   recon_fwdbwd_reduce<<<A, REDUCE_THREADS, 0, st>>>(
       static_cast<const float*>(part_sum), static_cast<const int*>(part_mism),
       (int)g1.x, static_cast<float*>(out));
@@ -417,9 +432,9 @@ int recon_fwdbwd_f32(const void* h, const void* w, const void* bias,
                      int F, int D, float thr, int with_mism, void* part_sum,
                      void* part_mism, void* out, void* dh, void* dw, void* db,
                      void* stream) {
-  return launch<float>(h, w, bias, x, x_arm_stride, A, B, F, D, thr,
-                       with_mism, part_sum, part_mism, out, dh, dw, db,
-                       stream);
+  return launch<float, false>(h, w, bias, x, x_arm_stride, nullptr, A, B, F,
+                              D, thr, with_mism, part_sum, part_mism, out, dh,
+                              dw, db, stream);
 }
 
 int recon_fwdbwd_bf16(const void* h, const void* w, const void* bias,
@@ -427,9 +442,29 @@ int recon_fwdbwd_bf16(const void* h, const void* w, const void* bias,
                       int F, int D, float thr, int with_mism, void* part_sum,
                       void* part_mism, void* out, void* dh, void* dw,
                       void* db, void* stream) {
-  return launch<__nv_bfloat16>(h, w, bias, x, x_arm_stride, A, B, F, D, thr,
-                               with_mism, part_sum, part_mism, out, dh, dw,
-                               db, stream);
+  return launch<__nv_bfloat16, false>(h, w, bias, x, x_arm_stride, nullptr,
+                                      A, B, F, D, thr, with_mism, part_sum,
+                                      part_mism, out, dh, dw, db, stream);
+}
+
+// The separate backward: dh, dW, db for the per-arm cotangent g (A,) f32.
+int recon_bwd_f32(const void* g, const void* h, const void* w,
+                  const void* bias, const void* x, long long x_arm_stride,
+                  int A, int B, int F, int D, void* dh, void* dw, void* db,
+                  void* stream) {
+  if (!g) return (int)cudaErrorInvalidValue;
+  return launch<float, true>(h, w, bias, x, x_arm_stride, g, A, B, F, D, 0.f,
+                             0, nullptr, nullptr, nullptr, dh, dw, db, stream);
+}
+
+int recon_bwd_bf16(const void* g, const void* h, const void* w,
+                   const void* bias, const void* x, long long x_arm_stride,
+                   int A, int B, int F, int D, void* dh, void* dw, void* db,
+                   void* stream) {
+  if (!g) return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16, true>(h, w, bias, x, x_arm_stride, g, A, B, F,
+                                     D, 0.f, 0, nullptr, nullptr, nullptr, dh,
+                                     dw, db, stream);
 }
 
 }  // extern "C"

@@ -7,11 +7,11 @@ naive pair-loop versions stay beside them as oracles.  ``mixvae_loss``
 takes the batch ``x`` as (B, D), shared by every arm, or (A, B, D).
 
 Gradients come from torch autograd.  The fused reconstruction branch goes
-through the autograd op ``ops/recon.fused_recon_mse`` (the fused
-forward+backward kernel when a gradient is asked for), and the
-binarized-BCE metric is detached in both branches, as in the JAX package
-(dvae_tpu/models/losses.py:105, :353).  ZINB mode arrives with a later
-slice of the port.
+through the autograd ops ``ops/recon.fused_recon_mse`` (MSE mode) and
+``ops/zinb.fused_zinb`` (ZINB mode): the fused forward+backward kernel
+when a gradient is asked for.  The binarized-BCE metric is detached in
+both MSE branches, as in the JAX package (dvae_tpu/models/losses.py:105,
+:353).
 """
 
 from __future__ import annotations
@@ -39,8 +39,9 @@ class LossOutputs(NamedTuple):
     c_dist: torch.Tensor       # scalar
     c_l2_dist: torch.Tensor    # scalar
     kl: torch.Tensor           # (A,)
-    ll: torch.Tensor           # (A,)
-    rec_nll: torch.Tensor      # (A,) NaN in MSE mode
+    ll: torch.Tensor           # (A,) NaN under the fused ZINB kernel,
+                               # which never materialises x_rec
+    rec_nll: torch.Tensor      # (A,) == loss_rec in ZINB mode, NaN in MSE
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +85,26 @@ def recon_loss_mse(x_rec: torch.Tensor, x: torch.Tensor,
     bce_term = 0.5 * bce(binarize(x_rec, thr),
                          binarize(x, thr).expand_as(x_rec), dim=(1, 2))
     return mse + bce_term.detach()
+
+
+def zinb_loss(x_rec: torch.Tensor, x_p: torch.Tensor, x_r: torch.Tensor,
+              x: torch.Tensor, eps: float = 1e-6, dim=None) -> torch.Tensor:
+    """Zero-inflated negative-binomial reconstruction loss, the mean over
+    all elements or over ``dim`` (reference ``zinb_loss``, mmidas/nn_model.py:642-676;
+    dvae_tpu/models/losses.py:108-127).  ``x`` holds log1p values, turned
+    back into counts; ``x_rec``, ``x_p`` and ``x_r`` are the NB rate, the
+    success probability and the zero-inflation probability heads."""
+    k = torch.exp(x) - 1.0
+    r = x_rec + eps
+    p = (1 - eps) * (x_p + eps)
+    z = (1 - eps) * (x_r + eps)
+    nonzero = (x > 0).to(x.dtype)
+    loss_zero = (nonzero - 1.0) * torch.log(z + (1.0 - z) * (1.0 - p) ** r)
+    loss_nonzero = nonzero * (
+        -torch.lgamma(k + r) + torch.lgamma(r)
+        - k * torch.log(p) - r * torch.log(1.0 - p) - torch.log(1.0 - z))
+    v = loss_zero + loss_nonzero
+    return v.mean() if dim is None else v.mean(dim=dim)
 
 
 def inv_sd(c: torch.Tensor, eps: float) -> torch.Tensor:
@@ -134,14 +155,17 @@ def coupling_distance_naive(c: torch.Tensor, eps: float) -> torch.Tensor:
 def mixvae_loss_naive(cfg: VAEConfig, outs: MixVAEOutputs,
                       x: torch.Tensor) -> torch.Tensor:
     """Total-loss oracle with explicit pair loops — the direct transcription
-    of the reference accumulation (mmidas/nn_model.py:539-587), unfused
-    MSE mode without the prior."""
+    of the reference accumulation (mmidas/nn_model.py:539-587), unfused,
+    without the prior."""
     A, C = cfg.n_arm, cfg.n_categories
     eps = cfg.eps
     xs = x.expand(A, *x.shape) if x.dim() == 2 else x
     total = x.new_zeros((), dtype=torch.float32)
     for a in range(A):
-        rec = recon_loss_mse(outs.x_rec[a:a + 1], xs[a])[0]
+        if cfg.mode == "ZINB":
+            rec = zinb_loss(outs.x_rec[a], outs.p_x[a], outs.r_x[a], xs[a])
+        else:
+            rec = recon_loss_mse(outs.x_rec[a:a + 1], xs[a])[0]
         kl_a = (kl_gaussian(outs.s_mean[a], outs.s_logvar[a])
                 if cfg.variational else 0.0)
         total = total + max(A - 1, 1) * (rec + cfg.beta * kl_a)
@@ -173,17 +197,29 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
             + λ·Σ_pairs d_simplex + Σ_pairs (−H_a − H_b) + constants
 
     ``fused_recon_args = (params, x_target)`` routes the reconstruction
-    terms through the fused kernel (``ops/recon.fused_recon_mse``):
-    ``outs.x_rec`` then holds the decoder pre-output hidden (A, B, F) and
-    ``x_target`` is (B, D) or (A, B, D).
+    terms through the fused kernel (``ops/recon.fused_recon_mse``, or
+    ``ops/zinb.fused_zinb`` in ZINB mode): ``outs.x_rec`` then holds the
+    decoder pre-output hidden (A, B, F) and ``x_target`` is (B, D) or
+    (A, B, D).
     """
-    if cfg.mode != "MSE":
-        raise NotImplementedError(f"mode {cfg.mode!r} is not ported yet")
     A, C = cfg.n_arm, cfg.n_categories
     B, D = x.shape[-2], x.shape[-1]
     eps = cfg.eps
 
-    if fused_recon_args is not None:
+    nan_a = torch.full((A,), torch.nan, device=x.device, dtype=torch.float32)
+    if fused_recon_args is not None and cfg.mode == "ZINB":
+        # the head names are the reference's: fc11 is the rate head,
+        # fc11_p the success probability, fc11_r the zero inflation
+        from dvae_tpu_torch.ops.zinb import fused_zinb
+        fparams, x_target = fused_recon_args
+        sums = fused_zinb(outs.x_rec,
+                          fparams["fc11"]["w"], fparams["fc11"]["b"],
+                          fparams["fc11_p"]["w"], fparams["fc11_p"]["b"],
+                          fparams["fc11_r"]["w"], fparams["fc11_r"]["b"],
+                          x_target)
+        loss_rec = sums / (B * D)
+        ll = nan_a   # no materialised x_rec: read rec_nll instead
+    elif fused_recon_args is not None:
         from dvae_tpu_torch.ops.recon import fused_recon_mse
         fparams, x_target = fused_recon_args
         sumsq, mism = fused_recon_mse(outs.x_rec, fparams["fc11"]["w"],
@@ -196,7 +232,10 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
             loss_rec = loss_rec + (50.0 * mism / (B * D)).detach()
         ll = sumsq / (B * D) + B * math.log(2 * math.pi)
     else:
-        if cfg.recon_bce_metric:
+        if cfg.mode == "ZINB":
+            loss_rec = zinb_loss(outs.x_rec, outs.p_x, outs.r_x, x,
+                                 dim=(1, 2))
+        elif cfg.recon_bce_metric:
             loss_rec = recon_loss_mse(outs.x_rec, x)
         else:
             loss_rec = 0.5 * ((outs.x_rec - x) ** 2).sum(dim=(1, 2)) / B
@@ -208,8 +247,7 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
         kl = kl_gaussian(outs.s_mean.float(), outs.s_logvar.float())
     else:
         kl = torch.zeros((A,), device=x.device, dtype=torch.float32)
-    rec_nll = torch.full((A,), torch.nan, device=x.device,
-                         dtype=torch.float32)
+    rec_nll = loss_rec if cfg.mode == "ZINB" else nan_a
 
     loss_ind_sum = (loss_rec + cfg.beta * kl).sum()
 

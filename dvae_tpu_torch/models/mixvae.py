@@ -35,8 +35,8 @@ class MixVAEOutputs(NamedTuple):
     order and meaning as in dvae_tpu/models/mixvae.py:48-66."""
 
     x_rec: torch.Tensor      # (A, B, D), or (A, B, F) decoder hidden under skip_recon
-    p_x: torch.Tensor        # ZINB heads: zeros in MSE mode
-    r_x: torch.Tensor
+    p_x: torch.Tensor        # ZINB success-probability head; zeros in MSE mode
+    r_x: torch.Tensor        # ZINB zero-inflation head; zeros in MSE mode
     x_low: torch.Tensor      # (A, B, L)
     c: torch.Tensor          # (A, B, C) tau-sharpened categorical posterior, f32
     s_smp: torch.Tensor      # (A, B, S)
@@ -268,9 +268,8 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
     Returns (MixVAEOutputs, bn_state) — the updated running statistics in
     train mode, the given ones in eval.
     """
-    if cfg.mode != "MSE":
-        raise NotImplementedError(
-            f"mode {cfg.mode!r} arrives with the ZINB slice of the port")
+    if cfg.mode not in ("MSE", "ZINB"):
+        raise ValueError(f"unknown reconstruction mode {cfg.mode!r}")
     if cfg.use_pallas:
         raise NotImplementedError(
             "use_pallas (the Gumbel and coupling kernels) arrives with a "
@@ -329,8 +328,12 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
         p_x = r_x = small
     else:
         x_rec = torch.relu(_linear(params["fc11"], h_dec))
-        # zero-stride view: the MSE-mode heads cost no (A, B, D) memory
-        p_x = r_x = x_rec.new_zeros(()).expand_as(x_rec)
+        if cfg.mode == "ZINB":
+            p_x = torch.sigmoid(_linear(params["fc11_p"], h_dec))
+            r_x = torch.sigmoid(_linear(params["fc11_r"], h_dec))
+        else:
+            # zero-stride view: the MSE-mode heads cost no (A, B, D) memory
+            p_x = r_x = x_rec.new_zeros(()).expand_as(x_rec)
     outs = MixVAEOutputs(x_rec, p_x, r_x, x_low, c, s_smp, c_smp,
                          s_mean, s_logvar, c_prob)
     return outs, new_bn

@@ -1,10 +1,12 @@
 """Builder and loader of the port's hand-written CUDA kernels.
 
-Each kernel source ``csrc/<name>.cu`` exposes a plain C interface.  It is
-compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under ``csrc/build/`` (listed in ``.gitignore``), named by a hash
-of the source and the flags, and loaded with ``ctypes``.  No PyTorch
-header is compiled: a build takes seconds, not minutes.
+Each kernel source ``csrc/<name>.cu`` exposes a plain C interface; the
+headers ``csrc/*.cuh`` hold device code that several sources share.  A
+source is compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into
+a shared library under ``csrc/build/`` (listed in ``.gitignore``), named
+by a hash of the source, the shared headers and the flags, and loaded with
+``ctypes``.  No PyTorch header is compiled: a build takes seconds, not
+minutes.
 
 ``build`` starts one ``nvcc`` per missing library, all at once, and waits
 for all of them.  Nothing here runs at import time.
@@ -21,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("recon_fwd", "recon_fwdbwd", "encoder_fc1")
+KERNELS = ("recon_fwd", "recon_fwdbwd", "encoder_fc1", "zinb_fwd",
+           "zinb_fwdbwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +46,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -2,7 +2,7 @@
 binarized-mismatch count, forward and backward, without materialising the
 (A, B, D) reconstruction or its cotangent.
 
-Counterpart of dvae_tpu/ops/recon_pallas.py.  Two hand-written CUDA
+Counterpart of dvae_tpu/ops/recon_pallas.py.  Three hand-written CUDA
 kernels carry it; each source note states its bound and its design:
 
   * ``csrc/recon_fwd.cu`` — the value-only forward that eval runs
@@ -10,7 +10,10 @@ kernels carry it; each source note states its bound and its design:
     when no gradient is asked for, counted by ``fused_recon_mse.launches``;
   * ``csrc/recon_fwdbwd.cu`` — the training forward with the unscaled
     gradients in the same call (``_fwdbwd_kernel``, recon_pallas.py:239);
-    launched by ``recon_fwdbwd``, counted by ``recon_fwdbwd.launches``.
+    launched by ``recon_fwdbwd``, counted by ``recon_fwdbwd.launches``;
+  * the same source's separate backward for a given per-arm cotangent,
+    with the forward recomputed (``_bwd_kernel``, recon_pallas.py:143);
+    launched by ``recon_bwd``, counted by ``recon_bwd.launches``.
 
     sumsq_a = Σ_{b,d} (relu(h_a @ W_a + bias_a) − x)²
     mism_a  = #{binarize(relu(...)) ≠ binarize(x)}
@@ -58,6 +61,10 @@ def _lib_fwdbwd() -> ctypes.CDLL:
     if not getattr(lib, "_dvae_bound", False):
         for fn in (lib.recon_fwdbwd_f32, lib.recon_fwdbwd_bf16):
             fn.argtypes = _FWDBWD_ARGTYPES
+            fn.restype = ctypes.c_int
+        for fn in (lib.recon_bwd_f32, lib.recon_bwd_bf16):
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
             fn.restype = ctypes.c_int
         lib.recon_fwdbwd_partials_per_arm.argtypes = [ctypes.c_int]
         lib.recon_fwdbwd_partials_per_arm.restype = ctypes.c_longlong
@@ -200,6 +207,55 @@ def recon_fwdbwd(h, w, b, x, thr: float = 0.1, with_mism: bool = True):
 
 
 recon_fwdbwd.launches = 0
+
+
+def recon_bwd_reference(g, h, w, b, x):
+    """Plain version of the separate backward kernel: (dh, dw, db) of
+    Σ_a g_a·sumsq_a, in f32; gm = 2·g_a·(r − x) through the ReLU gate,
+    rounded to h's dtype for the two products (recon_pallas.py:157-178)."""
+    r = torch.relu(torch.baddbmm(b.float()[:, None, :], h.float(), w.float()))
+    two_g = (2.0 * g.float())[:, None, None]
+    gm = torch.where(r > 0, two_g * (r - x.float()), torch.zeros_like(r))
+    gm16 = gm.to(h.dtype).float()
+    dh = torch.bmm(gm16, w.float().transpose(1, 2))
+    dw = torch.bmm(h.float().transpose(1, 2), gm16)
+    return dh, dw, gm.sum(dim=1)
+
+
+def recon_bwd(g, h, w, b, x):
+    """(dh (A,B,F), dw (A,F,D), db (A,D), f32) for the per-arm cotangent
+    ``g`` (A,) of sumsq, with the forward recomputed: the separate backward
+    kernel on CUDA tensors, ``recon_bwd_reference`` on CPU tensors."""
+    A, B, F, D = _check_shapes(h, w, b, x)
+    if tuple(g.shape) != (A,):
+        raise ValueError(f"g {tuple(g.shape)} is not ({A},)")
+    if on_cpu(g, h, w, b, x):
+        return recon_bwd_reference(g, h, w, b, x)
+    dtype = check_kernel_operands(("h", "w", "b", "x"), (h, w, b, x))
+    if A == 0 or B == 0 or D == 0:
+        raise ValueError(f"empty operand: A={A}, B={B}, D={D}")
+    lib = _lib_fwdbwd()
+    if F > lib.recon_fwdbwd_max_f():
+        raise ValueError(f"F={F} exceeds the kernel's hidden width "
+                         f"{lib.recon_fwdbwd_max_f()}")
+    dev = h.device
+    g32 = g.float().contiguous()
+    dh = torch.empty((A, B, F), device=dev, dtype=torch.float32)
+    dw = torch.empty((A, F, D), device=dev, dtype=torch.float32)
+    db = torch.empty((A, D), device=dev, dtype=torch.float32)
+    fn = lib.recon_bwd_f32 if dtype == torch.float32 else lib.recon_bwd_bf16
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(g32.data_ptr(), h.data_ptr(), w.data_ptr(), b.data_ptr(),
+                 x.data_ptr(), 0 if x.dim() == 2 else B * D, A, B, F, D,
+                 dh.data_ptr(), dw.data_ptr(), db.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"recon_bwd kernel launch failed: CUDA error {err}")
+    recon_bwd.launches += 1
+    return dh, dw, db
+
+
+recon_bwd.launches = 0
 
 
 class _FusedReconMSE(torch.autograd.Function):

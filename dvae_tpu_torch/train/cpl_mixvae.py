@@ -9,17 +9,19 @@ the pruning loop, SIGTERM-safe stops and resume), and the eval surfaces
 ``_eval_batches``, ``_predict_labels``, ``validate`` and ``eval_model``.
 
 The model runs on ``device`` (default ``"cuda"``; pass ``"cpu"``
-explicitly).  On CUDA in MSE mode the hand-written kernels are on by
-default, as the JAX package turns its Pallas kernels on on a TPU: the
-fused dropout+fc1 forward and backward (``ops/encoder.py``) and the fused
-recon-loss forward+backward (``ops/recon.py``) in training, the recon-loss
-forward in eval.
+explicitly).  On CUDA the hand-written kernels are on by default, as the
+JAX package turns its Pallas kernels on on a TPU: the fused dropout+fc1
+forward and backward (``ops/encoder.py``) and the fused reconstruction
+loss forward+backward (``ops/recon.py`` in MSE mode, ``ops/zinb.py`` in
+ZINB mode) in training, the loss's value-only forward in eval.  Under the
+fused ZINB kernel ``ll`` is NaN by design (no reconstruction exists to
+take it from); the NaN halt looks at the total loss only.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: the augmenter (``aug_file``), streaming (``stream``, and the
 switch to it when the dataset does not fit the device), cross-arm
-alignment, a mesh of several devices, ZINB mode, ``use_pallas``,
-``fused_decoder`` and ``save_plots``.
+alignment, a mesh of several devices, ``use_pallas``, ``fused_decoder``
+and ``save_plots``.
 """
 
 from __future__ import annotations
@@ -145,8 +147,8 @@ class CplMixVAE:
 
     @staticmethod
     def _refuse_later_slices(cfg: VAEConfig, tcfg: TrainConfig) -> None:
-        if cfg.mode != "MSE":
-            raise _not_ported(f"mode {cfg.mode!r}", "ZINB")
+        if cfg.mode not in ("MSE", "ZINB"):
+            raise ValueError(f"unknown reconstruction mode {cfg.mode!r}")
         if cfg.use_pallas:
             raise _not_ported("use_pallas (the Gumbel and coupling kernels)",
                               "opt-in kernels")
@@ -179,8 +181,8 @@ class CplMixVAE:
                    local_bn_stats: bool = False, **extra) -> None:
         """Build the configs, the optimizer and a fresh state (reference
         ``init_model``, cpl_mixvae.py:193-286; the JAX package's signature).
-        ``fused`` turns on the fused encoder and recon-loss kernels; None
-        turns them on on CUDA.  ``rng_impl`` names a JAX PRNG and is kept
+        ``fused`` turns on the fused encoder and reconstruction-loss
+        kernels (MSE or ZINB, by ``mode``); None turns them on on CUDA.  ``rng_impl`` names a JAX PRNG and is kept
         for the checkpoint's metadata: the port draws from
         ``torch.Generator`` whatever it says.  ``extra`` passes any other
         ``VAEConfig`` field."""
@@ -245,7 +247,7 @@ class CplMixVAE:
                        f"{self.tcfg.mesh.n_devices}-device mesh; loading it "
                        "onto one device")
                 self.tcfg = self.tcfg.replace(mesh=MeshConfig())
-            if self.cfg.mode == "MSE" and self._fused_default():
+            if self._fused_default():
                 # how the model was trained does not decide how it runs
                 # here: on CUDA the kernels are the path
                 self.cfg = self.cfg.replace(fused_recon=True,

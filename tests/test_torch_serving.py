@@ -280,6 +280,128 @@ def test_pair_sums_survive_dead_categories():
 
 
 # ---------------------------------------------------------------------------
+# ZINB mode: heads, loss
+# ---------------------------------------------------------------------------
+
+def _zinb_model(seed=0):
+    """As ``_model`` with the two extra ZINB heads and count-like data: half
+    of the entries exactly zero."""
+    jc, _ = _cfgs(mode="ZINB")
+    params = jax.tree_util.tree_map(
+        np.asarray, jmixvae.init_params(jax.random.key(seed), jc))
+    _, bn, _ = _model(seed)
+    rng = np.random.default_rng(seed + 20)
+    x = (np.maximum(rng.normal(0.8, 1, (B, D)), 0)
+         * (rng.random((B, D)) > 0.5)).astype(np.float32)
+    return params, bn, x
+
+
+def test_zinb_params_have_the_jax_tree():
+    jc, tc = _cfgs(mode="ZINB")
+    want = jmixvae.init_params(jax.random.key(0), jc)
+    got = tmixvae.init_params(torch.Generator().manual_seed(0), tc)
+    assert list(got) == list(tmixvae._arm_shapes(tc)) and set(got) == set(want)
+    for name in want:
+        for leaf in ("w", "b"):
+            assert tuple(got[name][leaf].shape) == want[name][leaf].shape
+    assert {"fc11_p", "fc11_r"} <= set(got)
+
+
+def test_zinb_loss_matches_jax():
+    rng = np.random.default_rng(8)
+    rate = rng.gamma(1.0, 2.0, (B, D)).astype(np.float32)
+    p = rng.uniform(0.02, 0.98, (B, D)).astype(np.float32)
+    z = rng.uniform(0.02, 0.98, (B, D)).astype(np.float32)
+    x = (rng.gamma(1.0, 1.5, (B, D)) * (rng.random((B, D)) > 0.4)).astype(
+        np.float32)
+    want = jlosses.zinb_loss(*(jnp.asarray(v) for v in (rate, p, z, x)))
+    got = tlosses.zinb_loss(*(torch.from_numpy(v) for v in (rate, p, z, x)))
+    np.testing.assert_allclose(float(got), float(want), **TIGHT)
+    rows = tlosses.zinb_loss(*(torch.from_numpy(v) for v in (rate, p, z, x)),
+                             dim=1)
+    np.testing.assert_allclose(float(rows.mean()), float(want), **TIGHT)
+
+
+@pytest.mark.parametrize("skip_recon", [False, True])
+def test_apply_eval_zinb_matches_jax(skip_recon):
+    jc, tc = _cfgs(mode="ZINB")
+    params, bn, x = _zinb_model()
+    jout, tout = _both_forward(jc, tc, params, bn, x, _mask(False),
+                               skip_recon)
+    for name in tmixvae.MixVAEOutputs._fields:
+        if name == "c_smp":
+            np.testing.assert_array_equal(tout.c_smp.numpy(),
+                                          np.asarray(jout.c_smp))
+            continue
+        got = getattr(tout, name).numpy()
+        want = np.asarray(getattr(jout, name))
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, **SHARP, err_msg=name)
+    if not skip_recon:
+        assert float(tout.p_x.min()) > 0 and float(tout.r_x.max()) < 1
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_zinb_mixvae_loss_matches_jax(fused):
+    """Both ZINB branches of the loss on the same outputs; under the fused
+    kernel ``ll`` is NaN in both packages and ``rec_nll`` carries the loss."""
+    jc, tc = _cfgs(mode="ZINB", fused_recon=fused)
+    params, bn, x = _zinb_model(2)
+    jout, tout = _both_forward(jc, tc, params, bn, x, None, fused)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A,) + x.shape)
+    want = jlosses.mixvae_loss(
+        jc, jout, xs, None,
+        fused_recon_args=(params, jnp.asarray(x)) if fused else None)
+    xt = torch.from_numpy(x)
+    got = tlosses.mixvae_loss(
+        tc, tout, xt, None,
+        fused_recon_args=((tckpt.params_from_jax(params), xt) if fused
+                          else None))
+    for name in tlosses.LossOutputs._fields:
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)), **SHARP,
+                                   err_msg=name)
+    assert bool(torch.isnan(got.ll).all()) == fused
+    assert torch.equal(got.rec_nll, got.loss_rec)
+    assert bool(torch.isfinite(got.total))
+
+
+def test_zinb_fused_loss_equals_unfused_and_naive():
+    """tests/test_ops.py:465 on the port (rtol 1e-4: the kernels' lgamma is
+    the shifted-Stirling form, the unfused loss calls the library's)."""
+    jc, tc = _cfgs(mode="ZINB")
+    params, bn, x = _zinb_model(3)
+    p, s = tckpt.params_from_jax(params), tckpt.bn_from_jax(bn)
+    xt, noise = torch.from_numpy(x), torch.zeros(A, B, S)
+    outs_u, _ = tmixvae.apply(p, s, tc, xt, noise=noise)
+    outs_f, _ = tmixvae.apply(p, s, tc, xt, noise=noise, skip_recon=True)
+    unfused = tlosses.mixvae_loss(tc, outs_u, xt)
+    fused = tlosses.mixvae_loss(tc, outs_f, xt, fused_recon_args=(p, xt))
+    np.testing.assert_allclose(fused.total.numpy(), unfused.total.numpy(),
+                               rtol=1e-4)
+    np.testing.assert_allclose(fused.loss_rec.numpy(),
+                               unfused.loss_rec.numpy(), rtol=1e-4)
+    assert bool(torch.isfinite(unfused.ll).all())
+    naive = tlosses.mixvae_loss_naive(tc, outs_u, xt)
+    np.testing.assert_allclose(naive.numpy(), unfused.total.numpy(), **TIGHT)
+    jout, _ = _both_forward(jc, tc, params, bn, x, None, False)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A,) + x.shape)
+    np.testing.assert_allclose(
+        naive.numpy(), np.asarray(jlosses.mixvae_loss_naive(jc, jout, xs)),
+        **SHARP)
+
+
+def test_unknown_mode_is_refused():
+    _, tc = _cfgs(mode="POISSON")
+    params, bn, x = _model()
+    with pytest.raises(ValueError, match="unknown reconstruction mode"):
+        tmixvae.apply(tckpt.params_from_jax(params), tckpt.bn_from_jax(bn),
+                      tc, torch.from_numpy(x))
+    with pytest.raises(ValueError, match="unknown reconstruction mode"):
+        CplMixVAE(device="cpu").init_model(**DIMS, mode="POISSON")
+
+
+# ---------------------------------------------------------------------------
 # Checkpoints and the serving path end to end
 # ---------------------------------------------------------------------------
 
@@ -426,6 +548,88 @@ def test_jax_checkpoint_survives_a_port_roundtrip(jax_checkpoints, tmp_path):
     np.testing.assert_array_equal(tree2["key_data"], tree["key_data"])
 
 
+@pytest.fixture(scope="module")
+def jax_zinb_checkpoints(tmp_path_factory):
+    """ZINB checkpoints written by the JAX CplMixVAE after one epoch of
+    training (three heads, Adam moments for them), fused and unfused, with
+    the JAX eval_model results read back by a fresh instance."""
+    rng = np.random.default_rng(13)
+    x = (np.maximum(rng.normal(0.8, 1, (N_CELLS, D)), 0)
+         * (rng.random((N_CELLS, D)) > 0.5)).astype(np.float32)
+    out = {}
+    for fused in (True, False):
+        folder = str(tmp_path_factory.mktemp(f"jax_zinb_fused{fused}"))
+        trainer = JaxCplMixVAE(saving_folder=folder, seed=9)
+        trainer.init_model(**DIMS, mode="ZINB", variational=False,
+                           fused=fused, batch_size=EVAL_B, epochs_per_jit=1)
+        path = trainer.train(x[:48], n_epoch=1, save_plots=False,
+                             early_stop_consensus=0)
+        server = JaxCplMixVAE()
+        server.load_model(path)
+        out[fused] = {"path": path,
+                      "eval": server.eval_model(x, batch_size=EVAL_B),
+                      "summary": jevaluate.summarize_inference(
+                          JaxCplMixVAE(), path, x)}
+    return x, out
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_eval_model_from_jax_zinb_checkpoint(jax_zinb_checkpoints, fused):
+    x, ckpts = jax_zinb_checkpoints
+    want = ckpts[fused]["eval"]
+    cpl = CplMixVAE(device="cpu")
+    assert cpl.load_model(ckpts[fused]["path"]) == 1
+    assert cpl.cfg.mode == "ZINB" and cpl.cfg.fused_recon == fused
+    assert {"fc11_p", "fc11_r"} <= set(cpl.state.params)
+    assert cpl.state.opt_state.count == 3
+    got = cpl.eval_model(x, batch_size=EVAL_B)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got["pred_label"], want["pred_label"])
+    for k in ("c_prob", "state_mu", "state_logvar", "x_low",
+              "total_loss_rec", "total_loss"):
+        np.testing.assert_allclose(got[k], want[k], **SHARP, err_msg=k)
+    assert np.isfinite(got["total_loss_rec"]).all()
+    assert got["consensus"] == pytest.approx(want["consensus"], abs=1e-12)
+
+
+def test_summarize_inference_zinb_matches_jax(jax_zinb_checkpoints):
+    """No crash on the ZINB fields (``ll`` NaN under the fused kernel), no
+    NaN where the JAX package gives a number."""
+    x, ckpts = jax_zinb_checkpoints
+    want = ckpts[True]["summary"]
+    got = tevaluate.summarize_inference(CplMixVAE(device="cpu"),
+                                        ckpts[True]["path"], x)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got["pred_label"], want["pred_label"])
+    np.testing.assert_allclose(got["total_loss_rec"], want["total_loss_rec"],
+                               **SHARP)
+    np.testing.assert_allclose(got["per_category_agreement"],
+                               want["per_category_agreement"], atol=1e-12)
+    for k, v in want.items():
+        if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            assert np.array_equal(np.isnan(got[k]), np.isnan(v)), k
+
+
+def test_jax_zinb_checkpoint_survives_a_port_roundtrip(jax_zinb_checkpoints,
+                                                       tmp_path):
+    """Three heads and their Adam moments cross the packages bit for bit."""
+    _, ckpts = jax_zinb_checkpoints
+    tree, meta = tckpt.load_checkpoint(ckpts[True]["path"])
+    assert meta["cfg"]["mode"] == "ZINB"
+    cpl = CplMixVAE(saving_folder=str(tmp_path), device="cpu")
+    cpl.load_model(ckpts[True]["path"])
+    tree2, meta2 = tckpt.load_checkpoint(cpl.save_checkpoint("resaved"))
+    _assert_trees_equal(tree2["opt_state"], tree["opt_state"])
+    _assert_trees_equal(tree2["params"], tree["params"])
+    _assert_trees_equal(tree2["bn"], tree["bn"])
+    assert meta2["cfg"]["mode"] == "ZINB" and meta2["epoch"] == meta["epoch"]
+    back = JaxCplMixVAE()
+    assert back.load_model(cpl.save_checkpoint("resaved")) == 1
+    _assert_trees_equal(
+        jax.tree_util.tree_map(np.asarray, back.state.params),
+        jax.tree_util.tree_map(np.asarray, tree["params"]))
+
+
 def test_bf16_eval_returns_f32_fields():
     cpl = CplMixVAE(device="cpu")
     cpl.init_model(**DIMS, bf16=True, fused=True)
@@ -464,10 +668,18 @@ x = np.random.default_rng(0).random((20, {D})).astype("float32")
 res = cpl.eval_model(x, batch_size=8)
 cpl.tcfg = cpl.tcfg.replace(batch_size=8, epochs_per_jit=1)
 cpl.train(x, n_epoch=2, early_stop_consensus=0)
+z = CplMixVAE(device="cpu", seed=1)
+z.init_model(n_arm=2, input_dim={D}, fc_dim=8, lowD_dim=4, n_categories=4,
+             mode="ZINB", fused=True, batch_size=8, epochs_per_jit=1)
+z.train(x * (x > 0.5), n_epoch=1, early_stop_consensus=0)
+zres = z.eval_model(x * (x > 0.5), batch_size=8)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu"))
 print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
-                  "steps": cpl.state.opt_state.count}}))
+                  "steps": cpl.state.opt_state.count,
+                  "zinb_steps": z.state.opt_state.count,
+                  "zinb_rec_finite": bool(np.isfinite(
+                      zres["total_loss_rec"]).all())}}))
 """.format(D=D)
 
 
@@ -480,12 +692,14 @@ def _run_port(args, cwd):
 def test_port_imports_no_jax(jax_checkpoints, tmp_path):
     """A fresh interpreter imports the port, reads a JAX-written checkpoint,
     runs a tiny eval and a few training steps (4: two epochs of two
-    batches) without loading JAX, optax or dvae_tpu."""
+    batches), then trains (2 steps) and serves a ZINB model, without
+    loading JAX, optax or dvae_tpu."""
     _, ckpts = jax_checkpoints
     proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"bad": [], "labels": [A, 20], "steps": 4}
+    assert out == {"bad": [], "labels": [A, 20], "steps": 4,
+                   "zinb_steps": 2, "zinb_rec_finite": True}
 
 
 def test_cli_evaluate_on_cpu(jax_checkpoints, tmp_path):

@@ -51,7 +51,8 @@ from dvae_tpu.train import step as jstep
 from dvae_tpu.train.cpl_mixvae import CplMixVAE as JaxCplMixVAE
 
 import dvae_tpu_torch.config as tcfg_mod
-from dvae_tpu_torch.data.anndata_io import synthetic_dataset
+from dvae_tpu_torch.data.anndata_io import (hard_synthetic_dataset,
+                                            synthetic_dataset)
 from dvae_tpu_torch.data import pipeline as tpipeline
 from dvae_tpu_torch.eval import metrics as tmetrics
 from dvae_tpu_torch.models import mixvae as tmixvae
@@ -182,6 +183,108 @@ def test_loss_fn_value_and_grads_match_jax(fused):
     _tree_close(tbn, jbn, **SHARP)
     _tree_close(grads, jax.tree_util.tree_map(np.asarray, jg), scaled=True,
                 **GRAD)
+
+
+# ---------------------------------------------------------------------------
+# ZINB mode.  ZGRAD: rtol 3e-3 as tests/test_ops.py:503-506 holds the fused
+# ZINB path against the unfused, atol 1e-4 of each leaf's largest gradient
+# (the JAX test takes 2e-3 absolute).  Looser than GRAD because the loss
+# sums lnΓ terms of size 1e3-1e4 that cancel, and the two packages' lgamma
+# and digamma (XLA's and ATen's library versions unfused, reciprocal with
+# a Newton step against division fused) differ in their last bits.
+# ---------------------------------------------------------------------------
+
+ZGRAD = dict(rtol=3e-3, atol=1e-4)
+
+
+def _zinb_model(seed=0, n=B):
+    jc, _ = _cfgs(mode="ZINB")
+    params = jax.tree_util.tree_map(
+        np.array, jmixvae.init_params(jax.random.key(seed), jc))
+    bn = jax.tree_util.tree_map(np.array, jmixvae.init_bn_state(jc))
+    rng = np.random.default_rng(seed + 1)
+    x = (np.maximum(rng.normal(0.5, 1, (n, D)), 0)
+         * (rng.random((n, D)) > 0.5)).astype(np.float32)
+    return params, bn, x
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_train_apply_zinb_matches_jax(fused):
+    jc, tc = _cfgs(mode="ZINB", fused_encoder=fused, fused_recon=fused)
+    params, bn, x = _zinb_model(1)
+    key = jax.random.key(11)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A, B, D))
+    jout, jbn = jmixvae.apply(params, bn, jc, xs, key, train=True,
+                              skip_recon=fused,
+                              x_shared=jnp.asarray(x) if fused else None)
+    tout, tbn = tmixvae.apply(tckpt.params_from_jax(params),
+                              tckpt.bn_from_jax(bn), tc, torch.from_numpy(x),
+                              train=True, skip_recon=fused,
+                              noise=_noise(key, jc))
+    for name in tmixvae.MixVAEOutputs._fields:
+        got = getattr(tout, name).detach().numpy()
+        want = np.asarray(getattr(jout, name))
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, **SHARP, err_msg=name)
+    _tree_close(tbn, jbn, **SHARP)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_zinb_loss_fn_value_and_grads_match_jax(fused):
+    jc, tc = _cfgs(mode="ZINB", fused_encoder=fused, fused_recon=fused)
+    params, bn, x = _zinb_model(3)
+    key = jax.random.key(7)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A, B, D))
+    mask = np.ones(C, np.float32)
+    (jt, (jaux, jbn, jlab)), jg = jax.value_and_grad(
+        jstep.loss_fn, has_aux=True)(params, bn, jc, xs, key, 1.0,
+                                     jnp.asarray(mask), None, None,
+                                     jnp.asarray(x))
+    live = {n: {k: v.requires_grad_() for k, v in layer.items()}
+            for n, layer in tckpt.params_from_jax(params).items()}
+    tt, (taux, tbn, tlab) = tstep.loss_fn(
+        live, tckpt.bn_from_jax(bn), tc, torch.from_numpy(x), 1.0,
+        torch.from_numpy(mask), None, noise=_noise(key, jc))
+    leaves = tstep.tree_leaves(live)
+    grads = tstep.tree_like(live, torch.autograd.grad(tt, leaves))
+    np.testing.assert_allclose(float(tt.detach()), float(jt), rtol=1e-5)
+    for name in ("loss_rec", "rec_nll", "kl", "c_dist", "neg_entropy"):
+        np.testing.assert_allclose(getattr(taux, name).detach().numpy(),
+                                   np.asarray(getattr(jaux, name)), **SHARP,
+                                   err_msg=name)
+    assert bool(torch.isnan(taux.ll).all()) == fused
+    np.testing.assert_array_equal(tlab.numpy(), np.asarray(jlab))
+    assert all(float(grads[h]["w"].abs().max()) > 0
+               for h in ("fc11", "fc11_p", "fc11_r"))
+    _tree_close(grads, jax.tree_util.tree_map(np.asarray, jg), scaled=True,
+                **ZGRAD)
+
+
+def test_zinb_k_step_loss_trajectory_matches_jax():
+    """Three Adam steps of the fused ZINB path from bridged weights with the
+    same noise: the losses track JAX's (TRAJ, as the MSE twin) and the three
+    heads' parameters and moments stay within Adam's first-step bound."""
+    jc, tc = _cfgs(mode="ZINB", fused_encoder=True, fused_recon=True)
+    tx = jstep.make_optimizer(jc)
+    jstate = jstep.init_train_state(jax.random.key(2), jc, tx)
+    params = jax.tree_util.tree_map(np.array, jstate.params)
+    opt = tstep.make_optimizer(tc)
+    tp = tckpt.params_from_jax(params)
+    tstate = tstep.TrainState(
+        tp, tckpt.bn_from_jax(jax.tree_util.tree_map(np.array, jstate.bn)),
+        torch.ones(C), 0, 0, opt.init(tp))
+    assert set(tstate.opt_state.mu) == set(params)   # moments for 16 layers
+    xb = np.stack([_zinb_model(10 + i)[2] for i in range(3)])
+    jstate, tstate, jl, tl = _jax_then_port_steps(jstate, tstate, jc, tc, xb,
+                                                  3)
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ)
+    assert tstate.opt_state.count == 3
+    for head in ("fc11", "fc11_p", "fc11_r"):
+        d = np.abs(tstate.params[head]["w"].numpy()
+                   - np.asarray(jstate.params[head]["w"]))
+        # 3 steps of at most lr each way where a gradient's sign differs
+        assert d.max() <= 2 * 3 * jc.lr and np.mean(d > 1e-5) < 0.01, head
+        assert float(tstate.opt_state.nu[head]["w"].max()) > 0
 
 
 def test_mask_params_and_grads_match_jax():
@@ -399,7 +502,7 @@ def test_trainer_phases_on_the_cpu(small_data, tmp_path):
     assert again.resume_progress == {"main_epochs": 2, "pr_it": 1,
                                      "prune_epochs": 1}
     for kw in ({"stream": True}, {"align_arms_every": 5},
-               {"mode": "ZINB"}, {"use_pallas": True},
+               {"use_pallas": True},
                {"fused_decoder": True},
                {"mesh": tcfg_mod.MeshConfig(data=2)}):
         with pytest.raises(NotImplementedError):
@@ -408,6 +511,136 @@ def test_trainer_phases_on_the_cpu(small_data, tmp_path):
         cpl.train(small_data[:64], n_epoch=1, save_plots=True)
     with pytest.raises(NotImplementedError):
         CplMixVAE(device="cpu", aug_file="augmenter.ckpt")
+
+
+@pytest.fixture(scope="module")
+def small_counts():
+    """Count-like log1p data: half of the entries exactly zero."""
+    rng = np.random.default_rng(14)
+    return (np.maximum(rng.normal(0.8, 1, (96, 40)), 0)
+            * (rng.random((96, 40)) > 0.5)).astype(np.float32)
+
+
+def test_zinb_checkpoints_cross_the_packages_both_ways(small_counts,
+                                                       tmp_path):
+    """A ZINB checkpoint of the JAX trainer resumes in the port with its
+    Adam state over the three heads (two more steps give JAX's losses); the
+    port's own ZINB checkpoint then trains on in the JAX package, bit for
+    bit the same parameters and moments."""
+    jfolder = str(tmp_path / "jax")
+    jtrainer = JaxCplMixVAE(saving_folder=jfolder, seed=3)
+    jtrainer.init_model(**SMALL, mode="ZINB", batch_size=32,
+                        epochs_per_jit=2, fused=True)
+    jpath = jtrainer.train(small_counts[:64], n_epoch=2, save_plots=False,
+                           early_stop_consensus=0)
+    jcpl = JaxCplMixVAE()
+    jcpl.load_model(jpath)
+    tcpl = CplMixVAE(saving_folder=str(tmp_path / "port"), device="cpu")
+    assert tcpl.load_model(jpath) == 2 and tcpl.cfg.mode == "ZINB"
+    adam = tcpl.state.opt_state
+    assert adam.count == int(jcpl.state.opt_state[0].count) == 4
+    _tree_close(adam.mu, jcpl.state.opt_state[0].mu, rtol=0, atol=0)
+    assert float(adam.mu["fc11_r"]["w"].abs().max()) > 0
+    xb = np.stack([small_counts[64:96], small_counts[:32]])
+    _, tstate, jl, tl = _jax_then_port_steps(
+        jcpl.state, tcpl.state, jcpl.cfg, tcpl.cfg, xb, 2)
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ)
+    assert tstate.opt_state.count == 6
+    # and back: the port trains on, saves, the JAX package resumes
+    tcpl.tcfg = tcpl.tcfg.replace(epochs_per_jit=1)
+    path = tcpl.train(small_counts[:64], x_val=small_counts[64:], n_epoch=1,
+                      early_stop_consensus=0)
+    back = JaxCplMixVAE(saving_folder=str(tmp_path / "back"))
+    assert back.load_model(path) == 3
+    assert back.cfg.mode == "ZINB"
+    _tree_close(back.state.params, tckpt.params_to_jax(tcpl.state.params),
+                rtol=0, atol=0)
+    _tree_close(back.state.opt_state[0].nu,
+                tckpt.params_to_jax(tcpl.state.opt_state.nu), rtol=0, atol=0)
+    out = back.train(small_counts[:64], n_epoch=1, save_plots=False,
+                     early_stop_consensus=0)
+    assert int(back.state.epoch) == 4 and os.path.exists(out)
+
+
+def test_zinb_trainer_on_the_cpu(small_counts, tmp_path):
+    """init_model(mode="ZINB") → train with validation → save → a fresh
+    load_model → eval_model, fused and unfused: the fused run's ``ll`` is
+    NaN by design and does not trip the NaN halt; the record carries the
+    reconstruction NLL."""
+    recs = {}
+    for fused in (True, False):
+        folder = tmp_path / f"fused{fused}"
+        cpl = CplMixVAE(saving_folder=str(folder), device="cpu", seed=2)
+        cpl.init_model(**SMALL, mode="ZINB", fused=fused, batch_size=32,
+                       epochs_per_jit=1, eval_every=1)
+        assert cpl.cfg.fused_recon == fused
+        path = cpl.train(small_counts[:64], x_val=small_counts[64:],
+                         n_epoch=2, early_stop_consensus=0)
+        assert not cpl._halted and cpl.state.opt_state.count == 4
+        with open(folder / "metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        rec = [r["train/rec_loss_arm0"] for r in rows
+               if "train/rec_loss_arm0" in r]
+        assert len(rec) == 2 and all(np.isfinite(rec))
+        assert any(np.isfinite(r.get("val/rec_loss_arm1", np.nan))
+                   for r in rows)
+        server = CplMixVAE(device="cpu")
+        server.load_model(path)
+        res = server.eval_model(small_counts, batch_size=32)
+        assert np.isfinite(res["total_loss_rec"]).all()
+        recs[fused] = rec
+    # the same seed, data and noise: the two routes agree to the kernels'
+    # lgamma form (rtol 1e-4, tests/test_ops.py:491)
+    np.testing.assert_allclose(recs[True][0], recs[False][0], rtol=1e-4)
+
+
+def test_zinb_bf16_training_runs_and_agrees_across_routes(small_counts):
+    """Under ``bf16`` the parameters and the batch are cast once per step;
+    the fused op takes bf16 operands and hands back bf16 cotangents, the
+    master weights and the Adam moments of the three heads stay f32.  The
+    fused and unfused routes agree to bf16 precision (rtol 2e-2, as
+    tests/test_torch_serving.py holds bf16 eval to f32)."""
+    recs = {}
+    for fused in (True, False):
+        cpl = CplMixVAE(device="cpu", seed=1)
+        cpl.init_model(**SMALL, mode="ZINB", bf16=True, fused=fused,
+                       batch_size=32, epochs_per_jit=1)
+        cpl.train(small_counts[:64], n_epoch=2, early_stop_consensus=0)
+        assert not cpl._halted and cpl.state.opt_state.count == 4
+        for head in ("fc11", "fc11_p", "fc11_r"):
+            assert cpl.state.params[head]["w"].dtype == torch.float32
+            assert float(cpl.state.opt_state.nu[head]["w"].max()) > 0
+        recs[fused] = cpl.eval_model(small_counts,
+                                     batch_size=32)["total_loss_rec"]
+        assert np.isfinite(recs[fused]).all()
+    np.testing.assert_allclose(recs[True], recs[False], rtol=2e-2)
+
+
+def test_hard_synthetic_dataset_matches_jax():
+    """Labels, ids and the number of types equal the JAX package's at the
+    same seed (numpy draws, in the same order); the counts come from another
+    bitstream of the same ZINB, so the zero fraction (±0.01: 120,000
+    Bernoulli-like entries, sd 0.0014), the mean of log1p (±2%) and the
+    per-type mean profile (correlation ≥ 0.95: each profile is a mean over
+    about 75 cells of overdispersed counts, and two independent draws
+    correlate at about 0.98) are held statistically."""
+    from dvae_tpu.data.anndata_io import hard_synthetic_dataset as jhard
+    kw = dict(n_cells=600, n_genes=200, n_types=8, seed=3, chunk=256)
+    want, got = jhard(**kw), hard_synthetic_dataset(**kw)
+    np.testing.assert_array_equal(got.cluster_label, want.cluster_label)
+    np.testing.assert_array_equal(got.cluster_id, want.cluster_id)
+    np.testing.assert_array_equal(got.gene_id, want.gene_id)
+    np.testing.assert_array_equal(got.c_p, want.c_p)
+    assert got.n_type == want.n_type
+    assert got.log1p.dtype == np.float32 and got.log1p.shape == (600, 200)
+    assert abs((got.log1p == 0).mean() - (want.log1p == 0).mean()) < 0.01
+    np.testing.assert_allclose(got.log1p.mean(), want.log1p.mean(), rtol=0.02)
+    ids = got.cluster_id.astype(int)
+    prof = lambda ds: np.stack([ds.log1p[ids == i].mean(axis=0)  # noqa: E731
+                                for i in np.unique(ids)])
+    assert np.corrcoef(prof(got).ravel(), prof(want).ravel())[0, 1] >= 0.95
+    again = hard_synthetic_dataset(**kw)
+    np.testing.assert_array_equal(again.log1p, got.log1p)
 
 
 def test_nan_halt_keeps_the_last_good_checkpoint(small_data, tmp_path):
@@ -441,3 +674,20 @@ def test_cli_train_on_cpu(tmp_path):
     final = proc.stdout.strip().splitlines()[-1]
     assert final.startswith("final checkpoint:") and final.endswith(
         "cpl_mixVAE_model_epoch_2.ckpt")
+
+
+def test_cli_train_zinb_on_cpu(tmp_path):
+    args = ["-m", "dvae_tpu_torch.cli", "train", "--device", "cpu",
+            "--loss_mode", "ZINB", "--hard_synthetic", "--syn_cells", "120",
+            "--syn_genes", "40", "--syn_types", "5", "--n_categories", "5",
+            "--n_arm", "2", "--fc_dim", "16", "--latent_dim", "6",
+            "--batch_size", "32", "--n_epoch", "2", "--epochs_per_jit", "1",
+            "--eval_every", "1", "--saving_folder", str(tmp_path) + "/"]
+    proc = _run_port(args, str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    assert "HARD synthetic" in proc.stdout and "epoch 2:" in proc.stdout
+    final = proc.stdout.strip().splitlines()[-1]
+    assert final.endswith("cpl_mixVAE_model_epoch_2.ckpt")
+    ckpt = final.split("final checkpoint:")[1].strip()
+    _, meta = tckpt.load_checkpoint(ckpt)
+    assert meta["cfg"]["mode"] == "ZINB"
