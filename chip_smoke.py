@@ -6,16 +6,23 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build every CUDA kernel of the port from ``dvae_tpu_torch/csrc`` (one
      nvcc per source, all started together);
-  2. hold each of the eight kernels against its plain PyTorch version at
+  2. hold each of the eleven kernels (and the sharpen variant of the
+     Gumbel forward) against its plain PyTorch version: the eight of the
+     reconstruction paths at
      the shapes the serving and training paths give it (f32 and bf16,
      shared and per-arm x, B=5000 and the ragged 2,000; the ZINB kernels
      on inputs with exact zeros, non-positive rates, x up to log1p(1e6)
      and a column of counts beyond 5e9), check the in-kernel dropout mask
      (bit for bit against its numpy version, keep fraction, forward and
      backward fed the materialised mask), that the separate backward
-     kernels at cotangent 1 reproduce the fused kernels' gradients and
-     that repeated launches are bit-identical, and time kernel, plain
-     version and library call;
+     kernels at cotangent 1 reproduce the fused kernels' gradients; the
+     Gumbel forward and backward and the coupling distance at (A=5,
+     B=5000, C=92), ragged rows and C up to 300, with given uniforms and
+     with the in-kernel ones (bit for bit against their numpy version),
+     hard samples, pruned categories, dphi and dtemp also against autograd
+     of the eager formula, the coupling distance on posteriors with dead
+     categories and a collapsed arm; that repeated launches are
+     bit-identical; and time kernel, plain version and library call;
   3. drive the serving path end to end at the production width (A=5 arms,
      D=5032 genes, F=100, L=10, C=92, S=2; random weights from a seed):
      init → save_checkpoint → a fresh CplMixVAE.load_model → eval_model over
@@ -35,7 +42,16 @@ Phases (any failure exits non-zero and prints no result line):
      save → a fresh load_model → eval_model over the 22,000 cells, counts
      again; one training step and one served batch against the port's CPU
      path; warm throughput, profiler breakdown, synchronising calls;
-  6. print the kernels line, the card's name and power limit, and last the
+  6. drive the categorical path at the same width: init_model(
+     use_pallas=True, align_arms_every=2) → train over 20,000 cells with
+     2,000 for validation, 4 epochs in chunks of 2 (16 steps, 2 alignments),
+     counts reset just before and read just after (one gumbel_fwd,
+     gumbel_bwd and coupling per step, one coupling more per eval batch);
+     the alignment's invariance on one batch; save → a fresh load_model →
+     eval_model, counts again; the card against the CPU path; warm
+     throughput with and without use_pallas in turns, profiler breakdown,
+     synchronising calls; then a short ZINB run with use_pallas;
+  7. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
 ``--kernels-only`` stops after phase 2 (a short first run of new kernels;
@@ -86,6 +102,28 @@ N_TRAIN, N_VAL = 40000, 2000
 N_ZINB_TRAIN, N_ZINB_VAL = 20000, 2000
 N_PARITY = 2000
 LR = 1e-3
+# the categorical path (use_pallas + alignment): 4 steps an epoch
+N_CAT_TRAIN, N_CAT_VAL = 20000, 2000
+N_CAT_ZINB = 10000
+# Gumbel and coupling kernels vs their plain versions.  y, dphi and the
+# Gram, max |Δ| / max |plain|: the same f32 formulas with logs, exps and
+# sums a few roundings apart (fused multiply-adds, another summation
+# order); dtemp and the distance, relative: sums of 2.3e6 terms of both
+# signs, per-block f32 partials reduced in double against ATen's tree.
+# Against autograd of the eager formula (another chain of roundings, the
+# division by phi + eps included) ten times the limit, and for dtemp, which
+# autograd takes through the logits and not through log y, the 3e-4 of
+# tests/test_ops.py:183.  The two degenerate
+# coupling inputs as tests/test_ops.py:71,88 hold them: what is left after
+# centring constants of size 1.8e5 carries f32 rounding at that size.
+TOL_GUMBEL = 1e-5
+TOL_GUMBEL_AUTOGRAD = 1e-4
+TOL_DTEMP_AUTOGRAD = 3e-4
+TOL_GRAM = 2e-4
+TOL_DIST = 1e-4
+TOL_DIST_DEGENERATE = 5e-3
+GUMBEL_EPS = 1e-8
+TIMING_ITERS = 200           # launches per timing of the small kernels
 
 
 class Checks:
@@ -112,6 +150,38 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: its kernels' device time summed
+    under torch.profiler over ``iters`` calls.  Unlike ``cuda_ms`` it leaves
+    out the gaps in which the card waits for the host to enqueue; 0.0 where
+    the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda) / iters / 1e3
+
+
+def host_ms(torch, fn, iters: int = 100) -> float:
+    """Wall time of one call of ``fn`` on the host's clock over ``iters``
+    calls that end in one synchronise: the larger of what the host needs to
+    enqueue the call and what the card needs to run it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def flops_bound_ms(flops, nbytes, dtype_name: str):
@@ -147,8 +217,12 @@ def launch_counts() -> dict:
 
 
 def _counted_wrappers() -> dict:
-    from dvae_tpu_torch.ops import encoder, recon, zinb
-    return {"recon_fwd": recon.fused_recon_mse,
+    from dvae_tpu_torch.ops import coupling, encoder, gumbel, recon, zinb
+    return {"gumbel_fwd": gumbel.gumbel_fwd,
+            "gumbel_bwd": gumbel.gumbel_bwd,
+            "gumbel_sharpen": gumbel.sharpen_gumbel_fused,
+            "coupling": coupling.coupling_gram_fused,
+            "recon_fwd": recon.fused_recon_mse,
             "recon_fwdbwd": recon.recon_fwdbwd,
             "recon_bwd": recon.recon_bwd,
             "encoder_fwd": encoder.encoder_fwd,
@@ -663,6 +737,351 @@ def phase_zinb(torch, check) -> dict:
     return records
 
 
+def categorical_posterior(torch, g, shape, pruned: int = 0):
+    """Probabilities (…, C) like the model's tau-sharpened posterior is
+    before it saturates; the last ``pruned`` categories exactly zero, as a
+    pruning mask leaves them."""
+    z = torch.randn(shape, generator=g, device=DEV) * 3.0
+    if pruned:
+        z[..., -pruned:] = -math.inf
+    return torch.softmax(z, dim=-1).contiguous()
+
+
+def phase_gumbel(torch, check) -> dict:
+    """Kernels #9 and #10 and the sharpen variant vs their plain versions;
+    returns the records of the main case (A=5, B=5000, C=92, the uniforms
+    drawn in the kernel, soft sample: what a training step launches)."""
+    import numpy as np
+    from dvae_tpu_torch.ops import gumbel as gm
+    print("phase 2: gumbel_fwd / gumbel_bwd kernels and the sharpen variant "
+          "vs plain version")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    eps, temp = GUMBEL_EPS, 0.7
+    records = {}
+    # the production shape, ragged rows, C = 100 and 120 (one group of 128
+    # columns a lane), C = 200 and 300 (two and four groups), C not a
+    # multiple of 4 (scalar loads)
+    shapes = [((A, B, C), 0), ((A, B, C), 12), ((A, 4999, C), 0),
+              ((A, TAIL, 100), 0), ((3, TAIL, 120), 7), ((2, 333, 200), 0),
+              ((2, 129, 300), 5), ((3, 257, 30), 0), ((2, 301, 93), 4)]
+    for shape, pruned in shapes:
+        tag = f"{shape}" + (f" {pruned} pruned" if pruned else "")
+        phi = categorical_posterior(torch, g, shape, pruned)
+        u = torch.rand(shape, generator=g, device=DEV)
+        dy = torch.randn(shape, generator=g, device=DEV)
+
+        # forward, explicit uniforms: soft, and hard with its soft residual
+        y, _ = gm.gumbel_fwd(3, phi, u, temp, eps)
+        y0 = gm.gumbel_softmax_plain(phi, u, temp, eps)
+        ys, yh = gm.gumbel_fwd(3, phi, u, temp, eps, hard=True)
+        torch.cuda.synchronize()
+        e_y = rel_err(torch, y, y0)
+        check(e_y <= TOL_GUMBEL and bool(torch.isfinite(y).all()),
+              f"{tag}: gumbel_fwd(u) rel err {e_y:.2e} (tol "
+              f"{TOL_GUMBEL:.0e}), finite")
+        one_hot = bool(((yh == 0) | (yh == 1)).all()
+                       and (yh.sum(-1) == 1).all())
+        same_arg = bool((yh.argmax(-1) == ys.argmax(-1)).all())
+        agree = (yh.argmax(-1) == y0.argmax(-1)).float().mean().item()
+        check(one_hot and same_arg and bool(torch.equal(ys, y))
+              and agree >= 0.9999,
+              f"{tag}: hard rows are one-hot at the argmax of the soft "
+              f"sample of the same launch; argmax agrees with the plain "
+              f"version on {agree:.6f} of the rows (min 0.9999)")
+        if pruned:
+            check(float(yh[..., -pruned:].max()) == 0.0,
+                  f"{tag}: pruned categories (phi = 0) are never the argmax "
+                  f"(soft mass at most {float(y[..., -pruned:].max()):.1e})")
+
+        # forward, uniforms drawn in the kernel: the numpy twin's numbers
+        ku = gm.kernel_uniform(9, shape, DEV)
+        twin = torch.from_numpy(gm.philox_uniform(9, shape)).to(DEV)
+        in_range = bool((ku >= 0).all() and (ku < 1).all())
+        check(bool(torch.equal(ku, twin)) and in_range,
+              f"{tag}: in-kernel uniforms equal their numpy version bit for "
+              f"bit, all in [0, 1) (mean {ku.mean().item():.4f})")
+        yp, _ = gm.gumbel_fwd(9, phi, None, temp, eps)
+        e_p = rel_err(torch, yp, gm.gumbel_softmax_plain(phi, twin, temp,
+                                                         eps))
+        check(e_p <= TOL_GUMBEL,
+              f"{tag}: gumbel_fwd(seed) vs plain on the twin's uniforms rel "
+              f"err {e_p:.2e} (tol {TOL_GUMBEL:.0e})")
+
+        # backward vs plain and vs autograd of the eager formula
+        dphi, dtemp = gm.gumbel_bwd(y, phi, dy, temp, eps)
+        dphi0, dtemp0 = gm.gumbel_softmax_bwd_plain(y, phi, dy, temp, eps)
+        pa = phi.clone().requires_grad_()
+        ta = torch.tensor(temp, device=DEV, requires_grad=True)
+        ya = gm.gumbel_softmax_plain(pa, u, ta, eps)
+        ga, gt = torch.autograd.grad(ya, (pa, ta), dy, retain_graph=True)
+        torch.cuda.synchronize()
+        e_d = rel_err(torch, dphi, dphi0)
+        e_t = abs(dtemp.item() - dtemp0.item()) / abs(dtemp0.item())
+        e_da = rel_err(torch, dphi, ga)
+        e_ta = abs(dtemp.item() - gt.item()) / abs(gt.item())
+        check(e_d <= TOL_GUMBEL and e_t <= TOL_GUMBEL
+              and bool(torch.isfinite(dphi).all()) and dtemp0.item() != 0.0,
+              f"{tag}: gumbel_bwd dphi rel err {e_d:.2e}, dtemp "
+              f"{dtemp.item():.6g} rel err {e_t:.2e} vs plain (tol "
+              f"{TOL_GUMBEL:.0e}), finite")
+        check(e_da <= TOL_GUMBEL_AUTOGRAD and e_ta <= TOL_DTEMP_AUTOGRAD,
+              f"{tag}: vs autograd of the eager formula dphi {e_da:.2e} "
+              f"(tol {TOL_GUMBEL_AUTOGRAD:.0e}), dtemp {e_ta:.2e} (tol "
+              f"{TOL_DTEMP_AUTOGRAD:.0e})")
+        dphi_only, none = gm.gumbel_bwd(y, phi, dy, temp, eps,
+                                        want_dtemp=False)
+        t_dev = torch.tensor([temp], device=DEV)
+        yt, _ = gm.gumbel_fwd(3, phi, u, t_dev, eps)
+        dphi_t, dtemp_t = gm.gumbel_bwd(y, phi, dy, t_dev, eps)
+        check(none is None and bool(torch.equal(dphi_only, dphi))
+              and bool(torch.equal(yt, y) and torch.equal(dphi_t, dphi)
+                       and torch.equal(dtemp_t, dtemp)),
+              f"{tag}: the same bits without dtemp and with the temperature "
+              "read from a device scalar")
+
+        # the autograd function end to end, soft and straight-through
+        grads = []
+        for hard in (False, True):
+            pf = phi.clone().requires_grad_()
+            tf = torch.tensor(temp, device=DEV, requires_grad=True)
+            out = gm.gumbel_softmax_fused(3, pf, u, tf, eps, hard)
+            grads.append(torch.autograd.grad(out, (pf, tf), dy))
+        check(bool(torch.equal(grads[0][0], dphi)
+                   and torch.equal(grads[1][0], dphi)
+                   and torch.equal(grads[0][1], dtemp)
+                   and torch.equal(grads[1][1], dtemp)),
+              f"{tag}: gumbel_softmax_fused hands autograd the kernel's "
+              "dphi and dtemp, the same under hard (straight-through)")
+
+        # the sharpen variant: logits as the model's c_prob, tau = 0.005
+        logits = categorical_posterior(torch, g, shape)
+        sh = gm.sharpen_gumbel_fused(3, logits, 0.005, temp, eps, u=u)
+        sh0 = gm.gumbel_softmax_plain(logits, u, temp, eps, tau=0.005)
+        shh = gm.sharpen_gumbel_fused(3, logits, 0.005, temp, eps,
+                                      hard=True, u=u)
+        shp = gm.sharpen_gumbel_fused(9, logits, 0.005, temp, eps)
+        shp0 = gm.gumbel_softmax_plain(logits, twin, temp, eps, tau=0.005)
+        e_s = max(rel_err(torch, sh, sh0), rel_err(torch, shp, shp0))
+        check(e_s <= TOL_GUMBEL
+              and bool((shh.argmax(-1) == sh.argmax(-1)).all()
+                       and (shh.sum(-1) == 1).all()),
+              f"{tag}: sharpen variant (tau 0.005) rel err {e_s:.2e} (tol "
+              f"{TOL_GUMBEL:.0e}), its hard form one-hot at the argmax")
+
+        again = (gm.gumbel_fwd(3, phi, u, temp, eps, hard=True),
+                 gm.gumbel_fwd(9, phi, None, temp, eps),
+                 gm.gumbel_bwd(y, phi, dy, temp, eps),
+                 gm.sharpen_gumbel_fused(3, logits, 0.005, temp, eps, u=u))
+        check(bool(torch.equal(again[0][0], ys) and torch.equal(again[0][1], yh)
+                   and torch.equal(again[1][0], yp)
+                   and torch.equal(again[2][0], dphi)
+                   and torch.equal(again[2][1], dtemp)
+                   and torch.equal(again[3], sh)),
+              f"{tag}: repeated launches bit-identical")
+
+        if shape == (A, B, C) and not pruned:
+            n_el = A * B * C
+            it = TIMING_ITERS
+            logphi = torch.log(phi + eps)
+            t_fwd = cuda_ms(torch, lambda: gm.gumbel_fwd(9, phi, None, temp,
+                                                         eps), iters=it)
+            t_fwd_u = cuda_ms(torch, lambda: gm.gumbel_fwd(3, phi, u, temp,
+                                                           eps), iters=it)
+            t_fwd_h = cuda_ms(torch, lambda: gm.gumbel_fwd(
+                9, phi, None, temp, eps, hard=True), iters=it)
+            t_plain = cuda_ms(torch, lambda: gm.gumbel_softmax_plain(
+                phi, u, temp, eps), iters=it)
+            t_lib = cuda_ms(torch, lambda: torch.nn.functional.gumbel_softmax(
+                logphi, tau=temp), iters=it)
+            t_bwd = cuda_ms(torch, lambda: gm.gumbel_bwd(
+                y, phi, dy, temp, eps, want_dtemp=False), iters=it)
+            t_bwd_t = cuda_ms(torch, lambda: gm.gumbel_bwd(
+                y, phi, dy, temp, eps), iters=it)
+            t_bplain = cuda_ms(torch, lambda: gm.gumbel_softmax_bwd_plain(
+                y, phi, dy, temp, eps), iters=it)
+            t_blib = cuda_ms(torch, lambda: torch.autograd.grad(
+                ya, (pa, ta), dy, retain_graph=True), iters=it)
+            t_sh = cuda_ms(torch, lambda: gm.sharpen_gumbel_fused(
+                9, logits, 0.005, temp, eps), iters=it)
+            t_shplain = cuda_ms(torch, lambda: gm.gumbel_softmax_plain(
+                logits, u, temp, eps, tau=0.005), iters=it)
+            # on the device alone (the event times above include the
+            # host's enqueue where that is the slower of the two)
+            d_fwd = device_ms(torch, lambda: gm.gumbel_fwd(9, phi, None, temp,
+                                                           eps))
+            d_bwd = device_ms(torch, lambda: gm.gumbel_bwd(
+                y, phi, dy, temp, eps, want_dtemp=False))
+            d_sh = device_ms(torch, lambda: gm.sharpen_gumbel_fused(
+                9, logits, 0.005, temp, eps))
+            d_plain = device_ms(torch, lambda: gm.gumbel_softmax_plain(
+                phi, u, temp, eps))
+            d_bplain = device_ms(torch, lambda: gm.gumbel_softmax_bwd_plain(
+                y, phi, dy, temp, eps))
+            # operations: four logs, two exps, two divisions and a dozen
+            # adds an element, far below the bytes
+            timed = (
+                ("gumbel_fwd", t_fwd, d_fwd, t_plain, d_plain, t_lib,
+                 "F.gumbel_softmax on log phi", 2 * n_el * 4,
+                 (y - y0).abs().max().item()),
+                ("gumbel_bwd", t_bwd, d_bwd, t_bplain, d_bplain, t_blib,
+                 "autograd.grad of the eager chain", 4 * n_el * 4,
+                 max((dphi - dphi0).abs().max().item(),
+                     abs(dtemp.item() - dtemp0.item()))),
+                ("gumbel_sharpen", t_sh, d_sh, t_shplain, None, None, "",
+                 2 * n_el * 4, (sh - sh0).abs().max().item()))
+            for name, ms, dev, pl, dpl, lib, lib_what, nbytes, err in timed:
+                bound, by = flops_bound_ms(30.0 * n_el, nbytes, "float32")
+                lib_s = "none" if lib is None else f"{lib:.4f} ({lib_what})"
+                dpl_s = "" if dpl is None else f" (device {dpl:.4f})"
+                print(f"  {tag}: {name} kernel_ms {ms:.4f} (device {dev:.4f}) "
+                      f"plain_ms {pl:.4f}{dpl_s} library_ms {lib_s} bound_ms "
+                      f"{bound:.4f} ({by}) share_of_bound {bound / ms:.3f}")
+                records[name] = {"max_abs_err": err, "ms": ms,
+                                 "device_ms": dev, "plain_ms": pl,
+                                 "bound_ms": bound, "bound_by": by,
+                                 "library_ms": lib}
+            print(f"  {tag}: gumbel_fwd with given u {t_fwd_u:.4f} ms, hard "
+                  f"with its soft residual {t_fwd_h:.4f} ms; gumbel_bwd with "
+                  f"dtemp (a second launch) {t_bwd_t:.4f} ms")
+            # what a training step pays: sample and gradient through
+            # autograd, as the model calls them, host clock
+            from dvae_tpu_torch.models.sampling import gumbel_softmax
+            gen = torch.Generator(device=DEV).manual_seed(SEED)
+            pg = phi.clone().requires_grad_()
+
+            def eager_trip():
+                out = gumbel_softmax(pg, temp, eps, generator=gen)
+                return torch.autograd.grad(out, pg, dy)
+
+            def fused_trip():
+                out = gm.gumbel_softmax_fused(9, pg, None, temp, eps)
+                return torch.autograd.grad(out, pg, dy)
+
+            h_eager, h_fused = (host_ms(torch, f) for f in (eager_trip,
+                                                            fused_trip))
+            d_eager, d_fused = (device_ms(torch, f) for f in (eager_trip,
+                                                              fused_trip))
+            print(f"  {tag}: sample + gradient through autograd, host clock "
+                  f"(device): eager sampler {h_eager:.4f} ({d_eager:.4f}) "
+                  f"ms, fused {h_fused:.4f} ({d_fused:.4f}) ms")
+            del pg, logphi
+        del phi, u, dy, y, y0, ys, yh, yp, dphi, dphi0, ya, pa, ga, logits
+    torch.cuda.empty_cache()
+    return records
+
+
+def degenerate_posteriors(torch, kind: str):
+    """The two hard inputs of the coupling distance at production shape:
+    one-hot posteriors with categories dead in every arm
+    (tests/test_ops.py:55), and an arm collapsed onto one category
+    (tests/test_ops.py:73)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    if kind == "dead":
+        live = C - 24
+        lab = torch.randint(0, live, (A, B), generator=g, device=DEV)
+        return torch.nn.functional.one_hot(lab, C).float().contiguous()
+    c = torch.softmax(torch.randn((A, B, C), generator=g, device=DEV) / 0.05,
+                      dim=-1)
+    col = torch.full((B, C), 1e-8, device=DEV)
+    col[:, 3] = 1.0
+    c[0] = col / col.sum(-1, keepdim=True)
+    return c.contiguous()
+
+
+def phase_coupling(torch, check) -> dict:
+    """Kernel #11 vs its plain version and the eager distance; returns the
+    record of the main case (A=5, B=5000, C=92)."""
+    from dvae_tpu_torch.models.losses import coupling_distance
+    from dvae_tpu_torch.ops import coupling as cp
+    print("phase 2: coupling kernel vs plain version")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    eps = GUMBEL_EPS
+    record = {}
+    shapes = [(A, B, C), (A, 4999, C), (A, TAIL, 100), (3, TAIL, 120),
+              (2, 777, 300), (10, 130, 17), (2, 64, 10)]
+    for shape in shapes:
+        tag = f"{shape}"
+        c = categorical_posterior(torch, g, shape)
+        gram = cp.coupling_gram_fused(c, eps)
+        gram0 = cp.coupling_gram_plain(c, eps)
+        dist = cp.coupling_distance_fused(c, eps)
+        eager = coupling_distance(c, eps)
+        torch.cuda.synchronize()
+        e_g = rel_err(torch, gram, gram0)
+        e_d = abs(dist.item() - eager.item()) / abs(eager.item())
+        n_arm = shape[0]
+        from_gram = (n_arm * gram.diagonal().sum() - gram.sum()) / shape[1]
+        e_f = abs(dist.item() - from_gram.item()) / abs(eager.item())
+        check(e_g <= TOL_GRAM and bool(torch.equal(gram, gram.t())),
+              f"{tag}: Gram rel err {e_g:.2e} (tol {TOL_GRAM:.0e}), "
+              "symmetric")
+        check(e_d <= TOL_DIST and e_f <= TOL_DIST,
+              f"{tag}: distance {dist.item():.6g} vs eager "
+              f"{eager.item():.6g} rel err {e_d:.2e}, vs its own Gram "
+              f"{e_f:.2e} (tol {TOL_DIST:.0e})")
+        x = c.clone().requires_grad_()
+        x0 = c.clone().requires_grad_()
+        (gx,) = torch.autograd.grad(2.0 * cp.coupling_distance_fused(x, eps),
+                                    x)
+        (gx0,) = torch.autograd.grad(2.0 * coupling_distance(x0, eps), x0)
+        check(bool(torch.equal(gx, gx0)),
+              f"{tag}: the gradient is the eager form's, bit for bit")
+        again = cp.coupling_gram_fused(c, eps)
+        check(bool(torch.equal(again, gram)
+                   and torch.equal(cp.coupling_distance_fused(c, eps), dist)),
+              f"{tag}: repeated launches bit-identical")
+        if shape == (A, B, C):
+            it = TIMING_ITERS
+            ms = cuda_ms(torch, lambda: cp.coupling_distance_fused(c, eps),
+                         iters=it)
+            pl = cuda_ms(torch, lambda: cp.coupling_gram_plain(c, eps),
+                         iters=it)
+            lib = cuda_ms(torch, lambda: coupling_distance(c, eps), iters=it)
+            n_el = A * B * C
+            pairs = A * (A + 1) // 2
+            bound, by = flops_bound_ms((2.0 * pairs + 30.0) * n_el,
+                                       n_el * 4 + (A * A + 1) * 4, "float32")
+            dev = device_ms(torch,
+                            lambda: cp.coupling_distance_fused(c, eps))
+            dlib = device_ms(torch, lambda: coupling_distance(c, eps))
+            print(f"  {tag}: coupling kernel_ms {ms:.4f} (device {dev:.4f}) "
+                  f"plain_ms {pl:.4f} library_ms {lib:.4f} (device "
+                  f"{dlib:.4f}; the eager coupling_distance: log, var, "
+                  f"multiply, einsum) bound_ms {bound:.4f} ({by}) "
+                  f"share_of_bound {bound / ms:.3f}")
+            xg = c.clone().requires_grad_()
+            trips = [lambda f=f: torch.autograd.grad(f(xg, eps), xg)
+                     for f in (coupling_distance, cp.coupling_distance_fused)]
+            h_eager, h_fused = (host_ms(torch, f) for f in trips)
+            d_eager, d_fused = (device_ms(torch, f) for f in trips)
+            print(f"  {tag}: distance + gradient through autograd, host clock "
+                  f"(device): eager {h_eager:.4f} ({d_eager:.4f}) ms, fused "
+                  f"forward with the eager form recomputed in its backward "
+                  f"{h_fused:.4f} ({d_fused:.4f}) ms")
+            del xg
+            record = {"max_abs_err": max(
+                (gram / shape[1] - gram0 / shape[1]).abs().max().item(),
+                abs(dist.item() - eager.item())),
+                "ms": ms, "device_ms": dev, "plain_ms": pl, "bound_ms": bound,
+                "bound_by": by, "library_ms": lib}
+        del c, gram, gram0, x, x0, gx, gx0
+    for kind in ("dead", "collapsed"):
+        c = degenerate_posteriors(torch, kind)
+        dist = cp.coupling_distance_fused(c, eps)
+        eager = coupling_distance(c, eps)
+        plain = cp.coupling_distance_plain(c, eps)
+        e_d = abs(dist.item() - eager.item()) / abs(eager.item())
+        e_p = abs(dist.item() - plain.item()) / abs(plain.item())
+        check(math.isfinite(dist.item()) and eager.item() > 1.0
+              and e_d <= TOL_DIST_DEGENERATE and e_p <= TOL_DIST_DEGENERATE,
+              f"{kind} posteriors {(A, B, C)}: distance {dist.item():.6g} "
+              f"finite, vs eager {eager.item():.6g} rel err {e_d:.2e}, vs "
+              f"plain {e_p:.2e} (tol {TOL_DIST_DEGENERATE:.0e})")
+        del c
+    torch.cuda.empty_cache()
+    return record
+
+
 def phase_breakdown(torch, server, x) -> None:
     n_cells = x.shape[0]
     """Where the serving time goes: a warm eval_model run timed on the host
@@ -808,7 +1227,8 @@ def phase_parity_step(torch, check, path, x) -> None:
         s_mask=torch.from_numpy(rng.random((A, n, 2), np.float32) < s_keep))
     xb = x[:n].contiguous()
     sg, mg, _ = make_train_step(gpu.cfg, gpu.tcfg, gpu.tx)(
-        gpu.state, xb, None, 1.0, noise=Noise(*(t.to(DEV) for t in noise)))
+        gpu.state, xb, None, 1.0,
+        noise=Noise(*(None if t is None else t.to(DEV) for t in noise)))
     sc, mc, _ = make_train_step(cpu.cfg, cpu.tcfg, cpu.tx)(
         cpu.state, xb.cpu(), None, 1.0, noise=noise)
     lg, lc = mg.total.item(), mc.total.item()
@@ -828,23 +1248,36 @@ def phase_parity_step(torch, check, path, x) -> None:
           f"1e-5 (tol 0.1%)")
 
 
-def phase_chunk_breakdown(torch, trainer, x_train) -> None:
+def warm_chunk_ms(torch, trainer, x_train, chunks: int = 1) -> float:
+    """Warm ms/step of 2-epoch chunks of ``trainer``'s training path (the
+    state trains on; the first chunk is not timed)."""
+    from dvae_tpu_torch.train.step import make_epoch_runner
     n_train = x_train.shape[0]
+    run = make_epoch_runner(trainer.cfg, trainer.tcfg, trainer.tx, n_train,
+                            epochs_per_chunk=2)
+    steps = 2 * (n_train // B)
+    state, ems = run(trainer.state, x_train, None, 1.0)
+    ems.total.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        state, ems = run(state, x_train, None, 1.0)
+        ems.total.cpu()
+    return (time.perf_counter() - t0) / (chunks * steps) * 1e3
+
+
+def phase_chunk_breakdown(torch, trainer, x_train) -> tuple:
     """Warm throughput of one 2-epoch chunk, its synchronising calls, and
-    a torch.profiler breakdown by kernel name."""
+    a torch.profiler breakdown by kernel name.  Returns (synchronising
+    calls, [(device µs, count, kernel name)], device-busy µs)."""
+    n_train = x_train.shape[0]
     from torch.profiler import ProfilerActivity, profile
     from dvae_tpu_torch.train.step import make_epoch_runner
     run = make_epoch_runner(trainer.cfg, trainer.tcfg, trainer.tx, n_train,
                             epochs_per_chunk=2)
     steps = 2 * (n_train // B)
+    warm = warm_chunk_ms(torch, trainer, x_train) * steps / 1e3
     state = trainer.state
-    state, ems = run(state, x_train, None, 1.0)
-    ems.total.cpu()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, ems = run(state, x_train, None, 1.0)
-    ems.total.cpu()
-    warm = time.perf_counter() - t0
     print(f"  warm chunk: {steps} steps in {warm:.4f} s = "
           f"{steps * B / warm:.1f} cells/s, {warm / steps * 1e3:.3f} ms/step")
     with warnings.catch_warnings(record=True) as caught:
@@ -871,12 +1304,13 @@ def phase_chunk_breakdown(torch, trainer, x_train) -> None:
     busy = sum(k[0] for k in kernels)
     if not busy:
         print("  profiler: no device time recorded (not measured)")
-        return
+        return n_sync, [], 0
     print(f"  profiled chunk: device busy {busy / 1e3:.3f} ms = "
           f"{busy / (warm * 1e6):.3f} of the warm chunk's wall "
           f"({busy / 1e3 / steps:.3f} ms/step)")
     for t, n, name in kernels[:12]:
         print(f"    {t / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
+    return n_sync, kernels, busy
 
 
 def phase_training(torch, check, tmp, x) -> dict:
@@ -943,10 +1377,10 @@ def phase_training(torch, check, tmp, x) -> dict:
     return counts
 
 
-def phase_zinb_path(torch, check, tmp) -> dict:
+def phase_zinb_path(torch, check, tmp) -> tuple:
     """ZINB mode end to end at full width: training, resume, serving, the
-    card against the CPU path.  Returns {"training": counts, "serving":
-    counts} of the two counted runs."""
+    card against the CPU path.  Returns ({"training": counts, "serving":
+    counts} of the two counted runs, the dataset on the card)."""
     import numpy as np
     from dvae_tpu_torch.data.anndata_io import hard_synthetic_dataset
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
@@ -1066,7 +1500,226 @@ def phase_zinb_path(torch, check, tmp) -> dict:
     phase_chunk_breakdown(torch, resumed, x_train)
     del trainer, resumed, server
     torch.cuda.empty_cache()
-    return {"training": trained, "serving": served}
+    return {"training": trained, "serving": served}, x
+
+
+def alignment_invariance(torch, check, trainer, xb) -> None:
+    """One alignment move on a copy of the trainer's state: the eval loss of
+    one batch before and after the permutation."""
+    import numpy as np
+    from dvae_tpu_torch.train.alignment import (align_state, moved_counts,
+                                                permute_categories,
+                                                permute_opt_state)
+    from dvae_tpu_torch.train.step import make_eval_step
+    ev = make_eval_step(trainer.cfg, trainer.tcfg)
+    state = trainer.state
+    before, lab, _ = ev(state, xb, None, 1.0)
+    # rotate arm 1's categories first, so that there is something to undo
+    # whatever the training run left
+    m_rot = np.tile(np.arange(C), (A, 1))
+    m_rot[1] = np.roll(m_rot[1], 5)
+    rotated = state._replace(
+        params=permute_categories(state.params, m_rot, trainer.cfg),
+        opt_state=permute_opt_state(state.opt_state, m_rot, trainer.cfg))
+    mid, lab_rot, _ = ev(rotated, xb, None, 1.0)
+    lab_np = lab.cpu().numpy()
+    check(bool(np.array_equal(lab_rot.cpu().numpy(),
+                              np.take_along_axis(m_rot, lab_np, axis=1))),
+          "a rotation of arm 1's category indices renames its labels: "
+          "new = m[a, old]")
+    aligned, m, moved = align_state(rotated, lab_rot.cpu().numpy(),
+                                    trainer.cfg,
+                                    mask=state.mask.cpu().numpy())
+    after, lab_new, _ = ev(aligned, xb, None, 1.0)
+    _, active = moved_counts(m, lab_rot.cpu().numpy())
+
+    def rel(u, v):
+        return ((u - v).abs() / v.abs().clamp_min(1e-30)).max().item()
+
+    e_rec = max(rel(mid.loss_rec, before.loss_rec),
+                rel(after.loss_rec, before.loss_rec))
+    e_kl = max(rel(mid.kl, before.kl), rel(after.kl, before.kl))
+    e_ent = max(rel(mid.neg_entropy, before.neg_entropy),
+                rel(after.neg_entropy, before.neg_entropy))
+    check(moved > 0 and e_rec <= 1e-5 and e_kl <= 1e-5 and e_ent <= 1e-5,
+          f"alignment on one batch: {moved} indices remapped ({active} "
+          f"active); per-arm loss_rec, KL and entropy unchanged by the "
+          f"rotation and by the alignment (max rel diff {e_rec:.1e}, "
+          f"{e_kl:.1e}, {e_ent:.1e}; tol 1e-5: the same sums, the "
+          "categories in another order)")
+    d0, d1, d2 = (v.c_dist.item() for v in (before, mid, after))
+    check(d2 <= d1 * (1 + 1e-5),
+          f"coupling term: {d0:.6g} as trained, {d1:.6g} with arm 1 "
+          f"rotated, {d2:.6g} after the alignment (not larger than "
+          "before it)")
+    mu0 = state.opt_state.mu["fcc"]["b"]
+    mu2 = aligned.opt_state.mu["fcc"]["b"]
+    check(aligned.opt_state.count == state.opt_state.count
+          and bool(torch.equal(mu2.sort(dim=1).values,
+                               mu0.sort(dim=1).values)),
+          "the Adam moments moved with their categories (fcc.b's first "
+          "moment per arm: the same values in another order)")
+
+
+def phase_categorical_path(torch, check, tmp, x, x_zinb) -> dict:
+    """The categorical path end to end at full width: use_pallas (the fused
+    Gumbel sampler and coupling distance) with cross-arm alignment, in MSE
+    mode through training, a fresh load and serving, then a short ZINB
+    run.  Returns {"training", "serving", "zinb"}: the launch counts of
+    the three counted runs."""
+    import numpy as np
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print("phase 6: use_pallas + alignment end to end")
+    folder = os.path.join(tmp, "categorical")
+    trainer = CplMixVAE(saving_folder=folder, device=DEV, seed=SEED)
+    trainer.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                       lowD_dim=10, state_dim=2, batch_size=B,
+                       epochs_per_jit=2, eval_every=2, ckpt_every=2,
+                       use_pallas=True, align_arms_every=2)
+    check(trainer.cfg.use_pallas and trainer.cfg.fused_encoder
+          and trainer.cfg.fused_recon and trainer.tcfg.align_arms_every == 2,
+          "use_pallas and align_arms_every are taken; the default kernels "
+          "stay on")
+    x_train = x[:N_CAT_TRAIN]
+    x_val = x[N_CAT_TRAIN:N_CAT_TRAIN + N_CAT_VAL]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    path = trainer.train(x_train, x_val=x_val, n_epoch=4,
+                         early_stop_consensus=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trained = launch_counts()
+    rise = torch.cuda.max_memory_allocated() - base
+    per_epoch = N_CAT_TRAIN // B
+    steps = 4 * per_epoch
+    n_val, n_align = 2, 2
+    # an eval batch computes the loss: one coupling and one recon_fwd for
+    # each validation batch and each _predict_labels batch of an alignment
+    # (min(N, 4·batch) cells in batches of batch_size)
+    eval_batches = (n_val * -(-N_CAT_VAL // B)
+                    + n_align * (min(N_CAT_TRAIN, 4 * B) // B))
+    print(f"  train: 4 epochs, {steps} steps, {N_CAT_TRAIN} cells, {n_val} "
+          f"validations, {n_align} alignments in {wall:.4f} s (cold, "
+          "checkpoints included)")
+    want = {**dict.fromkeys(trained, 0), "encoder_fwd": steps,
+            "encoder_bwd": steps, "recon_fwdbwd": steps,
+            "gumbel_fwd": steps, "gumbel_bwd": steps,
+            "coupling": steps + eval_batches, "recon_fwd": eval_batches}
+    check(trained == want, f"launches on the categorical training path: "
+                           f"{trained} (expect {want})")
+    with open(os.path.join(folder, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    print(f"  epoch losses: {losses}")
+    check(len(losses) == 4 and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0],
+          "loss finite, last epoch's mean below the first's")
+    val = [r for r in rows if "val/loss" in r]
+    check(len(val) == n_val and all(math.isfinite(r["val/loss"])
+                                    for r in val),
+          f"{n_val} validations with finite loss ({len(val)})")
+    moves = [r for r in rows if "train/align_moved" in r]
+    check(len(moves) >= 1 and all(r["train/align_moved"] > 0 for r in moves),
+          f"the [align] move happened {len(moves)} time(s): "
+          + ", ".join(f"{r['train/align_moved']} indices "
+                      f"({r['train/align_moved_active']} active), consensus "
+                      f"{r['train/align_consensus']:.3f}" for r in moves))
+    limit = A * B * D * 4
+    check(rise < limit, f"peak allocated rise over the resident dataset "
+                        f"{rise / 1e6:.1f} MB (limit one (A,B,D) f32 "
+                        f"tensor, {limit / 1e6:.0f} MB)")
+    check(all(bool(torch.isfinite(v).all())
+              for layer in trainer.state.params.values()
+              for v in layer.values()), "parameters finite")
+    alignment_invariance(torch, check, trainer, x_val)
+
+    server = CplMixVAE(device=DEV)
+    epoch = server.load_model(path)
+    check(epoch == 4 and server.cfg.use_pallas and server.cfg.fused_recon
+          and server.tcfg.align_arms_every == 2,
+          "a fresh instance takes use_pallas and align_arms_every from the "
+          "checkpoint")
+    n_cells = N_CAT_TRAIN + N_CAT_VAL
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = server.eval_model(x[:n_cells], batch_size=B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = launch_counts()
+    n_launch = -(-n_cells // B)
+    print(f"  eval_model: {n_cells} cells in {wall:.4f} s = "
+          f"{n_cells / wall:.1f} cells/s; consensus {res['consensus']:.6f}; "
+          f"total_loss {res['total_loss']:.6g}")
+    check(served == {**dict.fromkeys(served, 0), "coupling": n_launch,
+                     "recon_fwd": n_launch},
+          f"launches on the categorical serving path: {served} (expect "
+          f"coupling and recon_fwd {n_launch} each: one per eval batch, "
+          "where the loss is computed)")
+    check(np.asarray(res["pred_label"]).shape == (A, n_cells)
+          and math.isfinite(res["total_loss"])
+          and bool(np.all(np.isfinite(res["c_prob"])))
+          and 0.0 <= res["consensus"] <= 1.0,
+          "labels of every cell, finite posteriors and loss, consensus in "
+          "[0, 1]")
+    serving_parity(check, server, path, x[:N_SMALL].cpu().numpy(),
+                   x[:N_SMALL])
+    phase_parity_step(torch, check, path, x)
+
+    # with and without use_pallas from the same checkpoint, in turns
+    plain = CplMixVAE(device=DEV)
+    plain.load_model(path)
+    plain.cfg = plain.cfg.replace(use_pallas=False)
+    fused = CplMixVAE(device=DEV)
+    fused.load_model(path)
+    ms = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        ms[which].append(warm_chunk_ms(
+            torch, plain if which == "off" else fused, x_train, chunks=2))
+    off, on = (sum(ms[k]) / 2 for k in ("off", "on"))
+    print(f"  warm training step without use_pallas {off:.3f} ms "
+          f"({ms['off'][0]:.3f}, {ms['off'][1]:.3f}) = {B / off * 1e3:.1f} "
+          f"cells/s; with use_pallas {on:.3f} ms ({ms['on'][0]:.3f}, "
+          f"{ms['on'][1]:.3f}) = {B / on * 1e3:.1f} cells/s")
+    n_sync, kernels, busy = phase_chunk_breakdown(torch, fused, x_train)
+    check(n_sync == 0, f"{n_sync} synchronising calls inside a use_pallas "
+                       "chunk (expect 0)")
+    ours = [(t, n, name) for t, n, name in kernels
+            if "gumbel_" in name or "coupling_" in name
+            or name.startswith("reduce_partials")]
+    if busy:
+        steps_prof = 2 * per_epoch
+        share = sum(k[0] for k in ours) / busy
+        print(f"  the Gumbel and coupling kernels in the profiled chunk: "
+              f"{sum(k[0] for k in ours) / 1e3 / steps_prof:.4f} ms/step = "
+              f"{share:.4f} of the device time")
+        for t, n, name in ours:
+            print(f"    {t / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
+    del trainer, server, plain, fused
+    torch.cuda.empty_cache()
+
+    # ZINB mode with use_pallas: the flag composes with the ZINB kernels
+    ztrainer = CplMixVAE(saving_folder=os.path.join(tmp, "categorical_zinb"),
+                         device=DEV, seed=SEED)
+    ztrainer.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                        lowD_dim=10, state_dim=2, mode="ZINB", batch_size=B,
+                        epochs_per_jit=2, use_pallas=True, hard=True)
+    reset_launch_counts()
+    ztrainer.train(x_zinb[:N_CAT_ZINB], n_epoch=2, early_stop_consensus=0)
+    torch.cuda.synchronize()
+    zinb = launch_counts()
+    zsteps = 2 * (N_CAT_ZINB // B)
+    want = {**dict.fromkeys(zinb, 0), "encoder_fwd": zsteps,
+            "encoder_bwd": zsteps, "zinb_fwdbwd": zsteps,
+            "gumbel_fwd": zsteps, "gumbel_bwd": zsteps, "coupling": zsteps}
+    check(zinb == want and not ztrainer._halted,
+          f"launches of a ZINB run with use_pallas and hard samples: {zinb} "
+          f"(expect {want})")
+    del ztrainer
+    torch.cuda.empty_cache()
+    return {"training": trained, "serving": served, "zinb": zinb}
 
 
 def main() -> int:
@@ -1102,17 +1755,24 @@ def main() -> int:
         records["recon_fwdbwd"] = phase_recon_fwdbwd(torch, check)
         records["recon_bwd"] = phase_recon_bwd(torch, check)
         records.update(phase_zinb(torch, check))
+        records.update(phase_gumbel(torch, check))
+        records["coupling"] = phase_coupling(torch, check)
         if not kernels_only:
             served, _, x = phase_serving(torch, check, tmp)
             paths = {"serving": served,
                      "training": phase_training(torch, check, tmp, x)}
-            del x
-            torch.cuda.empty_cache()
-            zinb = phase_zinb_path(torch, check, tmp)
+            zinb, x_zinb = phase_zinb_path(torch, check, tmp)
             paths["zinb_training"] = zinb["training"]
             paths["zinb_serving"] = zinb["serving"]
+            cat = phase_categorical_path(torch, check, tmp, x, x_zinb)
+            paths["categorical_training"] = cat["training"]
+            paths["categorical_serving"] = cat["serving"]
+            paths["categorical_zinb"] = cat["zinb"]
+            del x, x_zinb
+            torch.cuda.empty_cache()
             on_path = ("recon_fwd", "recon_fwdbwd", "encoder_fwd",
-                       "encoder_bwd", "zinb_fwd", "zinb_fwdbwd")
+                       "encoder_bwd", "zinb_fwd", "zinb_fwdbwd",
+                       "gumbel_fwd", "gumbel_bwd", "coupling")
             for name in on_path:
                 n = sum(c[name] for c in paths.values())
                 check(n > 0, f"{name}: {n} launches on the driven paths")
@@ -1141,6 +1801,10 @@ def main() -> int:
         "zinb_fwd": ("zinb_fwd.cu", "dvae_tpu/ops/zinb_pallas.py:269"),
         "zinb_fwdbwd": ("zinb_fwdbwd.cu", "dvae_tpu/ops/zinb_pallas.py:450"),
         "zinb_bwd": ("zinb_fwdbwd.cu", "dvae_tpu/ops/zinb_pallas.py:338"),
+        "gumbel_fwd": ("gumbel.cu", "dvae_tpu/ops/gumbel_pallas.py:52"),
+        "gumbel_bwd": ("gumbel.cu", "dvae_tpu/ops/gumbel_pallas.py:128"),
+        "gumbel_sharpen": ("gumbel.cu", "dvae_tpu/ops/gumbel_pallas.py:203"),
+        "coupling": ("coupling.cu", "dvae_tpu/ops/coupling_pallas.py:51"),
     }
     entries = {name: {"name": name, "route": "cuda",
                       "source": f"dvae_tpu_torch/csrc/{src}", "replaces": rep,
@@ -1149,9 +1813,10 @@ def main() -> int:
                                            for k, c in paths.items()},
                       **records[name]}
                for name, (src, rep) in sources.items()}
-    # the separate backward kernels have no caller on any path of either
-    # package (the fused kernels took their place); they are held against
-    # their plain versions in phase 2 and listed apart, with the same keys
+    # the separate backward kernels and the sharpen variant of the Gumbel
+    # forward have no caller on any path of either package; they are held
+    # against their plain versions in phase 2 and listed apart, with the
+    # same keys
     print(json.dumps({
         "kernels": [entries[n] for n in on_path],
         "kernels_off_path": [entries[n] for n in sources

@@ -14,7 +14,8 @@ adjusted-MI metrics as one JSON line (also saved to
 ``evaluation/A{n}-RUN{run}-E{epoch}.npy``).  The model runs on
 ``--device`` (default ``cuda``).  ``train --loss_mode ZINB`` trains the
 zero-inflated negative-binomial reconstruction (``evaluate`` takes the
-mode from the checkpoint).  The dataset is a synthetic one
+mode from the checkpoint); ``train --align_every N`` Hungarian-aligns the
+arms' category indices every N epochs.  The dataset is a synthetic one
 (``--syn_cells``/``--syn_genes``/``--syn_types``): planted Gaussian
 programs, or with ``--syn_hard`` (alias ``--hard_synthetic``) ZINB counts
 with library-size variation, dropout and overlapping types; reading
@@ -76,7 +77,7 @@ def cmd_train(args) -> int:
         optimizer=args.optimizer,
         fused={"auto": None, "on": True, "off": False}[args.fused],
         shuffle_block=args.shuffle_block, ckpt_every=args.ckpt_every,
-        eval_every=args.eval_every)
+        eval_every=args.eval_every, align_arms_every=args.align_every)
     done = 0
     if args.resume:
         ckpt = latest_checkpoint(folder) or newest_checkpoint(folder)
@@ -143,7 +144,8 @@ def main(argv=None) -> int:
             ("--max_prun_it", int, 0), ("--min_con", float, 0.99),
             ("--batch_size", int, 5000), ("--epochs_per_jit", int, 10),
             ("--ckpt_every", int, 10), ("--eval_every", int, 10),
-            ("--shuffle_block", int, 1), ("--seed", int, 546),
+            ("--shuffle_block", int, 1), ("--align_every", int, 0),
+            ("--seed", int, 546),
             ("--syn_cells", int, 5000), ("--syn_genes", int, 500),
             ("--syn_types", int, 20)):
         pt.add_argument(flag, type=typ, default=default)

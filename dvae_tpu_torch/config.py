@@ -12,9 +12,13 @@ MSE reconstruction loss through the hand-written kernels of
 ``ops/recon.py`` (the forward in eval, the forward+backward in training);
 ``fused_encoder`` runs train-mode input dropout and fc1 through those of
 ``ops/encoder.py``; ``bn_groups`` > 1 is ghost batch norm in train mode.
-``fused_decoder`` and ``use_pallas`` are carried for checkpoint
-compatibility: their kernels belong to later slices of the port, and the
-model refuses them rather than ignore them.
+``use_pallas`` (the JAX package's name for its opt-in kernels, kept so that
+either package's checkpoints rebuild the other's config) turns on the
+hand-written Gumbel-softmax sampler of ``ops/gumbel.py`` in training and
+the fused coupling distance of ``ops/coupling.py`` in every loss.
+``fused_decoder`` is carried for checkpoint compatibility: its kernel
+belongs to a later slice of the port, and the model refuses it rather than
+ignore it.
 """
 
 from __future__ import annotations

@@ -49,6 +49,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "philox.cuh"  // philox4x32_10
+
 namespace {
 
 constexpr int BM = 64;        // rows of the output tile
@@ -72,24 +74,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-// Philox4x32-10 (Salmon et al., SC'11): ten rounds, key bumped between.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
 }
 
 constexpr uint32_t KEY1 = 0x5EED0001u;

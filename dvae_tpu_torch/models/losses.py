@@ -11,7 +11,9 @@ through the autograd ops ``ops/recon.fused_recon_mse`` (MSE mode) and
 ``ops/zinb.fused_zinb`` (ZINB mode): the fused forward+backward kernel
 when a gradient is asked for.  The binarized-BCE metric is detached in
 both MSE branches, as in the JAX package (dvae_tpu/models/losses.py:105,
-:353).
+:353).  Under ``cfg.use_pallas`` the coupling distance goes through the
+fused kernel of ``ops/coupling.py``, in training and in eval
+(dvae_tpu/models/losses.py:396-401); its gradient is the eager form's.
 """
 
 from __future__ import annotations
@@ -257,7 +259,11 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
     negent = neg_entropy(c, logc)                         # (A,)
     n_pairs = A * (A - 1) // 2
     if n_pairs > 0:
-        sum_c_dists = coupling_distance(c, eps)
+        if cfg.use_pallas:
+            from dvae_tpu_torch.ops.coupling import coupling_distance_fused
+            sum_c_dists = coupling_distance_fused(c, eps)
+        else:
+            sum_c_dists = coupling_distance(c, eps)
         sum_c_l2 = _pair_sums_from_gram(outs.c_smp)
         sum_c_ents = (A - 1) * negent.sum()
     else:

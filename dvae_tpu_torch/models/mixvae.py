@@ -17,6 +17,9 @@ bundle (parity tests hand both packages the same numbers) or else from a
 ``torch.Generator``.  Under ``cfg.fused_encoder`` input dropout and fc1 run
 as one hand-written kernel (``ops/encoder.fused_dropout_fc1``) that draws
 its mask in-kernel from a seed, so no (A, B, D) dropped input exists.
+Under ``cfg.use_pallas`` the train-mode categorical sample runs as one
+hand-written kernel (``ops/gumbel.gumbel_softmax_fused``) that draws its
+uniforms in-kernel from a seed.
 """
 
 from __future__ import annotations
@@ -50,12 +53,15 @@ class Noise(NamedTuple):
     """Explicit random numbers of one forward; each field may be None (then
     it is drawn from the generator).  Shapes: x_mask (A, B, D) keep-mask of
     input dropout, gumbel_u (A, B, C) uniforms, reparam_e (A, B, S),
-    s_mask (A, B, S) keep-mask of state dropout."""
+    s_mask (A, B, S) keep-mask of state dropout.  ``gumbel_seed`` keys the
+    uniforms the fused Gumbel kernel draws itself under ``cfg.use_pallas``;
+    an explicit ``gumbel_u`` wins over it."""
 
     x_mask: Optional[torch.Tensor] = None
     gumbel_u: Optional[torch.Tensor] = None
     reparam_e: Optional[torch.Tensor] = None
     s_mask: Optional[torch.Tensor] = None
+    gumbel_seed: Optional[int] = None
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +232,29 @@ def _encoder(params, bn, x, cfg: VAEConfig, train: bool = False,
     return x_low, c_prob, new_bn
 
 
+def _sample_categorical(c, cfg: VAEConfig, temp, train: bool, noise: Noise,
+                        generator) -> torch.Tensor:
+    """Gumbel sample of the stacked (A, B, C) posterior
+    (dvae_tpu/models/mixvae.py:312-323): in train mode under
+    ``cfg.use_pallas`` through the fused kernel, which draws its own
+    uniforms from ``noise.gumbel_seed`` (or a seed from ``generator``)
+    unless ``noise.gumbel_u`` gives them; eval is the deterministic
+    one-hot."""
+    if train and cfg.use_pallas:
+        from dvae_tpu_torch.ops.gumbel import gumbel_softmax_fused
+        seed = noise.gumbel_seed
+        if seed is None and noise.gumbel_u is None:
+            dev = generator.device if generator is not None else c.device
+            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                                     device=dev))
+        return gumbel_softmax_fused(0 if seed is None else seed, c,
+                                    noise.gumbel_u, temp, cfg.eps, cfg.hard)
+    if train:
+        return gumbel_softmax(c, temp, cfg.eps, hard=cfg.hard,
+                              generator=generator, u=noise.gumbel_u)
+    return gumbel_softmax(c, temp, cfg.eps, hard=True, gumbel_noise=False)
+
+
 def _decode_hidden(params, c_smp, s):
     """Decoder trunk up to, not including, the output layer fc11."""
     h = torch.relu(_linear(params["fc6"], torch.cat([c_smp, s], dim=-1)))
@@ -263,17 +292,15 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
         dvae_tpu/models/mixvae.py:288-293).  What it leaves out comes from
         ``generator``.
       enc_seed: the fused encoder kernel's mask seed (train mode under
-        ``cfg.fused_encoder``); drawn from ``generator`` when None.
+        ``cfg.fused_encoder``); drawn from ``generator`` when None.  The
+        fused Gumbel kernel's seed (train mode under ``cfg.use_pallas``)
+        rides in ``noise.gumbel_seed`` likewise.
 
     Returns (MixVAEOutputs, bn_state) — the updated running statistics in
     train mode, the given ones in eval.
     """
     if cfg.mode not in ("MSE", "ZINB"):
         raise ValueError(f"unknown reconstruction mode {cfg.mode!r}")
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas (the Gumbel and coupling kernels) arrives with a "
-            "later slice of the port")
     if cfg.fused_decoder:
         raise NotImplementedError(
             "fused_decoder (the whole-decoder kernel) arrives with a later "
@@ -298,12 +325,7 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
         logits_tau = torch.where(mask > 0, logits_tau,
                                  torch.full_like(logits_tau, -torch.inf))
     c = torch.softmax(logits_tau, dim=-1)
-    if train:
-        c_smp = gumbel_softmax(c, temp, cfg.eps, hard=cfg.hard,
-                               generator=generator, u=noise.gumbel_u)
-    else:
-        c_smp = gumbel_softmax(c, temp, cfg.eps, hard=True,
-                               gumbel_noise=False)
+    c_smp = _sample_categorical(c, cfg, temp, train, noise, generator)
     c_in = c_smp.to(x_low.dtype)
 
     y_cat = (prior_c.to(x_low.dtype).expand(A, *prior_c.shape)

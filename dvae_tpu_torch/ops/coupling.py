@@ -1,0 +1,156 @@
+"""Fused arm-coupling distance: the (A, A) Gram matrix of the
+precision-scaled, centred log posteriors, and the pair sum
+Σ_{a<d} mean_B ‖prec_a − prec_d‖² = (A·tr G − Σ G) / B that follows from it.
+
+Counterpart of dvae_tpu/ops/coupling_pallas.py.  The eager form
+(``models/losses.coupling_distance``) materialises log(c + eps) and the
+scaled tensor, two (A, B, C) tensors, before the Gram contraction; the
+hand-written CUDA kernels of ``csrc/coupling.cu`` (its source note states
+the bound, the design and the workspace) stream ``c`` twice and emit only
+the Gram matrix and the distance — kernel #11 (``_kernel``,
+coupling_pallas.py:51), counted once per op by
+``coupling_gram_fused.launches``:
+
+    phase 0   S1 = Σ_B c, S2 = Σ_B c², SL = Σ_B log(c + eps)      per (A, C)
+              w = rsqrt(max((S2 − S1²/B)/(B − 1), 0) + eps)
+              m = mean_A(w·SL) / B
+    phase 1   prec = log(c + eps)·w − m,   G = Σ_{B,C} prec_a·prec_d
+
+Centring by ``m`` and the clamp of the one-pass variance are the two
+guards of coupling_pallas.py:19-29; ``coupling_gram_plain`` walks the same
+two phases.  The gradient is autograd of the eager form on the saved
+``c``, exactly as the JAX package's ``_bwd`` (:140-143) takes it: there is
+no backward kernel.
+
+On CPU tensors the wrappers run the plain version; on CUDA tensors they
+launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dvae_tpu_torch.ops import _build
+from dvae_tpu_torch.ops._common import on_cpu
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("coupling")
+    if not getattr(lib, "_dvae_bound", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.coupling_gram_f32.argtypes = [vp, ctypes.c_float, i, i, i, vp, vp,
+                                          vp]
+        lib.coupling_gram_f32.restype = i
+        lib.coupling_workspace_floats.argtypes = [i, i, i]
+        lib.coupling_workspace_floats.restype = ctypes.c_longlong
+        for fn in (lib.coupling_max_arms, lib.coupling_max_c):
+            fn.argtypes = []
+            fn.restype = i
+        lib._dvae_bound = True
+    return lib
+
+
+def _check_c(c) -> tuple:
+    if c.dim() != 3:
+        raise ValueError(f"expected c (A, B, C), got {tuple(c.shape)}")
+    if c.shape[1] < 2:
+        raise ValueError("the unbiased batch variance needs B >= 2 rows")
+    return tuple(c.shape)
+
+
+def coupling_gram_plain(c: torch.Tensor, eps: float) -> torch.Tensor:
+    """Plain version of kernel #11: the two phases with the one-pass
+    variance and its clamp, the column sums in double as the kernel's
+    second reduction takes them.  Returns the (A, A) f32 Gram matrix
+    (not divided by B)."""
+    _, B, _ = _check_c(c)
+    c = c.float()
+    logc = torch.log(c + eps)
+    c64 = c.double()
+    s1, s2 = c64.sum(dim=1), (c64 * c64).sum(dim=1)
+    sl = logc.double().sum(dim=1)                                # (A, C)
+    var = (s2 - s1 * s1 / B) / (B - 1)
+    eps32 = float(torch.tensor(eps, dtype=torch.float32))
+    w = 1.0 / torch.sqrt(torch.clamp(var, min=0.0) + eps32)
+    m = (w * sl).mean(dim=0) / B                                 # (C,)
+    prec = logc * w.float()[:, None, :] - m.float()
+    return torch.einsum("abc,dbc->ad", prec, prec)
+
+
+def coupling_distance_plain(c: torch.Tensor, eps: float) -> torch.Tensor:
+    """Plain version of the distance: (A·tr G − Σ G) / B of the plain Gram
+    matrix."""
+    g = coupling_gram_plain(c, eps)
+    return (c.shape[0] * g.diagonal().sum() - g.sum()) / c.shape[1]
+
+
+def _launch(c: torch.Tensor, eps: float) -> torch.Tensor:
+    """A·A + 1 floats from one run of kernel #11: G row by row, then the
+    distance."""
+    A, B, C = _check_c(c)
+    if c.dtype != torch.float32:
+        raise ValueError(f"c is {c.dtype}; the coupling kernel takes float32")
+    if not c.is_contiguous():
+        raise ValueError("c is not contiguous")
+    lib = _lib()
+    if A > lib.coupling_max_arms() or C > lib.coupling_max_c():
+        raise ValueError(f"A = {A}, C = {C} exceed the coupling kernel's "
+                         f"limits of {lib.coupling_max_arms()} arms and "
+                         f"{lib.coupling_max_c()} categories")
+    work = torch.empty(lib.coupling_workspace_floats(A, B, C),
+                       device=c.device, dtype=torch.float32)
+    out = torch.empty(A * A + 1, device=c.device, dtype=torch.float32)
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.coupling_gram_f32(c.data_ptr(), float(eps), A, B, C,
+                                    work.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"coupling kernel launch failed: CUDA error {err}")
+    coupling_gram_fused.launches += 1
+    return out
+
+
+def coupling_gram_fused(c: torch.Tensor, eps: float) -> torch.Tensor:
+    """(A, A) Gram matrix of the precision-scaled, centred log posteriors
+    of c (A, B, C), not divided by B.  Kernel #11 on a CUDA tensor, the
+    plain version on a CPU tensor.  No gradient."""
+    if on_cpu(c):
+        return coupling_gram_plain(c.detach(), eps)
+    A = c.shape[0]
+    return _launch(c.detach(), eps)[:A * A].reshape(A, A)
+
+
+coupling_gram_fused.launches = 0
+
+
+def _distance_value(c: torch.Tensor, eps: float) -> torch.Tensor:
+    if on_cpu(c):
+        return coupling_distance_plain(c, eps)
+    return _launch(c, eps)[-1]
+
+
+class _CouplingDistance(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, c, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(c)
+        return _distance_value(c, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        from dvae_tpu_torch.models.losses import coupling_distance
+        (c,) = ctx.saved_tensors
+        with torch.enable_grad():
+            x = c.detach().requires_grad_()
+            (dc,) = torch.autograd.grad(coupling_distance(x, ctx.eps), x, g)
+        return dc, None
+
+
+def coupling_distance_fused(c: torch.Tensor, eps: float) -> torch.Tensor:
+    """Σ over arm pairs of the mean precision-scaled simplex distance of
+    c (A, B, C): the fused forward, the eager form's exact gradient."""
+    if torch.is_grad_enabled() and c.requires_grad:
+        return _CouplingDistance.apply(c, float(eps))
+    return _distance_value(c.detach(), float(eps))

@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from dvae_tpu_torch.ops import _build
-from dvae_tpu_torch.ops._common import check_kernel_operands, on_cpu
+from dvae_tpu_torch.ops._common import (check_kernel_operands, on_cpu,
+                                         philox4x32_10)
 
 _MODE_IDENTITY, _MODE_MASK, _MODE_PHILOX = 0, 1, 2
 _PHILOX_KEY1 = 0x5EED0001
@@ -77,22 +78,6 @@ def keep_threshold(rate: float) -> int:
 # Masks
 # ---------------------------------------------------------------------------
 
-def _philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
-    """Philox4x32-10 on uint64 numpy arrays holding 32-bit words (the
-    products of two 32-bit words are exact in 64 bits)."""
-    m32 = np.uint64(0xFFFFFFFF)
-    ka, kb = np.uint64(k0), np.uint64(k1)
-    for r in range(10):
-        if r:
-            ka = (ka + np.uint64(0x9E3779B9)) & m32
-            kb = (kb + np.uint64(0xBB67AE85)) & m32
-        p0 = np.uint64(0xD2511F53) * c0
-        p1 = np.uint64(0xCD9E8D57) * c2
-        c0, c1, c2, c3 = ((p1 >> np.uint64(32)) ^ c1 ^ ka, p1 & m32,
-                          (p0 >> np.uint64(32)) ^ c3 ^ kb, p0 & m32)
-    return c0, c1, c2, c3
-
-
 def philox_keep_mask(seed: int, shape, rate: float) -> np.ndarray:
     """The keep-mask the kernels draw in-kernel for ``seed``, as a bool
     (A, B, D) numpy array: the plain version of the device function."""
@@ -101,8 +86,8 @@ def philox_keep_mask(seed: int, shape, rate: float) -> np.ndarray:
     arm, row, col4 = np.meshgrid(np.arange(A, dtype=np.uint64),
                                  np.arange(B, dtype=np.uint64),
                                  np.arange(n4, dtype=np.uint64), indexing="ij")
-    words = _philox4x32_10(col4, row, arm, np.zeros_like(col4),
-                           int(seed) & 0xFFFFFFFF, _PHILOX_KEY1)
+    words = philox4x32_10(col4, row, arm, np.zeros_like(col4),
+                          int(seed) & 0xFFFFFFFF, _PHILOX_KEY1)
     thr = np.uint64(keep_threshold(rate))
     keep = np.stack([(w & np.uint64(0x7FFFFFFF)) < thr for w in words], -1)
     return keep.reshape(A, B, 4 * n4)[:, :, :D]

@@ -15,13 +15,17 @@ forward and backward (``ops/encoder.py``) and the fused reconstruction
 loss forward+backward (``ops/recon.py`` in MSE mode, ``ops/zinb.py`` in
 ZINB mode) in training, the loss's value-only forward in eval.  Under the
 fused ZINB kernel ``ll`` is NaN by design (no reconstruction exists to
-take it from); the NaN halt looks at the total loss only.
+take it from); the NaN halt looks at the total loss only.  ``use_pallas``
+(opt-in, as in the JAX package) adds the fused Gumbel-softmax sampler,
+forward and backward, in training (``ops/gumbel.py``) and the fused
+coupling distance in every loss (``ops/coupling.py``).
+``align_arms_every`` > 0 Hungarian-aligns the arms' category indices every
+that many epochs (``train/alignment.py``).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: the augmenter (``aug_file``), streaming (``stream``, and the
-switch to it when the dataset does not fit the device), cross-arm
-alignment, a mesh of several devices, ``use_pallas``, ``fused_decoder``
-and ``save_plots``.
+switch to it when the dataset does not fit the device), a mesh of several
+devices, ``fused_decoder`` and ``save_plots``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from dvae_tpu_torch.config import (MeshConfig, ShardingStrategy, TrainConfig,
 from dvae_tpu_torch.eval.metrics import (consensus_device_both,
                                          consensus_from_labels,
                                          per_category_agreement)
+from dvae_tpu_torch.train.alignment import align_state, moved_counts
 from dvae_tpu_torch.train.step import (AdamState, TrainState,
                                        init_train_state, make_epoch_runner,
                                        make_eval_runner, make_eval_step,
@@ -149,17 +154,11 @@ class CplMixVAE:
     def _refuse_later_slices(cfg: VAEConfig, tcfg: TrainConfig) -> None:
         if cfg.mode not in ("MSE", "ZINB"):
             raise ValueError(f"unknown reconstruction mode {cfg.mode!r}")
-        if cfg.use_pallas:
-            raise _not_ported("use_pallas (the Gumbel and coupling kernels)",
-                              "opt-in kernels")
         if cfg.fused_decoder:
             raise _not_ported("fused_decoder (the whole-decoder kernel)",
                               "opt-in kernels")
         if tcfg.stream:
             raise _not_ported("streaming (stream=True)", "streaming")
-        if tcfg.align_arms_every > 0:
-            raise _not_ported("cross-arm alignment (align_arms_every)",
-                              "alignment")
         if tcfg.mesh.n_devices > 1:
             raise _not_ported("a mesh of several devices", "multi-GPU")
 
@@ -499,6 +498,15 @@ class CplMixVAE:
                 self._halted = True
                 break
 
+            # cross-arm category alignment (train/alignment.py; off by
+            # default), main and prune phases: under a pruned mask the match
+            # is restricted to active categories; ref_prior pins the index
+            # space, so it stays gated
+            if (tcfg.align_arms_every and cfg.n_arm > 1
+                    and not cfg.ref_prior
+                    and crossed(tcfg.align_arms_every)):
+                self._align(x_all, temp, logger, phase, epoch)
+
             if x_val is not None and crossed(tcfg.eval_every):
                 val = self.validate(x_val, temp, c_p=prior_val)
                 logger.log({f"val/{k}": v for k, v in val.items()},
@@ -519,6 +527,31 @@ class CplMixVAE:
                 self.save_checkpoint(f"preempt_epoch_{epoch}")
                 mprint(f"preempted: checkpointed at epoch {epoch}")
                 break
+
+    def _align(self, x_all, temp, logger, phase: str, epoch: int) -> None:
+        """One alignment move (dvae_tpu/train/cpl_mixvae.py:710-738): the
+        eval-mode labels of the first min(N, 4·batch_size) cells decide the
+        per-arm permutations; parameters and Adam moments are permuted."""
+        cfg, tcfg = self.cfg, self.tcfg
+        n_sub = min(x_all.shape[0], 4 * tcfg.batch_size)
+        lab = self._predict_labels(x_all[:n_sub], temp,
+                                   batch_size=tcfg.batch_size)
+        self.state, m, moved = align_state(
+            self.state, lab, cfg, mask=self.state.mask.cpu().numpy())
+        if not moved:
+            return
+        # the eval functions may hold a cast copy of the old parameters
+        self._reset_eval_fns()
+        _, active = moved_counts(m, lab)
+        con0 = consensus_from_labels(lab, cfg.n_categories)
+        con1 = consensus_from_labels(np.take_along_axis(m, lab, axis=1),
+                                     cfg.n_categories)
+        mprint(f"[align] epoch {epoch}: remapped {moved} category indices "
+               f"({active} active); label consensus {con0:.3f} -> "
+               f"{con1:.3f}")
+        logger.log({f"{phase}/align_moved": moved,
+                    f"{phase}/align_moved_active": active,
+                    f"{phase}/align_consensus": con1}, step=epoch)
 
     # -- evaluation ---------------------------------------------------------
 

@@ -10,8 +10,10 @@ chunk, when the caller reads the ``EpochMetrics``.
 Randomness.  A chunk's noise comes from a ``torch.Generator`` on the data's
 device, seeded from (``TrainState.seed``, ``TrainState.epoch``), so a run
 resumed from a checkpoint continues the noise chain instead of replaying
-it.  The fused encoder kernel's mask seeds come from a host numpy
-generator seeded the same way, so drawing them needs no synchronisation.
+it.  The seeds of the in-kernel draws (the fused encoder kernel's mask
+and, under ``use_pallas``, the fused Gumbel kernel's uniforms) come from a
+host numpy generator seeded the same way, so drawing them needs no
+synchronisation.
 
 The optimizer is Adam with optax's semantics (``Adam``), updating the
 parameters and its moments in place: the port keeps one copy of the
@@ -333,9 +335,12 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                 x = x_view.index_select(0, sel).reshape(B, -1)
                 prior = (None if prior_view is None else
                          prior_view.index_select(0, sel).reshape(B, -1))
-                state, m, lab = step_fn(
-                    state, x, prior, temp, generator=gen,
-                    enc_seed=int(host.integers(0, 2 ** 31 - 1)))
+                enc_seed = int(host.integers(0, 2 ** 31 - 1))
+                noise = (mixvae.Noise(gumbel_seed=int(
+                    host.integers(0, 2 ** 31 - 1)))
+                    if cfg.use_pallas else None)
+                state, m, lab = step_fn(state, x, prior, temp, generator=gen,
+                                        enc_seed=enc_seed, noise=noise)
                 labels[:, s * B:(s + 1) * B] = lab
                 ms.append(m)
             del x, prior  # the last batch need not outlive the epoch

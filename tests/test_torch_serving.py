@@ -204,9 +204,22 @@ def test_apply_refuses_train_mode():
     outs, new_bn = tmixvae.apply(p, s, tc, xt, train=True,
                                  generator=torch.Generator().manual_seed(0))
     assert torch.isfinite(outs.x_rec).all() and new_bn is not s
-    for flag in ("use_pallas", "fused_decoder"):
-        with pytest.raises(NotImplementedError):
-            tmixvae.apply(p, s, tc.replace(**{flag: True}), xt, train=True)
+    with pytest.raises(NotImplementedError):
+        tmixvae.apply(p, s, tc.replace(fused_decoder=True), xt, train=True)
+    # use_pallas is taken: the fused sampler, seeded or on given uniforms
+    pc = tc.replace(use_pallas=True)
+    a, _ = tmixvae.apply(p, s, pc, xt, train=True,
+                         noise=tmixvae.Noise(gumbel_seed=5),
+                         generator=torch.Generator().manual_seed(0))
+    b, _ = tmixvae.apply(p, s, pc, xt, train=True,
+                         noise=tmixvae.Noise(gumbel_seed=5),
+                         generator=torch.Generator().manual_seed(0))
+    c, _ = tmixvae.apply(p, s, pc, xt, train=True,
+                         noise=tmixvae.Noise(gumbel_seed=6),
+                         generator=torch.Generator().manual_seed(0))
+    assert torch.equal(a.c_smp, b.c_smp) and not torch.equal(a.c_smp, c.c_smp)
+    np.testing.assert_allclose(a.c_smp.sum(-1).detach().numpy(), 1.0,
+                               rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +249,46 @@ def test_loss_matches_jax(fused, ref_prior, bce_metric):
         np.testing.assert_allclose(getattr(got, name).numpy(),
                                    np.asarray(getattr(want, name)), **SHARP,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("pruned", [False, True])
+@pytest.mark.parametrize("ref_prior", [False, True])
+@pytest.mark.parametrize("mode", ["MSE", "ZINB"])
+def test_use_pallas_eval_loss_matches_jax(mode, ref_prior, pruned):
+    """The eval loss with the fused coupling distance (the JAX kernel in
+    interpret mode), MSE and ZINB, with and without the reference prior
+    and a pruned mask, through the fused reconstruction branch."""
+    jc, tc = _cfgs(mode=mode, ref_prior=ref_prior, use_pallas=True,
+                   fused_recon=True)
+    params, bn, x = (_zinb_model if mode == "ZINB" else _model)(2)
+    prior = (np.random.default_rng(2).dirichlet(np.ones(C), size=B)
+             .astype(np.float32) if ref_prior else None)
+    jout, tout = _both_forward(jc, tc, params, bn, x, _mask(pruned), True,
+                               prior)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A,) + x.shape)
+    want = jlosses.mixvae_loss(
+        jc, jout, xs, None if prior is None else jnp.asarray(prior),
+        fused_recon_args=(params, jnp.asarray(x)))
+    xt = torch.from_numpy(x)
+    got = tlosses.mixvae_loss(
+        tc, tout, xt, None if prior is None else torch.from_numpy(prior),
+        fused_recon_args=(tckpt.params_from_jax(params), xt))
+    # pruned categories are 0 in every arm, the dead-category input of
+    # tests/test_ops.py:55-71: the coupling term (and the total it
+    # dominates) is then held to that test's rtol 5e-3
+    loose = ("total", "loss_joint", "c_dist") if pruned else ()
+    for name in tlosses.LossOutputs._fields:
+        tol = dict(rtol=5e-3) if name in loose else SHARP
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)), **tol,
+                                   err_msg=name, equal_nan=True)
+    # and the flag changes the route, not the number
+    eager = tlosses.mixvae_loss(
+        tc.replace(use_pallas=False), tout, xt,
+        None if prior is None else torch.from_numpy(prior),
+        fused_recon_args=(tckpt.params_from_jax(params), xt))
+    np.testing.assert_allclose(got.c_dist.numpy(), eager.c_dist.numpy(),
+                               rtol=2e-4)
 
 
 def test_fused_and_unfused_losses_agree():
@@ -673,13 +726,22 @@ z.init_model(n_arm=2, input_dim={D}, fc_dim=8, lowD_dim=4, n_categories=4,
              mode="ZINB", fused=True, batch_size=8, epochs_per_jit=1)
 z.train(x * (x > 0.5), n_epoch=1, early_stop_consensus=0)
 zres = z.eval_model(x * (x > 0.5), batch_size=8)
+k = CplMixVAE(device="cpu", seed=2)
+k.init_model(n_arm=3, input_dim={D}, fc_dim=8, lowD_dim=4, n_categories=4,
+             fused=True, use_pallas=True, align_arms_every=1, batch_size=8,
+             epochs_per_jit=1)
+k.train(x, x_val=x[:8], n_epoch=2, early_stop_consensus=0)
+kres = k.eval_model(x, batch_size=8)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu"))
 print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
                   "steps": cpl.state.opt_state.count,
                   "zinb_steps": z.state.opt_state.count,
                   "zinb_rec_finite": bool(np.isfinite(
-                      zres["total_loss_rec"]).all())}}))
+                      zres["total_loss_rec"]).all()),
+                  "pallas_steps": k.state.opt_state.count,
+                  "pallas_loss_finite": bool(np.isfinite(
+                      kres["total_loss"]))}}))
 """.format(D=D)
 
 
@@ -692,14 +754,16 @@ def _run_port(args, cwd):
 def test_port_imports_no_jax(jax_checkpoints, tmp_path):
     """A fresh interpreter imports the port, reads a JAX-written checkpoint,
     runs a tiny eval and a few training steps (4: two epochs of two
-    batches), then trains (2 steps) and serves a ZINB model, without
-    loading JAX, optax or dvae_tpu."""
+    batches), then trains (2 steps) and serves a ZINB model, then trains
+    (4 steps, an alignment after each epoch) and serves with use_pallas,
+    without loading JAX, optax or dvae_tpu."""
     _, ckpts = jax_checkpoints
     proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"bad": [], "labels": [A, 20], "steps": 4,
-                   "zinb_steps": 2, "zinb_rec_finite": True}
+                   "zinb_steps": 2, "zinb_rec_finite": True,
+                   "pallas_steps": 4, "pallas_loss_finite": True}
 
 
 def test_cli_evaluate_on_cpu(jax_checkpoints, tmp_path):

@@ -107,7 +107,14 @@ def _noise(key, cfg, n_rows=B):
     else:
         x_mask = jnp.stack([jax.random.bernoulli(
             arm_keys[a, 0], 1 - cfg.x_drop, (n_rows, D)) for a in range(A)])
-    u = jax.random.uniform(k_gumbel, (A, n_rows, C))
+    if cfg.use_pallas:
+        # off the TPU the fused sampler draws its uniforms from a key made
+        # of its seed (dvae_tpu/ops/gumbel_pallas.py:96-99, mixvae.py:317)
+        seed = jax.random.bits(k_gumbel, dtype=jnp.uint32).astype(jnp.int32)
+        u = jax.random.uniform(jax.random.key(seed.reshape(())),
+                               (A, n_rows, C), jnp.float32)
+    else:
+        u = jax.random.uniform(k_gumbel, (A, n_rows, C))
     e = jnp.stack([jax.random.normal(arm_keys[a, 1], (n_rows, S))
                    for a in range(A)])
     s_mask = jnp.stack([jax.random.bernoulli(
@@ -501,12 +508,15 @@ def test_trainer_phases_on_the_cpu(small_data, tmp_path):
     again.load_model(path)
     assert again.resume_progress == {"main_epochs": 2, "pr_it": 1,
                                      "prune_epochs": 1}
-    for kw in ({"stream": True}, {"align_arms_every": 5},
-               {"use_pallas": True},
-               {"fused_decoder": True},
+    for kw in ({"stream": True}, {"fused_decoder": True},
                {"mesh": tcfg_mod.MeshConfig(data=2)}):
         with pytest.raises(NotImplementedError):
             CplMixVAE(device="cpu").init_model(**SMALL, **kw)
+    for kw in ({"use_pallas": True}, {"align_arms_every": 5}):
+        taken = CplMixVAE(device="cpu")
+        taken.init_model(**SMALL, **kw)
+        assert (taken.cfg.use_pallas, taken.tcfg.align_arms_every) == (
+            kw.get("use_pallas", False), kw.get("align_arms_every", 0))
     with pytest.raises(NotImplementedError):
         cpl.train(small_data[:64], n_epoch=1, save_plots=True)
     with pytest.raises(NotImplementedError):
@@ -655,6 +665,207 @@ def test_nan_halt_keeps_the_last_good_checkpoint(small_data, tmp_path):
     assert not os.path.exists(tmp_path / "cpl_mixVAE_model_epoch_2.ckpt")
 
 
+# ---------------------------------------------------------------------------
+# The categorical path: use_pallas (fused Gumbel sampler and coupling
+# distance) and cross-arm alignment.  On the CPU the JAX package runs both
+# Pallas kernels in interpret mode and draws the sampler's uniforms from a
+# key made of its seed; ``_noise`` rebuilds them.
+# ---------------------------------------------------------------------------
+
+def _pruned_mask():
+    m = np.ones(C, np.float32)
+    m[[2, 7]] = 0.0
+    return m
+
+
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("mode", ["MSE", "ZINB"])
+def test_use_pallas_loss_fn_value_and_grads_match_jax(mode, hard):
+    """Loss, its parts and its gradients with the fused sampler and the
+    fused coupling distance, under a pruned mask: to the limits of the
+    twin tests without use_pallas (GRAD in MSE mode, ZGRAD in ZINB mode)."""
+    jc, tc = _cfgs(mode=mode, hard=hard, use_pallas=True, fused_encoder=True,
+                   fused_recon=True)
+    params, bn, x = (_zinb_model if mode == "ZINB" else _model)(3)
+    mask = _pruned_mask()
+    params = jax.tree_util.tree_map(
+        np.array, jstep._mask_params(params, jnp.asarray(mask), jc))
+    key = jax.random.key(7)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A, B, D))
+    (jt, (jaux, jbn, jlab)), jg = jax.value_and_grad(
+        jstep.loss_fn, has_aux=True)(params, bn, jc, xs, key, 1.0,
+                                     jnp.asarray(mask), None, None,
+                                     jnp.asarray(x))
+    live = {n: {k: v.requires_grad_() for k, v in layer.items()}
+            for n, layer in tckpt.params_from_jax(params).items()}
+    tt, (taux, tbn, tlab) = tstep.loss_fn(
+        live, tckpt.bn_from_jax(bn), tc, torch.from_numpy(x), 1.0,
+        torch.from_numpy(mask), None, noise=_noise(key, jc))
+    leaves = tstep.tree_leaves(live)
+    grads = tstep.tree_like(live, torch.autograd.grad(tt, leaves))
+    np.testing.assert_allclose(float(tt.detach()), float(jt), rtol=1e-5)
+    for name in ("loss_rec", "kl", "c_dist", "neg_entropy", "c_l2_dist"):
+        np.testing.assert_allclose(getattr(taux, name).detach().numpy(),
+                                   np.asarray(getattr(jaux, name)), **SHARP,
+                                   err_msg=name)
+    np.testing.assert_array_equal(tlab.numpy(), np.asarray(jlab))
+    _tree_close(tbn, jbn, **SHARP)
+    _tree_close(grads, jax.tree_util.tree_map(np.asarray, jg), scaled=True,
+                **(ZGRAD if mode == "ZINB" else GRAD))
+
+
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("mode", ["MSE", "ZINB"])
+def test_use_pallas_train_steps_match_jax(mode, hard):
+    """Two Adam steps with use_pallas under a pruned mask from bridged
+    weights and shared uniforms: the losses track JAX's (TRAJ) and the
+    pruned categories' parameters stay zero."""
+    jc, tc = _cfgs(mode=mode, hard=hard, use_pallas=True, fused_encoder=True,
+                   fused_recon=True)
+    tx = jstep.make_optimizer(jc)
+    mask = _pruned_mask()
+    jstate = jstep.init_train_state(jax.random.key(2), jc, tx)
+    jstate = jstate._replace(
+        mask=jnp.asarray(mask),
+        params=jstep._mask_params(jstate.params, jnp.asarray(mask), jc))
+    params = jax.tree_util.tree_map(np.array, jstate.params)
+    opt = tstep.make_optimizer(tc)
+    tp = tckpt.params_from_jax(params)
+    tstate = tstep.TrainState(
+        tp, tckpt.bn_from_jax(jax.tree_util.tree_map(np.array, jstate.bn)),
+        torch.from_numpy(mask), 0, 0, opt.init(tp))
+    model = _zinb_model if mode == "ZINB" else _model
+    xb = np.stack([model(10 + i)[2] for i in range(2)])
+    jstate, tstate, jl, tl = _jax_then_port_steps(jstate, tstate, jc, tc, xb,
+                                                  2)
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ)
+    assert tstate.opt_state.count == 2
+    assert float(tstate.params["fcc"]["w"][:, :, [2, 7]].abs().max()) == 0.0
+    d = np.abs(tstate.params["fcc"]["w"].numpy()
+               - np.asarray(jstate.params["fcc"]["w"]))
+    # 2 steps of at most lr each way where a gradient's sign differs
+    assert d.max() <= 2 * 2 * jc.lr
+
+
+def test_use_pallas_checkpoints_cross_the_packages_both_ways(small_data,
+                                                             tmp_path):
+    """A use_pallas checkpoint of the JAX trainer loads in the port with
+    the flag set, serves the JAX package's numbers, and resumes (two more
+    steps give JAX's losses); the port's own checkpoint then trains on in
+    the JAX package, bit for bit the same parameters."""
+    jtrainer = JaxCplMixVAE(saving_folder=str(tmp_path / "jax"), seed=3)
+    jtrainer.init_model(**SMALL, batch_size=32, epochs_per_jit=2, fused=True,
+                        use_pallas=True)
+    jpath = jtrainer.train(small_data[:64], n_epoch=2, save_plots=False,
+                           early_stop_consensus=0)
+    jcpl = JaxCplMixVAE()
+    jcpl.load_model(jpath)
+    tcpl = CplMixVAE(saving_folder=str(tmp_path / "port"), device="cpu")
+    assert tcpl.load_model(jpath) == 2 and tcpl.cfg.use_pallas
+    want = jcpl.eval_model(small_data, batch_size=32)
+    got = tcpl.eval_model(small_data, batch_size=32)
+    np.testing.assert_array_equal(got["pred_label"], want["pred_label"])
+    for k in ("c_prob", "state_mu", "state_logvar", "x_low"):
+        np.testing.assert_allclose(got[k], want[k], **SHARP, err_msg=k)
+    # the losses pass through the reparameterization noise of variational
+    # mode, which each package draws from its own stream in eval
+    for k in ("total_loss_rec", "total_loss"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-2, err_msg=k)
+    xb = np.stack([small_data[64:96], small_data[:32]])
+    _, tstate, jl, tl = _jax_then_port_steps(
+        jcpl.state, tcpl.state, jcpl.cfg, tcpl.cfg, xb, 2)
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ)
+    assert tstate.opt_state.count == 6
+    # and back: the port trains on, saves, the JAX package resumes
+    tcpl.tcfg = tcpl.tcfg.replace(epochs_per_jit=1)
+    path = tcpl.train(small_data[:64], x_val=small_data[64:], n_epoch=1,
+                      early_stop_consensus=0)
+    back = JaxCplMixVAE(saving_folder=str(tmp_path / "back"))
+    assert back.load_model(path) == 3 and back.cfg.use_pallas
+    _tree_close(back.state.params, tckpt.params_to_jax(tcpl.state.params),
+                rtol=0, atol=0)
+    out = back.train(small_data[:64], n_epoch=1, save_plots=False,
+                     early_stop_consensus=0)
+    assert int(back.state.epoch) == 4 and os.path.exists(out)
+
+
+def test_alignment_gives_the_jax_relabeling_table(small_data, tmp_path,
+                                                  monkeypatch):
+    """Two epochs with align_arms_every=1 in both packages from the same
+    checkpoint.  With lr = 0, no input dropout and the whole dataset as one
+    batch, nothing the alignment reads depends on the packages' random
+    streams, so both must find the same relabeling table ``m`` after the
+    first epoch, nothing left to move after the second, and end with the
+    same permuted parameters, exactly."""
+    import dvae_tpu.train.alignment as jalign
+    import dvae_tpu_torch.train.cpl_mixvae as tmod
+    x = small_data[:64]
+    seed_run = JaxCplMixVAE(saving_folder=str(tmp_path / "seed"), seed=5)
+    seed_run.init_model(**SMALL, lr=0.0, x_drop=0.0, batch_size=64,
+                        epochs_per_jit=1, align_arms_every=1, fused=False)
+    start = seed_run.save_checkpoint("epoch_0")
+    tables = {"jax": [], "port": []}
+
+    def recording(fn, log):
+        def wrapped(state, labels, cfg, **kw):
+            new, m, moved = fn(state, labels, cfg, **kw)
+            log.append((np.array(labels), np.array(m), moved))
+            return new, m, moved
+        return wrapped
+
+    monkeypatch.setattr(jalign, "align_state",
+                        recording(jalign.align_state, tables["jax"]))
+    monkeypatch.setattr(tmod, "align_state",
+                        recording(tmod.align_state, tables["port"]))
+    jcpl = JaxCplMixVAE(saving_folder=str(tmp_path / "jax"))
+    jcpl.load_model(start)
+    jcpl.train(x, n_epoch=2, save_plots=False, early_stop_consensus=0)
+    tcpl = CplMixVAE(saving_folder=str(tmp_path / "port"), device="cpu")
+    tcpl.load_model(start)
+    assert tcpl.tcfg.align_arms_every == 1
+    tcpl.train(x, n_epoch=2, early_stop_consensus=0)
+    assert len(tables["jax"]) == len(tables["port"]) == 2
+    for (jlab, jm, jmoved), (tlab, tm, tmoved) in zip(tables["jax"],
+                                                      tables["port"]):
+        np.testing.assert_array_equal(tlab, jlab)
+        np.testing.assert_array_equal(tm, jm)
+        assert tmoved == jmoved
+    assert tables["port"][0][2] > 0 and tables["port"][1][2] == 0
+    _tree_close(tcpl.state.params,
+                jax.tree_util.tree_map(np.asarray, jcpl.state.params),
+                rtol=0, atol=0)
+    with open(tmp_path / "port" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    moved = [r for r in rows if "train/align_moved" in r]
+    assert len(moved) == 1 and moved[0]["train/align_moved"] == \
+        tables["port"][0][2]
+    assert {"train/align_moved_active", "train/align_consensus"} <= set(
+        moved[0])
+
+
+def test_alignment_is_gated_under_ref_prior_and_runs_in_pruning(small_data,
+                                                                tmp_path):
+    """ref_prior pins the category indices: no alignment.  Under a pruned
+    mask the alignment leaves the pruned indices where they are."""
+    ds = synthetic_dataset(96, 40, 5, seed=4)
+    cpl = CplMixVAE(saving_folder=str(tmp_path / "prior"), device="cpu",
+                    seed=2)
+    cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=1, ref_prior=True,
+                   align_arms_every=1)
+    cpl.train(ds.log1p[:64], n_epoch=1, c_p=ds.c_p, early_stop_consensus=0)
+    with open(tmp_path / "prior" / "metrics.jsonl") as f:
+        assert "align_moved" not in f.read()
+    pruned = CplMixVAE(saving_folder=str(tmp_path / "pruned"), device="cpu",
+                       seed=2)
+    pruned.init_model(**SMALL, batch_size=32, epochs_per_jit=1, n_pr=2,
+                      align_arms_every=1, use_pallas=True)
+    pruned.train(small_data[:64], n_epoch=2, early_stop_consensus=0)
+    assert pruned.state.mask.tolist() == [1.0, 1.0, 1.0, 0.0, 0.0]
+    assert float(pruned.state.params["fcc"]["w"][:, :, 3:].abs().max()) == 0.0
+    labels = pruned._predict_labels(small_data, 1.0, batch_size=32)
+    assert labels.max() < 3
+
+
 def _run_port(args, cwd):
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
@@ -691,3 +902,19 @@ def test_cli_train_zinb_on_cpu(tmp_path):
     ckpt = final.split("final checkpoint:")[1].strip()
     _, meta = tckpt.load_checkpoint(ckpt)
     assert meta["cfg"]["mode"] == "ZINB"
+
+
+def test_cli_train_with_alignment_on_cpu(tmp_path):
+    args = ["-m", "dvae_tpu_torch.cli", "train", "--device", "cpu",
+            "--synthetic", "--syn_cells", "120", "--syn_genes", "40",
+            "--syn_types", "5", "--n_categories", "5", "--n_arm", "3",
+            "--fc_dim", "16", "--latent_dim", "6", "--batch_size", "32",
+            "--n_epoch", "2", "--epochs_per_jit", "1", "--align_every", "1",
+            "--saving_folder", str(tmp_path) + "/"]
+    proc = _run_port(args, str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    assert "[align] epoch 1: remapped" in proc.stdout
+    ckpt = proc.stdout.strip().splitlines()[-1].split(
+        "final checkpoint:")[1].strip()
+    _, meta = tckpt.load_checkpoint(ckpt)
+    assert meta["tcfg"]["align_arms_every"] == 1
