@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build every CUDA kernel of the port from ``dvae_tpu_torch/csrc`` (one
      nvcc per source, all started together);
-  2. hold each of the eleven kernels (and the sharpen variant of the
+  2. hold each of the thirteen kernels (and the sharpen variant of the
      Gumbel forward) against its plain PyTorch version: the eight of the
      reconstruction paths at
      the shapes the serving and training paths give it (f32 and bf16,
@@ -21,8 +21,12 @@ Phases (any failure exits non-zero and prints no result line):
      with the in-kernel ones (bit for bit against their numpy version),
      hard samples, pruned categories, dphi and dtemp also against autograd
      of the eager formula, the coupling distance on posteriors with dead
-     categories and a collapsed arm; that repeated launches are
-     bit-identical; and time kernel, plain version and library call;
+     categories and a collapsed arm; the two whole-decoder kernels at the
+     production widths (f32 and bf16, shared and per-arm x, B=5000 and
+     2,000, with and without the mismatch count, a per-arm cotangent
+     through autograd, a NaN row, the output layer's gradients against the
+     fused recon kernel's); that repeated launches are bit-identical; and
+     time kernel, plain version and library call;
   3. drive the serving path end to end at the production width (A=5 arms,
      D=5032 genes, F=100, L=10, C=92, S=2; random weights from a seed):
      init → save_checkpoint → a fresh CplMixVAE.load_model → eval_model over
@@ -51,11 +55,25 @@ Phases (any failure exits non-zero and prints no result line):
      eval_model, counts again; the card against the CPU path; warm
      throughput with and without use_pallas in turns, profiler breakdown,
      synchronising calls; then a short ZINB run with use_pallas;
-  7. print the kernels line, the card's name and power limit, and last the
+  7. hold the frozen augmenter on the card against the port's CPU path for
+     both committed checkpoints (2,000 cells, the same explicit noise; the
+     per-arm fast path against the forward on the broadcast batch; the ZINB
+     checkpoint's views zero where the data are);
+  8. drive fused_decoder at the same width, once on a shared batch and once
+     with ``CplMixVAE(aug_file=...)`` (per-arm views, the per-arm-target
+     branch of every fused kernel): init_model(fused_decoder=True) → train
+     over 20,000 cells with 2,000 for validation (16 steps) → a fresh
+     load_model → eval_model, counts reset just before and read just after
+     (one decoder_fwdbwd a step, one decoder_fwd an eval batch, recon_fwd
+     and recon_fwdbwd never); peak memory; the card against the CPU path;
+     warm throughput with and without the flag and the augmenter in turns,
+     profiler breakdowns, synchronising calls; a short run with use_pallas;
+  9. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
 ``--kernels-only`` stops after phase 2 (a short first run of new kernels;
-it prints no result line).  Imports nothing of JAX or of the JAX package.
+it prints no result line); ``--kernels-only=decoder,coupling`` runs just
+the named kernel phases.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -124,6 +142,18 @@ TOL_DIST = 1e-4
 TOL_DIST_DEGENERATE = 5e-3
 GUMBEL_EPS = 1e-8
 TIMING_ITERS = 200           # launches per timing of the small kernels
+# the whole-decoder kernels vs their plain versions: the sums as the other
+# MSE kernels (TOL_SUMSQ, TOL_MISM); gradients, max |Δ| / max |plain|
+TOL_DEC_GRAD = {"float32": 1e-5, "bfloat16": 1e-3}
+TOL_DEC_MISM = {"float32": TOL_MISM, "bfloat16": TOL_MISM}
+# fused_decoder and the frozen augmenter: 4 steps an epoch
+N_DEC_TRAIN, N_DEC_VAL = 20000, 2000
+N_DEC_PALLAS = 10000
+_HERE = os.path.dirname(os.path.abspath(__file__))
+AUG_MSE = os.path.join(_HERE, "artifacts", "hard_synthetic",
+                       "augmenter_MSE.ckpt")
+AUG_ZINB = os.path.join(_HERE, "artifacts", "hard_synthetic",
+                        "augmenter_ZINB.ckpt")
 
 
 class Checks:
@@ -217,8 +247,11 @@ def launch_counts() -> dict:
 
 
 def _counted_wrappers() -> dict:
-    from dvae_tpu_torch.ops import coupling, encoder, gumbel, recon, zinb
-    return {"gumbel_fwd": gumbel.gumbel_fwd,
+    from dvae_tpu_torch.ops import (coupling, decoder, encoder, gumbel, recon,
+                                    zinb)
+    return {"decoder_fwd": decoder.fused_decoder_mse,
+            "decoder_fwdbwd": decoder.decoder_fwdbwd,
+            "gumbel_fwd": gumbel.gumbel_fwd,
             "gumbel_bwd": gumbel.gumbel_bwd,
             "gumbel_sharpen": gumbel.sharpen_gumbel_fused,
             "coupling": coupling.coupling_gram_fused,
@@ -1082,6 +1115,193 @@ def phase_coupling(torch, check) -> dict:
     return record
 
 
+def decoder_inputs(torch, g, dtype, rows, per_arm):
+    """Operands of the whole-decoder kernels at the production widths
+    (Z = C + 2 = 94 -> L = 10 -> F = 100 x 4 -> D): z as the model makes it
+    (a soft categorical sample beside two state values), weights scaled so
+    that about half of every layer's units are active."""
+    c = torch.softmax(torch.randn((A, rows, C), generator=g, device=DEV) * 3,
+                      dim=-1)
+    st = torch.randn((A, rows, 2), generator=g, device=DEV)
+    args = [torch.cat([c, st], dim=-1)]
+    for k, n in ((C + 2, 10), (10, F), (F, F), (F, F), (F, F), (F, D)):
+        args.append(torch.randn((A, k, n), generator=g, device=DEV)
+                    * (1.4 / math.sqrt(k)))
+        args.append(torch.randn((A, n), generator=g, device=DEV) * 0.1)
+    shape = (A, rows, D) if per_arm else (rows, D)
+    args.append(torch.relu(torch.randn(shape, generator=g, device=DEV)))
+    return [t.to(dtype).contiguous() for t in args]
+
+
+def phase_decoder(torch, check) -> dict:
+    """Kernels #12 and #13 vs their plain versions; returns the records of
+    the main case (f32, shared x, B=5000)."""
+    from dvae_tpu_torch.ops import decoder as dec
+    from dvae_tpu_torch.ops.recon import recon_fwdbwd
+    print("phase 2: decoder_fwd / decoder_fwdbwd kernels vs plain version")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    records = {}
+    dims = [C + 2, 10, F, F, F, F, D]
+    macs = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+    n_trunk = sum((k + 1) * n for k, n in zip(dims[:-2], dims[1:-1]))
+
+    def flat(out):
+        return [out[2], *(t for pair in out[3] for t in pair), out[4], out[5]]
+
+    names = ["dz"] + [f"d{p}{6 + i}" for i in range(5) for p in "Wb"] \
+        + ["dW11", "db11"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        item = 4 if dtype == torch.float32 else 2
+        tol_g = TOL_DEC_GRAD[dname]
+        for rows in (B, TAIL):
+            for per_arm in (False, True):
+                tag = f"{dname} B={rows} x={'per-arm' if per_arm else 'shared'}"
+                ops = decoder_inputs(torch, g, dtype, rows, per_arm)
+                z, w11, b11, x = ops[0], ops[11], ops[12], ops[13]
+                trunk = [(ops[1 + 2 * i], ops[2 + 2 * i]) for i in range(5)]
+                sk, mk = dec.fused_decoder_mse(*ops)
+                sp, mp = dec.decoder_mse_reference(*ops)
+                got = dec.decoder_fwdbwd(z, trunk, w11, b11, x)
+                want = dec.decoder_fwdbwd_reference(z, trunk, w11, b11, x)
+                torch.cuda.synchronize()
+                rel = ((sk - sp).abs() / sp.abs()).max().item()
+                dm = (mk - mp).abs().max().item()
+                check(rel <= TOL_SUMSQ[dname],
+                      f"{tag}: decoder_fwd sumsq max rel err {rel:.3e} "
+                      f"(tol {TOL_SUMSQ[dname]:.0e})")
+                check(dm <= TOL_DEC_MISM[dname] * rows * D,
+                      f"{tag}: decoder_fwd mism max abs diff {dm:.0f} (tol "
+                      f"{TOL_DEC_MISM[dname] * rows * D:.0f} of {rows * D})")
+                check(bool(torch.equal(got[0], sk) and torch.equal(got[1], mk)),
+                      f"{tag}: decoder_fwdbwd's sums equal decoder_fwd's bit "
+                      "for bit")
+                errs = [rel_err(torch, a, e)
+                        for a, e in zip(flat(got), flat(want))]
+                check(max(errs) <= tol_g and got[2].dtype == dtype
+                      and all(bool(torch.isfinite(t).all())
+                              for t in flat(got)),
+                      f"{tag}: decoder_fwdbwd gradients rel err "
+                      + " ".join(f"{n}={e:.1e}" for n, e in zip(names, errs))
+                      + f" (tol {tol_g:.0e}), finite, dz in {dname}")
+                again = dec.decoder_fwdbwd(z, trunk, w11, b11, x)
+                sk2, mk2 = dec.fused_decoder_mse(*ops)
+                check(bool(torch.equal(sk, sk2) and torch.equal(mk, mk2)
+                           and torch.equal(again[0], got[0])
+                           and all(torch.equal(u, v) for u, v in
+                                   zip(flat(again), flat(got)))),
+                      f"{tag}: repeated launches of both kernels "
+                      "bit-identical")
+                # without the mismatch count: the same sumsq, mism 0
+                s0, m0 = dec.fused_decoder_mse(*ops, 0.1, False)
+                t0 = dec.decoder_fwdbwd(z, trunk, w11, b11, x, 0.1, False)
+                check(bool(torch.equal(s0, sk) and torch.equal(t0[0], sk)
+                           and float(m0.abs().max()) == 0.0
+                           and float(t0[1].abs().max()) == 0.0
+                           and torch.equal(t0[4], got[4])),
+                      f"{tag}: with_mism off gives the same sumsq and "
+                      "gradients, mism 0")
+                # the output layer's gradients are kernel #2's on the same h5
+                h5 = dec._trunk_forward(z, trunk)[-1].contiguous()
+                r2 = recon_fwdbwd(h5, w11, b11, x)
+                e2 = max(rel_err(torch, got[4], r2[3]),
+                         rel_err(torch, got[5], r2[4]))
+                check(e2 <= tol_g,
+                      f"{tag}: dW11/db11 vs recon_fwdbwd on the plain "
+                      f"version's h5: rel err {e2:.1e} (tol {tol_g:.0e})")
+                # a cotangent that differs per arm, through autograd
+                cot = torch.linspace(-1.5, 2.5, A, device=DEV)
+                live = [t.clone().requires_grad_() for t in ops[:13]]
+                sa, ma = dec.fused_decoder_mse(*live, x)
+                grads = torch.autograd.grad((cot * sa).sum(), live)
+                scaled = [(w_.float() * (cot[:, None, None] if w_.dim() == 3
+                                         else cot[:, None])).to(dtype)
+                          for w_ in flat(want)]
+                e_c = max(rel_err(torch, a, e) for a, e in zip(grads, scaled))
+                tol_c = tol_g if item == 4 else TOL_Y_BF16
+                check(e_c <= tol_c and not ma.requires_grad
+                      and all(gr.dtype == dtype for gr in grads),
+                      f"{tag}: autograd with a per-arm cotangent: rel err "
+                      f"{e_c:.1e} against the scaled plain gradients (tol "
+                      f"{tol_c:.0e}"
+                      + ("" if item == 4 else ": one more rounding to bf16")
+                      + f"), in {dname}, mism without gradient")
+                del live, grads, scaled, sa
+                # a NaN in one row of one arm reaches that arm's sum only
+                zn = z.clone()
+                zn[1, 7, 3] = float("nan")
+                sn, _ = dec.fused_decoder_mse(zn, *ops[1:])
+                tn = dec.decoder_fwdbwd(zn, trunk, w11, b11, x)
+                others = [0, 2, 3, 4]
+                check(bool(torch.isnan(sn[1]) and torch.isnan(tn[0][1])
+                           and torch.isfinite(sn[others]).all()
+                           and torch.equal(sn[others], sk[others])
+                           and torch.isfinite(tn[2][others]).all()),
+                      f"{tag}: a NaN in one row of arm 1 makes that arm's "
+                      "sums NaN and leaves the other arms' bits")
+                del zn, sn, tn
+                if rows == B and not per_arm:
+                    f_ms = cuda_ms(torch, lambda: dec.fused_decoder_mse(*ops))
+                    t_ms = cuda_ms(torch, lambda: dec.decoder_fwdbwd(
+                        z, trunk, w11, b11, x))
+                    f_dev = device_ms(torch,
+                                      lambda: dec.fused_decoder_mse(*ops),
+                                      iters=5)
+                    t_dev = device_ms(torch, lambda: dec.decoder_fwdbwd(
+                        z, trunk, w11, b11, x), iters=5)
+                    f_pl = plain_ms(torch,
+                                    lambda: dec.decoder_mse_reference(*ops))
+                    t_pl = plain_ms(torch, lambda: dec.decoder_fwdbwd_reference(
+                        z, trunk, w11, b11, x))
+
+                    def chain(args):
+                        h = args[0]
+                        for i in range(5):
+                            h = torch.relu(torch.baddbmm(
+                                args[2 + 2 * i][:, None, :], h,
+                                args[1 + 2 * i]))
+                        r = torch.relu(torch.baddbmm(args[12][:, None, :], h,
+                                                     args[11]))
+                        return ((r - x) ** 2).sum(dim=(1, 2))
+
+                    f_lib = cuda_ms(torch, lambda: chain(ops), iters=10)
+                    live = [t.clone().requires_grad_() for t in ops[:13]]
+                    t_lib = cuda_ms(torch, lambda: torch.autograd.grad(
+                        chain(live).sum(), live), iters=10)
+                    del live
+                    in_bytes = (A * rows * dims[0] + A * n_trunk
+                                + A * (F + 1) * D + rows * D) * item
+                    out_bytes = (A * rows * dims[0] * item
+                                 + (A * n_trunk + A * (F + 1) * D) * 4)
+                    timed = (
+                        ("decoder_fwd", f_ms, f_dev, f_pl, f_lib,
+                         "six baddbmm + loss, eager", 2.0 * A * rows * macs,
+                         in_bytes + A * 8,
+                         max((sk - sp).abs().max().item(), dm)),
+                        ("decoder_fwdbwd", t_ms, t_dev, t_pl, t_lib,
+                         "autograd of that chain", 6.0 * A * rows * macs,
+                         in_bytes + A * 8 + out_bytes,
+                         max((a - e).abs().max().item()
+                             for a, e in zip([got[0]] + flat(got),
+                                             [want[0]] + flat(want)))))
+                    for (name, ms, dev, pl, lib, what, flops, nbytes,
+                         err) in timed:
+                        bound, by = flops_bound_ms(flops, nbytes, dname)
+                        print(f"  {tag}: {name} kernel_ms {ms:.4f} (device "
+                              f"{dev:.4f}) plain_ms {pl:.4f} library_ms "
+                              f"{lib:.4f} ({what}) bound_ms {bound:.4f} "
+                              f"({by}) share_of_bound {bound / ms:.3f}")
+                        if item == 4:
+                            records[name] = {
+                                "max_abs_err": err, "ms": ms,
+                                "device_ms": dev, "plain_ms": pl,
+                                "bound_ms": bound, "bound_by": by,
+                                "library_ms": lib}
+                del ops, z, trunk, w11, b11, x, got, want, again, t0, h5, r2
+                torch.cuda.empty_cache()
+    return records
+
+
 def phase_breakdown(torch, server, x) -> None:
     n_cells = x.shape[0]
     """Where the serving time goes: a warm eval_model run timed on the host
@@ -1183,12 +1403,14 @@ def phase_serving(torch, check, tmp):
     return counts, ds, x
 
 
-def serving_parity(check, server, ckpt, small, small_dev) -> None:
+def serving_parity(check, server, ckpt, small, small_dev,
+                   aug_file=None) -> None:
     """One served batch on the card against the port's CPU path (plain
-    PyTorch) from the same checkpoint."""
+    PyTorch) from the same checkpoint (and the same augmenter: eval draws
+    its noise from a CPU generator on either device)."""
     import numpy as np
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
-    ref = CplMixVAE(device="cpu")
+    ref = CplMixVAE(device="cpu", aug_file=aug_file)
     ref.load_model(ckpt)
     want = ref.eval_model(small, batch_size=B)
     got = server.eval_model(small_dev, batch_size=B)
@@ -1208,14 +1430,17 @@ def serving_parity(check, server, ckpt, small, small_dev) -> None:
                       "(tol 1e-3)")
 
 
-def phase_parity_step(torch, check, path, x) -> None:
+def phase_parity_step(torch, check, path, x, aug_file=None) -> None:
     """One train step from the same checkpoint with the same explicit noise
-    on the card (kernels) and on the CPU (plain versions)."""
+    (the augmenter's included) on the card (kernels) and on the CPU (plain
+    versions)."""
     import numpy as np
+    from dvae_tpu_torch.augment.augmenter import AugNoise
     from dvae_tpu_torch.models.mixvae import Noise
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
     from dvae_tpu_torch.train.step import make_train_step
-    gpu, cpu = CplMixVAE(device=DEV), CplMixVAE(device="cpu")
+    gpu = CplMixVAE(device=DEV, aug_file=aug_file)
+    cpu = CplMixVAE(device="cpu", aug_file=aug_file)
     gpu.load_model(path)
     cpu.load_model(path)
     rng = np.random.default_rng(SEED)
@@ -1226,11 +1451,26 @@ def phase_parity_step(torch, check, path, x) -> None:
         reparam_e=torch.from_numpy(rng.standard_normal((A, n, 2), np.float32)),
         s_mask=torch.from_numpy(rng.random((A, n, 2), np.float32) < s_keep))
     xb = x[:n].contiguous()
-    sg, mg, _ = make_train_step(gpu.cfg, gpu.tcfg, gpu.tx)(
-        gpu.state, xb, None, 1.0,
-        noise=Noise(*(None if t is None else t.to(DEV) for t in noise)))
-    sc, mc, _ = make_train_step(cpu.cfg, cpu.tcfg, cpu.tx)(
-        cpu.state, xb.cpu(), None, 1.0, noise=noise)
+    draws = None
+    if aug_file:
+        acfg = gpu._aug_loaded[2]
+        draws = AugNoise(
+            z=torch.from_numpy(rng.standard_normal((A, n, acfg.noise_dim),
+                                                   np.float32)),
+            e=torch.from_numpy(rng.standard_normal((A, n, acfg.latent_dim),
+                                                   np.float32)))
+
+    def on(dev, bundle):
+        return None if bundle is None else type(bundle)(
+            *(None if t is None else t.to(dev) for t in bundle))
+
+    sg, mg, _ = make_train_step(gpu.cfg, gpu.tcfg, gpu.tx,
+                                gpu._augment_fn())(
+        gpu.state, xb, None, 1.0, noise=on(DEV, noise),
+        aug_draws=on(DEV, draws))
+    sc, mc, _ = make_train_step(cpu.cfg, cpu.tcfg, cpu.tx,
+                                cpu._augment_fn())(
+        cpu.state, xb.cpu(), None, 1.0, noise=noise, aug_draws=draws)
     lg, lc = mg.total.item(), mc.total.item()
     rel = abs(lg - lc) / abs(lc)
     check(rel <= 1e-4, f"one step, {n} cells, card vs CPU path: loss "
@@ -1249,12 +1489,14 @@ def phase_parity_step(torch, check, path, x) -> None:
 
 
 def warm_chunk_ms(torch, trainer, x_train, chunks: int = 1) -> float:
-    """Warm ms/step of 2-epoch chunks of ``trainer``'s training path (the
-    state trains on; the first chunk is not timed)."""
+    """Warm ms/step of 2-epoch chunks of ``trainer``'s training path, its
+    augmenter included (the state trains on; the first chunk is not
+    timed)."""
     from dvae_tpu_torch.train.step import make_epoch_runner
     n_train = x_train.shape[0]
     run = make_epoch_runner(trainer.cfg, trainer.tcfg, trainer.tx, n_train,
-                            epochs_per_chunk=2)
+                            epochs_per_chunk=2,
+                            augment=trainer._augment_fn())
     steps = 2 * (n_train // B)
     state, ems = run(trainer.state, x_train, None, 1.0)
     ems.total.cpu()
@@ -1266,7 +1508,7 @@ def warm_chunk_ms(torch, trainer, x_train, chunks: int = 1) -> float:
     return (time.perf_counter() - t0) / (chunks * steps) * 1e3
 
 
-def phase_chunk_breakdown(torch, trainer, x_train) -> tuple:
+def phase_chunk_breakdown(torch, trainer, x_train, top: int = 12) -> tuple:
     """Warm throughput of one 2-epoch chunk, its synchronising calls, and
     a torch.profiler breakdown by kernel name.  Returns (synchronising
     calls, [(device µs, count, kernel name)], device-busy µs)."""
@@ -1274,7 +1516,8 @@ def phase_chunk_breakdown(torch, trainer, x_train) -> tuple:
     from torch.profiler import ProfilerActivity, profile
     from dvae_tpu_torch.train.step import make_epoch_runner
     run = make_epoch_runner(trainer.cfg, trainer.tcfg, trainer.tx, n_train,
-                            epochs_per_chunk=2)
+                            epochs_per_chunk=2,
+                            augment=trainer._augment_fn())
     steps = 2 * (n_train // B)
     warm = warm_chunk_ms(torch, trainer, x_train) * steps / 1e3
     state = trainer.state
@@ -1308,7 +1551,7 @@ def phase_chunk_breakdown(torch, trainer, x_train) -> tuple:
     print(f"  profiled chunk: device busy {busy / 1e3:.3f} ms = "
           f"{busy / (warm * 1e6):.3f} of the warm chunk's wall "
           f"({busy / 1e3 / steps:.3f} ms/step)")
-    for t, n, name in kernels[:12]:
+    for t, n, name in kernels[:top]:
         print(f"    {t / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
     return n_sync, kernels, busy
 
@@ -1722,8 +1965,273 @@ def phase_categorical_path(torch, check, tmp, x, x_zinb) -> dict:
     return {"training": trained, "serving": served, "zinb": zinb}
 
 
+def phase_augmenter(torch, check, x_mse, x_zinb) -> None:
+    """The frozen augmenter on the card against the port's CPU path, for
+    both committed checkpoints, on 2,000 cells with the same explicit
+    noise."""
+    from dvae_tpu_torch.augment import augmenter as aug
+    print("phase 7: the frozen augmenter, card vs the CPU path")
+    g = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    for name, path, x in (("MSE", AUG_MSE, x_mse), ("ZINB", AUG_ZINB, x_zinb)):
+        params, bn, cfg = aug.load_augmenter(path, DEV)
+        cparams, cbn, _ = aug.load_augmenter(path, "cpu")
+        xb = x[:N_SMALL].contiguous()
+        draws = aug.AugNoise(
+            z=torch.randn((A, N_SMALL, cfg.noise_dim), generator=g),
+            e=torch.randn((A, N_SMALL, cfg.latent_dim), generator=g))
+        ddraws = aug.AugNoise(None, draws.z.to(DEV), draws.e.to(DEV))
+        got = aug.augment_arms(params, bn, cfg, xb, A, 0.1, draws=ddraws)
+        want = aug.augment_arms(cparams, cbn, cfg, xb.cpu(), A, 0.1,
+                                draws=draws)
+        torch.cuda.synchronize()
+        err = rel_err(torch, got.cpu(), want)
+        check(tuple(got.shape) == (A, N_SMALL, D)
+              and bool(torch.isfinite(got).all()) and err <= 1e-4,
+              f"augmenter_{name}: (n_zim {cfg.n_zim}) views {tuple(got.shape)} "
+              f"finite, card vs CPU path max|diff|/max|view| {err:.2e} (tol "
+              "1e-4: f32 products of depth 5032 and 1006 in another order)")
+        _, full, _ = aug.apply_augmenter(params, bn, cfg,
+                                         xb.expand(A, *xb.shape), scale=0.1,
+                                         draws=ddraws)
+        views = full[..., :D]
+        if cfg.n_zim > 1:
+            views = views * (xb > 0)
+            zero = bool((got[:, xb == 0] == 0).all())
+            check(zero and float((xb == 0).float().mean()) > 0.3,
+                  f"augmenter_{name}: the views are zero wherever x is zero "
+                  f"({float((xb == 0).float().mean()):.3f} of the entries)")
+        e_b = rel_err(torch, got, views)
+        check(e_b <= 1e-4 and not bool(torch.equal(got[0], got[1])),
+              f"augmenter_{name}: augment_arms equals apply_augmenter on the "
+              f"broadcast batch (rel err {e_b:.1e}, tol 1e-4: fc1..fc4 once "
+              "on (B, D) against a batched product over A copies, summed in "
+              "another order), and the arms' views differ")
+        del params, bn, got, want, full, views
+        torch.cuda.empty_cache()
+
+
+def _drive_decoder_training(torch, check, tmp, x, tag, aug_file):
+    """init_model(fused_decoder=True) -> train -> fresh load -> eval_model,
+    counts set to 0 just before each run and read just after.  Returns
+    (training counts, serving counts, checkpoint path)."""
+    import numpy as np
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    folder = os.path.join(tmp, f"decoder_{tag}")
+    trainer = CplMixVAE(saving_folder=folder, aug_file=aug_file, device=DEV,
+                        seed=SEED)
+    trainer.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                       lowD_dim=10, state_dim=2, batch_size=B,
+                       epochs_per_jit=2, eval_every=2, ckpt_every=2,
+                       fused_recon=True, fused_encoder=True,
+                       fused_decoder=True)
+    check(trainer.cfg.fused_decoder and trainer.cfg.fused_recon
+          and trainer.cfg.fused_encoder
+          and (trainer._augment_fn() is not None) == bool(aug_file),
+          f"[{tag}] fused_decoder is taken, the default kernels stay on, "
+          f"augmenter {'loaded' if aug_file else 'absent'}")
+    x_train = x[:N_DEC_TRAIN]
+    x_val = x[N_DEC_TRAIN:N_DEC_TRAIN + N_DEC_VAL]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    path = trainer.train(x_train, x_val=x_val, n_epoch=4,
+                         early_stop_consensus=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trained = launch_counts()
+    rise = torch.cuda.max_memory_allocated() - base
+    steps = 4 * (N_DEC_TRAIN // B)
+    n_val = 2 * -(-N_DEC_VAL // B)
+    print(f"  [{tag}] train: 4 epochs, {steps} steps, {N_DEC_TRAIN} cells, 2 "
+          f"validations in {wall:.4f} s (cold, checkpoints included)")
+    want = {**dict.fromkeys(trained, 0), "encoder_fwd": steps,
+            "encoder_bwd": steps, "decoder_fwdbwd": steps,
+            "decoder_fwd": n_val}
+    check(trained == want, f"[{tag}] launches on the fused_decoder training "
+                           f"path: {trained} (expect {want}: recon_fwd and "
+                           "recon_fwdbwd never)")
+    with open(os.path.join(folder, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    print(f"  [{tag}] epoch losses: {losses}")
+    check(len(losses) == 4 and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0],
+          f"[{tag}] loss finite, last epoch's mean below the first's")
+    val = [r for r in rows if "val/loss" in r]
+    check(len(val) == 2 and all(math.isfinite(r["val/loss"]) for r in val),
+          f"[{tag}] 2 validations with finite loss ({len(val)})")
+    one = A * B * D * 4
+    limit = 2 * one if aug_file else one
+    check(rise < limit,
+          f"[{tag}] peak allocated rise over the resident dataset "
+          f"{rise / 1e6:.1f} MB (limit "
+          + ("two (A,B,D) f32 tensors: the views and less than one more, "
+             if aug_file else "one (A,B,D) f32 tensor, ")
+          + f"{limit / 1e6:.0f} MB)")
+    check(all(bool(torch.isfinite(v).all())
+              for layer in trainer.state.params.values()
+              for v in layer.values()), f"[{tag}] parameters finite")
+
+    server = CplMixVAE(device=DEV, aug_file=aug_file)
+    epoch = server.load_model(path)
+    n_cells = N_DEC_TRAIN + N_DEC_VAL
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = server.eval_model(x[:n_cells], batch_size=B)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = launch_counts()
+    rise = torch.cuda.max_memory_allocated() - base
+    n_launch = -(-n_cells // B)
+    print(f"  [{tag}] eval_model: {n_cells} cells in {wall:.4f} s = "
+          f"{n_cells / wall:.1f} cells/s; consensus {res['consensus']:.6f}; "
+          f"total_loss {res['total_loss']:.6g}; peak rise {rise / 1e6:.1f} MB")
+    check(epoch == 4 and server.cfg.fused_decoder
+          and served == {**dict.fromkeys(served, 0), "decoder_fwd": n_launch},
+          f"[{tag}] a fresh instance takes fused_decoder from the checkpoint; "
+          f"launches on the serving path: {served} (expect decoder_fwd "
+          f"{n_launch}, recon_fwd 0)")
+    check(rise < limit, f"[{tag}] serving peak rise {rise / 1e6:.1f} MB "
+                        f"(limit {limit / 1e6:.0f} MB)")
+    check(np.asarray(res["pred_label"]).shape == (A, n_cells)
+          and math.isfinite(res["total_loss"])
+          and bool(np.all(np.isfinite(res["c_prob"])))
+          and bool(np.all(np.isfinite(res["total_loss_rec"])))
+          and 0.0 <= res["consensus"] <= 1.0,
+          f"[{tag}] labels of every cell, finite posteriors and losses, "
+          "consensus in [0, 1]")
+    serving_parity(check, server, path, x[:N_SMALL].cpu().numpy(),
+                   x[:N_SMALL], aug_file)
+    phase_parity_step(torch, check, path, x, aug_file)
+    del trainer, server
+    torch.cuda.empty_cache()
+    return trained, served, path
+
+
+def phase_decoder_path(torch, check, tmp, x) -> dict:
+    """fused_decoder end to end at full width: with a shared batch and with
+    the committed MSE augmenter's per-arm views, then once with use_pallas.
+    Returns the launch counts of the five counted runs."""
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print("phase 8: fused_decoder end to end, without and with the augmenter")
+    out = {}
+    paths = {}
+    for tag, aug_file in (("shared", None), ("augmented", AUG_MSE)):
+        trained, served, paths[tag] = _drive_decoder_training(
+            torch, check, tmp, x, tag, aug_file)
+        out[f"decoder_{tag}_training"] = trained
+        out[f"decoder_{tag}_serving"] = served
+    x_train = x[:N_DEC_TRAIN]
+
+    def loaded(path, aug_file=None, **flags):
+        m = CplMixVAE(device=DEV, aug_file=aug_file)
+        m.load_model(path)
+        m.cfg = m.cfg.replace(**flags)
+        return m
+
+    # fused_decoder off and on from one checkpoint, in turns
+    plain = loaded(paths["shared"], fused_decoder=False)
+    fused = loaded(paths["shared"])
+    ms = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        ms[which].append(warm_chunk_ms(
+            torch, plain if which == "off" else fused, x_train, chunks=2))
+    off, on = (sum(ms[k]) / 2 for k in ("off", "on"))
+    print(f"  warm training step without fused_decoder {off:.3f} ms "
+          f"({ms['off'][0]:.3f}, {ms['off'][1]:.3f}) = {B / off * 1e3:.1f} "
+          f"cells/s; with fused_decoder {on:.3f} ms ({ms['on'][0]:.3f}, "
+          f"{ms['on'][1]:.3f}) = {B / on * 1e3:.1f} cells/s")
+    for label, model in (("without fused_decoder", plain),
+                         ("with fused_decoder", fused)):
+        print(f"  profiled chunk {label}:")
+        n_sync, kernels, busy = phase_chunk_breakdown(torch, model, x_train,
+                                                      top=14)
+        check(n_sync == 0, f"{n_sync} synchronising calls inside a chunk "
+                           f"{label} (expect 0)")
+        if busy:
+            steps_prof = 2 * (N_DEC_TRAIN // B)
+            groups = {"decoder_": 0.0, "recon_": 0.0, "encoder_": 0.0,
+                      "gemm": 0.0}
+            for t, _, name in kernels:
+                for key in groups:
+                    if key in name.lower():
+                        groups[key] += t
+                        break
+            rest = busy - sum(groups.values())
+            print("    per step: " + ", ".join(
+                f"{k.strip('_')} {v / 1e3 / steps_prof:.3f} ms"
+                for k, v in groups.items())
+                + f", rest {rest / 1e3 / steps_prof:.3f} ms")
+    del plain, fused
+    torch.cuda.empty_cache()
+
+    # the augmented step, fused_decoder off and on, and the augmenter alone
+    aug_off = loaded(paths["augmented"], AUG_MSE, fused_decoder=False)
+    aug_on = loaded(paths["augmented"], AUG_MSE)
+    ms = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        ms[which].append(warm_chunk_ms(
+            torch, aug_off if which == "off" else aug_on, x_train, chunks=1))
+    off, on = (sum(ms[k]) / 2 for k in ("off", "on"))
+    print(f"  warm augmented training step without fused_decoder {off:.3f} ms "
+          f"({ms['off'][0]:.3f}, {ms['off'][1]:.3f}) = {B / off * 1e3:.1f} "
+          f"cells/s; with fused_decoder {on:.3f} ms ({ms['on'][0]:.3f}, "
+          f"{ms['on'][1]:.3f}) = {B / on * 1e3:.1f} cells/s")
+    fn = aug_on._augment_fn()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    xb = x[:B].contiguous()
+    a_ms = cuda_ms(torch, lambda: fn(xb, A, gen), iters=10)
+    macs = sum(k * n * (1 if i < 4 else A) for i, (k, n) in enumerate((
+        (5032, 1006), (1006, 1006), (1006, 500), (500, 500), (50, 50),
+        (550, 100), (100, 10), (100, 10), (10, 100), (100, 500), (500, 500),
+        (500, 1006), (1006, 1006), (1006, 5032))))
+    a_bound = 2.0 * B * macs / PEAK_FLOPS["float32"] * 1e3
+    print(f"  the augmenter alone, {B} cells -> ({A}, {B}, {D}) views: "
+          f"{a_ms:.4f} ms by events; {2.0 * B * macs / 1e9:.1f} GFLOP of f32 "
+          f"products, {a_bound:.4f} ms at the FP32 peak (TF32 stays off)")
+    print("  profiled augmented chunk with fused_decoder:")
+    n_sync, _, _ = phase_chunk_breakdown(torch, aug_on, x_train, top=14)
+    check(n_sync == 0, f"{n_sync} synchronising calls inside an augmented "
+                       "chunk (expect 0): the views are made on the card")
+    del aug_off, aug_on
+    torch.cuda.empty_cache()
+
+    # once with use_pallas: dz feeds the fused Gumbel backward
+    ptrainer = CplMixVAE(saving_folder=os.path.join(tmp, "decoder_pallas"),
+                         device=DEV, seed=SEED)
+    ptrainer.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                        lowD_dim=10, state_dim=2, batch_size=B,
+                        epochs_per_jit=2, use_pallas=True, fused_decoder=True)
+    reset_launch_counts()
+    ppath = ptrainer.train(x[:N_DEC_PALLAS], n_epoch=2,
+                           early_stop_consensus=0)
+    torch.cuda.synchronize()
+    pallas = launch_counts()
+    psteps = 2 * (N_DEC_PALLAS // B)
+    want = {**dict.fromkeys(pallas, 0), "encoder_fwd": psteps,
+            "encoder_bwd": psteps, "decoder_fwdbwd": psteps,
+            "gumbel_fwd": psteps, "gumbel_bwd": psteps, "coupling": psteps}
+    check(pallas == want and not ptrainer._halted,
+          f"launches of a fused_decoder run with use_pallas: {pallas} "
+          f"(expect {want})")
+    phase_parity_step(torch, check, ppath, x)
+    del ptrainer
+    torch.cuda.empty_cache()
+    out["decoder_pallas_training"] = pallas
+    return out
+
+
 def main() -> int:
-    kernels_only = "--kernels-only" in sys.argv[1:]
+    only = [a for a in sys.argv[1:] if a.startswith("--kernels-only")]
+    kernels_only = bool(only)
+    # --kernels-only=decoder,coupling: just those kernel phases
+    wanted = (only[0].split("=", 1)[1].split(",")
+              if only and "=" in only[0] else None)
     try:
         import torch
     except ImportError:
@@ -1750,13 +2258,21 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_build(check)
-        records = {"recon_fwd": phase_kernels(torch, check)}
-        records.update(phase_encoder(torch, check))
-        records["recon_fwdbwd"] = phase_recon_fwdbwd(torch, check)
-        records["recon_bwd"] = phase_recon_bwd(torch, check)
-        records.update(phase_zinb(torch, check))
-        records.update(phase_gumbel(torch, check))
-        records["coupling"] = phase_coupling(torch, check)
+        records = {}
+        kernel_phases = (
+            ("recon_fwd", lambda: {"recon_fwd": phase_kernels(torch, check)}),
+            ("encoder", lambda: phase_encoder(torch, check)),
+            ("recon_fwdbwd", lambda: {
+                "recon_fwdbwd": phase_recon_fwdbwd(torch, check)}),
+            ("recon_bwd", lambda: {
+                "recon_bwd": phase_recon_bwd(torch, check)}),
+            ("zinb", lambda: phase_zinb(torch, check)),
+            ("gumbel", lambda: phase_gumbel(torch, check)),
+            ("coupling", lambda: {"coupling": phase_coupling(torch, check)}),
+            ("decoder", lambda: phase_decoder(torch, check)))
+        for name, run in kernel_phases:
+            if wanted is None or name in wanted:
+                records.update(run())
         if not kernels_only:
             served, _, x = phase_serving(torch, check, tmp)
             paths = {"serving": served,
@@ -1768,11 +2284,16 @@ def main() -> int:
             paths["categorical_training"] = cat["training"]
             paths["categorical_serving"] = cat["serving"]
             paths["categorical_zinb"] = cat["zinb"]
-            del x, x_zinb
+            phase_augmenter(torch, check, x, x_zinb)
+            del x_zinb
+            torch.cuda.empty_cache()
+            paths.update(phase_decoder_path(torch, check, tmp, x))
+            del x
             torch.cuda.empty_cache()
             on_path = ("recon_fwd", "recon_fwdbwd", "encoder_fwd",
                        "encoder_bwd", "zinb_fwd", "zinb_fwdbwd",
-                       "gumbel_fwd", "gumbel_bwd", "coupling")
+                       "gumbel_fwd", "gumbel_bwd", "coupling",
+                       "decoder_fwd", "decoder_fwdbwd")
             for name in on_path:
                 n = sum(c[name] for c in paths.values())
                 check(n > 0, f"{name}: {n} launches on the driven paths")
@@ -1805,6 +2326,9 @@ def main() -> int:
         "gumbel_bwd": ("gumbel.cu", "dvae_tpu/ops/gumbel_pallas.py:128"),
         "gumbel_sharpen": ("gumbel.cu", "dvae_tpu/ops/gumbel_pallas.py:203"),
         "coupling": ("coupling.cu", "dvae_tpu/ops/coupling_pallas.py:51"),
+        "decoder_fwd": ("decoder.cu", "dvae_tpu/ops/decoder_pallas.py:115"),
+        "decoder_fwdbwd": ("decoder.cu",
+                           "dvae_tpu/ops/decoder_pallas.py:211"),
     }
     entries = {name: {"name": name, "route": "cuda",
                       "source": f"dvae_tpu_torch/csrc/{src}", "replaces": rep,

@@ -15,7 +15,8 @@ adjusted-MI metrics as one JSON line (also saved to
 ``--device`` (default ``cuda``).  ``train --loss_mode ZINB`` trains the
 zero-inflated negative-binomial reconstruction (``evaluate`` takes the
 mode from the checkpoint); ``train --align_every N`` Hungarian-aligns the
-arms' category indices every N epochs.  The dataset is a synthetic one
+arms' category indices every N epochs; ``train --aug_file PATH`` trains
+every arm on its own view from a frozen augmenter.  The dataset is a synthetic one
 (``--syn_cells``/``--syn_genes``/``--syn_types``): planted Gaussian
 programs, or with ``--syn_hard`` (alias ``--hard_synthetic``) ZINB counts
 with library-size variation, dropout and overlapping types; reading
@@ -53,7 +54,8 @@ def cmd_train(args) -> int:
                                                  newest_checkpoint)
 
     ds = _load_dataset(args)
-    prefix = (f"K{args.n_categories}_S{args.state_dim}_AUGFalse"
+    prefix = (f"K{args.n_categories}_S{args.state_dim}"
+              f"_AUG{bool(args.aug_file)}"
               f"_LR{args.lr}_A{args.n_arm}_B{args.batch_size}"
               f"_E{args.n_epoch}_Ep{args.n_epoch_p}")
     base = args.saving_folder or "results/"
@@ -64,7 +66,8 @@ def cmd_train(args) -> int:
     print(f"run folder: {folder}")
 
     tr, te = stratified_split_indices(ds.cluster_label, 0.9, args.seed)
-    cpl = CplMixVAE(saving_folder=folder, seed=args.seed, device=args.device)
+    cpl = CplMixVAE(saving_folder=folder, aug_file=args.aug_file,
+                    seed=args.seed, device=args.device)
     cpl.init_model(
         n_categories=args.n_categories, state_dim=args.state_dim,
         input_dim=ds.log1p.shape[1], fc_dim=args.fc_dim,
@@ -155,6 +158,9 @@ def main(argv=None) -> int:
     pt.add_argument("--loss_mode", type=str, default="MSE",
                     choices=["MSE", "ZINB"])
     pt.add_argument("--pretrained_model", type=str, default=None)
+    pt.add_argument("--aug_file", type=str, default=None,
+                    help="checkpoint of a frozen augmenter: every arm "
+                         "trains on its own noisy view of each batch")
     pt.add_argument("--optimizer", type=str, default="adam",
                     choices=["adam", "adamw"])
     pt.add_argument("--bf16", action="store_true")

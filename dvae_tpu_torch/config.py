@@ -16,9 +16,10 @@ MSE reconstruction loss through the hand-written kernels of
 either package's checkpoints rebuild the other's config) turns on the
 hand-written Gumbel-softmax sampler of ``ops/gumbel.py`` in training and
 the fused coupling distance of ``ops/coupling.py`` in every loss.
-``fused_decoder`` is carried for checkpoint compatibility: its kernel
-belongs to a later slice of the port, and the model refuses it rather than
-ignore it.
+``fused_decoder`` (opt-in, MSE mode with ``fused_recon``) runs the whole
+decoder, trunk and output layer, in the kernels of ``ops/decoder.py``; ZINB
+mode ignores it.  ``TrainConfig.aug_noise`` scales the noise of a frozen
+augmenter's per-arm views.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ naive pair-loop versions stay beside them as oracles.  ``mixvae_loss``
 takes the batch ``x`` as (B, D), shared by every arm, or (A, B, D).
 
 Gradients come from torch autograd.  The fused reconstruction branch goes
-through the autograd ops ``ops/recon.fused_recon_mse`` (MSE mode) and
-``ops/zinb.fused_zinb`` (ZINB mode): the fused forward+backward kernel
+through the autograd ops ``ops/recon.fused_recon_mse`` (MSE mode; with
+``cfg.fused_decoder`` the whole-decoder ``ops/decoder.fused_decoder_mse``)
+and ``ops/zinb.fused_zinb`` (ZINB mode): the fused forward+backward kernel
 when a gradient is asked for.  The binarized-BCE metric is detached in
 both MSE branches, as in the JAX package (dvae_tpu/models/losses.py:105,
 :353).  Under ``cfg.use_pallas`` the coupling distance goes through the
@@ -192,7 +193,8 @@ def mixvae_loss_naive(cfg: VAEConfig, outs: MixVAEOutputs,
 
 def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
                 prior_c: Optional[torch.Tensor] = None,
-                fused_recon_args: Optional[tuple] = None) -> LossOutputs:
+                fused_recon_args: Optional[tuple] = None,
+                fused_trunk: bool = False) -> LossOutputs:
     """Total cpl-mixVAE loss (reference mmidas/nn_model.py:495-598):
 
       total = scaler·Σ_a (rec_a + β·KL_a)
@@ -202,7 +204,9 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
     terms through the fused kernel (``ops/recon.fused_recon_mse``, or
     ``ops/zinb.fused_zinb`` in ZINB mode): ``outs.x_rec`` then holds the
     decoder pre-output hidden (A, B, F) and ``x_target`` is (B, D) or
-    (A, B, D).
+    (A, B, D).  With ``fused_trunk`` (MSE mode, ``cfg.fused_decoder``)
+    ``outs.x_rec`` holds the decoder input z (A, B, C+S) instead and the
+    whole fc6..fc11 chain runs in ``ops/decoder.fused_decoder_mse``.
     """
     A, C = cfg.n_arm, cfg.n_categories
     B, D = x.shape[-2], x.shape[-1]
@@ -222,11 +226,19 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
         loss_rec = sums / (B * D)
         ll = nan_a   # no materialised x_rec: read rec_nll instead
     elif fused_recon_args is not None:
-        from dvae_tpu_torch.ops.recon import fused_recon_mse
         fparams, x_target = fused_recon_args
-        sumsq, mism = fused_recon_mse(outs.x_rec, fparams["fc11"]["w"],
-                                      fparams["fc11"]["b"], x_target,
-                                      0.1, cfg.recon_bce_metric)
+        if fused_trunk:
+            from dvae_tpu_torch.ops.decoder import fused_decoder_mse
+            flat = [fparams[name][leaf]
+                    for name in ("fc6", "fc7", "fc8", "fc9", "fc10", "fc11")
+                    for leaf in ("w", "b")]
+            sumsq, mism = fused_decoder_mse(outs.x_rec, *flat, x_target,
+                                            0.1, cfg.recon_bce_metric)
+        else:
+            from dvae_tpu_torch.ops.recon import fused_recon_mse
+            sumsq, mism = fused_recon_mse(outs.x_rec, fparams["fc11"]["w"],
+                                          fparams["fc11"]["b"], x_target,
+                                          0.1, cfg.recon_bce_metric)
         loss_rec = 0.5 * sumsq / B
         if cfg.recon_bce_metric:
             # BCE on hard-binarized inputs ≡ 100 · mismatch fraction; a

@@ -37,7 +37,8 @@ class MixVAEOutputs(NamedTuple):
     """Forward outputs; every tensor has a leading A (arm) axis.  Field
     order and meaning as in dvae_tpu/models/mixvae.py:48-66."""
 
-    x_rec: torch.Tensor      # (A, B, D), or (A, B, F) decoder hidden under skip_recon
+    x_rec: torch.Tensor      # (A, B, D); (A, B, F) decoder hidden under skip_recon;
+                             # (A, B, C+S) decoder input under skip_trunk
     p_x: torch.Tensor        # ZINB success-probability head; zeros in MSE mode
     r_x: torch.Tensor        # ZINB zero-inflation head; zeros in MSE mode
     x_low: torch.Tensor      # (A, B, L)
@@ -272,6 +273,7 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
           mask: Optional[torch.Tensor] = None,
           prior_c: Optional[torch.Tensor] = None,
           skip_recon: bool = False,
+          skip_trunk: bool = False,
           noise=None,
           generator: Optional[torch.Generator] = None,
           enc_seed: Optional[int] = None):
@@ -287,6 +289,11 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
       prior_c: optional (B, C) reference prior (ref_prior mode).
       skip_recon: stop the decoder before fc11; the (A, B, F) pre-output
         hidden rides in the ``x_rec`` slot for the fused recon-loss kernel.
+      skip_trunk: stop the decoder before fc6; its input
+        ``z = [c_smp, dropout(s_smp)]`` (A, B, C+S) rides in the ``x_rec``
+        slot for the fused whole-decoder kernel (``ops/decoder.py``).  The
+        state dropout is drawn as on the other paths, so the same noise
+        gives the same numbers with and without the flag.
       noise: a ``Noise`` bundle, or an (A, B, S) tensor of
         reparameterization noise (variational mode draws it even in eval,
         dvae_tpu/models/mixvae.py:288-293).  What it leaves out comes from
@@ -301,10 +308,6 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
     """
     if cfg.mode not in ("MSE", "ZINB"):
         raise ValueError(f"unknown reconstruction mode {cfg.mode!r}")
-    if cfg.fused_decoder:
-        raise NotImplementedError(
-            "fused_decoder (the whole-decoder kernel) arrives with a later "
-            "slice of the port")
     if noise is None:
         noise = Noise()
     elif isinstance(noise, torch.Tensor):
@@ -343,6 +346,11 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
 
     s_dec = (dropout(s_smp, cfg.s_drop, generator, noise.s_mask)
              if train else s_smp)
+    if skip_trunk:
+        x_rec = torch.cat([c_in, s_dec], dim=-1)
+        p_x = r_x = x_rec.new_zeros(x_rec.shape[:-1] + (1,))
+        return (MixVAEOutputs(x_rec, p_x, r_x, x_low, c, s_smp, c_smp,
+                              s_mean, s_logvar, c_prob), new_bn)
     h_dec = _decode_hidden(params, c_in, s_dec)
     if skip_recon:
         x_rec = h_dec

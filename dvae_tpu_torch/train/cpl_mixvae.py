@@ -20,12 +20,16 @@ take it from); the NaN halt looks at the total loss only.  ``use_pallas``
 forward and backward, in training (``ops/gumbel.py``) and the fused
 coupling distance in every loss (``ops/coupling.py``).
 ``align_arms_every`` > 0 Hungarian-aligns the arms' category indices every
-that many epochs (``train/alignment.py``).
+that many epochs (``train/alignment.py``).  ``fused_decoder`` (opt-in, MSE
+mode) runs the whole decoder, trunk and output layer, forward and
+backward, in the kernels of ``ops/decoder.py`` instead of the
+reconstruction-loss ones.  ``aug_file`` loads a frozen augmenter
+(``augment/augmenter.py``): every arm then trains on, and is evaluated
+on, its own noisy view of each batch, made on the device inside the chunk.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the augmenter (``aug_file``), streaming (``stream``, and the
-switch to it when the dataset does not fit the device), a mesh of several
-devices, ``fused_decoder`` and ``save_plots``.
+ignored: streaming (``stream``, and the switch to it when the dataset does
+not fit the device), a mesh of several devices and ``save_plots``.
 """
 
 from __future__ import annotations
@@ -128,13 +132,14 @@ class CplMixVAE:
 
     def __init__(self, saving_folder: str = "", aug_file: Optional[str] = None,
                  device="cuda", seed: int = 546):
-        if aug_file:
-            raise _not_ported("the augmenter (aug_file)", "augmenter")
         self.folder = saving_folder
         if saving_folder:
             os.makedirs(saving_folder, exist_ok=True)
         self.device = _resolve_device(device)
         self.seed = seed
+        self.aug_file = aug_file
+        self._aug_loaded = None  # (params, bn, cfg) of the frozen augmenter
+        self._aug_apply = None   # its closure in the compute dtype (cached)
         self.cfg: Optional[VAEConfig] = None
         self.tcfg: Optional[TrainConfig] = None
         self.state: Optional[TrainState] = None
@@ -144,8 +149,39 @@ class CplMixVAE:
         self._preempt: Optional[PreemptionGuard] = None
         self._eval_step = None
         self._eval_runner = None
+        if aug_file:
+            self._load_augmenter(aug_file)
 
     # -- model lifecycle ----------------------------------------------------
+
+    def _load_augmenter(self, aug_file: str) -> None:
+        """Load a frozen pre-trained augmenter onto the model's device
+        (reference ``mk_augmenter``, cpl_mixvae.py:128-149).  The weights
+        are kept in f32; ``_augment_fn`` casts them once the compute dtype
+        is known.  The cached eval functions close over the augmenter, so
+        they are dropped."""
+        from dvae_tpu_torch.augment.augmenter import load_augmenter
+        self._aug_loaded = load_augmenter(aug_file, self.device)
+        self._reset_eval_fns()
+
+    def _augment_fn(self):
+        """The augmenter as the step and eval functions take it,
+        fn(x, n_arm, generator, draws) → (A, B, D), or None without one:
+        noise scale ``tcfg.aug_noise``, bf16 weights under ``tcfg.bf16``."""
+        if self._aug_loaded is None:
+            return None
+        if self._aug_apply is None:
+            from dvae_tpu_torch.augment.augmenter import make_augment_apply
+            bf16 = self.tcfg is not None and self.tcfg.bf16
+            self._aug_apply = make_augment_apply(
+                *self._aug_loaded, dtype=torch.bfloat16 if bf16 else None)
+        from dvae_tpu_torch.augment.augmenter import AugNoise
+        aug = self._aug_apply
+        scale = self.tcfg.aug_noise if self.tcfg else 0.1
+
+        def fn(x, n_arm, generator=None, draws=None):
+            return aug(x, n_arm, scale, generator, draws or AugNoise())
+        return fn
 
     def _fused_default(self) -> bool:
         return self.device.type == "cuda"
@@ -154,9 +190,6 @@ class CplMixVAE:
     def _refuse_later_slices(cfg: VAEConfig, tcfg: TrainConfig) -> None:
         if cfg.mode not in ("MSE", "ZINB"):
             raise ValueError(f"unknown reconstruction mode {cfg.mode!r}")
-        if cfg.fused_decoder:
-            raise _not_ported("fused_decoder (the whole-decoder kernel)",
-                              "opt-in kernels")
         if tcfg.stream:
             raise _not_ported("streaming (stream=True)", "streaming")
         if tcfg.mesh.n_devices > 1:
@@ -192,6 +225,8 @@ class CplMixVAE:
         mesh = mesh or MeshConfig()
         if local_bn_stats:
             extra.setdefault("bn_groups", max(1, mesh.data * mesh.fsdp))
+        # fused_decoder stays opt-in, as in the JAX package: it arrives
+        # through ``extra`` and no default turns it on
         cfg = VAEConfig(
             n_categories=n_categories, state_dim=state_dim,
             input_dim=input_dim, fc_dim=fc_dim, lowD_dim=lowD_dim,
@@ -218,8 +253,12 @@ class CplMixVAE:
             self.load_model(trained_model)
 
     def _reset_eval_fns(self) -> None:
+        """Drop the cached eval functions and the cast augmenter closure:
+        they bake in the configs, a cast copy of the parameters and the
+        augmenter's weights."""
         self._eval_step = None
         self._eval_runner = None
+        self._aug_apply = None
 
     def load_model(self, filename: str) -> int:
         """Restore the model and optimizer state from a checkpoint written
@@ -365,14 +404,16 @@ class CplMixVAE:
             idx = np.arange(n_train) if train_idx is None else train_idx
             prior_all = self._resident(np.asarray(c_p)[idx], torch.float32)
         runners = {}
+        self._reset_eval_fns()
+        augment = self._augment_fn()
 
         def runner(n_chunk: int):
             if n_chunk not in runners:
                 runners[n_chunk] = make_epoch_runner(
-                    cfg, tcfg, self.tx, n_train, epochs_per_chunk=n_chunk)
+                    cfg, tcfg, self.tx, n_train, epochs_per_chunk=n_chunk,
+                    augment=augment)
             return runners[n_chunk]
 
-        self._reset_eval_fns()
         if x_val is not None:
             x_val = self._resident(x_val, self._eval_dtype())
             if cfg.ref_prior and c_p is not None:
@@ -562,9 +603,11 @@ class CplMixVAE:
         if self.state is None:
             raise RuntimeError("call init_model or load_model first")
         if self._eval_step is None:
-            self._eval_step = make_eval_step(self.cfg, self.tcfg)
+            self._eval_step = make_eval_step(self.cfg, self.tcfg,
+                                             self._augment_fn())
         if self._eval_runner is None:
-            self._eval_runner = make_eval_runner(self.cfg, self.tcfg)
+            self._eval_runner = make_eval_runner(self.cfg, self.tcfg,
+                                                 self._augment_fn())
 
     def _to_device(self, x) -> torch.Tensor:
         """The dataset on the model's device in the eval dtype (no copy

@@ -28,7 +28,7 @@ how the batches were chunked, nor on the device.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,6 +37,11 @@ from dvae_tpu_torch.config import TrainConfig, VAEConfig
 from dvae_tpu_torch.eval.metrics import consensus_device
 from dvae_tpu_torch.models import mixvae
 from dvae_tpu_torch.models.losses import LossOutputs, mixvae_loss
+
+
+# (x (B, D), n_arm, generator, draws) → (A, B, D) per-arm views: the frozen
+# augmenter as the trainer closes over it (``CplMixVAE._augment_fn``)
+AugmentFn = Callable[..., torch.Tensor]
 
 
 class TrainState(NamedTuple):
@@ -219,14 +224,19 @@ def _apply_with_loss(params, bn, cfg: VAEConfig, x, generator, temp, mask,
                      prior_c, train: bool = False, noise=None,
                      enc_seed: Optional[int] = None):
     """Forward + loss with the fused-recon wiring in one place
-    (dvae_tpu/train/step.py:135-159).  Returns (outs, new_bn, aux)."""
+    (dvae_tpu/train/step.py:135-159); train and eval share it.  Under
+    ``cfg.fused_decoder`` (MSE mode only; ZINB ignores the flag) the model
+    stops before the decoder trunk and the whole-decoder kernel takes it
+    from there.  Returns (outs, new_bn, aux)."""
     fused = cfg.fused_recon
+    fused_trunk = fused and cfg.fused_decoder and cfg.mode != "ZINB"
     outs, new_bn = mixvae.apply(params, bn, cfg, x, temp=temp, train=train,
                                 mask=mask, prior_c=prior_c, skip_recon=fused,
-                                noise=noise, generator=generator,
-                                enc_seed=enc_seed)
+                                skip_trunk=fused_trunk, noise=noise,
+                                generator=generator, enc_seed=enc_seed)
     aux = mixvae_loss(cfg, outs, x, prior_c,
-                      fused_recon_args=(params, x) if fused else None)
+                      fused_recon_args=(params, x) if fused else None,
+                      fused_trunk=fused_trunk)
     return outs, new_bn, aux
 
 
@@ -245,17 +255,24 @@ def loss_fn(params, bn, cfg: VAEConfig, x, temp, mask, prior_c,
     return aux.total.float(), (aux, new_bn, labels)
 
 
-def make_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam):
+def make_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
+                    augment: Optional[AugmentFn] = None):
     """step(state, x (B, D), prior_c (B, C) | None, temp, generator=None,
-    enc_seed=None, noise=None) → (state, StepMetrics, labels (A, B)).
+    enc_seed=None, noise=None, aug_draws=None) → (state, StepMetrics,
+    labels (A, B)).
 
     Value and gradients of ``loss_fn``, pruned-category gradients zeroed,
     Adam, pruned parameters zeroed again (dvae_tpu/train/step.py:201-245).
-    The parameters and the Adam moments are updated in place."""
+    The parameters and the Adam moments are updated in place.  Without an
+    augmenter every arm shares the (B, D) batch, and that is what the model
+    and the kernels get; with one, its (A, B, D) per-arm views, made on the
+    batch's device from ``generator`` (or the explicit ``aug_draws``)."""
     compute_dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
 
     def step(state: TrainState, x, prior_c, temp, generator=None,
-             enc_seed: Optional[int] = None, noise=None):
+             enc_seed: Optional[int] = None, noise=None, aug_draws=None):
+        if augment is not None:
+            x = augment(x, cfg.n_arm, generator, aug_draws)
         live = {n: {k: v.detach().requires_grad_() for k, v in layer.items()}
                 for n, layer in state.params.items()}
         leaves = tree_leaves(live)
@@ -296,7 +313,8 @@ def chunk_rngs(seed: int, epoch: int, device):
 
 def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                       n_train: int, epochs_per_chunk: Optional[int] = None,
-                      consensus_every_epoch: bool = True):
+                      consensus_every_epoch: bool = True,
+                      augment: Optional[AugmentFn] = None):
     """run_epochs(state, x_all (N, D), prior_all (N, C) | None, temp) →
     (state, EpochMetrics), everything on x_all's device.
 
@@ -304,13 +322,14 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
     granularity, the last partial batch dropped (dvae_tpu/train/step.py
     :297-394); ``steps`` train steps; the argmax labels gathered into an
     (A, n_used) buffer and the all-pairs consensus computed on the
-    device."""
+    device.  ``augment`` makes each step's per-arm views inside the chunk,
+    on the device, from the chunk's generator."""
     E = epochs_per_chunk or tcfg.epochs_per_jit
     B = tcfg.batch_size
     steps = n_train // B
     if steps == 0:
         raise ValueError(f"batch_size {B} > dataset size {n_train}")
-    step_fn = make_train_step(cfg, tcfg, opt)
+    step_fn = make_train_step(cfg, tcfg, opt, augment)
     n_used = steps * B
     sb = tcfg.shuffle_block
     if sb > 1 and B % sb:
@@ -366,10 +385,13 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
 # Eval
 # ---------------------------------------------------------------------------
 
-def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig):
+def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig,
+                   augment: Optional[AugmentFn] = None):
     """Validation forward: no grad, eval semantics (hard one-hot, running
     BN statistics), the training compute dtype (bf16 under ``tcfg.bf16``)
-    with the f32 islands of the loss.  Metrics leave in f32.
+    with the f32 islands of the loss.  Metrics leave in f32.  With an
+    augmenter eval sees per-arm views too (dvae_tpu/train/step.py:509),
+    their noise drawn from the same per-batch generator.
 
     step(state, x (B, D), prior_c (B, C) | None, temp) →
         (LossOutputs, labels (A, B), MixVAEOutputs)
@@ -391,6 +413,8 @@ def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig):
             params = cache["cast"]
         x = x.to(compute_dtype)
         gen = torch.Generator(device="cpu").manual_seed(state.seed)
+        if augment is not None:
+            x = augment(x, cfg.n_arm, gen, None)
         outs, _, aux = _apply_with_loss(params, state.bn, cfg, x, gen, temp,
                                         state.mask, prior_c)
         labels = torch.argmax(outs.c, dim=-1)
@@ -400,12 +424,13 @@ def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig):
     return eval_step
 
 
-def make_eval_runner(cfg: VAEConfig, tcfg: TrainConfig):
+def make_eval_runner(cfg: VAEConfig, tcfg: TrainConfig,
+                     augment: Optional[AugmentFn] = None):
     """run(state, x_chunk (K, B, D), temp, prior_chunk (K, B, C) | None) →
     (LossOutputs stacked (K, ...), EvalFields (A, K·B, ·)).
 
     Per-batch numerics are those of ``make_eval_step``."""
-    ev = make_eval_step(cfg, tcfg)
+    ev = make_eval_step(cfg, tcfg, augment)
 
     def run(state: TrainState, x_chunk, temp,
             prior_chunk: Optional[torch.Tensor] = None):

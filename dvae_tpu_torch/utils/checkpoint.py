@@ -22,6 +22,8 @@ names, so the JAX package reads a checkpoint of the port with plain
 ``params_from_jax`` / ``bn_from_jax`` turn the numpy pytrees into tensors
 (and ``*_to_jax`` back): the weight bridge between the two packages.  The
 layout is the JAX one, stacked leading arm axis, ``(A, fan_in, fan_out)``.
+``augmenter_from_jax`` does the same for the frozen augmenter's trees
+(``augment/augmenter.py``), whose checkpoints use this format too.
 """
 
 from __future__ import annotations
@@ -35,6 +37,13 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+
+class Bfloat16Bits(np.void):
+    """Stand-in scalar type for ``ml_dtypes.bfloat16``, under which the JAX
+    package pickles bf16 arrays (numpy has no bf16 of its own): an array of
+    it keeps the 16 raw bits of each value, and ``_tree_to_torch`` views
+    them as ``torch.bfloat16``.  The port needs no ``ml_dtypes``."""
 
 
 class ForeignState(tuple):
@@ -117,6 +126,8 @@ class _PortUnpickler(pickle.Unpickler):
             return getattr(config, name)
         if module == "optax" or module.startswith("optax."):
             return _foreign_class(f"{module}.{name}")
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            return Bfloat16Bits
         if module.split(".")[0] in ("jax", "jaxlib", "dvae_tpu"):
             raise pickle.UnpicklingError(
                 f"checkpoint references {module}.{name}, which the port "
@@ -170,7 +181,13 @@ def load_checkpoint(path: str):
 def _tree_to_torch(tree, device, dtype=None):
     if isinstance(tree, dict):
         return {k: _tree_to_torch(v, device, dtype) for k, v in tree.items()}
-    t = torch.from_numpy(np.array(tree))  # a copy: JAX arrays are read-only
+    if tree is None:  # a bias-free layer's "b"
+        return None
+    arr = np.array(tree)  # a copy: JAX arrays are read-only
+    if arr.dtype.type is Bfloat16Bits or arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
     if dtype is not None:
         t = t.to(dtype)
     return t.to(device)
@@ -185,6 +202,17 @@ def params_from_jax(tree, device="cpu", dtype=None):
 def bn_from_jax(tree, device="cpu", dtype=None):
     """Batch-norm running statistics (numpy) → tensors."""
     return _tree_to_torch(tree, device, dtype)
+
+
+def augmenter_from_jax(params, bn, device="cpu", dtype=torch.float32):
+    """The augmenter's numpy pytrees (dvae_tpu/augment/augmenter.py: flat
+    ``(fan_in, fan_out)`` weights, the bias-free ``noise`` layer whose ``b``
+    is None, ``bnz`` with its affine ``scale``/``bias``) → (params, bn) of
+    tensors; layout unchanged.  The weights are cast to ``dtype``: the
+    committed checkpoints store them in bf16, which JAX promotes against
+    f32 activations in every product and torch does not, so the port widens
+    them once (exactly).  The statistics keep their stored f32."""
+    return _tree_to_torch(params, device, dtype), _tree_to_torch(bn, device)
 
 
 def params_to_jax(tree):

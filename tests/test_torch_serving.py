@@ -204,8 +204,21 @@ def test_apply_refuses_train_mode():
     outs, new_bn = tmixvae.apply(p, s, tc, xt, train=True,
                                  generator=torch.Generator().manual_seed(0))
     assert torch.isfinite(outs.x_rec).all() and new_bn is not s
-    with pytest.raises(NotImplementedError):
-        tmixvae.apply(p, s, tc.replace(fused_decoder=True), xt, train=True)
+    # fused_decoder is taken: with skip_trunk the decoder's input rides in
+    # the x_rec slot, the other fields as without it on the same noise
+    noise = tmixvae.Noise(
+        x_mask=torch.rand((A, B, D)) < 0.5, gumbel_u=torch.rand((A, B, C)),
+        reparam_e=torch.randn((A, B, S)), s_mask=torch.rand((A, B, S)) < 0.8)
+    full, _ = tmixvae.apply(p, s, tc, xt, train=True, noise=noise)
+    cut, _ = tmixvae.apply(p, s, tc.replace(fused_decoder=True), xt,
+                           train=True, skip_trunk=True, noise=noise)
+    assert cut.x_rec.shape == (A, B, C + S) and full.x_rec.shape == (A, B, D)
+    assert torch.equal(cut.x_rec[..., :C], full.c_smp)
+    assert torch.equal(
+        cut.x_rec[..., C:],
+        torch.where(noise.s_mask, full.s_smp / 0.8, torch.zeros(())))
+    for name in ("x_low", "c", "c_smp", "s_smp", "s_mean", "c_prob"):
+        assert torch.equal(getattr(cut, name), getattr(full, name)), name
     # use_pallas is taken: the fused sampler, seeded or on given uniforms
     pc = tc.replace(use_pallas=True)
     a, _ = tmixvae.apply(p, s, pc, xt, train=True,
@@ -248,6 +261,51 @@ def test_loss_matches_jax(fused, ref_prior, bce_metric):
     for name in tlosses.LossOutputs._fields:
         np.testing.assert_allclose(getattr(got, name).numpy(),
                                    np.asarray(getattr(want, name)), **SHARP,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("bce_metric", [True, False])
+@pytest.mark.parametrize("per_arm", [False, True])
+@pytest.mark.parametrize("pruned", [False, True])
+def test_fused_decoder_eval_matches_jax(pruned, per_arm, bce_metric):
+    """Eval with ``skip_trunk``: the decoder's input rides in the x_rec
+    slot as in JAX, and the loss through the whole-decoder op (the JAX
+    kernel in interpret mode) equals JAX's, on a shared batch and on
+    per-arm targets; the fused_recon route gives the port the same loss."""
+    jc, tc = _cfgs(fused_recon=True, fused_decoder=True,
+                   recon_bce_metric=bce_metric)
+    params, bn, x = _model(4)
+    mask = _mask(pruned)
+    key = jax.random.key(7)
+    xs = jnp.broadcast_to(jnp.asarray(x), (A,) + x.shape)
+    if per_arm:
+        xs = xs * jnp.asarray([1.0, 0.9, 1.1])[:, None, None]
+    jout, _ = jmixvae.apply(params, bn, jc, xs, key, train=False,
+                            mask=jnp.asarray(mask), skip_recon=True,
+                            skip_trunk=True)
+    target = xs if per_arm else jnp.asarray(x)
+    want = jlosses.mixvae_loss(jc, jout, xs, None,
+                               fused_recon_args=(params, target),
+                               fused_trunk=True)
+    xt = torch.from_numpy(np.array(target))
+    tp, tb = tckpt.params_from_jax(params), tckpt.bn_from_jax(bn)
+    noise = torch.from_numpy(_jax_noise(key))
+    tout, _ = tmixvae.apply(tp, tb, tc, xt, mask=torch.from_numpy(mask),
+                            skip_recon=True, skip_trunk=True, noise=noise)
+    assert tuple(tout.x_rec.shape) == (A, B, C + S)
+    np.testing.assert_allclose(tout.x_rec.numpy(), np.asarray(jout.x_rec),
+                               **SHARP)
+    got = tlosses.mixvae_loss(tc, tout, xt, None, fused_recon_args=(tp, xt),
+                              fused_trunk=True)
+    hid, _ = tmixvae.apply(tp, tb, tc, xt, mask=torch.from_numpy(mask),
+                           skip_recon=True, noise=noise)
+    recon = tlosses.mixvae_loss(tc, hid, xt, None, fused_recon_args=(tp, xt))
+    for name in tlosses.LossOutputs._fields:
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)), **SHARP,
+                                   err_msg=name)
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   getattr(recon, name).numpy(), rtol=1e-5,
                                    err_msg=name)
 
 
@@ -732,6 +790,18 @@ k.init_model(n_arm=3, input_dim={D}, fc_dim=8, lowD_dim=4, n_categories=4,
              epochs_per_jit=1)
 k.train(x, x_val=x[:8], n_epoch=2, early_stop_consensus=0)
 kres = k.eval_model(x, batch_size=8)
+from dvae_tpu_torch.augment.augmenter import (AugmenterConfig, init_augmenter,
+                                              save_augmenter)
+acfg = AugmenterConfig(input_dim={D}, n_dim=20, noise_dim=6, latent_dim=4)
+aug_file = save_augmenter("aug.ckpt", *init_augmenter(
+    torch.Generator().manual_seed(3), acfg), acfg)
+d = CplMixVAE(saving_folder="dec", aug_file=aug_file, device="cpu", seed=4)
+d.init_model(n_arm=2, input_dim={D}, fc_dim=8, lowD_dim=4, n_categories=4,
+             fused=True, fused_decoder=True, batch_size=8, epochs_per_jit=1)
+dpath = d.train(x, x_val=x[:8], n_epoch=2, early_stop_consensus=0)
+ds = CplMixVAE(aug_file=aug_file, device="cpu")
+ds.load_model(dpath)
+dres = ds.eval_model(x, batch_size=8)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu"))
 print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
@@ -741,7 +811,11 @@ print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
                       zres["total_loss_rec"]).all()),
                   "pallas_steps": k.state.opt_state.count,
                   "pallas_loss_finite": bool(np.isfinite(
-                      kres["total_loss"]))}}))
+                      kres["total_loss"])),
+                  "decoder_steps": d.state.opt_state.count,
+                  "decoder_flag": bool(ds.cfg.fused_decoder),
+                  "decoder_loss_finite": bool(np.isfinite(
+                      dres["total_loss"]))}}))
 """.format(D=D)
 
 
@@ -756,14 +830,17 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
     runs a tiny eval and a few training steps (4: two epochs of two
     batches), then trains (2 steps) and serves a ZINB model, then trains
     (4 steps, an alignment after each epoch) and serves with use_pallas,
-    without loading JAX, optax or dvae_tpu."""
+    then trains (4 steps), reloads and serves with fused_decoder and a
+    frozen augmenter, without loading JAX, optax or dvae_tpu."""
     _, ckpts = jax_checkpoints
     proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"bad": [], "labels": [A, 20], "steps": 4,
                    "zinb_steps": 2, "zinb_rec_finite": True,
-                   "pallas_steps": 4, "pallas_loss_finite": True}
+                   "pallas_steps": 4, "pallas_loss_finite": True,
+                   "decoder_steps": 4, "decoder_flag": True,
+                   "decoder_loss_finite": True}
 
 
 def test_cli_evaluate_on_cpu(jax_checkpoints, tmp_path):

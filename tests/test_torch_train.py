@@ -44,6 +44,7 @@ import jax
 import jax.numpy as jnp
 
 import dvae_tpu.config as jcfg
+from dvae_tpu.augment import augmenter as jaug
 from dvae_tpu.eval import metrics as jmetrics
 from dvae_tpu.models import mixvae as jmixvae
 from dvae_tpu.ops import encoder_pallas
@@ -51,6 +52,7 @@ from dvae_tpu.train import step as jstep
 from dvae_tpu.train.cpl_mixvae import CplMixVAE as JaxCplMixVAE
 
 import dvae_tpu_torch.config as tcfg_mod
+from dvae_tpu_torch.augment import augmenter as taug
 from dvae_tpu_torch.data.anndata_io import (hard_synthetic_dataset,
                                             synthetic_dataset)
 from dvae_tpu_torch.data import pipeline as tpipeline
@@ -488,7 +490,8 @@ def test_port_checkpoint_trains_on_in_jax(small_data, tmp_path):
 
 def test_trainer_phases_on_the_cpu(small_data, tmp_path):
     """Checkpoint cadence, best_ files, a pruning iteration, the metrics
-    log, resume of the progress, and later-slice flags refused."""
+    log, resume of the progress, flags not ported yet refused and the
+    opt-in ones taken."""
     cpl = CplMixVAE(saving_folder=str(tmp_path), device="cpu", seed=2)
     cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=1, ckpt_every=2,
                    eval_every=1)
@@ -508,19 +511,28 @@ def test_trainer_phases_on_the_cpu(small_data, tmp_path):
     again.load_model(path)
     assert again.resume_progress == {"main_epochs": 2, "pr_it": 1,
                                      "prune_epochs": 1}
-    for kw in ({"stream": True}, {"fused_decoder": True},
-               {"mesh": tcfg_mod.MeshConfig(data=2)}):
+    for kw in ({"stream": True}, {"mesh": tcfg_mod.MeshConfig(data=2)}):
         with pytest.raises(NotImplementedError):
             CplMixVAE(device="cpu").init_model(**SMALL, **kw)
-    for kw in ({"use_pallas": True}, {"align_arms_every": 5}):
+    for kw in ({"use_pallas": True}, {"align_arms_every": 5},
+               {"fused_decoder": True}):
         taken = CplMixVAE(device="cpu")
         taken.init_model(**SMALL, **kw)
-        assert (taken.cfg.use_pallas, taken.tcfg.align_arms_every) == (
-            kw.get("use_pallas", False), kw.get("align_arms_every", 0))
+        assert (taken.cfg.use_pallas, taken.tcfg.align_arms_every,
+                taken.cfg.fused_decoder) == (
+            kw.get("use_pallas", False), kw.get("align_arms_every", 0),
+            kw.get("fused_decoder", False))
     with pytest.raises(NotImplementedError):
         cpl.train(small_data[:64], n_epoch=1, save_plots=True)
-    with pytest.raises(NotImplementedError):
-        CplMixVAE(device="cpu", aug_file="augmenter.ckpt")
+    # aug_file is taken: the constructor loads the augmenter it names
+    acfg = taug.AugmenterConfig(input_dim=SMALL["input_dim"], n_dim=20,
+                                noise_dim=6, latent_dim=4)
+    aug_file = taug.save_augmenter(
+        str(tmp_path / "augmenter.ckpt"),
+        *taug.init_augmenter(torch.Generator().manual_seed(0), acfg), acfg)
+    with_aug = CplMixVAE(device="cpu", aug_file=aug_file)
+    assert with_aug.aug_file == aug_file and with_aug._augment_fn() is not None
+    assert CplMixVAE(device="cpu")._augment_fn() is None
 
 
 @pytest.fixture(scope="module")
@@ -918,3 +930,261 @@ def test_cli_train_with_alignment_on_cpu(tmp_path):
         "final checkpoint:")[1].strip()
     _, meta = tckpt.load_checkpoint(ckpt)
     assert meta["tcfg"]["align_arms_every"] == 1
+
+
+# ---------------------------------------------------------------------------
+# fused_decoder (the whole-decoder op) and the frozen augmenter.  DEC: rtol
+# 5e-4 / atol 2e-5 of each leaf's largest gradient, as tests/test_ops.py
+# :640-675 holds the fused_decoder path against the fused_recon one: the
+# same sums through five gated layers, taken in another order.
+# ---------------------------------------------------------------------------
+
+DEC = dict(rtol=5e-4, atol=2e-5)
+AUG_SMALL = dict(n_dim=20, noise_dim=6, latent_dim=4)
+
+
+def _aug_model(input_dim, seed=0, n_zim=1):
+    """A small frozen augmenter made by the JAX initialiser, as numpy
+    trees with non-trivial running statistics, and both packages' configs."""
+    kw = dict(AUG_SMALL, input_dim=input_dim, n_zim=n_zim)
+    jc, tc = jaug.AugmenterConfig(**kw), taug.AugmenterConfig(**kw)
+    params, bn = jaug.init_augmenter(jax.random.key(seed), jc)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    rng = np.random.default_rng(seed)
+    bn = {name: {k: (rng.uniform(0.5, 1.5, v.shape) if k in ("var", "scale")
+                     else 0.1 * rng.normal(size=v.shape)).astype(np.float32)
+                 for k, v in stats.items()} for name, stats in bn.items()}
+    return jc, tc, params, bn
+
+
+def _aug_draws(k_aug, acfg, n_arm, n_rows):
+    """What ``augment_arms`` draws from ``k_aug``
+    (dvae_tpu/augment/augmenter.py:245, :161, :175)."""
+    _, k_noise, k_reparam = jax.random.split(k_aug, 3)
+    return taug.AugNoise(
+        z=torch.from_numpy(np.array(jax.random.normal(
+            k_noise, (n_arm, n_rows, acfg.noise_dim)))),
+        e=torch.from_numpy(np.array(jax.random.normal(
+            k_reparam, (n_arm, n_rows, acfg.latent_dim)))))
+
+
+@pytest.mark.parametrize("per_arm", [False, True])
+def test_fused_decoder_loss_fn_equals_fused_recon_and_jax(per_arm):
+    """loss_fn value, metrics and all parameter gradients: the port with
+    fused_decoder against the port without it on the same ``Noise``, and
+    against the JAX loss_fn with fused_decoder, on a shared batch and on
+    per-arm views."""
+    jc, tc = _cfgs(fused_encoder=True, fused_recon=True, fused_decoder=True)
+    params, bn, x = _model(5)
+    key = jax.random.key(13)
+    mask = np.ones(C, np.float32)
+    if per_arm:
+        views = np.stack([x * s for s in (1.0, 0.9, 1.1)]).astype(np.float32)
+        xs, x_shared, xt = jnp.asarray(views), None, torch.from_numpy(views)
+    else:
+        xs = jnp.broadcast_to(jnp.asarray(x), (A, B, D))
+        x_shared, xt = jnp.asarray(x), torch.from_numpy(x)
+    (jt, (jaux, _, jlab)), jg = jax.value_and_grad(
+        jstep.loss_fn, has_aux=True)(params, bn, jc, xs, key, 1.0,
+                                     jnp.asarray(mask), None, None, x_shared)
+    noise = _noise(key, jc)
+    out = {}
+    for flag in (True, False):
+        live = {n: {k: v.requires_grad_() for k, v in layer.items()}
+                for n, layer in tckpt.params_from_jax(params).items()}
+        tt, (taux, _, tlab) = tstep.loss_fn(
+            live, tckpt.bn_from_jax(bn), tc.replace(fused_decoder=flag), xt,
+            1.0, torch.from_numpy(mask), None, noise=noise)
+        grads = tstep.tree_like(live, torch.autograd.grad(
+            tt, tstep.tree_leaves(live)))
+        out[flag] = (tt.detach(), taux, tlab, grads)
+    on, off = out[True], out[False]
+    np.testing.assert_allclose(float(on[0]), float(off[0]), rtol=1e-5)
+    np.testing.assert_allclose(float(on[0]), float(jt), rtol=1e-5)
+    for name in ("loss_rec", "kl", "c_dist", "neg_entropy", "c_l2_dist",
+                 "ll"):
+        np.testing.assert_allclose(getattr(on[1], name).detach().numpy(),
+                                   getattr(off[1], name).detach().numpy(),
+                                   rtol=1e-5, err_msg=name)
+    for name in ("loss_rec", "kl", "c_dist", "neg_entropy", "c_l2_dist"):
+        np.testing.assert_allclose(getattr(on[1], name).detach().numpy(),
+                                   np.asarray(getattr(jaux, name)), **SHARP,
+                                   err_msg=name)
+    assert torch.equal(on[2], off[2])
+    np.testing.assert_array_equal(on[2].numpy(), np.asarray(jlab))
+    _tree_close(on[3], tckpt.params_to_jax(off[3]), scaled=True, **DEC)
+    _tree_close(on[3], jax.tree_util.tree_map(np.asarray, jg), scaled=True,
+                **DEC)
+
+
+def test_fused_decoder_with_use_pallas_feeds_the_gumbel_backward():
+    """dz's first C columns reach the fused sampler's backward: the same
+    gradients with and without fused_decoder under use_pallas."""
+    _, tc = _cfgs(fused_encoder=True, fused_recon=True, use_pallas=True)
+    params, bn, x = _model(8)
+    noise = _noise(jax.random.key(3), _cfgs(fused_encoder=True)[0])
+    grads = []
+    for flag in (True, False):
+        live = {n: {k: v.requires_grad_() for k, v in layer.items()}
+                for n, layer in tckpt.params_from_jax(params).items()}
+        tt, _ = tstep.loss_fn(live, tckpt.bn_from_jax(bn),
+                              tc.replace(fused_decoder=flag),
+                              torch.from_numpy(x), 1.0, torch.ones(C), None,
+                              noise=noise)
+        grads.append(tstep.tree_like(live, torch.autograd.grad(
+            tt, tstep.tree_leaves(live))))
+    assert float(grads[0]["fcc"]["w"].abs().max()) > 0
+    _tree_close(grads[0], tckpt.params_to_jax(grads[1]), scaled=True, **DEC)
+
+
+def test_zinb_mode_ignores_fused_decoder():
+    """In ZINB mode the flag changes nothing: the ZINB op runs, as in JAX
+    (dvae_tpu/train/step.py:146)."""
+    _, tc = _cfgs(mode="ZINB", fused_encoder=True, fused_recon=True)
+    params, bn, x = _zinb_model(2)
+    noise = _noise(jax.random.key(4), _cfgs(fused_encoder=True)[0])
+    totals = []
+    for flag in (False, True):
+        tt, (aux, _, _) = tstep.loss_fn(
+            tckpt.params_from_jax(params), tckpt.bn_from_jax(bn),
+            tc.replace(fused_decoder=flag), torch.from_numpy(x), 1.0,
+            torch.ones(C), None, noise=noise)
+        totals.append((tt, aux.loss_rec))
+    assert torch.equal(totals[0][0], totals[1][0])
+    assert torch.equal(totals[0][1], totals[1][1])
+    assert torch.isfinite(totals[0][0])
+
+
+def test_augmented_train_steps_match_jax():
+    """Three train steps with a frozen augmenter and fused_decoder in both
+    packages: the port's views and noise are rebuilt from the JAX step's
+    key splits (dvae_tpu/train/step.py:219-225).  Adam's first update is
+    about -lr * sign(g), so an initialisation with a gradient entry near
+    zero can part the two trajectories after one step; this one has none."""
+    jc, tc = _cfgs(fused_encoder=True, fused_recon=True, fused_decoder=True)
+    ajc, atc, aparams, abn = _aug_model(D, seed=4)
+    japply = jaug.make_augment_apply(aparams, abn, ajc)
+    tapply = taug.make_augment_apply(
+        *tckpt.augmenter_from_jax(aparams, abn), atc)
+    jtcfg = jcfg.TrainConfig(batch_size=B)
+    tx = jstep.make_optimizer(jc)
+    jstate = jstep.init_train_state(jax.random.key(7), jc, tx)
+    opt = tstep.make_optimizer(tc)
+    tp = tckpt.params_from_jax(jax.tree_util.tree_map(np.array,
+                                                      jstate.params))
+    tstate = tstep.TrainState(
+        tp, tckpt.bn_from_jax(jax.tree_util.tree_map(np.array, jstate.bn)),
+        torch.ones(C), 0, 0, opt.init(tp))
+    jfn = jax.jit(jstep.make_train_step(
+        jc, jtcfg, tx, augment=lambda k, x, n: japply(k, x, n, 0.1)))
+    tfn = tstep.make_train_step(
+        tc, tcfg_mod.TrainConfig(batch_size=B), opt,
+        augment=lambda x, n, gen, draws: tapply(x, n, 0.1, gen, draws))
+    jl, tl = [], []
+    for i in range(3):
+        xb = _model(20 + i)[2]
+        _, k_aug, k_fwd = jax.random.split(jstate.key, 3)
+        jstate, jm, jlab = jfn(jstate, jnp.asarray(xb), None, 1.0)
+        tstate, tm, tlab = tfn(tstate, torch.from_numpy(xb), None, 1.0,
+                               noise=_noise(k_fwd, jc),
+                               aug_draws=_aug_draws(k_aug, ajc, A, B))
+        jl.append(float(jm.total))
+        tl.append(float(tm.total))
+        if i == 0:
+            np.testing.assert_array_equal(tlab.numpy(), np.asarray(jlab))
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ)
+    assert tstate.opt_state.count == 3
+
+
+@pytest.mark.parametrize("with_aug", [False, True])
+def test_fused_decoder_trainer_on_the_cpu(small_data, tmp_path, with_aug):
+    """init_model(fused_decoder=True) → train with validation → save → a
+    fresh load → eval_model and validate, without and with an augmenter
+    written by the test."""
+    aug_file = None
+    if with_aug:
+        _, atc, aparams, abn = _aug_model(SMALL["input_dim"], seed=1)
+        aug_file = taug.save_augmenter(
+            str(tmp_path / "aug.ckpt"),
+            *tckpt.augmenter_from_jax(aparams, abn), atc)
+    cpl = CplMixVAE(saving_folder=str(tmp_path / "run"), aug_file=aug_file,
+                    device="cpu", seed=5)
+    cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=1, eval_every=1,
+                   fused=True, fused_decoder=True)
+    assert cpl.cfg.fused_decoder and cpl.cfg.fused_recon
+    path = cpl.train(small_data[:64], x_val=small_data[64:], n_epoch=2,
+                     early_stop_consensus=0)
+    assert cpl.state.opt_state.count == 4
+    with open(tmp_path / "run" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert sum("val/loss" in r for r in rows) == 2
+    assert all(np.isfinite(r["train/loss"]) for r in rows
+               if "train/loss" in r)
+    fresh = CplMixVAE(aug_file=aug_file, device="cpu")
+    assert fresh.load_model(path) == 2 and fresh.cfg.fused_decoder
+    res = fresh.eval_model(small_data, batch_size=32)
+    val = fresh.validate(small_data[64:], batch_size=32)
+    assert res["pred_label"].shape == (2, 96)
+    assert np.isfinite(res["total_loss"]) and np.isfinite(val["loss"])
+    # the flag changes the route, not the numbers
+    plain = CplMixVAE(aug_file=aug_file, device="cpu")
+    plain.load_model(path)
+    plain.cfg = plain.cfg.replace(fused_decoder=False)
+    want = plain.eval_model(small_data, batch_size=32)
+    np.testing.assert_array_equal(res["pred_label"], want["pred_label"])
+    np.testing.assert_allclose(res["total_loss_rec"], want["total_loss_rec"],
+                               rtol=1e-5)
+    if with_aug:
+        # the views differ from the data, so the loss does
+        bare = CplMixVAE(device="cpu")
+        bare.load_model(path)
+        other = bare.eval_model(small_data, batch_size=32)
+        assert not np.allclose(other["total_loss_rec"],
+                               res["total_loss_rec"])
+
+
+def test_fused_decoder_is_off_by_default():
+    cpl = CplMixVAE(device="cpu")
+    cpl.init_model(**SMALL, fused=True)
+    assert cpl.cfg.fused_recon and not cpl.cfg.fused_decoder
+
+
+def test_changing_the_augmenter_drops_the_cached_eval_functions(small_data,
+                                                                tmp_path):
+    cpl = CplMixVAE(device="cpu", seed=1)
+    cpl.init_model(**SMALL, batch_size=32)
+    before = cpl.eval_model(small_data[:32], batch_size=32)
+    assert cpl._eval_step is not None
+    _, atc, aparams, abn = _aug_model(SMALL["input_dim"], seed=2)
+    cpl._load_augmenter(taug.save_augmenter(
+        str(tmp_path / "aug.ckpt"), *tckpt.augmenter_from_jax(aparams, abn),
+        atc))
+    assert cpl._eval_step is None and cpl._eval_runner is None
+    after = cpl.eval_model(small_data[:32], batch_size=32)
+    assert not np.allclose(before["total_loss_rec"], after["total_loss_rec"])
+    # bf16 training takes a bf16 copy of the weights, made once
+    cpl.tcfg = cpl.tcfg.replace(bf16=True, aug_noise=0.3)
+    cpl._reset_eval_fns()
+    fn = cpl._augment_fn()
+    v = fn(torch.from_numpy(small_data[:8]).to(torch.bfloat16), 2,
+           torch.Generator().manual_seed(0))
+    assert v.dtype == torch.bfloat16 and tuple(v.shape) == (2, 8, 40)
+    assert cpl._aug_apply is not None and cpl._augment_fn() is not None
+
+
+def test_cli_train_with_an_augmenter_on_cpu(tmp_path):
+    _, atc, aparams, abn = _aug_model(40, seed=3)
+    aug_file = taug.save_augmenter(
+        str(tmp_path / "aug.ckpt"), *tckpt.augmenter_from_jax(aparams, abn),
+        atc)
+    args = ["-m", "dvae_tpu_torch.cli", "train", "--device", "cpu",
+            "--synthetic", "--syn_cells", "120", "--syn_genes", "40",
+            "--syn_types", "5", "--n_categories", "5", "--n_arm", "2",
+            "--fc_dim", "16", "--latent_dim", "6", "--batch_size", "32",
+            "--n_epoch", "2", "--epochs_per_jit", "1", "--aug_file", aug_file,
+            "--saving_folder", str(tmp_path) + "/"]
+    proc = _run_port(args, str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    assert "_AUGTrue_" in proc.stdout and "epoch 2:" in proc.stdout
+    assert proc.stdout.strip().splitlines()[-1].endswith(
+        "cpl_mixVAE_model_epoch_2.ckpt")
