@@ -12,7 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
      the shapes the serving and training paths give it (f32 and bf16,
      shared and per-arm x, B=5000 and the ragged 2,000; the ZINB kernels
      on inputs with exact zeros, non-positive rates, x up to log1p(1e6)
-     and a column of counts beyond 5e9), check the in-kernel dropout mask
+     and a column of counts beyond 5e9, each case twice: with the rate head
+     on a grid on which every order of its sums is exact, every output
+     held, and off it, every output held that the ReLU kink of the rate
+     head cannot reach), check the in-kernel dropout mask
      (bit for bit against its numpy version, keep fraction, forward and
      backward fed the materialised mask), that the separate backward
      kernels at cotangent 1 reproduce the fused kernels' gradients; the
@@ -26,7 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
      2,000, with and without the mismatch count, a per-arm cotangent
      through autograd, a NaN row, the output layer's gradients against the
      fused recon kernel's); that repeated launches are bit-identical; and
-     time kernel, plain version and library call;
+     time kernel, plain version and library call (for the tensor-core
+     kernels #4, #7, #8 in f32 and bf16 with the tensor-core bound, #7's
+     passes on the device and #4's Philox floor);
   3. drive the serving path end to end at the production width (A=5 arms,
      D=5032 genes, F=100, L=10, C=92, S=2; random weights from a seed):
      init → save_checkpoint → a fresh CplMixVAE.load_model → eval_model over
@@ -81,6 +86,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -95,6 +101,9 @@ N_CELLS, TAIL = 42000, 2000
 N_SMALL = 2000
 # NVIDIA H100 SXM data sheet: dense peaks and HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the tensor-core peak the f32 operands of #4, #7 and #8 run at (3xTF32:
+# three TF32 products a product, so one TF32 product is the least work)
+PEAK_TF32 = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL_SUMSQ = {"float32": 1e-5, "bfloat16": 1e-4}   # relative, per arm
 TOL_MISM = 1e-5                                    # × B·D, per arm
@@ -214,12 +223,35 @@ def host_ms(torch, fn, iters: int = 100) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def flops_bound_ms(flops, nbytes, dtype_name: str):
+def flops_bound_ms(flops, nbytes, dtype_name: str, tensor_cores=False):
     """(bound_ms, bound_by): the larger of the operations over the card's
-    peak for the type and the bytes over its memory rate."""
+    peak for the type and the bytes over its memory rate.  With
+    ``tensor_cores`` f32 operations count at the TF32 tensor-core peak (the
+    kernels whose f32 products run there, split in three)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    peak = (PEAK_TF32 if tensor_cores and dtype_name == "float32"
+            else PEAK_FLOPS[dtype_name])
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_device_ms(torch, fn, iters: int = 5) -> dict:
+    """Device ms per call of ``fn`` by kernel name under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == cuda and e.self_device_time_total > 0:
+            out[e.key] = out.get(e.key, 0.0) + (
+                e.self_device_time_total / iters / 1e3)
+    return out
 
 
 def recon_bound_ms(a, b, f, d, dtype_name: str, per_arm_x: bool):
@@ -368,6 +400,15 @@ def phase_encoder(torch, check) -> dict:
     check(abs(frac - (1 - RATE)) <= 5 * sigma,
           f"keep fraction {frac:.6f} over {n} draws within 5 sigma "
           f"({5 * sigma:.1e}) of {1 - RATE}")
+    # the Philox floor of any kernel that keeps these bits: the same device
+    # function over the (A, B, D) draws of one forward, 126 MB of uint8 out
+    floor_ms = cuda_ms(torch, lambda: enc.kernel_keep_mask(
+        7, (A, B, D), RATE, dev), iters=10)
+    n_calls = A * B * ((D + 3) // 4)
+    print(f"  Philox floor: kernel_keep_mask over {(A, B, D)} "
+          f"({n_calls:.3e} Philox4x32-10 calls) {floor_ms:.4f} ms; its "
+          f"{n / 1e6:.0f} MB of output alone "
+          f"{n / PEAK_BYTES_PER_S * 1e3:.4f} ms")
     del full
     # ... and forward/backward with it equal the plain version fed the
     # materialised mask
@@ -442,7 +483,7 @@ def phase_encoder(torch, check) -> dict:
                     flops = 2.0 * A * rows * D * F
                     f_bound = flops_bound_ms(
                         flops, (rows * D + A * D * F + A * F + A * rows * F)
-                        * item, dname)
+                        * item, dname, tensor_cores=True)
                     b_bound = flops_bound_ms(
                         flops, (rows * D + A * rows * F) * item
                         + (A * D * F + A * F) * 4, dname)
@@ -461,6 +502,16 @@ def phase_encoder(torch, check) -> dict:
                                 "max_abs_err": err, "ms": ms, "plain_ms": pl,
                                 "bound_ms": bound, "bound_by": by,
                                 "library_ms": lib}
+                    # the forward without the mask (rate 0: identity) and
+                    # with the explicit one, beside the in-kernel draw
+                    i_ms = cuda_ms(torch, lambda: enc.encoder_fwd(
+                        11, x, w, b, 0.0))
+                    m_ms = cuda_ms(torch, lambda: enc.encoder_fwd(
+                        11, x, w, b, RATE, mask))
+                    print(f"  {tag}: encoder_fwd identity mask {i_ms:.4f} ms, "
+                          f"explicit mask {m_ms:.4f} ms, in-kernel Philox "
+                          f"{f_ms:.4f} ms; fp32-core bound "
+                          f"{flops / PEAK_FLOPS['float32'] * 1e3:.4f} ms")
                 del x, w, b, gy, mask, y, y0, dw, dw0
     torch.cuda.empty_cache()
     return records
@@ -609,19 +660,35 @@ def phase_recon_bwd(torch, check) -> dict:
     return record
 
 
-def zinb_inputs(torch, g, dtype, rows, per_arm, huge=False):
+def zinb_inputs(torch, g, dtype, rows, per_arm, huge=False, on_grid=False):
     """Operands of the ZINB kernels that hit the hard places: a non-negative
     hidden with every 97th row zero (there y = bias, half of them <= 0),
     pre-activations of both signs, half of x exactly zero, x up to X_MAX,
-    and with ``huge`` one column whose counts pass P4's f32 overflow."""
+    and with ``huge`` one column whose counts pass P4's f32 overflow.
+
+    ``on_grid``: h on multiples of 1/16 and the rate head's weights and
+    bias on multiples of 1/256 and 1/4096, so that every sum of y_r is
+    exact in f32 whatever its order.  Off the grid the rate cotangent
+    jumps at the ReLU kink (g_r = 0 for y_r <= 0, up to −1/eps just
+    above), so two correct f32 products summed in another order, which
+    differ in y_r's last bits, differ in dh, dW_r and db_r by as much as
+    the one element of the draw whose y_r lies nearest 0 (x > 0) makes
+    them; the other outputs do not see the jump.  On the grid h's low
+    tf32 half is zero, so only off the grid does the 3xTF32 split of h
+    show in the products."""
     dev = DEV
     h = torch.rand((A, rows, F), generator=g, device=dev)
+    if on_grid:
+        h = torch.floor(h * 16.0) / 16.0
     h[:, ::97] = 0.0
     heads = []
-    for _ in range(3):
-        heads.append((torch.rand((A, F, D), generator=g, device=dev) - 0.5)
-                     * 0.2)
-        heads.append((torch.rand((A, D), generator=g, device=dev) - 0.5) * 0.2)
+    for i in range(3):
+        w = (torch.rand((A, F, D), generator=g, device=dev) - 0.5) * 0.2
+        b = (torch.rand((A, D), generator=g, device=dev) - 0.5) * 0.2
+        if on_grid and i == 0:
+            w = torch.round(w * 256.0) / 256.0
+            b = torch.round(b * 4096.0) / 4096.0
+        heads += [w, b]
     shape = (A, rows, D) if per_arm else (rows, D)
     x = torch.relu(torch.randn(shape, generator=g, device=dev) * 2.0 + 0.5)
     x = x * (torch.rand(shape, generator=g, device=dev) > 0.5)
@@ -629,6 +696,25 @@ def zinb_inputs(torch, g, dtype, rows, per_arm, huge=False):
     if huge:
         x[..., 7] = X_HUGE
     return [t.to(dtype).contiguous() for t in (h, *heads, x)]
+
+
+# outputs of flat(zinb_fwdbwd(...)[1:]) that the rate cotangent's jump at
+# the ReLU kink reaches: dh, dW_r, db_r
+ZINB_AT_KINK = (0, 1, 2)
+ZINB_GRAD_NAMES = ("dh", "dW_r", "db_r", "dW_p", "db_p", "dW_z", "db_z")
+
+
+def rate_nearest_kink(torch, h, w_r, b_r, x) -> float:
+    """min |y_r| over the elements with x > 0, y_r taken in f64 from the
+    operands: how close the draw comes to the rate cotangent's jump."""
+    best = math.inf
+    for a in range(h.shape[0]):
+        y = torch.addmm(b_r[a].double()[None, :], h[a].double(),
+                        w_r[a].double())
+        xa = x[a] if x.dim() == 3 else x
+        best = min(best, y.abs()[xa > 0].min().item())
+        del y
+    return best
 
 
 def phase_zinb(torch, check) -> dict:
@@ -644,6 +730,12 @@ def phase_zinb(torch, check) -> dict:
     def flat(out):
         return [out[0], *out[1], *out[2], *out[3]]
 
+    def rel_errs(got, want):
+        return [rel_err(torch, a, e) for a, e in zip(got, want)]
+
+    def listed(errs, idx):
+        return "/".join(f"{ZINB_GRAD_NAMES[i]} {errs[i]:.1e}" for i in idx)
+
     cases = [(dt, rows, pa, False) for dt in (torch.float32, torch.bfloat16)
              for rows in (B, TAIL) for pa in (False, True)]
     cases += [(dt, TAIL, False, True)
@@ -651,123 +743,163 @@ def phase_zinb(torch, check) -> dict:
     for dtype, rows, per_arm, huge in cases:
         dname = str(dtype).split(".")[-1]
         item = 4 if dtype == torch.float32 else 2
-        tag = (f"{dname} B={rows} x={'per-arm' if per_arm else 'shared'}"
-               + (" counts>=5e9 column" if huge else ""))
-        ops = zinb_inputs(torch, g, dtype, rows, per_arm, huge)
-        h, x = ops[0], ops[7]
-        heads = tuple(zip(ops[1:7:2], ops[2:7:2]))
         cot = torch.linspace(-1.5, 2.5, A, device=dev)
         tol_g = TOL_ZINB_GRAD[dname]
+        max_abs = {"zinb_fwd": 0.0, "zinb_fwdbwd": 0.0, "zinb_bwd": 0.0}
+        # on the grid every output is held; off it, every output but the
+        # three the kink reaches, and those are printed beside the draw's
+        # nearest approach to the kink
+        for on_grid in (True, False):
+            tag = (f"{dname} B={rows} x={'per-arm' if per_arm else 'shared'}"
+                   + (" counts>=5e9 column" if huge else "")
+                   + (", on the grid" if on_grid else ", off the grid"))
+            held = (range(7) if on_grid
+                    else [i for i in range(7) if i not in ZINB_AT_KINK])
+            ops = zinb_inputs(torch, g, dtype, rows, per_arm, huge, on_grid)
+            h, x = ops[0], ops[7]
+            heads = tuple(zip(ops[1:7:2], ops[2:7:2]))
 
-        v = zinb.fused_zinb(*ops, ZINB_EPS)
-        v0 = zinb.zinb_heads_plain(*ops, ZINB_EPS)
-        fb = zinb.zinb_fwdbwd(*ops, ZINB_EPS)
-        fb0 = zinb.zinb_grads_plain(*ops, ZINB_EPS)
-        torch.cuda.synchronize()
-        finite = all(bool(torch.isfinite(t).all())
-                     for t in (v, fb[0], *flat(fb[1:])))
-        check(finite, f"{tag}: loss and gradients finite")
-        e_v = ((v - v0).abs() / v0.abs()).max().item()
-        e_l = ((fb[0] - fb0[0]).abs() / fb0[0].abs()).max().item()
-        check(e_v <= TOL_ZINB_LOSS and e_l <= TOL_ZINB_LOSS,
-              f"{tag}: loss max rel err zinb_fwd {e_v:.3e}, zinb_fwdbwd "
-              f"{e_l:.3e} (tol {TOL_ZINB_LOSS:.0e})")
-        errs = [rel_err(torch, a, e)
-                for a, e in zip(flat(fb[1:]), flat(fb0[1:]))]
-        check(max(errs) <= tol_g,
-              f"{tag}: zinb_fwdbwd dh,dW_r,db_r,dW_p,db_p,dW_z,db_z rel err "
-              + "/".join(f"{e:.1e}" for e in errs) + f" (tol {tol_g:.0e})")
-        err_fb = max([(fb[0] - fb0[0]).abs().max().item()]
-                     + [(a - e).abs().max().item()
-                        for a, e in zip(flat(fb[1:]), flat(fb0[1:]))])
-        del fb0
-        ones = zinb.zinb_bwd(torch.ones(A, device=dev), h, heads, x, ZINB_EPS)
-        errs = [rel_err(torch, a, e)
-                for a, e in zip(flat(ones), flat(fb[1:]))]
-        check(max(errs) <= tol_g,
-              f"{tag}: zinb_bwd(ones) vs zinb_fwdbwd's gradients rel err "
-              f"{max(errs):.1e} (tol {tol_g:.0e}: two digamma calls against "
-              "their shared difference)")
-        del ones
-        bw = zinb.zinb_bwd(cot, h, heads, x, ZINB_EPS)
-        bw0 = zinb.zinb_bwd_plain(cot, h, heads, x, ZINB_EPS)
-        errs = [rel_err(torch, a, e) for a, e in zip(flat(bw), flat(bw0))]
-        check(max(errs) <= tol_g,
-              f"{tag}: zinb_bwd(g) rel err "
-              + "/".join(f"{e:.1e}" for e in errs) + f" (tol {tol_g:.0e})")
-        err_bw = max((a - e).abs().max().item()
-                     for a, e in zip(flat(bw), flat(bw0)))
-        del bw0
-        v2 = zinb.fused_zinb(*ops, ZINB_EPS)
-        fb2 = zinb.zinb_fwdbwd(*ops, ZINB_EPS)
-        bw2 = zinb.zinb_bwd(cot, h, heads, x, ZINB_EPS)
-        check(bool(torch.equal(v, v2) and torch.equal(fb[0], fb2[0])
-                   and all(torch.equal(a, e) for a, e in zip(
-                       flat(fb[1:]) + flat(bw), flat(fb2[1:]) + flat(bw2)))),
-              f"{tag}: repeated launches of the three kernels bit-identical")
-        del fb2, bw2
-        if rows == B and not per_arm and not huge:
-            x_elems = rows * D
-            in_bytes = (A * rows * F + 3 * A * F * D + 3 * A * D
-                        + x_elems) * item
-            grad_bytes = (A * rows * F + 3 * A * F * D + 3 * A * D) * 4
-            prod = 2.0 * A * rows * F * D
-            gm = torch.randn((A, rows, D), generator=g, device=dev).to(dtype)
-            hT = h.transpose(1, 2)
-
-            def lib_fwd():
-                return [torch.baddbmm(b[:, None, :], h, w) for w, b in heads]
-
-            def lib_nine():
-                return (lib_fwd(),
-                        [torch.bmm(gm, w.transpose(1, 2)) for w, _ in heads],
-                        [torch.bmm(hT, gm) for _ in heads])
-
-            lib3 = cuda_ms(torch, lib_fwd, iters=10)
-            lib9 = cuda_ms(torch, lib_nine, iters=10)
-            del gm
-            timed = (
-                ("zinb_fwd", lambda: zinb.fused_zinb(*ops, ZINB_EPS),
-                 lambda: zinb.zinb_heads_plain(*ops, ZINB_EPS), lib3,
-                 "three products", 3 * prod, in_bytes + A * 4,
-                 (v - v0).abs().max().item()),
-                ("zinb_fwdbwd", lambda: zinb.zinb_fwdbwd(*ops, ZINB_EPS),
-                 lambda: zinb.zinb_grads_plain(*ops, ZINB_EPS), lib9,
-                 "nine products", 9 * prod, in_bytes + A * 4 + grad_bytes,
-                 err_fb),
-                ("zinb_bwd",
-                 lambda: zinb.zinb_bwd(cot, h, heads, x, ZINB_EPS),
-                 lambda: zinb.zinb_bwd_plain(cot, h, heads, x, ZINB_EPS),
-                 lib9, "nine products", 9 * prod,
-                 in_bytes + A * 4 + grad_bytes, err_bw))
-            for name, kern, plain, lib, lib_what, flops, nbytes, err in timed:
-                ms = cuda_ms(torch, kern, iters=10)
-                pl = plain_ms(torch, plain)
-                bound, by = flops_bound_ms(flops, nbytes, dname)
-                print(f"  {tag}: {name} kernel_ms {ms:.4f} plain_ms {pl:.4f} "
-                      f"library_ms({lib_what}) {lib:.4f} bound_ms "
-                      f"{bound:.4f} ({by}) share_of_bound {bound / ms:.3f}")
-                if item == 4:
-                    records[name] = {"max_abs_err": err, "ms": ms,
-                                     "plain_ms": pl, "bound_ms": bound,
-                                     "bound_by": by, "library_ms": lib}
-            if item == 4:
-                # what the element math costs: the same launch with every
-                # count zero (no lgamma/digamma difference) and with every
-                # count positive (all of them)
-                for what, xv in (("all x = 0", torch.zeros_like(x)),
-                                 ("all x > 0", x + 1.0)):
-                    alt = ops[:7] + [xv]
-                    f_ms = cuda_ms(torch, lambda: zinb.fused_zinb(
-                        *alt, ZINB_EPS), iters=10)
-                    t_ms = cuda_ms(torch, lambda: zinb.zinb_fwdbwd(
-                        *alt, ZINB_EPS), iters=10)
-                    print(f"  {tag}: {what}: zinb_fwd {f_ms:.4f} ms, "
-                          f"zinb_fwdbwd {t_ms:.4f} ms")
-                    del alt, xv
-        del ops, h, x, heads, v, v0, fb, bw, v2
-        torch.cuda.empty_cache()
+            v = zinb.fused_zinb(*ops, ZINB_EPS)
+            v0 = zinb.zinb_heads_plain(*ops, ZINB_EPS)
+            fb = zinb.zinb_fwdbwd(*ops, ZINB_EPS)
+            fb0 = zinb.zinb_grads_plain(*ops, ZINB_EPS)
+            torch.cuda.synchronize()
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in (v, fb[0], *flat(fb[1:])))
+            check(finite, f"{tag}: loss and gradients finite")
+            e_v = ((v - v0).abs() / v0.abs()).max().item()
+            e_l = ((fb[0] - fb0[0]).abs() / fb0[0].abs()).max().item()
+            check(e_v <= TOL_ZINB_LOSS and e_l <= TOL_ZINB_LOSS,
+                  f"{tag}: loss max rel err zinb_fwd {e_v:.3e}, zinb_fwdbwd "
+                  f"{e_l:.3e} (tol {TOL_ZINB_LOSS:.0e})")
+            errs = rel_errs(flat(fb[1:]), flat(fb0[1:]))
+            check(max(errs[i] for i in held) <= tol_g,
+                  f"{tag}: zinb_fwdbwd rel err {listed(errs, held)} "
+                  f"(tol {tol_g:.0e})")
+            if not on_grid:
+                near = rate_nearest_kink(torch, h, ops[1], ops[2], x)
+                print(f"  {tag}: zinb_fwdbwd rel err "
+                      f"{listed(errs, ZINB_AT_KINK)} (a reading: the draw's "
+                      f"y_r nearest the kink at x > 0 is {near:.1e}, "
+                      f"eps {ZINB_EPS:.0e})")
+            flat_fb, flat_fb0 = flat(fb[1:]), flat(fb0[1:])
+            max_abs["zinb_fwd"] = max(max_abs["zinb_fwd"],
+                                      (v - v0).abs().max().item())
+            max_abs["zinb_fwdbwd"] = max(
+                [max_abs["zinb_fwdbwd"], (fb[0] - fb0[0]).abs().max().item()]
+                + [(flat_fb[i] - flat_fb0[i]).abs().max().item()
+                   for i in held])
+            del fb0, flat_fb0
+            # kernel against kernel: both compute y_r the same way, so the
+            # kink moves neither and every output is held
+            ones = zinb.zinb_bwd(torch.ones(A, device=dev), h, heads, x,
+                                 ZINB_EPS)
+            errs = rel_errs(flat(ones), flat_fb)
+            check(max(errs) <= tol_g,
+                  f"{tag}: zinb_bwd(ones) vs zinb_fwdbwd's gradients rel err "
+                  f"{max(errs):.1e} (tol {tol_g:.0e}: two digamma calls "
+                  "against their shared difference)")
+            del ones, flat_fb
+            bw = zinb.zinb_bwd(cot, h, heads, x, ZINB_EPS)
+            bw0 = zinb.zinb_bwd_plain(cot, h, heads, x, ZINB_EPS)
+            errs = rel_errs(flat(bw), flat(bw0))
+            check(max(errs[i] for i in held) <= tol_g,
+                  f"{tag}: zinb_bwd(g) rel err {listed(errs, held)} "
+                  f"(tol {tol_g:.0e})")
+            max_abs["zinb_bwd"] = max(
+                [max_abs["zinb_bwd"]]
+                + [(a - e).abs().max().item()
+                   for i, (a, e) in enumerate(zip(flat(bw), flat(bw0)))
+                   if i in held])
+            del bw0
+            v2 = zinb.fused_zinb(*ops, ZINB_EPS)
+            fb2 = zinb.zinb_fwdbwd(*ops, ZINB_EPS)
+            bw2 = zinb.zinb_bwd(cot, h, heads, x, ZINB_EPS)
+            check(bool(torch.equal(v, v2) and torch.equal(fb[0], fb2[0])
+                       and all(torch.equal(a, e) for a, e in zip(
+                           flat(fb[1:]) + flat(bw),
+                           flat(fb2[1:]) + flat(bw2)))),
+                  f"{tag}: repeated launches of the three kernels "
+                  "bit-identical")
+            del fb2, bw2, v2
+            if rows == B and not per_arm and not huge and not on_grid:
+                time_zinb(torch, zinb, ops, cot, dname, item, tag, max_abs,
+                          records)
+            del ops, h, x, heads, v, v0, fb, bw
+            torch.cuda.empty_cache()
     return records
+
+
+def time_zinb(torch, zinb, ops, cot, dname, item, tag, max_abs, records):
+    """Times of #6, #7 and #8 at the main shape beside their plain
+    versions, the library's products and the bound; #7's and #8's kernels
+    on the device; the element math's share (f32)."""
+    dev = DEV
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    rows = B
+    h, x = ops[0], ops[7]
+    heads = tuple(zip(ops[1:7:2], ops[2:7:2]))
+    x_elems = rows * D
+    in_bytes = (A * rows * F + 3 * A * F * D + 3 * A * D + x_elems) * item
+    grad_bytes = (A * rows * F + 3 * A * F * D + 3 * A * D) * 4
+    prod = 2.0 * A * rows * F * D
+    gm = torch.randn((A, rows, D), generator=g, device=dev).to(h.dtype)
+    hT = h.transpose(1, 2)
+
+    def lib_fwd():
+        return [torch.baddbmm(b[:, None, :], h, w) for w, b in heads]
+
+    def lib_nine():
+        return (lib_fwd(),
+                [torch.bmm(gm, w.transpose(1, 2)) for w, _ in heads],
+                [torch.bmm(hT, gm) for _ in heads])
+
+    lib3 = cuda_ms(torch, lib_fwd, iters=10)
+    lib9 = cuda_ms(torch, lib_nine, iters=10)
+    del gm
+    timed = (
+        ("zinb_fwd", lambda: zinb.fused_zinb(*ops, ZINB_EPS),
+         lambda: zinb.zinb_heads_plain(*ops, ZINB_EPS), lib3,
+         "three products", 3 * prod, in_bytes + A * 4),
+        ("zinb_fwdbwd", lambda: zinb.zinb_fwdbwd(*ops, ZINB_EPS),
+         lambda: zinb.zinb_grads_plain(*ops, ZINB_EPS), lib9,
+         "nine products", 9 * prod, in_bytes + A * 4 + grad_bytes),
+        ("zinb_bwd", lambda: zinb.zinb_bwd(cot, h, heads, x, ZINB_EPS),
+         lambda: zinb.zinb_bwd_plain(cot, h, heads, x, ZINB_EPS),
+         lib9, "nine products", 9 * prod, in_bytes + A * 4 + grad_bytes))
+    for name, kern, plain, lib, lib_what, flops, nbytes in timed:
+        ms = cuda_ms(torch, kern, iters=10)
+        pl = plain_ms(torch, plain)
+        bound, by = flops_bound_ms(flops, nbytes, dname,
+                                   tensor_cores=name != "zinb_fwd")
+        if name != "zinb_fwd":
+            # the two passes and the reductions on the device
+            parts = kernel_device_ms(torch, kern)
+            split = {k: v for k, v in parts.items() if "zinb" in k}
+            print(f"  {tag}: {name} device ms by kernel: " + ", ".join(
+                f"{re.search(r'zinb_[a-z_]+', k).group(0)} {v:.4f}"
+                for k, v in sorted(split.items())))
+        print(f"  {tag}: {name} kernel_ms {ms:.4f} plain_ms {pl:.4f} "
+              f"library_ms({lib_what}) {lib:.4f} bound_ms {bound:.4f} ({by}) "
+              f"share_of_bound {bound / ms:.3f}")
+        if item == 4:
+            records[name] = {"max_abs_err": max_abs[name], "ms": ms,
+                             "plain_ms": pl, "bound_ms": bound,
+                             "bound_by": by, "library_ms": lib}
+    if item == 4:
+        # what the element math costs: the same launch with every count
+        # zero (no lgamma/digamma difference) and with every count positive
+        # (all of them)
+        for what, xv in (("all x = 0", torch.zeros_like(x)),
+                         ("all x > 0", x + 1.0)):
+            alt = ops[:7] + [xv]
+            f_ms = cuda_ms(torch, lambda: zinb.fused_zinb(*alt, ZINB_EPS),
+                           iters=10)
+            t_ms = cuda_ms(torch, lambda: zinb.zinb_fwdbwd(*alt, ZINB_EPS),
+                           iters=10)
+            print(f"  {tag}: {what}: zinb_fwd {f_ms:.4f} ms, "
+                  f"zinb_fwdbwd {t_ms:.4f} ms")
+            del alt, xv
 
 
 def categorical_posterior(torch, g, shape, pruned: int = 0):

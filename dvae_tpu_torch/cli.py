@@ -20,7 +20,12 @@ every arm on its own view from a frozen augmenter.  The dataset is a synthetic o
 (``--syn_cells``/``--syn_genes``/``--syn_types``): planted Gaussian
 programs, or with ``--syn_hard`` (alias ``--hard_synthetic``) ZINB counts
 with library-size variation, dropout and overlapping types; reading
-``.h5ad`` files is not ported yet.
+``.h5ad`` files is not ported yet.  Both parsers accept every option of
+the JAX package's; the options of features still to port (``--stream``,
+``--sharding``/``--mesh_*``/``--coordinator``/``--num_processes``/
+``--process_id``, ``--wandb``, ``--toml``/``--dataset``/``--n_gene``
+without ``--synthetic``, ``--rng_impl rbg``) raise the trainer's
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,12 +80,14 @@ def cmd_train(args) -> int:
         lr=args.lr, lam=args.lam, lam_pc=args.lam_pc, n_arm=args.n_arm,
         temp=args.temp, tau=args.tau, beta=args.beta, hard=args.hard,
         ref_prior=args.ref_pc, trained_model=args.pretrained_model,
-        n_pr=args.n_pr, mode=args.loss_mode, batch_size=args.batch_size,
+        variational=args.variational, n_pr=args.n_pr,
+        mode=args.loss_mode, batch_size=args.batch_size,
         epochs_per_jit=args.epochs_per_jit, bf16=args.bf16,
         optimizer=args.optimizer,
         fused={"auto": None, "on": True, "off": False}[args.fused],
         shuffle_block=args.shuffle_block, ckpt_every=args.ckpt_every,
-        eval_every=args.eval_every, align_arms_every=args.align_every)
+        eval_every=args.eval_every, align_arms_every=args.align_every,
+        local_bn_stats=args.local_bn_stats)
     done = 0
     if args.resume:
         ckpt = latest_checkpoint(folder) or newest_checkpoint(folder)
@@ -129,12 +136,8 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(prog="dvae_tpu_torch",
-                                     description=__doc__.splitlines()[0])
-    sub = parser.add_subparsers(dest="cmd", required=True)
-
-    pt = sub.add_parser("train", help="train a coupled mixVAE")
+def _add_model_flags(p: argparse.ArgumentParser) -> None:
+    """The reference's mixVAE hyperparameters (dvae_tpu/cli.py:28-49)."""
     for flag, typ, default in (
             ("--n_categories", int, 92), ("--state_dim", int, 2),
             ("--n_arm", int, 2), ("--temp", float, 1.0),
@@ -142,65 +145,139 @@ def main(argv=None) -> int:
             ("--lam", float, 1.0), ("--lam_pc", float, 1.0),
             ("--latent_dim", int, 10), ("--fc_dim", int, 100),
             ("--p_drop", float, 0.5), ("--s_drop", float, 0.2),
-            ("--lr", float, 1e-3), ("--n_pr", int, 0),
+            ("--lr", float, 1e-3)):
+        p.add_argument(flag, type=typ, default=default)
+    p.add_argument("--hard", action="store_true")
+    # type=bool as in the reference: any non-empty value is True
+    p.add_argument("--variational", type=bool, default=True)
+    p.add_argument("--ref_pc", action="store_true",
+                   help="couple to the reference prior (ref_prior mode)")
+    p.add_argument("--loss_mode", type=str, default="MSE",
+                   choices=["MSE", "ZINB"])
+    p.add_argument("--pretrained_model", type=str, default=None)
+    p.add_argument("--n_pr", type=int, default=0)
+
+
+def _add_data_flags(p: argparse.ArgumentParser) -> None:
+    """The reference's dataset flags (dvae_tpu/cli.py:52-66).  Only the
+    synthetic generators are ported: ``--toml``/``--dataset``/``--n_gene``
+    are refused unless ``--synthetic`` or ``--syn_hard`` is given."""
+    p.add_argument("--toml", type=str, default=None,
+                   help="dataset TOML (reading .h5ad is not ported yet)")
+    p.add_argument("--dataset", type=str, default=None)
+    p.add_argument("--n_gene", type=int, default=None)
+    p.add_argument("--synthetic", action="store_true",
+                   help="use the synthetic dataset (the only input the "
+                        "port reads so far)")
+    p.add_argument("--syn_hard", "--hard_synthetic", action="store_true",
+                   help="the hard-mode ZINB-count synthetic generator "
+                        "(library-size variation, dropout, hierarchically "
+                        "overlapping types) instead of the planted-"
+                        "Gaussian one")
+    p.add_argument("--syn_cells", type=int, default=5000)
+    p.add_argument("--syn_genes", type=int, default=500)
+    p.add_argument("--syn_types", type=int, default=20)
+
+
+def _refuse_unported(args) -> None:
+    """Raise the trainer's NotImplementedError for a flag whose feature
+    arrives with a later slice of the port."""
+    from dvae_tpu_torch.train.cpl_mixvae import _not_ported
+    if not (args.synthetic or args.syn_hard):
+        for flag in ("toml", "dataset", "n_gene"):
+            if getattr(args, flag) is not None:
+                raise _not_ported(f"reading a dataset (--{flag})",
+                                  "real-data input")
+    if getattr(args, "stream", False):
+        raise _not_ported("streaming (--stream)", "streaming")
+    if getattr(args, "sharding", "no") != "no":
+        raise _not_ported(f"--sharding {args.sharding}", "multi-GPU")
+    for flag in ("mesh_data", "mesh_arm", "mesh_fsdp"):
+        if getattr(args, flag, 1) != 1:
+            raise _not_ported("a mesh of several devices", "multi-GPU")
+    for flag in ("coordinator", "num_processes", "process_id"):
+        if getattr(args, flag, None) is not None:
+            raise _not_ported(f"several processes (--{flag})", "multi-GPU")
+    if getattr(args, "rng_impl", "threefry2x32") != "threefry2x32":
+        raise _not_ported(f"--rng_impl {args.rng_impl}", "random-number")
+    if getattr(args, "wandb", False):
+        raise _not_ported("wandb logging (--wandb)", "logging")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The ``train`` and ``evaluate`` parsers: every option of the JAX
+    package's (dvae_tpu/cli.py:256-331) and the port's own ``--device``,
+    ``--aug_file`` and ``--out_dir``."""
+    parser = argparse.ArgumentParser(prog="dvae_tpu_torch",
+                                     description=__doc__.splitlines()[0])
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    pt = sub.add_parser("train", help="train a coupled mixVAE")
+    _add_model_flags(pt)
+    _add_data_flags(pt)
+    for flag, typ, default in (
             ("--n_epoch", int, 50000), ("--n_epoch_p", int, 0),
             ("--max_prun_it", int, 0), ("--min_con", float, 0.99),
             ("--batch_size", int, 5000), ("--epochs_per_jit", int, 10),
             ("--ckpt_every", int, 10), ("--eval_every", int, 10),
             ("--shuffle_block", int, 1), ("--align_every", int, 0),
-            ("--seed", int, 546),
-            ("--syn_cells", int, 5000), ("--syn_genes", int, 500),
-            ("--syn_types", int, 20)):
+            ("--seed", int, 546), ("--mesh_data", int, 1),
+            ("--mesh_arm", int, 1), ("--mesh_fsdp", int, 1),
+            ("--num_processes", int, None), ("--process_id", int, None)):
         pt.add_argument(flag, type=typ, default=default)
-    pt.add_argument("--hard", action="store_true")
-    pt.add_argument("--ref_pc", action="store_true",
-                    help="couple to the reference prior (ref_prior mode)")
-    pt.add_argument("--loss_mode", type=str, default="MSE",
-                    choices=["MSE", "ZINB"])
-    pt.add_argument("--pretrained_model", type=str, default=None)
+    pt.add_argument("--rng_impl", type=str, default="threefry2x32",
+                    choices=["threefry2x32", "rbg"],
+                    help="kept for the checkpoint's metadata; only the "
+                         "default is taken")
     pt.add_argument("--aug_file", type=str, default=None,
                     help="checkpoint of a frozen augmenter: every arm "
                          "trains on its own noisy view of each batch")
+    pt.add_argument("--saving_folder", type=str, default="")
     pt.add_argument("--optimizer", type=str, default="adam",
                     choices=["adam", "adamw"])
+    pt.add_argument("--sharding", type=str, default="no",
+                    choices=["full", "grad-op", "no", "hybrid",
+                             "hybrid-zero2", "ddp"])
+    pt.add_argument("--coordinator", type=str, default=None)
     pt.add_argument("--bf16", action="store_true")
     pt.add_argument("--fused", type=str, default="auto",
                     choices=["auto", "on", "off"],
                     help="hand-written kernels (auto: on for cuda)")
-    pt.add_argument("--saving_folder", type=str, default="")
     pt.add_argument("--resume", action="store_true",
                     help="continue the newest matching _RUN{n} folder from "
                          "its latest checkpoint")
-    pt.add_argument("--synthetic", action="store_true",
-                    help="use the synthetic dataset (the only input the "
-                         "port reads so far)")
+    pt.add_argument("--stream", action="store_true",
+                    help="not ported yet: refused")
+    pt.add_argument("--local_bn_stats", action="store_true",
+                    help="per-group (ghost) batch-norm statistics over the "
+                         "mesh's data blocks (one group on one device)")
+    pt.add_argument("--wandb", action="store_true",
+                    help="not ported yet: refused")
     pt.add_argument("--device", type=str, default="cuda",
                     help="torch device of the model (cuda or cpu)")
     pt.set_defaults(fn=cmd_train)
+
     pe = sub.add_parser("evaluate", help="consensus + adjusted-MI metrics")
+    _add_model_flags(pe)
+    _add_data_flags(pe)
     pe.add_argument("--ckpt", type=str, default=None)
     pe.add_argument("--saving_folder", type=str, default="")
-    pe.add_argument("--device", type=str, default="cuda",
-                    help="torch device of the model (cuda or cpu)")
-    pe.add_argument("--n_arm", type=int, default=2)
-    pe.add_argument("--synthetic", action="store_true",
-                    help="use the synthetic dataset (the only input the "
-                         "port reads so far)")
-    pe.add_argument("--syn_cells", type=int, default=5000)
-    pe.add_argument("--syn_genes", type=int, default=500)
-    pe.add_argument("--syn_types", type=int, default=20)
-    for p in (pt, pe):
-        p.add_argument("--syn_hard", "--hard_synthetic", action="store_true",
-                       help="the hard-mode ZINB-count synthetic generator "
-                            "(library-size variation, dropout, "
-                            "hierarchically overlapping types) instead of "
-                            "the planted-Gaussian one")
+    # accepted as the reference accepts it: the checkpoint's batch size
+    # serves, as in dvae_tpu.cli evaluate
+    pe.add_argument("--batch_size", type=int, default=5000)
     pe.add_argument("--run", type=int, default=0)
     pe.add_argument("--n_epoch", type=int, default=0)
     pe.add_argument("--seed", type=int, default=546)
     pe.add_argument("--out_dir", type=str, default="evaluation")
+    pe.add_argument("--device", type=str, default="cuda",
+                    help="torch device of the model (cuda or cpu)")
     pe.set_defaults(fn=cmd_evaluate)
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
     return args.fn(args)
 
 

@@ -24,19 +24,30 @@
 // device function.
 //
 // Bound at the production shape (A=5, B=5000, D=5032, F=100), per call:
-//   forward  2*A*B*D*F = 25.2 GFLOP -> 0.376 ms in f32 on the FP32 cores
-//            (67 TFLOP/s); bytes: x read once (101 MB f32) -> 0.030 ms.
-//   backward the same product count and bytes -> 0.376 ms in f32.
-// What the design does about it: the dropped input lives only in shared
-// memory, so the bytes are the operands read once per arm; the product is
-// a register-blocked SIMT GEMM (64x128 block tile, 4x8 outputs per thread,
-// operands staged in shared memory as f32).  No tensor cores yet: bf16
-// runs at the f32 CUDA-core rate.  The Philox draw adds about 40 integer
-// instructions per element, of the order of the 2*F = 200 flops each x
-// element feeds, so the mask is not free; a later version can share one
-// draw between the arms' column tiles, as this one does for F <= 128.
+//   forward  2*A*B*D*F = 25.2 GFLOP -> 0.051 ms at the TF32 peak (495
+//            TFLOP/s) for f32 operands taken as one TF32 product, 0.025 ms
+//            at the bf16 peak (989 TFLOP/s); bytes: x read once (101 MB
+//            f32) -> 0.030 ms.  The 3xTF32 split triples the tf32 work.
+//            The keep-mask adds a floor of its own: one Philox4x32-10 call
+//            (about 90 integer instructions) per aligned group of four x
+//            elements, 3.1e7 calls per forward, which `encoder_mask_u8`
+//            (the same device function, 126 MB of uint8 out) times.
+//   backward the same product count and bytes -> 0.376 ms in f32 on the
+//            FP32 cores (67 TFLOP/s), where it runs.
+// The forward (`encoder_fwd_tiles`) runs on the tensor cores: `mma.sync`
+// m16n8k8 with the 3xTF32 split for f32 operands (csrc/mma.cuh; plain TF32
+// would keep three digits), m16n8k16 for bf16, f32 accumulation.  Blocks
+// own (arm, 64-row tile, 104-column tile of F: F=100 rounded up to 8, not
+// 128) and walk D 32 deep; x and W1 stages arrive by cp.async in a ring of
+// three, and the mask is applied to the landed x stage in shared memory
+// (one Philox call per aligned group of four columns, as before), so the
+// draw overlaps the copies in flight and the other blocks' products
+// instead of stalling the loads.  68 KB of shared memory (f32) a block,
+// three blocks of 4 warps an SM: 395 blocks make one wave of 132 SMs.
+// The backward (`encoder_bwd_tiles`) is still a register-blocked SIMT GEMM
+// (64x128 block tile, 4x8 outputs per thread, operands staged in shared
+// memory as f32), with the mask drawn inline in its loads.
 //
-// Forward blocks own (arm, 64-row tile, 128-column tile of F) and walk D.
 // Backward blocks own (arm, 64-gene tile of D, 128-column tile of F) and
 // walk every row of the batch, so dW1 needs no reduction across blocks
 // (the TPU kernel keeps the whole (A, D, F) accumulator in VMEM, :199-202)
@@ -49,6 +60,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma.cuh"     // mma.sync, cp.async
 #include "philox.cuh"  // philox4x32_10
 
 namespace {
@@ -149,61 +163,209 @@ __device__ __forceinline__ void mma_tile(float (*As)[BM + APAD],
   }
 }
 
-// Forward: grid (ceil(F/BN), ceil(B/BM), A).
+// ---------------------------------------------------------------------------
+// Forward (#4): tensor-core tiles
+// ---------------------------------------------------------------------------
+// Block (104-column tile of F, 64-row tile, arm) of 4 warps, each warp 16
+// rows x 104 columns (13 accumulator tiles).  The x and W1 stages (32 deep)
+// arrive by cp.async in a ring of three; the keep-mask is applied to the
+// landed x stage in shared memory, one Philox call per aligned group of
+// four columns, while the next stages are in flight; then the stage's
+// products run on the tensor cores (3xTF32 m16n8k8 for f32, m16n8k16 for
+// bf16).
+constexpr int EM = 64, EN = 104, ENT = EN / 8, EK = 32;
+constexpr int ESTAGES = 3, ETHREADS = 128;
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+struct ECfg;
+template <>
+struct ECfg<float> {
+  static constexpr int LDX = EK + 4;  // A loads: (4g + t) distinct banks
+  static constexpr int LDW = EN;      // B loads: (8t + g) distinct banks
+};
+template <>
+struct ECfg<__nv_bfloat16> {
+  static constexpr int LDX = EK + 8;  // 20-word rows: distinct banks
+  static constexpr int LDW = EN;      // 13 16-byte groups: ldmatrix rows
+};
+
+template <typename T>
+__host__ __device__ constexpr int estage_elems() {
+  return EM * ECfg<T>::LDX + EK * ECfg<T>::LDW;
+}
+template <typename T>
+constexpr size_t esmem_bytes() {
+  return sizeof(T) * (size_t)ESTAGES * estage_elems<T>();
+}
+
+// The x stage in place: x (.) mask / keep rounded to T, zero where dropped.
+template <typename T>
+__device__ __forceinline__ void mask_stage(T* Xs,
+                                           const uint8_t* __restrict__ mask,
+                                           int mode, uint32_t seed,
+                                           uint32_t thr, float sc, int a,
+                                           int m0, int k0, int B, int D,
+                                           int tid) {
+  constexpr int G4 = EK / 4;
+  for (int i = tid; i < EM * G4; i += ETHREADS) {
+    const int r = i / G4, c = (i % G4) * 4;
+    const int row = m0 + r, col = k0 + c;
+    if (row >= B || col >= D) continue;  // zero-filled already
+    unsigned keep;
+    if (mode == MODE_PHILOX) {
+      keep = keep4(seed, a, row, col >> 2, thr);
+    } else {
+      const uint8_t* mr = mask + ((long long)a * B + row) * D + col;
+      keep = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col + j < D && mr[j] != 0) keep |= 1u << j;
+    }
+    T* xr = Xs + r * ECfg<T>::LDX + c;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      xr[j] = ((keep >> j) & 1u) ? from_f32<T>(to_f32(xr[j]) * sc)
+                                 : from_f32<T>(0.f);
+  }
+}
+
+// Forward: grid (ceil(F/EN), ceil(B/EM), A).
+template <typename T>
+__global__ void __launch_bounds__(ETHREADS, 3)
 encoder_fwd_tiles(const T* __restrict__ x, long long x_arm_stride,
                   const T* __restrict__ w, const T* __restrict__ bias,
                   const uint8_t* __restrict__ mask, int mode, uint32_t seed,
-                  uint32_t thr, float scale, int B, int D, int F,
-                  T* __restrict__ y) {
-  __shared__ __align__(16) float As[BK][BM + APAD];  // dropped x, transposed
-  __shared__ __align__(16) float Bs[BK][BN];         // W1 tile
+                  uint32_t thr, float scale, int B, int D, int F, int vec_x,
+                  int vec_w, T* __restrict__ y) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int LDX = ECfg<T>::LDX, LDW = ECfg<T>::LDW;
+  extern __shared__ __align__(16) unsigned char esmem[];
+  T* const stages = reinterpret_cast<T*>(esmem);
 
   const int a = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * EM;
+  const int n0 = blockIdx.x * EN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const T* xa = x + (long long)a * x_arm_stride;
   const T* wa = w + (long long)a * D * F;
+  const float sc = to_f32(from_f32<T>(scale));
+  const int nsteps = (D + EK - 1) / EK;
 
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  auto issue = [&](int step) {
+    T* st = stages + (step % ESTAGES) * estage_elems<T>();
+    const int k0 = step * EK;
+    tc::load_tile(st, LDX, xa + (long long)m0 * D + k0, D, EM, EK, B - m0,
+                  D - k0, vec_x, tid, ETHREADS);
+    tc::load_tile(st + EM * LDX, LDW, wa + (long long)k0 * F + n0, F, EK, EN,
+                  D - k0, F - n0, vec_w, tid, ETHREADS);
+  };
+  // The ring runs one stage ahead of the products: step s masks stage
+  // s+1 (landed) and multiplies stage s (masked in step s-1) while stage
+  // s+2 is in flight, with one barrier a step, so that the warps of a
+  // block drift apart and the Philox draw of some overlaps the products of
+  // others.
+  static_assert(ESTAGES == 3, "the ring is masked one stage ahead");
+  auto masked = [&](int step) {
+    if (mode != MODE_IDENTITY && step < nsteps)
+      mask_stage<T>(stages + (step % ESTAGES) * estage_elems<T>(), mask,
+                    mode, seed, thr, sc, a, m0, step * EK, B, D, tid);
+  };
+  issue(0);
+  tc::cp_commit();
+  if (nsteps > 1) issue(1);
+  tc::cp_commit();
+  tc::cp_wait<1>();
+  __syncthreads();
+  masked(0);
 
-  // x staging: thread owns row tid/4 and four neighbouring columns
-  const int xm = tid / 4, xk = (tid % 4) * 4;
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    float v[4];
-    dropped4<T>(x, x_arm_stride, mask, mode, seed, thr, scale, a, m0 + xm,
-                k0 + xk, B, D, v);
+  float acc[ENT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) As[xk + j][xm] = v[j];
+  for (int n = 0; n < ENT; ++n)
 #pragma unroll
-    for (int r = 0; r < (BK * BN) / THREADS; ++r) {
-      const int idx = tid + r * THREADS;
-      const int k = idx / BN, n = idx % BN;
-      const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < D && gn < F) ? to_f32(wa[(long long)gk * F + gn]) : 0.f;
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int step = 0; step < nsteps; ++step) {
+    tc::cp_wait<0>();  // stage step+1 is in
+    __syncthreads();   // stage step is masked; stage step-1's buffer is free
+    if (step + 2 < nsteps) issue(step + 2);
+    tc::cp_commit();
+    masked(step + 1);
+    const T* Xs = stages + (step % ESTAGES) * estage_elems<T>();
+    const T* Ws = Xs + EM * LDX;
+    // the stage's 32-deep products are summed apart and then added to the
+    // accumulators (tc::add4)
+    const T* xr = Xs + (16 * warp + gq) * LDX;
+    if constexpr (F32) {
+      tc::SplitA Ak[EK / 8];
+#pragma unroll
+      for (int k = 0; k < EK / 8; ++k) {
+        const float* ar = xr + 8 * k + tq;
+        Ak[k] = tc::split_a(ar[0], ar[8 * LDX], ar[4], ar[8 * LDX + 4]);
+      }
+#pragma unroll
+      for (int n = 0; n < ENT; ++n) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < EK / 8; ++k) {
+          const float* wr = Ws + (8 * k + tq) * LDW + 8 * n + gq;
+          tc::mma_3xtf32(t, u, Ak[k], tc::split_b(wr[0], wr[4 * LDW]));
+        }
+        tc::add4(acc[n], t, u);
+      }
+    } else {
+      const int q = lane >> 3;
+      uint32_t Ak[EK / 16][4];
+#pragma unroll
+      for (int k = 0; k < EK / 16; ++k) {
+        const T* ar = xr + 16 * k + 2 * tq;
+        Ak[k][0] = tc::ld_u32(ar);
+        Ak[k][1] = tc::ld_u32(ar + 8 * LDX);
+        Ak[k][2] = tc::ld_u32(ar + 8);
+        Ak[k][3] = tc::ld_u32(ar + 8 * LDX + 8);
+      }
+#pragma unroll
+      for (int n = 0; n + 1 < ENT; n += 2) {
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < EK / 16; ++k) {
+          uint32_t b[4];
+          tc::ldsm_x4_t(b, Ws + (16 * k + (q & 1) * 8 + (lane & 7)) * LDW +
+                               (n + (q >> 1)) * 8);
+          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+          tc::mma_bf16(t0, Ak[k], b0);
+          tc::mma_bf16(t1, Ak[k], b1);
+        }
+        tc::add4(acc[n], t0);
+        tc::add4(acc[n + 1], t1);
+      }
+      float t[4] = {0.f, 0.f, 0.f, 0.f};  // the odd last tile
+#pragma unroll
+      for (int k = 0; k < EK / 16; ++k) {
+        uint32_t b[2];
+        tc::ldsm_x2_t(b, Ws + (16 * k + (lane & 15)) * LDW + (ENT - 1) * 8);
+        tc::mma_bf16(t, Ak[k], b);
+      }
+      tc::add4(acc[ENT - 1], t);
     }
-    __syncthreads();
-    mma_tile(As, Bs, tx, ty, acc);
-    __syncthreads();
   }
+  tc::cp_wait<0>();
 
   const T* ba = bias + (long long)a * F;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + col_index(tx, j);
-    if (col >= F) continue;
-    const float bj = to_f32(ba[col]);
+  for (int n = 0; n < ENT; ++n) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
-      if (row < B)
-        y[((long long)a * B + row) * F + col] = from_f32<T>(acc[i][j] + bj);
+    for (int e = 0; e < 2; ++e) {
+      const int col = n0 + 8 * n + 2 * tq + e;
+      if (col >= F) continue;
+      const float bj = to_f32(ba[col]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + 16 * warp + gq + 8 * half;
+        if (row < B)
+          y[((long long)a * B + row) * F + col] =
+              from_f32<T>(acc[n][half * 2 + e] + bj);
+      }
     }
   }
 }
@@ -299,12 +461,22 @@ int launch_fwd(const void* x, long long x_arm_stride, const void* w,
                const void* bias, const void* mask, int mode, unsigned seed,
                unsigned thr, float scale, int A, int B, int D, int F, void* y,
                void* stream) {
-  if (int e = check_grid(A, B, F)) return e;
-  const dim3 grid((F + BN - 1) / BN, (B + BM - 1) / BM, A);
-  encoder_fwd_tiles<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (A > 65535 || (B + EM - 1) / EM > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = esmem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      encoder_fwd_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int es = (int)sizeof(T);
+  const int vec_x = tc::chunk_bytes(x, D, es, x_arm_stride);
+  const int vec_w = tc::chunk_bytes(w, F, es, (long long)D * F);
+  const dim3 grid((F + EN - 1) / EN, (B + EM - 1) / EM, A);
+  encoder_fwd_tiles<T><<<grid, ETHREADS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), x_arm_stride, static_cast<const T*>(w),
       static_cast<const T*>(bias), static_cast<const uint8_t*>(mask), mode,
-      seed, thr, scale, B, D, F, static_cast<T*>(y));
+      seed, thr, scale, B, D, F, vec_x, vec_w, static_cast<T*>(y));
   return (int)cudaGetLastError();
 }
 

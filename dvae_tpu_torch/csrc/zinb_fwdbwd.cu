@@ -32,34 +32,59 @@
 //
 // Bound at the production shape (A=5, B=5000, F=100, D=5032), one launch:
 //   nine products (three each of forward, dh, dW) of 2*A*B*F*D = 25.2 GFLOP
-//   -> 226 GFLOP, 3.38 ms in f32 on the FP32 cores (67 TFLOP/s); bytes
-//   (operands read once, outputs written once, about 212 MB in f32)
-//   -> 0.063 ms.  Bound by operations.  The bound leaves out the epilogue:
-//   1.26e8 elements with nine log/exp calls and five divisions each.
+//   = 226 GFLOP; on the tensor cores 0.46 ms at the TF32 peak (495 TFLOP/s)
+//   for f32 operands taken as one TF32 product, 0.23 ms at the bf16 peak
+//   (989 TFLOP/s); bytes (operands read once, outputs written once, about
+//   212 MB in f32) 0.063 ms.  Bound by operations.  The bound leaves out the
+//   epilogue: 1.26e8 elements with nine log/exp calls and five divisions
+//   each, and the 3xTF32 split triples the tf32 work of f32 operands.
 //
 // Design.  dh reduces over D and the three dW over B, so no single tiling
-// finishes both without partials.  Weighed: (a) one pass over (row group,
-// column group) blocks with dh and dW partials in a workspace: a full wave
-// of 132 blocks at A = 5 needs 27 groups per arm, and every group of rows
-// costs one 30 MB set of dW partials, every group of columns one 10 MB dh
-// partial, i.e. 190-800 MB of scratch however the 27 are split, next to a
-// limit of one (A,B,D) tensor (503 MB) for the whole step; (b) two passes
-// with the forward recomputed, as csrc/recon_fwdbwd.cu does.  This file
-// takes (b): no workspace beyond the block partials of the loss (a few
-// hundred floats), each reduction inside one block, bit-identical repeats.
-//   pass 1, blocks (arm, 64-row tile) walking every 64-column tile of D:
-//     three y tiles = h W_* (K = F), the element math (loss partials, the
-//     three g tiles into shared memory), dh += sum_heads g_* W_*^T in
-//     registers; dh is complete when the walk ends;
-//   pass 2, blocks (arm, 64-column tile) walking every 64-row tile of B:
-//     the y tiles and the cotangents recomputed (no loss terms), the three
-//     dW += h^T g_* in registers, db summed in f32.
-// The price: twelve products instead of nine, and the element math (the
-// transcendentals) twice, except the loss-only logs.  Products run as SIMT
-// FMAs on operands staged in shared memory as f32; no tensor cores yet.
+// finishes both without partials.  Weighed: one pass over (row group,
+// column group) blocks with dh and dW partials in a workspace (190-800 MB
+// of scratch, next to a limit of one (A,B,D) tensor, 503 MB, for the whole
+// step) against two passes with the forward recomputed; two passes:
+//   pass 1, `zinb_rows`, blocks (64-row tile, arm, slice of D) of 4 warps,
+//     each warp 16 rows, walking the slice 8 (f32) or 16 (bf16) columns a
+//     step: three y tiles = h W_* (K = F), the element math (loss
+//     partials, cotangents), then dh += sum_heads g_* W_*^T with the
+//     cotangents taken straight from the y accumulators in registers as A
+//     fragments (for tf32 the k order of a step is permuted to (0,2,4,6,
+//     1,3,5,7) on both sides, so the accumulator layout is the A layout);
+//     dh stays in registers for the walk.  The slices of D (4 at the
+//     production shape, chosen from the shape so that the grid fills
+//     whole waves of an H100; `plan`) each leave a dh partial; slice 0
+//     writes dh, the others the dW buffer, which pass 2 overwrites later
+//     (a spill buffer only beyond its room), and `zinb_dh_reduce` adds them
+//     in slice order;
+//   pass 2, `zinb_cols`, blocks (32-column tile, arm) of 8 warps walking
+//     every 32-row tile of B: the y tiles and the cotangents recomputed (no
+//     loss terms), the cotangents rounded to h's type into shared memory
+//     (for f32 already split into tf32 halves, once, not by each of the
+//     seven warps that read them), db summed in f32 in registers, and dW +=
+//     h^T g_* with warp w owning the 16 hidden units 16w..16w+15 of all
+//     three heads (no reduction across warps).
+// Products: `mma.sync` (csrc/mma.cuh), m16n8k16 bf16 for bf16 operands and
+// 3xTF32 m16n8k8 for f32 ones, f32 accumulation.  Operands are staged in
+// their own type with `cp.async` in a ring of two stages (three for bf16
+// in pass 2): the next W/x tile (pass 1) or h/x tile (pass 2) arrives
+// while the current one's products and element math run.  Sums of the
+// tensor cores round toward zero, so runs of a few mma are summed from
+// zero and then added to the long-lived accumulators (mma.cuh `add4`).
+// Occupancy: pass 1 four blocks of 4 warps an SM (52 KB of shared memory
+// a block at F=100), pass 2 two blocks of 8 warps (113 KB f32, 65 KB
+// bf16), i.e. 16 warps an SM in both; every instantiation reaches the
+// 128-register cap, some with spills of 8-72 bytes (`ptxas -v`, which
+// chip_smoke.py prints).  No workspace beyond the spill of dh partials
+// (none at the production shape) and the loss partials; every sum runs in
+// a fixed order that depends on the shape alone, so repeated launches are
+// bit-identical, on any card.
 
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma.cuh"
 #include "zinb_math.cuh"
 
 namespace {
@@ -67,14 +92,46 @@ namespace {
 using zinb::round_as;
 using zinb::to_f32;
 
-constexpr int BM = 64;        // rows (cells) of a tile
-constexpr int BN = 64;        // columns (genes) of a tile
-constexpr int FP = 128;       // largest hidden width (F <= FP)
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int APAD = 4;       // keeps float4 alignment, spreads banks
-constexpr int LDM = BM + APAD;
-constexpr int LDN = BN + APAD;
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<float> {
+  static constexpr int KS = 8;    // k of one mma (tf32)
+  static constexpr int BN1 = 8;   // columns of a pass-1 step
+  static constexpr int LDW1 = 8;  // pitches of the pass-1 W and x tiles
+  static constexpr int LDX1 = 8;
+  static constexpr int HPAD = 4;  // h tile pitch = padded F + HPAD
+  // pass 2 keeps the cotangents split, {hi, lo} pairs (GELEM floats each)
+  static constexpr int LDW2 = 40, LDX2 = 36, LDG2 = 34, GELEM = 2;
+  static constexpr int STAGES2 = 2;
+};
+template <>
+struct Cfg<__nv_bfloat16> {
+  static constexpr int KS = 16;
+  static constexpr int BN1 = 16;
+  static constexpr int LDW1 = 24;
+  static constexpr int LDX1 = 24;
+  static constexpr int HPAD = 8;
+  static constexpr int LDW2 = 40, LDX2 = 40, LDG2 = 40, GELEM = 1;
+  static constexpr int STAGES2 = 3;
+};
+// The pitches keep every fragment load of a warp on 32 distinct banks (or
+// 8 distinct 16-byte groups for ldmatrix).
+
+constexpr int BM1 = 64, THREADS1 = 128, STAGES1 = 2;  // pass 1
+constexpr int BN2 = 32, BM2 = 32, THREADS2 = 256;     // pass 2
+constexpr int FP = 128;                               // largest F
+constexpr int MAX_SPLIT = 8;
+// Block slots the row plan fills: an H100 SXM's 132 SMs at pass 1's four
+// blocks an SM.  A constant, not the card's count, so that the plan, and
+// with it the order of the dh sums, depends on the shape alone: the bits
+// of dh are the same on every card.
+constexpr long long PLAN_SLOTS = 132 * 4;
+constexpr int MAX_SPILL = 2;  // dh partials beyond the dW buffer's room
 constexpr int REDUCE_THREADS = 256;
+// f32 y products: k steps of 8 summed apart before they join the
+// accumulator (tc::add4); the tensor cores round each sum toward zero
+constexpr int RUN_K = 4;
 
 template <typename T>
 struct Heads {
@@ -82,191 +139,258 @@ struct Heads {
   const T* b[3];
 };
 
-// Hidden width rounded up to the 16 units one thread column strides over.
-__host__ __device__ inline int padded_f(int F) { return (F + 15) / 16 * 16; }
-
-// Shared memory of pass 1, the larger: three W tiles of padded_f(F) rows
-// (the dh product strides over them), the h tile of F rows, three 64x64 g
-// tiles.  Pass 2 holds one h tile of padded_f(F) rows and three W tiles of
-// F rows, which is no more.
-inline size_t smem_bytes(int F) {
-  return sizeof(float) * ((size_t)3 * padded_f(F) * LDN + (size_t)F * LDM +
-                          (size_t)3 * BN * LDM);
+__host__ __device__ inline int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
 }
-
-// Hs[k][m] = h[a, m0 + m, k] for k < F, zero outside the array and for the
-// padding rows F <= k < Fp.
+// F rounded to the k of one mma: the depth of the y products
 template <typename T>
-__device__ __forceinline__ void load_h_tile(const T* __restrict__ ha, int m0,
-                                            int B, int F, int Fp,
-                                            float (*Hs)[LDM]) {
-  for (int idx = threadIdx.x; idx < BM * Fp; idx += THREADS) {
-    const int m = idx / Fp, k = idx % Fp;
-    const int row = m0 + m;
-    Hs[k][m] = (row < B && k < F) ? to_f32(ha[(long long)row * F + k]) : 0.f;
-  }
+__host__ __device__ inline int fk(int F) {
+  return round_up(F, Cfg<T>::KS);
 }
 
-// Ws[k][n] = W[a, k, n0 + n] for k < F, zero outside and for F <= k < Fp.
 template <typename T>
-__device__ __forceinline__ void load_w_tile(const T* __restrict__ wa, int n0,
-                                            int F, int Fp, int D,
-                                            float (*Ws)[LDN]) {
-  for (int idx = threadIdx.x; idx < Fp * BN; idx += THREADS) {
-    const int k = idx / BN, n = idx % BN;
-    const int col = n0 + n;
-    Ws[k][n] = (k < F && col < D) ? to_f32(wa[(long long)k * D + col]) : 0.f;
-  }
+size_t smem_rows(int F) {
+  const int FK = fk<T>(F);
+  return sizeof(T) *
+         ((size_t)BM1 * (FK + Cfg<T>::HPAD) +
+          (size_t)STAGES1 * (3 * (size_t)FK * Cfg<T>::LDW1 +
+                             (size_t)BM1 * Cfg<T>::LDX1));
 }
 
-// acc[hd][i][j] = sum_{k<F} Hs[k][ty*4+i] * Ws[hd][k][tx*4+j]
-__device__ __forceinline__ void product_hw3(float (*Hs)[LDM], float (*Ws)[LDN],
-                                            int w_rows, int F, int tx, int ty,
-                                            float acc[3][4][4]) {
-#pragma unroll
-  for (int hd = 0; hd < 3; ++hd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[hd][i][j] = 0.f;
-  for (int k = 0; k < F; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(&Hs[k][ty * 4]);
-    const float a4[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-    for (int hd = 0; hd < 3; ++hd) {
-      const float4 bv =
-          *reinterpret_cast<const float4*>(&Ws[hd * w_rows + k][tx * 4]);
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[hd][i][j] = fmaf(a4[i], b4[j], acc[hd][i][j]);
-    }
-  }
+template <typename T>
+size_t smem_cols(int F) {
+  using C = Cfg<T>;
+  const int FK = fk<T>(F), ldh = round_up(F, 16) + C::HPAD;
+  return sizeof(T) * (3 * (size_t)FK * C::LDW2 +
+                      (size_t)C::STAGES2 * BM2 * (ldh + C::LDX2) +
+                      3 * (size_t)BM2 * C::LDG2 * C::GELEM);
 }
 
-// Element math of one thread's 4x4 outputs: acc (pre-bias y of the three
-// heads) becomes the three cotangents in place (0 outside the arrays);
-// with LOSS the loss terms are added to s.
-template <typename T, bool LOSS, bool TWO_DIGAMMA>
-__device__ __forceinline__ void epilogue(float acc[3][4][4],
-                                         const Heads<T>& heads, int a,
-                                         const T* __restrict__ xa, int m0,
-                                         int n0, int B, int D, float eps,
-                                         float one_m_eps, float ga, int tx,
-                                         int ty, float& s) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + tx * 4 + j;
-    const bool col_ok = col < D;
-    float bias[3] = {0.f, 0.f, 0.f};
-    if (col_ok) {
-#pragma unroll
-      for (int hd = 0; hd < 3; ++hd)
-        bias[hd] = to_f32(heads.b[hd][(long long)a * D + col]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
-      float loss = 0.f, g_r = 0.f, g_p = 0.f, g_z = 0.f;
-      if (col_ok && row < B) {
-        const float xv = to_f32(xa[(long long)row * D + col]);
-        zinb::element<LOSS, true, TWO_DIGAMMA>(
-            acc[0][i][j] + bias[0], acc[1][i][j] + bias[1],
-            acc[2][i][j] + bias[2], xv, eps, one_m_eps, ga, loss, g_r, g_p,
-            g_z);
-      }
-      if (LOSS) s += loss;
-      acc[0][i][j] = g_r;
-      acc[1][i][j] = g_p;
-      acc[2][i][j] = g_z;
-    }
+// Where the dh partial of slice s goes: slice 0 into dh itself, the next
+// `n_in_dw` into the dW buffer (pass 2 overwrites it afterwards), the rest
+// into the spill buffer.
+struct Partials {
+  float* dh;
+  float* in_dw;
+  float* spill;
+  long long stride;  // A * B * F
+  int n_in_dw;
+  __device__ float* part(int s) const {
+    if (s == 0) return dh;
+    s -= 1;
+    return s < n_in_dw ? in_dw + s * stride
+                       : spill + (s - n_in_dw) * stride;
   }
-}
+};
 
-// Pass 1: grid (ceil(B/BM), A).  Loss partials (LOSS) and the complete dh.
-template <typename T, bool LOSS, bool TWO_DIGAMMA>
-__global__ void __launch_bounds__(THREADS)
+// ---------------------------------------------------------------------------
+// Pass 1: grid (ceil(B/BM1), A, n_split).  Loss partials (LOSS) and dh.
+// FT: the number of 8-wide tiles of F the dh accumulators cover.
+// ---------------------------------------------------------------------------
+template <typename T, bool LOSS, bool TWO_DIGAMMA, int FT>
+__global__ void __launch_bounds__(THREADS1, 4)
 zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
           long long x_arm_stride, const float* __restrict__ g, int B, int F,
-          int D, float eps, float one_m_eps, float* __restrict__ part_sum,
-          float* __restrict__ dh) {
-  extern __shared__ __align__(16) float smem[];
-  const int Fp = padded_f(F);
-  // Ws: three tiles of Fp rows (the dh product strides to Fp); Hs: F rows
-  float(*Ws)[LDN] = reinterpret_cast<float(*)[LDN]>(smem);
-  float(*Hs)[LDM] = reinterpret_cast<float(*)[LDM]>(smem + (size_t)3 * Fp * LDN);
-  float(*Gt)[LDM] = reinterpret_cast<float(*)[LDM]>(
-      smem + (size_t)3 * Fp * LDN + (size_t)F * LDM);
+          int D, int cols_per_split, float eps, float one_m_eps, int vec_h,
+          int vec_d, float* __restrict__ part_sum, Partials dhp) {
+  using C = Cfg<T>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int NJ = C::BN1 / 8;  // n-tiles of a step
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int FK = fk<T>(F);
+  const int LDH = FK + C::HPAD;
+  const int w_elems = FK * C::LDW1;  // one head's W tile
+  const int stage_elems = 3 * w_elems + BM1 * C::LDX1;
+  T* const Hs = sm;
+  T* const stages = sm + BM1 * LDH;
 
   const int a = blockIdx.y;
-  const int m0 = blockIdx.x * BM;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * BM1;
+  const int split = blockIdx.z;
+  const int d_begin = split * cols_per_split;
+  const int d_end = min(D, d_begin + cols_per_split);
+  const int nsteps =
+      d_end > d_begin ? (d_end - d_begin + C::BN1 - 1) / C::BN1 : 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = warp * 16;  // the warp's rows of the tile
+  const T* ha = h + (long long)a * B * F;
   const T* xa = x + (long long)a * x_arm_stride;
-  const T* tag = nullptr;
   const float ga = g ? g[a] : 1.f;
-  const int nj = Fp / 16;
 
-  load_h_tile(h + (long long)a * B * F, m0, B, F, F, Hs);
+  auto issue = [&](int step) {
+    T* st = stages + (step % STAGES1) * stage_elems;
+    const int col0 = d_begin + step * C::BN1;
+#pragma unroll
+    for (int hd = 0; hd < 3; ++hd)
+      tc::load_tile(st + hd * w_elems, C::LDW1,
+                    heads.w[hd] + (long long)a * F * D + col0, D, FK, C::BN1,
+                    F, D - col0, vec_d, tid, THREADS1);
+    tc::load_tile(st + 3 * w_elems, C::LDX1, xa + (long long)m0 * D + col0,
+                  D, BM1, C::BN1, B - m0, D - col0, vec_d, tid, THREADS1);
+  };
 
-  float dacc[4][8];  // dh rows ty*4+i, hidden units tx + 16*j
+  tc::load_tile(Hs, LDH, ha + (long long)m0 * F, F, BM1, FK, B - m0, F,
+                vec_h, tid, THREADS1);
+  if (nsteps > 0) issue(0);
+  tc::cp_commit();
+
+  float dacc[FT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < FT; ++n)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dacc[i][j] = 0.f;
+    for (int i = 0; i < 4; ++i) dacc[n][i] = 0.f;
   float s = 0.f;
 
-  for (int n0 = 0; n0 < D; n0 += BN) {
+  for (int step = 0; step < nsteps; ++step) {
+    tc::cp_wait<0>();
+    __syncthreads();  // this step's tiles are in; the other buffer is free
+    if (step + 1 < nsteps) issue(step + 1);
+    tc::cp_commit();
+    const T* Ws = stages + (step % STAGES1) * stage_elems;
+    const T* Xs = Ws + 3 * w_elems;
+    const int col0 = d_begin + step * C::BN1;
+
+    // y = h W_* of the warp's 16 rows and the step's columns
+    float acc[3][NJ][4];
 #pragma unroll
     for (int hd = 0; hd < 3; ++hd)
-      load_w_tile(heads.w[hd] + (long long)a * F * D, n0, F, Fp, D,
-                  Ws + hd * Fp);
-    __syncthreads();
-    float acc[3][4][4];
-    product_hw3(Hs, Ws, Fp, F, tx, ty, acc);
-    epilogue<T, LOSS, TWO_DIGAMMA>(acc, heads, a, xa, m0, n0, B, D, eps,
-                                   one_m_eps, ga, tx, ty, s);
 #pragma unroll
-    for (int hd = 0; hd < 3; ++hd)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) acc[hd][j][i] = 0.f;
+    float run[3][4];  // f32: a run of RUN_K k steps, summed apart
+    for (int kk = 0; kk < FK; kk += C::KS) {
+      if constexpr (F32) {
+        const float* hr = Hs + (r0 + gq) * LDH + kk + tq;
+        const tc::SplitA A =
+            tc::split_a(hr[0], hr[8 * LDH], hr[4], hr[8 * LDH + 4]);
+        const bool first = kk % (8 * RUN_K) == 0;
+        const bool last = kk % (8 * RUN_K) == 8 * (RUN_K - 1) || kk + 8 >= FK;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Gt[hd * BN + tx * 4 + j][ty * 4 + i] = round_as(acc[hd][i][j], tag);
-    __syncthreads();
-    // dh[m][f] += sum_heads sum_n g[m][n] * W[f][n]
-    const int kmax = min(BN, D - n0);
+        for (int hd = 0; hd < 3; ++hd) {
+          const float* wc = Ws + hd * w_elems + (kk + tq) * C::LDW1 + gq;
+          if (first) tc::zero4(run[hd]);
+          tc::mma_3xtf32(run[hd], run[hd], A,
+                         tc::split_b(wc[0], wc[4 * C::LDW1]));
+          if (last) tc::add4(acc[hd][0], run[hd]);
+        }
+      } else {
+        const T* hr = Hs + (r0 + gq) * LDH + kk + 2 * tq;
+        const uint32_t A[4] = {tc::ld_u32(hr), tc::ld_u32(hr + 8 * LDH),
+                               tc::ld_u32(hr + 8),
+                               tc::ld_u32(hr + 8 * LDH + 8)};
+        const int q = lane >> 3;
 #pragma unroll
-    for (int hd = 0; hd < 3; ++hd) {
-      for (int k = 0; k < kmax; ++k) {
-        const float4 gv =
-            *reinterpret_cast<const float4*>(&Gt[hd * BN + k][ty * 4]);
-        const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (j < nj) {
-            const float wv = Ws[hd * Fp + tx + 16 * j][k];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              dacc[i][j] = fmaf(g4[i], wv, dacc[i][j]);
-          }
+        for (int hd = 0; hd < 3; ++hd) {
+          uint32_t b[4];
+          tc::ldsm_x4_t(b, Ws + hd * w_elems +
+                               (kk + (q & 1) * 8 + (lane & 7)) * C::LDW1 +
+                               (q >> 1) * 8);
+          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+          tc::mma_bf16(acc[hd][0], A, b0);
+          tc::mma_bf16(acc[hd][1], A, b1);
         }
       }
     }
-    __syncthreads();
+
+    // element math: the accumulators become the cotangents in place
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = 8 * j + 2 * tq + e;
+        const int col = col0 + cl;
+        const bool col_ok = col < D;
+        float bias[3] = {0.f, 0.f, 0.f};
+        if (col_ok) {
+#pragma unroll
+          for (int hd = 0; hd < 3; ++hd)
+            bias[hd] = to_f32(heads.b[hd][(long long)a * D + col]);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int rl = r0 + gq + 8 * half;
+          const int i = half * 2 + e;
+          float loss = 0.f, g_r = 0.f, g_p = 0.f, g_z = 0.f;
+          if (col_ok && m0 + rl < B) {
+            const float xv = to_f32(Xs[rl * C::LDX1 + cl]);
+            zinb::element<LOSS, true, TWO_DIGAMMA>(
+                acc[0][j][i] + bias[0], acc[1][j][i] + bias[1],
+                acc[2][j][i] + bias[2], xv, eps, one_m_eps, ga, loss, g_r,
+                g_p, g_z);
+          }
+          if (LOSS) s += loss;
+          acc[0][j][i] = g_r;
+          acc[1][j][i] = g_p;
+          acc[2][j][i] = g_z;
+        }
+      }
+    }
+
+    // dh += sum_heads g_* W_*^T, the cotangents as A fragments; each
+    // step's three heads are summed apart and then added (see add4)
+    if constexpr (F32) {
+      // k slot t <-> column 2t, slot t+4 <-> column 2t+1
+      tc::SplitA Ag[3];
+#pragma unroll
+      for (int hd = 0; hd < 3; ++hd)
+        Ag[hd] = tc::split_a(acc[hd][0][0], acc[hd][0][2], acc[hd][0][1],
+                             acc[hd][0][3]);
+#pragma unroll
+      for (int n = 0; n < FT; ++n) {
+        if (8 * n < FK) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int hd = 0; hd < 3; ++hd) {
+            const float2 wv = *reinterpret_cast<const float2*>(
+                Ws + hd * w_elems + (8 * n + gq) * C::LDW1 + 2 * tq);
+            tc::mma_3xtf32(t, u, Ag[hd], tc::split_b(wv.x, wv.y));
+          }
+          tc::add4(dacc[n], t, u);
+        }
+      }
+    } else {
+      uint32_t Ag[3][4];
+#pragma unroll
+      for (int hd = 0; hd < 3; ++hd) {
+        Ag[hd][0] = tc::pack_bf16(acc[hd][0][0], acc[hd][0][1]);
+        Ag[hd][1] = tc::pack_bf16(acc[hd][0][2], acc[hd][0][3]);
+        Ag[hd][2] = tc::pack_bf16(acc[hd][1][0], acc[hd][1][1]);
+        Ag[hd][3] = tc::pack_bf16(acc[hd][1][2], acc[hd][1][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < FT; ++n) {
+        if (8 * n < FK) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int hd = 0; hd < 3; ++hd) {
+            const T* wr = Ws + hd * w_elems + (8 * n + gq) * C::LDW1 + 2 * tq;
+            const uint32_t b[2] = {tc::ld_u32(wr), tc::ld_u32(wr + 8)};
+            tc::mma_bf16(t, Ag[hd], b);
+          }
+          tc::add4(dacc[n], t);
+        }
+      }
+    }
   }
 
-  float* dha = dh + (long long)a * B * F;
+  tc::cp_wait<0>();  // nothing in flight when the block ends
+
+  // this slice's dh partial
+  float* dst = dhp.part(split) + (long long)a * B * F;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= B) continue;
+  for (int n = 0; n < FT; ++n) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int f = tx + 16 * j;
-      if (f < F) dha[(long long)row * F + f] = dacc[i][j];
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + r0 + gq + 8 * half;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int f = 8 * n + 2 * tq + e;
+        if (row < B && f < F)
+          dst[(long long)row * F + f] = dacc[n][half * 2 + e];
+      }
     }
   }
 
@@ -275,131 +399,295 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_down_sync(0xffffffffu, s, off);
-    __shared__ float warp_s[THREADS / 32];
-    const int lane = tid % 32, warp = tid / 32;
+    __shared__ float warp_s[THREADS1 / 32];
     if (lane == 0) warp_s[warp] = s;
     __syncthreads();
     if (tid == 0) {
       float bs = 0.f;
-      for (int i = 0; i < THREADS / 32; ++i) bs += warp_s[i];
-      part_sum[(long long)a * gridDim.x + blockIdx.x] = bs;
+      for (int i = 0; i < THREADS1 / 32; ++i) bs += warp_s[i];
+      part_sum[((long long)a * gridDim.x + blockIdx.x) * gridDim.z + split] =
+          bs;
     }
   }
 }
 
-// Pass 2: grid (ceil(D/BN), A).  The three dW and db of one column tile.
+// dh = the slices' partials added in slice order.
+__global__ void zinb_dh_reduce(Partials p, int n_split, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v = p.dh[i];
+  for (int s = 1; s < n_split; ++s) v += p.part(s)[i];
+  p.dh[i] = v;
+}
+
+// ---------------------------------------------------------------------------
+// Pass 2: grid (ceil(D/BN2), A).  The three dW and db of one column tile.
+// ---------------------------------------------------------------------------
 template <typename T, bool TWO_DIGAMMA>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS2, 2)
 zinb_cols(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
           long long x_arm_stride, const float* __restrict__ g, int A, int B,
-          int F, int D, float eps, float one_m_eps, float* __restrict__ dw,
-          float* __restrict__ db) {
-  extern __shared__ __align__(16) float smem[];
-  const int Fp = padded_f(F);
-  // Hs: Fp rows (the dW product strides to Fp); Ws: three tiles of F rows
-  float(*Hs)[LDM] = reinterpret_cast<float(*)[LDM]>(smem);
-  float(*Ws)[LDN] = reinterpret_cast<float(*)[LDN]>(smem + (size_t)Fp * LDM);
-  float(*Gs)[LDN] = reinterpret_cast<float(*)[LDN]>(
-      smem + (size_t)Fp * LDM + (size_t)3 * F * LDN);
+          int F, int D, float eps, float one_m_eps, int vec_h, int vec_d,
+          float* __restrict__ dw, float* __restrict__ db) {
+  using C = Cfg<T>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int S = C::STAGES2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int FK = fk<T>(F);
+  const int R16 = round_up(F, 16);  // hidden units the dW m-tiles cover
+  const int LDH = R16 + C::HPAD;
+  const int w_elems = FK * C::LDW2;
+  const int stage_elems = BM2 * (LDH + C::LDX2);
+  T* const Ws = sm;  // the block's three W tiles, loaded once
+  T* const stages = Ws + 3 * w_elems;
+  T* const Gs = stages + S * stage_elems;  // three cotangent tiles
+  const int g_elems = BM2 * C::LDG2 * C::GELEM;
 
   const int a = blockIdx.y;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int n0 = blockIdx.x * BN2;
+  const int nsteps = (B + BM2 - 1) / BM2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;  // the warp's y tile
   const T* ha = h + (long long)a * B * F;
   const T* xa = x + (long long)a * x_arm_stride;
-  const T* tag = nullptr;
   const float ga = g ? g[a] : 1.f;
-  const int ni = Fp / 16;
 
 #pragma unroll
   for (int hd = 0; hd < 3; ++hd)
-    load_w_tile(heads.w[hd] + (long long)a * F * D, n0, F, F, D, Ws + hd * F);
+    tc::load_tile(Ws + hd * w_elems, C::LDW2,
+                  heads.w[hd] + (long long)a * F * D + n0, D, FK, BN2, F,
+                  D - n0, vec_d, tid, THREADS2);
+  auto issue = [&](int step) {
+    T* st = stages + (step % S) * stage_elems;
+    const int m0 = step * BM2;
+    tc::load_tile(st, LDH, ha + (long long)m0 * F, F, BM2, R16, B - m0, F,
+                  vec_h, tid, THREADS2);
+    tc::load_tile(st + BM2 * LDH, C::LDX2, xa + (long long)m0 * D + n0, D,
+                  BM2, BN2, B - m0, D - n0, vec_d, tid, THREADS2);
+  };
+#pragma unroll
+  for (int p = 0; p < S - 1; ++p) {
+    if (p < nsteps) issue(p);
+    tc::cp_commit();
+  }
 
-  float wacc[3][8][4];  // dW hidden units ty + 16*i, columns tx*4+j
+  float bias[3][2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int col = n0 + 8 * wn + 2 * tq + e;
+#pragma unroll
+    for (int hd = 0; hd < 3; ++hd)
+      bias[hd][e] = col < D ? to_f32(heads.b[hd][(long long)a * D + col]) : 0.f;
+  }
+  const bool has_m = 16 * warp < F;  // the warp owns hidden units 16w..
+  float wacc[3][4][4];
 #pragma unroll
   for (int hd = 0; hd < 3; ++hd)
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wacc[hd][i][j] = 0.f;
-  float dbp[3][4];
+      for (int i = 0; i < 4; ++i) wacc[hd][n][i] = 0.f;
+  float dbp[3][2];
 #pragma unroll
-  for (int hd = 0; hd < 3; ++hd)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dbp[hd][j] = 0.f;
+  for (int hd = 0; hd < 3; ++hd) dbp[hd][0] = dbp[hd][1] = 0.f;
   float s_unused = 0.f;
 
-  for (int m0 = 0; m0 < B; m0 += BM) {
-    load_h_tile(ha, m0, B, F, Fp, Hs);
-    __syncthreads();
-    float acc[3][4][4];
-    product_hw3(Hs, Ws, F, F, tx, ty, acc);
-    epilogue<T, false, TWO_DIGAMMA>(acc, heads, a, xa, m0, n0, B, D, eps,
-                                    one_m_eps, ga, tx, ty, s_unused);
+  for (int step = 0; step < nsteps; ++step) {
+    tc::cp_wait<S - 2>();
+    __syncthreads();  // tiles in; the freed buffer and Gs may be rewritten
+    if (step + S - 1 < nsteps) issue(step + S - 1);
+    tc::cp_commit();
+    const T* Hs = stages + (step % S) * stage_elems;
+    const T* Xs = Hs + BM2 * LDH;
+    const int m0 = step * BM2;
+
+    // y tile of the warp: rows 16 wm.., columns 8 wn.., three heads
+    float acc[3][4];
 #pragma unroll
     for (int hd = 0; hd < 3; ++hd)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) acc[hd][i] = 0.f;
+    float run[3][4];  // f32: a run of RUN_K k steps, summed apart
+    for (int kk = 0; kk < FK; kk += C::KS) {
+      if constexpr (F32) {
+        const float* hr = Hs + (16 * wm + gq) * LDH + kk + tq;
+        const tc::SplitA Af =
+            tc::split_a(hr[0], hr[8 * LDH], hr[4], hr[8 * LDH + 4]);
+        const bool first = kk % (8 * RUN_K) == 0;
+        const bool last = kk % (8 * RUN_K) == 8 * (RUN_K - 1) || kk + 8 >= FK;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dbp[hd][j] += acc[hd][i][j];
-          Gs[hd * BM + ty * 4 + i][tx * 4 + j] = round_as(acc[hd][i][j], tag);
+        for (int hd = 0; hd < 3; ++hd) {
+          const float* wc =
+              Ws + hd * w_elems + (kk + tq) * C::LDW2 + 8 * wn + gq;
+          if (first) tc::zero4(run[hd]);
+          tc::mma_3xtf32(run[hd], run[hd], Af,
+                         tc::split_b(wc[0], wc[4 * C::LDW2]));
+          if (last) tc::add4(acc[hd], run[hd]);
         }
-    __syncthreads();
-    // dW[f][n] += sum_m h[m][f] * g[m][n]
-    const int kmax = min(BM, B - m0);
-    for (int k = 0; k < kmax; ++k) {
-      float hv[8];
+      } else {
+        const T* hr = Hs + (16 * wm + gq) * LDH + kk + 2 * tq;
+        const uint32_t Af[4] = {tc::ld_u32(hr), tc::ld_u32(hr + 8 * LDH),
+                                tc::ld_u32(hr + 8),
+                                tc::ld_u32(hr + 8 * LDH + 8)};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) hv[i] = (i < ni) ? Hs[ty + 16 * i][k] : 0.f;
+        for (int hd = 0; hd < 3; ++hd) {
+          uint32_t b[2];
+          tc::ldsm_x2_t(b, Ws + hd * w_elems +
+                               (kk + (lane & 15)) * C::LDW2 + 8 * wn);
+          tc::mma_bf16(acc[hd], Af, b);
+        }
+      }
+    }
+
+    // element math; db from the f32 cotangents; the rounded ones to Gs
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rl = 16 * wm + gq + 8 * half;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = 8 * wn + 2 * tq + e;
+        const int i = half * 2 + e;
+        float g_r = 0.f, g_p = 0.f, g_z = 0.f;
+        if (m0 + rl < B && n0 + cl < D) {
+          const float xv = to_f32(Xs[rl * C::LDX2 + cl]);
+          zinb::element<false, true, TWO_DIGAMMA>(
+              acc[0][i] + bias[0][e], acc[1][i] + bias[1][e],
+              acc[2][i] + bias[2][e], xv, eps, one_m_eps, ga, s_unused, g_r,
+              g_p, g_z);
+        }
+        acc[0][i] = g_r;
+        acc[1][i] = g_p;
+        acc[2][i] = g_z;
+        dbp[0][e] += g_r;
+        dbp[1][e] += g_p;
+        dbp[2][e] += g_z;
+      }
+      const int cl = 8 * wn + 2 * tq;
 #pragma unroll
       for (int hd = 0; hd < 3; ++hd) {
-        const float4 gv =
-            *reinterpret_cast<const float4*>(&Gs[hd * BM + k][tx * 4]);
-        const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
+        T* gp = Gs + hd * g_elems + (rl * C::LDG2 + cl) * C::GELEM;
+        if constexpr (F32) {
+          // split once here, not by each of the seven warps that read it
+          uint32_t h0, l0, h1, l1;
+          tc::split_tf32(acc[hd][half * 2], h0, l0);
+          tc::split_tf32(acc[hd][half * 2 + 1], h1, l1);
+          *reinterpret_cast<float4*>(gp) =
+              make_float4(__uint_as_float(h0), __uint_as_float(l0),
+                          __uint_as_float(h1), __uint_as_float(l1));
+        } else {
+          *reinterpret_cast<uint32_t*>(gp) =
+              tc::pack_bf16(acc[hd][half * 2], acc[hd][half * 2 + 1]);
+        }
+      }
+    }
+    __syncthreads();  // Gs complete
+
+    // dW[f][col] += sum_rows h[row][f] g[row][col]: hidden units 16w..
+    if (has_m) {
+      const int f0 = 16 * warp;
+      // each step's 32 rows are summed apart and then added (see add4)
+      if constexpr (F32) {
+        tc::SplitA Ak[BM2 / 8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (i < ni) {
+        for (int k = 0; k < BM2 / 8; ++k) {
+          // k slot t <-> row 8k+2t, slot t+4 <-> row 8k+2t+1
+          const float* hc = Hs + (8 * k + 2 * tq) * LDH + f0 + gq;
+          Ak[k] = tc::split_a(hc[0], hc[8], hc[LDH], hc[LDH + 8]);
+        }
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              wacc[hd][i][j] = fmaf(hv[i], g4[j], wacc[hd][i][j]);
+        for (int hd = 0; hd < 3; ++hd) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int k = 0; k < BM2 / 8; ++k) {
+              const float2* gc =
+                  reinterpret_cast<const float2*>(Gs + hd * g_elems) +
+                  (8 * k + 2 * tq) * C::LDG2 + 8 * n + gq;
+              const float2 g0 = gc[0], g1 = gc[C::LDG2];
+              tc::SplitB Bf;
+              Bf.hi[0] = __float_as_uint(g0.x);
+              Bf.lo[0] = __float_as_uint(g0.y);
+              Bf.hi[1] = __float_as_uint(g1.x);
+              Bf.lo[1] = __float_as_uint(g1.y);
+              tc::mma_3xtf32(t, u, Ak[k], Bf);
+            }
+            tc::add4(wacc[hd][n], t, u);
+          }
+        }
+      } else {
+        const int q = lane >> 3;
+        uint32_t Ak[BM2 / 16][4];
+#pragma unroll
+        for (int k = 0; k < BM2 / 16; ++k)
+          tc::ldsm_x4_t(Ak[k], Hs + (16 * k + (q >> 1) * 8 + (lane & 7)) * LDH +
+                                   f0 + (q & 1) * 8);
+#pragma unroll
+        for (int hd = 0; hd < 3; ++hd) {
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int k = 0; k < BM2 / 16; ++k) {
+              uint32_t b[4];
+              tc::ldsm_x4_t(b, Gs + hd * g_elems +
+                                   (16 * k + (q & 1) * 8 + (lane & 7)) *
+                                       C::LDG2 +
+                                   (2 * np + (q >> 1)) * 8);
+              const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+              tc::mma_bf16(t0, Ak[k], b0);
+              tc::mma_bf16(t1, Ak[k], b1);
+            }
+            tc::add4(wacc[hd][2 * np], t0);
+            tc::add4(wacc[hd][2 * np + 1], t1);
           }
         }
       }
     }
-    __syncthreads();
   }
 
+  tc::cp_wait<0>();
+  if (has_m) {
 #pragma unroll
-  for (int hd = 0; hd < 3; ++hd) {
-    float* dwa = dw + ((long long)hd * A + a) * F * D;
+    for (int hd = 0; hd < 3; ++hd) {
+      float* dwa = dw + ((long long)hd * A + a) * F * D;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int f = ty + 16 * i;
-      if (f >= F) continue;
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx * 4 + j;
-        if (col < D) dwa[(long long)f * D + col] = wacc[hd][i][j];
-      }
+        for (int half = 0; half < 2; ++half) {
+          const int f = 16 * warp + gq + 8 * half;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + 8 * n + 2 * tq + e;
+            if (f < F && col < D)
+              dwa[(long long)f * D + col] = wacc[hd][n][half * 2 + e];
+          }
+        }
     }
   }
 
-  // db: the 16 row groups' column sums, added in a fixed order
-  float(*red)[LDN] = Gs;  // free after the last product
+  // db: the sums over g of each lane group, then the two row halves, in a
+  // fixed order
+  __syncthreads();  // the last step's products are done with Gs
+  float* red = reinterpret_cast<float*>(Gs);  // [2][3][BN2]
 #pragma unroll
   for (int hd = 0; hd < 3; ++hd)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[hd * BM + ty][tx * 4 + j] = dbp[hd][j];
-  __syncthreads();
-  if (tid < 3 * BN) {
-    const int hd = tid / BN, n = tid % BN;
-    if (n0 + n < D) {
-      float t = 0.f;
-      for (int r = 0; r < 16; ++r) t += red[hd * BM + r][n];
-      db[((long long)hd * A + a) * D + n0 + n] = t;
+    for (int e = 0; e < 2; ++e) {
+      float v = dbp[hd][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (gq == 0) red[(wm * 3 + hd) * BN2 + 8 * wn + 2 * tq + e] = v;
     }
+  __syncthreads();
+  if (tid < 3 * BN2) {
+    const int hd = tid / BN2, c = tid % BN2;
+    if (n0 + c < D)
+      db[((long long)hd * A + a) * D + n0 + c] =
+          red[hd * BN2 + c] + red[(3 + hd) * BN2 + c];
   }
 }
 
@@ -429,21 +717,104 @@ struct Args {
   float eps, one_m_eps;
 };
 
+// How pass 1 cuts D: n_split slices of cols_per_split columns (a multiple
+// of the step), chosen so that the grid fills whole waves of PLAN_SLOTS
+// blocks; ties go to fewer slices.  At A=5, D=5032: B=5000 gives 4 slices
+// of 1,264 columns, the 3 partials beyond dh's own kept in the dW buffer
+// (none spilled); B=2000 gives 3 slices.
+struct RowPlan {
+  int n_split, cols_per_split, row_tiles, n_in_dw, n_spill;
+};
+
+template <typename T>
+RowPlan plan(int A, int B, int D) {
+  RowPlan p;
+  p.row_tiles = (B + BM1 - 1) / BM1;
+  const int chunks = (D + Cfg<T>::BN1 - 1) / Cfg<T>::BN1;
+  // room for partials in the dW buffer (3*A*F*D floats)
+  const long long cap = (3LL * D) / B;
+  double best = -1.0;
+  p.n_split = 1;
+  for (int n = 1; n <= MAX_SPLIT && n <= chunks; ++n) {
+    if (n - 1 - cap > MAX_SPILL) break;
+    const long long blocks = (long long)p.row_tiles * A * n;
+    const long long waves = (blocks + PLAN_SLOTS - 1) / PLAN_SLOTS;
+    const double eff = (double)blocks / (double)(waves * PLAN_SLOTS);
+    if (eff > best + 1e-9) {
+      best = eff;
+      p.n_split = n;
+    }
+  }
+  const int per = (chunks + p.n_split - 1) / p.n_split;
+  p.cols_per_split = per * Cfg<T>::BN1;
+  p.n_in_dw = (int)(cap < p.n_split - 1 ? cap : p.n_split - 1);
+  p.n_spill = p.n_split - 1 - p.n_in_dw;
+  return p;
+}
+
+// Floats of scratch a launch needs: the loss partials, then the spilled
+// dh partials.
+template <typename T>
+long long workspace_floats(int A, int B, int F, int D) {
+  if (F < 1 || F > FP || A < 1 || B < 1 || D < 1) return -1;
+  const RowPlan p = plan<T>(A, B, D);
+  return (long long)A * p.row_tiles * p.n_split +
+         (long long)p.n_spill * A * B * F;
+}
+
+template <typename T>
+int vec_of(const Args& p) {
+  // chunk size every operand row allows (the W tiles and x share one)
+  const int e = (int)sizeof(T);
+  int vd = tc::chunk_bytes(p.x, p.D, e, p.x_arm_stride);
+  const void* ws[3] = {p.w_r, p.w_p, p.w_z};
+  for (int i = 0; i < 3; ++i) {
+    const int c = tc::chunk_bytes(ws[i], p.D, e, (long long)p.F * p.D);
+    vd = c < vd ? c : vd;
+  }
+  return vd;
+}
+
+template <typename T, bool SEPARATE, int FT>
+int launch_rows(const Args& p, const Heads<T>& heads, const float* g,
+                const RowPlan& plan, float* work, float* dh, float* dw,
+                int vec_h, int vec_d, cudaStream_t st) {
+  Partials parts;
+  parts.dh = dh;
+  parts.in_dw = dw;
+  parts.stride = (long long)p.A * p.B * p.F;
+  parts.n_in_dw = plan.n_in_dw;
+  parts.spill = work + (long long)p.A * plan.row_tiles * plan.n_split;
+  auto kern = zinb_rows<T, !SEPARATE, SEPARATE, FT>;
+  const size_t smem = smem_rows<T>(p.F);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(plan.row_tiles, p.A, plan.n_split);
+  kern<<<grid, THREADS1, smem, st>>>(
+      static_cast<const T*>(p.h), heads, static_cast<const T*>(p.x),
+      p.x_arm_stride, g, p.B, p.F, p.D, plan.cols_per_split, p.eps,
+      p.one_m_eps, vec_h, vec_d, work, parts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || plan.n_split == 1) return (int)err;
+  const long long n = parts.stride;
+  zinb_dh_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      parts, plan.n_split, n);
+  return (int)cudaGetLastError();
+}
+
 // SEPARATE: the backward for a given cotangent g (no loss, two digamma
 // calls); else loss and unscaled gradients.
 template <typename T, bool SEPARATE>
-int launch(const Args& p, const void* g, void* part_sum, void* out, void* dh,
+int launch(const Args& p, const void* g, void* work, void* out, void* dh,
            void* dw, void* db, void* stream) {
   if (p.F > FP || p.F < 1 || p.A > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(p.F);
-  cudaError_t e = cudaFuncSetAttribute(
-      zinb_rows<T, !SEPARATE, SEPARATE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(zinb_cols<T, SEPARATE>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  const RowPlan plan_ = plan<T>(p.A, p.B, p.D);
+  const size_t smem2 = smem_cols<T>(p.F);
+  cudaError_t ce = cudaFuncSetAttribute(
+      zinb_cols<T, SEPARATE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem2);
+  if (ce != cudaSuccess) return (int)ce;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Heads<T> heads;
   heads.w[0] = static_cast<const T*>(p.w_r);
@@ -452,24 +823,30 @@ int launch(const Args& p, const void* g, void* part_sum, void* out, void* dh,
   heads.b[0] = static_cast<const T*>(p.b_r);
   heads.b[1] = static_cast<const T*>(p.b_p);
   heads.b[2] = static_cast<const T*>(p.b_z);
-  const T* hp = static_cast<const T*>(p.h);
-  const T* xp = static_cast<const T*>(p.x);
   const float* gp = static_cast<const float*>(g);
-  const dim3 g1((p.B + BM - 1) / BM, p.A);
-  zinb_rows<T, !SEPARATE, SEPARATE><<<g1, THREADS, smem, st>>>(
-      hp, heads, xp, p.x_arm_stride, gp, p.B, p.F, p.D, p.eps, p.one_m_eps,
-      static_cast<float*>(part_sum), static_cast<float*>(dh));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 g2((p.D + BN - 1) / BN, p.A);
-  zinb_cols<T, SEPARATE><<<g2, THREADS, smem, st>>>(
-      hp, heads, xp, p.x_arm_stride, gp, p.A, p.B, p.F, p.D, p.eps,
-      p.one_m_eps, static_cast<float*>(dw), static_cast<float*>(db));
-  err = cudaGetLastError();
-  if (err != cudaSuccess || SEPARATE) return (int)err;
+  float* wk = static_cast<float*>(work);
+  const int vec_h =
+      tc::chunk_bytes(p.h, p.F, (int)sizeof(T), (long long)p.B * p.F);
+  const int vec_d = vec_of<T>(p);
+  int e = p.F <= 104
+          ? launch_rows<T, SEPARATE, 13>(p, heads, gp, plan_, wk,
+                                         static_cast<float*>(dh),
+                                         static_cast<float*>(dw), vec_h,
+                                         vec_d, st)
+          : launch_rows<T, SEPARATE, 16>(p, heads, gp, plan_, wk,
+                                         static_cast<float*>(dh),
+                                         static_cast<float*>(dw), vec_h,
+                                         vec_d, st);
+  if (e) return e;
+  const dim3 g2((p.D + BN2 - 1) / BN2, p.A);
+  zinb_cols<T, SEPARATE><<<g2, THREADS2, smem2, st>>>(
+      static_cast<const T*>(p.h), heads, static_cast<const T*>(p.x),
+      p.x_arm_stride, gp, p.A, p.B, p.F, p.D, p.eps, p.one_m_eps, vec_h,
+      vec_d, static_cast<float*>(dw), static_cast<float*>(db));
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess || SEPARATE) return (int)ce;
   zinb_fwdbwd_reduce<<<p.A, REDUCE_THREADS, 0, st>>>(
-      static_cast<const float*>(part_sum), (int)g1.x,
-      static_cast<float*>(out));
+      wk, plan_.row_tiles * plan_.n_split, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -477,9 +854,11 @@ int launch(const Args& p, const void* g, void* part_sum, void* out, void* dh,
 
 extern "C" {
 
-// Number of block partials of the loss the scratch buffer holds per arm.
-long long zinb_fwdbwd_partials_per_arm(int B) {
-  return (long long)((B + BM - 1) / BM);
+// Floats of scratch one launch needs (loss partials and any dh partials
+// beyond the dW buffer's room); -1 if the shape is refused.
+long long zinb_fwdbwd_workspace(int bf16, int A, int B, int F, int D) {
+  return bf16 ? workspace_floats<__nv_bfloat16>(A, B, F, D)
+              : workspace_floats<float>(A, B, F, D);
 }
 
 // Largest hidden width F the kernels take.
@@ -494,28 +873,28 @@ int zinb_fwdbwd_max_f() { return FP; }
   Args { h, w_r, b_r, w_p, b_p, w_z, b_z, x, x_arm_stride, A, B, F, D, eps, \
          one_m_eps }
 
-int zinb_fwdbwd_f32(ZINB_ARGS, void* part_sum, void* out, void* dh, void* dw,
+int zinb_fwdbwd_f32(ZINB_ARGS, void* work, void* out, void* dh, void* dw,
                     void* db, void* stream) {
-  return launch<float, false>(ZINB_PACK, nullptr, part_sum, out, dh, dw, db,
+  return launch<float, false>(ZINB_PACK, nullptr, work, out, dh, dw, db,
                               stream);
 }
 
-int zinb_fwdbwd_bf16(ZINB_ARGS, void* part_sum, void* out, void* dh, void* dw,
+int zinb_fwdbwd_bf16(ZINB_ARGS, void* work, void* out, void* dh, void* dw,
                      void* db, void* stream) {
-  return launch<__nv_bfloat16, false>(ZINB_PACK, nullptr, part_sum, out, dh,
-                                      dw, db, stream);
+  return launch<__nv_bfloat16, false>(ZINB_PACK, nullptr, work, out, dh, dw,
+                                      db, stream);
 }
 
-int zinb_bwd_f32(const void* g, ZINB_ARGS, void* dh, void* dw, void* db,
-                 void* stream) {
-  return launch<float, true>(ZINB_PACK, g, nullptr, nullptr, dh, dw, db,
+int zinb_bwd_f32(const void* g, ZINB_ARGS, void* work, void* dh, void* dw,
+                 void* db, void* stream) {
+  return launch<float, true>(ZINB_PACK, g, work, nullptr, dh, dw, db,
                              stream);
 }
 
-int zinb_bwd_bf16(const void* g, ZINB_ARGS, void* dh, void* dw, void* db,
-                  void* stream) {
-  return launch<__nv_bfloat16, true>(ZINB_PACK, g, nullptr, nullptr, dh, dw,
-                                     db, stream);
+int zinb_bwd_bf16(const void* g, ZINB_ARGS, void* work, void* dh, void* dw,
+                  void* db, void* stream) {
+  return launch<__nv_bfloat16, true>(ZINB_PACK, g, work, nullptr, dh, dw, db,
+                                     stream);
 }
 
 }  // extern "C"

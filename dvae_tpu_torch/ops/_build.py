@@ -3,8 +3,10 @@
 Each kernel source ``csrc/<name>.cu`` exposes a plain C interface; the
 headers ``csrc/*.cuh`` hold device code that several sources share.  A
 source is compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into
-a shared library under ``csrc/build/`` (listed in ``.gitignore``), named
-by a hash of the source, the shared headers and the flags, and loaded with
+a shared library under ``csrc/build/`` (listed in ``.gitignore``), or
+under the directory that the environment variable ``DVAE_TORCH_BUILD_DIR``
+names (for an installation whose package directory is read-only), named by
+a hash of the source, the shared headers and the flags, and loaded with
 ``ctypes``.  No PyTorch header is compiled: a build takes seconds, not
 minutes.
 
@@ -22,7 +24,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC / "build"
+BUILD_DIR = CSRC / "build"   # the default build directory
+BUILD_DIR_ENV = "DVAE_TORCH_BUILD_DIR"
 KERNELS = ("recon_fwd", "recon_fwdbwd", "encoder_fc1", "zinb_fwd",
            "zinb_fwdbwd", "gumbel", "coupling", "decoder")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,19 +47,26 @@ def nvcc_path() -> str:
     return path
 
 
+def build_dir() -> Path:
+    """Where the libraries are built: ``$DVAE_TORCH_BUILD_DIR`` if set and
+    not empty, else ``csrc/build/``."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    return Path(env).expanduser() if env else BUILD_DIR
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{digest}.so"
 
 
 def build(names=KERNELS) -> dict:
     """Compile every library of ``names`` that is not built yet, in
     parallel.  Returns {name: compiler output} for what was compiled;
     raises with the compiler's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)

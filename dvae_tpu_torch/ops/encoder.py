@@ -12,7 +12,8 @@ of ``csrc/encoder_fc1.cu`` (its source note states their bound and
 design) carry both directions:
 
   * ``encoder_fwd`` — kernel #4 (``_fwd_kernel``, encoder_pallas.py:81),
-    counted by ``encoder_fwd.launches``;
+    on the tensor cores (bf16, or 3xTF32 for f32 operands), counted by
+    ``encoder_fwd.launches``;
   * ``encoder_bwd`` — kernel #5 (``_bwd_kernel``, encoder_pallas.py:137),
     counted by ``encoder_bwd.launches``.
 

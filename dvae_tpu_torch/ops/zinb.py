@@ -19,7 +19,8 @@ bound and its design:
     run (``_fwd_kernel``, zinb_pallas.py:269); launched by ``fused_zinb``
     when no gradient is asked for, counted by ``fused_zinb.launches``;
   * ``csrc/zinb_fwdbwd.cu`` — the training forward with the unscaled
-    gradients in the same call (``_fwdbwd_kernel``, zinb_pallas.py:450);
+    gradients in the same call (``_fwdbwd_kernel``, zinb_pallas.py:450),
+    its products on the tensor cores (bf16, or 3xTF32 for f32 operands);
     launched by ``zinb_fwdbwd``, counted by ``zinb_fwdbwd.launches``;
   * the same source's separate backward for a given per-arm cotangent
     (``_bwd_kernel``, zinb_pallas.py:338); launched by ``zinb_bwd``,
@@ -293,10 +294,10 @@ def _lib_fwdbwd() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         for fn in (lib.zinb_bwd_f32, lib.zinb_bwd_bf16):
             fn.argtypes = ([ctypes.c_void_p] + _HEAD_ARGTYPES
-                           + [ctypes.c_void_p] * 4)
+                           + [ctypes.c_void_p] * 5)
             fn.restype = ctypes.c_int
-        lib.zinb_fwdbwd_partials_per_arm.argtypes = [ctypes.c_int]
-        lib.zinb_fwdbwd_partials_per_arm.restype = ctypes.c_longlong
+        lib.zinb_fwdbwd_workspace.argtypes = [ctypes.c_int] * 5
+        lib.zinb_fwdbwd_workspace.restype = ctypes.c_longlong
         lib.zinb_fwdbwd_max_f.argtypes = []
         lib.zinb_fwdbwd_max_f.restype = ctypes.c_int
         lib._dvae_bound = True
@@ -315,11 +316,23 @@ def _kernel_args(tensors, A, B, F, D, eps):
     return dtype, args
 
 
-def _grad_buffers(A, B, F, D, dev):
+def _grad_buffers(lib, dtype, A, B, F, D, dev):
+    """dh, dW, db and the launch's scratch: the loss partials and any dh
+    partials of the row pass beyond the room the dW buffer lends it (none
+    at the production shape)."""
+    if F > lib.zinb_fwdbwd_max_f():
+        raise ValueError(f"F={F} exceeds the kernel's hidden width "
+                         f"{lib.zinb_fwdbwd_max_f()}")
+    n_work = int(lib.zinb_fwdbwd_workspace(int(dtype == torch.bfloat16),
+                                           A, B, F, D))
+    if n_work < 0:
+        raise RuntimeError(f"zinb_fwdbwd refuses the shape A={A}, B={B}, "
+                           f"F={F}, D={D}")
+    work = torch.empty(n_work, device=dev, dtype=torch.float32)
     dh = torch.empty((A, B, F), device=dev, dtype=torch.float32)
     dw = torch.empty((3, A, F, D), device=dev, dtype=torch.float32)
     db = torch.empty((3, A, D), device=dev, dtype=torch.float32)
-    return dh, dw, db
+    return work, dh, dw, db
 
 
 def _zinb_value(h, w_r, b_r, w_p, b_p, w_z, b_z, x, eps):
@@ -379,19 +392,14 @@ def zinb_fwdbwd(h, w_r, b_r, w_p, b_p, w_z, b_z, x, eps: float = 1e-6):
         return zinb_grads_plain(*tensors, eps)
     dtype, args = _kernel_args(tensors, A, B, F, D, eps)
     lib = _lib_fwdbwd()
-    if F > lib.zinb_fwdbwd_max_f():
-        raise ValueError(f"F={F} exceeds the kernel's hidden width "
-                         f"{lib.zinb_fwdbwd_max_f()}")
     dev = h.device
-    n_part = int(lib.zinb_fwdbwd_partials_per_arm(B))
-    part = torch.empty(A * n_part, device=dev, dtype=torch.float32)
     loss = torch.empty((A,), device=dev, dtype=torch.float32)
-    dh, dw, db = _grad_buffers(A, B, F, D, dev)
+    work, dh, dw, db = _grad_buffers(lib, dtype, A, B, F, D, dev)
     fn = (lib.zinb_fwdbwd_f32 if dtype == torch.float32
           else lib.zinb_fwdbwd_bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, part.data_ptr(), loss.data_ptr(), dh.data_ptr(),
+        err = fn(*args, work.data_ptr(), loss.data_ptr(), dh.data_ptr(),
                  dw.data_ptr(), db.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
@@ -418,17 +426,14 @@ def zinb_bwd(g, h, heads, x, eps: float = 1e-6):
         return zinb_bwd_plain(g, h, heads, x, eps)
     dtype, args = _kernel_args(tensors, A, B, F, D, eps)
     lib = _lib_fwdbwd()
-    if F > lib.zinb_fwdbwd_max_f():
-        raise ValueError(f"F={F} exceeds the kernel's hidden width "
-                         f"{lib.zinb_fwdbwd_max_f()}")
     dev = h.device
     g32 = g.float().contiguous()
-    dh, dw, db = _grad_buffers(A, B, F, D, dev)
+    work, dh, dw, db = _grad_buffers(lib, dtype, A, B, F, D, dev)
     fn = lib.zinb_bwd_f32 if dtype == torch.float32 else lib.zinb_bwd_bf16
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g32.data_ptr(), *args, dh.data_ptr(), dw.data_ptr(),
-                 db.data_ptr(), stream)
+        err = fn(g32.data_ptr(), *args, work.data_ptr(), dh.data_ptr(),
+                 dw.data_ptr(), db.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"zinb_bwd kernel launch failed: CUDA error {err}")
     zinb_bwd.launches += 1

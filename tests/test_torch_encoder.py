@@ -24,6 +24,8 @@ import jax.numpy as jnp
 
 from dvae_tpu.ops import encoder_pallas
 from dvae_tpu_torch.ops import _build, encoder
+# the tensor core's tf32 rounding, modelled once for both kernels' tests
+from test_torch_zinb import _mma_3xtf32, _tf32
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 F32_GRAD = dict(rtol=2e-4, atol=2e-4)
@@ -205,3 +207,35 @@ def test_build_lists_the_training_kernels():
     assert {"recon_fwd", "recon_fwdbwd", "encoder_fc1"} <= set(_build.KERNELS)
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists()
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 split of the forward kernel's f32 product
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_split_tf32_product_keeps_f32_accuracy_at_depth_5032(rate):
+    """One 64-row tile of kernel #4's forward at the production depth
+    (D = 5032, F = 100 padded to 104), summed as the kernel sums it (one
+    stage of 32 at a time): within 1e-6 of the f64 product (max |Δ| / max
+    |f64|), the margin under which the f32 tolerance of PERF.md §2 (y1 ≤
+    1e-5) stands.  Carrying one accumulator through all 1,887 mma, whose
+    sums the tensor core rounds toward zero, drifts past 1e-5 (3.3e-5 on
+    the H100, PERF.md §6); plain TF32 misses by orders of magnitude."""
+    r = np.random.default_rng(17)
+    x = np.maximum(r.standard_normal((64, 5032)), 0).astype(np.float32)
+    if rate:
+        keep = r.random(x.shape) >= rate
+        x = np.where(keep, x * np.float32(1.0 / (1.0 - rate)),
+                     np.float32(0))
+    w = np.zeros((5032, 104), np.float32)
+    w[:, :100] = 0.02 * r.standard_normal((5032, 100))
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    scale = np.abs(exact).max()
+    got = _mma_3xtf32(x, w, run=32)
+    assert np.abs(got - exact).max() / scale <= 1e-6
+    assert not got[:, 100:].any()  # padding columns stay 0
+    carried = _mma_3xtf32(x, w, carry=True)
+    assert np.abs(carried - exact).max() / scale > 1e-5
+    plain = _tf32(x).astype(np.float64) @ _tf32(w).astype(np.float64)
+    assert np.abs(plain - exact).max() / scale > 1e-4

@@ -616,7 +616,8 @@ def test_zinb_trainer_on_the_cpu(small_counts, tmp_path):
     np.testing.assert_allclose(recs[True][0], recs[False][0], rtol=1e-4)
 
 
-def test_zinb_bf16_training_runs_and_agrees_across_routes(small_counts):
+def test_zinb_bf16_training_runs_and_agrees_across_routes(small_counts,
+                                                          tmp_path):
     """Under ``bf16`` the parameters and the batch are cast once per step;
     the fused op takes bf16 operands and hands back bf16 cotangents, the
     master weights and the Adam moments of the three heads stay f32.  The
@@ -624,7 +625,8 @@ def test_zinb_bf16_training_runs_and_agrees_across_routes(small_counts):
     tests/test_torch_serving.py holds bf16 eval to f32)."""
     recs = {}
     for fused in (True, False):
-        cpl = CplMixVAE(device="cpu", seed=1)
+        cpl = CplMixVAE(saving_folder=str(tmp_path / f"fused{fused}"),
+                        device="cpu", seed=1)
         cpl.init_model(**SMALL, mode="ZINB", bf16=True, fused=fused,
                        batch_size=32, epochs_per_jit=1)
         cpl.train(small_counts[:64], n_epoch=2, early_stop_consensus=0)
@@ -636,6 +638,22 @@ def test_zinb_bf16_training_runs_and_agrees_across_routes(small_counts):
                                      batch_size=32)["total_loss_rec"]
         assert np.isfinite(recs[fused]).all()
     np.testing.assert_allclose(recs[True], recs[False], rtol=2e-2)
+
+
+def test_training_writes_checkpoints_only_into_its_folder(small_data,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """A trainer with a folder leaves the working directory as it was: the
+    checkpoints go to ``saving_folder`` (``self.folder or "."``, as the JAX
+    trainer writes them)."""
+    monkeypatch.chdir(tmp_path)
+    folder = tmp_path / "run"
+    cpl = CplMixVAE(saving_folder=str(folder), device="cpu", seed=1)
+    cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=1)
+    path = cpl.train(small_data[:64], n_epoch=2, early_stop_consensus=0)
+    assert os.path.dirname(os.path.abspath(path)) == str(folder)
+    assert not list(tmp_path.glob("cpl_mixVAE_model_*.ckpt"))
+    assert list(folder.glob("cpl_mixVAE_model_*.ckpt"))
 
 
 def test_hard_synthetic_dataset_matches_jax():

@@ -355,3 +355,95 @@ def test_wrappers_check_their_operands():
         trecon.recon_bwd(torch.ones(5), t[0], t[1], t[2], t[7])
     assert tzinb.fused_zinb.launches == 0 and tzinb.zinb_fwdbwd.launches == 0
     assert tzinb.zinb_bwd.launches == 0 and trecon.recon_bwd.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 split of the training kernel's f32 products
+# ---------------------------------------------------------------------------
+
+def _tf32(a):
+    """``a`` rounded to tf32 (10 explicit mantissa bits), to nearest even,
+    through the int32 view."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    u = u.astype(np.uint64)
+    u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _rz(v):
+    """f64 values to f32, rounded toward zero (the tensor core's sums)."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _mma_3xtf32(a, b, run=8, carry=False, one_acc=False):
+    """a @ b as csrc/mma.cuh forms it: a = a_hi + a_lo, b = b_hi + b_lo,
+    all four tf32.  Per run of ``run`` values of k the products hi·hi and
+    the cross terms lo·hi + hi·lo are summed from zero in two accumulators,
+    one mma (8 deep, products exact) at a time, each sum rounded toward
+    zero as the tensor core rounds it; the run's two sums then join the
+    f32 accumulator rounded to nearest (``one_acc``: all three products of
+    the run in one accumulator, as the y products run).  ``carry``: one
+    accumulator carried through every mma instead, the form the kernels
+    avoid."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    f64 = lambda u, v, k: u[:, k].astype(np.float64) @ v[k]  # noqa: E731
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for r0 in range(0, a.shape[1], run):
+        big, small = np.zeros_like(acc), np.zeros_like(acc)
+        for k0 in range(r0, min(r0 + run, a.shape[1]), 8):
+            k = slice(k0, k0 + 8)
+            if carry:
+                for u, v in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+                    acc = _rz(acc + f64(u, v, k))
+                continue
+            if one_acc:
+                for u, v in ((a_lo, b_hi), (a_hi, b_hi), (a_hi, b_lo)):
+                    big = _rz(big + f64(u, v, k))
+                continue
+            small = _rz(small + f64(a_lo, b_hi, k))
+            big = _rz(big + f64(a_hi, b_hi, k))
+            small = _rz(small + f64(a_hi, b_lo, k))
+        if not carry:
+            acc = (acc + (big + small)).astype(np.float32)
+    return acc
+
+
+def _tile_operands(which, seed=5):
+    """Production-like operands of one tile product of kernel #7: h ∈
+    [0, 1) with exact zeros, head weights in ±0.1 (the smoke run's), and
+    cotangents over five decades of both signs (ψ(r) ≈ −1/r makes tiny
+    rates large)."""
+    r = np.random.default_rng(seed)
+    h = r.random((64, 100), dtype=np.float32)
+    h[::7] = 0.0
+    w = ((r.random((100, 64), dtype=np.float32) - 0.5) * 0.2)
+    g = (r.standard_normal((64, 64))
+         * 10.0 ** r.uniform(-3, 2, (64, 64))).astype(np.float32)
+    return {"y = h W (K=100)": (h, w),
+            "dh = g W^T (K=64)": (g, w.T.copy()),
+            "dW = h^T g (K=64)": (h.T.copy(), g)}[which]
+
+
+@pytest.mark.parametrize("which,run,one_acc", [
+    ("y = h W (K=100)", 32, True), ("dh = g W^T (K=64)", 8, False),
+    ("dW = h^T g (K=64)", 32, False)])
+def test_split_tf32_products_keep_f32_accuracy(which, run, one_acc):
+    """The 3xTF32 products of zinb_fwdbwd.cu, summed as the kernel sums
+    them (y four k steps of 8 at a time in one accumulator, dh one step's
+    8 columns, dW one step's 32 rows), stay within 1e-6 of the f64 product
+    (max |Δ| / max
+    |f64|), the margin under which the f32 tolerances of PERF.md §2
+    (gradients 1e-4, loss 1e-5) stand; plain TF32 misses by orders of
+    magnitude, which is why it is not used."""
+    a, b = _tile_operands(which)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(exact).max()
+    err = np.abs(_mma_3xtf32(a, b, run, one_acc=one_acc) - exact).max() / scale
+    assert err <= 1e-6, err
+    plain = _tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)
+    assert np.abs(plain - exact).max() / scale > 1e-4
