@@ -30,8 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
      through autograd, a NaN row, the output layer's gradients against the
      fused recon kernel's); that repeated launches are bit-identical; and
      time kernel, plain version and library call (for the tensor-core
-     kernels #4, #7, #8 in f32 and bf16 with the tensor-core bound, #7's
-     passes on the device and #4's Philox floor);
+     kernels #4-#8 in f32 and bf16 with the tensor-core bound, the ZINB
+     kernels' passes on the device, #4's Philox floor and #4 and #5 with
+     the mask off, explicit and drawn in the kernel; #6's value against
+     #7's loss, bit for bit);
   3. drive the serving path end to end at the production width (A=5 arms,
      D=5032 genes, F=100, L=10, C=92, S=2; random weights from a seed):
      init → save_checkpoint → a fresh CplMixVAE.load_model → eval_model over
@@ -76,6 +78,9 @@ Phases (any failure exits non-zero and prints no result line):
   9. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
+Every ``train`` call passes ``save_plots=False``: the plot artifacts would
+add one labelling pass over the training data to the counted launches.
+
 ``--kernels-only`` stops after phase 2 (a short first run of new kernels;
 it prints no result line); ``--kernels-only=decoder,coupling`` runs just
 the named kernel phases.  Imports nothing of JAX or of the JAX package.
@@ -101,7 +106,7 @@ N_CELLS, TAIL = 42000, 2000
 N_SMALL = 2000
 # NVIDIA H100 SXM data sheet: dense peaks and HBM3 rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# the tensor-core peak the f32 operands of #4, #7 and #8 run at (3xTF32:
+# the tensor-core peak the f32 operands of #4-#8 run at (3xTF32:
 # three TF32 products a product, so one TF32 product is the least work)
 PEAK_TF32 = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -486,7 +491,7 @@ def phase_encoder(torch, check) -> dict:
                         * item, dname, tensor_cores=True)
                     b_bound = flops_bound_ms(
                         flops, (rows * D + A * rows * F) * item
-                        + (A * D * F + A * F) * 4, dname)
+                        + (A * D * F + A * F) * 4, dname, tensor_cores=True)
                     for name, ms, pl, lib, (bound, by), err in (
                             ("encoder_fwd", f_ms, f_plain, f_lib, f_bound,
                              (y.float() - y0.float()).abs().max().item()),
@@ -512,6 +517,13 @@ def phase_encoder(torch, check) -> dict:
                           f"explicit mask {m_ms:.4f} ms, in-kernel Philox "
                           f"{f_ms:.4f} ms; fp32-core bound "
                           f"{flops / PEAK_FLOPS['float32'] * 1e3:.4f} ms")
+                    i_ms = cuda_ms(torch, lambda: enc.encoder_bwd(
+                        11, x, gy, 0.0))
+                    m_ms = cuda_ms(torch, lambda: enc.encoder_bwd(
+                        11, x, gy, RATE, mask))
+                    print(f"  {tag}: encoder_bwd identity mask {i_ms:.4f} ms, "
+                          f"explicit mask {m_ms:.4f} ms, in-kernel Philox "
+                          f"{b_ms:.4f} ms")
                 del x, w, b, gy, mask, y, y0, dw, dw0
     torch.cuda.empty_cache()
     return records
@@ -772,6 +784,10 @@ def phase_zinb(torch, check) -> dict:
             check(e_v <= TOL_ZINB_LOSS and e_l <= TOL_ZINB_LOSS,
                   f"{tag}: loss max rel err zinb_fwd {e_v:.3e}, zinb_fwdbwd "
                   f"{e_l:.3e} (tol {TOL_ZINB_LOSS:.0e})")
+            # one row pass, one plan and one reduction: the same bits
+            check(bool(torch.equal(v, fb[0])),
+                  f"{tag}: zinb_fwd's value equals zinb_fwdbwd's loss bit "
+                  f"for bit (max |diff| {(v - fb[0]).abs().max().item():.1e})")
             errs = rel_errs(flat(fb[1:]), flat(fb0[1:]))
             check(max(errs[i] for i in held) <= tol_g,
                   f"{tag}: zinb_fwdbwd rel err {listed(errs, held)} "
@@ -870,15 +886,14 @@ def time_zinb(torch, zinb, ops, cot, dname, item, tag, max_abs, records):
     for name, kern, plain, lib, lib_what, flops, nbytes in timed:
         ms = cuda_ms(torch, kern, iters=10)
         pl = plain_ms(torch, plain)
-        bound, by = flops_bound_ms(flops, nbytes, dname,
-                                   tensor_cores=name != "zinb_fwd")
-        if name != "zinb_fwd":
-            # the two passes and the reductions on the device
-            parts = kernel_device_ms(torch, kern)
-            split = {k: v for k, v in parts.items() if "zinb" in k}
-            print(f"  {tag}: {name} device ms by kernel: " + ", ".join(
-                f"{re.search(r'zinb_[a-z_]+', k).group(0)} {v:.4f}"
-                for k, v in sorted(split.items())))
+        bound, by = flops_bound_ms(flops, nbytes, dname, tensor_cores=True)
+        # the passes and the reductions on the device
+        parts = kernel_device_ms(torch, kern)
+        split = {k: v for k, v in parts.items() if "zinb" in k}
+        print(f"  {tag}: {name} device ms by kernel: " + ", ".join(
+            f"{re.search(r'zinb_[a-z_]+', k).group(0)} {v:.4f}"
+            for k, v in sorted(split.items()))
+            + f"; total {sum(split.values()):.4f}")
         print(f"  {tag}: {name} kernel_ms {ms:.4f} plain_ms {pl:.4f} "
               f"library_ms({lib_what}) {lib:.4f} bound_ms {bound:.4f} ({by}) "
               f"share_of_bound {bound / ms:.3f}")
@@ -1706,7 +1721,7 @@ def phase_training(torch, check, tmp, x) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     path = trainer.train(x_train, x_val=x_val, n_epoch=4,
-                         early_stop_consensus=0)
+                         early_stop_consensus=0, save_plots=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -1739,7 +1754,8 @@ def phase_training(torch, check, tmp, x) -> dict:
     resumed = CplMixVAE(saving_folder=os.path.join(tmp, "resume"),
                         device=DEV)
     epoch = resumed.load_model(path)
-    resumed.train(x_train, n_epoch=2, early_stop_consensus=0)
+    resumed.train(x_train, n_epoch=2, early_stop_consensus=0,
+                  save_plots=False)
     check(epoch == 4 and resumed.state.epoch == 6
           and resumed.state.opt_state.count == 6 * (N_TRAIN // B),
           f"resume from {os.path.basename(path)}: epoch {epoch} -> "
@@ -1789,7 +1805,7 @@ def phase_zinb_path(torch, check, tmp) -> tuple:
     reset_launch_counts()
     t0 = time.perf_counter()
     path = trainer.train(x_train, x_val=x_val, n_epoch=4,
-                         early_stop_consensus=0)
+                         early_stop_consensus=0, save_plots=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     trained = launch_counts()
@@ -1827,7 +1843,8 @@ def phase_zinb_path(torch, check, tmp) -> tuple:
     resumed = CplMixVAE(saving_folder=os.path.join(tmp, "zinb_resume"),
                         device=DEV)
     epoch = resumed.load_model(path)
-    final = resumed.train(x_train, n_epoch=2, early_stop_consensus=0)
+    final = resumed.train(x_train, n_epoch=2, early_stop_consensus=0,
+                          save_plots=False)
     per_epoch = N_ZINB_TRAIN // B
     check(epoch == 4 and resumed.state.epoch == 6
           and resumed.state.opt_state.count == 6 * per_epoch
@@ -1963,7 +1980,7 @@ def phase_categorical_path(torch, check, tmp, x, x_zinb) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     path = trainer.train(x_train, x_val=x_val, n_epoch=4,
-                         early_stop_consensus=0)
+                         early_stop_consensus=0, save_plots=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     trained = launch_counts()
@@ -2082,7 +2099,8 @@ def phase_categorical_path(torch, check, tmp, x, x_zinb) -> dict:
                         lowD_dim=10, state_dim=2, mode="ZINB", batch_size=B,
                         epochs_per_jit=2, use_pallas=True, hard=True)
     reset_launch_counts()
-    ztrainer.train(x_zinb[:N_CAT_ZINB], n_epoch=2, early_stop_consensus=0)
+    ztrainer.train(x_zinb[:N_CAT_ZINB], n_epoch=2, early_stop_consensus=0,
+                   save_plots=False)
     torch.cuda.synchronize()
     zinb = launch_counts()
     zsteps = 2 * (N_CAT_ZINB // B)
@@ -2169,7 +2187,7 @@ def _drive_decoder_training(torch, check, tmp, x, tag, aug_file):
     reset_launch_counts()
     t0 = time.perf_counter()
     path = trainer.train(x_train, x_val=x_val, n_epoch=4,
-                         early_stop_consensus=0)
+                         early_stop_consensus=0, save_plots=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     trained = launch_counts()
@@ -2341,7 +2359,7 @@ def phase_decoder_path(torch, check, tmp, x) -> dict:
                         epochs_per_jit=2, use_pallas=True, fused_decoder=True)
     reset_launch_counts()
     ppath = ptrainer.train(x[:N_DEC_PALLAS], n_epoch=2,
-                           early_stop_consensus=0)
+                           early_stop_consensus=0, save_plots=False)
     torch.cuda.synchronize()
     pallas = launch_counts()
     psteps = 2 * (N_DEC_PALLAS // B)

@@ -32,8 +32,9 @@
 //            (about 90 integer instructions) per aligned group of four x
 //            elements, 3.1e7 calls per forward, which `encoder_mask_u8`
 //            (the same device function, 126 MB of uint8 out) times.
-//   backward the same product count and bytes -> 0.376 ms in f32 on the
-//            FP32 cores (67 TFLOP/s), where it runs.
+//   backward the same product count -> 0.051 ms (TF32) / 0.025 ms (bf16);
+//            bytes: x and g read once, dW1 written once (121 MB f32).
+//            The same Philox floor when the mask is drawn in the kernel.
 // The forward (`encoder_fwd_tiles`) runs on the tensor cores: `mma.sync`
 // m16n8k8 with the 3xTF32 split for f32 operands (csrc/mma.cuh; plain TF32
 // would keep three digits), m16n8k16 for bf16, f32 accumulation.  Blocks
@@ -44,17 +45,17 @@
 // draw overlaps the copies in flight and the other blocks' products
 // instead of stalling the loads.  68 KB of shared memory (f32) a block,
 // three blocks of 4 warps an SM: 395 blocks make one wave of 132 SMs.
-// The backward (`encoder_bwd_tiles`) is still a register-blocked SIMT GEMM
-// (64x128 block tile, 4x8 outputs per thread, operands staged in shared
-// memory as f32), with the mask drawn inline in its loads.
-//
-// Backward blocks own (arm, 64-gene tile of D, 128-column tile of F) and
-// walk every row of the batch, so dW1 needs no reduction across blocks
-// (the TPU kernel keeps the whole (A, D, F) accumulator in VMEM, :199-202)
-// and repeated launches are bit-identical.  db1 is summed by the blocks of
-// the first gene tile, in row order.  Ragged B (the 2,000-row tail) and
-// ragged D are masked: rows and columns outside the arrays are never read
-// and add exactly 0.
+// The backward (`encoder_bwd_tiles`) runs on the tensor cores too, with
+// the same building blocks: blocks own (arm, 64-gene tile of D, the
+// 104-column tile of F) and walk every row of the batch, 32 (f32) or 64
+// (bf16) rows a stage, so dW1 needs no reduction across blocks (the TPU
+// kernel keeps the whole (A, D, F) accumulator in VMEM, :199-202) and
+// repeated launches are bit-identical; the arm is the fastest grid axis,
+// so a shared x stage is served to the A arms' blocks from L2.  db1 is
+// summed by the blocks of the first gene tile, in row order.  Ragged B
+// (the 2,000-row tail) and ragged D are masked: rows and columns outside
+// the arrays are never read and add exactly 0.  Its note below says how
+// the transposed operand and the split of g are read.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -66,12 +67,6 @@
 #include "philox.cuh"  // philox4x32_10
 
 namespace {
-
-constexpr int BM = 64;        // rows of the output tile
-constexpr int BN = 128;       // columns of the output tile (F)
-constexpr int BK = 16;        // depth of one shared-memory stage
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 8 outputs each
-constexpr int APAD = 4;       // keeps float4 alignment, spreads banks
 
 constexpr int MODE_IDENTITY = 0;  // rate 0 and no mask: x as it is
 constexpr int MODE_MASK = 1;      // explicit uint8 mask
@@ -102,65 +97,6 @@ __device__ __forceinline__ unsigned keep4(uint32_t seed, int arm, int row,
          ((r.y & 0x7fffffffu) < thr ? 2u : 0u) |
          ((r.z & 0x7fffffffu) < thr ? 4u : 0u) |
          ((r.w & 0x7fffffffu) < thr ? 8u : 0u);
-}
-
-// Four dropped x values of (arm, row) at columns col .. col+3 (col a
-// multiple of 4), as f32; out-of-range columns and rows give 0.  The
-// scaling rounds to T, as the TPU kernel's x * (1/keep) in x.dtype does.
-template <typename T>
-__device__ __forceinline__ void dropped4(
-    const T* __restrict__ x, long long x_arm_stride,
-    const uint8_t* __restrict__ mask, int mode, uint32_t seed, uint32_t thr,
-    float scale, int a, int row, int col, int B, int D, float out[4]) {
-  if (row >= B) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = 0.f;
-    return;
-  }
-  const long long base = (long long)a * x_arm_stride + (long long)row * D;
-  unsigned keep = 0xFu;
-  if (mode == MODE_PHILOX) keep = keep4(seed, a, row, col >> 2, thr);
-  const float sc = to_f32(from_f32<T>(scale));
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = col + j;
-    float v = 0.f;
-    if (c < D) {
-      const float xv = to_f32(x[base + c]);
-      if (mode == MODE_IDENTITY) {
-        v = xv;
-      } else {
-        const bool k = (mode == MODE_PHILOX)
-                           ? ((keep >> j) & 1u)
-                           : (mask[((long long)a * B + row) * D + c] != 0);
-        v = k ? to_f32(from_f32<T>(xv * sc)) : 0.f;
-      }
-    }
-    out[j] = v;
-  }
-}
-
-// Column of the j-th of a thread's 8 outputs: two groups of 4, 64 apart.
-__device__ __forceinline__ int col_index(int tx, int j) {
-  return (j < 4) ? (tx * 4 + j) : (64 + tx * 4 + (j - 4));
-}
-
-// acc[i][j] += sum_k As[k][ty*4+i] * Bs[k][col_index(tx, j)]
-__device__ __forceinline__ void mma_tile(float (*As)[BM + APAD],
-                                         float (*Bs)[BN], int tx,
-                                         int ty, float acc[4][8]) {
-#pragma unroll
-  for (int k = 0; k < BK; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
-    const float a4[4] = {av.x, av.y, av.z, av.w};
-    const float b8[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a4[i], b8[j], acc[i][j]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -198,18 +134,19 @@ constexpr size_t esmem_bytes() {
   return sizeof(T) * (size_t)ESTAGES * estage_elems<T>();
 }
 
-// The x stage in place: x (.) mask / keep rounded to T, zero where dropped.
-template <typename T>
+// An x stage of ROWS x COLS in place (pitch LD, NT threads): x (.) mask /
+// keep rounded to T, zero where dropped; row0/col0 place it in (B, D).
+template <typename T, int ROWS, int COLS, int LD, int NT>
 __device__ __forceinline__ void mask_stage(T* Xs,
                                            const uint8_t* __restrict__ mask,
                                            int mode, uint32_t seed,
                                            uint32_t thr, float sc, int a,
-                                           int m0, int k0, int B, int D,
+                                           int row0, int col0, int B, int D,
                                            int tid) {
-  constexpr int G4 = EK / 4;
-  for (int i = tid; i < EM * G4; i += ETHREADS) {
+  constexpr int G4 = COLS / 4;
+  for (int i = tid; i < ROWS * G4; i += NT) {
     const int r = i / G4, c = (i % G4) * 4;
-    const int row = m0 + r, col = k0 + c;
+    const int row = row0 + r, col = col0 + c;
     if (row >= B || col >= D) continue;  // zero-filled already
     unsigned keep;
     if (mode == MODE_PHILOX) {
@@ -221,7 +158,7 @@ __device__ __forceinline__ void mask_stage(T* Xs,
       for (int j = 0; j < 4; ++j)
         if (col + j < D && mr[j] != 0) keep |= 1u << j;
     }
-    T* xr = Xs + r * ECfg<T>::LDX + c;
+    T* xr = Xs + r * LD + c;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       xr[j] = ((keep >> j) & 1u) ? from_f32<T>(to_f32(xr[j]) * sc)
@@ -268,8 +205,9 @@ encoder_fwd_tiles(const T* __restrict__ x, long long x_arm_stride,
   static_assert(ESTAGES == 3, "the ring is masked one stage ahead");
   auto masked = [&](int step) {
     if (mode != MODE_IDENTITY && step < nsteps)
-      mask_stage<T>(stages + (step % ESTAGES) * estage_elems<T>(), mask,
-                    mode, seed, thr, sc, a, m0, step * EK, B, D, tid);
+      mask_stage<T, EM, EK, ECfg<T>::LDX, ETHREADS>(
+          stages + (step % ESTAGES) * estage_elems<T>(), mask, mode, seed,
+          thr, sc, a, m0, step * EK, B, D, tid);
   };
   issue(0);
   tc::cp_commit();
@@ -370,68 +308,202 @@ encoder_fwd_tiles(const T* __restrict__ x, long long x_arm_stride,
   }
 }
 
-// Backward: grid (ceil(F/BN), ceil(D/BM), A); the block walks every row.
+// ---------------------------------------------------------------------------
+// Backward (#5): tensor-core tiles
+// ---------------------------------------------------------------------------
+// dW1_a[gene][f] = sum_rows xd_a[row][gene] g_a[row][f]: the contraction
+// runs over the rows, so the A operand is the dropped x transposed (M =
+// genes, K = rows) and B is g (K = rows, N = f).  Block (arm, 64-gene tile
+// of D, 104-column tile of F) of 4 warps, each warp 16 genes x 104 columns
+// (13 accumulator tiles); the block walks every row of the batch, so dW1
+// needs no reduction across blocks and repeats are bit-identical.  The arm
+// is the fastest grid axis: the A blocks of one gene tile run together and
+// a shared x stage comes from L2, not A times from HBM.
+//
+// x and g stages (32 rows f32, 64 bf16) arrive by cp.async in a ring of
+// three, zero-filled beyond B, D and F, so rows past the ragged tail are
+// never read and add exactly 0.  Each step prepares the landed stage s+1
+// (the keep-mask applied to x in shared memory, one Philox call per
+// aligned group of four genes; db1 summed from g by the blocks of gene
+// tile 0, one column a thread, in row order) before the products of stage
+// s, with one barrier a step.  Products: f32 A fragments read by scalar
+// ld.shared at Xs[k][m] (pitch 72 = 8 mod 32 words: a warp's 32 loads on
+// distinct banks), both operands split into tf32 halves by the warp that
+// reads them; bf16 both by ldmatrix.trans.  Each stage's products are
+// summed from zero and added to the accumulators rounded to nearest
+// (tc::add4).  Measured on the H100 (PERF.md §6): splitting g once a stage
+// into {hi, lo} pairs in shared memory, as #7's column pass does, was
+// slower than splitting it in each warp, because the pairs' room forces
+// 16-row stages at three blocks an SM, and deeper stages pay more than the
+// split saves.  68 KB of shared memory a block (f32 and bf16), three
+// blocks of 4 warps an SM: the 395 blocks of the production shape make
+// one wave of 132 SMs.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+struct BCfg;
+template <>
+struct BCfg<float> {
+  static constexpr int RK = 32;    // rows a stage
+  static constexpr int LDX = 72;   // A loads: (8t + g) distinct banks
+  static constexpr int LDG = 104;  // B loads: (8t + g) distinct banks
+};
+template <>
+struct BCfg<__nv_bfloat16> {
+  static constexpr int RK = 64;
+  static constexpr int LDX = 72;   // 144-byte rows: ldmatrix rows distinct
+  static constexpr int LDG = 104;  // 13 16-byte groups: ldmatrix rows
+};
+constexpr int BD = 64, BN = EN, BNT = ENT;  // genes and F columns a block
+constexpr int BSTAGES = 3, BTHREADS = 128;
+
+template <typename T>
+__host__ __device__ constexpr int bstage_elems() {
+  return BCfg<T>::RK * (BCfg<T>::LDX + BCfg<T>::LDG);
+}
+template <typename T>
+constexpr size_t bsmem_bytes() {
+  return sizeof(T) * (size_t)BSTAGES * bstage_elems<T>();
+}
+
+// Backward: grid (A, ceil(D/BD), ceil(F/BN)).
+template <typename T>
+__global__ void __launch_bounds__(BTHREADS, 3)
 encoder_bwd_tiles(const T* __restrict__ x, long long x_arm_stride,
                   const T* __restrict__ g, const uint8_t* __restrict__ mask,
                   int mode, uint32_t seed, uint32_t thr, float scale, int B,
-                  int D, int F, float* __restrict__ dw,
+                  int D, int F, int vec_x, int vec_g, float* __restrict__ dw,
                   float* __restrict__ db) {
-  __shared__ __align__(16) float As[BK][BM + APAD];  // dropped x, [row][gene]
-  __shared__ __align__(16) float Bs[BK][BN];         // g tile, [row][f]
+  using C = BCfg<T>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int RK = C::RK, LDX = C::LDX, LDG = C::LDG;
+  extern __shared__ __align__(16) unsigned char bsmem[];
+  T* const stages = reinterpret_cast<T*>(bsmem);
 
-  const int a = blockIdx.z;
-  const int d0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int a = blockIdx.x;
+  const int d0 = blockIdx.y * BD;
+  const int n0 = blockIdx.z * BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int mw = 16 * warp;  // the warp's genes of the tile
+  const T* xa = x + (long long)a * x_arm_stride;
   const T* ga = g + (long long)a * B * F;
   const bool sums_db = blockIdx.y == 0;
+  const float sc = to_f32(from_f32<T>(scale));
+  const int nsteps = (B + RK - 1) / RK;
 
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  auto issue = [&](int step) {
+    T* st = stages + (step % BSTAGES) * bstage_elems<T>();
+    const int r0 = step * RK;
+    tc::load_tile_c<BD, BTHREADS>(st, LDX, xa + (long long)r0 * D + d0, D,
+                                  RK, B - r0, D - d0, vec_x, tid);
+    tc::load_tile_c<BN, BTHREADS>(st + RK * LDX, LDG,
+                                  ga + (long long)r0 * F + n0, F, RK, B - r0,
+                                  F - n0, vec_g, tid);
+  };
   float dbs = 0.f;  // column n0 + tid of db1, threads tid < BN
-
-  // x staging: thread owns row tid/16 and four neighbouring genes
-  const int xr = tid / 16, xc = (tid % 16) * 4;
-  for (int b0 = 0; b0 < B; b0 += BK) {
-    float v[4];
-    dropped4<T>(x, x_arm_stride, mask, mode, seed, thr, scale, a, b0 + xr,
-                d0 + xc, B, D, v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) As[xr][xc + j] = v[j];
-#pragma unroll
-    for (int r = 0; r < (BK * BN) / THREADS; ++r) {
-      const int idx = tid + r * THREADS;
-      const int k = idx / BN, n = idx % BN;
-      const int gb = b0 + k, gn = n0 + n;
-      Bs[k][n] = (gb < B && gn < F) ? to_f32(ga[(long long)gb * F + gn]) : 0.f;
-    }
-    __syncthreads();
-    mma_tile(As, Bs, tx, ty, acc);
+  // the landed stage ready for the products: x masked; g summed into db1
+  // by the blocks of gene tile 0, one column a thread, in row order
+  auto prepare = [&](int step) {
+    T* Xs = stages + (step % BSTAGES) * bstage_elems<T>();
+    if (mode != MODE_IDENTITY)
+      mask_stage<T, RK, BD, LDX, BTHREADS>(Xs, mask, mode, seed, thr, sc, a,
+                                           step * RK, d0, B, D, tid);
     if (sums_db && tid < BN) {
-#pragma unroll
-      for (int k = 0; k < BK; ++k) dbs += Bs[k][tid];
+      const T* gc = Xs + RK * LDX + tid;
+#pragma unroll 4
+      for (int k = 0; k < RK; ++k) dbs += to_f32(gc[k * LDG]);
     }
-    __syncthreads();
+  };
+
+  issue(0);
+  tc::cp_commit();
+  if (nsteps > 1) issue(1);
+  tc::cp_commit();
+  tc::cp_wait<1>();
+  __syncthreads();
+  prepare(0);
+
+  float acc[BNT][4];
+#pragma unroll
+  for (int n = 0; n < BNT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  static_assert(BSTAGES == 3, "the ring is prepared one stage ahead");
+  for (int step = 0; step < nsteps; ++step) {
+    tc::cp_wait<0>();  // stage step+1 is in
+    __syncthreads();   // stage step is prepared; step-1's buffers are free
+    if (step + 2 < nsteps) issue(step + 2);
+    tc::cp_commit();
+    if (step + 1 < nsteps) prepare(step + 1);
+    const T* Xs = stages + (step % BSTAGES) * bstage_elems<T>();
+    const T* Gs = Xs + RK * LDX;
+    if constexpr (F32) {
+      tc::SplitA Ak[RK / 8];
+#pragma unroll
+      for (int k = 0; k < RK / 8; ++k) {
+        const float* ac = Xs + (8 * k + tq) * LDX + mw + gq;
+        Ak[k] = tc::split_a(ac[0], ac[8], ac[4 * LDX], ac[4 * LDX + 8]);
+      }
+#pragma unroll
+      for (int n = 0; n < BNT; ++n) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < RK / 8; ++k) {
+          const float* gr = Gs + (8 * k + tq) * LDG + 8 * n + gq;
+          tc::mma_3xtf32(t, u, Ak[k], tc::split_b(gr[0], gr[4 * LDG]));
+        }
+        tc::add4(acc[n], t, u);
+      }
+    } else {
+      const int q = lane >> 3;
+      uint32_t Ak[RK / 16][4];
+#pragma unroll
+      for (int k = 0; k < RK / 16; ++k)
+        tc::ldsm_x4_t(Ak[k], Xs + (16 * k + (q >> 1) * 8 + (lane & 7)) * LDX +
+                                 mw + (q & 1) * 8);
+#pragma unroll
+      for (int n = 0; n + 1 < BNT; n += 2) {
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < RK / 16; ++k) {
+          uint32_t b[4];
+          tc::ldsm_x4_t(b, Gs + (16 * k + (q & 1) * 8 + (lane & 7)) * LDG +
+                               (n + (q >> 1)) * 8);
+          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+          tc::mma_bf16(t0, Ak[k], b0);
+          tc::mma_bf16(t1, Ak[k], b1);
+        }
+        tc::add4(acc[n], t0);
+        tc::add4(acc[n + 1], t1);
+      }
+      float t[4] = {0.f, 0.f, 0.f, 0.f};  // the odd last tile
+#pragma unroll
+      for (int k = 0; k < RK / 16; ++k) {
+        uint32_t b[2];
+        tc::ldsm_x2_t(b, Gs + (16 * k + (lane & 15)) * LDG + (BNT - 1) * 8);
+        tc::mma_bf16(t, Ak[k], b);
+      }
+      tc::add4(acc[BNT - 1], t);
+    }
   }
+  tc::cp_wait<0>();
 
   float* dwa = dw + (long long)a * D * F;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + col_index(tx, j);
-    if (col >= F) continue;
+  for (int n = 0; n < BNT; ++n) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gene = d0 + ty * 4 + i;
-      if (gene < D) dwa[(long long)gene * F + col] = acc[i][j];
+    for (int e = 0; e < 2; ++e) {
+      const int col = n0 + 8 * n + 2 * tq + e;
+      if (col >= F) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gene = d0 + mw + gq + 8 * half;
+        if (gene < D) dwa[(long long)gene * F + col] = acc[n][half * 2 + e];
+      }
     }
   }
-  if (sums_db && tid < BN && n0 + tid < F) db[(long long)a * F + n0 + tid] = dbs;
+  if (sums_db && tid < BN && n0 + tid < F)
+    db[(long long)a * F + n0 + tid] = dbs;
 }
 
 // Check entry: the keep-mask the kernels draw, as uint8 (A, B, D).
@@ -448,12 +520,6 @@ __global__ void encoder_mask_tiles(uint32_t seed, uint32_t thr, int A, int B,
     const int c = col4 * 4 + j;
     if (c < D) out[((long long)a * B + row) * D + c] = (keep >> j) & 1u;
   }
-}
-
-int check_grid(int A, int rows, int F) {
-  if (A > 65535 || (rows + BM - 1) / BM > 65535 || (F + BN - 1) / BN > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  return 0;
 }
 
 template <typename T>
@@ -485,12 +551,22 @@ int launch_bwd(const void* x, long long x_arm_stride, const void* g,
                const void* mask, int mode, unsigned seed, unsigned thr,
                float scale, int A, int B, int D, int F, void* dw, void* db,
                void* stream) {
-  if (int e = check_grid(A, D, F)) return e;
-  const dim3 grid((F + BN - 1) / BN, (D + BM - 1) / BM, A);
-  encoder_bwd_tiles<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  if ((D + BD - 1) / BD > 65535 || (F + BN - 1) / BN > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = bsmem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      encoder_bwd_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int es = (int)sizeof(T);
+  const int vec_x = tc::chunk_bytes(x, D, es, x_arm_stride);
+  const int vec_g = tc::chunk_bytes(g, F, es, (long long)B * F);
+  const dim3 grid(A, (D + BD - 1) / BD, (F + BN - 1) / BN);
+  encoder_bwd_tiles<T><<<grid, BTHREADS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), x_arm_stride, static_cast<const T*>(g),
       static_cast<const uint8_t*>(mask), mode, seed, thr, scale, B, D, F,
-      static_cast<float*>(dw), static_cast<float*>(db));
+      vec_x, vec_g, static_cast<float*>(dw), static_cast<float*>(db));
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
-// product kernels (zinb_fwdbwd.cu, encoder_fc1.cu).  Device code only.
+// product kernels (zinb_rows.cuh, zinb_fwdbwd.cu, encoder_fc1.cu).  Device
+// code only.
 //
 // Products run as warp-level `mma.sync` on Hopper's tensor cores with f32
 // accumulation: m16n8k16 for bf16 operands, m16n8k8 for tf32.  f32
@@ -105,6 +106,49 @@ __device__ __forceinline__ void load_tile(T* dst, int ld_dst, const T* src,
     else
       cp_async<4>(d, s, ok);
   }
+}
+
+template <int COLS, int NT, int CHUNK, typename T>
+__device__ __forceinline__ void load_tile_chunks(T* dst, int ld_dst,
+                                                 const T* src, long long ld_src,
+                                                 int rows, int rows_ok,
+                                                 int cols_ok, int tid) {
+  constexpr int CE = CHUNK / (int)sizeof(T);
+  constexpr int PER_ROW = COLS / CE;
+  for (int i = tid; i < rows * PER_ROW; i += NT) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * CE;
+    const bool ok = r < rows_ok && c < cols_ok;
+    const T* s = ok ? src + (long long)r * ld_src + c : src;
+    cp_async<CHUNK>(dst + r * ld_dst + c, s, ok);
+  }
+}
+
+// load_tile for a tile COLS wide, copied by NT threads, both known at
+// compile time: the chunk's row and column come from a division by a
+// constant, where the generic form divides by a run-time count for every
+// chunk of every stage (measured on the H100: #5 bf16 14% and #6 f32 6%
+// faster, PERF.md §6).
+template <int COLS, int NT, typename T>
+__device__ __forceinline__ void load_tile_c(T* dst, int ld_dst, const T* src,
+                                            long long ld_src, int rows,
+                                            int rows_ok, int cols_ok,
+                                            int chunk, int tid) {
+  constexpr int E = (int)sizeof(T);
+  if constexpr (COLS % (16 / E) == 0) {
+    if (chunk == 16)
+      return load_tile_chunks<COLS, NT, 16>(dst, ld_dst, src, ld_src, rows,
+                                            rows_ok, cols_ok, tid);
+  }
+  if constexpr (COLS % (8 / E) == 0) {
+    if (chunk == 8)
+      return load_tile_chunks<COLS, NT, 8>(dst, ld_dst, src, ld_src, rows,
+                                           rows_ok, cols_ok, tid);
+  }
+  if (chunk == 4)
+    return load_tile_chunks<COLS, NT, 4>(dst, ld_dst, src, ld_src, rows,
+                                         rows_ok, cols_ok, tid);
+  load_tile(dst, ld_dst, src, ld_src, rows, COLS, rows_ok, cols_ok, chunk,
+            tid, NT);
 }
 
 // ---- tensor-core products ------------------------------------------------

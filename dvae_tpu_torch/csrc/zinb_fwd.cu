@@ -16,189 +16,63 @@
 // k = min(expm1(x), 1e12) are taken per element here, from x in its own
 // type, so no count tensor exists (the TPU op builds one outside its
 // kernel, zinb_pallas.py:588).  All f32 or all bf16; products accumulate
-// in f32, biases are added in f32.  Output (A,) f32.
+// in f32, biases are added in f32.  Output (A,) f32.  F <= 128.
 //
 // Bound at the production shape (A=5, B=5000, F=100, D=5032), one launch:
-//   three products of 2*A*B*F*D = 25.2 GFLOP -> 75.5 GFLOP, 1.13 ms in f32
-//   on the FP32 cores (67 TFLOP/s); 141 MB read in f32 -> 0.042 ms.  Bound
-//   by operations.  The bound leaves out the epilogue: A*B*D = 1.26e8
-//   elements with about nine log/exp calls and five divisions each.
-// Design: one block per (arm, 128-row tile, 64-column tile); the three
-// products run as one register-blocked SIMT GEMM sharing the h operand (8x4
-// outputs per head and thread, operands staged in shared memory as f32),
-// the loss epilogue works on the accumulators.  Each block writes its
-// partial sum; a second pass reduces the partials per arm in a fixed order
-// in double, so repeated launches agree bit for bit.  Ragged edges are
-// masked: a masked element is never read and adds exactly 0 (an unmasked
-// padded element would add -log(z + (1-z)(1-p)^r), not 0).  No tensor
-// cores yet: bf16 runs at the f32 rate.
+//   three products of 2*A*B*F*D = 25.2 GFLOP -> 75.5 GFLOP, 0.153 ms at
+//   the TF32 tensor-core peak (495 TFLOP/s) for f32 operands taken as one
+//   TF32 product, 0.076 ms at the bf16 peak (989 TFLOP/s); 141 MB read in
+//   f32 -> 0.042 ms.  Bound by operations.  The bound leaves out the
+//   epilogue, A*B*D = 1.26e8 elements with about nine log/exp calls and
+//   five divisions each, which paces the kernel; and the 3xTF32 split
+//   triples the tf32 work of f32 operands.
+//
+// Design: the value-only form (FT = 0) of the training kernel's row pass,
+// `zinb_rows` in csrc/zinb_rows.cuh: blocks (64-row tile, arm, slice of D)
+// of 4 warps, the three y tiles on the tensor cores (3xTF32 m16n8k8 for f32
+// operands, m16n8k16 for bf16), the element math on the accumulators, one
+// loss partial per block.  No dh accumulators, cotangents or dh product,
+// and a single-buffered stage: the next tiles arrive while the element
+// math, which paces the kernel, runs.  The slices of D come from the
+// training kernel's `plan` (the shape alone) and the partials are reduced
+// per arm in the same fixed order in double, so the value equals
+// zinb_fwdbwd's loss bit for bit and repeated launches agree on any card.
+// Ragged edges are masked: a masked element is never read and adds exactly
+// 0 (an unmasked padded element would add -log(z + (1-z)(1-p)^r), not 0).
 
-#include <stdint.h>
-
-#include "zinb_math.cuh"
+#include "zinb_rows.cuh"
 
 namespace {
 
-using zinb::to_f32;
-
-constexpr int BM = 128;       // rows (cells) per block tile
-constexpr int BN = 64;        // columns (genes) per block tile
-constexpr int BK = 8;         // depth (hidden units) per shared-memory stage
-constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 4 outputs per head each
-constexpr int APAD = 4;
-constexpr int REDUCE_THREADS = 256;
-
+// Floats of the loss partials one launch writes; -1 if the shape is
+// refused.
 template <typename T>
-struct Heads {
-  const T* w[3];
-  const T* b[3];
-};
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-zinb_fwd_tiles(const T* __restrict__ h, Heads<T> heads,
-               const T* __restrict__ x, long long x_arm_stride, int B, int F,
-               int D, float eps, float one_m_eps,
-               float* __restrict__ part_sum) {
-  __shared__ __align__(16) float As[BK][BM + APAD];  // h tile, transposed
-  __shared__ __align__(16) float Bs[3][BK][BN];      // the heads' W tiles
-
-  const int a = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const T* ha = h + (long long)a * B * F;
-
-  float acc[3][8][4];
-#pragma unroll
-  for (int hd = 0; hd < 3; ++hd)
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[hd][i][j] = 0.f;
-
-  for (int k0 = 0; k0 < F; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / THREADS; ++r) {
-      const int idx = tid + r * THREADS;
-      const int m = idx / BK, k = idx % BK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < B && gk < F) ? to_f32(ha[(long long)gm * F + gk]) : 0.f;
-    }
-#pragma unroll
-    for (int hd = 0; hd < 3; ++hd) {
-      const T* wa = heads.w[hd] + (long long)a * F * D;
-#pragma unroll
-      for (int r = 0; r < (BK * BN) / THREADS; ++r) {
-        const int idx = tid + r * THREADS;
-        const int k = idx / BN, n = idx % BN;
-        const int gk = k0 + k, gn = n0 + n;
-        Bs[hd][k][n] =
-            (gk < F && gn < D) ? to_f32(wa[(long long)gk * D + gn]) : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int hd = 0; hd < 3; ++hd) {
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[hd][k][tx * 4]);
-        const float bv[4] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[hd][i][j] = fmaf(av[i], bv[j], acc[hd][i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: biases, the ZINB loss against x, masked
-  const T* xa = x + (long long)a * x_arm_stride;
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + tx * 4 + j;
-    if (col >= D) continue;
-    const float b_r = to_f32(heads.b[0][(long long)a * D + col]);
-    const float b_p = to_f32(heads.b[1][(long long)a * D + col]);
-    const float b_z = to_f32(heads.b[2][(long long)a * D + col]);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = m0 + ((i < 4) ? (ty * 4 + i) : (64 + ty * 4 + (i - 4)));
-      if (row >= B) continue;
-      const float xv = to_f32(xa[(long long)row * D + col]);
-      float loss, g0, g1, g2;
-      zinb::element<true, false, false>(acc[0][i][j] + b_r, acc[1][i][j] + b_p,
-                                        acc[2][i][j] + b_z, xv, eps, one_m_eps,
-                                        1.f, loss, g0, g1, g2);
-      s += loss;
-    }
-  }
-
-  // block reduction in a fixed order: warp shuffles, then thread 0
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  __shared__ float warp_s[THREADS / 32];
-  const int lane = tid % 32, warp = tid / 32;
-  if (lane == 0) warp_s[warp] = s;
-  __syncthreads();
-  if (tid == 0) {
-    float bs = 0.f;
-    for (int i = 0; i < THREADS / 32; ++i) bs += warp_s[i];
-    part_sum[((long long)a * gridDim.y + blockIdx.y) * gridDim.x +
-             blockIdx.x] = bs;
-  }
-}
-
-// Second pass: one block per arm sums that arm's partials in a fixed order.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-zinb_fwd_reduce(const float* __restrict__ part_sum, int n_per_arm,
-                float* __restrict__ out) {
-  const int a = blockIdx.x;
-  const int tid = threadIdx.x;
-  double s = 0.0;
-  for (int i = tid; i < n_per_arm; i += REDUCE_THREADS)
-    s += (double)part_sum[(long long)a * n_per_arm + i];
-  __shared__ double ss[REDUCE_THREADS];
-  ss[tid] = s;
-  __syncthreads();
-  for (int stride = REDUCE_THREADS / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) ss[tid] += ss[tid + stride];
-    __syncthreads();
-  }
-  if (tid == 0) out[a] = (float)ss[0];
+long long partials(int A, int B, int F, int D) {
+  if (!shape_ok(A, B, F, D)) return -1;
+  const RowPlan p = plan<T>(A, B, D);
+  return (long long)A * p.row_tiles * p.n_split;
 }
 
 template <typename T>
-int launch(const void* h, const void* w_r, const void* b_r, const void* w_p,
-           const void* b_p, const void* w_z, const void* b_z, const void* x,
-           long long x_arm_stride, int A, int B, int F, int D, float eps,
-           float one_m_eps, void* part_sum, void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Heads<T> heads;
-  heads.w[0] = static_cast<const T*>(w_r);
-  heads.w[1] = static_cast<const T*>(w_p);
-  heads.w[2] = static_cast<const T*>(w_z);
-  heads.b[0] = static_cast<const T*>(b_r);
-  heads.b[1] = static_cast<const T*>(b_p);
-  heads.b[2] = static_cast<const T*>(b_z);
-  const dim3 grid((D + BN - 1) / BN, (B + BM - 1) / BM, A);
-  zinb_fwd_tiles<T><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(h), heads, static_cast<const T*>(x), x_arm_stride,
-      B, F, D, eps, one_m_eps, static_cast<float*>(part_sum));
-  cudaError_t err = cudaGetLastError();
+int launch(const Args& p, void* part_sum, void* out, void* stream) {
+  if (!shape_ok(p.A, p.B, p.F, p.D)) return (int)cudaErrorInvalidValue;
+  const RowPlan plan_ = plan<T>(p.A, p.B, p.D);
+  auto kern = zinb_rows<T, true, false, 0>;
+  const size_t smem = smem_rows<T>(p.F, false);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  zinb_fwd_reduce<<<A, REDUCE_THREADS, 0, st>>>(
-      static_cast<const float*>(part_sum), (int)(grid.x * grid.y),
-      static_cast<float*>(out));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(part_sum);
+  const dim3 grid(plan_.row_tiles, p.A, plan_.n_split);
+  kern<<<grid, THREADS1, smem, st>>>(
+      static_cast<const T*>(p.h), heads_of<T>(p), static_cast<const T*>(p.x),
+      p.x_arm_stride, nullptr, p.B, p.F, p.D, plan_.cols_per_split, p.eps,
+      p.one_m_eps, vec_h_of<T>(p), vec_of<T>(p), part, Partials{});
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  zinb_loss_reduce<<<p.A, REDUCE_THREADS, 0, st>>>(
+      part, plan_.row_tiles * plan_.n_split, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -206,31 +80,22 @@ int launch(const void* h, const void* w_r, const void* b_r, const void* w_p,
 
 extern "C" {
 
-// Number of per-block partials the scratch buffer holds for each arm.
-long long zinb_fwd_partials_per_arm(int B, int D) {
-  return (long long)((D + BN - 1) / BN) * ((B + BM - 1) / BM);
+// Floats of scratch (the loss partials) one launch needs; -1 if the shape
+// is refused.
+long long zinb_fwd_workspace(int bf16, int A, int B, int F, int D) {
+  return bf16 ? partials<__nv_bfloat16>(A, B, F, D)
+              : partials<float>(A, B, F, D);
 }
 
-// Largest row count one launch takes (grid.y limit).
-long long zinb_fwd_max_rows() { return 65535LL * BM; }
+// Largest row count one launch takes (row tiles on the grid's x axis).
+long long zinb_fwd_max_rows() { return 0x7fffffffLL - BM1; }
 
-int zinb_fwd_f32(const void* h, const void* w_r, const void* b_r,
-                 const void* w_p, const void* b_p, const void* w_z,
-                 const void* b_z, const void* x, long long x_arm_stride, int A,
-                 int B, int F, int D, float eps, float one_m_eps,
-                 void* part_sum, void* out, void* stream) {
-  return launch<float>(h, w_r, b_r, w_p, b_p, w_z, b_z, x, x_arm_stride, A, B,
-                       F, D, eps, one_m_eps, part_sum, out, stream);
+int zinb_fwd_f32(ZINB_ARGS, void* part_sum, void* out, void* stream) {
+  return launch<float>(ZINB_PACK, part_sum, out, stream);
 }
 
-int zinb_fwd_bf16(const void* h, const void* w_r, const void* b_r,
-                  const void* w_p, const void* b_p, const void* w_z,
-                  const void* b_z, const void* x, long long x_arm_stride,
-                  int A, int B, int F, int D, float eps, float one_m_eps,
-                  void* part_sum, void* out, void* stream) {
-  return launch<__nv_bfloat16>(h, w_r, b_r, w_p, b_p, w_z, b_z, x,
-                               x_arm_stride, A, B, F, D, eps, one_m_eps,
-                               part_sum, out, stream);
+int zinb_fwd_bf16(ZINB_ARGS, void* part_sum, void* out, void* stream) {
+  return launch<__nv_bfloat16>(ZINB_PACK, part_sum, out, stream);
 }
 
 }  // extern "C"

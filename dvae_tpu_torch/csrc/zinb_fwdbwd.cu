@@ -44,9 +44,10 @@
 // column group) blocks with dh and dW partials in a workspace (190-800 MB
 // of scratch, next to a limit of one (A,B,D) tensor, 503 MB, for the whole
 // step) against two passes with the forward recomputed; two passes:
-//   pass 1, `zinb_rows`, blocks (64-row tile, arm, slice of D) of 4 warps,
-//     each warp 16 rows, walking the slice 8 (f32) or 16 (bf16) columns a
-//     step: three y tiles = h W_* (K = F), the element math (loss
+//   pass 1, `zinb_rows` (csrc/zinb_rows.cuh, whose value-only form is the
+//     forward #6 of zinb_fwd.cu), blocks (64-row tile, arm, slice of D) of
+//     4 warps, each warp 16 rows, walking the slice 8 (f32) or 16 (bf16)
+//     columns a step: three y tiles = h W_* (K = F), the element math (loss
 //     partials, cotangents), then dh += sum_heads g_* W_*^T with the
 //     cotangents taken straight from the y accumulators in registers as A
 //     fragments (for tf32 the k order of a step is permuted to (0,2,4,6,
@@ -80,82 +81,11 @@
 // a fixed order that depends on the shape alone, so repeated launches are
 // bit-identical, on any card.
 
-#include <stdint.h>
-
-#include <type_traits>
-
-#include "mma.cuh"
-#include "zinb_math.cuh"
+#include "zinb_rows.cuh"  // pass 1, the plan, the loss reduction
 
 namespace {
 
-using zinb::round_as;
-using zinb::to_f32;
-
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<float> {
-  static constexpr int KS = 8;    // k of one mma (tf32)
-  static constexpr int BN1 = 8;   // columns of a pass-1 step
-  static constexpr int LDW1 = 8;  // pitches of the pass-1 W and x tiles
-  static constexpr int LDX1 = 8;
-  static constexpr int HPAD = 4;  // h tile pitch = padded F + HPAD
-  // pass 2 keeps the cotangents split, {hi, lo} pairs (GELEM floats each)
-  static constexpr int LDW2 = 40, LDX2 = 36, LDG2 = 34, GELEM = 2;
-  static constexpr int STAGES2 = 2;
-};
-template <>
-struct Cfg<__nv_bfloat16> {
-  static constexpr int KS = 16;
-  static constexpr int BN1 = 16;
-  static constexpr int LDW1 = 24;
-  static constexpr int LDX1 = 24;
-  static constexpr int HPAD = 8;
-  static constexpr int LDW2 = 40, LDX2 = 40, LDG2 = 40, GELEM = 1;
-  static constexpr int STAGES2 = 3;
-};
-// The pitches keep every fragment load of a warp on 32 distinct banks (or
-// 8 distinct 16-byte groups for ldmatrix).
-
-constexpr int BM1 = 64, THREADS1 = 128, STAGES1 = 2;  // pass 1
-constexpr int BN2 = 32, BM2 = 32, THREADS2 = 256;     // pass 2
-constexpr int FP = 128;                               // largest F
-constexpr int MAX_SPLIT = 8;
-// Block slots the row plan fills: an H100 SXM's 132 SMs at pass 1's four
-// blocks an SM.  A constant, not the card's count, so that the plan, and
-// with it the order of the dh sums, depends on the shape alone: the bits
-// of dh are the same on every card.
-constexpr long long PLAN_SLOTS = 132 * 4;
-constexpr int MAX_SPILL = 2;  // dh partials beyond the dW buffer's room
-constexpr int REDUCE_THREADS = 256;
-// f32 y products: k steps of 8 summed apart before they join the
-// accumulator (tc::add4); the tensor cores round each sum toward zero
-constexpr int RUN_K = 4;
-
-template <typename T>
-struct Heads {
-  const T* w[3];
-  const T* b[3];
-};
-
-__host__ __device__ inline int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-// F rounded to the k of one mma: the depth of the y products
-template <typename T>
-__host__ __device__ inline int fk(int F) {
-  return round_up(F, Cfg<T>::KS);
-}
-
-template <typename T>
-size_t smem_rows(int F) {
-  const int FK = fk<T>(F);
-  return sizeof(T) *
-         ((size_t)BM1 * (FK + Cfg<T>::HPAD) +
-          (size_t)STAGES1 * (3 * (size_t)FK * Cfg<T>::LDW1 +
-                             (size_t)BM1 * Cfg<T>::LDX1));
-}
+constexpr int BN2 = 32, BM2 = 32, THREADS2 = 256;  // pass 2
 
 template <typename T>
 size_t smem_cols(int F) {
@@ -164,251 +94,6 @@ size_t smem_cols(int F) {
   return sizeof(T) * (3 * (size_t)FK * C::LDW2 +
                       (size_t)C::STAGES2 * BM2 * (ldh + C::LDX2) +
                       3 * (size_t)BM2 * C::LDG2 * C::GELEM);
-}
-
-// Where the dh partial of slice s goes: slice 0 into dh itself, the next
-// `n_in_dw` into the dW buffer (pass 2 overwrites it afterwards), the rest
-// into the spill buffer.
-struct Partials {
-  float* dh;
-  float* in_dw;
-  float* spill;
-  long long stride;  // A * B * F
-  int n_in_dw;
-  __device__ float* part(int s) const {
-    if (s == 0) return dh;
-    s -= 1;
-    return s < n_in_dw ? in_dw + s * stride
-                       : spill + (s - n_in_dw) * stride;
-  }
-};
-
-// ---------------------------------------------------------------------------
-// Pass 1: grid (ceil(B/BM1), A, n_split).  Loss partials (LOSS) and dh.
-// FT: the number of 8-wide tiles of F the dh accumulators cover.
-// ---------------------------------------------------------------------------
-template <typename T, bool LOSS, bool TWO_DIGAMMA, int FT>
-__global__ void __launch_bounds__(THREADS1, 4)
-zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
-          long long x_arm_stride, const float* __restrict__ g, int B, int F,
-          int D, int cols_per_split, float eps, float one_m_eps, int vec_h,
-          int vec_d, float* __restrict__ part_sum, Partials dhp) {
-  using C = Cfg<T>;
-  constexpr bool F32 = std::is_same<T, float>::value;
-  constexpr int NJ = C::BN1 / 8;  // n-tiles of a step
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const sm = reinterpret_cast<T*>(smem_raw);
-  const int FK = fk<T>(F);
-  const int LDH = FK + C::HPAD;
-  const int w_elems = FK * C::LDW1;  // one head's W tile
-  const int stage_elems = 3 * w_elems + BM1 * C::LDX1;
-  T* const Hs = sm;
-  T* const stages = sm + BM1 * LDH;
-
-  const int a = blockIdx.y;
-  const int m0 = blockIdx.x * BM1;
-  const int split = blockIdx.z;
-  const int d_begin = split * cols_per_split;
-  const int d_end = min(D, d_begin + cols_per_split);
-  const int nsteps =
-      d_end > d_begin ? (d_end - d_begin + C::BN1 - 1) / C::BN1 : 0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int r0 = warp * 16;  // the warp's rows of the tile
-  const T* ha = h + (long long)a * B * F;
-  const T* xa = x + (long long)a * x_arm_stride;
-  const float ga = g ? g[a] : 1.f;
-
-  auto issue = [&](int step) {
-    T* st = stages + (step % STAGES1) * stage_elems;
-    const int col0 = d_begin + step * C::BN1;
-#pragma unroll
-    for (int hd = 0; hd < 3; ++hd)
-      tc::load_tile(st + hd * w_elems, C::LDW1,
-                    heads.w[hd] + (long long)a * F * D + col0, D, FK, C::BN1,
-                    F, D - col0, vec_d, tid, THREADS1);
-    tc::load_tile(st + 3 * w_elems, C::LDX1, xa + (long long)m0 * D + col0,
-                  D, BM1, C::BN1, B - m0, D - col0, vec_d, tid, THREADS1);
-  };
-
-  tc::load_tile(Hs, LDH, ha + (long long)m0 * F, F, BM1, FK, B - m0, F,
-                vec_h, tid, THREADS1);
-  if (nsteps > 0) issue(0);
-  tc::cp_commit();
-
-  float dacc[FT][4];
-#pragma unroll
-  for (int n = 0; n < FT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dacc[n][i] = 0.f;
-  float s = 0.f;
-
-  for (int step = 0; step < nsteps; ++step) {
-    tc::cp_wait<0>();
-    __syncthreads();  // this step's tiles are in; the other buffer is free
-    if (step + 1 < nsteps) issue(step + 1);
-    tc::cp_commit();
-    const T* Ws = stages + (step % STAGES1) * stage_elems;
-    const T* Xs = Ws + 3 * w_elems;
-    const int col0 = d_begin + step * C::BN1;
-
-    // y = h W_* of the warp's 16 rows and the step's columns
-    float acc[3][NJ][4];
-#pragma unroll
-    for (int hd = 0; hd < 3; ++hd)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[hd][j][i] = 0.f;
-    float run[3][4];  // f32: a run of RUN_K k steps, summed apart
-    for (int kk = 0; kk < FK; kk += C::KS) {
-      if constexpr (F32) {
-        const float* hr = Hs + (r0 + gq) * LDH + kk + tq;
-        const tc::SplitA A =
-            tc::split_a(hr[0], hr[8 * LDH], hr[4], hr[8 * LDH + 4]);
-        const bool first = kk % (8 * RUN_K) == 0;
-        const bool last = kk % (8 * RUN_K) == 8 * (RUN_K - 1) || kk + 8 >= FK;
-#pragma unroll
-        for (int hd = 0; hd < 3; ++hd) {
-          const float* wc = Ws + hd * w_elems + (kk + tq) * C::LDW1 + gq;
-          if (first) tc::zero4(run[hd]);
-          tc::mma_3xtf32(run[hd], run[hd], A,
-                         tc::split_b(wc[0], wc[4 * C::LDW1]));
-          if (last) tc::add4(acc[hd][0], run[hd]);
-        }
-      } else {
-        const T* hr = Hs + (r0 + gq) * LDH + kk + 2 * tq;
-        const uint32_t A[4] = {tc::ld_u32(hr), tc::ld_u32(hr + 8 * LDH),
-                               tc::ld_u32(hr + 8),
-                               tc::ld_u32(hr + 8 * LDH + 8)};
-        const int q = lane >> 3;
-#pragma unroll
-        for (int hd = 0; hd < 3; ++hd) {
-          uint32_t b[4];
-          tc::ldsm_x4_t(b, Ws + hd * w_elems +
-                               (kk + (q & 1) * 8 + (lane & 7)) * C::LDW1 +
-                               (q >> 1) * 8);
-          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-          tc::mma_bf16(acc[hd][0], A, b0);
-          tc::mma_bf16(acc[hd][1], A, b1);
-        }
-      }
-    }
-
-    // element math: the accumulators become the cotangents in place
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cl = 8 * j + 2 * tq + e;
-        const int col = col0 + cl;
-        const bool col_ok = col < D;
-        float bias[3] = {0.f, 0.f, 0.f};
-        if (col_ok) {
-#pragma unroll
-          for (int hd = 0; hd < 3; ++hd)
-            bias[hd] = to_f32(heads.b[hd][(long long)a * D + col]);
-        }
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int rl = r0 + gq + 8 * half;
-          const int i = half * 2 + e;
-          float loss = 0.f, g_r = 0.f, g_p = 0.f, g_z = 0.f;
-          if (col_ok && m0 + rl < B) {
-            const float xv = to_f32(Xs[rl * C::LDX1 + cl]);
-            zinb::element<LOSS, true, TWO_DIGAMMA>(
-                acc[0][j][i] + bias[0], acc[1][j][i] + bias[1],
-                acc[2][j][i] + bias[2], xv, eps, one_m_eps, ga, loss, g_r,
-                g_p, g_z);
-          }
-          if (LOSS) s += loss;
-          acc[0][j][i] = g_r;
-          acc[1][j][i] = g_p;
-          acc[2][j][i] = g_z;
-        }
-      }
-    }
-
-    // dh += sum_heads g_* W_*^T, the cotangents as A fragments; each
-    // step's three heads are summed apart and then added (see add4)
-    if constexpr (F32) {
-      // k slot t <-> column 2t, slot t+4 <-> column 2t+1
-      tc::SplitA Ag[3];
-#pragma unroll
-      for (int hd = 0; hd < 3; ++hd)
-        Ag[hd] = tc::split_a(acc[hd][0][0], acc[hd][0][2], acc[hd][0][1],
-                             acc[hd][0][3]);
-#pragma unroll
-      for (int n = 0; n < FT; ++n) {
-        if (8 * n < FK) {
-          float t[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int hd = 0; hd < 3; ++hd) {
-            const float2 wv = *reinterpret_cast<const float2*>(
-                Ws + hd * w_elems + (8 * n + gq) * C::LDW1 + 2 * tq);
-            tc::mma_3xtf32(t, u, Ag[hd], tc::split_b(wv.x, wv.y));
-          }
-          tc::add4(dacc[n], t, u);
-        }
-      }
-    } else {
-      uint32_t Ag[3][4];
-#pragma unroll
-      for (int hd = 0; hd < 3; ++hd) {
-        Ag[hd][0] = tc::pack_bf16(acc[hd][0][0], acc[hd][0][1]);
-        Ag[hd][1] = tc::pack_bf16(acc[hd][0][2], acc[hd][0][3]);
-        Ag[hd][2] = tc::pack_bf16(acc[hd][1][0], acc[hd][1][1]);
-        Ag[hd][3] = tc::pack_bf16(acc[hd][1][2], acc[hd][1][3]);
-      }
-#pragma unroll
-      for (int n = 0; n < FT; ++n) {
-        if (8 * n < FK) {
-          float t[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int hd = 0; hd < 3; ++hd) {
-            const T* wr = Ws + hd * w_elems + (8 * n + gq) * C::LDW1 + 2 * tq;
-            const uint32_t b[2] = {tc::ld_u32(wr), tc::ld_u32(wr + 8)};
-            tc::mma_bf16(t, Ag[hd], b);
-          }
-          tc::add4(dacc[n], t);
-        }
-      }
-    }
-  }
-
-  tc::cp_wait<0>();  // nothing in flight when the block ends
-
-  // this slice's dh partial
-  float* dst = dhp.part(split) + (long long)a * B * F;
-#pragma unroll
-  for (int n = 0; n < FT; ++n) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + r0 + gq + 8 * half;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int f = 8 * n + 2 * tq + e;
-        if (row < B && f < F)
-          dst[(long long)row * F + f] = dacc[n][half * 2 + e];
-      }
-    }
-  }
-
-  if (LOSS) {
-    // block reduction of the loss in a fixed order
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    __shared__ float warp_s[THREADS1 / 32];
-    if (lane == 0) warp_s[warp] = s;
-    __syncthreads();
-    if (tid == 0) {
-      float bs = 0.f;
-      for (int i = 0; i < THREADS1 / 32; ++i) bs += warp_s[i];
-      part_sum[((long long)a * gridDim.x + blockIdx.x) * gridDim.z + split] =
-          bs;
-    }
-  }
 }
 
 // dh = the slices' partials added in slice order.
@@ -691,88 +376,14 @@ zinb_cols(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
   }
 }
 
-// One block per arm sums that arm's loss partials in a fixed order.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-zinb_fwdbwd_reduce(const float* __restrict__ part_sum, int n_per_arm,
-                   float* __restrict__ out) {
-  const int a = blockIdx.x;
-  const int tid = threadIdx.x;
-  double s = 0.0;
-  for (int i = tid; i < n_per_arm; i += REDUCE_THREADS)
-    s += (double)part_sum[(long long)a * n_per_arm + i];
-  __shared__ double ss[REDUCE_THREADS];
-  ss[tid] = s;
-  __syncthreads();
-  for (int stride = REDUCE_THREADS / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) ss[tid] += ss[tid + stride];
-    __syncthreads();
-  }
-  if (tid == 0) out[a] = (float)ss[0];
-}
-
-struct Args {
-  const void *h, *w_r, *b_r, *w_p, *b_p, *w_z, *b_z, *x;
-  long long x_arm_stride;
-  int A, B, F, D;
-  float eps, one_m_eps;
-};
-
-// How pass 1 cuts D: n_split slices of cols_per_split columns (a multiple
-// of the step), chosen so that the grid fills whole waves of PLAN_SLOTS
-// blocks; ties go to fewer slices.  At A=5, D=5032: B=5000 gives 4 slices
-// of 1,264 columns, the 3 partials beyond dh's own kept in the dW buffer
-// (none spilled); B=2000 gives 3 slices.
-struct RowPlan {
-  int n_split, cols_per_split, row_tiles, n_in_dw, n_spill;
-};
-
-template <typename T>
-RowPlan plan(int A, int B, int D) {
-  RowPlan p;
-  p.row_tiles = (B + BM1 - 1) / BM1;
-  const int chunks = (D + Cfg<T>::BN1 - 1) / Cfg<T>::BN1;
-  // room for partials in the dW buffer (3*A*F*D floats)
-  const long long cap = (3LL * D) / B;
-  double best = -1.0;
-  p.n_split = 1;
-  for (int n = 1; n <= MAX_SPLIT && n <= chunks; ++n) {
-    if (n - 1 - cap > MAX_SPILL) break;
-    const long long blocks = (long long)p.row_tiles * A * n;
-    const long long waves = (blocks + PLAN_SLOTS - 1) / PLAN_SLOTS;
-    const double eff = (double)blocks / (double)(waves * PLAN_SLOTS);
-    if (eff > best + 1e-9) {
-      best = eff;
-      p.n_split = n;
-    }
-  }
-  const int per = (chunks + p.n_split - 1) / p.n_split;
-  p.cols_per_split = per * Cfg<T>::BN1;
-  p.n_in_dw = (int)(cap < p.n_split - 1 ? cap : p.n_split - 1);
-  p.n_spill = p.n_split - 1 - p.n_in_dw;
-  return p;
-}
-
 // Floats of scratch a launch needs: the loss partials, then the spilled
 // dh partials.
 template <typename T>
 long long workspace_floats(int A, int B, int F, int D) {
-  if (F < 1 || F > FP || A < 1 || B < 1 || D < 1) return -1;
+  if (!shape_ok(A, B, F, D)) return -1;
   const RowPlan p = plan<T>(A, B, D);
   return (long long)A * p.row_tiles * p.n_split +
          (long long)p.n_spill * A * B * F;
-}
-
-template <typename T>
-int vec_of(const Args& p) {
-  // chunk size every operand row allows (the W tiles and x share one)
-  const int e = (int)sizeof(T);
-  int vd = tc::chunk_bytes(p.x, p.D, e, p.x_arm_stride);
-  const void* ws[3] = {p.w_r, p.w_p, p.w_z};
-  for (int i = 0; i < 3; ++i) {
-    const int c = tc::chunk_bytes(ws[i], p.D, e, (long long)p.F * p.D);
-    vd = c < vd ? c : vd;
-  }
-  return vd;
 }
 
 template <typename T, bool SEPARATE, int FT>
@@ -786,7 +397,7 @@ int launch_rows(const Args& p, const Heads<T>& heads, const float* g,
   parts.n_in_dw = plan.n_in_dw;
   parts.spill = work + (long long)p.A * plan.row_tiles * plan.n_split;
   auto kern = zinb_rows<T, !SEPARATE, SEPARATE, FT>;
-  const size_t smem = smem_rows<T>(p.F);
+  const size_t smem = smem_rows<T>(p.F, true);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -808,7 +419,7 @@ int launch_rows(const Args& p, const Heads<T>& heads, const float* g,
 template <typename T, bool SEPARATE>
 int launch(const Args& p, const void* g, void* work, void* out, void* dh,
            void* dw, void* db, void* stream) {
-  if (p.F > FP || p.F < 1 || p.A > 65535) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(p.A, p.B, p.F, p.D)) return (int)cudaErrorInvalidValue;
   const RowPlan plan_ = plan<T>(p.A, p.B, p.D);
   const size_t smem2 = smem_cols<T>(p.F);
   cudaError_t ce = cudaFuncSetAttribute(
@@ -816,17 +427,10 @@ int launch(const Args& p, const void* g, void* work, void* out, void* dh,
       (int)smem2);
   if (ce != cudaSuccess) return (int)ce;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Heads<T> heads;
-  heads.w[0] = static_cast<const T*>(p.w_r);
-  heads.w[1] = static_cast<const T*>(p.w_p);
-  heads.w[2] = static_cast<const T*>(p.w_z);
-  heads.b[0] = static_cast<const T*>(p.b_r);
-  heads.b[1] = static_cast<const T*>(p.b_p);
-  heads.b[2] = static_cast<const T*>(p.b_z);
+  const Heads<T> heads = heads_of<T>(p);
   const float* gp = static_cast<const float*>(g);
   float* wk = static_cast<float*>(work);
-  const int vec_h =
-      tc::chunk_bytes(p.h, p.F, (int)sizeof(T), (long long)p.B * p.F);
+  const int vec_h = vec_h_of<T>(p);
   const int vec_d = vec_of<T>(p);
   int e = p.F <= 104
           ? launch_rows<T, SEPARATE, 13>(p, heads, gp, plan_, wk,
@@ -845,7 +449,7 @@ int launch(const Args& p, const void* g, void* work, void* out, void* dh,
       vec_d, static_cast<float*>(dw), static_cast<float*>(db));
   ce = cudaGetLastError();
   if (ce != cudaSuccess || SEPARATE) return (int)ce;
-  zinb_fwdbwd_reduce<<<p.A, REDUCE_THREADS, 0, st>>>(
+  zinb_loss_reduce<<<p.A, REDUCE_THREADS, 0, st>>>(
       wk, plan_.row_tiles * plan_.n_split, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
@@ -863,15 +467,6 @@ long long zinb_fwdbwd_workspace(int bf16, int A, int B, int F, int D) {
 
 // Largest hidden width F the kernels take.
 int zinb_fwdbwd_max_f() { return FP; }
-
-#define ZINB_ARGS                                                           \
-  const void *h, const void *w_r, const void *b_r, const void *w_p,         \
-      const void *b_p, const void *w_z, const void *b_z, const void *x,     \
-      long long x_arm_stride, int A, int B, int F, int D, float eps,        \
-      float one_m_eps
-#define ZINB_PACK                                                           \
-  Args { h, w_r, b_r, w_p, b_p, w_z, b_z, x, x_arm_stride, A, B, F, D, eps, \
-         one_m_eps }
 
 int zinb_fwdbwd_f32(ZINB_ARGS, void* work, void* out, void* dh, void* dw,
                     void* db, void* stream) {

@@ -15,7 +15,8 @@ design) carry both directions:
     on the tensor cores (bf16, or 3xTF32 for f32 operands), counted by
     ``encoder_fwd.launches``;
   * ``encoder_bwd`` — kernel #5 (``_bwd_kernel``, encoder_pallas.py:137),
-    counted by ``encoder_bwd.launches``.
+    on the tensor cores too (the dropped x enters transposed: the
+    contraction runs over the rows), counted by ``encoder_bwd.launches``.
 
 Without an explicit ``mask`` the keep-mask is drawn inside the kernels by a
 counter-based Philox4x32-10 keyed by ``seed`` and counted by

@@ -16,8 +16,11 @@ Three hand-written CUDA kernels carry it; each source note states its
 bound and its design:
 
   * ``csrc/zinb_fwd.cu`` — the value-only forward that eval and validation
-    run (``_fwd_kernel``, zinb_pallas.py:269); launched by ``fused_zinb``
-    when no gradient is asked for, counted by ``fused_zinb.launches``;
+    run (``_fwd_kernel``, zinb_pallas.py:269): the value-only form of the
+    training kernel's row pass (``csrc/zinb_rows.cuh``), its products on
+    the tensor cores, its value equal to the training kernel's loss bit for
+    bit; launched by ``fused_zinb`` when no gradient is asked for, counted
+    by ``fused_zinb.launches``;
   * ``csrc/zinb_fwdbwd.cu`` — the training forward with the unscaled
     gradients in the same call (``_fwdbwd_kernel``, zinb_pallas.py:450),
     its products on the tensor cores (bf16, or 3xTF32 for f32 operands);
@@ -278,8 +281,8 @@ def _lib_fwd() -> ctypes.CDLL:
         for fn in (lib.zinb_fwd_f32, lib.zinb_fwd_bf16):
             fn.argtypes = _HEAD_ARGTYPES + [ctypes.c_void_p] * 3
             fn.restype = ctypes.c_int
-        lib.zinb_fwd_partials_per_arm.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.zinb_fwd_partials_per_arm.restype = ctypes.c_longlong
+        lib.zinb_fwd_workspace.argtypes = [ctypes.c_int] * 5
+        lib.zinb_fwd_workspace.restype = ctypes.c_longlong
         lib.zinb_fwd_max_rows.argtypes = []
         lib.zinb_fwd_max_rows.restype = ctypes.c_longlong
         lib._dvae_bound = True
@@ -345,8 +348,12 @@ def _zinb_value(h, w_r, b_r, w_p, b_p, w_z, b_z, x, eps):
     lib = _lib_fwd()
     if B > lib.zinb_fwd_max_rows():
         raise ValueError(f"B={B} rows exceed one launch's grid")
-    n_part = int(lib.zinb_fwd_partials_per_arm(B, D))
-    part = torch.empty(A * n_part, device=h.device, dtype=torch.float32)
+    n_part = int(lib.zinb_fwd_workspace(int(dtype == torch.bfloat16),
+                                        A, B, F, D))
+    if n_part < 0:
+        raise ValueError(f"zinb_fwd refuses the shape A={A}, B={B}, F={F}, "
+                         f"D={D}")
+    part = torch.empty(n_part, device=h.device, dtype=torch.float32)
     out = torch.empty((A,), device=h.device, dtype=torch.float32)
     fn = lib.zinb_fwd_f32 if dtype == torch.float32 else lib.zinb_fwd_bf16
     with torch.cuda.device(h.device):

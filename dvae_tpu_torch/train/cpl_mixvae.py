@@ -27,9 +27,13 @@ reconstruction-loss ones.  ``aug_file`` loads a frozen augmenter
 (``augment/augmenter.py``): every arm then trains on, and is evaluated
 on, its own noisy view of each batch, made on the device inside the chunk.
 
+``save_plots`` (the default, as in the JAX package) writes the loss curve
+and every arm pair's consensus matrix into the run folder at the end of
+training (``utils/plots.py``).
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: streaming (``stream``, and the switch to it when the dataset does
-not fit the device), a mesh of several devices and ``save_plots``.
+not fit the device) and a mesh of several devices.
 """
 
 from __future__ import annotations
@@ -364,7 +368,7 @@ class CplMixVAE:
               temp: Optional[float] = None,
               early_stop_consensus: Optional[float] = None,
               run_name: Optional[str] = None,
-              save_plots: bool = False) -> str:
+              save_plots: bool = True) -> str:
         """Main and pruning phases (reference ``train``,
         cpl_mixvae.py:323-1448; dvae_tpu/train/cpl_mixvae.py:420-600).
         Returns the final checkpoint's path.
@@ -375,11 +379,12 @@ class CplMixVAE:
         ``train_idx`` (and ``val_idx`` for validation) under ref_prior.
         After ``load_model`` the checkpoint's progress carries over:
         completed main epochs and prune iterations count.  ``run_name`` is
-        accepted for the JAX signature (it named a wandb run)."""
+        accepted for the JAX signature (it named a wandb run).
+        ``save_plots``: at the end, with a run folder, write the loss curve
+        and the consensus matrices there (one more labelling pass over
+        ``x_train``)."""
         if self.state is None:
             raise RuntimeError("call init_model or load_model first")
-        if save_plots:
-            raise _not_ported("save_plots", "plots")
         cfg, tcfg = self.cfg, self.tcfg
         self._refuse_later_slices(cfg, tcfg)
         temp = self.temp if temp is None else temp
@@ -442,6 +447,14 @@ class CplMixVAE:
                             or newest_checkpoint(self.folder) or "")
                 else:
                     path = self.save_checkpoint(f"epoch_{self.state.epoch}")
+                if (self.folder and save_plots and not self._preempted()
+                        and not self._halted):
+                    from dvae_tpu_torch.utils.plots import (
+                        save_training_artifacts)
+                    labels = self._predict_labels(x_all, temp)
+                    save_training_artifacts(self.folder, logger.history,
+                                            labels=labels,
+                                            K=cfg.n_categories)
         finally:
             self._preempt = None
             logger.finish()

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from dvae_tpu.ops import encoder_pallas
 from dvae_tpu_torch.ops import _build, encoder
 # the tensor core's tf32 rounding, modelled once for both kernels' tests
-from test_torch_zinb import _mma_3xtf32, _tf32
+from test_torch_zinb import _mma_3xtf32, _rz, _tf32
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 F32_GRAD = dict(rtol=2e-4, atol=2e-4)
@@ -239,3 +239,62 @@ def test_split_tf32_product_keeps_f32_accuracy_at_depth_5032(rate):
     assert np.abs(carried - exact).max() / scale > 1e-5
     plain = _tf32(x).astype(np.float64) @ _tf32(w).astype(np.float64)
     assert np.abs(plain - exact).max() / scale > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's plan: xᵀ g over the rows, runs of one stage
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _mma_bf16(a, b, run=64, carry=False):
+    """a @ b as the bf16 tensor-core products form it: per mma 16 values
+    of k whose products are exact, summed with the accumulator and rounded
+    toward zero; per run of ``run`` values of k from zero, the run then
+    added to the f32 accumulator rounded to nearest (``carry``: one
+    accumulator carried through every mma)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for r0 in range(0, a.shape[1], run):
+        t = acc if carry else np.zeros_like(acc)
+        for k0 in range(r0, min(r0 + run, a.shape[1]), 16):
+            k = slice(k0, k0 + 16)
+            t = _rz(t + a[:, k].astype(np.float64) @ b[k].astype(np.float64))
+        acc = t if carry else (acc + t).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_plan_keeps_f32_accuracy_at_depth_5000(dtype):
+    """One block of kernel #5 at the production depth: dW1 = xᵀ g for 64
+    genes and F = 100 padded to 104, over B = 5000 rows of dropped x (rate
+    0.5) and a cotangent of both signs, summed as the kernel sums it (one
+    stage at a time from zero: 32 rows of 3xTF32 products for f32, 64
+    rows of bf16 products; the stage's sum added rounded to nearest).
+    Within 1e-6 of the f64 product (max |Δ| / max |f64|), the margin under
+    the chip check's 1e-5 for both types.  One accumulator carried through
+    every mma misses that margin: in f32 (1,875 mma) by more than the
+    tolerance itself, in bf16 (313 mma) by a factor of three."""
+    r = np.random.default_rng(23)
+    x = np.maximum(r.standard_normal((5000, 64)), 0).astype(np.float32)
+    x = np.where(r.random(x.shape) >= 0.5, x * np.float32(2.0),
+                 np.float32(0))
+    g = np.zeros((5000, 104), np.float32)
+    g[:, :100] = r.standard_normal((5000, 100))
+    if dtype == "bfloat16":
+        x, g = _bf16(x), _bf16(g)
+    xt = x.T.copy()
+    exact = xt.astype(np.float64) @ g.astype(np.float64)
+    scale = np.abs(exact).max()
+    if dtype == "float32":
+        got, carried = (_mma_3xtf32(xt, g, run=32),
+                        _mma_3xtf32(xt, g, carry=True))
+    else:
+        got, carried = _mma_bf16(xt, g), _mma_bf16(xt, g, carry=True)
+    assert np.abs(got - exact).max() / scale <= 1e-6
+    assert not got[:, 100:].any()  # padding columns stay 0
+    miss = np.abs(carried - exact).max() / scale
+    assert miss > (1e-5 if dtype == "float32" else 3e-6)

@@ -522,8 +522,6 @@ def test_trainer_phases_on_the_cpu(small_data, tmp_path):
                 taken.cfg.fused_decoder) == (
             kw.get("use_pallas", False), kw.get("align_arms_every", 0),
             kw.get("fused_decoder", False))
-    with pytest.raises(NotImplementedError):
-        cpl.train(small_data[:64], n_epoch=1, save_plots=True)
     # aug_file is taken: the constructor loads the augmenter it names
     acfg = taug.AugmenterConfig(input_dim=SMALL["input_dim"], n_dim=20,
                                 noise_dim=6, latent_dim=4)
@@ -533,6 +531,63 @@ def test_trainer_phases_on_the_cpu(small_data, tmp_path):
     with_aug = CplMixVAE(device="cpu", aug_file=aug_file)
     assert with_aug.aug_file == aug_file and with_aug._augment_fn() is not None
     assert CplMixVAE(device="cpu")._augment_fn() is None
+
+
+def test_plot_artifacts_have_the_jax_packages_names(tmp_path):
+    """For one history and one set of labels the port writes the files the
+    JAX package writes: the loss curve and one consensus matrix per arm
+    pair."""
+    from dvae_tpu.utils import plots as jplots
+    from dvae_tpu_torch.utils import plots as tplots
+    history = [{"train/loss": 3.0 - e, "val/loss": 3.5 - e, "step": e}
+               for e in range(3)]
+    labels = np.random.default_rng(0).integers(0, 4, (3, 50))
+    jw = jplots.save_training_artifacts(str(tmp_path / "jax"), history,
+                                        labels=labels, K=4)
+    tw = tplots.save_training_artifacts(str(tmp_path / "port"), history,
+                                        labels=labels, K=4)
+    names = [os.path.basename(p) for p in tw]
+    assert names == [os.path.basename(p) for p in jw]
+    assert names == ["loss_curve.png", "consensus_arm_0_arm_1.png",
+                     "consensus_arm_0_arm_2.png", "consensus_arm_1_arm_2.png"]
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(names)
+    assert all(os.path.getsize(p) > 0 for p in tw)
+
+
+def _plot_files(folder):
+    return sorted(n for n in os.listdir(folder) if n.endswith(".png"))
+
+
+def test_train_saves_plots_by_default(small_data, tmp_path):
+    """``train`` writes the artifact set into its run folder by default,
+    as the JAX trainer does; ``save_plots=False`` writes none."""
+    cpl = CplMixVAE(saving_folder=str(tmp_path / "on"), device="cpu", seed=6)
+    cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=1)
+    cpl.train(small_data[:64], n_epoch=1, early_stop_consensus=0)
+    A = SMALL["n_arm"]
+    assert _plot_files(tmp_path / "on") == sorted(
+        ["loss_curve.png"] + [f"consensus_arm_{a}_arm_{b}.png"
+                              for a in range(A) for b in range(a + 1, A)])
+    off = CplMixVAE(saving_folder=str(tmp_path / "off"), device="cpu",
+                    seed=6)
+    off.init_model(**SMALL, batch_size=32, epochs_per_jit=1)
+    off.train(small_data[:64], n_epoch=1, save_plots=False,
+              early_stop_consensus=0)
+    assert _plot_files(tmp_path / "off") == []
+
+
+def test_train_skips_plots_without_matplotlib(small_data, tmp_path,
+                                             monkeypatch, capsys):
+    """Without matplotlib (the card machine has none) training finishes,
+    writes its checkpoint and no image, and says the artifacts were
+    skipped."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    cpl = CplMixVAE(saving_folder=str(tmp_path), device="cpu", seed=6)
+    cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=1)
+    path = cpl.train(small_data[:64], n_epoch=1, early_stop_consensus=0)
+    assert os.path.exists(path)
+    assert _plot_files(tmp_path) == []
+    assert "plot artifacts skipped" in capsys.readouterr().out
 
 
 @pytest.fixture(scope="module")
