@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
-// product kernels (zinb_rows.cuh, zinb_fwdbwd.cu, encoder_fc1.cu).  Device
+// product kernels (zinb_rows.cuh, zinb_fwdbwd.cu, encoder_fc1.cu,
+// recon_fwdbwd.cu).  Device
 // code only.
 //
 // Products run as warp-level `mma.sync` on Hopper's tensor cores with f32
@@ -166,6 +167,21 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// The same split as split_tf32, bit for bit, in integer arithmetic: adding
+// half a tf32 unit to the magnitude bits and clearing the 13 low bits
+// rounds to nearest with ties away from zero, as cvt.rna does (a carry
+// into the exponent included).  Two integer operations and one f32
+// subtraction a value, all at full rate, where cvt.rna.tf32.f32 issues as
+// a conversion.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split_tf32_bits(float x, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
 // Not volatile: the products have no side effect, so the compiler may
 // interleave independent ones instead of issuing dependent ones back to
 // back.
@@ -209,6 +225,24 @@ __device__ __forceinline__ SplitB split_b(float b0, float b1) {
   SplitB s;
   split_tf32(b0, s.hi[0], s.lo[0]);
   split_tf32(b1, s.hi[1], s.lo[1]);
+  return s;
+}
+
+// split_a / split_b through split_tf32_bits
+__device__ __forceinline__ SplitA split_a_bits(float a0, float a1, float a2,
+                                               float a3) {
+  SplitA s;
+  split_tf32_bits(a0, s.hi[0], s.lo[0]);
+  split_tf32_bits(a1, s.hi[1], s.lo[1]);
+  split_tf32_bits(a2, s.hi[2], s.lo[2]);
+  split_tf32_bits(a3, s.hi[3], s.lo[3]);
+  return s;
+}
+
+__device__ __forceinline__ SplitB split_b_bits(float b0, float b1) {
+  SplitB s;
+  split_tf32_bits(b0, s.hi[0], s.lo[0]);
+  split_tf32_bits(b1, s.hi[1], s.lo[1]);
   return s;
 }
 

@@ -1,9 +1,12 @@
-// Tile routines shared by the fused reconstruction-loss training kernel
-// (recon_fwdbwd.cu) and the fused whole-decoder kernel (decoder.cu): the
-// shared-memory tile loaders, the 64x64 register-blocked product, the loss
-// epilogue, the column pass that finishes dW and db of the output layer,
-// and the fixed-order reduction of the block partials of the sums.  Each
-// source that includes this header gets its own copy (anonymous namespace).
+// Tile routines of the fused whole-decoder kernel (decoder.cu, kernels #12
+// and #13), its only includer: the shared-memory tile loaders, the 64x64
+// register-blocked SIMT product, the loss epilogue, the column pass that
+// finishes dW and db of the output layer, and the fixed-order reduction of
+// the block partials of the sums.  The fused reconstruction-loss training
+// kernel (recon_fwdbwd.cu) shared them until it moved to the tensor cores;
+// since then #13's dW_11 and db_11 agree with that kernel's within f32
+// rounding, no longer bit for bit, and #13's column pass can take its
+// tensor-core pass 2 (`recon_cols`) when #13 is redesigned.
 
 #pragma once
 

@@ -66,8 +66,11 @@ def _lib_fwdbwd() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
             fn.restype = ctypes.c_int
-        lib.recon_fwdbwd_partials_per_arm.argtypes = [ctypes.c_int]
+        lib.recon_fwdbwd_partials_per_arm.argtypes = [ctypes.c_int] * 3
         lib.recon_fwdbwd_partials_per_arm.restype = ctypes.c_longlong
+        lib.recon_fwdbwd_plan.argtypes = [ctypes.c_int] * 3 \
+            + [ctypes.POINTER(ctypes.c_int)]
+        lib.recon_fwdbwd_plan.restype = ctypes.c_int
         lib.recon_fwdbwd_max_f.argtypes = []
         lib.recon_fwdbwd_max_f.restype = ctypes.c_int
         lib._dvae_bound = True
@@ -183,7 +186,9 @@ def recon_fwdbwd(h, w, b, x, thr: float = 0.1, with_mism: bool = True):
     if F > lib.recon_fwdbwd_max_f():
         raise ValueError(f"F={F} exceeds the kernel's hidden width "
                          f"{lib.recon_fwdbwd_max_f()}")
-    n_part = int(lib.recon_fwdbwd_partials_per_arm(B))
+    n_part = int(lib.recon_fwdbwd_partials_per_arm(A, B, D))
+    if n_part < 0:
+        raise ValueError(f"shape A={A}, B={B}, D={D} exceeds one launch's grid")
     dev = h.device
     part_sum = torch.empty(A * n_part, device=dev, dtype=torch.float32)
     part_mism = torch.empty(A * n_part, device=dev, dtype=torch.int32)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time variants of the port's CUDA kernels #5 (encoder_bwd) and #6
-(zinb_fwd) against each other on one NVIDIA GPU.
+"""Time variants of the port's CUDA kernels #2 (recon_fwdbwd), #5
+(encoder_bwd) and #6 (zinb_fwd) against each other on one NVIDIA GPU.
 
-    python3 scripts/torch_kernel_variants.py encoder_stages zinb_blocks
+    python3 scripts/torch_kernel_variants.py recon_slices encoder_stages
 
 Each named set lists variants of ``dvae_tpu_torch/csrc``: regular-expression
 substitutions applied to a copy of the sources under
@@ -10,10 +10,16 @@ substitutions applied to a copy of the sources under
 first variant of a set is the sources as they are.  Every variant's
 libraries are built with one ``nvcc`` each, all started together; then
 the variants run in turns (first to last, then last to first), each
-checked against the plain version before it is timed: #5 dW1 within 1e-5
-of the plain version fed the same mask, #6's value within 1e-5 and equal
-to #7's loss bit for bit.  Shapes are the production ones (A=5, B=5000,
-D=5032, F=100); times by CUDA events.  Exits 2 without a card.
+checked against the plain version before it is timed: #2 within the chip
+check's limits on the uniform draw (sums; dh on the rows, dW and db on the
+columns whose plain y stay clear of the ReLU kink) and on a draw on which
+y is exact in any order (every output), #5 dW1 within 1e-5 of the plain
+version fed the same mask, #6's value within 1e-5 and equal to #7's loss
+bit for bit.  The sets in TIMING_ONLY are ablations: their variants after
+the first drop work to show where the time goes, so only the first is
+checked.  Shapes are the production ones (A=5, B=5000, D=5032, F=100);
+times by CUDA events, and #2's passes also by the profiler's device time.
+Exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -28,6 +34,43 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 SETS = {
+    # the 3xTF32 split of #2's products: integer rounding (the same bits)
+    # or cvt.rna.tf32.f32, as #4-#8 split
+    "recon_split": ("recon_fwdbwd", {
+        "integer rounding (as built)": [],
+        "cvt.rna": [("recon_fwdbwd.cu", r"tc::split_a_bits\(",
+                     "tc::split_a("),
+                    ("recon_fwdbwd.cu", r"tc::split_b_bits\(",
+                     "tc::split_b(")],
+    }),
+    # #2's row plan: slices of D to fill whole waves, or none
+    "recon_slices": ("recon_fwdbwd", {
+        "plan (as built)": [],
+        "one slice": [("recon_fwdbwd.cu", r"constexpr int MAX_SPLIT = 8;",
+                       "constexpr int MAX_SPLIT = 1;")],
+    }),
+    # where #2's time goes: each ablation drops one piece of work (its
+    # outputs are wrong by design, so they are timed, not checked)
+    "recon_ablate": ("recon_fwdbwd", {
+        "as built": [],
+        "no streamed loads (stages after the first never refilled)": [
+            ("recon_fwdbwd.cu",
+             r"if \(step \+ 1 < nsteps\) issue\(step \+ 1\);", ""),
+            ("recon_fwdbwd.cu",
+             r"if \(step \+ S - 1 < nsteps\) issue\(step \+ S - 1\);", "")],
+        "no y products (both passes)": [
+            ("recon_fwdbwd.cu", r"if \(k0 >= FK\) break;", "break;"),
+            ("recon_fwdbwd.cu", r"if \(kk >= FK\) break;", "break;")],
+        "no dh products (pass 1)": [
+            ("recon_fwdbwd.cu", r"if \(8 \* n < FK\) \{", "if (false) {")],
+        "no dW products (pass 2)": [
+            ("recon_fwdbwd.cu", r"if \(has_m0\) \{", "if (false) {")],
+        "1xTF32 (the two lo products dropped; f32 only)": [
+            ("mma.cuh", r"  mma_tf32\(small, a\.lo, b\.hi\);\n"
+             r"  mma_tf32\(big, a\.hi, b\.hi\);\n"
+             r"  mma_tf32\(small, a\.hi, b\.lo\);",
+             "  mma_tf32(big, a.hi, b.hi);")],
+    }),
     # stage depth of #5's backward: rows of x and g a stage
     "encoder_stages": ("encoder_fc1", {
         "f32 32 rows, bf16 64 (as built)": [],
@@ -67,6 +110,7 @@ SETS = {
              "THREADS1);")],
     }),
 }
+TIMING_ONLY = {"recon_ablate"}
 A, B, D, F = 5, 5000, 5032, 100
 RATE = 0.5
 
@@ -115,6 +159,29 @@ def use(root: Path) -> None:
     _build.library_path = lambda name: root / "build" / f"lib{name}.so"
 
 
+def pass_ms(torch, fn, iters: int = 5):
+    """(name, device ms a launch) of #2's two passes under torch.profiler:
+    each pass's device time over the launches the profiler recorded (one a
+    call; a process that opens many profiler sessions can lose some)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total, count = {}, {}
+    for e in prof.key_averages():
+        name = re.search(r"recon_(rows|cols)\b", e.key)
+        if e.device_type == cuda and name and e.count:
+            k = name.group(0)
+            total[k] = total.get(k, 0.0) + e.self_device_time_total / 1e3
+            count[k] = count.get(k, 0) + e.count
+    return [(k, total[k] / count[k]) for k in sorted(total)]
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -122,7 +189,7 @@ def main(argv) -> int:
         return 2
     import chip_smoke as cs
     from dvae_tpu_torch.ops import encoder as enc
-    from dvae_tpu_torch.ops import zinb
+    from dvae_tpu_torch.ops import recon, zinb
 
     names = argv or list(SETS)
     unknown = [n for n in names if n not in SETS]
@@ -133,6 +200,11 @@ def main(argv) -> int:
     x32 = torch.relu(torch.randn((B, D), generator=g, device="cuda"))
     gy32 = torch.randn((A, B, F), generator=g, device="cuda")
     ops32 = cs.zinb_inputs(torch, g, torch.float32, B, False)
+    rec32 = {grid: cs.recon_inputs(torch, g, torch.float32, B, False,
+                                   on_grid=grid) for grid in (False, True)}
+    kink = {dt: cs.recon_clear_of_kink(
+        torch, *(t.to(dt) for t in rec32[False][:3]))
+        for dt in (torch.float32, torch.bfloat16)}
     out = REPO / "runs" / "kernel_variants"
     for set_name in names:
         kernel, table = SETS[set_name]
@@ -146,10 +218,37 @@ def main(argv) -> int:
         for labels in (order, order[::-1]):
             for label in labels:
                 use(variants[label])
+                checked = set_name not in TIMING_ONLY or label == order[0]
                 for dt in (torch.float32, torch.bfloat16):
                     key = "f32" if dt == torch.float32 else "bf16"
                     rec = times[label]
-                    if kernel == "encoder_fc1":
+                    if kernel == "recon_fwdbwd":
+                        dname = str(dt)[6:]
+                        for grid in (True, False) if checked else ():
+                            ops = [t.to(dt) for t in rec32[grid]]
+                            got = recon.recon_fwdbwd(*ops)
+                            want = recon.recon_fwdbwd_reference(*ops)
+                            e_s = ((got[0] - want[0]).abs()
+                                   / want[0].abs()).max().item()
+                            e_g = max(cs.recon_held_errs(
+                                torch, got[2:], want[2:], *kink[dt])
+                                if not grid
+                                else [cs.rel_err(torch, u, v)
+                                      for u, v in zip(got[2:], want[2:])])
+                            if (e_s > cs.TOL_SUMSQ[dname]
+                                    or e_g > cs.TOL_REL[dname]):
+                                raise SystemExit(
+                                    f"{label} {key} grid={grid}: sumsq rel "
+                                    f"err {e_s}, gradients {e_g}")
+                            del got, want, ops
+                        ops = [t.to(dt) for t in rec32[False]]
+                        rec.setdefault(key, []).append(cs.cuda_ms(
+                            torch, lambda: recon.recon_fwdbwd(*ops)))
+                        for name, v in pass_ms(
+                                torch, lambda: recon.recon_fwdbwd(*ops)):
+                            rec.setdefault(f"{key} {name}", []).append(v)
+                        del ops
+                    elif kernel == "encoder_fc1":
                         x, gy = x32.to(dt), gy32.to(dt)
                         m = enc.kernel_keep_mask(11, (A, B, D), RATE, "cuda")
                         err = cs.rel_err(torch, enc.encoder_bwd(

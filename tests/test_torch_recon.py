@@ -190,3 +190,144 @@ def test_build_targets_hopper_and_names_libraries_by_content(monkeypatch,
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+# ---------------------------------------------------------------------------
+# Kernel #2's plan on the tensor cores: products, run lengths, slices of D
+# ---------------------------------------------------------------------------
+
+from test_torch_encoder import _bf16, _mma_bf16  # noqa: E402
+from test_torch_zinb import _mma_3xtf32  # noqa: E402
+
+A_P, B_P, F_P, D_P = 5, 5000, 100, 5032  # the production shape
+
+
+def _row_plan(A, B, D):
+    """(n_split, cols_per_split, row_tiles) of kernel #2's pass 1, the twin
+    of ``plan`` in csrc/recon_fwdbwd.cu (64 rows a block, 32 columns a
+    step, 264 block slots: an H100 SXM's 132 SMs at two blocks an SM, at
+    most 8 slices): D cut into ``n_split`` slices of ``cols_per_split``
+    columns so that the (row tiles × A × n_split) blocks fill whole waves
+    of the slots, ties to fewer slices, and at most D // B slices beyond
+    the first (the dh partials they leave go to the dW buffer).  The chip
+    check holds the CUDA plan to its rules and to this twin's plan at the
+    two training shapes."""
+    row_tiles, chunks, slots = -(-B // 64), -(-D // 32), 132 * 2
+    best, n_split = -1.0, 1
+    for n in range(1, min(8, chunks, D // B + 1) + 1):
+        blocks = row_tiles * A * n
+        eff = blocks / (-(-blocks // slots) * slots)
+        if eff > best + 1e-9:
+            best, n_split = eff, n
+    return n_split, -(-chunks // n_split) * 32, row_tiles
+
+
+def _pad(a, axis, m):
+    widths = [(0, 0)] * a.ndim
+    widths[axis] = (0, (-a.shape[axis]) % m)
+    return np.pad(a, widths)
+
+
+def _plan_operands(dtype, rows, cols, seed):
+    """h (rows, F) in [0, 1), W (F, cols) and the bias in ±0.1, x = relu of
+    a normal draw (the smoke run's draw), and gm = 2·1[r > 0]·(r − x) from
+    the f64 y, rounded to the operand type as the kernel rounds it."""
+    r = np.random.default_rng(seed)
+    h = r.random((rows, F_P), dtype=np.float32)
+    w = ((r.random((F_P, cols)) - 0.5) * 0.2).astype(np.float32)
+    b = ((r.random(cols) - 0.5) * 0.2).astype(np.float32)
+    x = np.maximum(r.standard_normal((rows, cols)), 0).astype(np.float32)
+    if dtype == "bfloat16":
+        h, w, b, x = (_bf16(v) for v in (h, w, b, x))
+    rr = np.maximum(h.astype(np.float64) @ w + b, 0)
+    gm = np.where(rr > 0, 2 * (rr - x), 0).astype(np.float32)
+    return h, w, _bf16(gm) if dtype == "bfloat16" else gm
+
+
+def _plan_product(which, dtype, carry=False):
+    """(kernel-order result, a, b) of one of #2's products at production
+    depth, summed as recon_fwdbwd.cu sums it.  f32: 3xTF32 mma of 8; y runs
+    of 32 in one accumulator, dh one step's 32 columns, dW one step's 32
+    rows in two accumulators, each run added rounded to nearest.  bf16: mma
+    of 16; y carried through its 7 mma, dh and dW runs of 32.  dh is the
+    sum of the slices' partials in slice order.  ``carry``: one
+    accumulator carried through every mma instead."""
+    f32 = dtype == "float32"
+    ks = 8 if f32 else 16
+
+    def model(a, b, run, one_acc=False):
+        if f32:
+            return _mma_3xtf32(a, b, run=run, carry=carry, one_acc=one_acc)
+        return _mma_bf16(a, b, run=run, carry=carry)
+
+    if which == "y = h W (K=F)":
+        h, w, _ = _plan_operands(dtype, 64, 64, 41)
+        a, b = _pad(h, 1, ks), _pad(w, 0, ks)
+        return model(a, b, 32 if f32 else a.shape[1], one_acc=True), a, b
+    if which == "dh = gm W^T (K=D)":
+        _, w, gm = _plan_operands(dtype, 64, D_P, 43)
+        wt = _pad(w.T.copy(), 1, 8)
+        if carry:
+            return model(gm, wt, 32), gm, wt
+        n_split, cols, _ = _row_plan(A_P, B_P, D_P)
+        acc = np.zeros((gm.shape[0], wt.shape[1]), np.float32)
+        for s in range(n_split):
+            sl = slice(s * cols, min(D_P, (s + 1) * cols))
+            acc = (acc + model(gm[:, sl], wt[sl], 32)).astype(np.float32)
+        return acc, gm, wt
+    h, _, gm = _plan_operands(dtype, B_P, 32, 47)
+    ht = _pad(h.T.copy(), 0, 16)
+    return model(ht, gm, 32), ht, gm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["y = h W (K=F)", "dh = gm W^T (K=D)",
+                                   "dW = h^T gm (K=B)"])
+def test_plan_keeps_f32_accuracy_at_production_depth(which, dtype):
+    """Each product of kernel #2 at its production depth (y over F = 100,
+    dh over D = 5,032 in the plan's two slices, dW over B = 5,000), in the
+    kernel's split, run lengths and order, with the tensor cores' sums
+    rounded toward zero: within 1e-6 of the f64 product (max |Δ| / max
+    |f64|), the margin under the chip check's 1e-5 for dh, dW, db and
+    sumsq.  Padding rows and columns stay 0."""
+    got, a, b = _plan_product(which, dtype)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    assert np.abs(got - exact).max() / np.abs(exact).max() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["dh = gm W^T (K=D)", "dW = h^T gm (K=B)"])
+def test_one_carried_accumulator_misses_at_production_depth(which, dtype):
+    """The same products with one accumulator carried through every mma
+    (f32: 1,887 for dh, 1,875 for dW; bf16 315 and 313) drift toward zero:
+    past the chip check's 1e-5 in f32 and past 3e-6 in bf16, which is why
+    the kernel sums runs apart (csrc/mma.cuh ``add4``)."""
+    got, a, b = _plan_product(which, dtype, carry=True)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    miss = np.abs(got - exact).max() / np.abs(exact).max()
+    assert miss > (1e-5 if dtype == "float32" else 3e-6)
+
+
+@pytest.mark.parametrize("shape", [(A_P, B_P, D_P), (A_P, 2000, D_P),
+                                   (3, 16, 40), (3, 520, 40), (1, 1, 1),
+                                   (2, 70000, 5032), (7, 333, 12345)])
+def test_row_plan_depends_on_the_shape_alone_and_covers_d_once(shape):
+    """The slices of D of #2's pass 1 come from (A, B, D) alone, are whole
+    steps of 32 columns, cover [0, D) once and in order, and leave no more
+    dh partials beyond dh's own than the dW buffer holds (D // B)."""
+    A, B, D = shape
+    n_split, cols, row_tiles = _row_plan(A, B, D)
+    assert _row_plan(A, B, D) == (n_split, cols, row_tiles)
+    assert row_tiles == -(-B // 64) and cols % 32 == 0
+    assert 1 <= n_split <= 8 and n_split - 1 <= D // B
+    covered = np.concatenate([np.arange(D)[s * cols:(s + 1) * cols]
+                              for s in range(n_split)])
+    np.testing.assert_array_equal(covered, np.arange(D))
+
+
+def test_row_plan_fills_whole_waves_at_the_production_shape():
+    """A=5, B=5000, D=5032: 79 row tiles × 5 arms in 2 slices of 2,528
+    columns are 790 blocks, 3 waves of 264 slots all but 2 full; the 2,000-
+    row tail takes 3 slices (480 blocks on 528 slots)."""
+    assert _row_plan(A_P, B_P, D_P) == (2, 2528, 79)
+    assert _row_plan(A_P, 2000, D_P) == (3, 1696, 32)
