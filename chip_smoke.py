@@ -29,9 +29,16 @@ Phases (any failure exits non-zero and prints no result line):
      of the eager formula, the coupling distance on posteriors with dead
      categories and a collapsed arm; the two whole-decoder kernels at the
      production widths (f32 and bf16, shared and per-arm x, B=5000 and
-     2,000, with and without the mismatch count, a per-arm cotangent
-     through autograd, a NaN row, the output layer's gradients against the
-     fused recon kernel's on a draw whose output layer lies on a grid);
+     2,000, each on a uniform draw and on one whose trunk and output layer
+     lie on a grid, with and without the mismatch count, a per-arm
+     cotangent through autograd, a NaN in z, a trunk weight or W11 of one
+     arm, the quiet one and the card's own; end to end against the plain
+     version, and pass by pass on the call's own workspaces: the trunk's
+     activations against the plain forward, #2 on its own h5 bit for bit,
+     the trunk backward against the plain one on its own activations and
+     dh5; the output layer's gradients against #2's on the plain h5, bit
+     for bit on the grid); #2 with a NaN in h or W of one arm, the quiet
+     one and the card's own;
      the row plan of #2 (its rules, and the Python twin's plan); that
      repeated launches are bit-identical; and
      time kernel, plain version and library call (for the tensor-core
@@ -94,6 +101,7 @@ the named kernel phases.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import math
 import os
@@ -171,6 +179,11 @@ TIMING_ITERS = 200           # launches per timing of the small kernels
 # the whole-decoder kernels vs their plain versions: the sums as the other
 # MSE kernels (TOL_SUMSQ, TOL_MISM); gradients, max |Δ| / max |plain|
 TOL_DEC_GRAD = {"float32": 1e-5, "bfloat16": 1e-3}
+# #13's trunk dW and db end to end on the uniform draws, f32: a row whose
+# gm or gate flips at a ReLU kink (its y within rounding of 0, summed in
+# another order than cuBLAS's) moves every one of them; measured up to
+# 8.1e-5 of max|plain| on the H100 (PERF.md §6)
+TOL_DEC_KINK = 1e-4
 TOL_DEC_MISM = {"float32": TOL_MISM, "bfloat16": TOL_MISM}
 # fused_decoder and the frozen augmenter: 4 steps an epoch
 N_DEC_TRAIN, N_DEC_VAL = 20000, 2000
@@ -640,8 +653,8 @@ def time_recon(torch, g, name, kern, plain, h, w, b, x, dname, item, tag,
     bound, by = flops_bound_ms(flops, nbytes, dname, tensor_cores=True)
     simt, _ = flops_bound_ms(flops, nbytes, "float32")
     parts = kernel_device_ms(torch, kern)
-    split = {re.search(r"recon_[a-z_]+", k).group(0): v
-             for k, v in parts.items() if "recon_" in k}
+    split = {m.group(0): v for k, v in parts.items()
+             if (m := re.search(r"(recon|quiet)_[a-z_]+", k))}
     dev_ms = sum(split.values())
     print(f"  {tag}: {name} device ms by kernel: " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(split.items()))
@@ -770,6 +783,28 @@ def phase_recon_fwdbwd(torch, check) -> dict:
                   "err " + "/".join(f"{e:.1e}" for e in errs)
                   + f" (tol {TOL_SUMSQ[dname]:.0e}, {TOL_REL[dname]:.0e})")
             del ops, got, want
+    # a NaN in h or W of one arm reaches that arm only, whatever its bits:
+    # the quiet NaN and the card's own (0x7FFFFFFF), which the split of
+    # the f32 products would turn into -0 (csrc/recon_passes.cuh
+    # quiet_copy)
+    ops = recon_inputs(torch, g, torch.float32, TAIL, False)
+    clean = recon_fwdbwd(*ops)
+    others = [0, 2, 3, 4]
+    for where, i, at, bits in (("h", 0, (1, 7, 3), 0x7FC00000),
+                               ("h", 0, (1, 7, 3), 0x7FFFFFFF),
+                               ("W", 1, (1, 6, 42), 0x7FFFFFFF)):
+        bad = [t.clone() for t in ops]
+        bad[i].view(torch.int32)[at] = bits
+        got = recon_fwdbwd(*bad)
+        check(bool(torch.isnan(got[0][1])
+                   and any(torch.isnan(t[1]).any() for t in got[2:4])
+                   and all(torch.equal(u[others], v[others])
+                           for u, v in zip(got, clean))),
+              f"float32 B={TAIL}: a NaN ({bits:#x}) in {where} of arm 1 "
+              "makes that arm's sumsq and some of its gradients NaN and "
+              "leaves the other arms' outputs bit for bit")
+        del bad, got
+    del ops, clean
     torch.cuda.empty_cache()
     return record
 
@@ -1476,9 +1511,28 @@ def decoder_inputs(torch, g, dtype, rows, per_arm, on_grid=False):
     return [t.to(dtype).contiguous() for t in args]
 
 
+def decoder_clear_rows(torch, z, trunk, w11, b11):
+    """Rows (A, B) of the whole decoder on which every |y| of the plain
+    version (f32 baddbmm on activations rounded to z's dtype, as
+    ``decoder_fwdbwd_reference`` takes them) exceeds KINK_Y, in each of the
+    five trunk layers and in the output layer: the rows of dz that no flip
+    of a gate or of gm at a ReLU kink can reach."""
+    rows = torch.ones(z.shape[:2], dtype=torch.bool, device=z.device)
+    h = z
+    for w, b in trunk:
+        y = torch.baddbmm(b.float()[:, None, :], h.float(), w.float())
+        rows &= (y.abs() > KINK_Y).all(dim=2)
+        h = torch.relu(y).to(z.dtype)
+    for i in range(z.shape[0]):
+        y = torch.addmm(b11[i].float()[None, :], h[i].float(), w11[i].float())
+        rows[i] &= (y.abs() > KINK_Y).all(dim=1)
+        del y
+    return rows
+
+
 def phase_decoder(torch, check) -> dict:
     """Kernels #12 and #13 vs their plain versions; returns the records of
-    the main case (f32, shared x, B=5000)."""
+    the main case (f32, shared x, B=5000; bf16 under ``*_bf16``)."""
     from dvae_tpu_torch.ops import decoder as dec
     from dvae_tpu_torch.ops.recon import recon_fwdbwd
     print("phase 2: decoder_fwd / decoder_fwdbwd kernels vs plain version")
@@ -1498,178 +1552,307 @@ def phase_decoder(torch, check) -> dict:
         dname = str(dtype).split(".")[-1]
         item = 4 if dtype == torch.float32 else 2
         tol_g = TOL_DEC_GRAD[dname]
-        for rows in (B, TAIL):
-            for per_arm in (False, True):
-                tag = f"{dname} B={rows} x={'per-arm' if per_arm else 'shared'}"
-                ops = decoder_inputs(torch, g, dtype, rows, per_arm)
-                z, w11, b11, x = ops[0], ops[11], ops[12], ops[13]
-                trunk = [(ops[1 + 2 * i], ops[2 + 2 * i]) for i in range(5)]
-                sk, mk = dec.fused_decoder_mse(*ops)
-                sp, mp = dec.decoder_mse_reference(*ops)
-                got = dec.decoder_fwdbwd(z, trunk, w11, b11, x)
-                want = dec.decoder_fwdbwd_reference(z, trunk, w11, b11, x)
-                torch.cuda.synchronize()
-                rel = ((sk - sp).abs() / sp.abs()).max().item()
-                dm = (mk - mp).abs().max().item()
-                check(rel <= TOL_SUMSQ[dname],
-                      f"{tag}: decoder_fwd sumsq max rel err {rel:.3e} "
-                      f"(tol {TOL_SUMSQ[dname]:.0e})")
-                check(dm <= TOL_DEC_MISM[dname] * rows * D,
-                      f"{tag}: decoder_fwd mism max abs diff {dm:.0f} (tol "
-                      f"{TOL_DEC_MISM[dname] * rows * D:.0f} of {rows * D})")
-                check(bool(torch.equal(got[0], sk) and torch.equal(got[1], mk)),
-                      f"{tag}: decoder_fwdbwd's sums equal decoder_fwd's bit "
-                      "for bit")
-                errs = [rel_err(torch, a, e)
-                        for a, e in zip(flat(got), flat(want))]
-                check(max(errs) <= tol_g and got[2].dtype == dtype
-                      and all(bool(torch.isfinite(t).all())
-                              for t in flat(got)),
-                      f"{tag}: decoder_fwdbwd gradients rel err "
-                      + " ".join(f"{n}={e:.1e}" for n, e in zip(names, errs))
-                      + f" (tol {tol_g:.0e}), finite, dz in {dname}")
-                again = dec.decoder_fwdbwd(z, trunk, w11, b11, x)
-                sk2, mk2 = dec.fused_decoder_mse(*ops)
-                check(bool(torch.equal(sk, sk2) and torch.equal(mk, mk2)
-                           and torch.equal(again[0], got[0])
-                           and all(torch.equal(u, v) for u, v in
-                                   zip(flat(again), flat(got)))),
-                      f"{tag}: repeated launches of both kernels "
-                      "bit-identical")
-                # without the mismatch count: the same sumsq, mism 0
-                s0, m0 = dec.fused_decoder_mse(*ops, 0.1, False)
-                t0 = dec.decoder_fwdbwd(z, trunk, w11, b11, x, 0.1, False)
-                check(bool(torch.equal(s0, sk) and torch.equal(t0[0], sk)
-                           and float(m0.abs().max()) == 0.0
-                           and float(t0[1].abs().max()) == 0.0
-                           and torch.equal(t0[4], got[4])),
-                      f"{tag}: with_mism off gives the same sumsq and "
-                      "gradients, mism 0")
-                # the output layer's gradients are kernel #2's on the same
-                # h5: held on a draw on which y is exact in any order, and
-                # here on the columns every y of which stays clear of the
-                # kink (#13 sums y on the FP32 cores, #2 on the tensor
-                # cores, so they part where y lies within rounding of it)
-                h5 = dec._trunk_forward(z, trunk)[-1].contiguous()
-                r2 = recon_fwdbwd(h5, w11, b11, x)
-                e2 = max(rel_err(torch, got[4], r2[3]),
-                         rel_err(torch, got[5], r2[4]))
+        for rows, per_arm, on_grid in itertools.product(
+                (B, TAIL), (False, True), (False, True)):
+            tag = (f"{dname} B={rows} x="
+                   f"{'per-arm' if per_arm else 'shared'}"
+                   + (", on the grid" if on_grid else ""))
+            ops = decoder_inputs(torch, g_grid if on_grid else g, dtype,
+                                 rows, per_arm, on_grid)
+            z, w11, b11, x = ops[0], ops[11], ops[12], ops[13]
+            trunk = [(ops[1 + 2 * i], ops[2 + 2 * i]) for i in range(5)]
+            sk, mk = dec.fused_decoder_mse(*ops)
+            sp, mp = dec.decoder_mse_reference(*ops)
+            got = dec.decoder_fwdbwd(z, trunk, w11, b11, x)
+            want = dec.decoder_fwdbwd_reference(z, trunk, w11, b11, x)
+            torch.cuda.synchronize()
+            rel = ((sk - sp).abs() / sp.abs()).max().item()
+            dm = (mk - mp).abs().max().item()
+            check(rel <= TOL_SUMSQ[dname],
+                  f"{tag}: decoder_fwd sumsq max rel err {rel:.3e} "
+                  f"(tol {TOL_SUMSQ[dname]:.0e})")
+            check(dm <= TOL_DEC_MISM[dname] * rows * D,
+                  f"{tag}: decoder_fwd mism max abs diff {dm:.0f} (tol "
+                  f"{TOL_DEC_MISM[dname] * rows * D:.0f} of {rows * D})")
+            check(bool(torch.equal(got[0], sk) and torch.equal(got[1], mk)),
+                  f"{tag}: decoder_fwdbwd's sums equal decoder_fwd's bit "
+                  "for bit")
+            errs = [rel_err(torch, a, e)
+                    for a, e in zip(flat(got), flat(want))]
+            listed = " ".join(f"{n}={e:.1e}" for n, e in zip(names, errs))
+            finite = got[2].dtype == dtype and all(
+                bool(torch.isfinite(t).all()) for t in flat(got))
+            # in bf16 every gated cotangent is rounded to bf16 for its
+            # products, so where one lies within rounding of a bf16
+            # midpoint, sums of its f32 value in another order flip it by
+            # a bf16 step (2^-8 of it), and the steps compound down to dz,
+            # an output in bf16: dz is held at one bf16 step, as h1..h5
+            tol_dz = tol_g if item == 4 else TOL_Y_BF16
+            # the kernel pass by pass, on its own workspaces: the trunk's
+            # activations against the plain forward (a ReLU is
+            # continuous, so no flip); kernel #2 on its own h5, bit for
+            # bit; the trunk backward against the plain one on its own
+            # activations and dh5 (the same gates, so no flip)
+            kern = dec._fwdbwd_launch(z, trunk, w11, b11, x, 0.1, True)
+            khs, kdh5 = kern[6], kern[7]
+            phs = dec._trunk_forward(z, trunk)
+            e_h = [rel_err(torch, a, e) for a, e in zip(khs, phs[1:])]
+            tol_h = tol_g if item == 4 else TOL_Y_BF16
+            check(max(e_h) <= tol_h,
+                  f"{tag}: decoder_fwdbwd's h1..h5 vs the plain trunk "
+                  "forward: rel err " + "/".join(f"{e:.1e}" for e in e_h)
+                  + f" (tol {tol_h:.0e}"
+                  + ("" if item == 4 else ": one bf16 rounding step") + ")")
+            r2 = recon_fwdbwd(khs[-1], w11, b11, x)
+            check(all(bool(torch.equal(u, v)) for u, v in zip(
+                [kern[0], kern[1], kdh5, kern[4], kern[5]], r2)),
+                  f"{tag}: decoder_fwdbwd's sums, dh5, dW11, db11 equal "
+                  "recon_fwdbwd's on its own h5 bit for bit")
+            pdz, pdt = dec._trunk_backward([z] + khs, trunk, kdh5)
+            e_b = [rel_err(torch, a, e) for a, e in zip(
+                [kern[2], *(t for pair in kern[3] for t in pair)],
+                [pdz, *(t for pair in pdt for t in pair)])]
+            check(e_b[0] <= tol_dz and max(e_b[1:]) <= tol_g and finite,
+                  f"{tag}: decoder_fwdbwd's dz, dW6..db10 vs the plain "
+                  "trunk backward on its own h1..h5 and dh5: rel err "
+                  + " ".join(f"{n}={e:.1e}" for n, e in zip(names, e_b))
+                  + f" (tol dz {tol_dz:.0e}, the others {tol_g:.0e}), "
+                  "finite")
+            del kern, khs, kdh5, phs, r2, pdz, pdt
+            h5 = dec._trunk_forward(z, trunk)[-1].contiguous()
+            if on_grid:
+                check(errs[0] <= tol_dz and max(errs[1:]) <= tol_g
+                      and finite,
+                      f"{tag}: decoder_fwdbwd gradients rel err {listed} "
+                      f"(tol dz {tol_dz:.0e}, the others {tol_g:.0e}), "
+                      f"finite, dz in {dname}")
+            else:
+                # end to end, a gm or a gate that flips at a ReLU kink
+                # moves the gradients of its row: dz on that row and every
+                # trunk dW and db; so in f32 dz is held on the rows, dW11
+                # and db11 on the columns, whose plain |y| all exceed
+                # KINK_Y in every layer, at TOL_DEC_GRAD, and the trunk's
+                # dW, db over all at TOL_DEC_KINK; in bf16 the trunk's
+                # roundings flip with the order of its f32 sums as well,
+                # so dz and dW11/db11 (on h5 one bf16 step apart) are held
+                # over all at one bf16 step and the trunk's dW, db at
+                # TOL_DEC_GRAD; the whole error printed
+                rk = decoder_clear_rows(torch, z, trunk, w11, b11)
                 _, ck = recon_clear_of_kink(torch, h5, w11, b11)
+                e_clear = recon_held_errs(torch, [got[2], got[4], got[5]],
+                                          [want[2], want[4], want[5]],
+                                          rk, ck)
+                what = (f"{tag}: decoder_fwdbwd dz on the "
+                        f"{rk.float().mean():.4f} of rows, dW11/db11 on the "
+                        f"{ck.float().mean():.4f} of columns with every "
+                        f"plain |y| > {KINK_Y:.0e}: rel err "
+                        + "/".join(f"{e:.1e}" for e in e_clear)
+                        + f"; {int((~rk).sum())} rows at the kink reach "
+                        f"every trunk dW, db; over all {listed}")
+                if item == 4:
+                    check(max(e_clear) <= tol_g
+                          and max(errs[1:11]) <= TOL_DEC_KINK and finite,
+                          what + f" (tol {tol_g:.0e} on the clear rows and "
+                          f"columns, {TOL_DEC_KINK:.0e} for dW6..db10), "
+                          "finite")
+                else:
+                    check(max(errs[0], *errs[11:]) <= TOL_Y_BF16
+                          and max(errs[1:11]) <= tol_g and finite,
+                          what + f" (tol {TOL_Y_BF16:.0e} for dz, dW11, "
+                          f"db11 over all, {tol_g:.0e} for dW6..db10), "
+                          "finite")
+            again = dec.decoder_fwdbwd(z, trunk, w11, b11, x)
+            sk2, mk2 = dec.fused_decoder_mse(*ops)
+            check(bool(torch.equal(sk, sk2) and torch.equal(mk, mk2)
+                       and torch.equal(again[0], got[0])
+                       and all(torch.equal(u, v) for u, v in
+                               zip(flat(again), flat(got)))),
+                  f"{tag}: repeated launches of both kernels "
+                  "bit-identical")
+            # without the mismatch count: the same sumsq, mism 0
+            s0, m0 = dec.fused_decoder_mse(*ops, 0.1, False)
+            t0 = dec.decoder_fwdbwd(z, trunk, w11, b11, x, 0.1, False)
+            check(bool(torch.equal(s0, sk) and torch.equal(t0[0], sk)
+                       and float(m0.abs().max()) == 0.0
+                       and float(t0[1].abs().max()) == 0.0
+                       and torch.equal(t0[4], got[4])),
+                  f"{tag}: with_mism off gives the same sumsq and "
+                  "gradients, mism 0")
+            # the output layer's gradients against kernel #2 on the plain
+            # version's h5: bit for bit on the grid draw, on which every
+            # activation and y is exact in any order, and off it (f32) on
+            # the columns every y of which stays clear of the kink (#13's
+            # h5 and the plain version's are summed in other orders, so y
+            # parts where it lies within rounding of 0)
+            r2 = recon_fwdbwd(h5, w11, b11, x)
+            e2 = max(rel_err(torch, got[4], r2[3]),
+                     rel_err(torch, got[5], r2[4]))
+            if on_grid:
+                check(bool(torch.equal(got[4], r2[3])
+                           and torch.equal(got[5], r2[4])),
+                      f"{tag}: dW11/db11 equal recon_fwdbwd's on the "
+                      f"plain version's h5 bit for bit (rel err "
+                      f"{e2:.1e})")
+            else:
                 held = recon_held_errs(torch, got[4:6], r2[3:5], cols=ck)
-                check(max(held) <= tol_g,
-                      f"{tag}: dW11/db11 vs recon_fwdbwd on the plain "
-                      f"version's h5, on the {ck.float().mean():.4f} of "
-                      f"columns with every plain |y| > {KINK_Y:.0e}: rel err "
-                      + "/".join(f"{e:.1e}" for e in held)
-                      + f" (tol {tol_g:.0e}); over all {e2:.1e} (a reading: "
-                      + recon_nearest_kink(torch, h5, w11, b11, x,
-                                           [r2[2], got[4], got[5]],
-                                           [r2[2], r2[3], r2[4]]) + ")")
-                del h5, r2, ck
-                gops = decoder_inputs(torch, g_grid, dtype, rows, per_arm,
-                                      on_grid=True)
-                gtrunk = [(gops[1 + 2 * i], gops[2 + 2 * i]) for i in range(5)]
-                gd = dec.decoder_fwdbwd(gops[0], gtrunk, gops[11], gops[12],
-                                        gops[13])
-                h5 = dec._trunk_forward(gops[0], gtrunk)[-1].contiguous()
-                r2 = recon_fwdbwd(h5, gops[11], gops[12], gops[13])
-                e2 = max(rel_err(torch, gd[4], r2[3]),
-                         rel_err(torch, gd[5], r2[4]))
-                check(e2 <= tol_g,
-                      f"{tag}, on the grid: dW11/db11 vs recon_fwdbwd on the "
-                      f"plain version's h5: rel err {e2:.1e} "
-                      f"(tol {tol_g:.0e})")
-                del gops, gtrunk, gd, h5, r2
-                # a cotangent that differs per arm, through autograd
-                cot = torch.linspace(-1.5, 2.5, A, device=DEV)
-                live = [t.clone().requires_grad_() for t in ops[:13]]
-                sa, ma = dec.fused_decoder_mse(*live, x)
-                grads = torch.autograd.grad((cot * sa).sum(), live)
-                scaled = [(w_.float() * (cot[:, None, None] if w_.dim() == 3
-                                         else cot[:, None])).to(dtype)
-                          for w_ in flat(want)]
-                e_c = max(rel_err(torch, a, e) for a, e in zip(grads, scaled))
-                tol_c = tol_g if item == 4 else TOL_Y_BF16
-                check(e_c <= tol_c and not ma.requires_grad
-                      and all(gr.dtype == dtype for gr in grads),
-                      f"{tag}: autograd with a per-arm cotangent: rel err "
-                      f"{e_c:.1e} against the scaled plain gradients (tol "
-                      f"{tol_c:.0e}"
-                      + ("" if item == 4 else ": one more rounding to bf16")
-                      + f"), in {dname}, mism without gradient")
-                del live, grads, scaled, sa
-                # a NaN in one row of one arm reaches that arm's sum only
-                zn = z.clone()
-                zn[1, 7, 3] = float("nan")
-                sn, _ = dec.fused_decoder_mse(zn, *ops[1:])
-                tn = dec.decoder_fwdbwd(zn, trunk, w11, b11, x)
-                others = [0, 2, 3, 4]
-                check(bool(torch.isnan(sn[1]) and torch.isnan(tn[0][1])
-                           and torch.isfinite(sn[others]).all()
-                           and torch.equal(sn[others], sk[others])
-                           and torch.isfinite(tn[2][others]).all()),
-                      f"{tag}: a NaN in one row of arm 1 makes that arm's "
-                      "sums NaN and leaves the other arms' bits")
-                del zn, sn, tn
-                if rows == B and not per_arm:
-                    f_ms = cuda_ms(torch, lambda: dec.fused_decoder_mse(*ops))
-                    t_ms = cuda_ms(torch, lambda: dec.decoder_fwdbwd(
-                        z, trunk, w11, b11, x))
-                    f_dev = device_ms(torch,
-                                      lambda: dec.fused_decoder_mse(*ops),
-                                      iters=5)
-                    t_dev = device_ms(torch, lambda: dec.decoder_fwdbwd(
-                        z, trunk, w11, b11, x), iters=5)
-                    f_pl = plain_ms(torch,
-                                    lambda: dec.decoder_mse_reference(*ops))
-                    t_pl = plain_ms(torch, lambda: dec.decoder_fwdbwd_reference(
-                        z, trunk, w11, b11, x))
-
-                    def chain(args):
-                        h = args[0]
-                        for i in range(5):
-                            h = torch.relu(torch.baddbmm(
-                                args[2 + 2 * i][:, None, :], h,
-                                args[1 + 2 * i]))
-                        r = torch.relu(torch.baddbmm(args[12][:, None, :], h,
-                                                     args[11]))
-                        return ((r - x) ** 2).sum(dim=(1, 2))
-
-                    f_lib = cuda_ms(torch, lambda: chain(ops), iters=10)
-                    live = [t.clone().requires_grad_() for t in ops[:13]]
-                    t_lib = cuda_ms(torch, lambda: torch.autograd.grad(
-                        chain(live).sum(), live), iters=10)
-                    del live
-                    in_bytes = (A * rows * dims[0] + A * n_trunk
-                                + A * (F + 1) * D + rows * D) * item
-                    out_bytes = (A * rows * dims[0] * item
-                                 + (A * n_trunk + A * (F + 1) * D) * 4)
-                    timed = (
-                        ("decoder_fwd", f_ms, f_dev, f_pl, f_lib,
-                         "six baddbmm + loss, eager", 2.0 * A * rows * macs,
-                         in_bytes + A * 8,
-                         max((sk - sp).abs().max().item(), dm)),
-                        ("decoder_fwdbwd", t_ms, t_dev, t_pl, t_lib,
-                         "autograd of that chain", 6.0 * A * rows * macs,
-                         in_bytes + A * 8 + out_bytes,
-                         max((a - e).abs().max().item()
-                             for a, e in zip([got[0]] + flat(got),
-                                             [want[0]] + flat(want)))))
-                    for (name, ms, dev, pl, lib, what, flops, nbytes,
-                         err) in timed:
-                        bound, by = flops_bound_ms(flops, nbytes, dname)
-                        print(f"  {tag}: {name} kernel_ms {ms:.4f} (device "
-                              f"{dev:.4f}) plain_ms {pl:.4f} library_ms "
-                              f"{lib:.4f} ({what}) bound_ms {bound:.4f} "
-                              f"({by}) share_of_bound {bound / ms:.3f}")
-                        if item == 4:
-                            records[name] = {
-                                "max_abs_err": err, "ms": ms,
-                                "device_ms": dev, "plain_ms": pl,
-                                "bound_ms": bound, "bound_by": by,
-                                "library_ms": lib}
+                what = (f"{tag}: dW11/db11 vs recon_fwdbwd on the plain "
+                        f"version's h5, on the {ck.float().mean():.4f} of "
+                        f"columns with every plain |y| > {KINK_Y:.0e}: rel "
+                        "err " + "/".join(f"{e:.1e}" for e in held)
+                        + f"; over all {e2:.1e} (a reading: "
+                        + recon_nearest_kink(torch, h5, w11, b11, x,
+                                             [r2[2], got[4], got[5]],
+                                             [r2[2], r2[3], r2[4]]) + ")")
+                if item == 4:
+                    check(max(held) <= tol_g, what + f" (tol {tol_g:.0e})")
+                else:
+                    print(f"  {what}; in bf16 held on #13's own h5 above")
+                del rk, ck
+            del h5, r2
+            if on_grid:
                 del ops, z, trunk, w11, b11, x, got, want, again, t0
-                torch.cuda.empty_cache()
+                continue
+            # a cotangent that differs per arm, through autograd
+            cot = torch.linspace(-1.5, 2.5, A, device=DEV)
+            live = [t.clone().requires_grad_() for t in ops[:13]]
+            sa, ma = dec.fused_decoder_mse(*live, x)
+            grads = torch.autograd.grad((cot * sa).sum(), live)
+            # the kernel's unscaled gradients (held against the plain
+            # version above) times the cotangent, in the operand type
+            scaled = [(w_.float() * (cot[:, None, None] if w_.dim() == 3
+                                     else cot[:, None])).to(dtype)
+                      for w_ in flat(got)]
+            check(all(bool(torch.equal(a, e))
+                      for a, e in zip(grads, scaled))
+                  and not ma.requires_grad
+                  and all(gr.dtype == dtype for gr in grads),
+                  f"{tag}: autograd with a per-arm cotangent equals the "
+                  "kernel's unscaled gradients times the cotangent bit "
+                  f"for bit, in {dname}, mism without gradient")
+            del live, grads, scaled, sa
+            # a NaN in one arm's operand reaches that arm only, whatever
+            # its bits: the quiet NaN (0x7FC00000; bf16 0x7FC0) and the
+            # card's own (0x7FFFFFFF; bf16 0x7FFF), which the f32 split
+            # would turn into -0 (csrc/recon_passes.cuh quiet_copy); W11's
+            # NaN in the row of arm 1's most active unit of h5, so that its
+            # dh5 passes the gate
+            others = [0, 2, 3, 4]
+            f_live = int((dec._trunk_forward(z, trunk)[-1][1] > 0)
+                         .sum(dim=0).argmax())
+            nan_cases = (("z", 0, (1, 7, 3), False),
+                         ("z", 0, (1, 7, 3), True),
+                         ("W8", 5, (1, 4, 9), True),
+                         ("W11", 11, (1, f_live, 42), True))
+            for where, i, at, card_nan in nan_cases:
+                bad = [t.clone() for t in ops[:13]]
+                if item == 4:
+                    bad[i].view(torch.int32)[at] = (
+                        0x7FFFFFFF if card_nan else 0x7FC00000)
+                else:
+                    bad[i].view(torch.int16)[at] = (
+                        0x7FFF if card_nan else 0x7FC0)
+                sn, _ = dec.fused_decoder_mse(*bad, x)
+                tn = dec.decoder_fwdbwd(
+                    bad[0], [(bad[1 + 2 * k], bad[2 + 2 * k])
+                             for k in range(5)], bad[11], bad[12], x)
+                arm1 = [t[1] for t in flat(tn)]
+                check(bool(torch.isnan(sn[1]) and torch.isnan(tn[0][1])
+                           and any(torch.isnan(t).any() for t in arm1)
+                           and torch.equal(sn[others], sk[others])
+                           and torch.equal(tn[0][others], got[0][others])
+                           and all(torch.equal(u[others], v[others])
+                                   for u, v in zip(flat(tn), flat(got)))),
+                      f"{tag}: a NaN ("
+                      + ("the card's own" if card_nan else "quiet")
+                      + f") in {where} of arm 1 makes that arm's sums and "
+                      "some of its gradients NaN and leaves the other "
+                      "arms' sums and gradients bit for bit")
+                del bad, sn, tn, arm1
+            if rows == B and not per_arm:
+                f_ms = cuda_ms(torch, lambda: dec.fused_decoder_mse(*ops))
+                t_ms = cuda_ms(torch, lambda: dec.decoder_fwdbwd(
+                    z, trunk, w11, b11, x))
+                f_dev = device_ms(torch,
+                                  lambda: dec.fused_decoder_mse(*ops),
+                                  iters=5)
+                t_dev = device_ms(torch, lambda: dec.decoder_fwdbwd(
+                    z, trunk, w11, b11, x), iters=5)
+                f_pl = plain_ms(torch,
+                                lambda: dec.decoder_mse_reference(*ops))
+                t_pl = plain_ms(torch, lambda: dec.decoder_fwdbwd_reference(
+                    z, trunk, w11, b11, x))
+
+                def chain(args):
+                    h = args[0]
+                    for i in range(5):
+                        h = torch.relu(torch.baddbmm(
+                            args[2 + 2 * i][:, None, :], h,
+                            args[1 + 2 * i]))
+                    r = torch.relu(torch.baddbmm(args[12][:, None, :], h,
+                                                 args[11]))
+                    return ((r - x) ** 2).sum(dim=(1, 2))
+
+                f_lib = cuda_ms(torch, lambda: chain(ops), iters=10)
+                live = [t.clone().requires_grad_() for t in ops[:13]]
+                t_lib = cuda_ms(torch, lambda: torch.autograd.grad(
+                    chain(live).sum(), live), iters=10)
+                del live
+                in_bytes = (A * rows * dims[0] + A * n_trunk
+                            + A * (F + 1) * D + rows * D) * item
+                out_bytes = (A * rows * dims[0] * item
+                             + (A * n_trunk + A * (F + 1) * D) * 4)
+                timed = (
+                    ("decoder_fwd", f_ms, f_dev, f_pl, f_lib,
+                     "six baddbmm + loss, eager", 2.0 * A * rows * macs,
+                     in_bytes + A * 8,
+                     max((sk - sp).abs().max().item(), dm)),
+                    ("decoder_fwdbwd", t_ms, t_dev, t_pl, t_lib,
+                     "autograd of that chain", 6.0 * A * rows * macs,
+                     in_bytes + A * 8 + out_bytes,
+                     max((a - e).abs().max().item()
+                         for a, e in zip([got[0]] + flat(got),
+                                         [want[0]] + flat(want)))))
+                calls = {"decoder_fwd":
+                         lambda: dec.fused_decoder_mse(*ops),
+                         "decoder_fwdbwd": lambda: dec.decoder_fwdbwd(
+                             z, trunk, w11, b11, x)}
+                for (name, ms, dev, pl, lib, what, flops, nbytes,
+                     err) in timed:
+                    bound, by = flops_bound_ms(flops, nbytes, dname,
+                                               tensor_cores=True)
+                    simt, _ = flops_bound_ms(flops, nbytes, "float32")
+                    split = {}
+                    for _ in range(2):  # once more if events were lost
+                        parts = kernel_device_ms(torch, calls[name])
+                        if sum(parts.values()) >= 0.5 * dev:
+                            break
+                    for k, v in parts.items():
+                        m = re.search(r"(decoder|recon|quiet)_[a-z_]+", k)
+                        key = m.group(0) if m else k[:40]
+                        split[key] = split.get(key, 0.0) + v
+                    print(f"  {tag}: {name} device ms by pass: "
+                          + ", ".join(f"{k} {v:.4f}"
+                                      for k, v in split.items())
+                          + f"; total {sum(split.values()):.4f}")
+                    print(f"  {tag}: {name} kernel_ms {ms:.4f} (device "
+                          f"{dev:.4f}) plain_ms {pl:.4f} library_ms "
+                          f"{lib:.4f} ({what}) bound_ms {bound:.4f} "
+                          f"({by}) share_of_bound {bound / ms:.3f}; "
+                          f"FP32-core bound {simt:.4f}")
+                    suffix = "" if item == 4 else "_bf16"
+                    rec = records.setdefault(name, {})
+                    if item == 4:
+                        rec["max_abs_err"] = err
+                    rec.update({
+                        f"ms{suffix}": ms, f"device_ms{suffix}": dev,
+                        f"plain_ms{suffix}": pl,
+                        f"bound_ms{suffix}": bound,
+                        f"bound_by{suffix}": by,
+                        f"library_ms{suffix}": lib,
+                        f"device_ms_by_pass{suffix}": {
+                            k: round(v, 4) for k, v in split.items()}})
+            del ops, z, trunk, w11, b11, x, got, want, again, t0
+            torch.cuda.empty_cache()
     return records
 
 
@@ -2520,11 +2703,13 @@ def phase_decoder_path(torch, check, tmp, x) -> dict:
           f"({ms['off'][0]:.3f}, {ms['off'][1]:.3f}) = {B / off * 1e3:.1f} "
           f"cells/s; with fused_decoder {on:.3f} ms ({ms['on'][0]:.3f}, "
           f"{ms['on'][1]:.3f}) = {B / on * 1e3:.1f} cells/s")
+    step_dev = {}
     for label, model in (("without fused_decoder", plain),
                          ("with fused_decoder", fused)):
         print(f"  profiled chunk {label}:")
         n_sync, kernels, busy = phase_chunk_breakdown(torch, model, x_train,
                                                       top=14)
+        step_dev[label] = busy / 1e3 / (2 * (N_DEC_TRAIN // B))
         check(n_sync == 0, f"{n_sync} synchronising calls inside a chunk "
                            f"{label} (expect 0)")
         if busy:
@@ -2541,6 +2726,9 @@ def phase_decoder_path(torch, check, tmp, x) -> dict:
                 f"{k.strip('_')} {v / 1e3 / steps_prof:.3f} ms"
                 for k, v in groups.items())
                 + f", rest {rest / 1e3 / steps_prof:.3f} ms")
+    if all(step_dev.values()):
+        print("  training step on the device (profiler, one call): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in step_dev.items()))
     del plain, fused
     torch.cuda.empty_cache()
 

@@ -1,7 +1,6 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
 // product kernels (zinb_rows.cuh, zinb_fwdbwd.cu, encoder_fc1.cu,
-// recon_fwdbwd.cu).  Device
-// code only.
+// recon_passes.cuh, decoder.cu).  Device code only.
 //
 // Products run as warp-level `mma.sync` on Hopper's tensor cores with f32
 // accumulation: m16n8k16 for bf16 operands, m16n8k8 for tf32.  f32
@@ -172,7 +171,12 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 // rounds to nearest with ties away from zero, as cvt.rna does (a carry
 // into the exponent included).  Two integer operations and one f32
 // subtraction a value, all at full rate, where cvt.rna.tf32.f32 issues as
-// a conversion.
+// a conversion.  Unlike cvt.rna it does not keep every NaN: one whose
+// mantissa's top ten bits are all ones (the card's own NaN, 0x7FFFFFFF)
+// carries through the exponent into the sign and becomes -0; the quiet
+// NaN 0x7FC00000 stays a NaN.  So the kernels that split this way make
+// the NaNs of what they split quiet: quiet_nan on a value they store, and
+// on copies of their operands (recon_passes.cuh quiet_copy).
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
@@ -180,6 +184,12 @@ __device__ __forceinline__ void split_tf32_bits(float x, uint32_t& hi,
                                                 uint32_t& lo) {
   hi = tf32_bits(x);
   lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+// A NaN as the quiet NaN 0x7FC00000, whose bits split_tf32_bits keeps;
+// every other value as it is.
+__device__ __forceinline__ float quiet_nan(float v) {
+  return v == v ? v : __uint_as_float(0x7FC00000u);
 }
 
 // Not volatile: the products have no side effect, so the compiler may

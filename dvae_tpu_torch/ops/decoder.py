@@ -5,7 +5,10 @@ cotangent, or any trunk activation for autograd.
 
 Counterpart of dvae_tpu/ops/decoder_pallas.py (opt-in there and here:
 ``cfg.fused_decoder``).  Two hand-written CUDA kernels of one source,
-``csrc/decoder.cu`` (its note states the bound and the design), carry it:
+``csrc/decoder.cu`` (its note states the bound and the design: the trunk
+forward and backward as tensor-core tile passes, the output layer and
+the loss through kernel #2's row and column passes of
+``csrc/recon_passes.cuh``), carry it:
 
   * the value-only forward that eval runs (``_fwd_kernel``,
     decoder_pallas.py:115); launched by ``fused_decoder_mse`` when no
@@ -49,8 +52,8 @@ _NAMES = ("z", "w6", "b6", "w7", "b7", "w8", "b8", "w9", "b9", "w10", "b10",
           "w11", "b11", "x")
 _VOID, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGTYPES = [_VOID, ctypes.POINTER(_VOID), ctypes.POINTER(_INT), _VOID,
-                 _LL, _INT, _INT, _INT, ctypes.c_float, _INT] + [_VOID] * 4
-_FWDBWD_ARGTYPES = _FWD_ARGTYPES[:-1] + [_VOID] * 7
+                 _LL, _INT, _INT, _INT, ctypes.c_float, _INT] + [_VOID] * 6
+_FWDBWD_ARGTYPES = _FWD_ARGTYPES[:-3] + [_VOID] * 9
 
 
 def _lib() -> ctypes.CDLL:
@@ -62,12 +65,17 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.decoder_fwdbwd_f32, lib.decoder_fwdbwd_bf16):
             fn.argtypes = _FWDBWD_ARGTYPES
             fn.restype = _INT
-        lib.decoder_partials_per_arm.argtypes = [_INT]
+        lib.decoder_partials_per_arm.argtypes = [_INT] * 3
         lib.decoder_partials_per_arm.restype = _LL
+        lib.decoder_row_tiles.argtypes = [_INT]
+        lib.decoder_row_tiles.restype = _LL
         lib.decoder_grad_len.argtypes = [ctypes.POINTER(_INT)]
         lib.decoder_grad_len.restype = _LL
         lib.decoder_smem_bytes.argtypes = [ctypes.POINTER(_INT), _INT]
         lib.decoder_smem_bytes.restype = _LL
+        lib.decoder_quiet_ws_floats.argtypes = [ctypes.POINTER(_INT)] \
+            + [_INT] * 3
+        lib.decoder_quiet_ws_floats.restype = _LL
         lib.decoder_max_smem.argtypes = []
         lib.decoder_max_smem.restype = _LL
         lib._dvae_bound = True
@@ -120,28 +128,39 @@ def decoder_mse_reference(z, w6, b6, w7, b7, w8, b8, w9, b9, w10, b10,
     return recon_mse_reference(_trunk_forward(z, trunk)[-1], w11, b11, x, thr)
 
 
+def _trunk_backward(hs, trunk, g):
+    """Plain trunk backward from g = dh_5 (f32): (dz in the dtype of hs[0],
+    [(dW_i, db_i)] * 5 in f32) on the activations hs = [z, h_1, ..., h_5].
+    Each gated cotangent is rounded to z's dtype for its two products, db
+    sums it unrounded (decoder_pallas.py:255-266)."""
+    dtrunk = []
+    for i in range(N_TRUNK - 1, -1, -1):
+        g_f = torch.where(hs[i + 1].float() > 0, g, torch.zeros_like(g))
+        g16 = g_f.to(hs[0].dtype).float()
+        dtrunk.append((torch.bmm(hs[i].float().transpose(1, 2), g16),
+                       g_f.sum(dim=1)))
+        g = torch.bmm(g16, trunk[i][0].float().transpose(1, 2))
+    return g.to(hs[0].dtype), dtrunk[::-1]
+
+
 def decoder_fwdbwd_reference(z, trunk, w11, b11, x, thr: float = 0.1):
     """Plain version of the training kernel, what ``_fwdbwd_call``
     (decoder_pallas.py:269) returns: (sumsq, mism, dz, [(dW_i, db_i)] * 5,
     dW_11, db_11), the gradients of the sum of sumsq unscaled; dW and db in
-    f32, dz in z's dtype.  Rounds where the kernel rounds."""
+    f32, dz in z's dtype.  Rounds where the kernel rounds, in the kernel's
+    decomposition: trunk forward, the plain version of kernel #2 on h_5,
+    trunk backward."""
     from dvae_tpu_torch.ops.recon import recon_fwdbwd_reference
     hs = _trunk_forward(z, trunk)
     sumsq, mism, g, dw11, db11 = recon_fwdbwd_reference(hs[-1], w11, b11, x,
                                                         thr)
-    dtrunk = []
-    for i in range(N_TRUNK - 1, -1, -1):
-        g_f = torch.where(hs[i + 1].float() > 0, g, torch.zeros_like(g))
-        g16 = g_f.to(z.dtype).float()
-        dtrunk.append((torch.bmm(hs[i].float().transpose(1, 2), g16),
-                       g_f.sum(dim=1)))
-        g = torch.bmm(g16, trunk[i][0].float().transpose(1, 2))
-    return sumsq, mism, g.to(z.dtype), dtrunk[::-1], dw11, db11
+    dz, dtrunk = _trunk_backward(hs, trunk, g)
+    return sumsq, mism, dz, dtrunk, dw11, db11
 
 
 def _kernel_plan(lib, z, trunk, w11, b11, x, train: bool):
     """Argument checks every launch makes; returns (dtype, A, B, widths, D,
-    the C arrays of weight pointers and widths)."""
+    the C arrays of weight pointers and widths, the loss partials an arm)."""
     A, B, widths, D = _check_shapes(z, trunk, w11, b11, x)
     flat = [z] + [t for pair in trunk for t in pair] + [w11, b11, x]
     dtype = check_kernel_operands(_NAMES, flat)
@@ -157,8 +176,21 @@ def _kernel_plan(lib, z, trunk, w11, b11, x, train: bool):
         raise ValueError(f"widths {widths} need {need} bytes of shared "
                          f"memory a block, above the card's "
                          f"{lib.decoder_max_smem()}")
+    n_part = int(lib.decoder_partials_per_arm(A, B, D))
+    if n_part < 0:
+        raise ValueError(f"shape A={A}, B={B}, D={D} exceeds one launch's "
+                         "grid")
     ptrs = (_VOID * (2 * N_TRUNK + 2))(*(t.data_ptr() for t in flat[1:-1]))
-    return dtype, A, B, widths, D, ptrs, c_widths
+    return dtype, A, B, widths, D, ptrs, c_widths, n_part
+
+
+def _quiet_workspace(lib, c_widths, A, B, D, dtype, dev):
+    """f32 scratch for the copies of z and the weights with every NaN
+    quiet, which the kernel's 3xTF32 split keeps and its passes read
+    (csrc/recon_passes.cuh ``quiet_copy``); empty in bf16."""
+    n = int(lib.decoder_quiet_ws_floats(c_widths, A, B, D)) \
+        if dtype == torch.float32 else 0
+    return torch.empty(n, device=dev, dtype=torch.float32)
 
 
 def _decoder_value(z, trunk, w11, b11, x, thr, with_mism):
@@ -169,20 +201,22 @@ def _decoder_value(z, trunk, w11, b11, x, thr, with_mism):
         sumsq, mism = decoder_mse_reference(z, *flat, w11, b11, x, thr)
         return sumsq, mism if with_mism else torch.zeros_like(mism)
     lib = _lib()
-    dtype, A, B, _, D, ptrs, c_widths = _kernel_plan(lib, z, trunk, w11, b11,
-                                                     x, train=False)
+    dtype, A, B, widths, D, ptrs, c_widths, n_part = _kernel_plan(
+        lib, z, trunk, w11, b11, x, train=False)
     dev = z.device
-    n_part = int(lib.decoder_partials_per_arm(B))
     part_sum = torch.empty(A * n_part, device=dev, dtype=torch.float32)
     part_mism = torch.empty(A * n_part, device=dev, dtype=torch.int32)
     out = torch.empty((A, 2), device=dev, dtype=torch.float32)
+    h5 = torch.empty((A, B, widths[-1]), device=dev, dtype=dtype)  # scratch
+    quiet_ws = _quiet_workspace(lib, c_widths, A, B, D, dtype, dev)
     fn = lib.decoder_fwd_f32 if dtype == torch.float32 else lib.decoder_fwd_bf16
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(z.data_ptr(), ptrs, c_widths, x.data_ptr(),
                  0 if x.dim() == 2 else B * D, A, B, D, float(thr),
                  int(bool(with_mism)), part_sum.data_ptr(),
-                 part_mism.data_ptr(), out.data_ptr(), stream)
+                 part_mism.data_ptr(), out.data_ptr(), h5.data_ptr(),
+                 quiet_ws.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decoder_fwd kernel launch failed: CUDA error {err}")
     fused_decoder_mse.launches += 1
@@ -201,25 +235,35 @@ def decoder_fwdbwd(z, trunk, w11, b11, x, thr: float = 0.1,
         sumsq, mism, *grads = decoder_fwdbwd_reference(z, trunk, w11, b11, x,
                                                        thr)
         return (sumsq, mism if with_mism else torch.zeros_like(mism), *grads)
+    return _fwdbwd_launch(z, trunk, w11, b11, x, thr, with_mism)[:6]
+
+
+def _fwdbwd_launch(z, trunk, w11, b11, x, thr, with_mism):
+    """Kernel #13 on CUDA tensors: ``decoder_fwdbwd``'s six results and
+    two of the call's workspaces, [h_1, ..., h_5] in z's dtype and dh_5 in
+    f32, through which a check can follow the kernel pass by pass."""
     lib = _lib()
-    dtype, A, B, widths, D, ptrs, c_widths = _kernel_plan(
+    dtype, A, B, widths, D, ptrs, c_widths, n_part = _kernel_plan(
         lib, z, trunk, w11, b11, x, train=True)
     dev = z.device
     F = widths[-1]
-    n_part = int(lib.decoder_partials_per_arm(B))
+    n_tiles = int(lib.decoder_row_tiles(B))
     n_grad = int(lib.decoder_grad_len(c_widths))
     f32 = torch.float32
     part_sum = torch.empty(A * n_part, device=dev, dtype=f32)
     part_mism = torch.empty(A * n_part, device=dev, dtype=torch.int32)
     out = torch.empty((A, 2), device=dev, dtype=f32)
-    # workspaces: h_5 for the column pass, one trunk-gradient partial
+    # workspaces: the trunk's activations h_1..h_5 for the output layer's
+    # passes and the trunk backward, dh_5, and one trunk-gradient partial
     # vector per row tile (reduced in a fixed order by the last pass)
-    h5 = torch.empty((A, B, F), device=dev, dtype=dtype)
-    part_grad = torch.empty(A * n_part * n_grad, device=dev, dtype=f32)
+    acts = torch.empty(A * B * sum(widths[1:]), device=dev, dtype=dtype)
+    dh5 = torch.empty((A, B, F), device=dev, dtype=f32)
+    part_grad = torch.empty(A * n_tiles * n_grad, device=dev, dtype=f32)
     dz = torch.empty_like(z)
     flat_grads = torch.empty(A * n_grad, device=dev, dtype=f32)
     dw11 = torch.empty((A, F, D), device=dev, dtype=f32)
     db11 = torch.empty((A, D), device=dev, dtype=f32)
+    quiet_ws = _quiet_workspace(lib, c_widths, A, B, D, dtype, dev)
     fn = (lib.decoder_fwdbwd_f32 if dtype == f32
           else lib.decoder_fwdbwd_bf16)
     with torch.cuda.device(dev):
@@ -227,9 +271,10 @@ def decoder_fwdbwd(z, trunk, w11, b11, x, thr: float = 0.1,
         err = fn(z.data_ptr(), ptrs, c_widths, x.data_ptr(),
                  0 if x.dim() == 2 else B * D, A, B, D, float(thr),
                  int(bool(with_mism)), part_sum.data_ptr(),
-                 part_mism.data_ptr(), out.data_ptr(), h5.data_ptr(),
-                 part_grad.data_ptr(), dz.data_ptr(), flat_grads.data_ptr(),
-                 dw11.data_ptr(), db11.data_ptr(), stream)
+                 part_mism.data_ptr(), out.data_ptr(), acts.data_ptr(),
+                 dh5.data_ptr(), part_grad.data_ptr(), dz.data_ptr(),
+                 flat_grads.data_ptr(), dw11.data_ptr(), db11.data_ptr(),
+                 quiet_ws.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decoder_fwdbwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -242,7 +287,11 @@ def decoder_fwdbwd(z, trunk, w11, b11, x, thr: float = 0.1,
         at += A * k * n
         dtrunk.append((dw, flat_grads[at:at + A * n].view(A, n)))
         at += A * n
-    return out[:, 0], out[:, 1], dz, dtrunk, dw11, db11
+    hs, at = [], 0
+    for n in widths[1:]:
+        hs.append(acts[at:at + A * B * n].view(A, B, n))
+        at += A * B * n
+    return out[:, 0], out[:, 1], dz, dtrunk, dw11, db11, hs, dh5
 
 
 decoder_fwdbwd.launches = 0

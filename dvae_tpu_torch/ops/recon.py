@@ -39,7 +39,7 @@ from dvae_tpu_torch.ops._common import check_kernel_operands, on_cpu
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 \
     + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
-_FWDBWD_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 4
+_FWDBWD_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 5
 
 
 def _lib() -> ctypes.CDLL:
@@ -64,17 +64,28 @@ def _lib_fwdbwd() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         for fn in (lib.recon_bwd_f32, lib.recon_bwd_bf16):
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] \
-                + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
             fn.restype = ctypes.c_int
         lib.recon_fwdbwd_partials_per_arm.argtypes = [ctypes.c_int] * 3
         lib.recon_fwdbwd_partials_per_arm.restype = ctypes.c_longlong
         lib.recon_fwdbwd_plan.argtypes = [ctypes.c_int] * 3 \
             + [ctypes.POINTER(ctypes.c_int)]
         lib.recon_fwdbwd_plan.restype = ctypes.c_int
+        lib.recon_fwdbwd_quiet_ws_floats.argtypes = [ctypes.c_int] * 4
+        lib.recon_fwdbwd_quiet_ws_floats.restype = ctypes.c_longlong
         lib.recon_fwdbwd_max_f.argtypes = []
         lib.recon_fwdbwd_max_f.restype = ctypes.c_int
         lib._dvae_bound = True
     return lib
+
+
+def _quiet_workspace(lib, A, B, F, D, dtype, dev):
+    """f32 scratch for the copies of h and W with every NaN quiet, which
+    the kernel's 3xTF32 split keeps and its passes read
+    (csrc/recon_passes.cuh ``quiet_copy``); empty in bf16."""
+    n = int(lib.recon_fwdbwd_quiet_ws_floats(A, B, F, D)) \
+        if dtype == torch.float32 else 0
+    return torch.empty(n, device=dev, dtype=torch.float32)
 
 
 def _check_shapes(h, w, b, x):
@@ -196,6 +207,7 @@ def recon_fwdbwd(h, w, b, x, thr: float = 0.1, with_mism: bool = True):
     dh = torch.empty((A, B, F), device=dev, dtype=torch.float32)
     dw = torch.empty((A, F, D), device=dev, dtype=torch.float32)
     db = torch.empty((A, D), device=dev, dtype=torch.float32)
+    quiet_ws = _quiet_workspace(lib, A, B, F, D, dtype, dev)
     fn = (lib.recon_fwdbwd_f32 if dtype == torch.float32
           else lib.recon_fwdbwd_bf16)
     with torch.cuda.device(dev):
@@ -204,7 +216,7 @@ def recon_fwdbwd(h, w, b, x, thr: float = 0.1, with_mism: bool = True):
                  0 if x.dim() == 2 else B * D, A, B, F, D, float(thr),
                  int(bool(with_mism)), part_sum.data_ptr(),
                  part_mism.data_ptr(), out.data_ptr(), dh.data_ptr(),
-                 dw.data_ptr(), db.data_ptr(), stream)
+                 dw.data_ptr(), db.data_ptr(), quiet_ws.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"recon_fwdbwd kernel launch failed: CUDA error {err}")
     recon_fwdbwd.launches += 1
@@ -248,12 +260,14 @@ def recon_bwd(g, h, w, b, x):
     dh = torch.empty((A, B, F), device=dev, dtype=torch.float32)
     dw = torch.empty((A, F, D), device=dev, dtype=torch.float32)
     db = torch.empty((A, D), device=dev, dtype=torch.float32)
+    quiet_ws = _quiet_workspace(lib, A, B, F, D, dtype, dev)
     fn = lib.recon_bwd_f32 if dtype == torch.float32 else lib.recon_bwd_bf16
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g32.data_ptr(), h.data_ptr(), w.data_ptr(), b.data_ptr(),
                  x.data_ptr(), 0 if x.dim() == 2 else B * D, A, B, F, D,
-                 dh.data_ptr(), dw.data_ptr(), db.data_ptr(), stream)
+                 dh.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                 quiet_ws.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"recon_bwd kernel launch failed: CUDA error {err}")
     recon_bwd.launches += 1

@@ -3,6 +3,7 @@
 (encoder_bwd) and #6 (zinb_fwd) against each other on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_variants.py recon_slices encoder_stages
+    python3 scripts/torch_kernel_variants.py --base runs/old recon_quiet
 
 Each named set lists variants of ``dvae_tpu_torch/csrc``: regular-expression
 substitutions applied to a copy of the sources under
@@ -17,7 +18,11 @@ y is exact in any order (every output), #5 dW1 within 1e-5 of the plain
 version fed the same mask, #6's value within 1e-5 and equal to #7's loss
 bit for bit.  The sets in TIMING_ONLY are ablations: their variants after
 the first drop work to show where the time goes, so only the first is
-checked.  Shapes are the production ones (A=5, B=5000, D=5032, F=100);
+checked.  ``--base DIR`` adds to every set one more variant, the sources
+of another checkout (``DIR/dvae_tpu_torch/csrc``, e.g. a ``git archive``
+of an earlier commit) as they are; for #2 every checked variant's outputs
+on the uniform draw are also compared with the first variant's, bit for
+bit.  Shapes are the production ones (A=5, B=5000, D=5032, F=100);
 times by CUDA events, and #2's passes also by the profiler's device time.
 Exits 2 without a card.
 """
@@ -38,15 +43,15 @@ SETS = {
     # or cvt.rna.tf32.f32, as #4-#8 split
     "recon_split": ("recon_fwdbwd", {
         "integer rounding (as built)": [],
-        "cvt.rna": [("recon_fwdbwd.cu", r"tc::split_a_bits\(",
+        "cvt.rna": [("recon_passes.cuh", r"tc::split_a_bits\(",
                      "tc::split_a("),
-                    ("recon_fwdbwd.cu", r"tc::split_b_bits\(",
+                    ("recon_passes.cuh", r"tc::split_b_bits\(",
                      "tc::split_b(")],
     }),
     # #2's row plan: slices of D to fill whole waves, or none
     "recon_slices": ("recon_fwdbwd", {
         "plan (as built)": [],
-        "one slice": [("recon_fwdbwd.cu", r"constexpr int MAX_SPLIT = 8;",
+        "one slice": [("recon_passes.cuh", r"constexpr int MAX_SPLIT = 8;",
                        "constexpr int MAX_SPLIT = 1;")],
     }),
     # where #2's time goes: each ablation drops one piece of work (its
@@ -54,22 +59,32 @@ SETS = {
     "recon_ablate": ("recon_fwdbwd", {
         "as built": [],
         "no streamed loads (stages after the first never refilled)": [
-            ("recon_fwdbwd.cu",
+            ("recon_passes.cuh",
              r"if \(step \+ 1 < nsteps\) issue\(step \+ 1\);", ""),
-            ("recon_fwdbwd.cu",
+            ("recon_passes.cuh",
              r"if \(step \+ S - 1 < nsteps\) issue\(step \+ S - 1\);", "")],
         "no y products (both passes)": [
-            ("recon_fwdbwd.cu", r"if \(k0 >= FK\) break;", "break;"),
-            ("recon_fwdbwd.cu", r"if \(kk >= FK\) break;", "break;")],
+            ("recon_passes.cuh", r"if \(k0 >= FK\) break;", "break;"),
+            ("recon_passes.cuh", r"if \(kk >= FK\) break;", "break;")],
         "no dh products (pass 1)": [
-            ("recon_fwdbwd.cu", r"if \(8 \* n < FK\) \{", "if (false) {")],
+            ("recon_passes.cuh", r"if \(8 \* n < FK\) \{", "if (false) {")],
         "no dW products (pass 2)": [
-            ("recon_fwdbwd.cu", r"if \(has_m0\) \{", "if (false) {")],
+            ("recon_passes.cuh", r"if \(has_m0\) \{", "if (false) {")],
         "1xTF32 (the two lo products dropped; f32 only)": [
             ("mma.cuh", r"  mma_tf32\(small, a\.lo, b\.hi\);\n"
              r"  mma_tf32\(big, a\.hi, b\.hi\);\n"
              r"  mma_tf32\(small, a\.hi, b\.lo\);",
              "  mma_tf32(big, a.hi, b.hi);")],
+    }),
+    # what keeping a NaN through #2's integer split costs: the passes read
+    # copies of h and W with every NaN quiet (csrc/recon_passes.cuh
+    # quiet_copy), or the operands themselves
+    "recon_quiet": ("recon_fwdbwd", {
+        "quiet copies (as built)": [],
+        "no copies": [
+            ("recon_passes.cuh",
+             r"if \(std::is_same<T, float>::value && quiet_ws\) \{",
+             "if (false) {")],
     }),
     # stage depth of #5's backward: rows of x and g a stage
     "encoder_stages": ("encoder_fc1", {
@@ -115,11 +130,12 @@ A, B, D, F = 5, 5000, 5032, 100
 RATE = 0.5
 
 
-def make_variant(root: Path, edits) -> Path:
+def make_variant(root: Path, edits, src=None) -> Path:
     from dvae_tpu_torch.ops import _build
     if root.exists():
         shutil.rmtree(root)
-    shutil.copytree(_build.CSRC, root, ignore=shutil.ignore_patterns("build"))
+    shutil.copytree(src or _build.CSRC, root,
+                    ignore=shutil.ignore_patterns("build"))
     for name, pattern, repl in edits:
         path = root / name
         text, n = re.subn(pattern, repl, path.read_text())
@@ -152,11 +168,24 @@ def build_all(variants, names) -> None:
 
 
 def use(root: Path) -> None:
-    """Point the kernel loader at one variant's libraries."""
-    from dvae_tpu_torch.ops import _build
+    """Point the kernel loader at one variant's libraries.  #2's entry
+    points of sources from before the quiet copies take no workspace:
+    their calls drop it."""
+    from dvae_tpu_torch.ops import _build, recon
     _build.CSRC = root
     _build._loaded.clear()
     _build.library_path = lambda name: root / "build" / f"lib{name}.so"
+    src = root / "recon_fwdbwd.cu"
+    if src.exists() and "quiet_ws" not in src.read_text():
+        lib = _build.load("recon_fwdbwd")
+        lib.recon_fwdbwd_quiet_ws_floats = lambda *args: 0
+        recon._lib_fwdbwd()  # binds the entry points
+        for name in ("recon_fwdbwd_f32", "recon_fwdbwd_bf16",
+                     "recon_bwd_f32", "recon_bwd_bf16"):
+            raw = getattr(lib, name)
+            raw.argtypes = raw.argtypes[:-2] + raw.argtypes[-1:]
+            setattr(lib, name,
+                    lambda *args, raw=raw: raw(*args[:-2], args[-1]))
 
 
 def pass_ms(torch, fn, iters: int = 5):
@@ -191,6 +220,14 @@ def main(argv) -> int:
     from dvae_tpu_torch.ops import encoder as enc
     from dvae_tpu_torch.ops import recon, zinb
 
+    base = None
+    if "--base" in argv:
+        i = argv.index("--base")
+        base = Path(argv[i + 1]).resolve() / "dvae_tpu_torch" / "csrc"
+        argv = argv[:i] + argv[i + 2:]
+        if not (base / "recon_fwdbwd.cu").exists():
+            print(f"no sources in {base}", file=sys.stderr)
+            return 2
     names = argv or list(SETS)
     unknown = [n for n in names if n not in SETS]
     if unknown:
@@ -210,6 +247,11 @@ def main(argv) -> int:
         kernel, table = SETS[set_name]
         variants = {label: make_variant(out / set_name / f"v{i}", edits)
                     for i, (label, edits) in enumerate(table.items())}
+        if base is not None:
+            variants[f"the sources of {base.parent.parent}"] = make_variant(
+                out / set_name / "base", [], src=base)
+        first_out = {}
+        same_bits = {label: True for label in variants}
         print(f"{set_name}: building {len(variants)} variants of {kernel}")
         build_all(variants, [kernel] + (["zinb_fwdbwd"]
                                         if kernel == "zinb_fwd" else []))
@@ -242,6 +284,13 @@ def main(argv) -> int:
                                     f"err {e_s}, gradients {e_g}")
                             del got, want, ops
                         ops = [t.to(dt) for t in rec32[False]]
+                        if checked:
+                            outs = recon.recon_fwdbwd(*ops)
+                            ref = first_out.setdefault(key, outs)
+                            same_bits[label] &= all(
+                                bool(torch.equal(u, v))
+                                for u, v in zip(outs, ref))
+                            del outs, ref
                         rec.setdefault(key, []).append(cs.cuda_ms(
                             torch, lambda: recon.recon_fwdbwd(*ops)))
                         for name, v in pass_ms(
@@ -278,9 +327,14 @@ def main(argv) -> int:
                             iters=10))
                         del ops
         for label, rec in times.items():
+            bits = ""
+            if kernel == "recon_fwdbwd" and (set_name not in TIMING_ONLY
+                                             or label == order[0]):
+                bits = (" | outputs on the uniform draw bit-identical to "
+                        f"the first variant's: {same_bits[label]}")
             print(f"  {set_name} | {label} | " + " | ".join(
                 f"{k} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
-                for k, ts in rec.items()))
+                for k, ts in rec.items()) + bits)
     print(cs.card_line())
     return 0
 

@@ -16,6 +16,11 @@ Same inputs, made with numpy from a seed, go to both sides.  Tolerances:
     one of them near a rounding boundary moves by a bf16 step (2^-8) and
     the steps compound over six layers: sums rtol 2e-2, gradients within
     5e-2 of each leaf's largest entry.
+
+The plain #13 is also held to be the chain the kernel runs (trunk forward,
+the plain version of kernel #2 on h_5, trunk backward), and the products
+of the kernel's trunk passes are modelled in numpy in its split, padding
+and run lengths, within 1e-6 of f64 at production depth.
 """
 
 import numpy as np
@@ -27,6 +32,9 @@ import jax.numpy as jnp
 
 from dvae_tpu.ops import decoder_pallas
 from dvae_tpu_torch.ops import _build, decoder, recon
+from test_torch_encoder import _bf16, _mma_bf16
+from test_torch_recon import _pad
+from test_torch_zinb import _mma_3xtf32
 
 A, Z, L, F, D = 3, 10, 6, 16, 40
 GA = np.array([0.5, -1.25, 2.0], np.float32)
@@ -231,4 +239,121 @@ def test_wrapper_refuses_other_devices_and_the_kernel_is_registered():
         decoder.fused_decoder_mse(*[t.to("meta") for t in tt])
     assert "decoder" in _build.KERNELS
     assert (_build.CSRC / "decoder.cu").exists()
-    assert (_build.CSRC / "recon_tiles.cuh").exists()
+    assert (_build.CSRC / "recon_passes.cuh").exists()
+
+
+# ---------------------------------------------------------------------------
+# Kernel #13 as the redesign composes it, and the plan of its trunk passes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("per_arm", [False, True])
+@pytest.mark.parametrize("B", [70, 600])
+def test_plain_version_is_the_kernels_decomposition(B, per_arm):
+    """The chain the kernel runs, the plain trunk forward, the plain
+    version of kernel #2 on h_5 and the plain trunk backward from its
+    dh_5, against the JAX package's ``_fwdbwd_call`` (as
+    ``test_fwdbwd_plain_version_matches_the_fused_jax_call`` holds the
+    plain #13) and, scaled by a per-arm cotangent, against jax.grad of the
+    Pallas op (as ``test_fused_decoder_grads_match_pallas``)."""
+    ops = _operands(B + 11, B, per_arm)
+    tt = [torch.from_numpy(o) for o in ops]
+    z, trunk, w11, b11, x = tt[0], _trunk(tt), tt[11], tt[12], tt[13]
+    hs = decoder._trunk_forward(z, trunk)
+    s, m, dh5, dw11, db11 = recon.recon_fwdbwd_reference(hs[-1], w11, b11, x)
+    dz, dtrunk = decoder._trunk_backward(hs, trunk, dh5)
+    chain = [s, m, dz, *(t for pair in dtrunk for t in pair), dw11, db11]
+    jx = [jnp.asarray(o) for o in ops]
+    (js, jm), jdz, jdtrunk, jdw11, jdb11 = decoder_pallas._fwdbwd_call(
+        jx[0], _trunk(jx), jx[11], jx[12], jx[13], 0.1, True)
+    want = [js, jm, jdz, *(t for pair in jdtrunk for t in pair), jdw11, jdb11]
+    for g_, w_ in zip(chain, want):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-4,
+                                   atol=1e-4)
+    grads = _jax_grads(jx)
+    ga = torch.from_numpy(GA)
+    for i, (g_, w_) in enumerate(zip(chain[2:], grads)):
+        scaled = g_ * (ga[:, None, None] if g_.dim() == 3 else ga[:, None])
+        np.testing.assert_allclose(scaled.numpy(), np.asarray(w_), rtol=3e-4,
+                                   atol=1e-4, err_msg=f"arg {i}")
+
+
+Z_P, L_P, F_P, B_P = 94, 10, 100, 5000  # the production trunk and batch
+
+
+def _trunk_plan_operands(which, dtype, seed):
+    """Operands of one of #13's trunk products at production depth: z as
+    the model makes it (a soft categorical sample beside two state values),
+    activations relu of a normal draw (about half exact zeros), weights at
+    the smoke run's scale (1.4 / sqrt(in)), cotangents of both signs over
+    five decades; bf16 operands and cotangents rounded to bf16, as the
+    kernel rounds each gated cotangent for its products."""
+    r = np.random.default_rng(seed)
+    rows = B_P if which == "dW = h^T g (K=B)" else 64
+
+    def w(k, n):
+        return (r.standard_normal((k, n)) * 1.4 / np.sqrt(k)).astype(
+            np.float32)
+
+    def h(n):
+        return np.maximum(r.standard_normal((rows, n)), 0).astype(np.float32)
+
+    def g(n):
+        return (r.standard_normal((rows, n))
+                * 10.0 ** r.uniform(-3, 2, (rows, n))).astype(np.float32)
+
+    if which == "fc6 y = z W (K=94)":
+        e = np.exp(3 * r.standard_normal((rows, Z_P - 2)))
+        a = np.concatenate([e / e.sum(1, keepdims=True),
+                            r.standard_normal((rows, 2))], 1)
+        a, b = a.astype(np.float32), w(Z_P, L_P)
+    elif which == "fc7 y = h W (K=10)":
+        a, b = h(L_P), w(L_P, F_P)
+    elif which == "fc8 y = h W (K=100)":
+        a, b = h(F_P), w(F_P, F_P)
+    elif which == "g W^T (K=100)":
+        a, b = g(F_P), w(F_P, F_P).T.copy()
+    else:
+        a, b = h(F_P).T.copy(), g(F_P)
+    if dtype == "bfloat16":
+        a, b = _bf16(a), _bf16(b)
+    return a, b
+
+
+def _trunk_plan_product(which, dtype):
+    """(kernel-order result, a, b) of one trunk product of #13, summed as
+    csrc/decoder.cu sums it: k padded with zeros to the mma's depth (8 in
+    f32, 16 in bf16), runs of 32 values of k summed from zero (f32: 3xTF32
+    in two accumulators) and added rounded to nearest.  dW sums each
+    64-row tile so (two runs of 32 rows), and the tiles' partials in
+    double in tile order (``decoder_grad_reduce``)."""
+    a, b = _trunk_plan_operands(which, dtype, seed=sum(map(ord, which)))
+    ks = 8 if dtype == "float32" else 16
+
+    def model(u, v):
+        u, v = _pad(u, 1, ks), _pad(v, 0, ks)
+        if dtype == "float32":
+            return _mma_3xtf32(u, v, run=32)
+        return _mma_bf16(u, v, run=32)
+
+    if which != "dW = h^T g (K=B)":
+        return model(a, b), a, b
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float64)
+    for t0 in range(0, B_P, 64):
+        acc += model(a[:, t0:t0 + 64], b[t0:t0 + 64])
+    return acc.astype(np.float32), a, b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["fc6 y = z W (K=94)", "fc7 y = h W (K=10)",
+                                   "fc8 y = h W (K=100)", "g W^T (K=100)",
+                                   "dW = h^T g (K=B)"])
+def test_trunk_plan_keeps_f32_accuracy_at_production_depth(which, dtype):
+    """Each product of #13's trunk passes at production depth (the forward
+    through fc6, K = 94 -> 96; fc7, K = 10 -> 16; fc8..fc10, K = 100; the
+    backward's g W^T over 100 units; dW over B = 5,000 rows in 79 tiles of
+    64), in the kernel's split, padding, run lengths and order, with the
+    tensor cores' sums rounded toward zero: within 1e-6 of the f64 product
+    (max |Δ| / max |f64|), the margin under the chip check's 1e-5."""
+    got, a, b = _trunk_plan_product(which, dtype)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    assert np.abs(got - exact).max() / np.abs(exact).max() <= 1e-6

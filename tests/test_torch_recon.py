@@ -204,7 +204,7 @@ A_P, B_P, F_P, D_P = 5, 5000, 100, 5032  # the production shape
 
 def _row_plan(A, B, D):
     """(n_split, cols_per_split, row_tiles) of kernel #2's pass 1, the twin
-    of ``plan`` in csrc/recon_fwdbwd.cu (64 rows a block, 32 columns a
+    of ``plan`` in csrc/recon_passes.cuh (64 rows a block, 32 columns a
     step, 264 block slots: an H100 SXM's 132 SMs at two blocks an SM, at
     most 8 slices): D cut into ``n_split`` slices of ``cols_per_split``
     columns so that the (row tiles × A × n_split) blocks fill whole waves
@@ -246,7 +246,7 @@ def _plan_operands(dtype, rows, cols, seed):
 
 def _plan_product(which, dtype, carry=False):
     """(kernel-order result, a, b) of one of #2's products at production
-    depth, summed as recon_fwdbwd.cu sums it.  f32: 3xTF32 mma of 8; y runs
+    depth, summed as recon_passes.cuh sums it.  f32: 3xTF32 mma of 8; y runs
     of 32 in one accumulator, dh one step's 32 columns, dW one step's 32
     rows in two accumulators, each run added rounded to nearest.  bf16: mma
     of 16; y carried through its 7 mma, dh and dW runs of 32.  dh is the
