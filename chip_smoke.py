@@ -38,7 +38,14 @@ Phases (any failure exits non-zero and prints no result line):
      the trunk backward against the plain one on its own activations and
      dh5; the output layer's gradients against #2's on the plain h5, bit
      for bit on the grid); #2 with a NaN in h or W of one arm, the quiet
-     one and the card's own;
+     one and the card's own; a NaN of x (either encoding) where r > 0 and
+     where r = 0 for #2, #3, #12 and #13 on the grid draws: NaN where the
+     plain version is, every other element bit for bit the clean input's;
+     #1 (on wgmma) also on grid draws (mism exact, sumsq within 1e-6), at
+     a ragged F, an F past one resident chunk and rows of x not 16-byte
+     aligned, with a NaN in h, W or x of one arm or in shared x, its plan
+     against the CPU tests' twin, and timed beside #12's value-only row
+     pass on the same inputs, which it must beat;
      the row plan of #2 (its rules, and the Python twin's plan); that
      repeated launches are bit-identical; and
      time kernel, plain version and library call (for the tensor-core
@@ -126,6 +133,7 @@ PEAK_TF32 = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL_SUMSQ = {"float32": 1e-5, "bfloat16": 1e-4}   # relative, per arm
 TOL_MISM = 1e-5                                    # × B·D, per arm
+TOL_GRID_SUMSQ = 1e-6                              # y exact: #1 on the grid
 # kernel vs plain, max |Δ| / max |plain|: f32 sums in another order; bf16
 # outputs (y1) one bf16 rounding step; bf16 gradients: gm rounded to bf16
 # on both sides from f32 values that differ in their last bits
@@ -284,13 +292,20 @@ def kernel_device_ms(torch, fn, iters: int = 5) -> dict:
     return out
 
 
-def recon_bound_ms(a, b, f, d, dtype_name: str, per_arm_x: bool):
-    """(bound_ms, bound_by) of one fused recon forward: operands read once,
-    the (A, 2) output written once; 2·A·B·F·D operations of the product."""
+def recon_bound_bytes(a, b, f, d, dtype_name: str, per_arm_x: bool):
+    """Bytes of one fused recon forward: operands read once, the (A, 2)
+    output written once."""
     item = 4 if dtype_name == "float32" else 2
     x_elems = (a if per_arm_x else 1) * b * d
-    nbytes = (a * b * f + a * f * d + a * d + x_elems) * item + a * 2 * 4
-    return flops_bound_ms(2.0 * a * b * f * d, nbytes, dtype_name)
+    return (a * b * f + a * f * d + a * d + x_elems) * item + a * 2 * 4
+
+
+def recon_bound_ms(a, b, f, d, dtype_name: str, per_arm_x: bool):
+    """(bound_ms, bound_by) of one fused recon forward on the FP32 cores
+    (f32) or the bf16 tensor cores: 2·A·B·F·D operations of the product."""
+    return flops_bound_ms(2.0 * a * b * f * d,
+                          recon_bound_bytes(a, b, f, d, dtype_name,
+                                            per_arm_x), dtype_name)
 
 
 def plain_ms(torch, fn, iters: int = 3) -> float:
@@ -354,23 +369,67 @@ def phase_build(check):
                 f"{time.perf_counter() - t0:.1f} s")
 
 
+def row_pass_value(torch, h, w, b, x, thr: float = 0.1):
+    """(A, 2) sums of the value-only row pass of recon_passes.cuh on h, as
+    #12 runs it on its h5 (``recon_rows_value_*`` of the recon_fwdbwd
+    library, with its quiet copies in f32): the yardstick of #1.  Not a
+    path of the port."""
+    from dvae_tpu_torch.ops import recon as rc
+    lib = rc._lib_fwdbwd()
+    A_, B_, F_ = h.shape
+    D_ = w.shape[2]
+    f32 = h.dtype == torch.float32
+    fn = lib.recon_rows_value_f32 if f32 else lib.recon_rows_value_bf16
+    if not getattr(fn, "argtypes", None):
+        fn.argtypes = rc._ARGTYPES + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    n_part = int(lib.recon_fwdbwd_partials_per_arm(A_, B_, D_))
+    ps = torch.empty(A_ * n_part, device=h.device, dtype=torch.float32)
+    pm = torch.empty(A_ * n_part, device=h.device, dtype=torch.int32)
+    out = torch.empty((A_, 2), device=h.device, dtype=torch.float32)
+    qws = rc._quiet_workspace(lib, A_, B_, F_, D_, h.dtype, h.device)
+    err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(),
+             0 if x.dim() == 2 else B_ * D_, A_, B_, F_, D_, float(thr), 1,
+             ps.data_ptr(), pm.data_ptr(), out.data_ptr(), qws.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"recon_rows_value failed: CUDA error {err}")
+    return out
+
+
+def recon_fwd_plan(torch, a, b, f, d, dtype) -> tuple:
+    """#1's launch plan from its library: (k chunk, chunks, row blocks,
+    column tiles, slices of D, column tiles a slice, stages, x staged,
+    shared memory bytes)."""
+    from dvae_tpu_torch.ops import recon as rc
+    out = (ctypes.c_longlong * 9)()
+    rcode = rc._lib().recon_fwd_plan(a, b, f, d,
+                                     int(dtype == torch.bfloat16), out)
+    return tuple(out) if rcode == 0 else None
+
+
 def phase_kernels(torch, check) -> dict:
-    """Kernel vs plain version; returns the record of the main case."""
+    """Kernel #1 vs its plain version; returns the record of the main case
+    (f32, shared x, B=5000; bf16 under ``*_bf16``, the value-only row pass
+    under ``row_pass_ms*``)."""
     from dvae_tpu_torch.ops.recon import fused_recon_mse, recon_mse_reference
     print("phase 2: recon_fwd kernel vs plain version")
+    # the plan: the Python twin in tests/test_torch_recon.py gives the same
+    for dtype, want in ((torch.float32,
+                         (104, 1, 40, 79, 5, 16, 2, 0, 212992)),
+                        (torch.bfloat16,
+                         (112, 1, 40, 79, 5, 16, 4, 1, 159744))):
+        got = recon_fwd_plan(torch, A, B, F, D, dtype)
+        check(got == want, f"recon_fwd plan at (A, B, F, D) = ({A}, {B}, "
+                           f"{F}, {D}), {dtype}: {got} (the twin's {want})")
     g = torch.Generator(device=DEV).manual_seed(SEED)
-    dev = DEV
+    g_grid = torch.Generator(device=DEV).manual_seed(SEED + 24)
     record = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for rows in (B, TAIL):
             for per_arm in (False, True):
-                h = torch.rand((A, rows, F), generator=g, device=dev)
-                w = (torch.rand((A, F, D), generator=g, device=dev) - 0.5) * 0.2
-                b = (torch.rand((A, D), generator=g, device=dev) - 0.5) * 0.2
-                xs = (A, rows, D) if per_arm else (rows, D)
-                x = torch.relu(torch.randn(xs, generator=g, device=dev))
-                h, w, b, x = (t.to(dtype).contiguous() for t in (h, w, b, x))
+                h, w, b, x = recon_inputs(torch, g, dtype, rows, per_arm)
                 sk, mk = fused_recon_mse(h, w, b, x)
                 sp, mp = recon_mse_reference(h, w, b, x)
                 torch.cuda.synchronize()
@@ -388,6 +447,10 @@ def phase_kernels(torch, check) -> dict:
                 check(same, f"{tag}: repeated launch bit-identical")
                 if rows == B and not per_arm:
                     ms = cuda_ms(torch, lambda: fused_recon_mse(h, w, b, x))
+                    dev_ms = device_ms(torch,
+                                       lambda: fused_recon_mse(h, w, b, x))
+                    rows_ms = cuda_ms(
+                        torch, lambda: row_pass_value(torch, h, w, b, x))
                     plain = cuda_ms(torch,
                                     lambda: recon_mse_reference(h, w, b, x),
                                     iters=5)
@@ -395,16 +458,97 @@ def phase_kernels(torch, check) -> dict:
                     lib = cuda_ms(torch,
                                   lambda: torch.baddbmm(bias3, h, w), iters=10)
                     bound, by = recon_bound_ms(A, rows, F, D, dname, per_arm)
+                    tc_bound, tc_by = flops_bound_ms(
+                        2.0 * A * rows * F * D,
+                        recon_bound_bytes(A, rows, F, D, dname, per_arm),
+                        dname, tensor_cores=True)
                     err = max((sk - sp).abs().max().item(), dm)
-                    print(f"  {tag}: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+                    rp = row_pass_value(torch, h, w, b, x)
+                    rp_rel = ((rp[:, 0] - sp).abs() / sp.abs()).max().item()
+                    print(f"  {tag}: kernel_ms {ms:.4f} (device {dev_ms:.4f}) "
+                          f"row_pass_ms {rows_ms:.4f} (its sumsq rel err "
+                          f"{rp_rel:.1e}) plain_ms {plain:.4f} "
                           f"library_ms(baddbmm product) {lib:.4f} "
-                          f"bound_ms {bound:.4f} ({by}) "
-                          f"share_of_bound {bound / ms:.3f}")
+                          f"bound_ms {tc_bound:.4f} ({tc_by}, tensor cores) "
+                          f"share_of_bound {tc_bound / ms:.3f}; FP32-core "
+                          f"bound {bound:.4f} ({by})")
+                    suffix = "" if dtype == torch.float32 else "_bf16"
                     if dtype == torch.float32:
-                        record = {"max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain, "bound_ms": bound,
-                                  "bound_by": by, "library_ms": lib}
+                        record["max_abs_err"] = err
+                    record.update({
+                        f"ms{suffix}": ms, f"device_ms{suffix}": dev_ms,
+                        f"row_pass_ms{suffix}": rows_ms,
+                        f"plain_ms{suffix}": plain,
+                        f"bound_ms{suffix}": tc_bound,
+                        f"bound_by{suffix}": tc_by,
+                        f"fp32_core_bound_ms{suffix}": bound,
+                        f"library_ms{suffix}": lib})
+                    check(ms < rows_ms,
+                          f"{tag}: recon_fwd ({ms:.4f} ms) faster than the "
+                          f"value-only row pass ({rows_ms:.4f} ms) on the "
+                          "same inputs")
                 del h, w, b, x
+    # on the grid (h on 1/16, W on 1/256, b on 1/4096) y is exact in any
+    # order of its sums: mism exact, sumsq within 1e-6; ragged F (37), F
+    # past one resident chunk (160; bf16 448), rows of x and W that are
+    # not 16-byte aligned (D = 5031)
+    shapes = [(dt, rows, per_arm, f, d)
+              for dt in (torch.float32, torch.bfloat16)
+              for rows, per_arm, f, d in ((B, False, F, D), (B, True, F, D),
+                                          (TAIL, False, F, 5031),
+                                          (300, True, 37, 1000),
+                                          (300, False, 160, 1000),
+                                          (130, True, 448, 517))]
+    for dtype, rows, per_arm, f, d in shapes:
+        dname = str(dtype).split(".")[-1]
+        tag = (f"{dname} B={rows} F={f} D={d} x="
+               f"{'per-arm' if per_arm else 'shared'}, on the grid")
+        ops = recon_inputs(torch, g_grid, dtype, rows, per_arm, True, f, d)
+        sk, mk = fused_recon_mse(*ops)
+        sp, mp = recon_mse_reference(*ops)
+        rel = ((sk - sp).abs() / sp.abs()).max().item()
+        again = fused_recon_mse(*ops)
+        check(rel <= TOL_GRID_SUMSQ and torch.equal(mk, mp)
+              and torch.equal(again[0], sk) and torch.equal(again[1], mk),
+              f"{tag}: sumsq rel err {rel:.1e} (tol {TOL_GRID_SUMSQ:.0e}), "
+              f"mism exact, repeats bit-identical (plan "
+              f"{recon_fwd_plan(torch, A, rows, f, d, dtype)})")
+        del ops, sk, mk, sp, mp, again
+    # a NaN of one arm's h, W or x, either encoding, makes that arm's sumsq
+    # NaN and leaves the other arms' sums bit for bit; a NaN of shared x
+    # makes every arm's sumsq NaN
+    others = [0, 2, 3, 4]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        view, nans = ((torch.int32, (0x7FFFFFFF, 0x7FC00000))
+                      if dtype == torch.float32
+                      else (torch.int16, (0x7FFF, 0x7FC0)))
+        ops = recon_inputs(torch, g, dtype, TAIL, True)
+        shared_x = ops[3][0].contiguous()
+        clean = fused_recon_mse(*ops)
+        clean_shared = fused_recon_mse(*ops[:3], shared_x)
+        for bits in nans:
+            for where, i, at in (("h", 0, (1, 7, 3)), ("W", 1, (1, 6, 42)),
+                                 ("x", 3, (1, 11, 99))):
+                bad = [t.clone() for t in ops]
+                bad[i].view(view)[at] = bits
+                got = fused_recon_mse(*bad)
+                check(bool(torch.isnan(got[0][1])
+                           and torch.equal(got[0][others], clean[0][others])
+                           and torch.equal(got[1][others], clean[1][others])),
+                      f"{dname} B={TAIL}: a NaN ({bits:#x}) in {where} of "
+                      "arm 1 makes that arm's sumsq NaN and leaves the "
+                      "other arms' sums bit for bit")
+                del bad, got
+            bad_x = shared_x.clone()
+            bad_x.view(view)[11, 99] = bits
+            got = fused_recon_mse(*ops[:3], bad_x)
+            check(bool(torch.isnan(got[0]).all()
+                       and torch.isfinite(clean_shared[0]).all()),
+                  f"{dname} B={TAIL}: a NaN ({bits:#x}) in shared x makes "
+                  "every arm's sumsq NaN")
+            del bad_x, got
+        del ops, shared_x, clean, clean_shared
     torch.cuda.empty_cache()
     return record
 
@@ -670,6 +814,34 @@ def time_recon(torch, g, name, kern, plain, h, w, b, x, dname, item, tag,
                                           for k, v in split.items()}})
 
 
+def nan_of_x_cases(torch, y, per_arm, dtype):
+    """Where fault C5's checks put a NaN of x, from the plain y (A, B, D),
+    exact on the grid draws: (what, index into x, bits).  Arm 1's r > 0
+    (gm NaN there), with both NaN encodings, the card's own and the quiet
+    one; arm 1's r = 0 (per-arm x) or every arm's r = 0 (shared x): gm 0,
+    only sums NaN."""
+    bits = ((0x7FFFFFFF, 0x7FC00000) if dtype == torch.float32
+            else (0x7FFF, 0x7FC0))
+    live = torch.nonzero(y[1] > 0)[0].tolist()
+    dead = torch.nonzero((y[1] if per_arm else y.amax(dim=0)) <= 0)[0]
+    dead = dead.tolist()
+    where = (lambda i, j: (1, i, j)) if per_arm else (lambda i, j: (i, j))
+    return ([(f"arm 1's r > 0 ({v:#x})", where(*live), v) for v in bits]
+            + [("r = 0 in " + ("arm 1" if per_arm else "every arm")
+                + f" ({bits[0]:#x})", where(*dead), bits[0])])
+
+
+def hold_nan_pattern(torch, got, want, clean) -> bool:
+    """Each output of the kernel NaN exactly where the plain version's is
+    (fault C5's pattern, held to the JAX kernel by the CPU tests), and
+    every other element bit for bit the clean input's."""
+    for u, v, c in zip(got, want, clean):
+        m = torch.isnan(u)
+        if not (torch.equal(m, torch.isnan(v)) and torch.equal(u[~m], c[~m])):
+            return False
+    return True
+
+
 def phase_recon_fwdbwd(torch, check) -> dict:
     """Kernel #2 vs its plain version; returns the record of the main
     case (f32, shared x, B=5000; bf16 under ``*_bf16``).  Each case runs
@@ -805,6 +977,43 @@ def phase_recon_fwdbwd(torch, check) -> dict:
               "leaves the other arms' outputs bit for bit")
         del bad, got
     del ops, clean
+    # fault C5: a NaN of x, either encoding, where arm 1's r > 0 makes gm
+    # NaN there: the plain version's NaN pattern (that arm's dh row, dW
+    # column and db entry, the sums of every arm that reads it), every
+    # other element bit for bit; where r = 0 only the sums (#2, and #3 at
+    # cotangent 1.5); on the grid draws, where y is exact in any order
+    from dvae_tpu_torch.ops.recon import recon_bwd, recon_bwd_reference
+    cot = torch.full((A,), 1.5, device=dev)
+    for dtype, per_arm in itertools.product((torch.float32, torch.bfloat16),
+                                            (True, False)):
+        dname = str(dtype).split(".")[-1]
+        view = torch.int32 if dtype == torch.float32 else torch.int16
+        ops = recon_inputs(torch, g_grid, dtype, TAIL, per_arm, True)
+        y = torch.baddbmm(ops[2].float()[:, None, :], ops[0].float(),
+                          ops[1].float())
+        clean = recon_fwdbwd(*ops)
+        clean3 = recon_bwd(cot, *ops)
+        for what, at, bits in nan_of_x_cases(torch, y, per_arm, dtype):
+            bad = list(ops[:3]) + [ops[3].clone()]
+            bad[3].view(view)[at] = bits
+            got, want = recon_fwdbwd(*bad), recon_fwdbwd_reference(*bad)
+            g3, w3 = recon_bwd(cot, *bad), recon_bwd_reference(cot, *bad)
+            reads = torch.isnan(want[0])
+            n_dh = int(torch.isnan(got[2]).any(dim=2).sum())
+            check(hold_nan_pattern(torch, [got[0], *got[2:]],
+                                   [want[0], *want[2:]],
+                                   [clean[0], *clean[2:]])
+                  and torch.equal(got[1][~reads], clean[1][~reads])
+                  and hold_nan_pattern(torch, g3, w3, clean3)
+                  and (n_dh > 0) == ("r > 0" in what),
+                  f"{dname} B={TAIL} x={'per-arm' if per_arm else 'shared'}"
+                  f", on the grid: a NaN of x where {what}: recon_fwdbwd "
+                  "and recon_bwd NaN where the plain version is (sums of "
+                  f"{int(reads.sum())} arms, {n_dh} dh rows, "
+                  f"{int(torch.isnan(got[4]).sum())} db entries), every "
+                  "other element bit for bit the clean input's")
+            del bad, got, want, g3, w3
+        del ops, y, clean, clean3
     torch.cuda.empty_cache()
     return record
 
@@ -1709,6 +1918,43 @@ def phase_decoder(torch, check) -> dict:
                     print(f"  {what}; in bf16 held on #13's own h5 above")
                 del rk, ck
             del h5, r2
+            if on_grid and rows == TAIL:
+                # fault C5 end to end: a NaN of x where arm 1's r > 0
+                # reaches that row's dz and the trunk gradients of every
+                # unit active on it; the plain version's NaN pattern (the
+                # JAX kernel's, by the CPU tests), on the grid draw where
+                # every activation is exact; every other element, and
+                # #12's sums of the arms that do not read it, bit for bit
+                view = torch.int32 if item == 4 else torch.int16
+                h5 = dec._trunk_forward(z, trunk)[-1]
+                y = torch.baddbmm(b11.float()[:, None, :], h5.float(),
+                                  w11.float())
+                del h5
+                for what, at, bits in nan_of_x_cases(torch, y, per_arm,
+                                                      dtype):
+                    bx = x.clone()
+                    bx.view(view)[at] = bits
+                    tn = dec.decoder_fwdbwd(z, trunk, w11, b11, bx)
+                    pn = dec.decoder_fwdbwd_reference(z, trunk, w11, b11, bx)
+                    sn, _ = dec.fused_decoder_mse(*ops[:13], bx)
+                    reads = torch.isnan(pn[0])
+                    n_dz = int(torch.isnan(tn[2]).any(dim=2).sum())
+                    check(hold_nan_pattern(torch, [tn[0]] + flat(tn),
+                                           [pn[0]] + flat(pn),
+                                           [got[0]] + flat(got))
+                          and hold_nan_pattern(torch, [sn], [tn[0]],
+                                               [tn[0]])
+                          and torch.equal(tn[1][~reads], got[1][~reads])
+                          and (n_dz > 0) == ("r > 0" in what),
+                          f"{tag}: a NaN of x where {what}: decoder_fwdbwd "
+                          "NaN where the plain version is (sums of "
+                          f"{int(reads.sum())} arms, {n_dz} dz rows, "
+                          f"{int(torch.isnan(tn[3][0][0]).sum())} entries "
+                          "of dW6), decoder_fwd's sums equal its own, "
+                          "every other element bit for bit the clean "
+                          "input's")
+                    del bx, tn, pn, sn
+                del y
             if on_grid:
                 del ops, z, trunk, w11, b11, x, got, want, again, t0
                 continue

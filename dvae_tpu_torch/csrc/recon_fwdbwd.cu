@@ -119,4 +119,28 @@ int recon_bwd_bf16(const void* g, const void* h, const void* w,
                                            quiet_ws, stream);
 }
 
+// The value-only row pass on h, as the whole-decoder forward (#12) runs
+// it on its h5: the (A,2) sums alone, partials and quiet_ws as above.
+// Nothing in the port calls it; chip_smoke.py and
+// scripts/torch_kernel_variants.py time kernel #1 (recon_fwd.cu) beside it.
+int recon_rows_value_f32(const void* h, const void* w, const void* bias,
+                         const void* x, long long x_arm_stride, int A, int B,
+                         int F, int D, float thr, int with_mism,
+                         void* part_sum, void* part_mism, void* out,
+                         void* quiet_ws, void* stream) {
+  return recon_launch<float, false, false>(
+      h, w, bias, x, x_arm_stride, nullptr, A, B, F, D, thr, with_mism,
+      part_sum, part_mism, out, nullptr, nullptr, nullptr, quiet_ws, stream);
+}
+
+int recon_rows_value_bf16(const void* h, const void* w, const void* bias,
+                          const void* x, long long x_arm_stride, int A,
+                          int B, int F, int D, float thr, int with_mism,
+                          void* part_sum, void* part_mism, void* out,
+                          void* quiet_ws, void* stream) {
+  return recon_launch<__nv_bfloat16, false, false>(
+      h, w, bias, x, x_arm_stride, nullptr, A, B, F, D, thr, with_mism,
+      part_sum, part_mism, out, nullptr, nullptr, nullptr, quiet_ws, stream);
+}
+
 }  // extern "C"

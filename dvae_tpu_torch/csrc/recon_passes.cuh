@@ -43,7 +43,8 @@
 // recon_split, and recon_ablate for where the time goes; PERF.md §6).
 // That split turns the card's own NaN (0x7FFFFFFF) into -0, so in f32 the
 // passes read copies of h and W with every NaN quiet (`quiet_copy`,
-// below).
+// below), and the cotangent gm that they compute and split (a NaN of x
+// gives it the card's NaN) is made quiet first (tc::quiet_nan).
 // Sums of the tensor cores round toward zero, so runs of a few mma are
 // summed from zero and added to the long-lived accumulators rounded to
 // nearest (tc::add4): y four k steps of 8 (f32), dh one step's 32
@@ -309,6 +310,9 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
             s = fmaf(d, d, s);
             if (with_mism) mm += ((r > thr) != (xv > thr)) ? 1 : 0;
             gmv = (r > 0.f) ? two_g * d : 0.f;
+            // a NaN of x reaches gm as the card's NaN, which the split of
+            // dh's product would drop: stored quiet (tc::quiet_nan)
+            if constexpr (F32 && DH) gmv = tc::quiet_nan(gmv);
           }
           acc[j][i] = gmv;
         }
@@ -581,9 +585,9 @@ recon_cols(const T* __restrict__ h, const T* __restrict__ w,
           }
           dbp[j][e] += gv[e];
         }
-        if constexpr (F32)
+        if constexpr (F32)  // quiet, for dW's split; db sums gv as is
           *reinterpret_cast<float2*>(Gs + rl * C::LDG + cl0) =
-              make_float2(gv[0], gv[1]);
+              make_float2(tc::quiet_nan(gv[0]), tc::quiet_nan(gv[1]));
         else
           *reinterpret_cast<uint32_t*>(Gs + rl * C::LDG + cl0) =
               tc::pack_bf16(gv[0], gv[1]);

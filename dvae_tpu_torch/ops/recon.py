@@ -6,8 +6,10 @@ Counterpart of dvae_tpu/ops/recon_pallas.py.  Three hand-written CUDA
 kernels carry it; each source note states its bound and its design:
 
   * ``csrc/recon_fwd.cu`` — the value-only forward that eval runs
-    (``_fwd_kernel``, recon_pallas.py:72); launched by ``fused_recon_mse``
-    when no gradient is asked for, counted by ``fused_recon_mse.launches``;
+    (``_fwd_kernel``, recon_pallas.py:72), on ``wgmma`` (``csrc/wgmma.cuh``)
+    after a prep launch that lays h and W^T out for it; launched by
+    ``fused_recon_mse`` when no gradient is asked for, counted by
+    ``fused_recon_mse.launches``;
   * ``csrc/recon_fwdbwd.cu`` — the training forward with the unscaled
     gradients in the same call (``_fwdbwd_kernel``, recon_pallas.py:239);
     launched by ``recon_fwdbwd``, counted by ``recon_fwdbwd.launches``;
@@ -38,8 +40,8 @@ from dvae_tpu_torch.ops import _build
 from dvae_tpu_torch.ops._common import check_kernel_operands, on_cpu
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 \
-    + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
-_FWDBWD_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p] * 5
+    + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3
+_FWDBWD_ARGTYPES = _ARGTYPES + [ctypes.c_void_p] * 5
 
 
 def _lib() -> ctypes.CDLL:
@@ -48,8 +50,11 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.recon_fwd_f32, lib.recon_fwd_bf16):
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
-        lib.recon_fwd_partials_per_arm.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.recon_fwd_partials_per_arm.restype = ctypes.c_longlong
+        lib.recon_fwd_workspace_bytes.argtypes = [ctypes.c_int] * 5
+        lib.recon_fwd_workspace_bytes.restype = ctypes.c_longlong
+        lib.recon_fwd_plan.argtypes = [ctypes.c_int] * 5 \
+            + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.recon_fwd_plan.restype = ctypes.c_int
         lib.recon_fwd_max_rows.argtypes = []
         lib.recon_fwd_max_rows.restype = ctypes.c_longlong
         lib._dvae_bound = True
@@ -145,17 +150,19 @@ def _recon_value(h, w, b, x, thr, with_mism):
     lib = _lib()
     if B > lib.recon_fwd_max_rows():
         raise ValueError(f"B={B} rows exceed one launch's grid")
-    n_part = int(lib.recon_fwd_partials_per_arm(B, D))
-    part_sum = torch.empty(A * n_part, device=h.device, dtype=torch.float32)
-    part_mism = torch.empty(A * n_part, device=h.device, dtype=torch.int32)
+    bf16 = dtype == torch.bfloat16
+    n_ws = int(lib.recon_fwd_workspace_bytes(A, B, F, D, int(bf16)))
+    if n_ws < 0:
+        raise ValueError(f"shape A={A}, B={B}, F={F}, D={D} is refused")
+    # the operands laid out for the products, and the block partials
+    ws = torch.empty(n_ws, device=h.device, dtype=torch.uint8)
     out = torch.empty((A, 2), device=h.device, dtype=torch.float32)
-    fn = lib.recon_fwd_f32 if dtype == torch.float32 else lib.recon_fwd_bf16
+    fn = lib.recon_fwd_bf16 if bf16 else lib.recon_fwd_f32
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), x.data_ptr(),
                  0 if x.dim() == 2 else B * D, A, B, F, D, float(thr),
-                 int(bool(with_mism)), part_sum.data_ptr(),
-                 part_mism.data_ptr(), out.data_ptr(), stream)
+                 int(bool(with_mism)), ws.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"recon_fwd kernel launch failed: CUDA error {err}")
     fused_recon_mse.launches += 1

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time variants of the port's CUDA kernels #2 (recon_fwdbwd), #5
-(encoder_bwd) and #6 (zinb_fwd) against each other on one NVIDIA GPU.
+"""Time variants of the port's CUDA kernels #1 (recon_fwd), #2
+(recon_fwdbwd), #5 (encoder_bwd) and #6 (zinb_fwd) against each other on
+one NVIDIA GPU.
 
     python3 scripts/torch_kernel_variants.py recon_slices encoder_stages
     python3 scripts/torch_kernel_variants.py --base runs/old recon_quiet
+    python3 scripts/torch_kernel_variants.py --base runs/old recon_fwd recon_c5
 
 Each named set lists variants of ``dvae_tpu_torch/csrc``: regular-expression
 substitutions applied to a copy of the sources under
@@ -16,7 +18,14 @@ check's limits on the uniform draw (sums; dh on the rows, dW and db on the
 columns whose plain y stay clear of the ReLU kink) and on a draw on which
 y is exact in any order (every output), #5 dW1 within 1e-5 of the plain
 version fed the same mask, #6's value within 1e-5 and equal to #7's loss
-bit for bit.  The sets in TIMING_ONLY are ablations: their variants after
+bit for bit. #1 is checked within the chip check's limits
+(sumsq 1e-5, mism 1e-5 of B·D) and timed beside the value-only row pass
+of #2 that #12 runs, on the same inputs (``chip_smoke.row_pass_value``),
+with its launches' device times by kernel (prep, tiles, reduction).  Set
+``recon_c5`` holds #2, #3 (cotangent 1.5), #12 and #13 on the uniform
+and the grid draws, f32 and bf16, bit for bit against the first
+variant's outputs (with ``--base``: an earlier build's), and times #2 and
+#13.  The sets in TIMING_ONLY are ablations: their variants after
 the first drop work to show where the time goes, so only the first is
 checked.  ``--base DIR`` adds to every set one more variant, the sources
 of another checkout (``DIR/dvae_tpu_torch/csrc``, e.g. a ``git archive``
@@ -29,6 +38,7 @@ Exits 2 without a card.
 
 from __future__ import annotations
 
+import ctypes
 import re
 import shutil
 import subprocess
@@ -86,6 +96,45 @@ SETS = {
              r"if \(std::is_same<T, float>::value && quiet_ws\) \{",
              "if (false) {")],
     }),
+    # kernel #1 on wgmma: where its time goes (ablations after the first
+    # drop one piece of work; timed, not checked)
+    "recon_fwd": ("recon_fwd", {
+        "as built": [],
+        "1xTF32 (the two lo products dropped; f32 only)": [
+            ("recon_fwd.cu", r"\n\s*wg::mma_tf32\(small, al \+ o, bh \+ o\);"
+             r"\n\s*wg::mma_tf32\(small, ah \+ o, bl \+ o\);", "")],
+        "no epilogue": [
+            ("recon_fwd.cu", r"      if \(with_mism\) \{\n        if \(edge\)",
+             "      if (false) {\n        if (edge)"),
+            ("recon_fwd.cu", r"      \} else \{\n        if \(edge\)\n"
+             r"          epilogue_f<false",
+             "      } else if (false) {\n        if (edge)\n"
+             "          epilogue_f<false")],
+        "x and bias not loaded": [
+            ("recon_fwd.cu", r"if \(c == nk - 1\) \{",
+             "if (c == nk - 1) {\n#pragma unroll\n for (int jj = 0; jj < 8; "
+             "++jj)\n#pragma unroll\n for (int q = 0; q < 2; ++q) { bv[jj][q] "
+             "= 0.f; xv[jj][0][q] = xv[jj][1][q] = 0.f; }\n }\n if (false) {"),
+            ("recon_fwd.cu", r"const bool with_x = xs && c == nk - 1;",
+             "const bool with_x = false;")],
+        "no products": [
+            ("recon_fwd.cu", r"for \(int ks = 0; ks < kc / KS; \+\+ks\)",
+             "for (int ks = 0; ks < 0; ++ks)")],
+        "no prep launches": [
+            ("recon_fwd.cu", r"int err = prep<T>\(", "int err = 0; if (0) prep<T>("),
+            ("recon_fwd.cu", r"\n  err = prep<T>\(", "\n  if (0) prep<T>(")],
+    }),
+    # fault C5's repair (gm made quiet where it is split): the same bits
+    # as before it on inputs without a NaN, with --base
+    "recon_c5": ("recon_c5", {
+        "quiet gm (as built)": [],
+        "gm as computed": [
+            ("recon_passes.cuh",
+             r"if constexpr \(F32 && DH\) gmv = tc::quiet_nan\(gmv\);", ""),
+            ("recon_passes.cuh",
+             r"make_float2\(tc::quiet_nan\(gv\[0\]\), tc::quiet_nan\(gv\[1\]\)\)",
+             "make_float2(gv[0], gv[1])")],
+    }),
     # stage depth of #5's backward: rows of x and g a stage
     "encoder_stages": ("encoder_fc1", {
         "f32 32 rows, bf16 64 (as built)": [],
@@ -125,7 +174,10 @@ SETS = {
              "THREADS1);")],
     }),
 }
-TIMING_ONLY = {"recon_ablate"}
+TIMING_ONLY = {"recon_ablate", "recon_fwd"}
+LIBRARIES = {"recon_c5": ["recon_fwdbwd", "decoder"],
+             "zinb_fwd": ["zinb_fwd", "zinb_fwdbwd"],
+             "recon_fwd": ["recon_fwd", "recon_fwdbwd"]}
 A, B, D, F = 5, 5000, 5032, 100
 RATE = 0.5
 
@@ -170,11 +222,29 @@ def build_all(variants, names) -> None:
 def use(root: Path) -> None:
     """Point the kernel loader at one variant's libraries.  #2's entry
     points of sources from before the quiet copies take no workspace:
-    their calls drop it."""
+    their calls drop it; #1's of sources from before its workspace take
+    two partial buffers instead: their calls split it."""
     from dvae_tpu_torch.ops import _build, recon
     _build.CSRC = root
     _build._loaded.clear()
     _build.library_path = lambda name: root / "build" / f"lib{name}.so"
+    src = root / "recon_fwd.cu"
+    if src.exists() and "recon_fwd_workspace_bytes" not in src.read_text():
+        lib = _build.load("recon_fwd")
+        lib.recon_fwd_partials_per_arm.argtypes = [ctypes.c_int] * 2
+        lib.recon_fwd_partials_per_arm.restype = ctypes.c_longlong
+        lib.recon_fwd_workspace_bytes = (
+            lambda A, B, F, D, bf16: 8 * A * lib.recon_fwd_partials_per_arm(
+                B, D))
+        lib.recon_fwd_max_rows.restype = ctypes.c_longlong
+        lib._dvae_bound = True
+        for name in ("recon_fwd_f32", "recon_fwd_bf16"):
+            raw = getattr(lib, name)
+            raw.argtypes = recon._ARGTYPES[:-3] + [ctypes.c_void_p] * 4
+            raw.restype = ctypes.c_int
+            setattr(lib, name, lambda *a, raw=raw: raw(
+                *a[:-3], a[-3], a[-3] + 4 * a[5] * lib.recon_fwd_partials_per_arm(
+                    a[6], a[8]), a[-2], a[-1]))
     src = root / "recon_fwdbwd.cu"
     if src.exists() and "quiet_ws" not in src.read_text():
         lib = _build.load("recon_fwdbwd")
@@ -209,6 +279,70 @@ def pass_ms(torch, fn, iters: int = 5):
             total[k] = total.get(k, 0.0) + e.self_device_time_total / 1e3
             count[k] = count.get(k, 0) + e.count
     return [(k, total[k] / count[k]) for k in sorted(total)]
+
+
+def time_recon_fwd(torch, cs, recon, rec32, dt, key, rec, checked):
+    """#1 on the uniform draw: checked (as the chip check holds it) when
+    ``checked``, timed, its launches' device time by kernel, and the
+    value-only row pass of #2 on the same inputs."""
+    h, w, b, x = (t.to(dt) for t in rec32[False])
+    dname = str(dt)[6:]
+    if checked:
+        s, m = recon.fused_recon_mse(h, w, b, x)
+        sp, mp = recon.recon_mse_reference(h, w, b, x)
+        e_s = ((s - sp).abs() / sp.abs()).max().item()
+        e_m = (m - mp).abs().max().item()
+        if e_s > cs.TOL_SUMSQ[dname] or e_m > cs.TOL_MISM * B * D:
+            raise SystemExit(f"recon_fwd {key}: sumsq rel err {e_s}, mism "
+                             f"{e_m}")
+    rec.setdefault(key, []).append(cs.cuda_ms(
+        torch, lambda: recon.fused_recon_mse(h, w, b, x)))
+    for name, v in sorted(cs.kernel_device_ms(
+            torch, lambda: recon.fused_recon_mse(h, w, b, x)).items()):
+        m_ = re.search(r"recon_fwd_[a-z]+", name)
+        if m_:
+            rec.setdefault(f"{key} {m_.group(0)}", []).append(v)
+    if hasattr(recon._lib_fwdbwd(), "recon_rows_value_f32"):
+        rec.setdefault(f"{key} row pass", []).append(cs.cuda_ms(
+            torch, lambda: cs.row_pass_value(torch, h, w, b, x)))
+
+
+def c5_outputs(torch, cs, dt):
+    """Every output of #2, #3 (cotangent 1.5 an arm), #12 and #13 on the
+    uniform draws and on the grid draws of chip_smoke.py (B = 2000,
+    shared x), in type ``dt``."""
+    from dvae_tpu_torch.ops import decoder as dec
+    from dvae_tpu_torch.ops import recon
+    outs = []
+    for grid in (False, True):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        ops = cs.recon_inputs(torch, g, dt, cs.TAIL, False, on_grid=grid)
+        outs += list(recon.recon_fwdbwd(*ops))
+        outs += list(recon.recon_bwd(
+            torch.full((A,), 1.5, device="cuda"), *ops))
+        d = cs.decoder_inputs(torch, g, dt, cs.TAIL, False, on_grid=grid)
+        outs += list(dec.fused_decoder_mse(*d))
+        t = dec.decoder_fwdbwd(d[0], [(d[1 + 2 * i], d[2 + 2 * i])
+                                      for i in range(5)], d[11], d[12], d[13])
+        outs += [t[0], t[1], t[2], *(u for pair in t[3] for u in pair),
+                 t[4], t[5]]
+        del ops, d, t
+    return outs
+
+
+def c5_times(torch, cs, rec32, dt, key, rec):
+    """#2 on the uniform draw and #13 on the decoder's, production shape."""
+    from dvae_tpu_torch.ops import decoder as dec
+    from dvae_tpu_torch.ops import recon
+    ops = [t.to(dt) for t in rec32[False]]
+    rec.setdefault(f"{key} #2", []).append(cs.cuda_ms(
+        torch, lambda: recon.recon_fwdbwd(*ops)))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    d = cs.decoder_inputs(torch, g, dt, B, False)
+    tr = [(d[1 + 2 * i], d[2 + 2 * i]) for i in range(5)]
+    rec.setdefault(f"{key} #13", []).append(cs.cuda_ms(
+        torch, lambda: dec.decoder_fwdbwd(d[0], tr, d[11], d[12], d[13])))
+    del ops, d, tr
 
 
 def main(argv) -> int:
@@ -253,8 +387,7 @@ def main(argv) -> int:
         first_out = {}
         same_bits = {label: True for label in variants}
         print(f"{set_name}: building {len(variants)} variants of {kernel}")
-        build_all(variants, [kernel] + (["zinb_fwdbwd"]
-                                        if kernel == "zinb_fwd" else []))
+        build_all(variants, LIBRARIES.get(kernel, [kernel]))
         times = {label: {} for label in variants}
         order = list(variants)
         for labels in (order, order[::-1]):
@@ -264,7 +397,17 @@ def main(argv) -> int:
                 for dt in (torch.float32, torch.bfloat16):
                     key = "f32" if dt == torch.float32 else "bf16"
                     rec = times[label]
-                    if kernel == "recon_fwdbwd":
+                    if kernel == "recon_fwd":
+                        time_recon_fwd(torch, cs, recon, rec32, dt, key,
+                                       rec, checked)
+                    elif kernel == "recon_c5":
+                        outs = c5_outputs(torch, cs, dt)
+                        ref = first_out.setdefault(key, outs)
+                        same_bits[label] &= all(
+                            bool(torch.equal(u, v)) for u, v in zip(outs, ref))
+                        del outs, ref
+                        c5_times(torch, cs, rec32, dt, key, rec)
+                    elif kernel == "recon_fwdbwd":
                         dname = str(dt)[6:]
                         for grid in (True, False) if checked else ():
                             ops = [t.to(dt) for t in rec32[grid]]
@@ -328,10 +471,12 @@ def main(argv) -> int:
                         del ops
         for label, rec in times.items():
             bits = ""
-            if kernel == "recon_fwdbwd" and (set_name not in TIMING_ONLY
-                                             or label == order[0]):
-                bits = (" | outputs on the uniform draw bit-identical to "
-                        f"the first variant's: {same_bits[label]}")
+            if kernel in ("recon_fwdbwd", "recon_c5") and (
+                    set_name not in TIMING_ONLY or label == order[0]):
+                bits = (" | outputs bit-identical to the first variant's"
+                        + (" (the uniform and the grid draws)"
+                           if kernel == "recon_c5" else
+                           " on the uniform draw") + f": {same_bits[label]}")
             print(f"  {set_name} | {label} | " + " | ".join(
                 f"{k} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
                 for k, ts in rec.items()) + bits)

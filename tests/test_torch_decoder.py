@@ -357,3 +357,45 @@ def test_trunk_plan_keeps_f32_accuracy_at_production_depth(which, dtype):
     got, a, b = _trunk_plan_product(which, dtype)
     exact = a.astype(np.float64) @ b.astype(np.float64)
     assert np.abs(got - exact).max() / np.abs(exact).max() <= 1e-6
+
+
+@pytest.mark.parametrize("live", [True, False])
+@pytest.mark.parametrize("per_arm", [False, True])
+def test_nan_of_x_gives_the_pallas_kernels_nan_pattern(per_arm, live):
+    """Fault C5 through the whole decoder: a NaN of x where arm 1's r > 0
+    makes gm NaN there, so dh5's row, and down the trunk every gated
+    cotangent of that row, dz's row and the dW, db of every unit active on
+    it, are NaN; where every reading arm's r = 0 gm is 0 and only the sums
+    are NaN.  The JAX package's fused call (interpreted) and the port's
+    plain version give NaN at the same places (``assert_allclose`` holds
+    NaN to NaN) and agree elsewhere; this is the pattern the chip check
+    holds the kernel to."""
+    ops = _operands(13, 24, per_arm)
+    h = ops[0].astype(np.float64)
+    for w_, b_ in _trunk(ops):
+        h = np.maximum(np.einsum("abk,akn->abn", h, w_) + b_[:, None, :], 0)
+    y = np.einsum("abf,afd->abd", h, ops[11]) + ops[12][:, None, :]
+    ok = (y[1] > 0.05) if live else (
+        y[1] < -0.05 if per_arm else (y < -0.05).all(axis=0))
+    i, j = map(int, np.argwhere(ok)[0])
+    ops[13] = ops[13].copy()
+    ops[13][(1, i, j) if per_arm else (i, j)] = np.nan
+    jx = [jnp.asarray(o) for o in ops]
+    (js, jm), jdz, jdtrunk, jdw11, jdb11 = decoder_pallas._fwdbwd_call(
+        jx[0], _trunk(jx), jx[11], jx[12], jx[13], 0.1, True)
+    tt = [torch.from_numpy(o) for o in ops]
+    s, m, dz, dtrunk, dw11, db11 = decoder.decoder_fwdbwd(
+        tt[0], _trunk(tt), tt[11], tt[12], tt[13])
+    got = [s, m, dz, *(t for pair in dtrunk for t in pair), dw11, db11]
+    want = [js, jm, jdz, *(t for pair in jdtrunk for t in pair), jdw11, jdb11]
+    for g_, w_ in zip(got, want):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-4,
+                                   atol=1e-4)
+    assert np.isnan(s.numpy()[1])
+    grads = [t.numpy() for t in got[2:]]
+    if live:
+        assert np.isnan(dz.numpy()[1, i]).all()
+        assert np.isnan(dz.numpy()).any(axis=2).sum() <= 3
+        assert np.isnan(db11.numpy()[1, j])
+    else:
+        assert all(np.isfinite(t).all() for t in grads)

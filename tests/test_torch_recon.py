@@ -197,7 +197,7 @@ def test_build_targets_hopper_and_names_libraries_by_content(monkeypatch,
 # ---------------------------------------------------------------------------
 
 from test_torch_encoder import _bf16, _mma_bf16  # noqa: E402
-from test_torch_zinb import _mma_3xtf32  # noqa: E402
+from test_torch_zinb import _mma_3xtf32, _rz  # noqa: E402
 
 A_P, B_P, F_P, D_P = 5, 5000, 100, 5032  # the production shape
 
@@ -244,6 +244,36 @@ def _plan_operands(dtype, rows, cols, seed):
     return h, w, _bf16(gm) if dtype == "bfloat16" else gm
 
 
+def _tf32_rna(a):
+    """``a`` rounded to tf32 as cvt.rna rounds it: to nearest, ties away
+    from zero (the integer form of csrc/mma.cuh ``tf32_bits``)."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((u.astype(np.uint64) + 0x1000) & 0xFFFFE000).astype(
+        np.uint32).view(np.float32)
+
+
+def _wgmma_3xtf32(a, b):
+    """a @ b as kernel #1 forms it (csrc/recon_fwd.cu): both operands split
+    once by the prep into tf32 halves (cvt.rna), K zero-padded to the k of
+    one product; per k step of 8 (one m64n64k8 product each, exact
+    products summed with the accumulator and rounded toward zero) hi·hi
+    joins one accumulator and lo·hi, then hi·lo, another, both carried
+    over every step of the chunk (13 at F = 104) without a run summed
+    apart; y = big + small rounded to nearest."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    big = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    small = np.zeros_like(big)
+    for k0 in range(0, a.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        f64 = lambda u, v: u[:, k].astype(np.float64) @ v[k]  # noqa: E731
+        big = _rz(big + f64(a_hi, b_hi))
+        small = _rz(small + f64(a_lo, b_hi))
+        small = _rz(small + f64(a_hi, b_lo))
+    return (big + small).astype(np.float32)
+
+
 def _plan_product(which, dtype, carry=False):
     """(kernel-order result, a, b) of one of #2's products at production
     depth, summed as recon_passes.cuh sums it.  f32: 3xTF32 mma of 8; y runs
@@ -264,6 +294,12 @@ def _plan_product(which, dtype, carry=False):
         h, w, _ = _plan_operands(dtype, 64, 64, 41)
         a, b = _pad(h, 1, ks), _pad(w, 0, ks)
         return model(a, b, 32 if f32 else a.shape[1], one_acc=True), a, b
+    if which == "y of #1 = h W (K=F, wgmma)":
+        h, w, _ = _plan_operands(dtype, 64, 64, 49)
+        a, b = _pad(h, 1, ks), _pad(w, 0, ks)
+        if carry or not f32:
+            return model(a, b, a.shape[1]), a, b
+        return _wgmma_3xtf32(a, b), a, b
     if which == "dh = gm W^T (K=D)":
         _, w, gm = _plan_operands(dtype, 64, D_P, 43)
         wt = _pad(w.T.copy(), 1, 8)
@@ -282,14 +318,17 @@ def _plan_product(which, dtype, carry=False):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("which", ["y = h W (K=F)", "dh = gm W^T (K=D)",
-                                   "dW = h^T gm (K=B)"])
+                                   "dW = h^T gm (K=B)",
+                                   "y of #1 = h W (K=F, wgmma)"])
 def test_plan_keeps_f32_accuracy_at_production_depth(which, dtype):
     """Each product of kernel #2 at its production depth (y over F = 100,
-    dh over D = 5,032 in the plan's two slices, dW over B = 5,000), in the
-    kernel's split, run lengths and order, with the tensor cores' sums
-    rounded toward zero: within 1e-6 of the f64 product (max |Δ| / max
-    |f64|), the margin under the chip check's 1e-5 for dh, dW, db and
-    sumsq.  Padding rows and columns stay 0."""
+    dh over D = 5,032 in the plan's two slices, dW over B = 5,000), and
+    kernel #1's y on wgmma (``_wgmma_3xtf32``; bf16: 7 products of k 16
+    carried in one accumulator), in the kernel's split, run lengths and
+    order, with the tensor cores' sums rounded toward zero: within 1e-6 of
+    the f64 product (max |Δ| / max |f64|), the margin under the chip
+    check's 1e-5 for dh, dW, db and sumsq.  Padding rows and columns stay
+    0."""
     got, a, b = _plan_product(which, dtype)
     exact = a.astype(np.float64) @ b.astype(np.float64)
     assert np.abs(got - exact).max() / np.abs(exact).max() <= 1e-6
@@ -331,3 +370,188 @@ def test_row_plan_fills_whole_waves_at_the_production_shape():
     row tail takes 3 slices (480 blocks on 528 slots)."""
     assert _row_plan(A_P, B_P, D_P) == (2, 2528, 79)
     assert _row_plan(A_P, 2000, D_P) == (3, 1696, 32)
+
+
+# ---------------------------------------------------------------------------
+# Fault C5: a NaN of x reaches gm, and through it dh, dW and db
+# ---------------------------------------------------------------------------
+
+def _nan_of_x_operands(per_arm, live, dtype, seed=11):
+    """The operands of the file's draw (A=3, B=16, F=16, D=40) with x NaN
+    at one element (i, j): where arm 1's y lies clear of 0 above it
+    (``live``: r > 0, so gm is NaN there) or, with shared x, where every
+    arm's y lies clear of 0 below it (r = 0 and gm = 0 in every arm that
+    reads it)."""
+    h, w, b, x = _operands(seed, 3, 16, 16, 40, per_arm)
+    if dtype == "bfloat16":
+        h, w, b, x = (_bf16(v) for v in (h, w, b, x))
+    y = np.einsum("abf,afd->abd", h.astype(np.float64), w) + b[:, None, :]
+    ok = (y[1] > 0.05) if live else (
+        (y < -0.05).all(axis=0) if not per_arm else y[1] < -0.05)
+    i, j = map(int, np.argwhere(ok)[0])
+    x = x.copy()
+    x[(1, i, j) if per_arm else (i, j)] = np.nan
+    return (h, w, b, x), i, j
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("live", [True, False])
+@pytest.mark.parametrize("per_arm", [False, True])
+def test_nan_of_x_gives_the_pallas_kernels_nan_pattern(per_arm, live, dtype):
+    """A NaN of x: the sums of every arm that reads it NaN, and where that
+    arm's r > 0 (gm = 2 (r - x) NaN) its dh row, dW column and db entry;
+    where r = 0 gm is 0 and the gradients stay finite.  The JAX package's
+    gradient (its fused backward, interpreted) and the port's plain
+    version give NaN at the same places (``assert_allclose`` holds NaN to
+    NaN) and agree elsewhere within the file's tolerances."""
+    (h, w, b, x), i, j = _nan_of_x_operands(per_arm, live, dtype)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jh, jw, jb, jx = (jnp.asarray(o, jd) for o in (h, w, b, x))
+    want_s, want_m = recon_pallas.fused_recon_mse(jh, jw, jb, jx, 0.1, True)
+    want = jax.grad(lambda *a: jnp.sum(recon_pallas.fused_recon_mse(
+        *a, jx, 0.1, True)[0]), (0, 1, 2))(jh, jw, jb)
+    got = recon.recon_fwdbwd(*(torch.from_numpy(o).to(td)
+                               for o in (h, w, b, x)))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want_s),
+                               rtol=RTOL_SUMSQ)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_m))
+    for g_, w_ in zip(got[2:], want):
+        w_ = np.asarray(w_, np.float32)
+        scale = np.nanmax(np.abs(w_))
+        rtol, atol = (1e-4, 1e-4 * scale) if dtype == "float32" \
+            else (0.0, 2e-2 * scale)
+        np.testing.assert_allclose(g_.float().numpy(), w_, rtol=rtol,
+                                   atol=atol)
+    dh, dw, db = (t.float().numpy() for t in got[2:])
+    assert np.isnan(got[0].numpy()[1])
+    if per_arm:
+        assert np.isfinite(got[0].numpy()[[0, 2]]).all()
+    if live:
+        assert np.isnan(dh[1, i]).all() and np.isnan(dw[1, :, j]).all()
+        assert np.isnan(db[1, j])
+        rows, cols = np.isnan(dh).any(axis=2), np.isnan(db)
+        assert rows.sum() == cols.sum() <= 3 and not rows[:, np.arange(16)
+                                                          != i].any()
+    else:
+        assert all(np.isfinite(t).all() for t in (dh, dw, db))
+
+
+# ---------------------------------------------------------------------------
+# Kernel #1 on wgmma: its launch plan and workspace, and its products
+# ---------------------------------------------------------------------------
+
+def _fwd_plan(A, B, F, D, dtype):
+    """(k chunk, chunks, row blocks, column tiles, slices of D, column
+    tiles a slice, stages, x staged, shared memory bytes) of kernel #1,
+    the twin of ``make_plan`` in csrc/recon_fwd.cu: k in steps of one
+    product (8 tf32, 16 bf16); one chunk while a row of it takes at most
+    832 bytes over its planes (f32: hi and lo), then chunks of at most 512;
+    128-row blocks and 64-column tiles; D cut into slices of whole tiles so
+    that the blocks (A x row blocks x slices) fill whole waves of 132 slots
+    most evenly, counted in tiles, ties to fewer, no empty slice, at most
+    8; x tiles (128 rows at a pitch of 72) staged in the ring when x's rows
+    are whole 16-byte runs and two such stages fit; as many ring stages (at
+    most 4) as 225 KiB hold beside the resident h tile."""
+    planes, ks, item = (2, 8, 4) if dtype == "float32" else (1, 16, 2)
+    e = planes * item
+    fk = -(-F // ks) * ks
+    if fk * e <= 832:
+        nk, kc = 1, fk
+    else:
+        nk = -(-fk // (512 // e))
+        kc = -(-(-(-fk // nk)) // ks) * ks
+    rt, ct = -(-B // 128), -(-D // 64)
+    best, n_split = -1.0, 1
+    for s in range(1, min(8, ct) + 1):
+        per = -(-ct // s)
+        if (s - 1) * per >= ct:
+            continue
+        waves = -(-(A * rt * s) // 132)
+        eff = A * rt * ct / (waves * 132 * per)
+        if eff > best + 1e-9:
+            best, n_split = eff, s
+    tb = 64 * kc * planes * item
+    fixed, stage = (2 * tb, tb) if nk == 1 else (0, 3 * tb)
+    xs = int(D * item % 16 == 0)
+    if xs and (225 * 1024 - fixed) // (stage + 128 * 72 * item) < 2:
+        xs = 0
+    stage += xs * 128 * 72 * item
+    stages = min(4, (225 * 1024 - fixed) // stage)
+    return kc, nk, rt, ct, n_split, -(-ct // n_split), stages, xs, \
+        fixed + stages * stage
+
+
+def _fwd_workspace_bytes(A, B, F, D, dtype):
+    """Bytes of #1's workspace: h as 64-row tiles (rows padded to the
+    block's 128) and W^T as 64-column tiles, every chunk and plane, then
+    the double and 64-bit partials, each at a multiple of 256 bytes."""
+    kc, nk, rt, ct, n_split = _fwd_plan(A, B, F, D, dtype)[:5]
+    item, planes = (4, 2) if dtype == "float32" else (2, 1)
+    up = lambda n: -(-n // 256) * 256  # noqa: E731
+    tile = 64 * kc * planes * item
+    n_part = A * rt * n_split
+    return (up(A * nk * 2 * rt * tile) + up(A * nk * ct * tile)
+            + 2 * up(8 * n_part))
+
+
+def test_fwd_plan_at_the_production_shape():
+    """A=5, B=5000, F=100, D=5032: one chunk (k 104 f32, 112 bf16), 40 row
+    blocks x 79 column tiles in 5 slices of 16 (1,000 blocks on 8 waves of
+    132: 0.935 of the slots), two stages beside the 106,496-byte h tile
+    in f32 with x read by the epilogue (a staged x tile would leave room
+    for one), four in bf16 with x staged; the chip check holds the CUDA
+    plan to these.
+    The workspace is 42.3 MB in f32, under one (A,B,D) f32 tensor."""
+    assert _fwd_plan(A_P, B_P, F_P, D_P, "float32") == \
+        (104, 1, 40, 79, 5, 16, 2, 0, 212992)
+    assert _fwd_plan(A_P, B_P, F_P, D_P, "bfloat16") == \
+        (112, 1, 40, 79, 5, 16, 4, 1, 159744)
+    assert _fwd_workspace_bytes(A_P, B_P, F_P, D_P, "float32") == 42348544
+    assert _fwd_workspace_bytes(A_P, B_P, F_P, D_P, "float32") \
+        < A_P * B_P * D_P * 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(A_P, B_P, F_P, D_P), (A_P, 2000, F_P, D_P),
+                                   (3, 300, 37, 1000), (3, 300, 160, 1000),
+                                   (5, 130, 448, 517), (1, 1, 1, 1),
+                                   (2, 2000, F_P, 5031)])
+def test_fwd_plan_covers_the_shape_within_the_cards_limits(shape, dtype):
+    """Every F is taken (k chunks cover it), the slices cover D's tiles
+    once with none empty, the grid stays within its limits and the shared
+    memory within a block's 227 KB with at least two stages."""
+    A, B, F, D = shape
+    kc, nk, rt, ct, n_split, tiles, stages, xs, smem = _fwd_plan(
+        A, B, F, D, dtype)
+    ks = 8 if dtype == "float32" else 16
+    assert kc % ks == 0 and nk * kc >= F and (nk - 1) * kc < F
+    assert rt == -(-B // 128) <= 65535 and ct == -(-D // 64)
+    assert 1 <= n_split <= 8 and (n_split - 1) * tiles < ct <= n_split * tiles
+    assert 2 <= stages <= 4 and smem <= 225 * 1024
+    assert xs == 0 or D * (4 if dtype == "float32" else 2) % 16 == 0
+
+
+def _prep_split(v):
+    """The prep's split of f32 values (csrc/recon_fwd.cu
+    ``recon_fwd_prep``): every NaN made the quiet 0x7FC00000 first
+    (tc::quiet_nan), then hi = rna(v) and lo = rna(v - hi)."""
+    v = np.asarray(v, np.float32)
+    v = np.where(np.isnan(v), np.uint32(0x7FC00000).view(np.float32), v)
+    hi = _tf32_rna(v)
+    return hi, _tf32_rna(v - hi)
+
+
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0x7FC00000])
+def test_prep_split_keeps_every_nan(bits):
+    """Both NaN encodings stay NaN through the prep's split, as the tf32
+    bits the tensor cores read (the top 19); rounding the card's own NaN
+    without the quiet step carries into the sign and gives -0 (fault C5's
+    mechanism), which is why the prep makes a NaN quiet first."""
+    v = np.array([bits, 0x3F800001, 0xBF7FFFFF], np.uint32).view(np.float32)
+    hi, lo = _prep_split(v)
+    tf32 = lambda a: (a.view(np.uint32) & 0xFFFFE000).view(np.float32)  # noqa: E731
+    assert np.isnan(tf32(hi[0])) and np.isnan(tf32(lo[0]))
+    np.testing.assert_array_equal(hi[1:].astype(np.float64)
+                                  + lo[1:].astype(np.float64), v[1:])
+    raw = _tf32_rna(v[:1]).view(np.uint32)[0]
+    assert (raw == 0x80000000) == (bits == 0x7FFFFFFF)
