@@ -183,6 +183,17 @@ TOL_GRAM = 2e-4
 TOL_DIST = 1e-4
 TOL_DIST_DEGENERATE = 5e-3
 GUMBEL_EPS = 1e-8
+# FP32-pipe instructions of the element math of #9-#11, for their
+# operations bound at the FP32 cores' rate: the accurate logf, expf and
+# IEEE division (no fast math in those kernels), and Philox4x32-10 a
+# uniform (ten rounds of two wide multiplies and a few xors and adds for
+# four words)
+OPS_LOG, OPS_EXP, OPS_DIV, OPS_PHILOX = 16, 8, 8, 25
+# a Gumbel-softmax element: three logs, one exp, one division, its
+# uniform, about ten adds, maxima and scalings; its backward: one
+# division, the log of dT, about eight multiply-adds and sums
+OPS_GUMBEL_FWD = 3 * OPS_LOG + OPS_EXP + OPS_DIV + OPS_PHILOX + 10
+OPS_GUMBEL_BWD = OPS_DIV + OPS_LOG + 8
 TIMING_ITERS = 200           # launches per timing of the small kernels
 # the whole-decoder kernels vs their plain versions: the sums as the other
 # MSE kernels (TOL_SUMSQ, TOL_MISM); gradients, max |Δ| / max |plain|
@@ -290,6 +301,22 @@ def kernel_device_ms(torch, fn, iters: int = 5) -> dict:
             out[e.key] = out.get(e.key, 0.0) + (
                 e.self_device_time_total / iters / 1e3)
     return out
+
+
+def kernel_launches(torch, fn, iters: int = 5) -> dict:
+    """Device kernels launched by one call of ``fn``, by name, under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key: e.count / iters for e in prof.key_averages()
+            if e.device_type == cuda and e.count}
 
 
 def recon_bound_bytes(a, b, f, d, dtype_name: str, per_arm_x: bool):
@@ -1092,7 +1119,8 @@ def phase_recon_bwd(torch, check) -> dict:
     return record
 
 
-def zinb_inputs(torch, g, dtype, rows, per_arm, huge=False, on_grid=False):
+def zinb_inputs(torch, g, dtype, rows, per_arm, huge=False, on_grid=False,
+                f=None):
     """Operands of the ZINB kernels that hit the hard places: a non-negative
     hidden with every 97th row zero (there y = bias, half of them <= 0),
     pre-activations of both signs, half of x exactly zero, x up to X_MAX,
@@ -1107,15 +1135,16 @@ def zinb_inputs(torch, g, dtype, rows, per_arm, huge=False, on_grid=False):
     the one element of the draw whose y_r lies nearest 0 (x > 0) makes
     them; the other outputs do not see the jump.  On the grid h's low
     tf32 half is zero, so only off the grid does the 3xTF32 split of h
-    show in the products."""
+    show in the products.  ``f``: another hidden width than F."""
     dev = DEV
-    h = torch.rand((A, rows, F), generator=g, device=dev)
+    f = f or F
+    h = torch.rand((A, rows, f), generator=g, device=dev)
     if on_grid:
         h = torch.floor(h * 16.0) / 16.0
     h[:, ::97] = 0.0
     heads = []
     for i in range(3):
-        w = (torch.rand((A, F, D), generator=g, device=dev) - 0.5) * 0.2
+        w = (torch.rand((A, f, D), generator=g, device=dev) - 0.5) * 0.2
         b = (torch.rand((A, D), generator=g, device=dev) - 0.5) * 0.2
         if on_grid and i == 0:
             w = torch.round(w * 256.0) / 256.0
@@ -1517,28 +1546,34 @@ def phase_gumbel(torch, check) -> dict:
                 phi, u, temp, eps))
             d_bplain = device_ms(torch, lambda: gm.gumbel_softmax_bwd_plain(
                 y, phi, dy, temp, eps))
-            # operations: four logs, two exps, two divisions and a dozen
-            # adds an element, far below the bytes
+            # operations: OPS_GUMBEL_FWD / _BWD an element at the FP32
+            # cores' rate, far below the bytes
             timed = (
                 ("gumbel_fwd", t_fwd, d_fwd, t_plain, d_plain, t_lib,
                  "F.gumbel_softmax on log phi", 2 * n_el * 4,
-                 (y - y0).abs().max().item()),
+                 OPS_GUMBEL_FWD, (y - y0).abs().max().item()),
                 ("gumbel_bwd", t_bwd, d_bwd, t_bplain, d_bplain, t_blib,
                  "autograd.grad of the eager chain", 4 * n_el * 4,
-                 max((dphi - dphi0).abs().max().item(),
-                     abs(dtemp.item() - dtemp0.item()))),
+                 OPS_GUMBEL_BWD, max((dphi - dphi0).abs().max().item(),
+                                     abs(dtemp.item() - dtemp0.item()))),
                 ("gumbel_sharpen", t_sh, d_sh, t_shplain, None, None, "",
-                 2 * n_el * 4, (sh - sh0).abs().max().item()))
-            for name, ms, dev, pl, dpl, lib, lib_what, nbytes, err in timed:
-                bound, by = flops_bound_ms(30.0 * n_el, nbytes, "float32")
+                 2 * n_el * 4, OPS_GUMBEL_FWD + OPS_EXP + OPS_DIV,
+                 (sh - sh0).abs().max().item()))
+            for (name, ms, dev, pl, dpl, lib, lib_what, nbytes, ops,
+                 err) in timed:
+                bound, by = flops_bound_ms(ops * n_el, nbytes, "float32")
+                b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+                o_ms = ops * n_el / PEAK_FLOPS["float32"] * 1e3
                 lib_s = "none" if lib is None else f"{lib:.4f} ({lib_what})"
                 dpl_s = "" if dpl is None else f" (device {dpl:.4f})"
                 print(f"  {tag}: {name} kernel_ms {ms:.4f} (device {dev:.4f}) "
                       f"plain_ms {pl:.4f}{dpl_s} library_ms {lib_s} bound_ms "
-                      f"{bound:.4f} ({by}) share_of_bound {bound / ms:.3f}")
+                      f"{bound:.4f} ({by}; bytes {b_ms:.4f}, operations "
+                      f"{o_ms:.4f}) share_of_bound {bound / ms:.3f}")
                 records[name] = {"max_abs_err": err, "ms": ms,
                                  "device_ms": dev, "plain_ms": pl,
                                  "bound_ms": bound, "bound_by": by,
+                                 "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms,
                                  "library_ms": lib}
             print(f"  {tag}: gumbel_fwd with given u {t_fwd_u:.4f} ms, hard "
                   f"with its soft residual {t_fwd_h:.4f} ms; gumbel_bwd with "
@@ -1589,18 +1624,34 @@ def degenerate_posteriors(torch, kind: str):
 
 
 def phase_coupling(torch, check) -> dict:
-    """Kernel #11 vs its plain version and the eager distance; returns the
-    record of the main case (A=5, B=5000, C=92)."""
+    """Kernel #11 (one cooperative launch) vs its plain version and the
+    eager distance; returns the record of the main case (A=5, B=5000,
+    C=92)."""
     from dvae_tpu_torch.models.losses import coupling_distance
     from dvae_tpu_torch.ops import coupling as cp
     print("phase 2: coupling kernel vs plain version")
+    lib = cp._lib()
     g = torch.Generator(device=DEV).manual_seed(SEED + 6)
     eps = GUMBEL_EPS
     record = {}
+    # (5, 50000, 92): a slab of 379 rows, whose logs do not fit its shared
+    # memory; (10, 5000, 1024): the most arms and categories the kernel
+    # takes, the same
     shapes = [(A, B, C), (A, 4999, C), (A, TAIL, 100), (3, TAIL, 120),
-              (2, 777, 300), (10, 130, 17), (2, 64, 10)]
+              (2, 777, 300), (10, 130, 17), (2, 64, 10), (A, 50000, C),
+              (10, B, 1024)]
     for shape in shapes:
         tag = f"{shape}"
+        out = (ctypes.c_longlong * 5)()
+        rcode = lib.coupling_plan(*shape, out)
+        twin = cp.coupling_plan(*shape)
+        check(rcode == 0 and tuple(out) == (
+            twin["nb"], twin["rows"], twin["piece"], int(twin["keep"]),
+            twin["smem"]) and twin["rows"] == -(-shape[1] // twin["nb"])
+            and twin["nb"] * twin["rows"] >= shape[1],
+            f"{tag}: coupling plan {tuple(out)} (blocks, rows a slab, rows "
+            "a piece, logs kept, shared bytes) equals the Python twin's; "
+            "the slabs cover B once")
         c = categorical_posterior(torch, g, shape)
         gram = cp.coupling_gram_fused(c, eps)
         gram0 = cp.coupling_gram_plain(c, eps)
@@ -1626,45 +1677,74 @@ def phase_coupling(torch, check) -> dict:
         (gx0,) = torch.autograd.grad(2.0 * coupling_distance(x0, eps), x0)
         check(bool(torch.equal(gx, gx0)),
               f"{tag}: the gradient is the eager form's, bit for bit")
-        again = cp.coupling_gram_fused(c, eps)
-        check(bool(torch.equal(again, gram)
+        again = [cp.coupling_gram_fused(c, eps) for _ in range(3)]
+        check(bool(all(torch.equal(u, gram) for u in again)
                    and torch.equal(cp.coupling_distance_fused(c, eps), dist)),
               f"{tag}: repeated launches bit-identical")
-        if shape == (A, B, C):
+        # the profiler may drop some or all events of a session, never add
+        # any: up to three sessions until one records the call's kernels
+        before = cp.coupling_gram_fused.launches
+        for _ in range(3):
+            names = kernel_launches(torch,
+                                    lambda: cp.coupling_gram_fused(c, eps))
+            if names:
+                break
+        check(len(names) == 1 and "coupling_fused" in next(iter(names))
+              and 0.0 < next(iter(names.values())) <= 1.0
+              and (cp.coupling_gram_fused.launches - before) % 6 == 0,
+              f"{tag}: one kernel a call by the profiler's names {names} and "
+              "by the counter")
+        if shape in ((A, B, C), (A, 50000, C), (10, B, 1024)):
             it = TIMING_ITERS
             ms = cuda_ms(torch, lambda: cp.coupling_distance_fused(c, eps),
                          iters=it)
-            pl = cuda_ms(torch, lambda: cp.coupling_gram_plain(c, eps),
-                         iters=it)
-            lib = cuda_ms(torch, lambda: coupling_distance(c, eps), iters=it)
-            n_el = A * B * C
-            pairs = A * (A + 1) // 2
-            bound, by = flops_bound_ms((2.0 * pairs + 30.0) * n_el,
-                                       n_el * 4 + (A * A + 1) * 4, "float32")
             dev = device_ms(torch,
                             lambda: cp.coupling_distance_fused(c, eps))
-            dlib = device_ms(torch, lambda: coupling_distance(c, eps))
-            print(f"  {tag}: coupling kernel_ms {ms:.4f} (device {dev:.4f}) "
-                  f"plain_ms {pl:.4f} library_ms {lib:.4f} (device "
-                  f"{dlib:.4f}; the eager coupling_distance: log, var, "
-                  f"multiply, einsum) bound_ms {bound:.4f} ({by}) "
-                  f"share_of_bound {bound / ms:.3f}")
-            xg = c.clone().requires_grad_()
-            trips = [lambda f=f: torch.autograd.grad(f(xg, eps), xg)
-                     for f in (coupling_distance, cp.coupling_distance_fused)]
-            h_eager, h_fused = (host_ms(torch, f) for f in trips)
-            d_eager, d_fused = (device_ms(torch, f) for f in trips)
-            print(f"  {tag}: distance + gradient through autograd, host clock "
-                  f"(device): eager {h_eager:.4f} ({d_eager:.4f}) ms, fused "
-                  f"forward with the eager form recomputed in its backward "
-                  f"{h_fused:.4f} ({d_fused:.4f}) ms")
-            del xg
-            record = {"max_abs_err": max(
-                (gram / shape[1] - gram0 / shape[1]).abs().max().item(),
-                abs(dist.item() - eager.item())),
-                "ms": ms, "device_ms": dev, "plain_ms": pl, "bound_ms": bound,
-                "bound_by": by, "library_ms": lib}
-        del c, gram, gram0, x, x0, gx, gx0
+            n_el = shape[0] * shape[1] * shape[2]
+            pairs = shape[0] * (shape[0] + 1) // 2
+            # operations at the FP32 cores' rate: one log, the three sums
+            # and prec an element, and the A(A+1)/2 multiply-adds (two
+            # operations) of each of the B*C positions
+            ops = (OPS_LOG + 5.0) * n_el + 2.0 * pairs * n_el / n_arm
+            bound, by = flops_bound_ms(ops, n_el * 4 + (n_arm * n_arm + 1)
+                                       * 4, "float32")
+            ops_ms = ops / PEAK_FLOPS["float32"] * 1e3
+            bytes_ms = (n_el * 4 + (n_arm * n_arm + 1) * 4) \
+                / PEAK_BYTES_PER_S * 1e3
+            line = (f"  {tag}: coupling kernel_ms {ms:.4f} (device "
+                    f"{dev:.4f}) bound_ms {bound:.4f} ({by}; bytes "
+                    f"{bytes_ms:.4f}, operations {ops_ms:.4f}) "
+                    f"share_of_bound {bound / ms:.3f}")
+            if shape == (A, B, C):
+                pl = cuda_ms(torch, lambda: cp.coupling_gram_plain(c, eps),
+                             iters=it)
+                lib_ms = cuda_ms(torch, lambda: coupling_distance(c, eps),
+                                 iters=it)
+                dlib = device_ms(torch, lambda: coupling_distance(c, eps))
+                line += (f" plain_ms {pl:.4f} library_ms {lib_ms:.4f} "
+                         f"(device {dlib:.4f}; the eager coupling_distance: "
+                         "log, var, multiply, einsum)")
+            print(line)
+            if shape == (A, B, C):
+                xg = c.clone().requires_grad_()
+                trips = [lambda f=f: torch.autograd.grad(f(xg, eps), xg)
+                         for f in (coupling_distance,
+                                   cp.coupling_distance_fused)]
+                h_eager, h_fused = (host_ms(torch, f) for f in trips)
+                d_eager, d_fused = (device_ms(torch, f) for f in trips)
+                print(f"  {tag}: distance + gradient through autograd, host "
+                      f"clock (device): eager {h_eager:.4f} ({d_eager:.4f}) "
+                      f"ms, fused forward with the eager form recomputed in "
+                      f"its backward {h_fused:.4f} ({d_fused:.4f}) ms")
+                del xg
+                record = {"max_abs_err": max(
+                    (gram / shape[1] - gram0 / shape[1]).abs().max().item(),
+                    abs(dist.item() - eager.item())),
+                    "ms": ms, "device_ms": dev, "plain_ms": pl,
+                    "bound_ms": bound, "bound_by": by,
+                    "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+                    "library_ms": lib_ms}
+        del c, gram, gram0, x, x0, gx, gx0, again
     for kind in ("dead", "collapsed"):
         c = degenerate_posteriors(torch, kind)
         dist = cp.coupling_distance_fused(c, eps)
@@ -1673,16 +1753,18 @@ def phase_coupling(torch, check) -> dict:
         e_d = abs(dist.item() - eager.item()) / abs(eager.item())
         e_p = abs(dist.item() - plain.item()) / abs(plain.item())
         check(math.isfinite(dist.item()) and eager.item() > 1.0
-              and e_d <= TOL_DIST_DEGENERATE and e_p <= TOL_DIST_DEGENERATE,
+              and e_d <= TOL_DIST_DEGENERATE and e_p <= TOL_DIST_DEGENERATE
+              and torch.equal(cp.coupling_distance_fused(c, eps), dist),
               f"{kind} posteriors {(A, B, C)}: distance {dist.item():.6g} "
               f"finite, vs eager {eager.item():.6g} rel err {e_d:.2e}, vs "
-              f"plain {e_p:.2e} (tol {TOL_DIST_DEGENERATE:.0e})")
+              f"plain {e_p:.2e} (tol {TOL_DIST_DEGENERATE:.0e}), repeats "
+              "bit-identical")
         del c
     torch.cuda.empty_cache()
     return record
 
 
-def decoder_inputs(torch, g, dtype, rows, per_arm, on_grid=False):
+def decoder_inputs(torch, g, dtype, rows, per_arm, on_grid=False, f=None):
     """Operands of the whole-decoder kernels at the production widths
     (Z = C + 2 = 94 -> L = 10 -> F = 100 x 4 -> D): z as the model makes it
     (a soft categorical sample beside two state values), weights scaled so
@@ -1692,18 +1774,20 @@ def decoder_inputs(torch, g, dtype, rows, per_arm, on_grid=False):
     on its layer's grid, W_11 on 1/64 and b_11 on 1/4096, small enough
     that every activation and y of the output layer is exact in f32 in any
     order of its sums (h_5 on 2^-17, y on 2^-23, both under 24 bits; bf16
-    activations are the same exact values rounded once)."""
+    activations are the same exact values rounded once).  ``f``: another
+    width of fc7..fc10's outputs than F."""
+    f = f or F
     if on_grid:
         def ints(lo, hi, shape):
             return torch.randint(lo, hi + 1, shape, generator=g,
                                  device=DEV).float()
         args = [ints(0, 4, (A, rows, C + 2)) / 4]
         res = 2
-        for k, n in ((C + 2, 10), (10, F), (F, F), (F, F), (F, F)):
+        for k, n in ((C + 2, 10), (10, f), (f, f), (f, f), (f, f)):
             res += 3
             m = 2 if k == 10 else 1
             args += [ints(-m, m, (A, k, n)) / 8, ints(-4, 4, (A, n)) / 2**res]
-        args += [ints(-4, 4, (A, F, D)) / 64, ints(-400, 400, (A, D)) / 4096]
+        args += [ints(-4, 4, (A, f, D)) / 64, ints(-400, 400, (A, D)) / 4096]
         shape = (A, rows, D) if per_arm else (rows, D)
         args.append(torch.relu(torch.randn(shape, generator=g, device=DEV)))
         return [t.to(dtype).contiguous() for t in args]
@@ -1711,7 +1795,7 @@ def decoder_inputs(torch, g, dtype, rows, per_arm, on_grid=False):
                       dim=-1)
     st = torch.randn((A, rows, 2), generator=g, device=DEV)
     args = [torch.cat([c, st], dim=-1)]
-    for k, n in ((C + 2, 10), (10, F), (F, F), (F, F), (F, F), (F, D)):
+    for k, n in ((C + 2, 10), (10, f), (f, f), (f, f), (f, f), (f, D)):
         args.append(torch.randn((A, k, n), generator=g, device=DEV)
                     * (1.4 / math.sqrt(k)))
         args.append(torch.randn((A, n), generator=g, device=DEV) * 0.1)
@@ -2100,6 +2184,537 @@ def phase_decoder(torch, check) -> dict:
             del ops, z, trunk, w11, b11, x, got, want, again, t0
             torch.cuda.empty_cache()
     return records
+
+
+C6_WIDTHS = (160, 448)  # F of #2, #3, #6, #7, #8 past one chunk of 128
+C6_TRUNK = 160          # trunk widths (out_7..out_10) of #12 and #13
+C6_FC_DIM = 160         # fc_dim of the end-to-end runs
+# the widest F each kernel takes in (f32, bf16), which its shared memory
+# sets: the numbers of the kernels' sources and of the Python twins of
+# their plans in tests/test_torch_wide.py
+C6_LIMITS = {"recon_fwdbwd": (512, 1296), "zinb_fwdbwd": (616, 1440),
+             "zinb_fwd": (784, 1456), "decoder_fwdbwd": (512, 1296),
+             "decoder_fwd": (656, 1552)}
+
+
+def call_rise(torch, fn) -> float:
+    """Bytes by which one call of ``fn`` raises the allocator's peak over
+    what was allocated before it: its outputs and its workspaces."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    del out
+    return rise
+
+
+def c6_time(torch, name, kern, plain, flops, nbytes, dname, tag) -> float:
+    """Prints and returns the kernel's time at a C6 width beside its plain
+    version's and the tensor-core bound."""
+    ms = cuda_ms(torch, kern, iters=5, warmup=1)
+    pl = plain_ms(torch, plain)
+    bound, by = flops_bound_ms(flops, nbytes, dname, tensor_cores=True)
+    print(f"  {tag}: {name} kernel_ms {ms:.4f} plain_ms {pl:.4f} bound_ms "
+          f"{bound:.4f} ({by}) share_of_bound {bound / ms:.3f}")
+    return ms
+
+
+def phase_c6(torch, check) -> dict:
+    """Fault C6's repair: the fused training kernels at hidden widths past
+    128, which they walk in chunks of 128.  #2, #3, #6, #7, #8 at F = 160
+    and 448, #12 and #13 with trunk widths 160, each against its plain
+    version at the production limits on the uniform draw and on the grid
+    draw (B = 2,000, shared x), the NaN-of-x cases on the grid draws, each
+    timed at B = 5,000; the widths past the shared memory's limit raise
+    with a message that names it.  Returns {kernel: {F: ms}} (f32)."""
+    from dvae_tpu_torch.ops import decoder as dec
+    from dvae_tpu_torch.ops import recon as rc
+    from dvae_tpu_torch.ops import zinb
+    print("phase 2: C6, the fused kernels at hidden widths past 128")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    g_grid = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    cot = torch.full((A,), 1.5, device=DEV)
+    times = {}
+
+    def flat_z(out):
+        return [out[0], *out[1], *out[2], *out[3]]
+
+    for f in C6_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            item = 4 if dtype == torch.float32 else 2
+            view = torch.int32 if item == 4 else torch.int16
+            for on_grid in (False, True):
+                tag = (f"F={f} {dname} B={TAIL} x=shared, "
+                       + ("on the grid" if on_grid else "off the grid"))
+                # #2 and #3
+                ops = recon_inputs(torch, g_grid if on_grid else g, dtype,
+                                   TAIL, False, on_grid, f=f)
+                got = rc.recon_fwdbwd(*ops)
+                want = rc.recon_fwdbwd_reference(*ops)
+                g3 = rc.recon_bwd(cot, *ops)
+                w3 = rc.recon_bwd_reference(cot, *ops)
+                torch.cuda.synchronize()
+                rel = ((got[0] - want[0]).abs() / want[0].abs()).max().item()
+                dm = (got[1] - want[1]).abs().max().item()
+                if on_grid:
+                    e2 = [rel_err(torch, u, v)
+                          for u, v in zip(got[2:], want[2:])]
+                    e3 = [rel_err(torch, u, v) for u, v in zip(g3, w3)]
+                    what = "every row and column"
+                else:
+                    rk, ck = recon_clear_of_kink(torch, *ops[:3])
+                    e2 = recon_held_errs(torch, got[2:], want[2:], rk, ck)
+                    e3 = recon_held_errs(torch, g3, w3, rk, ck)
+                    what = (f"dh on the {rk.float().mean():.4f} of rows, "
+                            f"dW/db on the {ck.float().mean():.4f} of "
+                            f"columns with every plain |y| > {KINK_Y:.0e}")
+                    del rk, ck
+                check(rel <= TOL_SUMSQ[dname]
+                      and dm <= TOL_MISM * TAIL * D
+                      and max(e2 + e3) <= TOL_REL[dname],
+                      f"{tag}: recon_fwdbwd sumsq rel err {rel:.1e}, mism "
+                      f"{dm:.0f}; dh/dW/db rel err "
+                      + "/".join(f"{e:.1e}" for e in e2) + "; recon_bwd "
+                      + "/".join(f"{e:.1e}" for e in e3) + f" ({what}; tol "
+                      f"{TOL_SUMSQ[dname]:.0e}, {TOL_REL[dname]:.0e})")
+                again = rc.recon_fwdbwd(*ops)
+                check(all(torch.equal(u, v) for u, v in zip(got, again))
+                      and all(torch.equal(u, v) for u, v in
+                              zip(g3, rc.recon_bwd(cot, *ops))),
+                      f"{tag}: recon_fwdbwd, recon_bwd repeated launches "
+                      "bit-identical")
+                if on_grid:
+                    y = torch.baddbmm(ops[2].float()[:, None, :],
+                                      ops[0].float(), ops[1].float())
+                    for what, at, bits in nan_of_x_cases(torch, y, False,
+                                                          dtype):
+                        bad = list(ops[:3]) + [ops[3].clone()]
+                        bad[3].view(view)[at] = bits
+                        gn = rc.recon_fwdbwd(*bad)
+                        wn = rc.recon_fwdbwd_reference(*bad)
+                        gn3 = rc.recon_bwd(cot, *bad)
+                        wn3 = rc.recon_bwd_reference(cot, *bad)
+                        check(hold_nan_pattern(torch, [gn[0], *gn[2:]],
+                                               [wn[0], *wn[2:]],
+                                               [got[0], *got[2:]])
+                              and hold_nan_pattern(torch, gn3, wn3, g3),
+                              f"{tag}: a NaN of x where {what}: recon_fwdbwd "
+                              "and recon_bwd NaN where the plain version "
+                              "is, every other element bit for bit")
+                        del bad, gn, wn, gn3, wn3
+                    del y
+                del ops, got, want, g3, w3, again
+                # #6, #7, #8
+                zops = zinb_inputs(torch, g_grid if on_grid else g, dtype,
+                                   TAIL, False, on_grid=on_grid, f=f)
+                h, x = zops[0], zops[7]
+                heads = tuple(zip(zops[1:7:2], zops[2:7:2]))
+                held = (range(7) if on_grid
+                        else [i for i in range(7) if i not in ZINB_AT_KINK])
+                v = zinb.fused_zinb(*zops, ZINB_EPS)
+                v0 = zinb.zinb_heads_plain(*zops, ZINB_EPS)
+                fb = zinb.zinb_fwdbwd(*zops, ZINB_EPS)
+                fb0 = zinb.zinb_grads_plain(*zops, ZINB_EPS)
+                zc = torch.linspace(-1.5, 2.5, A, device=DEV)
+                bw = zinb.zinb_bwd(zc, h, heads, x, ZINB_EPS)
+                bw0 = zinb.zinb_bwd_plain(zc, h, heads, x, ZINB_EPS)
+                torch.cuda.synchronize()
+                e_v = ((v - v0).abs() / v0.abs()).max().item()
+                e_l = ((fb[0] - fb0[0]).abs() / fb0[0].abs()).max().item()
+                ef = [rel_err(torch, u, w_)
+                      for u, w_ in zip(flat_z(fb[1:]), flat_z(fb0[1:]))]
+                eb = [rel_err(torch, u, w_)
+                      for u, w_ in zip(flat_z(bw), flat_z(bw0))]
+                tol_g = TOL_ZINB_GRAD[dname]
+                check(e_v <= TOL_ZINB_LOSS and e_l <= TOL_ZINB_LOSS
+                      and torch.equal(v, fb[0])
+                      and max(ef[i] for i in held) <= tol_g
+                      and max(eb[i] for i in held) <= tol_g,
+                      f"{tag}: zinb_fwd loss rel err {e_v:.1e}, equal to "
+                      f"zinb_fwdbwd's {bool(torch.equal(v, fb[0]))}; "
+                      f"zinb_fwdbwd loss {e_l:.1e}, gradients "
+                      + "/".join(f"{ZINB_GRAD_NAMES[i]} {ef[i]:.1e}"
+                                 for i in held)
+                      + "; zinb_bwd " + "/".join(
+                          f"{eb[i]:.1e}" for i in held)
+                      + f" (tol {TOL_ZINB_LOSS:.0e}, {tol_g:.0e}"
+                      + ("" if on_grid else "; dh, dW_r, db_r, which the "
+                         "kink reaches: " + "/".join(
+                             f"{ef[i]:.1e}" for i in ZINB_AT_KINK)) + ")")
+                again = zinb.zinb_fwdbwd(*zops, ZINB_EPS)
+                check(torch.equal(again[0], fb[0]) and all(
+                    torch.equal(u, w_) for u, w_ in
+                    zip(flat_z(again[1:]), flat_z(fb[1:]))),
+                    f"{tag}: zinb_fwdbwd repeated launch bit-identical")
+                del zops, h, x, heads, v, v0, fb, fb0, bw, bw0, again
+                torch.cuda.empty_cache()
+            # times at B = 5,000 on the uniform draw
+            tag = f"F={f} {dname} B={B} x=shared"
+            ops = recon_inputs(torch, g, dtype, B, False, f=f)
+            nbytes = (A * B * f + A * f * D + A * D + B * D) * item
+            grads = (A * B * f + A * f * D + A * D) * 4
+            prod = 2.0 * A * B * f * D
+            t = times.setdefault(dname, {})
+            t[f"recon_fwdbwd F={f}"] = c6_time(
+                torch, "recon_fwdbwd", lambda: rc.recon_fwdbwd(*ops),
+                lambda: rc.recon_fwdbwd_reference(*ops), 3 * prod,
+                nbytes + grads, dname, tag)
+            t[f"recon_bwd F={f}"] = c6_time(
+                torch, "recon_bwd", lambda: rc.recon_bwd(cot, *ops),
+                lambda: rc.recon_bwd_reference(cot, *ops), 3 * prod,
+                nbytes + grads, dname, tag)
+            del ops
+            zops = zinb_inputs(torch, g, dtype, B, False, f=f)
+            zbytes = (A * B * f + 3 * A * f * D + 3 * A * D + B * D) * item
+            zgrads = (A * B * f + 3 * A * f * D + 3 * A * D) * 4
+            heads = tuple(zip(zops[1:7:2], zops[2:7:2]))
+            t[f"zinb_fwd F={f}"] = c6_time(
+                torch, "zinb_fwd", lambda: zinb.fused_zinb(*zops, ZINB_EPS),
+                lambda: zinb.zinb_heads_plain(*zops, ZINB_EPS), 3 * prod,
+                zbytes, dname, tag)
+            t[f"zinb_fwdbwd F={f}"] = c6_time(
+                torch, "zinb_fwdbwd",
+                lambda: zinb.zinb_fwdbwd(*zops, ZINB_EPS),
+                lambda: zinb.zinb_grads_plain(*zops, ZINB_EPS), 9 * prod,
+                zbytes + zgrads, dname, tag)
+            t[f"zinb_bwd F={f}"] = c6_time(
+                torch, "zinb_bwd",
+                lambda: zinb.zinb_bwd(cot, zops[0], heads, zops[7],
+                                      ZINB_EPS),
+                lambda: zinb.zinb_bwd_plain(cot, zops[0], heads, zops[7],
+                                            ZINB_EPS), 9 * prod,
+                zbytes + zgrads, dname, tag)
+            if f == max(C6_WIDTHS):
+                # no (A, B, D) tensor at any width: a call's outputs and
+                # workspaces stay below one
+                ops = recon_inputs(torch, g, dtype, B, False, f=f)
+                limit = A * B * D * 4
+                for name, fn in (
+                        ("recon_fwdbwd", lambda: rc.recon_fwdbwd(*ops)),
+                        ("recon_bwd", lambda: rc.recon_bwd(cot, *ops)),
+                        ("zinb_fwd", lambda: zinb.fused_zinb(*zops,
+                                                             ZINB_EPS)),
+                        ("zinb_fwdbwd", lambda: zinb.zinb_fwdbwd(
+                            *zops, ZINB_EPS)),
+                        ("zinb_bwd", lambda: zinb.zinb_bwd(
+                            cot, zops[0], heads, zops[7], ZINB_EPS))):
+                    rise = call_rise(torch, fn)
+                    check(rise < limit,
+                          f"{tag}: {name} raises the peak by "
+                          f"{rise / 1e6:.1f} MB (outputs and workspaces; "
+                          f"limit one (A,B,D) f32 tensor, {limit / 1e6:.0f} "
+                          "MB)")
+                del ops
+            del zops, heads
+            torch.cuda.empty_cache()
+
+    # #12 and #13 with trunk widths 160
+    f = C6_TRUNK
+    names = ["dz"] + [f"d{p}{6 + i}" for i in range(5) for p in "Wb"] \
+        + ["dW11", "db11"]
+
+    def flat_d(out):
+        return [out[2], *(t for pair in out[3] for t in pair), out[4], out[5]]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        item = 4 if dtype == torch.float32 else 2
+        view = torch.int32 if item == 4 else torch.int16
+        tol_g = TOL_DEC_GRAD[dname]
+        tol_dz = tol_g if item == 4 else TOL_Y_BF16
+        for on_grid in (False, True):
+            tag = (f"trunk {f} {dname} B={TAIL} x=shared, "
+                   + ("on the grid" if on_grid else "off the grid"))
+            ops = decoder_inputs(torch, g_grid if on_grid else g, dtype,
+                                 TAIL, False, on_grid, f=f)
+            z, w11, b11, x = ops[0], ops[11], ops[12], ops[13]
+            trunk = [(ops[1 + 2 * i], ops[2 + 2 * i]) for i in range(5)]
+            sk, mk = dec.fused_decoder_mse(*ops)
+            sp, mp = dec.decoder_mse_reference(*ops)
+            got = dec.decoder_fwdbwd(z, trunk, w11, b11, x)
+            want = dec.decoder_fwdbwd_reference(z, trunk, w11, b11, x)
+            torch.cuda.synchronize()
+            rel = ((sk - sp).abs() / sp.abs()).max().item()
+            dm = (mk - mp).abs().max().item()
+            check(rel <= TOL_SUMSQ[dname]
+                  and dm <= TOL_DEC_MISM[dname] * TAIL * D
+                  and torch.equal(got[0], sk) and torch.equal(got[1], mk),
+                  f"{tag}: decoder_fwd sumsq rel err {rel:.1e}, mism "
+                  f"{dm:.0f}; decoder_fwdbwd's sums equal decoder_fwd's bit "
+                  "for bit")
+            errs = [rel_err(torch, u, v) for u, v in zip(flat_d(got),
+                                                         flat_d(want))]
+            listed = " ".join(f"{n}={e:.1e}" for n, e in zip(names, errs))
+            finite = all(bool(torch.isfinite(t).all()) for t in flat_d(got))
+            if on_grid:
+                check(errs[0] <= tol_dz and max(errs[1:]) <= tol_g
+                      and finite,
+                      f"{tag}: decoder_fwdbwd gradients rel err {listed} "
+                      f"(tol dz {tol_dz:.0e}, the others {tol_g:.0e})")
+            else:
+                h5 = dec._trunk_forward(z, trunk)[-1].contiguous()
+                rk = decoder_clear_rows(torch, z, trunk, w11, b11)
+                _, ck = recon_clear_of_kink(torch, h5, w11, b11)
+                e_clear = recon_held_errs(torch, [got[2], got[4], got[5]],
+                                          [want[2], want[4], want[5]],
+                                          rk, ck)
+                what = (f"{tag}: decoder_fwdbwd dz on the "
+                        f"{rk.float().mean():.4f} of rows, dW11/db11 on the "
+                        f"{ck.float().mean():.4f} of columns clear of the "
+                        "kink: rel err " + "/".join(
+                            f"{e:.1e}" for e in e_clear)
+                        + f"; over all {listed}")
+                if item == 4:
+                    # every row at the kink reaches every trunk dW and db,
+                    # and at trunk 160 more rows lie there than at F = 100
+                    # (on one draw 14%, moving dW8 by 9.3e-4 of its
+                    # largest entry): the trunk's dW and db are held on
+                    # the batch of the rows clear of the kink in every arm
+                    # and layer, where no gate flips
+                    keep = rk.all(dim=0)
+                    zs, xs = z[:, keep].contiguous(), x[keep].contiguous()
+                    sub = dec.decoder_fwdbwd(zs, trunk, w11, b11, xs)
+                    subp = dec.decoder_fwdbwd_reference(zs, trunk, w11, b11,
+                                                        xs)
+                    e_sub = [rel_err(torch, u, v) for u, v in zip(
+                        flat_d(sub)[1:11], flat_d(subp)[1:11])]
+                    check(max(e_clear) <= tol_g and max(e_sub) <= tol_g
+                          and finite,
+                          what + f"; dW6..db10 on the {int(keep.sum())} "
+                          "rows clear in every arm: rel err " + "/".join(
+                              f"{e:.1e}" for e in e_sub)
+                          + f" (tol {tol_g:.0e})")
+                    del zs, xs, sub, subp
+                else:
+                    check(max(errs[0], *errs[11:]) <= TOL_Y_BF16
+                          and max(errs[1:11]) <= tol_g and finite,
+                          what + f" (tol {TOL_Y_BF16:.0e} for dz, dW11, "
+                          f"db11, {tol_g:.0e} for dW6..db10)")
+                del h5, rk, ck
+            # pass by pass on the call's own workspaces
+            kern = dec._fwdbwd_launch(z, trunk, w11, b11, x, 0.1, True)
+            khs, kdh5 = kern[6], kern[7]
+            phs = dec._trunk_forward(z, trunk)
+            e_h = [rel_err(torch, u, v) for u, v in zip(khs, phs[1:])]
+            r2 = rc.recon_fwdbwd(khs[-1], w11, b11, x)
+            pdz, pdt = dec._trunk_backward([z] + khs, trunk, kdh5)
+            e_b = [rel_err(torch, u, v) for u, v in zip(
+                [kern[2], *(t for pair in kern[3] for t in pair)],
+                [pdz, *(t for pair in pdt for t in pair)])]
+            tol_h = tol_g if item == 4 else TOL_Y_BF16
+            check(max(e_h) <= tol_h
+                  and all(bool(torch.equal(u, v)) for u, v in zip(
+                      [kern[0], kern[1], kdh5, kern[4], kern[5]], r2))
+                  and e_b[0] <= tol_dz and max(e_b[1:]) <= tol_g,
+                  f"{tag}: pass by pass, h1..h5 rel err "
+                  + "/".join(f"{e:.1e}" for e in e_h) + f" (tol {tol_h:.0e});"
+                  " sums, dh5, dW11, db11 equal recon_fwdbwd's on its own h5;"
+                  " the trunk backward on its own h1..h5 and dh5: "
+                  + " ".join(f"{n}={e:.1e}" for n, e in zip(names, e_b))
+                  + f" (tol dz {tol_dz:.0e}, {tol_g:.0e})")
+            del kern, khs, kdh5, phs, r2, pdz, pdt
+            again = dec.decoder_fwdbwd(z, trunk, w11, b11, x)
+            check(all(torch.equal(u, v) for u, v in
+                      zip(flat_d(again), flat_d(got)))
+                  and torch.equal(dec.fused_decoder_mse(*ops)[0], sk),
+                  f"{tag}: repeated launches of both kernels bit-identical")
+            if on_grid:
+                h5 = dec._trunk_forward(z, trunk)[-1]
+                y = torch.baddbmm(b11.float()[:, None, :], h5.float(),
+                                  w11.float())
+                del h5
+                for what, at, bits in nan_of_x_cases(torch, y, False, dtype):
+                    bx = x.clone()
+                    bx.view(view)[at] = bits
+                    tn = dec.decoder_fwdbwd(z, trunk, w11, b11, bx)
+                    pn = dec.decoder_fwdbwd_reference(z, trunk, w11, b11, bx)
+                    sn, _ = dec.fused_decoder_mse(*ops[:13], bx)
+                    check(hold_nan_pattern(torch, [tn[0]] + flat_d(tn),
+                                           [pn[0]] + flat_d(pn),
+                                           [got[0]] + flat_d(got))
+                          and hold_nan_pattern(torch, [sn], [tn[0]], [tn[0]]),
+                          f"{tag}: a NaN of x where {what}: decoder_fwdbwd "
+                          "NaN where the plain version is, decoder_fwd's "
+                          "sums equal its own, every other element bit for "
+                          "bit")
+                    del bx, tn, pn, sn
+                del y
+            del ops, z, trunk, w11, b11, x, got, want, again
+            torch.cuda.empty_cache()
+        tag = f"trunk {f} {dname} B={B} x=shared"
+        ops = decoder_inputs(torch, g, dtype, B, False, f=f)
+        trunk = [(ops[1 + 2 * i], ops[2 + 2 * i]) for i in range(5)]
+        dims = [C + 2, 10, f, f, f, f, D]
+        macs = sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+        wbytes = sum((k + 1) * n for k, n in zip(dims[:-1], dims[1:]))
+        nbytes = (A * B * dims[0] + A * wbytes + B * D) * item
+        t = times.setdefault(dname, {})
+        t[f"decoder_fwd trunk {f}"] = c6_time(
+            torch, "decoder_fwd", lambda: dec.fused_decoder_mse(*ops),
+            lambda: dec.decoder_mse_reference(*ops), 2.0 * A * B * macs,
+            nbytes, dname, tag)
+        t[f"decoder_fwdbwd trunk {f}"] = c6_time(
+            torch, "decoder_fwdbwd",
+            lambda: dec.decoder_fwdbwd(ops[0], trunk, *ops[11:]),
+            lambda: dec.decoder_fwdbwd_reference(ops[0], trunk, *ops[11:]),
+            6.0 * A * B * macs, nbytes + (A * B * dims[0] * item
+                                          + A * wbytes * 4), dname, tag)
+        limit = A * B * D * 4
+        for name, fn in (
+                ("decoder_fwd", lambda: dec.fused_decoder_mse(*ops)),
+                ("decoder_fwdbwd", lambda: dec.decoder_fwdbwd(
+                    ops[0], trunk, *ops[11:]))):
+            rise = call_rise(torch, fn)
+            check(rise < limit,
+                  f"{tag}: {name} raises the peak by {rise / 1e6:.1f} MB "
+                  f"(outputs and workspaces; limit one (A,B,D) f32 tensor, "
+                  f"{limit / 1e6:.0f} MB)")
+        del ops, trunk
+        torch.cuda.empty_cache()
+
+    # the limits the libraries state, and past them a ValueError naming
+    # the limit
+    dlib = dec._lib()
+    got = {"recon_fwdbwd": tuple(rc._lib_fwdbwd().recon_fwdbwd_max_f(b)
+                                 for b in (0, 1)),
+           "zinb_fwdbwd": tuple(zinb._lib_fwdbwd().zinb_fwdbwd_max_f(b)
+                                for b in (0, 1)),
+           "zinb_fwd": tuple(zinb._lib_fwd().zinb_fwd_max_f(b)
+                             for b in (0, 1)),
+           "decoder_fwdbwd": tuple(dlib.decoder_max_f(b, 1) for b in (0, 1)),
+           "decoder_fwd": tuple(dlib.decoder_max_f(b, 0) for b in (0, 1))}
+    check(got == C6_LIMITS, f"the widest F of each kernel (f32, bf16): {got} "
+                            f"(the plans' twins: {C6_LIMITS})")
+    for label, lim, run in (
+            ("recon_fwdbwd", rc._lib_fwdbwd().recon_fwdbwd_max_f(0),
+             lambda f: rc.recon_fwdbwd(*recon_inputs(
+                 torch, g, torch.float32, 64, False, f=f, d=64))),
+            ("zinb_fwdbwd", zinb._lib_fwdbwd().zinb_fwdbwd_max_f(0),
+             lambda f: zinb.zinb_fwdbwd(
+                 *[(t[..., :64] if t.shape[-1] == D else t).contiguous()
+                   for t in zinb_inputs(torch, g, torch.float32, 64, False,
+                                        f=f)], ZINB_EPS))):
+        try:
+            run(lim + 8)
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        check(str(lim) in raised and "shared memory" in raised
+              and "128" not in raised,
+              f"{label}: F={lim + 8} refused by a ValueError that names the "
+              f"limit {lim} and its cause ({raised!r})")
+        run(lim)
+        torch.cuda.synchronize()
+        check(True, f"{label}: F={lim}, the limit, runs")
+    print(f"  C6 times (ms), float32: {times.get('float32')}")
+    print(f"  C6 times (ms), bfloat16: {times.get('bfloat16')}")
+    return times
+
+
+def largest_allocation(torch, fn):
+    """(what ``fn`` returns, the largest single allocation it makes on the
+    card in bytes), from the allocator's recorded history."""
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context=None, stacks="python", max_entries=1_000_000)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    return out, max((e["size"] for trace in snap["device_traces"]
+                     for e in trace if e["action"] == "alloc"), default=0)
+
+
+def phase_c6_path(torch, check, tmp, x, x_zinb) -> dict:
+    """Fault C6 end to end: init_model(fc_dim=160) -> train (4 steps, one
+    validation) -> a fresh load_model -> eval_model over 12,000 cells, in
+    MSE, ZINB and fused_decoder mode at the production D, A, C and batch,
+    counts set to 0 just before each run and read just after.  No single
+    allocation of a run reaches one (A, B, D) f32 tensor; the peak rise is
+    printed (autograd's (A, B, F) activations and the parameter-sized
+    gradients grow with F).  Returns the launch counts of the six counted
+    runs."""
+    import numpy as np
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print(f"phase 9: C6 end to end, fc_dim={C6_FC_DIM}")
+    out = {}
+    n_train, n_val, n_serve = 2 * B, N_VAL, 12000
+    steps = 2 * (n_train // B)
+    for mode, data, flags, train_k, val_k in (
+            ("MSE", x, {}, "recon_fwdbwd", "recon_fwd"),
+            ("ZINB", x_zinb, {"mode": "ZINB"}, "zinb_fwdbwd", "zinb_fwd"),
+            ("fused_decoder", x, {"fused_decoder": True, "fused_recon": True,
+                                  "fused_encoder": True},
+             "decoder_fwdbwd", "decoder_fwd")):
+        tag = f"[C6 {mode}]"
+        folder = os.path.join(tmp, f"c6_{mode}")
+        trainer = CplMixVAE(saving_folder=folder, device=DEV, seed=SEED)
+        trainer.init_model(n_arm=A, n_categories=C, input_dim=D,
+                           fc_dim=C6_FC_DIM, lowD_dim=10, state_dim=2,
+                           batch_size=B, epochs_per_jit=2, eval_every=2,
+                           ckpt_every=2, **flags)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        path, largest = largest_allocation(torch, lambda: trainer.train(
+            data[:n_train], x_val=data[n_train:n_train + n_val], n_epoch=2,
+            early_stop_consensus=0, save_plots=False))
+        wall = time.perf_counter() - t0
+        trained = launch_counts()
+        rise = torch.cuda.max_memory_allocated() - base
+        want = {**dict.fromkeys(trained, 0), "encoder_fwd": steps,
+                "encoder_bwd": steps, train_k: steps,
+                val_k: -(-n_val // B)}
+        limit = A * B * D * 4
+        with open(os.path.join(folder, "metrics.jsonl")) as fh:
+            rows = [json.loads(line) for line in fh]
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        print(f"  {tag} train: {steps} steps in {wall:.4f} s (cold, the "
+              f"allocator's history recorded); epoch losses {losses}; peak "
+              f"rise {rise / 1e6:.1f} MB")
+        check(trained == want and len(losses) == 2
+              and all(math.isfinite(v) for v in losses) and largest < limit
+              and all(bool(torch.isfinite(v).all())
+                      for layer in trainer.state.params.values()
+                      for v in layer.values()),
+              f"{tag} train at fc_dim={C6_FC_DIM}: launches {trained} "
+              f"(expect {want}), losses finite, parameters finite, largest "
+              f"allocation {largest / 1e6:.1f} MB (limit one (A,B,D) f32 "
+              f"tensor, {limit / 1e6:.0f} MB)")
+        out[f"c6_{mode}_training"] = trained
+        server = CplMixVAE(device=DEV)
+        server.load_model(path)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        res, largest = largest_allocation(
+            torch, lambda: server.eval_model(data[:n_serve], batch_size=B))
+        served = launch_counts()
+        rise = torch.cuda.max_memory_allocated() - base
+        want = {**dict.fromkeys(served, 0), val_k: -(-n_serve // B)}
+        print(f"  {tag} eval_model: {n_serve} cells, consensus "
+              f"{res['consensus']:.6f}, total_loss {res['total_loss']:.6g}, "
+              f"peak rise {rise / 1e6:.1f} MB")
+        check(served == want and server.cfg.fc_dim == C6_FC_DIM
+              and np.asarray(res["pred_label"]).shape == (A, n_serve)
+              and math.isfinite(res["total_loss"])
+              and bool(np.all(np.isfinite(res["c_prob"])))
+              and largest < limit and rise < limit,
+              f"{tag} serve at fc_dim={C6_FC_DIM}: launches {served} (expect "
+              f"{want}), finite results, largest allocation "
+              f"{largest / 1e6:.1f} MB, peak rise {rise / 1e6:.1f} MB (limit "
+              f"one (A,B,D) f32 tensor, {limit / 1e6:.0f} MB)")
+        out[f"c6_{mode}_serving"] = served
+        del trainer, server
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_breakdown(torch, server, x) -> None:
@@ -3077,7 +3692,8 @@ def main() -> int:
             ("zinb", lambda: phase_zinb(torch, check)),
             ("gumbel", lambda: phase_gumbel(torch, check)),
             ("coupling", lambda: {"coupling": phase_coupling(torch, check)}),
-            ("decoder", lambda: phase_decoder(torch, check)))
+            ("decoder", lambda: phase_decoder(torch, check)),
+            ("c6", lambda: {"c6": phase_c6(torch, check)}))
         for name, run in kernel_phases:
             if wanted is None or name in wanted:
                 records.update(run())
@@ -3093,6 +3709,7 @@ def main() -> int:
             paths["categorical_serving"] = cat["serving"]
             paths["categorical_zinb"] = cat["zinb"]
             phase_augmenter(torch, check, x, x_zinb)
+            paths.update(phase_c6_path(torch, check, tmp, x, x_zinb))
             del x_zinb
             torch.cuda.empty_cache()
             paths.update(phase_decoder_path(torch, check, tmp, x))

@@ -1,7 +1,7 @@
 // Fused arm-coupling distance: the (A, A) Gram matrix of the
 // precision-scaled, centred log posteriors and the pair sum that follows
-// from it, without materialising log(c + eps) or the scaled tensor.
-// Hand-written for Hopper (sm_90a), bound with ctypes.
+// from it, without materialising log(c + eps) or the scaled tensor, in one
+// launch.  Hand-written for Hopper (sm_90a), bound with ctypes.
 //
 // Replaces the TPU kernel of dvae_tpu/ops/coupling_pallas.py: `_kernel`
 // (:51), launched by `coupling_gram_pallas` (:102, pallas_call :109) and
@@ -19,39 +19,62 @@
 // near-constant category).
 //
 // Bound at the production shape (A=5, B=5000, C=92), per call: c read once,
-// 9.2 MB -> 0.0027 ms at 3.35 TB/s; two logs and A(A+1)/2 multiply-adds an
-// element are below that.  The op is bound by bytes and, at this size, by
-// the latency of its launches: c fits the 50 MB L2, so reading it twice is
-// not what costs.
-// What the design does about it: four small launches on one stream, no
-// host round trip and no (A, B, C) intermediate.
-//   (a) moments: block (row block of 64, arm) sums c, c^2 and log(c + eps)
-//       per column into per-block partials;
-//   (b) weights: block per column, one warp per arm, sums the partials in a
-//       fixed order in double and writes w (A, C) and m (C);
-//   (c) Gram: block per row block reads all arms of an element, forms prec
-//       in registers and accumulates the A(A+1)/2 products a <= d (the
-//       Gram is symmetric) into per-block partials;
-//   (d) reduce: one block sums the Gram partials in a fixed order in double,
-//       writes G both ways and the distance.
-// The workspace is block partials only: A * nb * 3 * C + (A + 1) * C +
-// nb * A(A+1)/2 floats with nb = ceil(B / 64) (113,160 floats, 0.45 MB, at
-// the production shape).  Sums are per-block f32 partials reduced in a
-// fixed order in double: repeated launches are bit-identical, no float
-// atomics.  Ragged edges (the last row block, C not a multiple of 32) are
-// masked, never padded.
+// 9.2 MB -> 0.0027 ms at 3.35 TB/s; one log, three sums and prec an
+// element and A(A+1)/2 multiply-adds a (row, column), 6.2e7 operations,
+// 0.0009 ms at the FP32 cores' 67 TFLOP/s.  Bound by bytes; at this size
+// a launch's latency and the grid barriers are as large.
+//
+// Design: one cooperative launch of `coupling_fused`, a persistent grid of
+// nb = min(SLOTS, ceil(B / MIN_ROWS)) blocks (132 at the production shape):
+// a constant, not the card's SM count, so that the order of every sum
+// depends on the shape alone.  All blocks are co-resident (the cooperative
+// launch refuses a grid the card cannot hold, and the call then fails).
+// Block b owns the contiguous slab of rows [b * rows, (b + 1) * rows) of
+// every arm (rows = ceil(B / nb), 38 here).
+//   phase 0: the slab arrives by cp.async (one copy of all A arms, 70 KB
+//     here) in shared memory; each thread owns (arm, column) pairs and sums
+//     c, c^2 and log(c + eps) down the slab's rows in double, writing the
+//     logs back over c; per-block partials (double) go to the workspace.
+//   grid barrier; then block b computes w and m of the columns b, b + nb,
+//     .. from every block's partials in a fixed order in double (a warp an
+//     arm, as the separate weights launch did); grid barrier.
+//   phase 1: prec from the logs in shared memory, the A(A+1)/2 Gram sums
+//     of the slab in registers, a per-block partial; the last block to
+//     finish, found by an integer ticket (zeroed by block 0 before the
+//     first barrier), sums the partials in a fixed order in double and
+//     writes G both ways and the distance.
+// Where a slab's logs do not fit SLAB_BYTES of shared memory (a large B, or
+// many arms and categories: A up to 10, C up to 1024), the slab is walked
+// in pieces of `piece` rows, the column sums carried in the workspace, and
+// phase 1 reads c again (from L2) and takes its logs again.
+// w and m need two barriers, not one: every block needs all of them, and
+// summing the nb partials of all A * C columns in each block would read
+// nb times more than the one block a column does here.
+// Workspace (one buffer with the output, `coupling_buffer_floats`): the
+// output (A * A + 1 floats, padded to 64), the phase-0 partials (nb * 3 *
+// A * C doubles), w (A * C), m (C), the Gram partials (nb * A(A+1)/2) and
+// the ticket.  Sums are in fixed orders; no float atomics; repeated
+// launches are bit-identical.  Ragged edges (the last slab, empty slabs of
+// small B) are masked, never padded.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"  // tc::cp_async
+
 namespace {
 
-constexpr int ROWS = 64;       // rows of one block's tile
-constexpr int WARPS = 8;
+namespace cg = cooperative_groups;
+
+constexpr int WARPS = 16;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_ARMS = 10;
-constexpr int MAX_C = 1024;    // (A + 1) * C floats of shared memory in (c)
+constexpr int MAX_C = 1024;
+constexpr int SLOTS = 132;      // most blocks: an H100 SXM's SMs, a constant
+constexpr int MIN_ROWS = 8;     // fewest rows a slab holds
+constexpr int SLAB_BYTES = 160 * 1024;  // shared memory for the slab
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -66,107 +89,184 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// (a) grid (nb, A).  part[((a * nb + blk) * 3 + k) * C + col], k = 0: sum c,
-// 1: sum c^2, 2: sum log(c + eps) over the block's rows.
-__global__ void __launch_bounds__(THREADS)
-coupling_moments(const float* __restrict__ c, int B, int C, float eps,
-                 float* __restrict__ part) {
-  __shared__ float sh[3][WARPS][32];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int blk = blockIdx.x, a = blockIdx.y, nb = gridDim.x;
-  const int r0 = blk * ROWS;
-  const int r1 = min(r0 + ROWS, B);
-  const float* ca = c + (long long)a * B * C;
-  float* out = part + (long long)(a * nb + blk) * 3 * C;
-  for (int col0 = 0; col0 < C; col0 += 32) {
-    const int col = col0 + tx;
-    float s = 0.f, q = 0.f, l = 0.f;
-    if (col < C) {
-      for (int r = r0 + ty; r < r1; r += WARPS) {
-        const float v = ca[(long long)r * C + col];
-        s += v;
-        q += v * v;
-        l += logf(v + eps);
-      }
-    }
-    sh[0][ty][tx] = s;
-    sh[1][ty][tx] = q;
-    sh[2][ty][tx] = l;
-    __syncthreads();
-    if (ty < 3 && col < C) {
-      float t = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) t += sh[ty][w][tx];
-      out[ty * C + col] = t;
-    }
-    __syncthreads();
-  }
+// The launch plan, from the shape alone.
+struct Plan {
+  int nb;     // blocks
+  int rows;   // rows of a slab
+  int piece;  // rows of the slab in shared memory at a time
+  int keep;   // the whole slab's logs stay in shared memory for phase 1
+  long long smem;  // dynamic shared memory of a block, bytes
+};
+
+Plan make_plan(int A, int B, int C) {
+  Plan p;
+  const int by_rows = (B + MIN_ROWS - 1) / MIN_ROWS;
+  p.nb = by_rows < SLOTS ? by_rows : SLOTS;
+  p.rows = (B + p.nb - 1) / p.nb;
+  const long long row_bytes = 4LL * A * C;
+  p.keep = p.rows * row_bytes <= SLAB_BYTES;
+  p.piece = p.keep ? p.rows : (int)(SLAB_BYTES / row_bytes);
+  if (p.piece < 1) p.piece = 1;
+  p.smem = p.piece * row_bytes + 4LL * (A + 1) * C;
+  return p;
 }
 
-// (b) grid (C), block (32, A).  w[a * C + col], m[col].
-__global__ void coupling_weights(const float* __restrict__ part, int A, int B,
-                                 int C, int nb, float eps,
-                                 float* __restrict__ w, float* __restrict__ m) {
-  __shared__ double wl[MAX_ARMS];
-  const int col = blockIdx.x, a = threadIdx.y, lane = threadIdx.x;
-  double s = 0.0, q = 0.0, l = 0.0;
-  for (int blk = lane; blk < nb; blk += 32) {
-    const float* p = part + (long long)(a * nb + blk) * 3 * C + col;
-    s += (double)p[0];
-    q += (double)p[C];
-    l += (double)p[2 * C];
+// Offsets (in floats) of the regions of the one buffer.
+struct Layout {
+  long long part0, w, m, gpart, ticket, total;
+};
+
+__host__ __device__ Layout make_layout(int A, int C, int nb) {
+  Layout l;
+  const long long np = A * (A + 1) / 2;
+  l.part0 = (A * A + 1 + 63) / 64 * 64;            // doubles from here
+  l.w = l.part0 + 2LL * nb * 3 * A * C;
+  l.m = l.w + (long long)A * C;
+  l.gpart = l.m + C;
+  l.ticket = l.gpart + nb * np;
+  l.total = l.ticket + 1;
+  return l;
+}
+
+// Copy rows [r0, r1) of every arm's slab into buf (arm, row, column).
+__device__ __forceinline__ void load_piece(const float* __restrict__ c,
+                                           float* buf, int A, int B, int C,
+                                           int r0, int r1, int piece,
+                                           int tid) {
+  const int n = (r1 - r0) * C;
+  for (int a = 0; a < A; ++a) {
+    const float* src = c + ((long long)a * B + r0) * C;
+    float* dst = buf + (long long)a * piece * C;
+    int i0 = 0;
+    if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
+      i0 = n / 4 * 4;
+      for (int i = 4 * tid; i < i0; i += 4 * THREADS)
+        tc::cp_async<16>(dst + i, src + i, true);
+    }
+    for (int i = i0 + tid; i < n; i += THREADS)
+      tc::cp_async<4>(dst + i, src + i, true);
   }
-  s = warp_sum(s);
-  q = warp_sum(q);
-  l = warp_sum(l);
-  if (lane == 0) {
-    const double var = (q - s * s / B) / (B - 1);
-    const double wa = 1.0 / sqrt(fmax(var, 0.0) + (double)eps);
-    w[a * C + col] = (float)wa;
-    wl[a] = wa * l;
-  }
+  tc::cp_commit();
+  tc::cp_wait<0>();
   __syncthreads();
-  if (lane == 0 && a == 0) {
-    double t = 0.0;
-    for (int i = 0; i < A; ++i) t += wl[i];
-    m[col] = (float)(t / A / B);
-  }
 }
 
-// (c) grid (nb).  gpart[blk * NP + k], k counting the pairs a <= d row by
-// row, NP = A (A + 1) / 2.
 template <int A>
 __global__ void __launch_bounds__(THREADS)
-coupling_gram_tiles(const float* __restrict__ c, int B, int C, float eps,
-                    const float* __restrict__ w, const float* __restrict__ m,
-                    float* __restrict__ gpart) {
+coupling_fused(const float* __restrict__ c, int B, int C, float eps,
+               Plan pl, float* __restrict__ buf_out) {
   constexpr int NP = A * (A + 1) / 2;
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   __shared__ float red[NP][WARPS];
-  float* w_s = sm;          // (A, C)
-  float* m_s = sm + A * C;  // (C)
-  for (int i = threadIdx.x; i < A * C; i += THREADS) w_s[i] = w[i];
-  for (int i = threadIdx.x; i < C; i += THREADS) m_s[i] = m[i];
-  __syncthreads();
+  __shared__ double wl[MAX_ARMS];
+  __shared__ double gsum[NP];
+  __shared__ int last;
+  const Layout lay = make_layout(A, C, pl.nb);
+  double* part0 = reinterpret_cast<double*>(buf_out + lay.part0);
+  float* w = buf_out + lay.w;
+  float* m = buf_out + lay.m;
+  float* gpart = buf_out + lay.gpart;
+  unsigned* ticket = reinterpret_cast<unsigned*>(buf_out + lay.ticket);
+  float* slab = sm;                             // (A, piece, C)
+  float* w_s = sm + (long long)A * pl.piece * C;  // (A, C)
+  float* m_s = w_s + A * C;                     // (C)
 
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * ROWS;
-  const int r1 = min(r0 + ROWS, B);
-  const long long arm = (long long)B * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int blk = blockIdx.x, nb = pl.nb;
+  const int r0 = min(B, blk * pl.rows), r1 = min(B, r0 + pl.rows);
+  const int AC = A * C;
+  cg::grid_group grid = cg::this_grid();
+  if (blk == 0 && tid == 0) *ticket = 0u;
+
+  // phase 0: the column sums of the slab, piece by piece, carried in this
+  // block's partials; the logs written over c
+  double* mine = part0 + (long long)blk * 3 * AC;
+  for (int p0 = r0; p0 < r1 || p0 == r0; p0 += pl.piece) {
+    const int p1 = min(r1, p0 + pl.piece);
+    if (p1 > p0) load_piece(c, slab, A, B, C, p0, p1, pl.piece, tid);
+    for (int pr = tid; pr < AC; pr += THREADS) {
+      double s1 = 0.0, s2 = 0.0, sl = 0.0;
+      if (p0 > r0) {
+        s1 = mine[pr];
+        s2 = mine[AC + pr];
+        sl = mine[2 * AC + pr];
+      }
+      float* col = slab + (long long)(pr / C) * pl.piece * C + pr % C;
+      for (int r = 0; r < p1 - p0; ++r) {
+        const float v = col[(long long)r * C];
+        const float l = logf(v + eps);
+        s1 += (double)v;
+        s2 += (double)v * (double)v;
+        sl += (double)l;
+        col[(long long)r * C] = l;
+      }
+      mine[pr] = s1;
+      mine[AC + pr] = s2;
+      mine[2 * AC + pr] = sl;
+    }
+    __syncthreads();  // the slab buffer is free for the next piece
+    if (p1 >= r1) break;
+  }
+  grid.sync();
+
+  // w and m of the columns blk, blk + nb, ..: a warp an arm, the blocks'
+  // partials in block order (lane-strided, then the warp's tree), double
+  for (int col = blk; col < C; col += nb) {
+    for (int a = warp; a < A; a += WARPS) {
+      double s = 0.0, q = 0.0, l = 0.0;
+      for (int b = lane; b < nb; b += 32) {
+        const double* pb = part0 + (long long)b * 3 * AC + a * C + col;
+        s += __ldcg(pb);
+        q += __ldcg(pb + AC);
+        l += __ldcg(pb + 2 * AC);
+      }
+      s = warp_sum(s);
+      q = warp_sum(q);
+      l = warp_sum(l);
+      if (lane == 0) {
+        const double var = (q - s * s / B) / (B - 1);
+        const double wa = 1.0 / sqrt(fmax(var, 0.0) + (double)eps);
+        w[a * C + col] = (float)wa;
+        wl[a] = wa * l;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      double t = 0.0;
+      for (int i = 0; i < A; ++i) t += wl[i];
+      m[col] = (float)(t / A / B);
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // phase 1: prec of the slab's elements and the Gram sums a <= d
+  for (int i = tid; i < AC; i += THREADS) w_s[i] = __ldcg(w + i);
+  for (int i = tid; i < C; i += THREADS) m_s[i] = __ldcg(m + i);
+  __syncthreads();
   float acc[NP];
 #pragma unroll
   for (int k = 0; k < NP; ++k) acc[k] = 0.f;
-  for (int col = tx; col < C; col += 32) {
-    float wv[A];
-#pragma unroll
-    for (int a = 0; a < A; ++a) wv[a] = w_s[a * C + col];
-    const float mv = m_s[col];
-    for (int r = r0 + ty; r < r1; r += WARPS) {
-      const float* p = c + (long long)r * C + col;
+  for (int p0 = r0; p0 < r1; p0 += pl.piece) {
+    const int p1 = min(r1, p0 + pl.piece);
+    const int n = (p1 - p0) * C;
+    if (!pl.keep) {  // c again, from L2, and its logs
+      load_piece(c, slab, A, B, C, p0, p1, pl.piece, tid);
+      for (int a = 0; a < A; ++a)
+        for (int i = tid; i < n; i += THREADS) {
+          float* v = slab + (long long)a * pl.piece * C + i;
+          *v = logf(*v + eps);
+        }
+      __syncthreads();
+    }
+    for (int i = tid; i < n; i += THREADS) {
+      const int col = i % C;
+      const float mv = m_s[col];
       float prec[A];
 #pragma unroll
       for (int a = 0; a < A; ++a)
-        prec[a] = logf(p[a * arm] + eps) * wv[a] - mv;
+        prec[a] =
+            slab[(long long)a * pl.piece * C + i] * w_s[a * C + col] - mv;
       int k = 0;
 #pragma unroll
       for (int a = 0; a < A; ++a)
@@ -176,44 +276,44 @@ coupling_gram_tiles(const float* __restrict__ c, int B, int C, float eps,
           ++k;
         }
     }
+    if (!pl.keep) __syncthreads();  // the buffer is free for the next piece
   }
 #pragma unroll
   for (int k = 0; k < NP; ++k) {
     const float v = warp_sum(acc[k]);
-    if (tx == 0) red[k][ty] = v;
+    if (lane == 0) red[k][warp] = v;
   }
   __syncthreads();
-  if (threadIdx.x < NP) {
+  if (tid < NP) {
     float t = 0.f;
 #pragma unroll
-    for (int wp = 0; wp < WARPS; ++wp) t += red[threadIdx.x][wp];
-    gpart[(long long)blockIdx.x * NP + threadIdx.x] = t;
+    for (int wp = 0; wp < WARPS; ++wp) t += red[tid][wp];
+    gpart[(long long)blk * NP + tid] = t;
   }
-}
 
-// (d) one block.  out[a * A + d] = G[a, d]; out[A * A] = the distance.
-__global__ void __launch_bounds__(THREADS)
-coupling_gram_reduce(const float* __restrict__ gpart, int A, int B, int nb,
-                     float* __restrict__ out) {
-  __shared__ double g[MAX_ARMS * (MAX_ARMS + 1) / 2];
-  const int NP = A * (A + 1) / 2;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the last block to arrive sums the Gram partials in block order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1u) == (unsigned)(nb - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
   for (int k = warp; k < NP; k += WARPS) {
     double s = 0.0;
-    for (int blk = lane; blk < nb; blk += 32)
-      s += (double)gpart[(long long)blk * NP + k];
+    for (int b = lane; b < nb; b += 32)
+      s += (double)__ldcg(gpart + (long long)b * NP + k);
     s = warp_sum(s);
-    if (lane == 0) g[k] = s;
+    if (lane == 0) gsum[k] = s;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     double tr = 0.0, total = 0.0;
     int k = 0;
     for (int a = 0; a < A; ++a)
       for (int d = a; d < A; ++d) {
-        const double v = g[k++];
-        out[a * A + d] = (float)v;
-        out[d * A + a] = (float)v;
+        const double v = gsum[k++];
+        buf_out[a * A + d] = (float)v;
+        buf_out[d * A + a] = (float)v;
         if (d == a) {
           tr += v;
           total += v;
@@ -221,18 +321,27 @@ coupling_gram_reduce(const float* __restrict__ gpart, int A, int B, int nb,
           total += 2.0 * v;
         }
       }
-    out[A * A] = (float)((A * tr - total) / B);
+    buf_out[A * A] = (float)((A * tr - total) / B);
   }
 }
 
 template <int A>
-void launch_gram(int nb, size_t smem, cudaStream_t st, const float* c, int B,
-                 int C, float eps, const float* w, const float* m,
-                 float* gpart) {
-  coupling_gram_tiles<A><<<nb, THREADS, smem, st>>>(c, B, C, eps, w, m, gpart);
+int launch(const float* c, int B, int C, float eps, const Plan& pl,
+           float* buf, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(&coupling_fused<A>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  Plan p = pl;
+  void* args[] = {(void*)&c, (void*)&B, (void*)&C, (void*)&eps, (void*)&p,
+                  (void*)&buf};
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(pl.nb), dim3(THREADS),
+                                          args, (size_t)pl.smem, st);
 }
 
-int row_blocks(int B) { return (B + ROWS - 1) / ROWS; }
+bool shape_ok(int A, int B, int C) {
+  return A >= 1 && A <= MAX_ARMS && B >= 2 && C >= 1 && C <= MAX_C;
+}
 
 }  // namespace
 
@@ -241,48 +350,48 @@ extern "C" {
 int coupling_max_arms() { return MAX_ARMS; }
 int coupling_max_c() { return MAX_C; }
 
-// Floats of scratch one call needs (block partials, w, m).
-long long coupling_workspace_floats(int A, int B, int C) {
-  const long long nb = row_blocks(B);
-  return (long long)A * nb * 3 * C + (long long)(A + 1) * C +
-         nb * (A * (A + 1) / 2);
+// Floats of the one buffer a call needs (the output first, A * A + 1
+// floats: G row by row, then the distance; then the workspace); -1 if the
+// shape is refused.
+long long coupling_buffer_floats(int A, int B, int C) {
+  if (!shape_ok(A, B, C)) return -1;
+  return make_layout(A, C, make_plan(A, B, C).nb).total;
 }
 
-// out: A * A + 1 floats, the Gram matrix then the distance.
+// The launch plan for the shape: out[0] blocks, out[1] rows a slab,
+// out[2] rows a piece, out[3] logs kept in shared memory (1) or taken
+// again (0), out[4] dynamic shared memory a block in bytes.  0, or -1 if
+// the shape is refused.
+int coupling_plan(int A, int B, int C, long long* out) {
+  if (!shape_ok(A, B, C)) return -1;
+  const Plan p = make_plan(A, B, C);
+  out[0] = p.nb;
+  out[1] = p.rows;
+  out[2] = p.piece;
+  out[3] = p.keep;
+  out[4] = p.smem;
+  return 0;
+}
+
 int coupling_gram_f32(const void* c, float eps, int A, int B, int C,
-                      void* workspace, void* out, void* stream) {
-  if (A < 1 || A > MAX_ARMS || B < 2 || C < 1 || C > MAX_C)
-    return (int)cudaErrorInvalidValue;
-  const int nb = row_blocks(B);
-  if (nb > 65535 * 32) return (int)cudaErrorInvalidConfiguration;
+                      void* buffer, void* stream) {
+  if (!shape_ok(A, B, C)) return (int)cudaErrorInvalidValue;
+  const Plan pl = make_plan(A, B, C);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* cc = static_cast<const float*>(c);
-  float* part = static_cast<float*>(workspace);
-  float* w = part + (long long)A * nb * 3 * C;
-  float* m = w + (long long)A * C;
-  float* gpart = m + C;
-
-  coupling_moments<<<dim3(nb, A), THREADS, 0, st>>>(cc, B, C, eps, part);
-  if (int e = (int)cudaGetLastError()) return e;
-  coupling_weights<<<C, dim3(32, A), 0, st>>>(part, A, B, C, nb, eps, w, m);
-  if (int e = (int)cudaGetLastError()) return e;
-  const size_t smem = (size_t)(A + 1) * C * sizeof(float);
+  float* buf = static_cast<float*>(buffer);
   switch (A) {
-    case 1: launch_gram<1>(nb, smem, st, cc, B, C, eps, w, m, gpart); break;
-    case 2: launch_gram<2>(nb, smem, st, cc, B, C, eps, w, m, gpart); break;
-    case 3: launch_gram<3>(nb, smem, st, cc, B, C, eps, w, m, gpart); break;
-    case 4: launch_gram<4>(nb, smem, st, cc, B, C, eps, w, m, gpart); break;
-    case 5: launch_gram<5>(nb, smem, st, cc, B, C, eps, w, m, gpart); break;
-    case 6: launch_gram<6>(nb, smem, st, cc, B, C, eps, w, m, gpart); break;
-    case 7: launch_gram<7>(nb, smem, st, cc, B, C, eps, w, m, gpart); break;
-    case 8: launch_gram<8>(nb, smem, st, cc, B, C, eps, w, m, gpart); break;
-    case 9: launch_gram<9>(nb, smem, st, cc, B, C, eps, w, m, gpart); break;
-    default: launch_gram<10>(nb, smem, st, cc, B, C, eps, w, m, gpart);
+    case 1: return launch<1>(cc, B, C, eps, pl, buf, st);
+    case 2: return launch<2>(cc, B, C, eps, pl, buf, st);
+    case 3: return launch<3>(cc, B, C, eps, pl, buf, st);
+    case 4: return launch<4>(cc, B, C, eps, pl, buf, st);
+    case 5: return launch<5>(cc, B, C, eps, pl, buf, st);
+    case 6: return launch<6>(cc, B, C, eps, pl, buf, st);
+    case 7: return launch<7>(cc, B, C, eps, pl, buf, st);
+    case 8: return launch<8>(cc, B, C, eps, pl, buf, st);
+    case 9: return launch<9>(cc, B, C, eps, pl, buf, st);
+    default: return launch<10>(cc, B, C, eps, pl, buf, st);
   }
-  if (int e = (int)cudaGetLastError()) return e;
-  coupling_gram_reduce<<<1, THREADS, 0, st>>>(gpart, A, B, nb,
-                                              static_cast<float*>(out));
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -33,8 +33,8 @@
 // Operands: z (A,B,Z); W_i (A,in_i,out_i), b_i (A,out_i); W_11 (A,F,D),
 // b_11 (A,D); x (B,D) shared (arm stride 0) or per-arm (A,B,D); all f32 or
 // all bf16.  Outputs: (A,2) f32 sums; in training also dz (A,B,Z) in the
-// operand type and, in f32, dW_i, db_i, dW_11, db_11.  Every trunk output
-// width <= 128; Z is bounded by the shared memory (decoder_smem_bytes).
+// operand type and, in f32, dW_i, db_i, dW_11, db_11.  Any trunk widths;
+// F up to the limit of #2's passes (recon_passes.cuh max_f).
 //
 // Bound at the production shape (A=5, B=5000, Z=94, L=10, F=100, D=5032):
 //   forward 2*A*B*(94*10 + 10*100 + 3*100^2 + 100*5032) = 26.76 GFLOP ->
@@ -77,6 +77,19 @@
 //   (e) fixed-order reductions: the loss partials per arm (#2's) and the
 //     trunk partials over the row tiles in double (`decoder_grad_reduce`;
 //     one vector of 32,150 floats per row tile: 50.8 MB at B = 5000).
+// Trunk widths above WP (128), or a Z too wide for (a) and (d)'s shared
+// memory, run the wide trunk instead (`decoder_wide`), layer by layer on
+// activations in device memory, every width walked in chunks of WC = 128:
+//   forward, `trunk_fwd_wide` a layer, blocks (64-row tile, arm, chunk of
+//     the outputs) of 8 warps, the h and W chunks of k by cp.async in a
+//     ring of two; it stores every h_l, #12's too (its workspace holds them);
+//   backward, from g_5 = 1[h_5 > 0] dh_5 (`trunk_gate`), per layer
+//     `trunk_bwd_cols_wide`, blocks (64 units of h_l, 128 of g, arm)
+//     walking every row tile, for dW_l = h_l^T g in f32 runs (tc::add4) and
+//     db_l in double in row order; and `trunk_bwd_rows_wide`, blocks
+//     (64-row tile, arm, chunk of h_l's units), for the next g = 1[h_l > 0]
+//     (g W_l^T), f32 in a second buffer, or dz for l = 0.  The two g
+//     buffers take the place of the gradient partials.
 // f32 operands are split into tf32 halves by each warp on the fragments it
 // reads (mma.cuh split_tf32_bits); the trunk's sums run in runs of 32
 // values of k (rows for dW) summed from zero and added rounded to nearest
@@ -95,6 +108,7 @@ constexpr int WP = 128;         // widest trunk layer output
 constexpr int TM = 64;          // rows of a trunk block (= BM1, #2's rows)
 constexpr int TTHREADS = 256;   // 8 warps: 4 groups of 16 rows x 2 halves
 constexpr int RUN = 32;         // k values of a run (tc::add4)
+constexpr int WC = 128;         // the wide trunk's chunk of a width
 constexpr int GRAD_THREADS = 256;
 // dynamic shared memory a block may take: the card's 232,448 bytes less
 // 1 KB of headroom
@@ -392,6 +406,265 @@ decoder_trunk_bwd(const T* __restrict__ z, const Trunk<T> tr,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide trunk (widths above WP).  Pitches: rows of h read along k
+// (LDA_F), rows of W read along n (LDW_F) in the forward; g read along its
+// units (LDG_R), W read across them (LDW_R) for the next g; h read across
+// its units (LDH_C), g along them (LDG_C) for dW; each keeps a warp's f32
+// fragment reads on distinct banks.
+// ---------------------------------------------------------------------------
+template <typename T>
+__host__ __device__ constexpr int wide_pad() {
+  return std::is_same<T, float>::value ? 4 : 8;
+}
+template <typename T>
+__host__ __device__ constexpr int fwd_wide_stage() {  // bytes
+  return (TM * (WC + wide_pad<T>()) + WC * (WC + 8)) * (int)sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr int rows_wide_stage() {
+  return TM * (WC + 4) * 4 + WC * (WC + wide_pad<T>()) * (int)sizeof(T);
+}
+constexpr int COLS_K = 64;  // units of h_l a dW block owns
+template <typename T>
+__host__ __device__ constexpr int cols_wide_stage() {
+  return TM * (COLS_K + 8) * (int)sizeof(T) + TM * (WC + 8) * 4;
+}
+
+// grid (ceil(B/TM), A, ceil(N/WC)): h_out = relu(h_in W + b) of one row
+// tile and chunk of outputs, rounded to T and stored quiet.
+template <typename T>
+__global__ void __launch_bounds__(TTHREADS)
+trunk_fwd_wide(const T* __restrict__ src, const T* __restrict__ w,
+               const T* __restrict__ bias, T* __restrict__ dst, int B, int K,
+               int N, int vec_src, int vec_w) {
+  constexpr int LDA = WC + wide_pad<T>(), LDW = WC + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int a = blockIdx.y, m0 = blockIdx.x * TM, n0 = blockIdx.z * WC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * (warp & 3), cg0 = 16 * (warp >> 2);
+  const int nk = (K + WC - 1) / WC;
+  auto stage = [&](int kc) {
+    return reinterpret_cast<T*>(smem_raw + (kc & 1) * fwd_wide_stage<T>());
+  };
+  auto issue = [&](int kc) {
+    T* hs = stage(kc);
+    const int k0 = kc * WC;
+    tc::load_tile(hs, LDA, src + ((long long)a * B + m0) * K + k0, K, TM, WC,
+                  B - m0, K - k0, vec_src, tid, TTHREADS);
+    tc::load_tile(hs + TM * LDA, LDW, w + ((long long)a * K + k0) * N + n0, N,
+                  WC, WC, K - k0, N - n0, vec_w, tid, TTHREADS);
+  };
+  issue(0);
+  tc::cp_commit();
+  float acc[4][2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    tc::zero4(acc[i][0]);
+    tc::zero4(acc[i][1]);
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    tc::cp_wait<0>();
+    __syncthreads();  // this chunk is in; the other buffer is free
+    if (kc + 1 < nk) issue(kc + 1);
+    tc::cp_commit();
+    const T* H = stage(kc);
+    const T* W = H + TM * LDA;
+    const int kp = round_up(min(WC, K - kc * WC), mma_k<T>());
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = cg0 + 32 * i;
+      if (n0 + c < N)
+        warp_product<T>(
+            acc[i], kp,
+            [&](int m, int k) { return to_f32(H[(r0 + m) * LDA + k]); },
+            [&](int k, int n) { return to_f32(W[k * LDW + c + n]); }, gq, tq);
+    }
+  }
+  tc::cp_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + cg0 + 32 * i + 8 * j + 2 * tq + e;
+        if (col >= N) continue;
+        const float bj = to_f32(bias[(long long)a * N + col]);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = m0 + r0 + gq + 8 * half;
+          if (row < B)
+            store_as(&dst[((long long)a * B + row) * N + col],
+                     tc::quiet_nan(relu_nan(acc[i][j][2 * half + e] + bj)));
+        }
+      }
+}
+
+// g_5 = 1[h_5 > 0] dh_5, quiet, into the first g buffer.
+template <typename T>
+__global__ void trunk_gate(const float* __restrict__ g,
+                           const T* __restrict__ h, long long n,
+                           float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = to_f32(h[i]) > 0.f ? tc::quiet_nan(g[i]) : 0.f;
+}
+
+// grid (ceil(B/TM), A, ceil(K/WC)): the next g = 1[h_in > 0] (g W^T) of one
+// row tile and chunk of h_in's units, f32 and quiet; with dz set (layer
+// fc6) dz = g W^T in T instead.
+template <typename T>
+__global__ void __launch_bounds__(TTHREADS)
+trunk_bwd_rows_wide(const float* __restrict__ g, const T* __restrict__ w,
+                    const T* __restrict__ h_in, float* __restrict__ g_out,
+                    T* __restrict__ dz, int B, int K, int N, int vec_g,
+                    int vec_w) {
+  constexpr int LDG = WC + 4, LDW = WC + wide_pad<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int a = blockIdx.y, m0 = blockIdx.x * TM, k0 = blockIdx.z * WC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * (warp & 3), cg0 = 16 * (warp >> 2);
+  const int nn = (N + WC - 1) / WC;
+  auto gstage = [&](int nc) {
+    return reinterpret_cast<float*>(smem_raw +
+                                    (nc & 1) * rows_wide_stage<T>());
+  };
+  auto issue = [&](int nc) {
+    float* gs = gstage(nc);
+    T* ws = reinterpret_cast<T*>(gs + TM * LDG);
+    const int c0 = nc * WC;
+    tc::load_tile(gs, LDG, g + ((long long)a * B + m0) * N + c0, N, TM, WC,
+                  B - m0, N - c0, vec_g, tid, TTHREADS);
+    tc::load_tile(ws, LDW, w + ((long long)a * K + k0) * N + c0, N, WC, WC,
+                  K - k0, N - c0, vec_w, tid, TTHREADS);
+  };
+  issue(0);
+  tc::cp_commit();
+  float acc[4][2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    tc::zero4(acc[i][0]);
+    tc::zero4(acc[i][1]);
+  }
+  for (int nc = 0; nc < nn; ++nc) {
+    tc::cp_wait<0>();
+    __syncthreads();
+    if (nc + 1 < nn) issue(nc + 1);
+    tc::cp_commit();
+    const float* G = gstage(nc);
+    const T* W = reinterpret_cast<const T*>(G + TM * LDG);
+    const int kp = round_up(min(WC, N - nc * WC), mma_k<T>());
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = cg0 + 32 * i;
+      if (k0 + c < K)
+        warp_product<T>(
+            acc[i], kp, [&](int m, int k) { return G[(r0 + m) * LDG + k]; },
+            [&](int k, int n) { return to_f32(W[(c + n) * LDW + k]); }, gq,
+            tq);
+    }
+  }
+  tc::cp_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + cg0 + 32 * i + 8 * j + 2 * tq + e;
+          const int row = m0 + r0 + gq + 8 * half;
+          if (row >= B || col >= K) continue;
+          const long long o = ((long long)a * B + row) * K + col;
+          const float v = acc[i][j][2 * half + e];
+          if (dz)
+            store_as(&dz[o], v);
+          else
+            g_out[o] = to_f32(h_in[o]) > 0.f ? tc::quiet_nan(v) : 0.f;
+        }
+}
+
+// grid (ceil(K/COLS_K), ceil(N/WC), A): dW (K x N) = h_in^T g over every
+// row, f32 runs of 32 rows added rounded to nearest (tc::add4); the blocks
+// of the first unit tile also db = the column sums of g, in double, in
+// row order.
+template <typename T>
+__global__ void __launch_bounds__(TTHREADS)
+trunk_bwd_cols_wide(const T* __restrict__ h_in, const float* __restrict__ g,
+                    float* __restrict__ dw, float* __restrict__ db, int B,
+                    int K, int N, int vec_h, int vec_g) {
+  constexpr int LDH = COLS_K + 8, LDG = WC + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int k0 = blockIdx.x * COLS_K, n0 = blockIdx.y * WC, a = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int ku = 16 * (warp & 3), cg0 = 16 * (warp >> 2);
+  const int nsteps = (B + TM - 1) / TM;
+  const bool with_db = blockIdx.x == 0;
+  auto hstage = [&](int st) {
+    return reinterpret_cast<T*>(smem_raw + (st & 1) * cols_wide_stage<T>());
+  };
+  auto issue = [&](int st) {
+    T* hs = hstage(st);
+    float* gs = reinterpret_cast<float*>(hs + TM * LDH);
+    const int m0 = st * TM;
+    tc::load_tile(hs, LDH, h_in + ((long long)a * B + m0) * K + k0, K, TM,
+                  COLS_K, B - m0, K - k0, vec_h, tid, TTHREADS);
+    tc::load_tile(gs, LDG, g + ((long long)a * B + m0) * N + n0, N, TM, WC,
+                  B - m0, N - n0, vec_g, tid, TTHREADS);
+  };
+  issue(0);
+  tc::cp_commit();
+  float acc[4][2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    tc::zero4(acc[i][0]);
+    tc::zero4(acc[i][1]);
+  }
+  double dbs = 0.0;
+  for (int st = 0; st < nsteps; ++st) {
+    tc::cp_wait<0>();
+    __syncthreads();
+    if (st + 1 < nsteps) issue(st + 1);
+    tc::cp_commit();
+    const T* H = hstage(st);
+    const float* G = reinterpret_cast<const float*>(H + TM * LDH);
+    if (k0 + ku < K) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = cg0 + 32 * i;
+        if (n0 + c < N)
+          warp_product<T>(
+              acc[i], TM,
+              [&](int m, int k) { return to_f32(H[k * LDH + ku + m]); },
+              [&](int k, int n) { return G[k * LDG + c + n]; }, gq, tq);
+      }
+    }
+    if (with_db && tid < WC) {  // rows past B were loaded as zeros
+      for (int r = 0; r < TM; ++r) dbs += (double)G[r * LDG + tid];
+    }
+  }
+  tc::cp_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kk = k0 + ku + gq + 8 * half;
+          const int nu = n0 + cg0 + 32 * i + 8 * j + 2 * tq + e;
+          if (kk < K && nu < N)
+            dw[((long long)a * K + kk) * N + nu] = acc[i][j][2 * half + e];
+        }
+  if (with_db && tid < WC && n0 + tid < N)
+    db[(long long)a * N + n0 + tid] = (float)dbs;
+}
+
 // Pass (e), training: grid (ceil(n_grad / GRAD_THREADS), A).  Each thread
 // sums one trunk gradient entry over the arm's row tiles, in order.
 __global__ void __launch_bounds__(GRAD_THREADS)
@@ -414,12 +687,12 @@ decoder_grad_reduce(const float* __restrict__ part_grad, int n_tiles,
 // given widths; returns its size in bytes, or -1 where a width is out of
 // range.  The pitches keep the f32 fragment reads of a warp on distinct
 // banks (rows of h and W read along k in (a), h and W across k in (d)).
+// Widths above WP run the wide trunk, which this plan does not size.
 template <typename T>
 long long trunk_plan(const int* widths, bool bwd, Trunk<T>* tr) {
   int wmax = 0, kwide = 0, nwide = 0;
   for (int l = 0; l <= N_TRUNK; ++l) {
     if (widths[l] < 1) return -1;
-    if (l > 0 && widths[l] > WP) return -1;
     if (widths[l] > wmax) wmax = widths[l];
     if (l < N_TRUNK && widths[l] > kwide) kwide = widths[l];
     if (l > 0 && widths[l] > nwide) nwide = widths[l];
@@ -458,6 +731,19 @@ long long smem_need(const int* widths, bool train) {
   return (f < 0 || b < 0) ? -1 : (f > b ? f : b);
 }
 
+// The widest trunk output (out_6..out_10).
+int trunk_wmax(const int* widths) {
+  int m = 0;
+  for (int l = 1; l <= N_TRUNK; ++l) m = widths[l] > m ? widths[l] : m;
+  return m;
+}
+
+// Whether the call runs the wide trunk: a trunk output above WP, or widths
+// whose resident tiles (a) or (d) cannot hold in a block.
+bool trunk_wide(const int* widths, bool train) {
+  return trunk_wmax(widths) > WP || smem_need(widths, train) > MAX_SMEM;
+}
+
 int n_grad_of(const int* widths) {
   int g = 0;
   for (int l = 0; l < N_TRUNK; ++l) g += (widths[l] + 1) * widths[l + 1];
@@ -480,10 +766,83 @@ QuietCopy quiet_arrays(const void* z, const void* const* wb,
   return c;
 }
 
+// The wide trunk's launch sequence (see the note at the top), after the
+// quiet copies: tf's weights are the ones to read and every tf.act[l] is
+// set.  gbuf: two (A,B,widest trunk output) f32 buffers of g.
+template <typename T, bool TRAIN>
+int launch_wide(const T* z, const Trunk<T>& tf, const void* w11,
+                const void* b11, const void* x, long long x_arm_stride,
+                int A, int B, int D, float thr, int with_mism,
+                void* part_sum, void* part_mism, void* out, float* dh5,
+                float* gbuf, T* dz, float* dtrunk, void* dw11, void* db11,
+                cudaStream_t st) {
+  const int e = (int)sizeof(T);
+  const unsigned row_tiles = (B + TM - 1) / TM;
+  cudaError_t err = cudaFuncSetAttribute(
+      trunk_fwd_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      2 * fwd_wide_stage<T>());
+  if (err != cudaSuccess) return (int)err;
+  for (int l = 0; l < N_TRUNK; ++l) {
+    const int K = tf.width[l], N = tf.width[l + 1];
+    const T* src = l > 0 ? tf.act[l - 1] : z;
+    const dim3 grid(row_tiles, A, (N + WC - 1) / WC);
+    trunk_fwd_wide<T><<<grid, TTHREADS, 2 * fwd_wide_stage<T>(), st>>>(
+        src, tf.w[l], tf.b[l], tf.act[l], B, K, N,
+        tc::chunk_bytes(src, K, e, (long long)B * K), tf.vec_w[l]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int F = tf.width[N_TRUNK];
+  const int rc = recon_launch<T, false, TRAIN>(
+      tf.act[N_TRUNK - 1], w11, b11, x, x_arm_stride, nullptr, A, B, F, D,
+      thr, with_mism, part_sum, part_mism, out, dh5, dw11, db11, nullptr, st);
+  if (rc != 0 || !TRAIN) return rc;
+
+  float* cur = gbuf;
+  float* nxt = gbuf + (long long)A * B * trunk_wmax(tf.width);
+  const long long n5 = (long long)A * B * F;
+  trunk_gate<T><<<(unsigned)((n5 + 255) / 256), 256, 0, st>>>(
+      dh5, tf.act[N_TRUNK - 1], n5, cur);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(trunk_bwd_cols_wide<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             2 * cols_wide_stage<T>());
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(trunk_bwd_rows_wide<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             2 * rows_wide_stage<T>());
+  if (err != cudaSuccess) return (int)err;
+  for (int l = N_TRUNK - 1; l >= 0; --l) {
+    const int K = tf.width[l], N = tf.width[l + 1];
+    const T* h_in = l > 0 ? tf.act[l - 1] : z;
+    const int vec_g = tc::chunk_bytes(cur, N, 4, (long long)B * N);
+    const dim3 gc((K + COLS_K - 1) / COLS_K, (N + WC - 1) / WC, A);
+    trunk_bwd_cols_wide<T><<<gc, TTHREADS, 2 * cols_wide_stage<T>(), st>>>(
+        h_in, cur, dtrunk + (long long)tf.w_off[l] * A,
+        dtrunk + (long long)tf.b_off[l] * A, B, K, N,
+        tc::chunk_bytes(h_in, K, e, (long long)B * K), vec_g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 gr(row_tiles, A, (K + WC - 1) / WC);
+    trunk_bwd_rows_wide<T><<<gr, TTHREADS, 2 * rows_wide_stage<T>(), st>>>(
+        cur, tf.w[l], l > 0 ? h_in : nullptr, nxt, l > 0 ? nullptr : dz, B,
+        K, N, vec_g, tf.vec_w[l]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  return 0;
+}
+
 // wb: host array of the 12 device pointers W_6, b_6, ..., W_10, b_10, W_11,
 // b_11; widths: host array Z, out_6, ..., out_10.  acts: h_5 (A,B,F) in
-// the operand type, and in training h_1..h_5, each (A,B,out_l), one after
-// the other.
+// the operand type, and in training or with the wide trunk h_1..h_5, each
+// (A,B,out_l), one after the other (decoder_acts_elems).  part_grad: the
+// trunk-gradient partials, or with the wide trunk its two g buffers
+// (decoder_grad_scratch_floats).
 template <typename T, bool TRAIN>
 int launch(const void* z_, const void* const* wb, const int* widths,
            const void* x, long long x_arm_stride, int A, int B, int D,
@@ -495,9 +854,9 @@ int launch(const void* z_, const void* const* wb, const int* widths,
   const long long bf = trunk_plan<T>(widths, false, &tf);
   const long long bb = TRAIN ? trunk_plan<T>(widths, true, nullptr) : 0;
   const int F = widths[N_TRUNK];
-  if (bf < 0 || bb < 0 || bf > MAX_SMEM || bb > MAX_SMEM ||
-      !shape_ok(A, B, F, D))
+  if (bf < 0 || bb < 0 || !shape_ok<T>(A, B, F, D, TRAIN))
     return (int)cudaErrorInvalidValue;
+  const bool wide = trunk_wide(widths, TRAIN);
   const T* z = static_cast<const T*>(z_);
   const int e = (int)sizeof(T);
   T* at = static_cast<T*>(acts);
@@ -506,7 +865,7 @@ int launch(const void* z_, const void* const* wb, const int* widths,
     tf.w[l] = static_cast<const T*>(wb[2 * l]);
     tf.b[l] = static_cast<const T*>(wb[2 * l + 1]);
     tf.vec_w[l] = tc::chunk_bytes(tf.w[l], N, e, (long long)K * N);
-    if (TRAIN || l == N_TRUNK - 1) {
+    if (TRAIN || wide || l == N_TRUNK - 1) {
       tf.act[l] = at;
       at += (long long)A * B * N;
     } else {
@@ -531,6 +890,12 @@ int launch(const void* z_, const void* const* wb, const int* widths,
       tf.w[l] = reinterpret_cast<const T*>(c.q[1 + l]);
     w11 = c.q[1 + N_TRUNK];
   }
+  if (wide)
+    return launch_wide<T, TRAIN>(
+        z, tf, w11, wb[2 * N_TRUNK + 1], x, x_arm_stride, A, B, D, thr,
+        with_mism, part_sum, part_mism, out, static_cast<float*>(dh5),
+        static_cast<float*>(part_grad), static_cast<T*>(dz),
+        static_cast<float*>(dtrunk), dw11, db11, st);
 
   cudaError_t err = cudaFuncSetAttribute(
       decoder_trunk_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -581,7 +946,7 @@ extern "C" {
 // Loss partials of one arm: the row tiles times the slices of D of #2's
 // row plan; -1 if the shape is refused.
 long long decoder_partials_per_arm(int A, int B, int D) {
-  if (!shape_ok(A, B, 1, D)) return -1;
+  if (!shape_ok<float>(A, B, 1, D, false)) return -1;
   const RowPlan p = plan(A, B, D);
   return (long long)p.row_tiles * p.n_split;
 }
@@ -593,24 +958,37 @@ long long decoder_quiet_ws_floats(const int* widths, int A, int B, int D) {
   return quiet_workspace(&c, nullptr);
 }
 
-// Row tiles of one arm: the trunk-gradient partial vectors it leaves.
-long long decoder_row_tiles(int B) { return (long long)((B + TM - 1) / TM); }
-
 // Length of one row tile's trunk-gradient partial vector (and of one arm's
 // reduced trunk gradients): sum of (in + 1) * out over fc6..fc10.
 long long decoder_grad_len(const int* widths) { return n_grad_of(widths); }
 
-// Dynamic shared memory the largest block of the call needs for these
-// widths, in f32 (-1: a trunk output wider than 128, or a width below 1),
-// and the most a block may take.
-long long decoder_smem_bytes(const int* widths, int train) {
-  return smem_need(widths, train != 0);
+// Elements (operand type) of the activations' workspace: h_5 alone for the
+// value-only call of the resident passes, else h_1..h_5.
+long long decoder_acts_elems(const int* widths, int A, int B, int train) {
+  long long n = 0;
+  const bool all = train != 0 || trunk_wide(widths, train != 0);
+  for (int l = 1; l <= N_TRUNK; ++l)
+    if (all || l == N_TRUNK) n += widths[l];
+  return n * A * B;
 }
-long long decoder_max_smem() { return MAX_SMEM; }
 
-// h5: (A,B,F) scratch in the operand type; quiet_ws: in f32 the scratch of
-// decoder_quiet_ws_floats floats (the quiet copies of z and the weights),
-// unused in bf16.
+// Floats of the training call's part_grad scratch: one trunk-gradient
+// partial vector per row tile, or the wide trunk's two g buffers.
+long long decoder_grad_scratch_floats(const int* widths, int A, int B) {
+  if (trunk_wide(widths, true))
+    return 2LL * A * B * trunk_wmax(widths);
+  return (long long)A * ((B + TM - 1) / TM) * n_grad_of(widths);
+}
+
+// Largest F (out_10) the call takes in f32 (bf16 0) or bf16: the limit of
+// #2's passes on h_5 (recon_passes.cuh max_f), with dh in training.
+int decoder_max_f(int bf16, int train) {
+  return bf16 ? max_f<__nv_bfloat16>(train != 0) : max_f<float>(train != 0);
+}
+
+// h5: decoder_acts_elems scratch in the operand type; quiet_ws: in f32 the
+// scratch of decoder_quiet_ws_floats floats (the quiet copies of z and the
+// weights), unused in bf16.
 int decoder_fwd_f32(const void* z, const void* const* wb, const int* widths,
                     const void* x, long long x_arm_stride, int A, int B,
                     int D, float thr, int with_mism, void* part_sum,
@@ -635,8 +1013,9 @@ int decoder_fwd_bf16(const void* z, const void* const* wb, const int* widths,
 }
 
 // Training: also acts (A * B * (out_6 + ... + out_10)) scratch in the
-// operand type, dh5 (A,B,F) f32 scratch, part_grad (A * row tiles *
-// grad_len) f32 scratch, dz (A,B,Z) in the operand type, dtrunk (A *
+// operand type, dh5 (A,B,F) f32 scratch, part_grad
+// (decoder_grad_scratch_floats) f32 scratch, dz (A,B,Z) in the operand
+// type, dtrunk (A *
 // grad_len) f32 laid out layer-major (dW_6 (A,in,out), db_6 (A,out), dW_7,
 // ...), dW_11 (A,F,D) and db_11 (A,D) f32.
 int decoder_fwdbwd_f32(const void* z, const void* const* wb,

@@ -26,7 +26,8 @@
 //
 // Operands: h (A,B,F), W (A,F,D), bias (A,D), x (B,D) shared (arm stride 0)
 // or per-arm (A,B,D); all f32 or all bf16.  Outputs, all f32: (A,2) sums,
-// dh (A,B,F), dW (A,F,D), db (A,D).  F <= 128.
+// dh (A,B,F), dW (A,F,D), db (A,D).  F up to recon_fwdbwd_max_f (512 f32,
+// 1,296 bf16): the wide forms of the passes past 128.
 //
 // Bound at the production shape (A=5, B=5000, F=100, D=5032), one launch:
 //   three products of 2*A*B*F*D = 25.2 GFLOP each (the recompute of y in
@@ -48,7 +49,7 @@ extern "C" {
 // row tiles times the slices of D of the plan); -1 if the shape is
 // refused.
 long long recon_fwdbwd_partials_per_arm(int A, int B, int D) {
-  if (!shape_ok(A, B, 1, D)) return -1;
+  if (!shape_ok<float>(A, B, 1, D, false)) return -1;
   const RowPlan p = plan(A, B, D);
   return (long long)p.row_tiles * p.n_split;
 }
@@ -56,7 +57,7 @@ long long recon_fwdbwd_partials_per_arm(int A, int B, int D) {
 // The row plan of pass 1 for the shape: out[0] slices of D, out[1]
 // columns a slice, out[2] row tiles.  0, or -1 if the shape is refused.
 int recon_fwdbwd_plan(int A, int B, int D, int* out) {
-  if (!shape_ok(A, B, 1, D)) return -1;
+  if (!shape_ok<float>(A, B, 1, D, false)) return -1;
   const RowPlan p = plan(A, B, D);
   out[0] = p.n_split;
   out[1] = p.cols_per_split;
@@ -71,8 +72,11 @@ long long recon_fwdbwd_quiet_ws_floats(int A, int B, int F, int D) {
   return quiet_workspace(&c, nullptr);
 }
 
-// Largest hidden width F the kernel takes.
-int recon_fwdbwd_max_f() { return FP; }
+// Largest hidden width F the kernels take in f32 (bf16 0) or bf16: past 128
+// the wide forms' shared memory sets it (recon_passes.cuh max_f).
+int recon_fwdbwd_max_f(int bf16) {
+  return bf16 ? max_f<__nv_bfloat16>(true) : max_f<float>(true);
+}
 
 // quiet_ws: in f32 the scratch of recon_fwdbwd_quiet_ws_floats floats
 // (the copies of h and W with every NaN quiet), unused in bf16.

@@ -52,6 +52,22 @@
 // arm in a fixed order (double and 64-bit integer).  Every sum runs in an
 // order that depends on the shape alone, so repeated launches are
 // bit-identical, on any card.
+//
+// Any F up to the shared memory's limit (max_f: 512 f32, 1,296 bf16 with
+// dh; 656 and 1,552 value-only).  F <= FP (128) runs the forms above.  A
+// wider F runs the wide forms (template flag WIDE), which walk F in
+// chunks of KC = 128 as kernel #1 does:
+//   pass 1 keeps the whole h tile resident and streams W by chunk: a step
+//     is NK = ceil(F/128) stages of W rows (y summed over every chunk, in
+//     the same runs as one long K), then one more stage of x and the W
+//     rows of the block's own chunk of dh; the grid's z axis is (chunk of
+//     dh, slice of D), each block recomputes y and keeps 16 tiles of dh in
+//     registers, and only chunk 0 writes the loss partials;
+//   pass 2 keeps the whole (F, 64) W tile resident (the limit on F) and
+//     streams h by chunk: NK stages of h for y, then the h chunk of the
+//     block's dW rows and x, which the cotangents overwrite in place; the
+//     grid's z axis is the chunk of dW, and only chunk 0 writes db.
+// Both recompute y once a chunk: a simple form, its time in PERF.md §6.
 
 #pragma once
 
@@ -99,8 +115,11 @@ constexpr int LDX1 = 40;             // pass-1 x tile pitch
 constexpr int THREADS2 = 256;        // pass 2: 8 warps
 constexpr int BN2 = 64, BM2 = 64;    // pass 2: columns a block, rows a step
 constexpr int LDX2 = 72;             // pass-2 x tile pitch
-constexpr int FP = 128;              // largest F
+constexpr int FP = 128;              // largest F of the resident forms
+constexpr int KC = 128;              // the wide forms' chunk of F
 constexpr int MAX_SPLIT = 8;
+// dynamic shared memory a block may take on an H100
+constexpr int SMEM_MAX = 232448;
 // Block slots the row plan fills: an H100 SXM's 132 SMs at two blocks an
 // SM.  A constant, not the card's count, so that the plan, and with it the
 // order of the dh and loss sums, depends on the shape alone.
@@ -119,14 +138,21 @@ __host__ __device__ inline int fk(int F) {
   return round_up(F, Cfg<T>::KS);
 }
 
+// chunks of KC the wide forms cut F into
+__host__ __device__ inline int n_chunks(int F) { return (F + KC - 1) / KC; }
+// rows of W a pass-1 stage holds: all of F, or one chunk in the wide form
 template <typename T>
-__host__ __device__ inline int stage1_elems(int F) {
-  return fk<T>(F) * Cfg<T>::LDW1 + BM1 * LDX1;
+__host__ __device__ inline int stage1_rows(int F, bool wide) {
+  return wide ? KC : fk<T>(F);
 }
 template <typename T>
-size_t smem_rows(int F) {
+__host__ __device__ inline int stage1_elems(int F, bool wide) {
+  return stage1_rows<T>(F, wide) * Cfg<T>::LDW1 + BM1 * LDX1;
+}
+template <typename T>
+size_t smem_rows(int F, bool wide = false) {
   return sizeof(T) * ((size_t)BM1 * (fk<T>(F) + Cfg<T>::HPAD) +
-                      2 * (size_t)stage1_elems<T>(F));
+                      2 * (size_t)stage1_elems<T>(F, wide));
 }
 // FT, the 8-wide tiles of F that dh covers (13 for F <= 104, else 16),
 // fixes the loop bounds at compile time: the deepest y product and, in
@@ -149,6 +175,31 @@ size_t smem_cols(int F) {
                       (size_t)Cfg<T>::STAGES2 * stage2_elems<T, FT>() +
                       (size_t)BM2 * Cfg<T>::LDG);
 }
+// The wide pass 2: the W tile of every F, a ring of two h chunks, and the
+// x tile that the cotangents overwrite in place.
+template <typename T>
+__host__ __device__ constexpr int ldh_wide() {
+  return KC + Cfg<T>::HPAD;
+}
+template <typename T>
+size_t smem_cols_wide(int F) {
+  return sizeof(T) * ((size_t)fk<T>(F) * Cfg<T>::LDW2 +
+                      2 * (size_t)BM2 * ldh_wide<T>() +
+                      (size_t)BM2 * Cfg<T>::LDG);
+}
+// Largest F the passes take: every F up to FP, and beyond it the wide
+// forms while their shared memory fits a block (pass 2's resident W tile
+// sets the limit with dh; pass 1's resident h tile without).
+template <typename T>
+int max_f(bool dh) {
+  int f = FP;
+  for (int g = FP + Cfg<T>::KS;; g += Cfg<T>::KS) {
+    if (smem_rows<T>(g, true) + 64 > (size_t)SMEM_MAX) break;
+    if (dh && smem_cols_wide<T>(g) > (size_t)SMEM_MAX) break;
+    f = g;
+  }
+  return f;
+}
 
 // Where the dh partial of slice s goes: slice 0 into dh itself, the others
 // into the dW buffer (pass 2 overwrites it afterwards).
@@ -162,20 +213,22 @@ struct Partials {
 };
 
 // ---------------------------------------------------------------------------
-// Pass 1: grid (ceil(B/BM1), A, n_split).  Loss partials (unless SEPARATE)
-// and, with DH, dh; FT: the number of 8-wide tiles of F the dh
-// accumulators cover (and the depth bound of y).  Without DH (the
-// value-only form) no dh product and no dh partial: the same y products,
-// loss epilogue and partials, so its sums equal the training form's bit
-// for bit.
+// Pass 1: grid (ceil(B/BM1), A, n_split), in the wide form (ceil(B/BM1), A,
+// n_split * chunks of dh).  Loss partials (unless SEPARATE) and, with DH,
+// dh; FT: the number of 8-wide tiles of F the dh accumulators cover (and
+// the depth bound of y a chunk).  Without DH (the value-only form) no dh
+// product and no dh partial: the same y products, loss epilogue and
+// partials, so its sums equal the training form's bit for bit.  A step is
+// NS stages of the ring: one (W of all F and x) in the resident form; in
+// the wide form NK chunks of W for y, then x and the block's dh chunk of W.
 // ---------------------------------------------------------------------------
-template <typename T, bool SEPARATE, int FT, bool DH>
+template <typename T, bool SEPARATE, int FT, bool DH, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 recon_rows(const T* __restrict__ h, const T* __restrict__ w,
            const T* __restrict__ bias, const T* __restrict__ x,
            long long x_arm_stride, const float* __restrict__ g, int B, int F,
-           int D, int cols_per_split, float thr, int with_mism, int vec_h,
-           int vec_d, float* __restrict__ part_sum,
+           int D, int cols_per_split, int n_split, float thr, int with_mism,
+           int vec_h, int vec_d, float* __restrict__ part_sum,
            int* __restrict__ part_mism, Partials dhp) {
   using C = Cfg<T>;
   constexpr bool F32 = std::is_same<T, float>::value;
@@ -185,17 +238,24 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int FK = fk<T>(F);
   const int LDH = FK + C::HPAD;
-  const int w_elems = FK * C::LDW1;
-  const int stage_elems = stage1_elems<T>(F);
+  const int KW = stage1_rows<T>(F, WIDE);  // rows of W a stage
+  const int w_elems = KW * C::LDW1;
+  const int stage_elems = stage1_elems<T>(F, WIDE);
   T* const Hs = sm;
   T* const stages = sm + BM1 * LDH;
 
   const int a = blockIdx.y;
   const int m0 = blockIdx.x * BM1;
-  const int split = blockIdx.z;
+  const int split = WIDE ? blockIdx.z % n_split : blockIdx.z;
+  const int fc = WIDE ? blockIdx.z / n_split : 0;  // the block's dh chunk
+  const int NK = WIDE ? n_chunks(FK) : 1;          // chunks of y a step
+  const int NS = WIDE ? NK + 1 : 1;                // stages a step
+  // rows of W in the dh chunk
+  const int fk_dh = WIDE ? min(KC, FK - KC * fc) : FK;
   const int d_begin = split * cols_per_split;
   const int d_end = min(D, d_begin + cols_per_split);
   const int nsteps = d_end > d_begin ? (d_end - d_begin + BN1 - 1) / BN1 : 0;
+  const int nq = nsteps * NS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int r0 = warp * 16;  // the warp's rows of the tile
@@ -204,19 +264,24 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
   const T* xa = x + (long long)a * x_arm_stride;
   const float two_g = SEPARATE ? 2.f * g[a] : 2.f;
 
-  auto issue = [&](int step) {
-    T* st = stages + (step & 1) * stage_elems;
+  auto issue = [&](int q) {
+    T* st = stages + (q & 1) * stage_elems;
+    const int step = WIDE ? q / NS : q, j = WIDE ? q % NS : 0;
     const int col0 = d_begin + step * BN1;
-    tc::load_tile_c<BN1, THREADS>(st, C::LDW1, wa + col0, D, FK, F, D - col0,
-                                  vec_d, tid);
-    tc::load_tile_c<BN1, THREADS>(st + w_elems, LDX1,
-                                  xa + (long long)m0 * D + col0, D, BM1,
-                                  B - m0, D - col0, vec_d, tid);
+    if (j < NK || DH) {  // the chunk j of W, or the dh chunk's
+      const int k0 = WIDE ? KC * (j < NK ? j : fc) : 0;
+      tc::load_tile_c<BN1, THREADS>(st, C::LDW1, wa + (long long)k0 * D + col0,
+                                    D, KW, F - k0, D - col0, vec_d, tid);
+    }
+    if (j == NS - 1)
+      tc::load_tile_c<BN1, THREADS>(st + w_elems, LDX1,
+                                    xa + (long long)m0 * D + col0, D, BM1,
+                                    B - m0, D - col0, vec_d, tid);
   };
 
   tc::load_tile(Hs, LDH, h + ((long long)a * B + m0) * F, F, BM1, FK, B - m0,
                 F, vec_h, tid, THREADS);
-  if (nsteps > 0) issue(0);
+  if (nq > 0) issue(0);
   tc::cp_commit();
 
   float dacc[FT][4];
@@ -226,74 +291,83 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
     for (int i = 0; i < 4; ++i) dacc[n][i] = 0.f;
   float s = 0.f;
   int mm = 0;
+  float acc[NJ][4];  // y of the warp's 16 rows and the step's 32 columns
 
-  for (int step = 0; step < nsteps; ++step) {
+  for (int q = 0; q < nq; ++q) {
     tc::cp_wait<0>();
-    __syncthreads();  // this step's tiles are in; the other buffer is free
-    if (step + 1 < nsteps) issue(step + 1);
+    __syncthreads();  // this stage's tiles are in; the other buffer is free
+    if (q + 1 < nq) issue(q + 1);
     tc::cp_commit();
-    const T* Ws = stages + (step & 1) * stage_elems;
+    const T* Ws = stages + (q & 1) * stage_elems;
     const T* Xs = Ws + w_elems;
+    const int step = WIDE ? q / NS : q, j = WIDE ? q % NS : 0;
     const int col0 = d_begin + step * BN1;
 
-    // y = h W of the warp's 16 rows and the step's 32 columns
-    float acc[NJ][4];
+    if (j == 0) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+      for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-    if constexpr (F32) {
+        for (int i = 0; i < 4; ++i) acc[jj][i] = 0.f;
+    }
+    if (j < NK) {
+      // y += h W over the chunk's k: columns hk.. of the h tile, the rows
+      // of the stage
+      const int hk = KC * j;
+      const int kend = WIDE ? min(KC, FK - hk) : FK;
+      if constexpr (F32) {
 #pragma unroll
-      for (int k0 = 0; k0 < KMAX; k0 += 8 * RUN_K) {
-        if (k0 >= FK) break;
-        float run[NJ][4];  // a run of RUN_K k steps, summed apart
+        for (int k0 = 0; k0 < KMAX; k0 += 8 * RUN_K) {
+          if (k0 >= kend) break;
+          float run[NJ][4];  // a run of RUN_K k steps, summed apart
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) tc::zero4(run[j]);
+          for (int jj = 0; jj < NJ; ++jj) tc::zero4(run[jj]);
 #pragma unroll
-        for (int r = 0; r < RUN_K; ++r) {
-          const int kk = k0 + 8 * r;
-          if (kk < FK) {
-            const float* hr = Hs + (r0 + gq) * LDH + kk + tq;
-            const tc::SplitA Af =
-                tc::split_a_bits(hr[0], hr[8 * LDH], hr[4], hr[8 * LDH + 4]);
+          for (int r = 0; r < RUN_K; ++r) {
+            const int kk = k0 + 8 * r;
+            if (kk < kend) {
+              const float* hr = Hs + (r0 + gq) * LDH + hk + kk + tq;
+              const tc::SplitA Af =
+                  tc::split_a_bits(hr[0], hr[8 * LDH], hr[4], hr[8 * LDH + 4]);
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-              const float* wc = Ws + (kk + tq) * C::LDW1 + 8 * j + gq;
-              tc::mma_3xtf32(run[j], run[j], Af,
-                             tc::split_b_bits(wc[0], wc[4 * C::LDW1]));
+              for (int jj = 0; jj < NJ; ++jj) {
+                const float* wc = Ws + (kk + tq) * C::LDW1 + 8 * jj + gq;
+                tc::mma_3xtf32(run[jj], run[jj], Af,
+                               tc::split_b_bits(wc[0], wc[4 * C::LDW1]));
+              }
             }
           }
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj) tc::add4(acc[jj], run[jj]);
         }
+      } else {
+        const int qd = lane >> 3;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) tc::add4(acc[j], run[j]);
-      }
-    } else {
-      const int q = lane >> 3;
+        for (int kk = 0; kk < KMAX; kk += 16) {
+          if (kk >= kend) break;
+          const T* hr = Hs + (r0 + gq) * LDH + hk + kk + 2 * tq;
+          const uint32_t Af[4] = {tc::ld_u32(hr), tc::ld_u32(hr + 8 * LDH),
+                                  tc::ld_u32(hr + 8),
+                                  tc::ld_u32(hr + 8 * LDH + 8)};
 #pragma unroll
-      for (int kk = 0; kk < KMAX; kk += 16) {
-        if (kk >= FK) break;
-        const T* hr = Hs + (r0 + gq) * LDH + kk + 2 * tq;
-        const uint32_t Af[4] = {tc::ld_u32(hr), tc::ld_u32(hr + 8 * LDH),
-                                tc::ld_u32(hr + 8),
-                                tc::ld_u32(hr + 8 * LDH + 8)};
-#pragma unroll
-        for (int p = 0; p < NJ / 2; ++p) {
-          uint32_t b[4];
-          tc::ldsm_x4_t(b, Ws + (kk + (q & 1) * 8 + (lane & 7)) * C::LDW1 +
-                               16 * p + (q >> 1) * 8);
-          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-          tc::mma_bf16(acc[2 * p], Af, b0);
-          tc::mma_bf16(acc[2 * p + 1], Af, b1);
+          for (int p = 0; p < NJ / 2; ++p) {
+            uint32_t b[4];
+            tc::ldsm_x4_t(b, Ws + (kk + (qd & 1) * 8 + (lane & 7)) * C::LDW1 +
+                                 16 * p + (qd >> 1) * 8);
+            const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+            tc::mma_bf16(acc[2 * p], Af, b0);
+            tc::mma_bf16(acc[2 * p + 1], Af, b1);
+          }
         }
       }
     }
+    if (j != NS - 1) continue;
 
     // loss epilogue: the accumulators become gm (f32) in place
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
+    for (int jj = 0; jj < NJ; ++jj) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int cl = 8 * j + 2 * tq + e;
+        const int cl = 8 * jj + 2 * tq + e;
         const int col = col0 + cl;
         const bool col_ok = col < D;
         const float bj = col_ok ? to_f32(ba[col]) : 0.f;
@@ -303,7 +377,7 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
           const int i = half * 2 + e;
           float gmv = 0.f;
           if (col_ok && m0 + rl < B) {
-            const float y = acc[j][i] + bj;
+            const float y = acc[jj][i] + bj;
             const float r = (y < 0.f) ? 0.f : y;  // NaN propagates, like relu
             const float xv = to_f32(Xs[rl * LDX1 + cl]);
             const float d = r - xv;
@@ -314,7 +388,7 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
             // dh's product would drop: stored quiet (tc::quiet_nan)
             if constexpr (F32 && DH) gmv = tc::quiet_nan(gmv);
           }
-          acc[j][i] = gmv;
+          acc[jj][i] = gmv;
         }
       }
     }
@@ -326,17 +400,18 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
       // k slot t <-> column 2t, slot t+4 <-> column 2t+1 of each 8
       tc::SplitA Ag[NJ];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        Ag[j] = tc::split_a_bits(acc[j][0], acc[j][2], acc[j][1], acc[j][3]);
+      for (int jj = 0; jj < NJ; ++jj)
+        Ag[jj] = tc::split_a_bits(acc[jj][0], acc[jj][2], acc[jj][1],
+                                  acc[jj][3]);
 #pragma unroll
       for (int n = 0; n < FT; ++n) {
-        if (8 * n < FK) {
+        if (8 * n < fk_dh) {
           float t[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) {
+          for (int jj = 0; jj < NJ; ++jj) {
             const float2 wv = *reinterpret_cast<const float2*>(
-                Ws + (8 * n + gq) * C::LDW1 + 8 * j + 2 * tq);
-            tc::mma_3xtf32(t, u, Ag[j], tc::split_b_bits(wv.x, wv.y));
+                Ws + (8 * n + gq) * C::LDW1 + 8 * jj + 2 * tq);
+            tc::mma_3xtf32(t, u, Ag[jj], tc::split_b_bits(wv.x, wv.y));
           }
           tc::add4(dacc[n], t, u);
         }
@@ -352,7 +427,7 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
       }
 #pragma unroll
       for (int n = 0; n < FT; ++n) {
-        if (8 * n < FK) {
+        if (8 * n < fk_dh) {
           float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int p = 0; p < NJ / 2; ++p) {
@@ -368,7 +443,7 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
 
   tc::cp_wait<0>();  // nothing in flight when the block ends
 
-  if constexpr (DH) {  // this slice's dh partial
+  if constexpr (DH) {  // this slice's dh partial, of the block's chunk
     float* dst = dhp.part(split) + (long long)a * B * F;
 #pragma unroll
     for (int n = 0; n < FT; ++n) {
@@ -377,7 +452,7 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
         const int row = m0 + r0 + gq + 8 * half;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int f = 8 * n + 2 * tq + e;
+          const int f = KC * fc + 8 * n + 2 * tq + e;
           if (row < B && f < F)
             dst[(long long)row * F + f] = dacc[n][half * 2 + e];
         }
@@ -385,7 +460,8 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
     }
   }
 
-  if (SEPARATE) return;  // the separate backward writes no sums
+  // the separate backward writes no sums; in the wide form chunk 0 does
+  if (SEPARATE || fc != 0) return;
   // block reduction of the loss partials in a fixed order
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -407,7 +483,7 @@ recon_rows(const T* __restrict__ h, const T* __restrict__ w,
       bm += warp_m[i];
     }
     const long long p =
-        ((long long)a * gridDim.x + blockIdx.x) * gridDim.z + split;
+        ((long long)a * gridDim.x + blockIdx.x) * n_split + split;
     part_sum[p] = bs;
     part_mism[p] = bm;
   }
@@ -423,12 +499,16 @@ __global__ void recon_dh_reduce(Partials p, int n_split, long long n) {
 }
 
 // ---------------------------------------------------------------------------
-// Pass 2: grid (ceil(D/BN2), A).  dW and db of one column tile.  Warp w
-// owns the columns 32 (w / 4).. of the tile; of those it computes y for
-// the rows 16 (w % 4).. of each 64-row step and dW for the hidden units
-// 32 (w % 4)..
+// Pass 2: grid (ceil(D/BN2), A), in the wide form (ceil(D/BN2), A, chunks
+// of dW).  dW and db of one column tile.  Warp w owns the columns 32 (w /
+// 4).. of the tile; of those it computes y for the rows 16 (w % 4).. of
+// each 64-row step and dW for the hidden units 32 (w % 4).. (of the
+// block's chunk in the wide form).  A step is NS stages of the ring: one
+// (h of all F and x) in the resident form; in the wide form NK chunks of h
+// for y, then the h chunk of the block's dW rows, with x into the
+// cotangent tile.
 // ---------------------------------------------------------------------------
-template <typename T, bool SEPARATE, int FT>
+template <typename T, bool SEPARATE, int FT, bool WIDE>
 __global__ void __launch_bounds__(THREADS2, 1)
 recon_cols(const T* __restrict__ h, const T* __restrict__ w,
            const T* __restrict__ bias, const T* __restrict__ x,
@@ -437,45 +517,55 @@ recon_cols(const T* __restrict__ h, const T* __restrict__ w,
            float* __restrict__ db) {
   using C = Cfg<T>;
   constexpr bool F32 = std::is_same<T, float>::value;
-  constexpr int S = C::STAGES2;
+  constexpr int S = WIDE ? 2 : C::STAGES2;
   constexpr int NJ = 4;  // n-tiles of a warp's y and dW
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int FK = fk<T>(F);
-  constexpr int HC = hcols<FT>(), KMAX = kmax<T, FT>();
+  constexpr int HC = WIDE ? KC : hcols<FT>();  // h columns a stage holds
+  constexpr int KMAX = kmax<T, FT>();
   constexpr int LDH = HC + C::HPAD;
-  constexpr int stage_elems = stage2_elems<T, FT>();
+  // x lies in the stage, or (wide) in the cotangent tile it turns into
+  constexpr int LDX = WIDE ? C::LDG : LDX2;
+  constexpr int stage_elems = WIDE ? BM2 * LDH : stage2_elems<T, FT>();
   T* const Ws = sm;  // the block's W tile, loaded once
   T* const stages = Ws + FK * C::LDW2;
   T* const Gs = stages + S * stage_elems;  // the cotangent tile
 
   const int a = blockIdx.y;
   const int n0 = blockIdx.x * BN2;
+  const int fc = WIDE ? blockIdx.z : 0;  // the block's chunk of dW rows
+  const int NK = WIDE ? n_chunks(FK) : 1;
+  const int NS = WIDE ? NK + 1 : 1;
   const int nsteps = (B + BM2 - 1) / BM2;
+  const int nq = nsteps * NS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int wr = warp & 3, c0 = 32 * (warp >> 2);  // the warp's columns
   const int r0 = 16 * wr;  // the warp's rows of a step (y)
-  const int f0 = 32 * wr;  // the warp's hidden units (dW)
-  const bool has_m0 = f0 < F, has_m1 = f0 + 16 < F;
+  const int f0 = 32 * wr;  // the warp's hidden units (dW), in the chunk
+  const bool has_m0 = KC * fc + f0 < F, has_m1 = KC * fc + f0 + 16 < F;
   const T* ha = h + (long long)a * B * F;
   const T* xa = x + (long long)a * x_arm_stride;
   const float two_g = SEPARATE ? 2.f * g[a] : 2.f;
 
-  auto issue = [&](int step) {
-    T* st = stages + (step % S) * stage_elems;
+  auto issue = [&](int q) {
+    T* st = stages + (q % S) * stage_elems;
+    const int step = WIDE ? q / NS : q, j = WIDE ? q % NS : 0;
     const int m0 = step * BM2;
-    tc::load_tile_c<HC, THREADS2>(st, LDH, ha + (long long)m0 * F, F, BM2,
-                                  B - m0, F, vec_h, tid);
-    tc::load_tile_c<BN2, THREADS2>(st + BM2 * LDH, LDX2,
-                                   xa + (long long)m0 * D + n0, D, BM2,
-                                   B - m0, D - n0, vec_d, tid);
+    const int hk = WIDE ? KC * (j < NK ? j : fc) : 0;
+    tc::load_tile_c<HC, THREADS2>(st, LDH, ha + (long long)m0 * F + hk, F,
+                                  BM2, B - m0, F - hk, vec_h, tid);
+    if (j == NS - 1)
+      tc::load_tile_c<BN2, THREADS2>(WIDE ? Gs : st + BM2 * LDH, LDX,
+                                     xa + (long long)m0 * D + n0, D, BM2,
+                                     B - m0, D - n0, vec_d, tid);
   };
   tc::load_tile_c<BN2, THREADS2>(Ws, C::LDW2, w + (long long)a * F * D + n0,
                                  D, FK, F, D - n0, vec_d, tid);
 #pragma unroll
   for (int p = 0; p < S - 1; ++p) {
-    if (p < nsteps) issue(p);
+    if (p < nq) issue(p);
     tc::cp_commit();
   }
 
@@ -495,67 +585,78 @@ recon_cols(const T* __restrict__ h, const T* __restrict__ w,
   float dbp[NJ][2];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) dbp[j][0] = dbp[j][1] = 0.f;
+  float acc[NJ][4];  // y of the warp's 16 rows and 32 columns
 
-  for (int step = 0; step < nsteps; ++step) {
+  for (int q = 0; q < nq; ++q) {
     tc::cp_wait<S - 2>();
     __syncthreads();  // tiles in; the freed buffer and Gs may be rewritten
-    if (step + S - 1 < nsteps) issue(step + S - 1);
+    if (q + S - 1 < nq) issue(q + S - 1);
     tc::cp_commit();
-    const T* Hs = stages + (step % S) * stage_elems;
-    const T* Xs = Hs + BM2 * LDH;
+    const T* Hs = stages + (q % S) * stage_elems;
+    const T* Xs = WIDE ? Gs : Hs + BM2 * LDH;
+    const int step = WIDE ? q / NS : q, sj = WIDE ? q % NS : 0;
     const int m0 = step * BM2;
 
-    // y of the warp's 16 rows and 32 columns
-    float acc[NJ][4];
+    if (sj == 0) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) tc::zero4(acc[j]);
-    if constexpr (F32) {
+      for (int j = 0; j < NJ; ++j) tc::zero4(acc[j]);
+    }
+    if (sj < NK) {
+      // y += h W over the chunk's k: the stage's columns, W's rows wk..
+      const int wk = KC * sj;
+      const int kend = WIDE ? min(KC, FK - wk) : FK;
+      if constexpr (F32) {
 #pragma unroll
-      for (int k0 = 0; k0 < KMAX; k0 += 8 * RUN_K) {
-        if (k0 >= FK) break;
-        float run[NJ][4];
+        for (int k0 = 0; k0 < KMAX; k0 += 8 * RUN_K) {
+          if (k0 >= kend) break;
+          float run[NJ][4];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) tc::zero4(run[j]);
+          for (int j = 0; j < NJ; ++j) tc::zero4(run[j]);
 #pragma unroll
-        for (int r = 0; r < RUN_K; ++r) {
-          const int kk = k0 + 8 * r;
-          if (kk < FK) {
-            const float* hr = Hs + (r0 + gq) * LDH + kk + tq;
-            const tc::SplitA Af =
-                tc::split_a_bits(hr[0], hr[8 * LDH], hr[4], hr[8 * LDH + 4]);
+          for (int r = 0; r < RUN_K; ++r) {
+            const int kk = k0 + 8 * r;
+            if (kk < kend) {
+              const float* hr = Hs + (r0 + gq) * LDH + kk + tq;
+              const tc::SplitA Af =
+                  tc::split_a_bits(hr[0], hr[8 * LDH], hr[4], hr[8 * LDH + 4]);
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-              const float* wc = Ws + (kk + tq) * C::LDW2 + c0 + 8 * j + gq;
-              tc::mma_3xtf32(run[j], run[j], Af,
-                             tc::split_b_bits(wc[0], wc[4 * C::LDW2]));
+              for (int j = 0; j < NJ; ++j) {
+                const float* wc =
+                    Ws + (wk + kk + tq) * C::LDW2 + c0 + 8 * j + gq;
+                tc::mma_3xtf32(run[j], run[j], Af,
+                               tc::split_b_bits(wc[0], wc[4 * C::LDW2]));
+              }
             }
           }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) tc::add4(acc[j], run[j]);
         }
+      } else {
+        const int qd = lane >> 3;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) tc::add4(acc[j], run[j]);
-      }
-    } else {
-      const int q = lane >> 3;
+        for (int kk = 0; kk < KMAX; kk += 16) {
+          if (kk >= kend) break;
+          const T* hr = Hs + (r0 + gq) * LDH + kk + 2 * tq;
+          const uint32_t Af[4] = {tc::ld_u32(hr), tc::ld_u32(hr + 8 * LDH),
+                                  tc::ld_u32(hr + 8),
+                                  tc::ld_u32(hr + 8 * LDH + 8)};
 #pragma unroll
-      for (int kk = 0; kk < KMAX; kk += 16) {
-        if (kk >= FK) break;
-        const T* hr = Hs + (r0 + gq) * LDH + kk + 2 * tq;
-        const uint32_t Af[4] = {tc::ld_u32(hr), tc::ld_u32(hr + 8 * LDH),
-                                tc::ld_u32(hr + 8),
-                                tc::ld_u32(hr + 8 * LDH + 8)};
-#pragma unroll
-        for (int p = 0; p < NJ / 2; ++p) {
-          uint32_t b[4];
-          tc::ldsm_x4_t(b, Ws + (kk + (q & 1) * 8 + (lane & 7)) * C::LDW2 +
-                               c0 + 16 * p + (q >> 1) * 8);
-          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-          tc::mma_bf16(acc[2 * p], Af, b0);
-          tc::mma_bf16(acc[2 * p + 1], Af, b1);
+          for (int p = 0; p < NJ / 2; ++p) {
+            uint32_t b[4];
+            tc::ldsm_x4_t(b, Ws + (wk + kk + (qd & 1) * 8 + (lane & 7)) *
+                                     C::LDW2 +
+                                 c0 + 16 * p + (qd >> 1) * 8);
+            const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+            tc::mma_bf16(acc[2 * p], Af, b0);
+            tc::mma_bf16(acc[2 * p + 1], Af, b1);
+          }
         }
       }
     }
+    if (sj != NS - 1) continue;
 
     // gm; db from the f32 values; the values rounded to h's type to Gs
+    // (in the wide form over the x they were made from, element by element)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int cl0 = c0 + 8 * j + 2 * tq;
@@ -564,12 +665,12 @@ recon_cols(const T* __restrict__ h, const T* __restrict__ w,
         const int rl = r0 + gq + 8 * half;
         float xv[2];
         if constexpr (F32) {
-          const float2 v = *reinterpret_cast<const float2*>(Xs + rl * LDX2 + cl0);
+          const float2 v = *reinterpret_cast<const float2*>(Xs + rl * LDX + cl0);
           xv[0] = v.x;
           xv[1] = v.y;
         } else {
           const __nv_bfloat162 v =
-              *reinterpret_cast<const __nv_bfloat162*>(Xs + rl * LDX2 + cl0);
+              *reinterpret_cast<const __nv_bfloat162*>(Xs + rl * LDX + cl0);
           xv[0] = __low2float(v);
           xv[1] = __high2float(v);
         }
@@ -634,7 +735,7 @@ recon_cols(const T* __restrict__ h, const T* __restrict__ w,
 #pragma unroll
             for (int n = 0; n < NJ; ++n) tc::add4(wacc[mi][n], t[mi][n], u[mi][n]);
         } else {
-          const int q = lane >> 3;
+          const int qd = lane >> 3;
 #pragma unroll
           for (int k = run0; k < run0 + 32; k += 16) {
             uint32_t Ak[2][4];
@@ -642,13 +743,13 @@ recon_cols(const T* __restrict__ h, const T* __restrict__ w,
             for (int mi = 0; mi < 2; ++mi)
               if (mi == 0 || has_m1)
                 tc::ldsm_x4_t(Ak[mi],
-                              Hs + (k + (q >> 1) * 8 + (lane & 7)) * LDH +
-                                  f0 + 16 * mi + (q & 1) * 8);
+                              Hs + (k + (qd >> 1) * 8 + (lane & 7)) * LDH +
+                                  f0 + 16 * mi + (qd & 1) * 8);
 #pragma unroll
             for (int np = 0; np < NJ / 2; ++np) {
               uint32_t b[4];
-              tc::ldsm_x4_t(b, Gs + (k + (q & 1) * 8 + (lane & 7)) * C::LDG +
-                                   c0 + (2 * np + (q >> 1)) * 8);
+              tc::ldsm_x4_t(b, Gs + (k + (qd & 1) * 8 + (lane & 7)) * C::LDG +
+                                   c0 + (2 * np + (qd >> 1)) * 8);
               const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
               tc::mma_bf16(t[0][2 * np], Ak[0], b0);
               tc::mma_bf16(t[0][2 * np + 1], Ak[0], b1);
@@ -675,7 +776,7 @@ recon_cols(const T* __restrict__ h, const T* __restrict__ w,
     for (int n = 0; n < NJ; ++n)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int f = f0 + 16 * mi + gq + 8 * half;
+        const int f = KC * fc + f0 + 16 * mi + gq + 8 * half;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = n0 + c0 + 8 * n + 2 * tq + e;
@@ -685,7 +786,7 @@ recon_cols(const T* __restrict__ h, const T* __restrict__ w,
       }
 
   // db: the sums over the lane groups, then the four row warps of each
-  // column half, in a fixed order
+  // column half, in a fixed order; in the wide form chunk 0 writes it
   __syncthreads();  // the last step's products are done with Gs
   float* red = reinterpret_cast<float*>(Gs);  // [4][BN2]
 #pragma unroll
@@ -699,7 +800,7 @@ recon_cols(const T* __restrict__ h, const T* __restrict__ w,
       if (gq == 0) red[wr * BN2 + c0 + 8 * j + 2 * tq + e] = v;
     }
   __syncthreads();
-  if (tid < BN2 && n0 + tid < D)
+  if (tid < BN2 && n0 + tid < D && fc == 0)
     db[(long long)a * D + n0 + tid] =
         ((red[tid] + red[BN2 + tid]) + red[2 * BN2 + tid]) +
         red[3 * BN2 + tid];
@@ -769,13 +870,16 @@ RowPlan plan(int A, int B, int D) {
   return p;
 }
 
-inline bool shape_ok(int A, int B, int F, int D) {
-  return F >= 1 && F <= FP && A >= 1 && A <= 65535 && B >= 1 &&
+// The shapes the passes take: the grid's limits, and F up to max_f (the
+// wide forms' chunks of dh and dW on the grid's z axis with the slices).
+template <typename T>
+inline bool shape_ok(int A, int B, int F, int D, bool dh) {
+  return F >= 1 && F <= max_f<T>(dh) && A >= 1 && A <= 65535 && B >= 1 &&
          B <= 0x7fffffff - BM1 && D >= 1 && D <= 0x7fffffff - BN2;
 }
 
 // Pass 1 and, with DH, the dh reduction and pass 2.
-template <typename T, bool SEPARATE, bool DH, int FT>
+template <typename T, bool SEPARATE, bool DH, int FT, bool WIDE>
 int launch_passes(const T* h, const T* w, const T* bias, const T* x,
                 long long x_arm_stride, const float* g, int A, int B, int F,
                 int D, float thr, int with_mism, const RowPlan& pl,
@@ -785,15 +889,18 @@ int launch_passes(const T* h, const T* w, const T* bias, const T* x,
   parts.dh = dh;
   parts.in_dw = dw;
   parts.stride = (long long)A * B * F;
-  auto kern = recon_rows<T, SEPARATE, FT, DH>;
-  const size_t smem = smem_rows<T>(F);
+  // the wide forms' chunks of dh (pass 1) and of dW (pass 2)
+  const int nch = WIDE ? n_chunks(fk<T>(F)) : 1;
+  auto kern = recon_rows<T, SEPARATE, FT, DH, WIDE>;
+  const size_t smem = smem_rows<T>(F, WIDE);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(pl.row_tiles, A, pl.n_split);
+  const dim3 grid(pl.row_tiles, A, pl.n_split * (DH ? nch : 1));
   kern<<<grid, THREADS, smem, st>>>(h, w, bias, x, x_arm_stride, g, B, F, D,
-                                    pl.cols_per_split, thr, with_mism, vec_h,
-                                    vec_d, part_sum, part_mism, parts);
+                                    pl.cols_per_split, pl.n_split, thr,
+                                    with_mism, vec_h, vec_d, part_sum,
+                                    part_mism, parts);
   err = cudaGetLastError();
   if (err != cudaSuccess || !DH) return (int)err;
   if (pl.n_split > 1) {
@@ -803,12 +910,12 @@ int launch_passes(const T* h, const T* w, const T* bias, const T* x,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  auto kern2 = recon_cols<T, SEPARATE, FT>;
-  const size_t smem2 = smem_cols<T, FT>(F);
+  auto kern2 = recon_cols<T, SEPARATE, FT, WIDE>;
+  const size_t smem2 = WIDE ? smem_cols_wide<T>(F) : smem_cols<T, FT>(F);
   err = cudaFuncSetAttribute(
       kern2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
   if (err != cudaSuccess) return (int)err;
-  const dim3 g2((D + BN2 - 1) / BN2, A);
+  const dim3 g2((D + BN2 - 1) / BN2, A, nch);
   kern2<<<g2, THREADS2, smem2, st>>>(h, w, bias, x, x_arm_stride, g, B, F, D,
                                      vec_h, vec_d, dw, db);
   return (int)cudaGetLastError();
@@ -880,7 +987,7 @@ int recon_launch(const void* h_, const void* w_, const void* bias_,
                  int A, int B, int F, int D, float thr, int with_mism,
                  void* part_sum, void* part_mism, void* out, void* dh,
                  void* dw, void* db, void* quiet_ws, void* stream) {
-  if (!shape_ok(A, B, F, D)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok<T>(A, B, F, D, DH)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* h = static_cast<const T*>(h_);
   const T* w = static_cast<const T*>(w_);
@@ -906,10 +1013,13 @@ int recon_launch(const void* h_, const void* w_, const void* bias_,
     w = reinterpret_cast<const T*>(c.q[1]);
   }
   const int err =
-      F <= 104 ? launch_passes<T, SEPARATE, DH, 13>(
+      F <= 104 ? launch_passes<T, SEPARATE, DH, 13, false>(
                      h, w, bias, x, x_arm_stride, g, A, B, F, D, thr,
                      with_mism, pl, vec_h, vec_d, ps, pm, dhp, dwp, dbp, st)
-               : launch_passes<T, SEPARATE, DH, 16>(
+      : F <= FP ? launch_passes<T, SEPARATE, DH, 16, false>(
+                     h, w, bias, x, x_arm_stride, g, A, B, F, D, thr,
+                     with_mism, pl, vec_h, vec_d, ps, pm, dhp, dwp, dbp, st)
+                : launch_passes<T, SEPARATE, DH, 16, true>(
                      h, w, bias, x, x_arm_stride, g, A, B, F, D, thr,
                      with_mism, pl, vec_h, vec_d, ps, pm, dhp, dwp, dbp, st);
   if (err || SEPARATE) return err;

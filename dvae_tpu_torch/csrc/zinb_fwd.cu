@@ -16,7 +16,9 @@
 // k = min(expm1(x), 1e12) are taken per element here, from x in its own
 // type, so no count tensor exists (the TPU op builds one outside its
 // kernel, zinb_pallas.py:588).  All f32 or all bf16; products accumulate
-// in f32, biases are added in f32.  Output (A,) f32.  F <= 128.
+// in f32, biases are added in f32.  Output (A,) f32.  F up to
+// zinb_fwd_max_f (784 f32, 1,456 bf16): past 128 the wide form of the row
+// pass (zinb_rows.cuh) walks F in chunks of 128.
 //
 // Bound at the production shape (A=5, B=5000, F=100, D=5032), one launch:
 //   three products of 2*A*B*F*D = 25.2 GFLOP -> 75.5 GFLOP, 0.153 ms at
@@ -48,17 +50,18 @@ namespace {
 // refused.
 template <typename T>
 long long partials(int A, int B, int F, int D) {
-  if (!shape_ok(A, B, F, D)) return -1;
+  if (!shape_ok(A, B, F, D, max_f_rows<T>(false))) return -1;
   const RowPlan p = plan<T>(A, B, D);
   return (long long)A * p.row_tiles * p.n_split;
 }
 
-template <typename T>
+template <typename T, bool WIDE>
 int launch(const Args& p, void* part_sum, void* out, void* stream) {
-  if (!shape_ok(p.A, p.B, p.F, p.D)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(p.A, p.B, p.F, p.D, max_f_rows<T>(false)))
+    return (int)cudaErrorInvalidValue;
   const RowPlan plan_ = plan<T>(p.A, p.B, p.D);
-  auto kern = zinb_rows<T, true, false, 0>;
-  const size_t smem = smem_rows<T>(p.F, false);
+  auto kern = zinb_rows<T, true, false, 0, WIDE>;
+  const size_t smem = smem_rows<T>(p.F, false, WIDE);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -67,13 +70,20 @@ int launch(const Args& p, void* part_sum, void* out, void* stream) {
   const dim3 grid(plan_.row_tiles, p.A, plan_.n_split);
   kern<<<grid, THREADS1, smem, st>>>(
       static_cast<const T*>(p.h), heads_of<T>(p), static_cast<const T*>(p.x),
-      p.x_arm_stride, nullptr, p.B, p.F, p.D, plan_.cols_per_split, p.eps,
-      p.one_m_eps, vec_h_of<T>(p), vec_of<T>(p), part, Partials{});
+      p.x_arm_stride, nullptr, p.B, p.F, p.D, plan_.cols_per_split,
+      plan_.n_split, p.eps, p.one_m_eps, vec_h_of<T>(p), vec_of<T>(p), part,
+      Partials{});
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   zinb_loss_reduce<<<p.A, REDUCE_THREADS, 0, st>>>(
       part, plan_.row_tiles * plan_.n_split, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_any(const Args& p, void* part_sum, void* out, void* stream) {
+  return p.F <= FP ? launch<T, false>(p, part_sum, out, stream)
+                   : launch<T, true>(p, part_sum, out, stream);
 }
 
 }  // namespace
@@ -90,12 +100,17 @@ long long zinb_fwd_workspace(int bf16, int A, int B, int F, int D) {
 // Largest row count one launch takes (row tiles on the grid's x axis).
 long long zinb_fwd_max_rows() { return 0x7fffffffLL - BM1; }
 
+// Largest hidden width F the kernel takes in f32 (bf16 0) or bf16.
+int zinb_fwd_max_f(int bf16) {
+  return bf16 ? max_f_rows<__nv_bfloat16>(false) : max_f_rows<float>(false);
+}
+
 int zinb_fwd_f32(ZINB_ARGS, void* part_sum, void* out, void* stream) {
-  return launch<float>(ZINB_PACK, part_sum, out, stream);
+  return launch_any<float>(ZINB_PACK, part_sum, out, stream);
 }
 
 int zinb_fwd_bf16(ZINB_ARGS, void* part_sum, void* out, void* stream) {
-  return launch<__nv_bfloat16>(ZINB_PACK, part_sum, out, stream);
+  return launch_any<__nv_bfloat16>(ZINB_PACK, part_sum, out, stream);
 }
 
 }  // extern "C"

@@ -30,6 +30,17 @@
 // (`zinb_loss_reduce`), so the value-only loss equals the training
 // kernel's loss bit for bit, and repeated launches are bit-identical on any
 // card.
+//
+// F up to FP (128) runs the forms above.  A wider F runs the wide form
+// (template flag WIDE; zinb_fwdbwd.cu's max_f gives the limit its shared
+// memory sets), which walks F in chunks of KC = 128: the h tile stays
+// resident, a step is NK = ceil(F/128) stages of the three heads' W rows
+// (y summed over every chunk in the runs of one long K), then one more
+// stage of x and, in the training form, the W rows of the block's own
+// chunk of dh; a ring of two stages in both forms.  The grid's z axis is
+// (chunk of dh, slice of D); each block recomputes y, and chunk 0 writes
+// the loss partials, so the value-only loss still equals the training
+// kernel's bit for bit.
 
 #pragma once
 
@@ -72,7 +83,10 @@ struct Cfg<__nv_bfloat16> {
 // 8 distinct 16-byte groups for ldmatrix).
 
 constexpr int BM1 = 64, THREADS1 = 128;           // pass 1
-constexpr int FP = 128;                           // largest F
+constexpr int FP = 128;   // largest F of the resident forms
+constexpr int KC = 128;   // the wide forms' chunk of F
+// dynamic shared memory a block may take on an H100
+constexpr int SMEM_MAX = 232448;
 constexpr int MAX_SPLIT = 8;
 // Block slots the row plan fills: an H100 SXM's 132 SMs at the training
 // form's four blocks an SM.  A constant, not the card's count, so that the
@@ -86,8 +100,12 @@ constexpr int REDUCE_THREADS = 256;
 constexpr int RUN_K = 4;
 
 // The row pass's ring: two stages for the training form, one for the
-// value-only form (see the note at the top).
-__host__ __device__ constexpr int rows_stages(bool dh) { return dh ? 2 : 1; }
+// value-only form (see the note at the top); two in the wide forms.
+__host__ __device__ constexpr int rows_stages(bool dh, bool wide = false) {
+  return dh || wide ? 2 : 1;
+}
+// chunks of KC the wide forms cut F into
+__host__ __device__ inline int n_chunks(int F) { return (F + KC - 1) / KC; }
 
 template <typename T>
 struct Heads {
@@ -104,13 +122,19 @@ __host__ __device__ inline int fk(int F) {
   return round_up(F, Cfg<T>::KS);
 }
 
+// rows of each head's W a stage holds: all of F, or one chunk (wide)
 template <typename T>
-size_t smem_rows(int F, bool dh) {
+__host__ __device__ inline int stage_rows(int F, bool wide) {
+  return wide ? KC : fk<T>(F);
+}
+template <typename T>
+size_t smem_rows(int F, bool dh, bool wide = false) {
   const int FK = fk<T>(F);
   return sizeof(T) *
          ((size_t)BM1 * (FK + Cfg<T>::HPAD) +
-          (size_t)rows_stages(dh) * (3 * (size_t)FK * Cfg<T>::LDW1 +
-                                     (size_t)BM1 * Cfg<T>::LDX1));
+          (size_t)rows_stages(dh, wide) *
+              (3 * (size_t)stage_rows<T>(F, wide) * Cfg<T>::LDW1 +
+               (size_t)BM1 * Cfg<T>::LDX1));
 }
 
 // Where the dh partial of slice s goes: slice 0 into dh itself, the next
@@ -131,37 +155,46 @@ struct Partials {
 };
 
 // ---------------------------------------------------------------------------
-// Grid (ceil(B/BM1), A, n_split).  Loss partials (LOSS) and, with FT > 0,
-// dh; FT: the number of 8-wide tiles of F the dh accumulators cover.
+// Grid (ceil(B/BM1), A, n_split), in the wide form (ceil(B/BM1), A, n_split
+// * chunks of dh).  Loss partials (LOSS) and, with FT > 0, dh; FT: the
+// number of 8-wide tiles of F the dh accumulators cover.  A step is NS
+// stages: one (the heads' W of all F and x) in the resident forms; in the
+// wide form NK chunks of W for y, then x and the dh chunk's W.
 // ---------------------------------------------------------------------------
-template <typename T, bool LOSS, bool TWO_DIGAMMA, int FT>
+template <typename T, bool LOSS, bool TWO_DIGAMMA, int FT, bool WIDE>
 __global__ void __launch_bounds__(THREADS1, 4)
 zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
           long long x_arm_stride, const float* __restrict__ g, int B, int F,
-          int D, int cols_per_split, float eps, float one_m_eps, int vec_h,
-          int vec_d, float* __restrict__ part_sum, Partials dhp) {
+          int D, int cols_per_split, int n_split, float eps, float one_m_eps,
+          int vec_h, int vec_d, float* __restrict__ part_sum, Partials dhp) {
   using C = Cfg<T>;
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr bool DH = FT > 0;
   static_assert(DH || (LOSS && !TWO_DIGAMMA), "value-only: the loss alone");
-  constexpr int STAGES = rows_stages(DH);
+  constexpr int STAGES = rows_stages(DH, WIDE);
   constexpr int NJ = C::BN1 / 8;  // n-tiles of a step
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int FK = fk<T>(F);
   const int LDH = FK + C::HPAD;
-  const int w_elems = FK * C::LDW1;  // one head's W tile
+  const int KW = stage_rows<T>(F, WIDE);  // rows of a head's W a stage
+  const int w_elems = KW * C::LDW1;       // one head's W tile
   const int stage_elems = 3 * w_elems + BM1 * C::LDX1;
   T* const Hs = sm;
   T* const stages = sm + BM1 * LDH;
 
   const int a = blockIdx.y;
   const int m0 = blockIdx.x * BM1;
-  const int split = blockIdx.z;
+  const int split = WIDE ? blockIdx.z % n_split : blockIdx.z;
+  const int fc = WIDE ? blockIdx.z / n_split : 0;  // the block's dh chunk
+  const int NK = WIDE ? n_chunks(FK) : 1;          // chunks of y a step
+  const int NS = WIDE ? NK + 1 : 1;                // stages a step
+  const int fk_dh = WIDE ? min(KC, FK - KC * fc) : FK;
   const int d_begin = split * cols_per_split;
   const int d_end = min(D, d_begin + cols_per_split);
   const int nsteps =
       d_end > d_begin ? (d_end - d_begin + C::BN1 - 1) / C::BN1 : 0;
+  const int nq = nsteps * NS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int r0 = warp * 16;  // the warp's rows of the tile
@@ -169,23 +202,28 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
   const T* xa = x + (long long)a * x_arm_stride;
   const float ga = g ? g[a] : 1.f;
 
-  auto issue = [&](int step) {
-    T* st = stages + (step % STAGES) * stage_elems;
+  auto issue = [&](int q) {
+    T* st = stages + (q % STAGES) * stage_elems;
+    const int step = WIDE ? q / NS : q, j = WIDE ? q % NS : 0;
     const int col0 = d_begin + step * C::BN1;
+    if (j < NK || DH) {  // the chunk j of W, or the dh chunk's
+      const int k0 = WIDE ? KC * (j < NK ? j : fc) : 0;
 #pragma unroll
-    for (int hd = 0; hd < 3; ++hd)
-      tc::load_tile_c<C::BN1, THREADS1>(
-          st + hd * w_elems, C::LDW1,
-          heads.w[hd] + (long long)a * F * D + col0, D, FK, F, D - col0,
-          vec_d, tid);
-    tc::load_tile_c<C::BN1, THREADS1>(st + 3 * w_elems, C::LDX1,
-                                      xa + (long long)m0 * D + col0, D, BM1,
-                                      B - m0, D - col0, vec_d, tid);
+      for (int hd = 0; hd < 3; ++hd)
+        tc::load_tile_c<C::BN1, THREADS1>(
+            st + hd * w_elems, C::LDW1,
+            heads.w[hd] + (long long)a * F * D + (long long)k0 * D + col0, D,
+            KW, F - k0, D - col0, vec_d, tid);
+    }
+    if (j == NS - 1)
+      tc::load_tile_c<C::BN1, THREADS1>(st + 3 * w_elems, C::LDX1,
+                                        xa + (long long)m0 * D + col0, D,
+                                        BM1, B - m0, D - col0, vec_d, tid);
   };
 
   tc::load_tile(Hs, LDH, ha + (long long)m0 * F, F, BM1, FK, B - m0, F,
                 vec_h, tid, THREADS1);
-  if (nsteps > 0) issue(0);
+  if (nq > 0) issue(0);
   tc::cp_commit();
 
   float dacc[DH ? FT : 1][4];
@@ -194,88 +232,98 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < 4; ++i) dacc[n][i] = 0.f;
   float s = 0.f;
+  // y = h W_* of the warp's 16 rows and the step's columns
+  float acc[3][NJ][4];
+  float run[3][4];  // f32: a run of RUN_K k steps, summed apart
 
-  for (int step = 0; step < nsteps; ++step) {
+  for (int q = 0; q < nq; ++q) {
     tc::cp_wait<0>();
-    __syncthreads();  // this step's tiles are in; the other buffer is free
-    if constexpr (DH) {
-      if (step + 1 < nsteps) issue(step + 1);
+    __syncthreads();  // this stage's tiles are in; the other buffer is free
+    if constexpr (STAGES == 2) {
+      if (q + 1 < nq) issue(q + 1);
       tc::cp_commit();
     }
-    const T* Ws = stages + (step % STAGES) * stage_elems;
+    const T* Ws = stages + (q % STAGES) * stage_elems;
     const T* Xs = Ws + 3 * w_elems;
+    const int step = WIDE ? q / NS : q, j = WIDE ? q % NS : 0;
     const int col0 = d_begin + step * C::BN1;
 
-    // y = h W_* of the warp's 16 rows and the step's columns
-    float acc[3][NJ][4];
+    if (j == 0) {
 #pragma unroll
-    for (int hd = 0; hd < 3; ++hd)
+      for (int hd = 0; hd < 3; ++hd)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+        for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[hd][j][i] = 0.f;
-    float run[3][4];  // f32: a run of RUN_K k steps, summed apart
-    for (int kk = 0; kk < FK; kk += C::KS) {
-      if constexpr (F32) {
-        const float* hr = Hs + (r0 + gq) * LDH + kk + tq;
-        const tc::SplitA A =
-            tc::split_a(hr[0], hr[8 * LDH], hr[4], hr[8 * LDH + 4]);
-        const bool first = kk % (8 * RUN_K) == 0;
-        const bool last = kk % (8 * RUN_K) == 8 * (RUN_K - 1) || kk + 8 >= FK;
+          for (int i = 0; i < 4; ++i) acc[hd][jj][i] = 0.f;
+    }
+    if (j < NK) {
+      // the chunk's k: columns hk.. of the h tile, the stage's rows
+      const int hk = KC * j;
+      const int kend = WIDE ? min(KC, FK - hk) : FK;
+      for (int kk = 0; kk < kend; kk += C::KS) {
+        if constexpr (F32) {
+          const float* hr = Hs + (r0 + gq) * LDH + hk + kk + tq;
+          const tc::SplitA A =
+              tc::split_a(hr[0], hr[8 * LDH], hr[4], hr[8 * LDH + 4]);
+          const bool first = kk % (8 * RUN_K) == 0;
+          const bool last =
+              kk % (8 * RUN_K) == 8 * (RUN_K - 1) || kk + 8 >= kend;
 #pragma unroll
-        for (int hd = 0; hd < 3; ++hd) {
-          const float* wc = Ws + hd * w_elems + (kk + tq) * C::LDW1 + gq;
-          if (first) tc::zero4(run[hd]);
-          tc::mma_3xtf32(run[hd], run[hd], A,
-                         tc::split_b(wc[0], wc[4 * C::LDW1]));
-          if (last) tc::add4(acc[hd][0], run[hd]);
-        }
-      } else {
-        const T* hr = Hs + (r0 + gq) * LDH + kk + 2 * tq;
-        const uint32_t A[4] = {tc::ld_u32(hr), tc::ld_u32(hr + 8 * LDH),
-                               tc::ld_u32(hr + 8),
-                               tc::ld_u32(hr + 8 * LDH + 8)};
-        const int q = lane >> 3;
+          for (int hd = 0; hd < 3; ++hd) {
+            const float* wc = Ws + hd * w_elems + (kk + tq) * C::LDW1 + gq;
+            if (first) tc::zero4(run[hd]);
+            tc::mma_3xtf32(run[hd], run[hd], A,
+                           tc::split_b(wc[0], wc[4 * C::LDW1]));
+            if (last) tc::add4(acc[hd][0], run[hd]);
+          }
+        } else {
+          const T* hr = Hs + (r0 + gq) * LDH + hk + kk + 2 * tq;
+          const uint32_t A[4] = {tc::ld_u32(hr), tc::ld_u32(hr + 8 * LDH),
+                                 tc::ld_u32(hr + 8),
+                                 tc::ld_u32(hr + 8 * LDH + 8)};
+          const int qd = lane >> 3;
 #pragma unroll
-        for (int hd = 0; hd < 3; ++hd) {
-          uint32_t b[4];
-          tc::ldsm_x4_t(b, Ws + hd * w_elems +
-                               (kk + (q & 1) * 8 + (lane & 7)) * C::LDW1 +
-                               (q >> 1) * 8);
-          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-          tc::mma_bf16(acc[hd][0], A, b0);
-          tc::mma_bf16(acc[hd][1], A, b1);
+          for (int hd = 0; hd < 3; ++hd) {
+            uint32_t b[4];
+            tc::ldsm_x4_t(b, Ws + hd * w_elems +
+                                 (kk + (qd & 1) * 8 + (lane & 7)) * C::LDW1 +
+                                 (qd >> 1) * 8);
+            const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+            tc::mma_bf16(acc[hd][0], A, b0);
+            tc::mma_bf16(acc[hd][1], A, b1);
+          }
         }
       }
     }
+    if (j != NS - 1) continue;
 
     // the step's x values; the value-only form then releases its single
     // buffer, so that the next tiles arrive during the element math
     float xv[NJ][2][2];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int cl = 8 * j + 2 * tq + e;
+          const int cl = 8 * jj + 2 * tq + e;
           const int rl = r0 + gq + 8 * half;
-          xv[j][e][half] = (col0 + cl < D && m0 + rl < B)
-                               ? to_f32(Xs[rl * C::LDX1 + cl])
-                               : 0.f;
+          xv[jj][e][half] = (col0 + cl < D && m0 + rl < B)
+                                ? to_f32(Xs[rl * C::LDX1 + cl])
+                                : 0.f;
         }
-    if constexpr (!DH) {
+    if constexpr (STAGES == 1) {
       __syncthreads();  // every warp has read the buffer
-      if (step + 1 < nsteps) issue(step + 1);
+      if (q + 1 < nq) issue(q + 1);
       tc::cp_commit();
     }
 
     // element math: the accumulators become the cotangents in place
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
+    for (int jj = 0; jj < NJ; ++jj) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int cl = 8 * j + 2 * tq + e;
+        const int cl = 8 * jj + 2 * tq + e;
         const int col = col0 + cl;
         const bool col_ok = col < D;
         float bias[3] = {0.f, 0.f, 0.f};
@@ -291,14 +339,14 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
           float loss = 0.f, g_r = 0.f, g_p = 0.f, g_z = 0.f;
           if (col_ok && m0 + rl < B) {
             zinb::element<LOSS, DH, TWO_DIGAMMA>(
-                acc[0][j][i] + bias[0], acc[1][j][i] + bias[1],
-                acc[2][j][i] + bias[2], xv[j][e][half], eps, one_m_eps, ga,
+                acc[0][jj][i] + bias[0], acc[1][jj][i] + bias[1],
+                acc[2][jj][i] + bias[2], xv[jj][e][half], eps, one_m_eps, ga,
                 loss, g_r, g_p, g_z);
           }
           if (LOSS) s += loss;
-          acc[0][j][i] = g_r;
-          acc[1][j][i] = g_p;
-          acc[2][j][i] = g_z;
+          acc[0][jj][i] = g_r;
+          acc[1][jj][i] = g_p;
+          acc[2][jj][i] = g_z;
         }
       }
     }
@@ -315,7 +363,7 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
                                acc[hd][0][3]);
 #pragma unroll
         for (int n = 0; n < FT; ++n) {
-          if (8 * n < FK) {
+          if (8 * n < fk_dh) {
             float t[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
             for (int hd = 0; hd < 3; ++hd) {
@@ -337,7 +385,7 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
         }
 #pragma unroll
         for (int n = 0; n < FT; ++n) {
-          if (8 * n < FK) {
+          if (8 * n < fk_dh) {
             float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
             for (int hd = 0; hd < 3; ++hd) {
@@ -356,7 +404,7 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
   tc::cp_wait<0>();  // nothing in flight when the block ends
 
   if constexpr (DH) {
-    // this slice's dh partial
+    // this slice's dh partial, of the block's chunk
     float* dst = dhp.part(split) + (long long)a * B * F;
 #pragma unroll
     for (int n = 0; n < FT; ++n) {
@@ -365,7 +413,7 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
         const int row = m0 + r0 + gq + 8 * half;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int f = 8 * n + 2 * tq + e;
+          const int f = KC * fc + 8 * n + 2 * tq + e;
           if (row < B && f < F)
             dst[(long long)row * F + f] = dacc[n][half * 2 + e];
         }
@@ -373,7 +421,7 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
     }
   }
 
-  if (LOSS) {
+  if (LOSS && fc == 0) {
     // block reduction of the loss in a fixed order
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -384,7 +432,7 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
     if (tid == 0) {
       float bs = 0.f;
       for (int i = 0; i < THREADS1 / 32; ++i) bs += warp_s[i];
-      part_sum[((long long)a * gridDim.x + blockIdx.x) * gridDim.z + split] =
+      part_sum[((long long)a * gridDim.x + blockIdx.x) * n_split + split] =
           bs;
     }
   }
@@ -478,10 +526,24 @@ RowPlan plan(int A, int B, int D) {
   return p;
 }
 
-// The shapes the row pass takes (the grid's limits and F <= FP).
-inline bool shape_ok(int A, int B, int F, int D) {
-  return F >= 1 && F <= FP && A >= 1 && A <= 65535 && B >= 1 &&
+// The shapes the row pass takes: the grid's limits, and F up to max_f (the
+// wide form's chunks of dh on the grid's z axis with the slices).  max_f
+// is the row pass's limit; zinb_fwdbwd.cu adds its column pass's.
+inline bool shape_ok(int A, int B, int F, int D, int max_f) {
+  return F >= 1 && F <= max_f && A >= 1 && A <= 65535 && B >= 1 &&
          B <= 0x7fffffff - BM1 && D >= 1;
+}
+
+// Largest F the row pass takes: every F up to FP, and beyond it the wide
+// form while its shared memory (the resident h tile) fits a block.
+template <typename T>
+int max_f_rows(bool dh) {
+  int f = FP;
+  for (int g = FP + Cfg<T>::KS;
+       smem_rows<T>(g, dh, true) + 64 <= (size_t)SMEM_MAX;
+       g += Cfg<T>::KS)
+    f = g;
+  return f;
 }
 
 template <typename T>

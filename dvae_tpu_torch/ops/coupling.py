@@ -5,10 +5,10 @@ precision-scaled, centred log posteriors, and the pair sum
 Counterpart of dvae_tpu/ops/coupling_pallas.py.  The eager form
 (``models/losses.coupling_distance``) materialises log(c + eps) and the
 scaled tensor, two (A, B, C) tensors, before the Gram contraction; the
-hand-written CUDA kernels of ``csrc/coupling.cu`` (its source note states
-the bound, the design and the workspace) stream ``c`` twice and emit only
-the Gram matrix and the distance — kernel #11 (``_kernel``,
-coupling_pallas.py:51), counted once per op by
+hand-written CUDA kernel of ``csrc/coupling.cu`` (its source note states
+the bound, the design and the workspace) reads ``c`` once, in one
+cooperative launch, and emits only the Gram matrix and the distance —
+kernel #11 (``_kernel``, coupling_pallas.py:51), counted once per launch by
 ``coupling_gram_fused.launches``:
 
     phase 0   S1 = Σ_B c, S2 = Σ_B c², SL = Σ_B log(c + eps)      per (A, C)
@@ -40,11 +40,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("coupling")
     if not getattr(lib, "_dvae_bound", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.coupling_gram_f32.argtypes = [vp, ctypes.c_float, i, i, i, vp, vp,
+        lib.coupling_gram_f32.argtypes = [vp, ctypes.c_float, i, i, i, vp,
                                           vp]
         lib.coupling_gram_f32.restype = i
-        lib.coupling_workspace_floats.argtypes = [i, i, i]
-        lib.coupling_workspace_floats.restype = ctypes.c_longlong
+        lib.coupling_buffer_floats.argtypes = [i, i, i]
+        lib.coupling_buffer_floats.restype = ctypes.c_longlong
+        lib.coupling_plan.argtypes = [i, i, i,
+                                      ctypes.POINTER(ctypes.c_longlong)]
+        lib.coupling_plan.restype = i
         for fn in (lib.coupling_max_arms, lib.coupling_max_c):
             fn.argtypes = []
             fn.restype = i
@@ -86,9 +89,33 @@ def coupling_distance_plain(c: torch.Tensor, eps: float) -> torch.Tensor:
     return (c.shape[0] * g.diagonal().sum() - g.sum()) / c.shape[1]
 
 
+# Kernel #11's launch plan (csrc/coupling.cu ``make_plan``): the grid's
+# block count is a constant bound, not the card's SM count, so that every
+# sum runs in an order fixed by the shape alone.
+COUPLING_SLOTS = 132      # most blocks
+COUPLING_MIN_ROWS = 8     # fewest rows a block's slab holds
+COUPLING_SLAB_BYTES = 160 * 1024  # shared memory for a slab's logs
+
+
+def coupling_plan(A: int, B: int, C: int) -> dict:
+    """The plan the kernel makes for c (A, B, C): ``nb`` blocks, each
+    owning ``rows`` consecutive rows of every arm; ``keep`` when the slab's
+    logs fit its shared memory (else it walks ``piece`` rows at a time and
+    phase 1 reads c again); ``smem``, a block's dynamic shared memory in
+    bytes (the slab's piece and the weights w, m)."""
+    nb = min(COUPLING_SLOTS, -(-B // COUPLING_MIN_ROWS))
+    rows = -(-B // nb)
+    row_bytes = 4 * A * C
+    keep = rows * row_bytes <= COUPLING_SLAB_BYTES
+    piece = rows if keep else max(1, COUPLING_SLAB_BYTES // row_bytes)
+    return {"nb": nb, "rows": rows, "piece": piece, "keep": keep,
+            "smem": piece * row_bytes + 4 * (A + 1) * C}
+
+
 def _launch(c: torch.Tensor, eps: float) -> torch.Tensor:
     """A·A + 1 floats from one run of kernel #11: G row by row, then the
-    distance."""
+    distance; a view of the one buffer that also holds the launch's
+    workspace."""
     A, B, C = _check_c(c)
     if c.dtype != torch.float32:
         raise ValueError(f"c is {c.dtype}; the coupling kernel takes float32")
@@ -99,17 +126,18 @@ def _launch(c: torch.Tensor, eps: float) -> torch.Tensor:
         raise ValueError(f"A = {A}, C = {C} exceed the coupling kernel's "
                          f"limits of {lib.coupling_max_arms()} arms and "
                          f"{lib.coupling_max_c()} categories")
-    work = torch.empty(lib.coupling_workspace_floats(A, B, C),
-                       device=c.device, dtype=torch.float32)
-    out = torch.empty(A * A + 1, device=c.device, dtype=torch.float32)
+    buf = torch.empty(lib.coupling_buffer_floats(A, B, C), device=c.device,
+                      dtype=torch.float32)
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.coupling_gram_f32(c.data_ptr(), float(eps), A, B, C,
-                                    work.data_ptr(), out.data_ptr(), stream)
+                                    buf.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"coupling kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"coupling kernel launch failed: CUDA error {err} "
+                           "(a cooperative launch the card cannot hold "
+                           "raises here)")
     coupling_gram_fused.launches += 1
-    return out
+    return buf[:A * A + 1]
 
 
 def coupling_gram_fused(c: torch.Tensor, eps: float) -> torch.Tensor:

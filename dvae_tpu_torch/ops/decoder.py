@@ -46,7 +46,6 @@ from dvae_tpu_torch.ops import _build
 from dvae_tpu_torch.ops._common import check_kernel_operands, on_cpu
 
 N_TRUNK = 5  # fc6..fc10
-MAX_TRUNK_WIDTH = 128  # widest trunk layer output the kernels take
 
 _NAMES = ("z", "w6", "b6", "w7", "b7", "w8", "b8", "w9", "b9", "w10", "b10",
           "w11", "b11", "x")
@@ -67,17 +66,18 @@ def _lib() -> ctypes.CDLL:
             fn.restype = _INT
         lib.decoder_partials_per_arm.argtypes = [_INT] * 3
         lib.decoder_partials_per_arm.restype = _LL
-        lib.decoder_row_tiles.argtypes = [_INT]
-        lib.decoder_row_tiles.restype = _LL
         lib.decoder_grad_len.argtypes = [ctypes.POINTER(_INT)]
         lib.decoder_grad_len.restype = _LL
-        lib.decoder_smem_bytes.argtypes = [ctypes.POINTER(_INT), _INT]
-        lib.decoder_smem_bytes.restype = _LL
         lib.decoder_quiet_ws_floats.argtypes = [ctypes.POINTER(_INT)] \
             + [_INT] * 3
         lib.decoder_quiet_ws_floats.restype = _LL
-        lib.decoder_max_smem.argtypes = []
-        lib.decoder_max_smem.restype = _LL
+        lib.decoder_acts_elems.argtypes = [ctypes.POINTER(_INT)] + [_INT] * 3
+        lib.decoder_acts_elems.restype = _LL
+        lib.decoder_grad_scratch_floats.argtypes = [ctypes.POINTER(_INT)] \
+            + [_INT] * 2
+        lib.decoder_grad_scratch_floats.restype = _LL
+        lib.decoder_max_f.argtypes = [_INT, _INT]
+        lib.decoder_max_f.restype = _INT
         lib._dvae_bound = True
     return lib
 
@@ -168,14 +168,13 @@ def _kernel_plan(lib, z, trunk, w11, b11, x, train: bool):
         raise ValueError(f"empty operand: A={A}, B={B}, D={D}, "
                          f"widths={widths}")
     c_widths = (_INT * (N_TRUNK + 1))(*widths)
-    need = int(lib.decoder_smem_bytes(c_widths, int(train)))
-    if need < 0:
-        raise ValueError(f"trunk widths {widths[1:]} exceed the kernel's "
-                         f"{MAX_TRUNK_WIDTH}")
-    if need > lib.decoder_max_smem():
-        raise ValueError(f"widths {widths} need {need} bytes of shared "
-                         f"memory a block, above the card's "
-                         f"{lib.decoder_max_smem()}")
+    limit = int(lib.decoder_max_f(int(dtype == torch.bfloat16), int(train)))
+    if widths[-1] > limit:
+        what = ("the column pass's resident (F, 64) tile of W11" if train
+                else "the row pass's resident (64, F) tile of h_5")
+        raise ValueError(f"F={widths[-1]} exceeds {limit}, the widest last "
+                         f"trunk layer for which {what} fits a block's "
+                         f"232,448 bytes of shared memory in {dtype}")
     n_part = int(lib.decoder_partials_per_arm(A, B, D))
     if n_part < 0:
         raise ValueError(f"shape A={A}, B={B}, D={D} exceeds one launch's "
@@ -207,7 +206,9 @@ def _decoder_value(z, trunk, w11, b11, x, thr, with_mism):
     part_sum = torch.empty(A * n_part, device=dev, dtype=torch.float32)
     part_mism = torch.empty(A * n_part, device=dev, dtype=torch.int32)
     out = torch.empty((A, 2), device=dev, dtype=torch.float32)
-    h5 = torch.empty((A, B, widths[-1]), device=dev, dtype=dtype)  # scratch
+    # scratch: h_5, or with the wide trunk every activation
+    acts = torch.empty(int(lib.decoder_acts_elems(c_widths, A, B, 0)),
+                       device=dev, dtype=dtype)
     quiet_ws = _quiet_workspace(lib, c_widths, A, B, D, dtype, dev)
     fn = lib.decoder_fwd_f32 if dtype == torch.float32 else lib.decoder_fwd_bf16
     with torch.cuda.device(dev):
@@ -215,7 +216,7 @@ def _decoder_value(z, trunk, w11, b11, x, thr, with_mism):
         err = fn(z.data_ptr(), ptrs, c_widths, x.data_ptr(),
                  0 if x.dim() == 2 else B * D, A, B, D, float(thr),
                  int(bool(with_mism)), part_sum.data_ptr(),
-                 part_mism.data_ptr(), out.data_ptr(), h5.data_ptr(),
+                 part_mism.data_ptr(), out.data_ptr(), acts.data_ptr(),
                  quiet_ws.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decoder_fwd kernel launch failed: CUDA error {err}")
@@ -247,7 +248,6 @@ def _fwdbwd_launch(z, trunk, w11, b11, x, thr, with_mism):
         lib, z, trunk, w11, b11, x, train=True)
     dev = z.device
     F = widths[-1]
-    n_tiles = int(lib.decoder_row_tiles(B))
     n_grad = int(lib.decoder_grad_len(c_widths))
     f32 = torch.float32
     part_sum = torch.empty(A * n_part, device=dev, dtype=f32)
@@ -255,10 +255,13 @@ def _fwdbwd_launch(z, trunk, w11, b11, x, thr, with_mism):
     out = torch.empty((A, 2), device=dev, dtype=f32)
     # workspaces: the trunk's activations h_1..h_5 for the output layer's
     # passes and the trunk backward, dh_5, and one trunk-gradient partial
-    # vector per row tile (reduced in a fixed order by the last pass)
+    # vector per row tile (reduced in a fixed order by the last pass) or,
+    # with the wide trunk, its two buffers of the cotangent g
     acts = torch.empty(A * B * sum(widths[1:]), device=dev, dtype=dtype)
     dh5 = torch.empty((A, B, F), device=dev, dtype=f32)
-    part_grad = torch.empty(A * n_tiles * n_grad, device=dev, dtype=f32)
+    part_grad = torch.empty(int(lib.decoder_grad_scratch_floats(c_widths, A,
+                                                                B)),
+                            device=dev, dtype=f32)
     dz = torch.empty_like(z)
     flat_grads = torch.empty(A * n_grad, device=dev, dtype=f32)
     dw11 = torch.empty((A, F, D), device=dev, dtype=f32)

@@ -78,10 +78,22 @@ def _lib_fwdbwd() -> ctypes.CDLL:
         lib.recon_fwdbwd_plan.restype = ctypes.c_int
         lib.recon_fwdbwd_quiet_ws_floats.argtypes = [ctypes.c_int] * 4
         lib.recon_fwdbwd_quiet_ws_floats.restype = ctypes.c_longlong
-        lib.recon_fwdbwd_max_f.argtypes = []
+        lib.recon_fwdbwd_max_f.argtypes = [ctypes.c_int]
         lib.recon_fwdbwd_max_f.restype = ctypes.c_int
         lib._dvae_bound = True
     return lib
+
+
+def _check_width(lib, F: int, dtype) -> None:
+    """Raise unless kernels #2 and #3 take the hidden width F: any F up to
+    128, wider ones in chunks of 128 while the column pass's resident
+    (F, 64) tile of W fits a block's shared memory."""
+    limit = int(lib.recon_fwdbwd_max_f(int(dtype == torch.bfloat16)))
+    if F > limit:
+        raise ValueError(f"F={F} exceeds {limit}, the widest hidden layer "
+                         "for which the column pass's resident (F, 64) tile "
+                         f"of W fits a block's 232,448 bytes of shared "
+                         f"memory in {dtype}")
 
 
 def _quiet_workspace(lib, A, B, F, D, dtype, dev):
@@ -201,9 +213,7 @@ def recon_fwdbwd(h, w, b, x, thr: float = 0.1, with_mism: bool = True):
     if A == 0 or B == 0 or D == 0:
         raise ValueError(f"empty operand: A={A}, B={B}, D={D}")
     lib = _lib_fwdbwd()
-    if F > lib.recon_fwdbwd_max_f():
-        raise ValueError(f"F={F} exceeds the kernel's hidden width "
-                         f"{lib.recon_fwdbwd_max_f()}")
+    _check_width(lib, F, dtype)
     n_part = int(lib.recon_fwdbwd_partials_per_arm(A, B, D))
     if n_part < 0:
         raise ValueError(f"shape A={A}, B={B}, D={D} exceeds one launch's grid")
@@ -259,9 +269,7 @@ def recon_bwd(g, h, w, b, x):
     if A == 0 or B == 0 or D == 0:
         raise ValueError(f"empty operand: A={A}, B={B}, D={D}")
     lib = _lib_fwdbwd()
-    if F > lib.recon_fwdbwd_max_f():
-        raise ValueError(f"F={F} exceeds the kernel's hidden width "
-                         f"{lib.recon_fwdbwd_max_f()}")
+    _check_width(lib, F, dtype)
     dev = h.device
     g32 = g.float().contiguous()
     dh = torch.empty((A, B, F), device=dev, dtype=torch.float32)

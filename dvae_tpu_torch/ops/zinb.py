@@ -285,6 +285,8 @@ def _lib_fwd() -> ctypes.CDLL:
         lib.zinb_fwd_workspace.restype = ctypes.c_longlong
         lib.zinb_fwd_max_rows.argtypes = []
         lib.zinb_fwd_max_rows.restype = ctypes.c_longlong
+        lib.zinb_fwd_max_f.argtypes = [ctypes.c_int]
+        lib.zinb_fwd_max_f.restype = ctypes.c_int
         lib._dvae_bound = True
     return lib
 
@@ -301,10 +303,20 @@ def _lib_fwdbwd() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.zinb_fwdbwd_workspace.argtypes = [ctypes.c_int] * 5
         lib.zinb_fwdbwd_workspace.restype = ctypes.c_longlong
-        lib.zinb_fwdbwd_max_f.argtypes = []
+        lib.zinb_fwdbwd_max_f.argtypes = [ctypes.c_int]
         lib.zinb_fwdbwd_max_f.restype = ctypes.c_int
         lib._dvae_bound = True
     return lib
+
+
+def _check_width(F: int, limit: int, dtype, what: str) -> None:
+    """Raise unless the kernel takes the hidden width F: any F up to 128,
+    wider ones in chunks of 128 while ``what`` fits a block's shared
+    memory."""
+    if F > limit:
+        raise ValueError(f"F={F} exceeds {limit}, the widest hidden layer "
+                         f"for which {what} fits a block's 232,448 bytes of "
+                         f"shared memory in {dtype}")
 
 
 def _kernel_args(tensors, A, B, F, D, eps):
@@ -323,9 +335,8 @@ def _grad_buffers(lib, dtype, A, B, F, D, dev):
     """dh, dW, db and the launch's scratch: the loss partials and any dh
     partials of the row pass beyond the room the dW buffer lends it (none
     at the production shape)."""
-    if F > lib.zinb_fwdbwd_max_f():
-        raise ValueError(f"F={F} exceeds the kernel's hidden width "
-                         f"{lib.zinb_fwdbwd_max_f()}")
+    _check_width(F, int(lib.zinb_fwdbwd_max_f(int(dtype == torch.bfloat16))),
+                 dtype, "the column pass's three resident (F, 16) tiles of W")
     n_work = int(lib.zinb_fwdbwd_workspace(int(dtype == torch.bfloat16),
                                            A, B, F, D))
     if n_work < 0:
@@ -348,6 +359,8 @@ def _zinb_value(h, w_r, b_r, w_p, b_p, w_z, b_z, x, eps):
     lib = _lib_fwd()
     if B > lib.zinb_fwd_max_rows():
         raise ValueError(f"B={B} rows exceed one launch's grid")
+    _check_width(F, int(lib.zinb_fwd_max_f(int(dtype == torch.bfloat16))),
+                 dtype, "the row pass's resident (64, F) tile of h")
     n_part = int(lib.zinb_fwd_workspace(int(dtype == torch.bfloat16),
                                         A, B, F, D))
     if n_part < 0:

@@ -135,6 +135,38 @@ SETS = {
              r"make_float2\(tc::quiet_nan\(gv\[0\]\), tc::quiet_nan\(gv\[1\]\)\)",
              "make_float2(gv[0], gv[1])")],
     }),
+    # fault C6's repair (the wide forms, template flags off at F <= 128):
+    # with --base, #2, #3, #6, #7, #8, #12 and #13 at F = 100 the same bits
+    # as before it, and their times
+    "c6": ("c6", {"as built": []}),
+    # kernel #11 in one cooperative launch; with --base, the four launches
+    # it replaced, timed in the same call
+    "coupling": ("coupling", {
+        "16 warps a block (as built)": [],
+        "8 warps a block": [("coupling.cu", r"constexpr int WARPS = 16;",
+                             "constexpr int WARPS = 8;")],
+        "32 warps a block": [("coupling.cu", r"constexpr int WARPS = 16;",
+                              "constexpr int WARPS = 32;")],
+    }),
+    # where #11's time goes: each ablation drops one piece of work (its
+    # outputs are wrong by design, so they are timed, not checked)
+    "coupling_ablate": ("coupling", {
+        "as built": [],
+        "no phase-0 sums": [
+            ("coupling.cu", r"for \(int pr = tid; pr < AC;",
+             "for (int pr = tid; pr < 0;")],
+        "no w and m (the second barrier kept)": [
+            ("coupling.cu", r"for \(int col = blk; col < C; col \+= nb\)",
+             "for (int col = blk; col < 0; col += nb)")],
+        "one grid barrier (the second removed)": [
+            ("coupling.cu", r"    __syncthreads\(\);\n  \}\n  grid\.sync\(\);",
+             "    __syncthreads();\n  }")],
+        "no phase-1 products": [
+            ("coupling.cu", r"for \(int i = tid; i < n; i \+= THREADS\) \{\n"
+             r"      const int col = i % C;",
+             "for (int i = tid; i < 0; i += THREADS) {\n"
+             "      const int col = i % C;")],
+    }),
     # stage depth of #5's backward: rows of x and g a stage
     "encoder_stages": ("encoder_fc1", {
         "f32 32 rows, bf16 64 (as built)": [],
@@ -174,8 +206,9 @@ SETS = {
              "THREADS1);")],
     }),
 }
-TIMING_ONLY = {"recon_ablate", "recon_fwd"}
+TIMING_ONLY = {"recon_ablate", "recon_fwd", "coupling_ablate"}
 LIBRARIES = {"recon_c5": ["recon_fwdbwd", "decoder"],
+             "c6": ["recon_fwdbwd", "decoder", "zinb_fwd", "zinb_fwdbwd"],
              "zinb_fwd": ["zinb_fwd", "zinb_fwdbwd"],
              "recon_fwd": ["recon_fwd", "recon_fwdbwd"]}
 A, B, D, F = 5, 5000, 5032, 100
@@ -245,6 +278,47 @@ def use(root: Path) -> None:
             setattr(lib, name, lambda *a, raw=raw: raw(
                 *a[:-3], a[-3], a[-3] + 4 * a[5] * lib.recon_fwd_partials_per_arm(
                     a[6], a[8]), a[-2], a[-1]))
+    built = root / "build"
+    src = root / "decoder.cu"
+    if ((built / "libdecoder.so").exists()
+            and "decoder_max_f" not in src.read_text()):
+        # before the wide trunk: F <= 128, h_5 alone in the value-only
+        # call's workspace, one gradient partial vector a row tile
+        from dvae_tpu_torch.ops import decoder, zinb
+        lib = _build.load("decoder")
+        lib.decoder_grad_len.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.decoder_grad_len.restype = ctypes.c_longlong
+        lib.decoder_max_f = lambda bf16, train: 128
+        lib.decoder_acts_elems = lambda w, A, B, train: A * B * (
+            sum(w[1:6]) if train else w[5])
+        lib.decoder_grad_scratch_floats = lambda w, A, B: (
+            A * -(-B // 64) * lib.decoder_grad_len(w))
+        decoder._lib()
+        zlib = _build.load("zinb_fwd")
+        zlib.zinb_fwd_max_f = lambda bf16: 128
+        zinb._lib_fwd()
+    src = root / "coupling.cu"
+    if ((built / "libcoupling.so").exists()
+            and "coupling_buffer_floats" not in src.read_text()):
+        # the four launches before #11's one: workspace and output apart;
+        # the calls get them from the one buffer, the output first
+        from dvae_tpu_torch.ops import coupling
+        lib = _build.load("coupling")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        raw = lib.coupling_gram_f32
+        raw.argtypes = [vp, ctypes.c_float, i, i, i, vp, vp, vp]
+        raw.restype = i
+        lib.coupling_workspace_floats.argtypes = [i, i, i]
+        lib.coupling_workspace_floats.restype = ctypes.c_longlong
+        lib.coupling_max_arms.restype = lib.coupling_max_c.restype = i
+        lib.coupling_plan = lambda *args: -1
+        lib.coupling_buffer_floats = (
+            lambda A, B, C: 64 + lib.coupling_workspace_floats(A, B, C))
+        lib.coupling_gram_f32 = (
+            lambda c, eps, A, B, C, buf, st: raw(c, eps, A, B, C,
+                                                 buf + 64 * 4, buf, st))
+        lib._dvae_bound = True
+        coupling._lib()
     src = root / "recon_fwdbwd.cu"
     if src.exists() and "quiet_ws" not in src.read_text():
         lib = _build.load("recon_fwdbwd")
@@ -345,6 +419,77 @@ def c5_times(torch, cs, rec32, dt, key, rec):
     del ops, d, tr
 
 
+def c6_outputs(torch, cs, dt):
+    """c5_outputs, and every output of #6, #7 and #8 (cotangents -1.5 ..
+    2.5) on the uniform and the grid draws of chip_smoke.py (B = 2000,
+    shared x, F = 100), in type ``dt``."""
+    from dvae_tpu_torch.ops import zinb
+    outs = c5_outputs(torch, cs, dt)
+    cot = torch.linspace(-1.5, 2.5, A, device="cuda")
+    for grid in (False, True):
+        g = torch.Generator(device="cuda").manual_seed(9)
+        ops = cs.zinb_inputs(torch, g, dt, cs.TAIL, False, on_grid=grid)
+        heads = tuple(zip(ops[1:7:2], ops[2:7:2]))
+        fb = zinb.zinb_fwdbwd(*ops, cs.ZINB_EPS)
+        bw = zinb.zinb_bwd(cot, ops[0], heads, ops[7], cs.ZINB_EPS)
+        outs += [zinb.fused_zinb(*ops, cs.ZINB_EPS), fb[0], *fb[1],
+                 *fb[2], *fb[3], *bw[0:1], *bw[1], *bw[2]]
+        del ops, heads, fb, bw
+    return outs
+
+
+def c6_times(torch, cs, rec32, ops32, dt, key, rec):
+    """#2, #3, #6, #7, #8, #12, #13 at the production shape."""
+    from dvae_tpu_torch.ops import decoder as dec
+    from dvae_tpu_torch.ops import recon, zinb
+    ops = [t.to(dt) for t in rec32[False]]
+    cot = torch.full((A,), 1.5, device="cuda")
+    rec.setdefault(f"{key} #2", []).append(cs.cuda_ms(
+        torch, lambda: recon.recon_fwdbwd(*ops)))
+    rec.setdefault(f"{key} #3", []).append(cs.cuda_ms(
+        torch, lambda: recon.recon_bwd(cot, *ops)))
+    zops = [t.to(dt) for t in ops32]
+    heads = tuple(zip(zops[1:7:2], zops[2:7:2]))
+    for name, fn in (
+            ("#6", lambda: zinb.fused_zinb(*zops, cs.ZINB_EPS)),
+            ("#7", lambda: zinb.zinb_fwdbwd(*zops, cs.ZINB_EPS)),
+            ("#8", lambda: zinb.zinb_bwd(cot, zops[0], heads, zops[7],
+                                         cs.ZINB_EPS))):
+        rec.setdefault(f"{key} {name}", []).append(
+            cs.cuda_ms(torch, fn, iters=10))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    d = cs.decoder_inputs(torch, g, dt, B, False)
+    tr = [(d[1 + 2 * i], d[2 + 2 * i]) for i in range(5)]
+    rec.setdefault(f"{key} #12", []).append(cs.cuda_ms(
+        torch, lambda: dec.fused_decoder_mse(*d)))
+    rec.setdefault(f"{key} #13", []).append(cs.cuda_ms(
+        torch, lambda: dec.decoder_fwdbwd(d[0], tr, d[11], d[12], d[13])))
+    del ops, zops, heads, d, tr
+
+
+def coupling_times(torch, cs, rec, checked):
+    """#11 at (5, 5000, 92) against its plain version (Gram 2e-4,
+    distance 1e-4 rel) when ``checked``, then its event and device times a
+    call."""
+    from dvae_tpu_torch.ops import coupling as cp
+    g = torch.Generator(device="cuda").manual_seed(6)
+    c = cs.categorical_posterior(torch, g, (A, B, cs.C))
+    gram = cp.coupling_gram_fused(c, cs.GUMBEL_EPS)
+    e = cs.rel_err(torch, gram, cp.coupling_gram_plain(c, cs.GUMBEL_EPS))
+    d0 = cp.coupling_distance_plain(c, cs.GUMBEL_EPS).item()
+    e_d = abs(cp.coupling_distance_fused(c, cs.GUMBEL_EPS).item() - d0) / d0
+    if checked and (e > cs.TOL_GRAM or e_d > cs.TOL_DIST):
+        raise SystemExit(f"coupling: Gram rel err {e}, distance {e_d}")
+    fn = lambda: cp.coupling_distance_fused(c, cs.GUMBEL_EPS)  # noqa: E731
+    rec.setdefault("events", []).append(
+        cs.cuda_ms(torch, fn, iters=cs.TIMING_ITERS))
+    rec.setdefault("device", []).append(cs.device_ms(torch, fn))
+    n = sum(cs.kernel_launches(torch, fn).values())
+    if n != rec.setdefault("kernels a call", n):
+        raise SystemExit(f"coupling: {n} kernels a call, then {rec}")
+    del c, gram
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -400,6 +545,16 @@ def main(argv) -> int:
                     if kernel == "recon_fwd":
                         time_recon_fwd(torch, cs, recon, rec32, dt, key,
                                        rec, checked)
+                    elif kernel == "c6":
+                        outs = c6_outputs(torch, cs, dt)
+                        ref = first_out.setdefault(key, outs)
+                        same_bits[label] &= all(
+                            bool(torch.equal(u, v)) for u, v in zip(outs, ref))
+                        del outs, ref
+                        c6_times(torch, cs, rec32, ops32, dt, key, rec)
+                    elif kernel == "coupling":
+                        if dt == torch.float32:
+                            coupling_times(torch, cs, rec, checked)
                     elif kernel == "recon_c5":
                         outs = c5_outputs(torch, cs, dt)
                         ref = first_out.setdefault(key, outs)
@@ -471,13 +626,14 @@ def main(argv) -> int:
                         del ops
         for label, rec in times.items():
             bits = ""
-            if kernel in ("recon_fwdbwd", "recon_c5") and (
+            if kernel in ("recon_fwdbwd", "recon_c5", "c6") and (
                     set_name not in TIMING_ONLY or label == order[0]):
                 bits = (" | outputs bit-identical to the first variant's"
                         + (" (the uniform and the grid draws)"
-                           if kernel == "recon_c5" else
+                           if kernel in ("recon_c5", "c6") else
                            " on the uniform draw") + f": {same_bits[label]}")
             print(f"  {set_name} | {label} | " + " | ".join(
+                f"{k} {ts:g}" if not isinstance(ts, list) else
                 f"{k} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
                 for k, ts in rec.items()) + bits)
     print(cs.card_line())

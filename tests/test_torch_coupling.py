@@ -166,3 +166,41 @@ def test_no_grad_call_returns_a_plain_scalar():
     with torch.no_grad():
         d = tcoupling.coupling_distance_fused(c, EPS)
     assert d.shape == () and not d.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of kernel #11 (one cooperative launch): its Python twin
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(5, 5000, 92), (5, 4999, 92),
+                                   (2, 64, 10), (10, 130, 17), (5, 50000, 92),
+                                   (10, 5000, 1024), (1, 2, 1), (3, 1060, 7)])
+def test_coupling_plan_covers_b_once_from_the_shape_alone(shape):
+    """The block count is min(132, ceil(B / 8)) whatever the card, each
+    block owns one slab of consecutive rows of every arm, the slabs cover
+    [0, B) once and in order, and the shared memory fits one block."""
+    A, B, C = shape
+    p = tcoupling.coupling_plan(A, B, C)
+    assert p == tcoupling.coupling_plan(A, B, C)
+    assert p["nb"] == min(132, -(-B // 8)) and p["rows"] == -(-B // p["nb"])
+    slabs = [np.arange(B)[b * p["rows"]:(b + 1) * p["rows"]]
+             for b in range(p["nb"])]
+    np.testing.assert_array_equal(np.concatenate(slabs), np.arange(B))
+    assert 1 <= p["piece"] <= p["rows"]
+    assert p["keep"] == (p["piece"] == p["rows"]
+                         and 4 * A * C * p["rows"] <= 160 * 1024)
+    assert p["smem"] == 4 * A * C * p["piece"] + 4 * (A + 1) * C
+    assert p["smem"] + 4 * 1024 <= 232448
+
+
+def test_coupling_plan_keeps_the_logs_at_the_production_shape():
+    """A=5, B=5000, C=92: 132 slabs of 38 rows whose logs stay in 70 KB of
+    shared memory, so c is read once; at A=10, C=1024 (the kernel's largest
+    arms and categories) a slab's logs need 1.56 MB, so the kernel walks it
+    in pieces of 4 rows and reads c again for phase 1."""
+    p = tcoupling.coupling_plan(5, 5000, 92)
+    assert (p["nb"], p["rows"], p["piece"], p["keep"]) == (132, 38, 38, True)
+    assert p["smem"] == 5 * 38 * 92 * 4 + 6 * 92 * 4 == 72128
+    q = tcoupling.coupling_plan(10, 5000, 1024)
+    assert (q["nb"], q["rows"], q["piece"], q["keep"]) == (132, 38, 4, False)
+    assert q["smem"] == 208896
