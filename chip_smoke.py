@@ -23,11 +23,14 @@ Phases (any failure exits non-zero and prints no result line):
      backward fed the materialised mask), that the separate backward
      kernels at cotangent 1 reproduce the fused kernels' gradients; the
      Gumbel forward and backward and the coupling distance at (A=5,
-     B=5000, C=92), ragged rows and C up to 300, with given uniforms and
-     with the in-kernel ones (bit for bit against their numpy version),
-     hard samples, pruned categories, dphi and dtemp also against autograd
-     of the eager formula, the coupling distance on posteriors with dead
-     categories and a collapsed arm; the two whole-decoder kernels at the
+     B=5000, C=92), ragged rows and C up to 300 (the Gumbel kernels also
+     at C = 513, 600, 1024, 2048 and 4099, and the forward's row plan
+     against its Python twin), with given uniforms and with the in-kernel
+     ones (bit for bit against their numpy version, and the seeded forward
+     against the forward fed them), hard samples, pruned categories, dphi
+     and dtemp also against autograd of the eager formula, one kernel a
+     call by the profiler's names, the coupling distance on posteriors with
+     dead categories and a collapsed arm; the two whole-decoder kernels at the
      production widths (f32 and bf16, shared and per-arm x, B=5000 and
      2,000, each on a uniform draw and on one whose trunk and output layer
      lie on a grid, with and without the mismatch count, a per-arm
@@ -80,7 +83,10 @@ Phases (any failure exits non-zero and prints no result line):
      the alignment's invariance on one batch; save → a fresh load_model →
      eval_model, counts again; the card against the CPU path; warm
      throughput with and without use_pallas in turns, profiler breakdown,
-     synchronising calls; then a short ZINB run with use_pallas;
+     synchronising calls; then a short ZINB run with use_pallas; and the
+     same path at n_categories=600 (4 steps, one alignment, one
+     validation, then 12,000 cells served; counts, finite losses, the
+     largest single allocation below one (A, B, D) f32 tensor);
   7. hold the frozen augmenter on the card against the port's CPU path for
      both committed checkpoints (2,000 cells, the same explicit noise; the
      per-arm fast path against the forward on the broadcast batch; the ZINB
@@ -165,6 +171,7 @@ LR = 1e-3
 # the categorical path (use_pallas + alignment): 4 steps an epoch
 N_CAT_TRAIN, N_CAT_VAL = 20000, 2000
 N_CAT_ZINB = 10000
+N_CAT_WIDE = 600      # fault C7: rows past the 512 columns #10 held
 # Gumbel and coupling kernels vs their plain versions.  y, dphi and the
 # Gram, max |Δ| / max |plain|: the same f32 formulas with logs, exps and
 # sums a few roundings apart (fused multiply-adds, another summation
@@ -183,16 +190,26 @@ TOL_GRAM = 2e-4
 TOL_DIST = 1e-4
 TOL_DIST_DEGENERATE = 5e-3
 GUMBEL_EPS = 1e-8
-# FP32-pipe instructions of the element math of #9-#11, for their
-# operations bound at the FP32 cores' rate: the accurate logf, expf and
-# IEEE division (no fast math in those kernels), and Philox4x32-10 a
-# uniform (ten rounds of two wide multiplies and a few xors and adds for
-# four words)
-OPS_LOG, OPS_EXP, OPS_DIV, OPS_PHILOX = 16, 8, 8, 25
-# a Gumbel-softmax element: three logs, one exp, one division, its
-# uniform, about ten adds, maxima and scalings; its backward: one
-# division, the log of dT, about eight multiply-adds and sums
-OPS_GUMBEL_FWD = 3 * OPS_LOG + OPS_EXP + OPS_DIV + OPS_PHILOX + 10
+# The operations bound of the SIMT kernels #9-#11 counts SASS
+# instructions, not flops: the H100 SXM issues 128 FP32 lane-instructions a
+# clock on each of its 132 SMs, 33.5e12 a second (the flop rate halved: an
+# FMA is two flops and one instruction); integer multiplies issue at half
+# that rate.  The element math's instructions, from `cuobjdump -sass` of
+# probe kernels built with the port's flags (scripts/gumbel_sass.py on the
+# H100's toolkit, CUDA 12.8: the instructions of each probe's main path
+# beyond an empty copy's): an accurate logf 26, expf 10, an IEEE division
+# 13 (16, 3 of them the divisor's load; its slow path is a subroutine off
+# the main path), a Philox4x32-10 draw 51, 19 of them integer multiplies,
+# so 8 and 4.75 a uniform
+PEAK_FP32_ISSUE = PEAK_FLOPS["float32"] / 2
+OPS_LOG, OPS_EXP, OPS_DIV, OPS_PHILOX = 26, 10, 13, 8
+PHILOX_MULS = 4.75
+# a Gumbel-softmax element: three logs, one exp, its uniform, about ten
+# adds, maxima, the uniform's conversion and the scalings by 1/T and by
+# the reciprocal of the row sum (what #9 does for the two divisions, an
+# ulp apart); its backward: one division, the log of dT, about eight
+# multiply-adds and sums
+OPS_GUMBEL_FWD = 3 * OPS_LOG + OPS_EXP + OPS_PHILOX + 10
 OPS_GUMBEL_BWD = OPS_DIV + OPS_LOG + 8
 TIMING_ITERS = 200           # launches per timing of the small kernels
 # the whole-decoder kernels vs their plain versions: the sums as the other
@@ -282,6 +299,16 @@ def flops_bound_ms(flops, nbytes, dtype_name: str, tensor_cores=False):
             else PEAK_FLOPS[dtype_name])
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def simt_bound_ms(instr, muls, nbytes):
+    """(bound_ms, bound_by, bytes_ms, ops_ms) of a SIMT kernel: ``instr``
+    lane-instructions at the FP32 issue rate and ``muls`` integer
+    multiplies at half of it, against the bytes over the memory rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (instr + 2 * muls) / PEAK_FP32_ISSUE * 1e3
+    return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes
+            else "bytes", t_bytes, t_ops)
 
 
 def kernel_device_ms(torch, fn, iters: int = 5) -> dict:
@@ -1387,12 +1414,31 @@ def phase_gumbel(torch, check) -> dict:
     g = torch.Generator(device=DEV).manual_seed(SEED + 5)
     eps, temp = GUMBEL_EPS, 0.7
     records = {}
-    # the production shape, ragged rows, C = 100 and 120 (one group of 128
-    # columns a lane), C = 200 and 300 (two and four groups), C not a
-    # multiple of 4 (scalar loads)
+    # the production shape, ragged rows, C = 100, 120, 200, 300 and 30 (row
+    # plans of 1 to 32 lanes), C not a multiple of 4 (scalar loads); 39,995
+    # rows, more groups than 8 blocks an SM hold (#9's blocks stride over
+    # two, the second loaded during the first's math); past the 512
+    # columns #10 and, from 1025, #9 keep in registers (fault C7): 513,
+    # 600, 1024, 2048 and 4099 (chunks of #9; scalar loads), ragged rows
+    # throughout
     shapes = [((A, B, C), 0), ((A, B, C), 12), ((A, 4999, C), 0),
+              ((A, 7999, C), 3),
               ((A, TAIL, 100), 0), ((3, TAIL, 120), 7), ((2, 333, 200), 0),
-              ((2, 129, 300), 5), ((3, 257, 30), 0), ((2, 301, 93), 4)]
+              ((2, 129, 300), 5), ((3, 257, 30), 0), ((2, 301, 93), 4),
+              ((2, 333, 513), 0), ((3, 129, 600), 5), ((2, 257, 1024), 0),
+              ((2, 77, 2048), 0), ((2, 97, 4099), 3)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = gm._lib()
+    for n, c in [(int(np.prod(sh[:-1])), sh[-1]) for sh, _ in shapes] + [
+            (7, 1), (33, 3), (1000, 12), (10 ** 6, 92)]:
+        out = (ctypes.c_longlong * 6)()
+        rcode = lib.gumbel_fwd_plan(n, c, sms, out)
+        twin = gm.gumbel_plan(n, c, sms)
+        check(rcode == 0 and tuple(out) == tuple(twin[k] for k in (
+            "lanes", "quads", "chunks", "rows", "groups", "grid")),
+            f"({n}, {c}): gumbel_fwd plan {tuple(out)} (lanes, quads, "
+            f"chunks, rows a group, groups, blocks on {sms} SMs) equals the "
+            "Python twin's")
     for shape, pruned in shapes:
         tag = f"{shape}" + (f" {pruned} pruned" if pruned else "")
         phi = categorical_posterior(torch, g, shape, pruned)
@@ -1435,6 +1481,17 @@ def phase_gumbel(torch, check) -> dict:
         check(e_p <= TOL_GUMBEL,
               f"{tag}: gumbel_fwd(seed) vs plain on the twin's uniforms rel "
               f"err {e_p:.2e} (tol {TOL_GUMBEL:.0e})")
+        # the forward's own draws: the same launch fed the twin's uniforms
+        # gives the same bits, soft and hard
+        ypu, _ = gm.gumbel_fwd(3, phi, twin, temp, eps)
+        hp = gm.gumbel_fwd(9, phi, None, temp, eps, hard=True)
+        hpu = gm.gumbel_fwd(3, phi, twin, temp, eps, hard=True)
+        check(bool(torch.equal(yp, ypu) and torch.equal(hp[0], hpu[0])
+                   and torch.equal(hp[1], hpu[1]) and torch.equal(hp[0], yp)),
+              f"{tag}: gumbel_fwd(seed) equals gumbel_fwd(u = philox_uniform) "
+              "bit for bit, soft and hard: the forward draws the numpy "
+              "twin's uniforms")
+        del ypu, hp, hpu
 
         # backward vs plain and vs autograd of the eager formula
         dphi, dtemp = gm.gumbel_bwd(y, phi, dy, temp, eps)
@@ -1507,6 +1564,28 @@ def phase_gumbel(torch, check) -> dict:
                    and torch.equal(again[2][1], dtemp)
                    and torch.equal(again[3], sh)),
               f"{tag}: repeated launches bit-identical")
+        # one kernel a call, by the profiler's names (it may drop some or
+        # all events of a session, never add any: up to three sessions)
+        wide_f, wide_b = shape[-1] > 1024, shape[-1] > 512
+        for what, fn, counter, want in (
+                ("gumbel_fwd", lambda: gm.gumbel_fwd(9, phi, None, temp, eps),
+                 gm.gumbel_fwd,
+                 "gumbel_fwd_wide" if wide_f else "gumbel_fwd_rows"),
+                ("gumbel_bwd", lambda: gm.gumbel_bwd(y, phi, dy, temp, eps,
+                                                     want_dtemp=False),
+                 gm.gumbel_bwd,
+                 "gumbel_bwd_wide" if wide_b else "gumbel_bwd_rows")):
+            before = counter.launches
+            for _ in range(3):
+                names = kernel_launches(torch, fn)
+                if names:
+                    break
+            name = next(iter(names), "")
+            check(len(names) == 1 and want in name
+                  and 0.0 < names[name] <= 1.0
+                  and (counter.launches - before) % 6 == 0,
+                  f"{tag}: {what} one kernel a call by the profiler's names "
+                  f"({name[:60]} {names.get(name)}) and by the counter")
 
         if shape == (A, B, C) and not pruned:
             n_el = A * B * C
@@ -1546,35 +1625,36 @@ def phase_gumbel(torch, check) -> dict:
                 phi, u, temp, eps))
             d_bplain = device_ms(torch, lambda: gm.gumbel_softmax_bwd_plain(
                 y, phi, dy, temp, eps))
-            # operations: OPS_GUMBEL_FWD / _BWD an element at the FP32
-            # cores' rate, far below the bytes
+            # instructions: OPS_GUMBEL_FWD / _BWD an element at the FP32
+            # issue rate, the forward's Philox multiplies at half of it
             timed = (
                 ("gumbel_fwd", t_fwd, d_fwd, t_plain, d_plain, t_lib,
                  "F.gumbel_softmax on log phi", 2 * n_el * 4,
-                 OPS_GUMBEL_FWD, (y - y0).abs().max().item()),
+                 OPS_GUMBEL_FWD, PHILOX_MULS, (y - y0).abs().max().item()),
                 ("gumbel_bwd", t_bwd, d_bwd, t_bplain, d_bplain, t_blib,
                  "autograd.grad of the eager chain", 4 * n_el * 4,
-                 OPS_GUMBEL_BWD, max((dphi - dphi0).abs().max().item(),
-                                     abs(dtemp.item() - dtemp0.item()))),
+                 OPS_GUMBEL_BWD, 0, max((dphi - dphi0).abs().max().item(),
+                                        abs(dtemp.item() - dtemp0.item()))),
                 ("gumbel_sharpen", t_sh, d_sh, t_shplain, None, None, "",
                  2 * n_el * 4, OPS_GUMBEL_FWD + OPS_EXP + OPS_DIV,
-                 (sh - sh0).abs().max().item()))
-            for (name, ms, dev, pl, dpl, lib, lib_what, nbytes, ops,
+                 PHILOX_MULS, (sh - sh0).abs().max().item()))
+            for (name, ms, dev, pl, dpl, lib, lib_what, nbytes, ops, muls,
                  err) in timed:
-                bound, by = flops_bound_ms(ops * n_el, nbytes, "float32")
-                b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-                o_ms = ops * n_el / PEAK_FLOPS["float32"] * 1e3
+                bound, by, b_ms, o_ms = simt_bound_ms(ops * n_el,
+                                                      muls * n_el, nbytes)
                 lib_s = "none" if lib is None else f"{lib:.4f} ({lib_what})"
                 dpl_s = "" if dpl is None else f" (device {dpl:.4f})"
                 print(f"  {tag}: {name} kernel_ms {ms:.4f} (device {dev:.4f}) "
                       f"plain_ms {pl:.4f}{dpl_s} library_ms {lib_s} bound_ms "
                       f"{bound:.4f} ({by}; bytes {b_ms:.4f}, operations "
-                      f"{o_ms:.4f}) share_of_bound {bound / ms:.3f}")
+                      f"{o_ms:.4f}) share_of_bound {bound / ms:.3f} (device "
+                      f"{bound / dev:.3f})")
                 records[name] = {"max_abs_err": err, "ms": ms,
                                  "device_ms": dev, "plain_ms": pl,
                                  "bound_ms": bound, "bound_by": by,
                                  "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms,
-                                 "library_ms": lib}
+                                 "share_of_bound": bound / dev if dev else
+                                 None, "library_ms": lib}
             print(f"  {tag}: gumbel_fwd with given u {t_fwd_u:.4f} ms, hard "
                   f"with its soft residual {t_fwd_h:.4f} ms; gumbel_bwd with "
                   f"dtemp (a second launch) {t_bwd_t:.4f} ms")
@@ -1702,15 +1782,12 @@ def phase_coupling(torch, check) -> dict:
                             lambda: cp.coupling_distance_fused(c, eps))
             n_el = shape[0] * shape[1] * shape[2]
             pairs = shape[0] * (shape[0] + 1) // 2
-            # operations at the FP32 cores' rate: one log, the three sums
-            # and prec an element, and the A(A+1)/2 multiply-adds (two
-            # operations) of each of the B*C positions
-            ops = (OPS_LOG + 5.0) * n_el + 2.0 * pairs * n_el / n_arm
-            bound, by = flops_bound_ms(ops, n_el * 4 + (n_arm * n_arm + 1)
-                                       * 4, "float32")
-            ops_ms = ops / PEAK_FLOPS["float32"] * 1e3
-            bytes_ms = (n_el * 4 + (n_arm * n_arm + 1) * 4) \
-                / PEAK_BYTES_PER_S * 1e3
+            # instructions at the FP32 issue rate: one log, the three sums
+            # and prec an element, and the A(A+1)/2 multiply-adds of each
+            # of the B*C positions
+            ops = (OPS_LOG + 5.0) * n_el + pairs * n_el / n_arm
+            bound, by, bytes_ms, ops_ms = simt_bound_ms(
+                ops, 0, n_el * 4 + (n_arm * n_arm + 1) * 4)
             line = (f"  {tag}: coupling kernel_ms {ms:.4f} (device "
                     f"{dev:.4f}) bound_ms {bound:.4f} ({by}; bytes "
                     f"{bytes_ms:.4f}, operations {ops_ms:.4f}) "
@@ -3383,6 +3460,83 @@ def phase_categorical_path(torch, check, tmp, x, x_zinb) -> dict:
     return {"training": trained, "serving": served, "zinb": zinb}
 
 
+def phase_wide_categories(torch, check, tmp, x) -> dict:
+    """Fault C7 end to end: init_model(use_pallas=True, align_arms_every=2,
+    n_categories=N_CAT_WIDE) -> train (4 steps, one alignment, one
+    validation) -> a fresh load_model -> eval_model over 12,000 cells, at
+    the production A, D, F and batch, counts set to 0 just before each run
+    and read just after.  Rows of N_CAT_WIDE categories are wider than #10
+    keeps in registers (512 columns).  Losses finite; no single allocation
+    of either run reaches one (A, B, D) f32 tensor.  Returns the launch
+    counts of the two runs."""
+    import numpy as np
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print(f"phase 6b: C7 end to end, n_categories={N_CAT_WIDE}")
+    tag = f"[C7 n_categories={N_CAT_WIDE}]"
+    folder = os.path.join(tmp, "categorical_wide")
+    trainer = CplMixVAE(saving_folder=folder, device=DEV, seed=SEED)
+    trainer.init_model(n_arm=A, n_categories=N_CAT_WIDE, input_dim=D,
+                       fc_dim=F, lowD_dim=10, state_dim=2, batch_size=B,
+                       epochs_per_jit=2, eval_every=2, ckpt_every=2,
+                       use_pallas=True, align_arms_every=2)
+    n_train, n_val, n_serve = 2 * B, N_VAL, 12000
+    steps = 2 * (n_train // B)
+    # one validation batch and the alignment's min(N, 4·batch) cells, each
+    # batch one coupling and one recon_fwd
+    eval_batches = -(-n_val // B) + min(n_train, 4 * B) // B
+    limit = A * B * D * 4
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    path, largest = largest_allocation(torch, lambda: trainer.train(
+        x[:n_train], x_val=x[n_train:n_train + n_val], n_epoch=2,
+        early_stop_consensus=0, save_plots=False))
+    wall = time.perf_counter() - t0
+    trained = launch_counts()
+    want = {**dict.fromkeys(trained, 0), "encoder_fwd": steps,
+            "encoder_bwd": steps, "recon_fwdbwd": steps,
+            "gumbel_fwd": steps, "gumbel_bwd": steps,
+            "coupling": steps + eval_batches, "recon_fwd": eval_batches}
+    with open(os.path.join(folder, "metrics.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    val = [r["val/loss"] for r in rows if "val/loss" in r]
+    print(f"  {tag} train: {steps} steps in {wall:.4f} s (cold, the "
+          f"allocator's history recorded); epoch losses {losses}; "
+          f"validation {val}")
+    check(trained == want and len(losses) == 2 and len(val) == 1
+          and all(math.isfinite(v) for v in losses + val)
+          and largest < limit and not trainer._halted
+          and all(bool(torch.isfinite(v).all())
+                  for layer in trainer.state.params.values()
+                  for v in layer.values()),
+          f"{tag} train: launches {trained} (expect {want}), losses and "
+          f"validation finite, parameters finite, largest allocation "
+          f"{largest / 1e6:.1f} MB (limit one (A,B,D) f32 tensor, "
+          f"{limit / 1e6:.0f} MB)")
+    server = CplMixVAE(device=DEV)
+    server.load_model(path)
+    reset_launch_counts()
+    res, largest = largest_allocation(
+        torch, lambda: server.eval_model(x[:n_serve], batch_size=B))
+    served = launch_counts()
+    n_launch = -(-n_serve // B)
+    want = {**dict.fromkeys(served, 0), "coupling": n_launch,
+            "recon_fwd": n_launch}
+    print(f"  {tag} eval_model: {n_serve} cells, consensus "
+          f"{res['consensus']:.6f}, total_loss {res['total_loss']:.6g}")
+    check(served == want and server.cfg.n_categories == N_CAT_WIDE
+          and np.asarray(res["pred_label"]).shape == (A, n_serve)
+          and math.isfinite(res["total_loss"])
+          and bool(np.all(np.isfinite(res["c_prob"])))
+          and largest < limit,
+          f"{tag} serve: launches {served} (expect {want}), finite results, "
+          f"largest allocation {largest / 1e6:.1f} MB (limit "
+          f"{limit / 1e6:.0f} MB)")
+    del trainer, server
+    torch.cuda.empty_cache()
+    return {"c7_training": trained, "c7_serving": served}
+
+
 def phase_augmenter(torch, check, x_mse, x_zinb) -> None:
     """The frozen augmenter on the card against the port's CPU path, for
     both committed checkpoints, on 2,000 cells with the same explicit
@@ -3708,6 +3862,7 @@ def main() -> int:
             paths["categorical_training"] = cat["training"]
             paths["categorical_serving"] = cat["serving"]
             paths["categorical_zinb"] = cat["zinb"]
+            paths.update(phase_wide_categories(torch, check, tmp, x))
             phase_augmenter(torch, check, x, x_zinb)
             paths.update(phase_c6_path(torch, check, tmp, x, x_zinb))
             del x_zinb

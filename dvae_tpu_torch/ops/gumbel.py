@@ -13,6 +13,9 @@ design) carry both directions:
   * ``gumbel_bwd`` — kernel #10 (``_soft_bwd_kernel`` :128), counted by
     ``gumbel_bwd.launches``.
 
+Both take any number of categories C, as the TPU kernels do;
+``gumbel_plan`` is the twin of the forward kernel's row plan.
+
     g = −log(−log(u + eps) + eps)
     y = softmax((log(phi + eps) + g) / T)
     dphi = (dy − Σ_C dy·y)·y / T / (phi + eps)
@@ -49,6 +52,10 @@ from dvae_tpu_torch.ops import _build
 from dvae_tpu_torch.ops._common import on_cpu, philox4x32_10
 
 _PHILOX_KEY1 = 0x5EED0002
+# csrc/gumbel.cu's forward plan: warps a block, quads (4 columns) a lane
+# held in registers, quads a lane a chunk past that, blocks an SM
+GUMBEL_WARPS, GUMBEL_MAX_QUADS, GUMBEL_WIDE_QUADS = 8, 8, 4
+GUMBEL_BLOCKS_PER_SM = 8
 
 
 def _lib() -> ctypes.CDLL:
@@ -61,14 +68,42 @@ def _lib() -> ctypes.CDLL:
         lib.gumbel_bwd_f32.argtypes = [vp, vp, vp, f, vp, f, ll, i, vp, vp,
                                        vp, vp]
         lib.gumbel_uniform_f32.argtypes = [u, ll, i, vp, vp]
+        lib.gumbel_fwd_plan.argtypes = [ll, i, i,
+                                        ctypes.POINTER(ctypes.c_longlong)]
         for fn in (lib.gumbel_fwd_f32, lib.gumbel_bwd_f32,
-                   lib.gumbel_uniform_f32, lib.gumbel_max_c):
+                   lib.gumbel_uniform_f32, lib.gumbel_fwd_plan):
             fn.restype = i
-        lib.gumbel_max_c.argtypes = []
         lib.gumbel_bwd_partials.argtypes = [ll]
         lib.gumbel_bwd_partials.restype = ll
         lib._dvae_bound = True
     return lib
+
+
+def gumbel_plan(N: int, C: int, sms: int = 132) -> dict:
+    """The row plan kernel #9 makes for an (N, C) input on a card of
+    ``sms`` SMs (``gumbel_fwd_plan`` of the library is the same rule):
+    ``lanes`` lanes share a row, lane ``sub`` holding quads sub, sub +
+    lanes, ... (``quads`` of them; a quad is 4 neighbouring columns): the
+    fewest padded quads a row, of equals the most lanes.  A row wider than
+    32 × GUMBEL_MAX_QUADS quads is walked by one warp in ``chunks`` of 32 ×
+    GUMBEL_WIDE_QUADS quads.  ``rows`` rows a group, ``groups`` groups, a
+    grid of ``grid`` blocks striding over them, each the same number of
+    steps."""
+    q = -(-C // 4)
+    lanes = quads = 0
+    for cand in (1, 2, 4, 8, 16, 32):
+        n = -(-q // cand)
+        if n <= GUMBEL_MAX_QUADS and (not lanes or cand * n <= lanes * quads):
+            lanes, quads = cand, n
+    chunks = 1
+    if not lanes:
+        lanes, quads = 32, GUMBEL_WIDE_QUADS
+        chunks = -(-q // (32 * GUMBEL_WIDE_QUADS))
+    rows = GUMBEL_WARPS * 32 // lanes
+    groups = -(-N // rows)
+    steps = -(-groups // (max(sms, 1) * GUMBEL_BLOCKS_PER_SM))
+    return {"lanes": lanes, "quads": quads, "chunks": chunks, "rows": rows,
+            "groups": groups, "grid": -(-groups // steps)}
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +198,7 @@ def _check_rows(names, tensors) -> tuple:
     if len(shape) < 1 or tensors[0].numel() == 0:
         raise ValueError(f"expected a non-empty (…, C) tensor, got "
                          f"{tuple(shape)}")
-    C = shape[-1]
-    limit = _lib().gumbel_max_c()
-    if C > limit:
-        raise ValueError(f"C = {C} categories exceed the Gumbel kernels' "
-                         f"limit of {limit}")
-    return tensors[0].numel() // C, C
+    return tensors[0].numel() // shape[-1], shape[-1]
 
 
 def _temp_args(temp, device):

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels #1 (recon_fwd), #2
-(recon_fwdbwd), #5 (encoder_bwd) and #6 (zinb_fwd) against each other on
-one NVIDIA GPU.
+(recon_fwdbwd), #5 (encoder_bwd), #6 (zinb_fwd), #9 and #10 (gumbel) and
+#11 (coupling) against each other on one NVIDIA GPU.
+
+    python3 scripts/torch_kernel_variants.py --base runs/old gumbel
 
     python3 scripts/torch_kernel_variants.py recon_slices encoder_stages
     python3 scripts/torch_kernel_variants.py --base runs/old recon_quiet
@@ -31,7 +33,12 @@ checked.  ``--base DIR`` adds to every set one more variant, the sources
 of another checkout (``DIR/dvae_tpu_torch/csrc``, e.g. a ``git archive``
 of an earlier commit) as they are; for #2 every checked variant's outputs
 on the uniform draw are also compared with the first variant's, bit for
-bit.  Shapes are the production ones (A=5, B=5000, D=5032, F=100);
+bit.  Set ``gumbel`` holds #9 (seeded soft sample, hard sample on given
+uniforms) within TOL_GUMBEL of its plain version, records its uniforms and
+its seeded launch against the numpy twin's uniforms bit for bit, and with
+``--base`` holds #9 within TOL_GUMBEL and #10 bit for bit (C = 92 and 300)
+against the earlier build's outputs.  Shapes are the production ones
+(A=5, B=5000, D=5032, F=100, C=92);
 times by CUDA events, and #2's passes also by the profiler's device time.
 Exits 2 without a card.
 """
@@ -147,6 +154,41 @@ SETS = {
                              "constexpr int WARPS = 8;")],
         "32 warps a block": [("coupling.cu", r"constexpr int WARPS = 16;",
                               "constexpr int WARPS = 32;")],
+    }),
+    # kernel #9's redesign: the row plan's lanes a row (4, 16, or 32 as the
+    # one-warp-a-row kernel it replaced), IEEE divisions by T and the row
+    # sum in place of one reciprocal each, the grid (one row group a block,
+    # or the striding grid with 2 or 4 blocks an SM; 8 as built, which at
+    # C=92 is one group a block), 4 warps a block, and launch bounds for 6
+    # blocks an SM; with --base, the kernels it replaced, in the same call
+    "gumbel": ("gumbel", {
+        "plan: 8 lanes of 3 quads at C=92, 8 blocks an SM (as built)": [],
+        "4 lanes a row": [("gumbel.cu", r"for \(int lanes = 1; lanes <= 32;",
+                           "for (int lanes = 4; lanes <= 4;")],
+        "16 lanes a row": [("gumbel.cu", r"for \(int lanes = 1; lanes <= 32;",
+                            "for (int lanes = 16; lanes <= 16;")],
+        "32 lanes a row": [("gumbel.cu", r"for \(int lanes = 1; lanes <= 32;",
+                            "for (int lanes = 32; lanes <= 32;")],
+        "IEEE divisions by T and the row sum": [
+            ("gumbel.cu", r"const float inv_t = 1\.f / ",
+             "const float inv_t = "),
+            ("gumbel.cu", r"\+ gn\) \* inv_t;", "+ gn) / inv_t;"),
+            ("gumbel.cu", r"const float inv_s = 1\.f / seg_sum",
+             "const float inv_s = seg_sum"),
+            ("gumbel.cu", r"v\[j\]\[k\] = v\[j\]\[k\] \* inv_s;",
+             "v[j][k] = v[j][k] / inv_s;")],
+        "one row group a block (no striding, no prefetch)": [
+            ("gumbel.cu", r"constexpr int BLOCKS_PER_SM = 8;",
+             "constexpr int BLOCKS_PER_SM = 1 << 20;")],
+        "2 blocks an SM": [("gumbel.cu", r"constexpr int BLOCKS_PER_SM = 8;",
+                            "constexpr int BLOCKS_PER_SM = 2;")],
+        "4 blocks an SM": [("gumbel.cu", r"constexpr int BLOCKS_PER_SM = 8;",
+                            "constexpr int BLOCKS_PER_SM = 4;")],
+        "4 warps a block": [("gumbel.cu", r"constexpr int WARPS = 8;",
+                             "constexpr int WARPS = 4;")],
+        "launch bounds for 6 blocks an SM": [
+            ("gumbel.cu", r"__launch_bounds__\(THREADS\) gumbel_fwd_rows",
+             "__launch_bounds__(THREADS, 6) gumbel_fwd_rows")],
     }),
     # where #11's time goes: each ablation drops one piece of work (its
     # outputs are wrong by design, so they are timed, not checked)
@@ -319,6 +361,14 @@ def use(root: Path) -> None:
                                                  buf + 64 * 4, buf, st))
         lib._dvae_bound = True
         coupling._lib()
+    src = root / "gumbel.cu"
+    if ((built / "libgumbel.so").exists()
+            and "gumbel_fwd_plan" not in src.read_text()):
+        # before #9's row plan: no plan entry
+        from dvae_tpu_torch.ops import gumbel
+        lib = _build.load("gumbel")
+        lib.gumbel_fwd_plan = lambda *args: -1
+        gumbel._lib()
     src = root / "recon_fwdbwd.cu"
     if src.exists() and "quiet_ws" not in src.read_text():
         lib = _build.load("recon_fwdbwd")
@@ -490,6 +540,59 @@ def coupling_times(torch, cs, rec, checked):
     del c, gram
 
 
+def gumbel_outputs(torch, cs, rec):
+    """#9 and #10 at (5, 5000, 92) and (2, 333, 300), as a training step
+    calls them: the seeded soft sample, the hard one on given uniforms,
+    dphi and dtemp; each seeded sample against its plain version on the
+    numpy twin's uniforms (TOL_GUMBEL), and, bit for bit, the uniforms of
+    ``kernel_uniform`` against the twin's and the seeded launch against the
+    launch fed the twin's uniforms (recorded)."""
+    from dvae_tpu_torch.ops import gumbel as gm
+    g = torch.Generator(device="cuda").manual_seed(5)
+    outs = []
+    for shape in ((A, B, cs.C), (2, 333, 300)):
+        phi = cs.categorical_posterior(torch, g, shape)
+        u = torch.rand(shape, generator=g, device="cuda")
+        dy = torch.randn(shape, generator=g, device="cuda")
+        twin = torch.from_numpy(gm.philox_uniform(9, shape)).cuda()
+        ys, _ = gm.gumbel_fwd(9, phi, None, 0.7, cs.GUMBEL_EPS)
+        y0 = gm.gumbel_softmax_plain(phi, twin, 0.7, cs.GUMBEL_EPS)
+        e = cs.rel_err(torch, ys, y0)
+        if e > cs.TOL_GUMBEL:
+            raise SystemExit(f"gumbel {shape}: rel err {e}")
+        key = f"C={shape[-1]}: uniforms, seeded = fed the twin's"
+        rec[key] = (bool(torch.equal(gm.kernel_uniform(9, shape, "cuda"),
+                                     twin)),
+                    bool(torch.equal(ys, gm.gumbel_fwd(
+                        9, phi, twin, 0.7, cs.GUMBEL_EPS)[0])))
+        yh = gm.gumbel_fwd(3, phi, u, 0.7, cs.GUMBEL_EPS, hard=True)
+        # #10 on the plain sample, the same input in every variant
+        dphi, dtemp = gm.gumbel_bwd(y0, phi, dy, 0.7, cs.GUMBEL_EPS)
+        outs.append((ys, yh[0], yh[1], dphi, dtemp))
+    return outs
+
+
+def gumbel_times(torch, cs, rec):
+    """Event and device times of #9 (seeded soft sample, hard sample with
+    its soft residual on given uniforms) and #10 at (5, 5000, 92)."""
+    from dvae_tpu_torch.ops import gumbel as gm
+    g = torch.Generator(device="cuda").manual_seed(5)
+    phi = cs.categorical_posterior(torch, g, (A, B, cs.C))
+    u = torch.rand(phi.shape, generator=g, device="cuda")
+    dy = torch.randn(phi.shape, generator=g, device="cuda")
+    y, _ = gm.gumbel_fwd(9, phi, None, 0.7, cs.GUMBEL_EPS)
+    for key, fn in (
+            ("#9 seeded", lambda: gm.gumbel_fwd(9, phi, None, 0.7,
+                                                cs.GUMBEL_EPS)),
+            ("#9 hard on u", lambda: gm.gumbel_fwd(3, phi, u, 0.7,
+                                                   cs.GUMBEL_EPS, hard=True)),
+            ("#10", lambda: gm.gumbel_bwd(y, phi, dy, 0.7, cs.GUMBEL_EPS,
+                                          want_dtemp=False))):
+        rec.setdefault(f"{key} events", []).append(
+            cs.cuda_ms(torch, fn, iters=cs.TIMING_ITERS))
+        rec.setdefault(f"{key} device", []).append(cs.device_ms(torch, fn))
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -529,7 +632,7 @@ def main(argv) -> int:
         if base is not None:
             variants[f"the sources of {base.parent.parent}"] = make_variant(
                 out / set_name / "base", [], src=base)
-        first_out = {}
+        first_out, gumbel_out = {}, {}
         same_bits = {label: True for label in variants}
         print(f"{set_name}: building {len(variants)} variants of {kernel}")
         build_all(variants, LIBRARIES.get(kernel, [kernel]))
@@ -555,6 +658,11 @@ def main(argv) -> int:
                     elif kernel == "coupling":
                         if dt == torch.float32:
                             coupling_times(torch, cs, rec, checked)
+                    elif kernel == "gumbel":
+                        if dt == torch.float32:
+                            gumbel_out[label] = gumbel_outputs(torch, cs,
+                                                               rec)
+                            gumbel_times(torch, cs, rec)
                     elif kernel == "recon_c5":
                         outs = c5_outputs(torch, cs, dt)
                         ref = first_out.setdefault(key, outs)
@@ -624,6 +732,23 @@ def main(argv) -> int:
                             torch, lambda: zinb.fused_zinb(*ops, cs.ZINB_EPS),
                             iters=10))
                         del ops
+        if kernel == "gumbel" and base is not None:
+            # against the kernels of --base: #9 within TOL_GUMBEL, #10 bit
+            # for bit (C <= 512)
+            ref = gumbel_out[order[-1]]
+            for label, outs in gumbel_out.items():
+                e9 = max(cs.rel_err(torch, a, b) for o, r in zip(outs, ref)
+                         for a, b in zip(o[:3], r[:3]))
+                b10 = all(torch.equal(a, b) for o, r in zip(outs, ref)
+                          for a, b in zip(o[3:], r[3:]))
+                e10 = max(cs.rel_err(torch, a, b) for o, r in zip(outs, ref)
+                          for a, b in zip(o[3:], r[3:]))
+                times[label]["#9 vs base rel err"] = e9
+                times[label]["#10 vs base rel err"] = e10
+                times[label]["#10 bit for bit with base at C <= 512"] = b10
+                if e9 > cs.TOL_GUMBEL or e10 > cs.TOL_GUMBEL:
+                    raise SystemExit(f"{label}: against the base #9 {e9}, "
+                                     f"#10 {e10}")
         for label, rec in times.items():
             bits = ""
             if kernel in ("recon_fwdbwd", "recon_c5", "c6") and (
@@ -633,7 +758,8 @@ def main(argv) -> int:
                            if kernel in ("recon_c5", "c6") else
                            " on the uniform draw") + f": {same_bits[label]}")
             print(f"  {set_name} | {label} | " + " | ".join(
-                f"{k} {ts:g}" if not isinstance(ts, list) else
+                f"{k} {ts:g}" if isinstance(ts, float) else
+                f"{k} {ts}" if not isinstance(ts, list) else
                 f"{k} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
                 for k, ts in rec.items()) + bits)
     print(cs.card_line())

@@ -5,7 +5,8 @@ Inputs come from numpy seeds and both sides get the same explicit uniforms
 ``u``.  JAX runs on the CPU with its Pallas kernels in interpret mode, as
 tests/test_ops.py::TestGumbelPallas runs them; the port on CPU tensors runs
 its plain versions, which compute what the CUDA kernels compute.  Small
-shapes (A = 2-3, B ≤ 700, C ≤ 30, plus one C = 92).  Tolerances, with
+shapes (A = 2-3, B ≤ 700, C ≤ 30, plus one C = 92, and rows wider than
+the CUDA kernels keep in registers: C = 600 and 1100).  Tolerances, with
 their reason:
 
   * the sample ``y`` (rtol 1e-5, atol 1e-6, tests/test_ops.py:100): the
@@ -55,7 +56,9 @@ def _probs(shape, seed, pruned=0):
     return x, u
 
 
-SHAPES = [((3, 150, 12), 0), ((2, 70, 30), 3), ((2, 33, 92), 0)]
+SHAPES = [((3, 150, 12), 0), ((2, 70, 30), 3), ((2, 33, 92), 0),
+          ((2, 9, 600), 0), ((1, 7, 1100), 5)]
+WIDE_C = [600, 1100]
 
 
 @pytest.mark.parametrize("hard", [False, True])
@@ -98,6 +101,51 @@ def test_sharpen_variant_matches_the_interpreted_kernel(hard):
                                    atol=1e-6)
     with pytest.raises(ValueError, match="tau"):
         tgumbel.sharpen_gumbel_fused(0, torch.from_numpy(logits), 0.0)
+
+
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("C", WIDE_C)
+def test_sharpen_variant_on_wide_rows_matches_the_interpreted_kernel(C, hard):
+    """The tau variant past the rows the CUDA kernel keeps in registers
+    (C > 512 before the chunked walk; the JAX kernel takes any C), at the
+    sharpen test's tolerance."""
+    rng = np.random.default_rng(C)
+    logits = rng.dirichlet(np.ones(C), size=(2, 5)).astype(np.float32)
+    u = rng.random(logits.shape).astype(np.float32)
+    want = jgumbel._gumbel_fwd_pallas(jnp.int32(0), jnp.asarray(logits), 0.7,
+                                      EPS, 0.05, hard, jnp.asarray(u))
+    got = tgumbel.sharpen_gumbel_fused(0, torch.from_numpy(logits), 0.05,
+                                       0.7, EPS, hard, u=torch.from_numpy(u))
+    if hard:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("C", WIDE_C)
+def test_wide_rows_gradients_match_jax_grad_of_the_kernel(C, hard):
+    """dphi and dtemp at C = 600 and 1100 (the backward walks such rows in
+    groups of 128 columns on the card) against jax.grad of the interpreted
+    kernel, soft and straight-through."""
+    phi, u = _probs((2, 11, C), C, pruned=3)
+    dy = np.random.default_rng(C + 1).normal(size=phi.shape).astype(
+        np.float32)
+
+    def jloss(p, t):
+        return jnp.sum(jgumbel.gumbel_softmax_pallas(
+            jnp.int32(0), p, jnp.asarray(u), t, EPS, hard) * jnp.asarray(dy))
+
+    gp, gt = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(phi),
+                                             jnp.float32(0.8))
+    p = torch.from_numpy(phi).requires_grad_()
+    t = torch.tensor(0.8, requires_grad=True)
+    y = tgumbel.gumbel_softmax_fused(0, p, torch.from_numpy(u), t, EPS, hard)
+    y.backward(torch.from_numpy(dy))
+    assert float(gt) != 0.0 and bool(torch.isfinite(p.grad).all())
+    np.testing.assert_allclose(float(t.grad), float(gt), rtol=DTEMP_RTOL)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(gp), **DPHI_TOL)
 
 
 @pytest.mark.parametrize("t0", [0.3, 1.0, 3.0])
@@ -235,3 +283,79 @@ def test_wrappers_count_no_launch_on_the_cpu_and_check_devices():
     with pytest.raises(ValueError, match="several devices"):
         tgumbel.gumbel_fwd(0, torch.from_numpy(phi),
                            torch.from_numpy(u).to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's row plan (csrc/gumbel.cu fwd_plan), through its twin
+# ---------------------------------------------------------------------------
+
+PLAN_C = [1, 3, 30, 92, 93, 128, 200, 512, 513, 600, 1024, 4099]
+
+
+def _plan_columns(plan, sub, chunk):
+    """The first columns of the quads lane ``sub`` of a row holds in chunk
+    ``chunk`` under ``plan``, as csrc/gumbel.cu walks them: quads chunk ·
+    lanes · quads + sub + lanes · j (past C they are masked)."""
+    base = chunk * plan["lanes"] * plan["quads"]
+    return [4 * (base + sub + plan["lanes"] * j)
+            for j in range(plan["quads"])]
+
+
+@pytest.mark.parametrize("C", PLAN_C)
+def test_gumbel_plan_covers_every_column_once(C):
+    """Each row's columns are held by exactly one (lane, quad, chunk) of its
+    lanes, whatever C; groups cover the rows and every block of the striding
+    grid takes the same number of steps."""
+    sms = 132
+    for N in (1, 33, 25000):
+        plan = tgumbel.gumbel_plan(N, C, sms)
+        lanes, quads, chunks = plan["lanes"], plan["quads"], plan["chunks"]
+        assert lanes in (1, 2, 4, 8, 16, 32)
+        assert 1 <= quads <= tgumbel.GUMBEL_MAX_QUADS
+        assert chunks == 1 or (lanes, quads) == (32, tgumbel.GUMBEL_WIDE_QUADS)
+        assert plan["rows"] * lanes == tgumbel.GUMBEL_WARPS * 32
+        assert plan["groups"] * plan["rows"] >= N > (
+            plan["groups"] - 1) * plan["rows"]
+        steps = -(-plan["groups"] // plan["grid"])
+        assert plan["grid"] <= sms * tgumbel.GUMBEL_BLOCKS_PER_SM
+        assert plan["grid"] * (steps - 1) < plan["groups"]
+        # the lanes of one row: lanes 0 .. lanes-1 of a warp
+        seen = np.zeros(C, np.int64)
+        for sub in range(lanes):
+            for chunk in range(chunks):
+                for c0 in _plan_columns(plan, sub, chunk):
+                    seen[c0:min(c0 + 4, C)] += 1
+        np.testing.assert_array_equal(seen, 1)
+        # padding: less than one quad a lane (one chunk a row when wide)
+        slack = 4 * lanes * quads * chunks - C
+        assert 0 <= slack < 4 * (lanes if chunks == 1 else 32 * quads)
+
+
+def test_gumbel_plan_keeps_the_lanes_busy():
+    """At the production C = 92: 8 lanes of 3 quads (92 of 96 columns busy,
+    where one warp a row kept 92 of 128), 32 rows a group, and on 132 SMs
+    782 blocks of one group each for 25,000 rows, 1,042 of at most 30
+    groups each for a million; the widths that fill a power of two of lanes take all
+    32; past 1024 columns the chunked walk."""
+    p = tgumbel.gumbel_plan(25000, 92)
+    assert (p["lanes"], p["quads"], p["chunks"], p["rows"]) == (8, 3, 1, 32)
+    assert (p["groups"], p["grid"]) == (782, 782)
+    p = tgumbel.gumbel_plan(10 ** 6, 92)
+    assert (p["groups"], p["grid"]) == (31250, 1042)
+    assert (tgumbel.gumbel_plan(10, 128)["lanes"],
+            tgumbel.gumbel_plan(10, 128)["quads"]) == (32, 1)
+    assert tgumbel.gumbel_plan(10, 600)["quads"] == 5
+    assert tgumbel.gumbel_plan(10, 1024)["chunks"] == 1
+    assert tgumbel.gumbel_plan(10, 1025)["chunks"] == 3
+    assert tgumbel.gumbel_plan(10, 4099)["chunks"] == 9
+
+
+def test_no_plan_or_wrapper_refuses_a_width():
+    """Every C from 1 to 5,000 (and far wider) has a plan, and the operand
+    check takes it: no category limit is left in the wrappers."""
+    for C in list(range(1, 5001)) + [65536, 1 << 20]:
+        p = tgumbel.gumbel_plan(7, C)
+        assert 4 * p["lanes"] * p["quads"] * p["chunks"] >= C
+    for C in (513, 1100, 4099, 70000):
+        phi = torch.zeros(3, C)
+        assert tgumbel._check_rows(("phi", "u"), (phi, phi)) == (3, C)

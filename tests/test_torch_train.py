@@ -832,6 +832,32 @@ def test_use_pallas_train_steps_match_jax(mode, hard):
     assert d.max() <= 2 * 2 * jc.lr
 
 
+def test_use_pallas_train_step_at_600_categories_matches_jax():
+    """One Adam step with use_pallas at n_categories = 600, rows wider than
+    the Gumbel kernels kept in registers before they walked C in chunks
+    (the JAX kernels take any C): the loss and the categorical head's
+    weights track JAX's as in the two-step case above."""
+    jc, tc = _cfgs(n_categories=600, use_pallas=True, fused_encoder=True,
+                   fused_recon=True)
+    tx = jstep.make_optimizer(jc)
+    jstate = jstep.init_train_state(jax.random.key(4), jc, tx)
+    params = jax.tree_util.tree_map(np.array, jstate.params)
+    opt = tstep.make_optimizer(tc)
+    tp = tckpt.params_from_jax(params)
+    tstate = tstep.TrainState(
+        tp, tckpt.bn_from_jax(jax.tree_util.tree_map(np.array, jstate.bn)),
+        torch.ones(600), 0, 0, opt.init(tp))
+    xb = _model(12)[2][None]
+    jstate, tstate, jl, tl = _jax_then_port_steps(jstate, tstate, jc, tc, xb,
+                                                  1)
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ)
+    assert np.isfinite(tl).all() and tstate.opt_state.count == 1
+    d = np.abs(tstate.params["fcc"]["w"].numpy()
+               - np.asarray(jstate.params["fcc"]["w"]))
+    assert tstate.params["fcc"]["w"].shape[-1] == 600
+    assert d.max() <= 2 * jc.lr
+
+
 def test_use_pallas_checkpoints_cross_the_packages_both_ways(small_data,
                                                              tmp_path):
     """A use_pallas checkpoint of the JAX trainer loads in the port with
