@@ -27,7 +27,9 @@ Phases (any failure exits non-zero and prints no result line):
      at C = 513, 600, 1024, 2048 and 4099, and the forward's row plan
      against its Python twin), with given uniforms and with the in-kernel
      ones (bit for bit against their numpy version, and the seeded forward
-     against the forward fed them), hard samples, pruned categories, dphi
+     against the forward fed them), hard samples, pruned categories, the
+     coupling distance past 10 arms and 1024 categories (fault C8: (12,
+     5000, 92), (5, 5000, 1100), (5, 5000, 4099), (16, 2000, 1100)), dphi
      and dtemp also against autograd of the eager formula, one kernel a
      call by the profiler's names, the coupling distance on posteriors with
      dead categories and a collapsed arm; the two whole-decoder kernels at the
@@ -86,7 +88,8 @@ Phases (any failure exits non-zero and prints no result line):
      synchronising calls; then a short ZINB run with use_pallas; and the
      same path at n_categories=600 (4 steps, one alignment, one
      validation, then 12,000 cells served; counts, finite losses, the
-     largest single allocation below one (A, B, D) f32 tensor);
+     largest single allocation below one (A, B, D) f32 tensor) and at
+     n_arm=12 (fault C8: #11's general kernel, the same run and checks);
   7. hold the frozen augmenter on the card against the port's CPU path for
      both committed checkpoints (2,000 cells, the same explicit noise; the
      per-arm fast path against the forward on the broadcast batch; the ZINB
@@ -100,7 +103,20 @@ Phases (any failure exits non-zero and prints no result line):
      and recon_fwdbwd never); peak memory; the card against the CPU path;
      warm throughput with and without the flag and the augmenter in turns,
      profiler breakdowns, synchronising calls; a short run with use_pallas;
-  9. print the kernels line, the card's name and power limit, and last the
+  9. hidden widths past 128 (fc_dim=160) in MSE, ZINB and fused_decoder
+     mode end to end;
+ 10. host->device streaming at the same width: the streamer's batches on
+     the card bit for bit the host gather (dense f32, bf16, CSR); MSE
+     training streamed from a dense host dataset of 150,000 cells (3.0 GB)
+     for 2 epochs with a validation (the loss falls, the counters match the
+     steps, the peak device memory below half of the dataset's bytes); a
+     streamed chunk of 3 epochs bit for bit a manual step loop; the
+     automatic switch; ZINB streamed from a CSR matrix, with validate and
+     eval_model on CSR bit for bit the dense calls; streamed against
+     resident ms/step, the host gather, the pinned link rate, feed_census's
+     predicted overlap against the measured one, host waits and
+     synchronising calls per chunk;
+ 11. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
 Every ``train`` call passes ``save_plots=False``: the plot artifacts would
@@ -172,6 +188,11 @@ LR = 1e-3
 N_CAT_TRAIN, N_CAT_VAL = 20000, 2000
 N_CAT_ZINB = 10000
 N_CAT_WIDE = 600      # fault C7: rows past the 512 columns #10 held
+N_ARM_WIDE = 12       # fault C8: more arms than #11's templated kernel
+# phase 10, streaming: a dense host dataset of 3.0 GB f32 for the MSE run;
+# smaller ones for the exact checks, the ZINB run on CSR and the timing
+N_STREAM, N_STREAM_SMALL = 150000, 20000
+N_STREAM_ZINB, N_STREAM_TIMED = 10000, 40000
 # Gumbel and coupling kernels vs their plain versions.  y, dphi and the
 # Gram, max |Δ| / max |plain|: the same f32 formulas with logs, exps and
 # sums a few roundings apart (fused multiply-adds, another summation
@@ -189,6 +210,9 @@ TOL_DTEMP_AUTOGRAD = 3e-4
 TOL_GRAM = 2e-4
 TOL_DIST = 1e-4
 TOL_DIST_DEGENERATE = 5e-3
+# fault C8: #11 past 10 arms or 1024 categories (its general kernel)
+C8_SHAPES = [(12, 5000, 92), (5, 5000, 1100), (5, 5000, 4099),
+             (16, 2000, 1100)]
 GUMBEL_EPS = 1e-8
 # The operations bound of the SIMT kernels #9-#11 counts SASS
 # instructions, not flops: the H100 SXM issues 128 FP32 lane-instructions a
@@ -1715,23 +1739,27 @@ def phase_coupling(torch, check) -> dict:
     eps = GUMBEL_EPS
     record = {}
     # (5, 50000, 92): a slab of 379 rows, whose logs do not fit its shared
-    # memory; (10, 5000, 1024): the most arms and categories the kernel
-    # takes, the same
+    # memory; (10, 5000, 1024): the most arms and categories the templated
+    # kernel takes, the same; fault C8: past 10 arms or 1024 categories the
+    # general kernel, (12, 5000, 92) to (16, 2000, 1100)
     shapes = [(A, B, C), (A, 4999, C), (A, TAIL, 100), (3, TAIL, 120),
               (2, 777, 300), (10, 130, 17), (2, 64, 10), (A, 50000, C),
-              (10, B, 1024)]
+              (10, B, 1024)] + C8_SHAPES
     for shape in shapes:
         tag = f"{shape}"
-        out = (ctypes.c_longlong * 5)()
+        out = (ctypes.c_longlong * 6)()
         rcode = lib.coupling_plan(*shape, out)
         twin = cp.coupling_plan(*shape)
+        general = shape[0] > 10 or shape[2] > 1024
         check(rcode == 0 and tuple(out) == (
             twin["nb"], twin["rows"], twin["piece"], int(twin["keep"]),
-            twin["smem"]) and twin["rows"] == -(-shape[1] // twin["nb"])
+            twin["smem"], int(twin["general"]))
+            and twin["general"] == general
+            and twin["rows"] == -(-shape[1] // twin["nb"])
             and twin["nb"] * twin["rows"] >= shape[1],
             f"{tag}: coupling plan {tuple(out)} (blocks, rows a slab, rows "
-            "a piece, logs kept, shared bytes) equals the Python twin's; "
-            "the slabs cover B once")
+            "a piece, logs kept, shared bytes, general kernel) equals the "
+            "Python twin's; the slabs cover B once")
         c = categorical_posterior(torch, g, shape)
         gram = cp.coupling_gram_fused(c, eps)
         gram0 = cp.coupling_gram_plain(c, eps)
@@ -1769,12 +1797,13 @@ def phase_coupling(torch, check) -> dict:
                                     lambda: cp.coupling_gram_fused(c, eps))
             if names:
                 break
-        check(len(names) == 1 and "coupling_fused" in next(iter(names))
+        kname = "coupling_general" if general else "coupling_fused"
+        check(len(names) == 1 and kname in next(iter(names))
               and 0.0 < next(iter(names.values())) <= 1.0
               and (cp.coupling_gram_fused.launches - before) % 6 == 0,
               f"{tag}: one kernel a call by the profiler's names {names} and "
               "by the counter")
-        if shape in ((A, B, C), (A, 50000, C), (10, B, 1024)):
+        if shape in [(A, B, C), (A, 50000, C), (10, B, 1024)] + C8_SHAPES:
             it = TIMING_ITERS
             ms = cuda_ms(torch, lambda: cp.coupling_distance_fused(c, eps),
                          iters=it)
@@ -3537,6 +3566,85 @@ def phase_wide_categories(torch, check, tmp, x) -> dict:
     return {"c7_training": trained, "c7_serving": served}
 
 
+def phase_many_arms(torch, check, tmp, x) -> dict:
+    """Fault C8 end to end: init_model(use_pallas=True, align_arms_every=2,
+    n_arm=N_ARM_WIDE) -> train (4 steps, one alignment, one validation) ->
+    a fresh load_model -> eval_model over 12,000 cells, at the production
+    D, F, C and batch, counts set to 0 just before each run and read just
+    after.  Every coupling call runs #11's general kernel (more than 10
+    arms).  Losses finite; no single allocation reaches one (A, B, D) f32
+    tensor of the 12 arms.  Returns the launch counts of the two runs."""
+    import numpy as np
+    from dvae_tpu_torch.ops import coupling as cp
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    arms = N_ARM_WIDE
+    print(f"phase 6c: C8 end to end, n_arm={arms}")
+    tag = f"[C8 n_arm={arms}]"
+    check(cp.coupling_plan(arms, B, C)["general"],
+          f"{tag}: #11 runs its general kernel at ({arms}, {B}, {C})")
+    folder = os.path.join(tmp, "categorical_arms")
+    trainer = CplMixVAE(saving_folder=folder, device=DEV, seed=SEED)
+    trainer.init_model(n_arm=arms, n_categories=C, input_dim=D, fc_dim=F,
+                       lowD_dim=10, state_dim=2, batch_size=B,
+                       epochs_per_jit=2, eval_every=2, ckpt_every=2,
+                       use_pallas=True, align_arms_every=2)
+    n_train, n_val, n_serve = 2 * B, N_VAL, 12000
+    steps = 2 * (n_train // B)
+    eval_batches = -(-n_val // B) + min(n_train, 4 * B) // B
+    limit = arms * B * D * 4
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    path, largest = largest_allocation(torch, lambda: trainer.train(
+        x[:n_train], x_val=x[n_train:n_train + n_val], n_epoch=2,
+        early_stop_consensus=0, save_plots=False))
+    wall = time.perf_counter() - t0
+    trained = launch_counts()
+    want = {**dict.fromkeys(trained, 0), "encoder_fwd": steps,
+            "encoder_bwd": steps, "recon_fwdbwd": steps,
+            "gumbel_fwd": steps, "gumbel_bwd": steps,
+            "coupling": steps + eval_batches, "recon_fwd": eval_batches}
+    with open(os.path.join(folder, "metrics.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    val = [r["val/loss"] for r in rows if "val/loss" in r]
+    moves = [r for r in rows if "train/align_moved" in r]
+    print(f"  {tag} train: {steps} steps in {wall:.4f} s (cold, the "
+          f"allocator's history recorded); epoch losses {losses}; "
+          f"validation {val}; alignments {len(moves)}")
+    check(trained == want and len(losses) == 2 and len(val) == 1
+          and all(math.isfinite(v) for v in losses + val)
+          and largest < limit and not trainer._halted
+          and all(bool(torch.isfinite(v).all())
+                  for layer in trainer.state.params.values()
+                  for v in layer.values()),
+          f"{tag} train: launches {trained} (expect {want}), losses and "
+          f"validation finite, parameters finite, largest allocation "
+          f"{largest / 1e6:.1f} MB (limit one (A,B,D) f32 tensor, "
+          f"{limit / 1e6:.0f} MB)")
+    server = CplMixVAE(device=DEV)
+    server.load_model(path)
+    reset_launch_counts()
+    res, largest = largest_allocation(
+        torch, lambda: server.eval_model(x[:n_serve], batch_size=B))
+    served = launch_counts()
+    n_launch = -(-n_serve // B)
+    want = {**dict.fromkeys(served, 0), "coupling": n_launch,
+            "recon_fwd": n_launch}
+    print(f"  {tag} eval_model: {n_serve} cells, consensus "
+          f"{res['consensus']:.6f}, total_loss {res['total_loss']:.6g}")
+    check(served == want and server.cfg.n_arm == arms
+          and np.asarray(res["pred_label"]).shape == (arms, n_serve)
+          and math.isfinite(res["total_loss"])
+          and bool(np.all(np.isfinite(res["c_prob"])))
+          and largest < limit,
+          f"{tag} serve: launches {served} (expect {want}), finite results, "
+          f"largest allocation {largest / 1e6:.1f} MB (limit "
+          f"{limit / 1e6:.0f} MB)")
+    del trainer, server
+    torch.cuda.empty_cache()
+    return {"c8_training": trained, "c8_serving": served}
+
+
 def phase_augmenter(torch, check, x_mse, x_zinb) -> None:
     """The frozen augmenter on the card against the port's CPU path, for
     both committed checkpoints, on 2,000 cells with the same explicit
@@ -3803,6 +3911,308 @@ def phase_decoder_path(torch, check, tmp, x) -> dict:
     return out
 
 
+def streaming_dataset(torch, n: int, seed: int):
+    """(n, D) f32 host tensor of planted programs (the synthetic generator's
+    shape: sparse non-negative type centres plus Gaussian noise, ReLU),
+    drawn on the card in blocks of 10,000 rows and copied to the host."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    centers = (torch.rand((C, D), generator=g, device=DEV) * 8.0
+               * (torch.rand((C, D), generator=g, device=DEV) > 0.7))
+    out = torch.empty((n, D), dtype=torch.float32)
+    for lo in range(0, n, 10000):
+        hi = min(n, lo + 10000)
+        assign = torch.randint(0, C, (hi - lo,), generator=g, device=DEV)
+        block = centers[assign] + 0.3 * torch.randn(
+            (hi - lo, D), generator=g, device=DEV)
+        out[lo:hi].copy_(block.clamp_min_(0.0))
+    return out
+
+
+def streamed_batches_exact(torch, check, x_host, x_csr) -> None:
+    """10(a): the streamer's batches on the card, bit for bit the host
+    gather of the same plan (dense f32, a bf16 cast on the host, a bf16
+    host matrix, CSR densified), two epochs each."""
+    from dvae_tpu_torch.data.stream import BatchStreamer
+    x_bf = x_host.to(torch.bfloat16)
+    cases = (("f32", x_host, None, x_host),
+             ("f32 -> bf16 cast on the host", x_host, torch.bfloat16, x_bf),
+             ("bf16 host matrix", x_bf, None, x_bf),
+             ("CSR", x_csr, None, x_host))
+    for name, src, dtype, ref in cases:
+        bs = BatchStreamer(src, B, seed=SEED + 3, dtype=dtype, device=DEV,
+                           prefetch=2)
+        same, n = True, 0
+        for e in (0, 1):
+            plan = bs.plan(e)
+            for i, b in enumerate(bs.epoch(e)):
+                want = ref.index_select(0, torch.from_numpy(plan[i]))
+                same &= (b.x.device.type == "cuda"
+                         and b.x.dtype == want.dtype
+                         and bool(torch.equal(b.x.cpu(), want)))
+                n += 1
+        check(same and n == 2 * bs.steps_per_epoch,
+              f"10(a) {name}: {n} streamed batches ({B}, {D}) on the card "
+              "bit for bit the host gather of the plan")
+
+
+def manual_stream_loop(torch, cfg, tcfg, opt, x_host, epochs: int):
+    """The streaming runner written out, on the card: the noise chain of
+    chunk_rngs at epoch 0, the streamer's batches through make_train_step,
+    one chunk of ``epochs`` epochs."""
+    from dvae_tpu_torch.data.stream import BatchStreamer
+    from dvae_tpu_torch.models.mixvae import Noise
+    from dvae_tpu_torch.train.step import (chunk_rngs, init_train_state,
+                                           make_train_step)
+    state = init_train_state(SEED, cfg, opt, DEV)
+    step = make_train_step(cfg, tcfg, opt)
+    bs = BatchStreamer(x_host, tcfg.batch_size, seed=tcfg.seed, device=DEV,
+                       dtype=torch.bfloat16 if tcfg.bf16 else None)
+    gen, host = chunk_rngs(state.seed, state.epoch, DEV)
+    for _ in range(epochs):
+        for b in bs.epoch(state.epoch):
+            enc_seed = int(host.integers(0, 2 ** 31 - 1))
+            noise = (Noise(gumbel_seed=int(host.integers(0, 2 ** 31 - 1)))
+                     if cfg.use_pallas else None)
+            state, _, _ = step(state, b.x, b.prior, 1.0, generator=gen,
+                               enc_seed=enc_seed, noise=noise)
+        state = state._replace(epoch=state.epoch + 1)
+    return state
+
+
+def phase_streaming(torch, check, tmp, zinb_host) -> dict:
+    """Phase 10: host→device streaming at the production width (A=5,
+    D=5032, F=100, C=92, batch 5000).  (a) batches bit-equal to the host
+    gather; (b) MSE training streamed from a dense host dataset of
+    N_STREAM cells, 2 epochs and a validation: the loss falls, the
+    counters match the steps, the peak device memory stays below half of
+    the dataset's bytes; (c) a streamed chunk of 3 epochs bit for bit a
+    manual step loop over the streamed batches; (d) the automatic switch,
+    tripped by lowering the device fraction; (e) ZINB streamed from a CSR
+    matrix of hard synthetic counts, validate and eval_model on CSR bit for
+    bit the same calls on the dense array; (f) printed: streamed against
+    resident warm ms/step in turns, the host gather, the pinned link rate,
+    feed_census's predicted overlap against the measured one, host waits
+    and synchronising calls per chunk.  Returns the launch counts of the
+    counted runs."""
+    import numpy as np
+    import scipy.sparse as sp
+    import dvae_tpu_torch.train.cpl_mixvae as tm
+    from dvae_tpu_torch.data.stream import feed_census, make_streaming_runner
+    from dvae_tpu_torch.train.step import (init_train_state,
+                                           make_epoch_runner, tree_leaves)
+    print("phase 10: host->device streaming")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    x_host = streaming_dataset(torch, N_STREAM + N_VAL, SEED + 10)
+    x_train, x_val = x_host[:N_STREAM], x_host[N_STREAM:].numpy()
+    nbytes = N_STREAM * D * 4
+    small = x_host[:N_STREAM_SMALL]
+    x_csr = sp.csr_matrix(small.numpy())
+    print(f"  host dataset ({N_STREAM}, {D}) f32 = {nbytes / 1e9:.3f} GB, "
+          f"{1 - x_csr.nnz / (N_STREAM_SMALL * D):.3f} zeros, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    streamed_batches_exact(torch, check, small, x_csr)
+    out = {}
+
+    # (b) MSE training streamed from the dense host dataset
+    folder = os.path.join(tmp, "stream")
+    trainer = tm.CplMixVAE(saving_folder=folder, device=DEV, seed=SEED)
+    trainer.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                       lowD_dim=10, state_dim=2, batch_size=B,
+                       epochs_per_jit=2, eval_every=2, ckpt_every=2,
+                       stream=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train(x_train, x_val=x_val, n_epoch=2, early_stop_consensus=0,
+                  save_plots=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = out["stream_training"] = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = 2 * (N_STREAM // B)
+    want = {**dict.fromkeys(counts, 0), "encoder_fwd": steps,
+            "encoder_bwd": steps, "recon_fwdbwd": steps, "recon_fwd": 1}
+    with open(os.path.join(folder, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    val = [r["val/loss"] for r in rows if "val/loss" in r]
+    print(f"  10(b) train: {steps} streamed steps of {N_STREAM} cells in "
+          f"{wall:.4f} s (cold, pinned ring and checkpoints included); epoch "
+          f"losses {losses}; validation {val}")
+    check(counts == want, f"10(b) launches of the streamed MSE run: {counts} "
+                          f"(expect {want})")
+    check(len(losses) == 2 and all(math.isfinite(v) for v in losses + val)
+          and losses[1] < losses[0] and len(val) == 1,
+          "10(b) losses finite and falling, one finite validation")
+    check(peak < nbytes / 2, f"10(b) peak device memory {peak / 1e6:.1f} MB "
+          f"(base {base / 1e6:.1f} MB) below half of the dataset's "
+          f"{nbytes / 1e6:.1f} MB")
+    cfg, tcfg, opt = trainer.cfg, trainer.tcfg, trainer.tx
+    del trainer
+
+    # (c) one chunk of 3 epochs: the runner against the loop written out
+    runner = make_streaming_runner(cfg, tcfg, opt, N_STREAM_SMALL,
+                                   device=DEV)
+    state, _ = runner(3)(init_train_state(SEED, cfg, opt, DEV), small, None,
+                         1.0)
+    manual = manual_stream_loop(torch, cfg, tcfg, opt, small, 3)
+    same = all(bool(torch.equal(u, v)) for u, v in zip(
+        tree_leaves(state.params) + tree_leaves(state.opt_state.mu)
+        + tree_leaves(state.opt_state.nu),
+        tree_leaves(manual.params) + tree_leaves(manual.opt_state.mu)
+        + tree_leaves(manual.opt_state.nu)))
+    check(same and state.epoch == manual.epoch == 3
+          and state.opt_state.count == 3 * (N_STREAM_SMALL // B),
+          f"10(c) a streamed chunk of 3 epochs ({state.opt_state.count} "
+          "steps): parameters and Adam moments bit for bit the manual step "
+          "loop over the streamed batches")
+    del state, manual
+
+    # (d) the automatic switch, the device fraction lowered in-process
+    fraction = tm._DEVICE_DATASET_FRACTION
+    tm._DEVICE_DATASET_FRACTION = 1e-6
+    try:
+        auto = tm.CplMixVAE(device=DEV, seed=SEED)
+        auto.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                        lowD_dim=10, state_dim=2, batch_size=B,
+                        epochs_per_jit=2)
+        off = auto.tcfg.stream
+        reset_launch_counts()
+        auto.train(small, n_epoch=2, early_stop_consensus=0,
+                   save_plots=False)
+        torch.cuda.synchronize()
+        counts = out["stream_auto"] = launch_counts()
+    finally:
+        tm._DEVICE_DATASET_FRACTION = fraction
+    steps = 2 * (N_STREAM_SMALL // B)
+    check(not off and auto.tcfg.stream and auto.state.opt_state.count == steps
+          and counts["encoder_fwd"] == counts["recon_fwdbwd"] == steps,
+          f"10(d) the switch to streaming when the dataset exceeds the "
+          f"lowered fraction: stream {off} -> {auto.tcfg.stream}, {steps} "
+          f"steps, launches {counts}")
+    del auto
+
+    # (e) ZINB streamed from CSR; the CSR eval bit for bit the dense eval
+    dense = zinb_host.numpy()
+    csr = sp.csr_matrix(dense)
+    n_tr = N_STREAM_ZINB
+    z = tm.CplMixVAE(saving_folder=os.path.join(tmp, "stream_zinb"),
+                     device=DEV, seed=SEED)
+    z.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                 lowD_dim=10, state_dim=2, mode="ZINB", batch_size=B,
+                 epochs_per_jit=2, eval_every=2, stream=True)
+    reset_launch_counts()
+    z.train(csr[:n_tr], x_val=csr[n_tr:], n_epoch=2, early_stop_consensus=0,
+            save_plots=False)
+    torch.cuda.synchronize()
+    counts = out["stream_zinb"] = launch_counts()
+    zsteps = 2 * (n_tr // B)
+    n_val_batches = -(-(csr.shape[0] - n_tr) // B)
+    want = {**dict.fromkeys(counts, 0), "encoder_fwd": zsteps,
+            "encoder_bwd": zsteps, "zinb_fwdbwd": zsteps,
+            "zinb_fwd": n_val_batches}
+    check(counts == want and not z._halted,
+          f"10(e) launches of ZINB streamed from CSR "
+          f"({csr.nnz / csr.shape[0]:.0f} stored values a row): {counts} "
+          f"(expect {want})")
+    reset_launch_counts()
+    v_csr = z.validate(csr[n_tr:], batch_size=B)
+    v_dense = z.validate(dense[n_tr:], batch_size=B)
+    r_csr = z.eval_model(csr, batch_size=B)
+    r_dense = z.eval_model(dense, batch_size=B)
+    served = out["stream_zinb_eval"] = launch_counts()
+    same = all(np.array_equal(np.asarray(r_csr[k]), np.asarray(r_dense[k]))
+               for k in r_dense)
+    check(v_csr == v_dense and same and math.isfinite(v_csr["loss"]),
+          f"10(e) validate and eval_model on CSR bit for bit the same calls "
+          f"on the dense array (validation loss {v_csr['loss']:.6g}, "
+          f"consensus {r_csr['consensus']:.6f}; zinb_fwd launches "
+          f"{served['zinb_fwd']})")
+    del z
+
+    # (f) streamed against resident, in turns, and the feed's stages
+    n = N_STREAM_TIMED
+    xs, xd = x_host[:n], x_host[:n].to(DEV)
+    state = init_train_state(SEED, cfg, opt, DEV)
+    resident = make_epoch_runner(cfg, tcfg, opt, n, epochs_per_chunk=2)
+    streamed_runner = make_streaming_runner(cfg, tcfg, opt, n, device=DEV,
+                                            record_stats=True)
+    streamed = streamed_runner(2)
+    chunk_steps = 2 * (n // B)
+    per_step = []  # host waits of each streamed step
+
+    def timed(which):
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "resident":
+            state, ems = resident(state, xd, None, 1.0)
+        else:
+            st = streamed_runner.streamer
+            before = len(st.stats.waits) if st is not None else 0
+            state, ems = streamed(state, xs, None, 1.0)
+        ems.total.cpu()
+        ms = (time.perf_counter() - t0) / chunk_steps * 1e3
+        if which == "streamed":
+            per_step.extend(streamed_runner.streamer.stats.waits[before:])
+        return ms
+
+    timed("resident")
+    timed("streamed")  # warm: the pinned ring is made here
+    per_step.clear()
+    ms = {"resident": [], "streamed": []}
+    for which in ("resident", "streamed", "streamed", "resident"):
+        ms[which].append(timed(which))
+    res_ms, str_ms = (sum(v) / len(v) for v in (ms["resident"],
+                                                 ms["streamed"]))
+    print(f"  10(f) warm ms/step over {n} cells ({chunk_steps} steps a "
+          f"chunk), in turns: resident {res_ms:.3f} ({ms['resident'][0]:.3f}"
+          f", {ms['resident'][1]:.3f}), streamed {str_ms:.3f} "
+          f"({ms['streamed'][0]:.3f}, {ms['streamed'][1]:.3f}); streamed / "
+          f"resident {str_ms / res_ms:.3f}")
+    # synchronising calls inside one streamed chunk
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, ems = streamed(state, xs, None, 1.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    ems.total.cpu()
+    n_sync = sum("called a synchronizing" in str(w.message) for w in caught)
+    for w in caught[:3]:
+        print(f"    {str(w.message)[:100]} ({os.path.basename(w.filename)}"
+              f":{w.lineno})")
+    check(n_sync == 0, f"10(f) {n_sync} synchronising calls inside a "
+                       "streamed chunk (no value read back)")
+    check(len(per_step) == 2 * chunk_steps and max(per_step) <= 1,
+          f"10(f) host waits on an event: {sum(per_step)} over "
+          f"{len(per_step)} steps of two streamed chunks, at most "
+          f"{max(per_step)} a step (limit 1)")
+    st = streamed_runner.streamer.stats
+    gather = sorted(st.gather_s)[len(st.gather_s) // 2] * 1e3
+    pinned = torch.empty((B, D), dtype=torch.float32, pin_memory=True)
+    dst = torch.empty((B, D), dtype=torch.float32, device=DEV)
+    h2d_ms = cuda_ms(torch, lambda: dst.copy_(pinned, non_blocking=True),
+                     iters=10)
+    gbps = B * D * 4 / h2d_ms / 1e6
+    census = feed_census(xs, B, device=DEV, device_ms_per_step=res_ms,
+                         link_gbps=gbps)
+    measured = 100.0 * min(1.0, res_ms / str_ms)
+    print(f"  10(f) host gather (f32, {B} rows) median {gather:.3f} ms in "
+          f"the runner; H2D from pinned memory {h2d_ms:.3f} ms a batch = "
+          f"{gbps:.2f} GB/s; feed_census {census}; predicted overlap "
+          f"{census['predicted_overlap_pct']}% against measured "
+          f"{measured:.1f}% (resident / streamed ms a step); host waits a "
+          f"chunk {[sum(per_step[:chunk_steps]), sum(per_step[chunk_steps:])]}")
+    del xd, state, resident, streamed, streamed_runner, pinned, dst
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     only = [a for a in sys.argv[1:] if a.startswith("--kernels-only")]
     kernels_only = bool(only)
@@ -3863,13 +4273,16 @@ def main() -> int:
             paths["categorical_serving"] = cat["serving"]
             paths["categorical_zinb"] = cat["zinb"]
             paths.update(phase_wide_categories(torch, check, tmp, x))
+            paths.update(phase_many_arms(torch, check, tmp, x))
             phase_augmenter(torch, check, x, x_zinb)
             paths.update(phase_c6_path(torch, check, tmp, x, x_zinb))
+            zinb_host = x_zinb[:N_STREAM_ZINB + N_VAL].cpu()
             del x_zinb
             torch.cuda.empty_cache()
             paths.update(phase_decoder_path(torch, check, tmp, x))
             del x
             torch.cuda.empty_cache()
+            paths.update(phase_streaming(torch, check, tmp, zinb_host))
             on_path = ("recon_fwd", "recon_fwdbwd", "encoder_fwd",
                        "encoder_bwd", "zinb_fwd", "zinb_fwdbwd",
                        "gumbel_fwd", "gumbel_bwd", "coupling",

@@ -16,15 +16,18 @@ adjusted-MI metrics as one JSON line (also saved to
 zero-inflated negative-binomial reconstruction (``evaluate`` takes the
 mode from the checkpoint); ``train --align_every N`` Hungarian-aligns the
 arms' category indices every N epochs; ``train --aug_file PATH`` trains
-every arm on its own view from a frozen augmenter.  The dataset is a synthetic one
+every arm on its own view from a frozen augmenter; ``train --stream``
+keeps the training set on the host and streams batches to the device.
+The dataset is the ``.h5ad`` file that ``--toml`` (default ``dvae.toml``)
+names in the section ``--dataset`` (its ``data_path`` and
+``anndata_file``), cut to the first ``--n_gene`` genes; where that file is
+absent, or with ``--synthetic``, a synthetic one
 (``--syn_cells``/``--syn_genes``/``--syn_types``): planted Gaussian
 programs, or with ``--syn_hard`` (alias ``--hard_synthetic``) ZINB counts
-with library-size variation, dropout and overlapping types; reading
-``.h5ad`` files is not ported yet.  Both parsers accept every option of
-the JAX package's; the options of features still to port (``--stream``,
-``--sharding``/``--mesh_*``/``--coordinator``/``--num_processes``/
-``--process_id``, ``--wandb``, ``--toml``/``--dataset``/``--n_gene``
-without ``--synthetic``, ``--rng_impl rbg``) raise the trainer's
+with library-size variation, dropout and overlapping types.  Both parsers
+accept every option of the JAX package's; the options of features still to
+port (``--sharding``/``--mesh_*``/``--coordinator``/``--num_processes``/
+``--process_id``, ``--wandb``, ``--rng_impl rbg``) raise the trainer's
 ``NotImplementedError``.
 """
 
@@ -39,13 +42,24 @@ import numpy as np
 
 
 def _load_dataset(args):
+    """The TOML-resolved .h5ad when it exists, else synthetic
+    (dvae_tpu/cli.py:69-89)."""
     from dvae_tpu_torch.data.anndata_io import (hard_synthetic_dataset,
-                                                synthetic_dataset)
+                                                load_data, synthetic_dataset)
+    from dvae_tpu_torch.utils.tools import get_paths
     if args.syn_hard:
         print("using HARD synthetic dataset (ZINB counts)")
         return hard_synthetic_dataset(
             n_cells=args.syn_cells, n_genes=args.syn_genes,
             n_types=args.syn_types, seed=args.seed)
+    if not args.synthetic and os.path.exists(args.toml):
+        config = get_paths(toml_file=args.toml, sub_file=args.dataset)
+        sec = config.get(args.dataset, {})
+        f = (config["paths"]["main_dir"] / str(sec.get("data_path", ""))
+             / str(sec.get("anndata_file", "")))
+        if sec.get("anndata_file") and f.is_file():
+            return load_data(str(f), n_gene=args.n_gene)
+    print("using synthetic dataset")
     return synthetic_dataset(n_cells=args.syn_cells, n_genes=args.syn_genes,
                              n_types=args.syn_types, seed=args.seed)
 
@@ -85,7 +99,8 @@ def cmd_train(args) -> int:
         epochs_per_jit=args.epochs_per_jit, bf16=args.bf16,
         optimizer=args.optimizer,
         fused={"auto": None, "on": True, "off": False}[args.fused],
-        shuffle_block=args.shuffle_block, ckpt_every=args.ckpt_every,
+        shuffle_block=args.shuffle_block, stream=args.stream,
+        ckpt_every=args.ckpt_every,
         eval_every=args.eval_every, align_arms_every=args.align_every,
         local_bn_stats=args.local_bn_stats)
     done = 0
@@ -159,16 +174,15 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _add_data_flags(p: argparse.ArgumentParser) -> None:
-    """The reference's dataset flags (dvae_tpu/cli.py:52-66).  Only the
-    synthetic generators are ported: ``--toml``/``--dataset``/``--n_gene``
-    are refused unless ``--synthetic`` or ``--syn_hard`` is given."""
-    p.add_argument("--toml", type=str, default=None,
-                   help="dataset TOML (reading .h5ad is not ported yet)")
-    p.add_argument("--dataset", type=str, default=None)
-    p.add_argument("--n_gene", type=int, default=None)
+    """The reference's dataset flags (dvae_tpu/cli.py:52-66)."""
+    p.add_argument("--toml", type=str, default="dvae.toml",
+                   help="dataset TOML: per-dataset data_path/anndata_file")
+    p.add_argument("--dataset", type=str, default="mouse_smartseq",
+                   help="the TOML section of the dataset")
+    p.add_argument("--n_gene", type=int, default=0,
+                   help="keep the first n genes (0: all)")
     p.add_argument("--synthetic", action="store_true",
-                   help="use the synthetic dataset (the only input the "
-                        "port reads so far)")
+                   help="force synthetic data")
     p.add_argument("--syn_hard", "--hard_synthetic", action="store_true",
                    help="the hard-mode ZINB-count synthetic generator "
                         "(library-size variation, dropout, hierarchically "
@@ -183,13 +197,6 @@ def _refuse_unported(args) -> None:
     """Raise the trainer's NotImplementedError for a flag whose feature
     arrives with a later slice of the port."""
     from dvae_tpu_torch.train.cpl_mixvae import _not_ported
-    if not (args.synthetic or args.syn_hard):
-        for flag in ("toml", "dataset", "n_gene"):
-            if getattr(args, flag) is not None:
-                raise _not_ported(f"reading a dataset (--{flag})",
-                                  "real-data input")
-    if getattr(args, "stream", False):
-        raise _not_ported("streaming (--stream)", "streaming")
     if getattr(args, "sharding", "no") != "no":
         raise _not_ported(f"--sharding {args.sharding}", "multi-GPU")
     for flag in ("mesh_data", "mesh_arm", "mesh_fsdp"):
@@ -247,7 +254,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="continue the newest matching _RUN{n} folder from "
                          "its latest checkpoint")
     pt.add_argument("--stream", action="store_true",
-                    help="not ported yet: refused")
+                    help="keep the dataset on the host and stream batches "
+                         "to the device (for datasets larger than its "
+                         "memory; data/stream.py)")
     pt.add_argument("--local_bn_stats", action="store_true",
                     help="per-group (ghost) batch-norm statistics over the "
                          "mesh's data blocks (one group on one device)")

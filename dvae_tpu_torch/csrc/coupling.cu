@@ -44,9 +44,22 @@
 //     first barrier), sums the partials in a fixed order in double and
 //     writes G both ways and the distance.
 // Where a slab's logs do not fit SLAB_BYTES of shared memory (a large B, or
-// many arms and categories: A up to 10, C up to 1024), the slab is walked
-// in pieces of `piece` rows, the column sums carried in the workspace, and
-// phase 1 reads c again (from L2) and takes its logs again.
+// many arms and categories), the slab is walked in pieces of `piece` rows,
+// the column sums carried in the workspace, and phase 1 reads c again (from
+// L2) and takes its logs again.
+//
+// Any A and C.  The templated kernel above serves A <= TILED_ARMS and
+// C <= TILED_C, where its A(A+1)/2 Gram sums fit in registers and w, m and
+// one row of the slab fit shared memory.  Past either, `coupling_general`
+// (one cooperative launch on the same plan of blocks and slabs, 32 warps a
+// block: its loads are paced by latency, not bytes) keeps nothing of c in
+// shared memory: phase 0 sums each (arm, column) down the
+// slab straight from device memory, w and m stay in the workspace (read
+// through L2), and phase 1 walks the arm pairs in tiles of TA x TA arms
+// (p <= q), each tile one pass over the slab that takes the logs of its
+// arms again, its TA * TA sums in registers.  Each pass reads 2 TA arms'
+// rows at most, so c is read about ceil(A / TA) + 1 times: at (16, 2000,
+// 1100), 10 passes.  Its sums keep fixed orders too.
 // w and m need two barriers, not one: every block needs all of them, and
 // summing the nb partials of all A * C columns in each block would read
 // nb times more than the one block a column does here.
@@ -70,8 +83,11 @@ namespace cg = cooperative_groups;
 
 constexpr int WARPS = 16;
 constexpr int THREADS = WARPS * 32;
-constexpr int MAX_ARMS = 10;
-constexpr int MAX_C = 1024;
+constexpr int TILED_ARMS = 10;  // the templated kernel's most arms
+constexpr int TILED_C = 1024;   // and categories; past either, the general
+constexpr int TA = 4;           // kernel, whose Gram tiles are TA x TA arms
+constexpr int GWARPS = 32;      // and whose blocks hold 32 warps: latency,
+constexpr int GTHREADS = GWARPS * 32;  // not bytes, paces its loads
 constexpr int SLOTS = 132;      // most blocks: an H100 SXM's SMs, a constant
 constexpr int MIN_ROWS = 8;     // fewest rows a slab holds
 constexpr int SLAB_BYTES = 160 * 1024;  // shared memory for the slab
@@ -96,6 +112,7 @@ struct Plan {
   int piece;  // rows of the slab in shared memory at a time
   int keep;   // the whole slab's logs stay in shared memory for phase 1
   long long smem;  // dynamic shared memory of a block, bytes
+  int general;     // coupling_general (any A, C) instead of the template
 };
 
 Plan make_plan(int A, int B, int C) {
@@ -103,6 +120,13 @@ Plan make_plan(int A, int B, int C) {
   const int by_rows = (B + MIN_ROWS - 1) / MIN_ROWS;
   p.nb = by_rows < SLOTS ? by_rows : SLOTS;
   p.rows = (B + p.nb - 1) / p.nb;
+  p.general = A > TILED_ARMS || C > TILED_C;
+  if (p.general) {  // no slab in shared memory; w * SL of each arm there
+    p.keep = 0;
+    p.piece = 0;
+    p.smem = 8LL * A;
+    return p;
+  }
   const long long row_bytes = 4LL * A * C;
   p.keep = p.rows * row_bytes <= SLAB_BYTES;
   p.piece = p.keep ? p.rows : (int)(SLAB_BYTES / row_bytes);
@@ -113,18 +137,20 @@ Plan make_plan(int A, int B, int C) {
 
 // Offsets (in floats) of the regions of the one buffer.
 struct Layout {
-  long long part0, w, m, gpart, ticket, total;
+  long long part0, w, m, gpart, ticket, gsum, total;
 };
 
-__host__ __device__ Layout make_layout(int A, int C, int nb) {
+// gsum (the general kernel's Gram sums, NP doubles) only where `general`
+__host__ __device__ Layout make_layout(int A, int C, int nb, int general) {
   Layout l;
-  const long long np = A * (A + 1) / 2;
-  l.part0 = (A * A + 1 + 63) / 64 * 64;            // doubles from here
+  const long long np = (long long)A * (A + 1) / 2;
+  l.part0 = ((long long)A * A + 1 + 63) / 64 * 64;  // doubles from here
   l.w = l.part0 + 2LL * nb * 3 * A * C;
   l.m = l.w + (long long)A * C;
   l.gpart = l.m + C;
   l.ticket = l.gpart + nb * np;
-  l.total = l.ticket + 1;
+  l.gsum = (l.ticket + 2) / 2 * 2;                  // doubles from here
+  l.total = general ? l.gsum + 2 * np : l.ticket + 1;
   return l;
 }
 
@@ -158,10 +184,10 @@ coupling_fused(const float* __restrict__ c, int B, int C, float eps,
   constexpr int NP = A * (A + 1) / 2;
   extern __shared__ __align__(16) float sm[];
   __shared__ float red[NP][WARPS];
-  __shared__ double wl[MAX_ARMS];
+  __shared__ double wl[TILED_ARMS];
   __shared__ double gsum[NP];
   __shared__ int last;
-  const Layout lay = make_layout(A, C, pl.nb);
+  const Layout lay = make_layout(A, C, pl.nb, 0);
   double* part0 = reinterpret_cast<double*>(buf_out + lay.part0);
   float* w = buf_out + lay.w;
   float* m = buf_out + lay.m;
@@ -325,6 +351,188 @@ coupling_fused(const float* __restrict__ c, int B, int C, float eps,
   }
 }
 
+// Any A and C (see the note at the top): the plan's blocks and slabs, c
+// read from device memory in every phase, w and m from the workspace, the
+// Gram in tiles of TA x TA arms.
+__global__ void __launch_bounds__(GTHREADS)
+coupling_general(const float* __restrict__ c, int A, int B, int C, float eps,
+                 Plan pl, float* __restrict__ buf_out) {
+  constexpr int TP = TA * TA;
+  extern __shared__ __align__(16) double wl_all[];  // (A)
+  __shared__ float red[TP][GWARPS];
+  __shared__ int last;
+  const long long NP = (long long)A * (A + 1) / 2;
+  const Layout lay = make_layout(A, C, pl.nb, 1);
+  double* part0 = reinterpret_cast<double*>(buf_out + lay.part0);
+  float* w = buf_out + lay.w;
+  float* m = buf_out + lay.m;
+  float* gpart = buf_out + lay.gpart;
+  unsigned* ticket = reinterpret_cast<unsigned*>(buf_out + lay.ticket);
+  double* gsum = reinterpret_cast<double*>(buf_out + lay.gsum);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int blk = blockIdx.x, nb = pl.nb;
+  const int r0 = min(B, blk * pl.rows), r1 = min(B, r0 + pl.rows);
+  const long long AC = (long long)A * C;
+  cg::grid_group grid = cg::this_grid();
+  if (blk == 0 && tid == 0) *ticket = 0u;
+
+  // phase 0: each thread's (arm, column) pairs summed down the slab, rows
+  // in order; neighbouring threads read neighbouring columns of a row
+  double* mine = part0 + (long long)blk * 3 * AC;
+  for (long long pr = tid; pr < AC; pr += GTHREADS) {
+    const float* col = c + (pr / C) * (long long)B * C + pr % C;
+    double s1 = 0.0, s2 = 0.0, sl = 0.0;
+    for (int r = r0; r < r1; ++r) {
+      const float v = __ldg(col + (long long)r * C);
+      s1 += (double)v;
+      s2 += (double)v * (double)v;
+      sl += (double)logf(v + eps);
+    }
+    mine[pr] = s1;
+    mine[AC + pr] = s2;
+    mine[2 * AC + pr] = sl;
+  }
+  grid.sync();
+
+  // w and m of the columns blk, blk + nb, ..: as the templated kernel
+  for (int col = blk; col < C; col += nb) {
+    for (int a = warp; a < A; a += GWARPS) {
+      double s = 0.0, q = 0.0, l = 0.0;
+      for (int b = lane; b < nb; b += 32) {
+        const double* pb = part0 + (long long)b * 3 * AC + (long long)a * C
+                           + col;
+        s += __ldcg(pb);
+        q += __ldcg(pb + AC);
+        l += __ldcg(pb + 2 * AC);
+      }
+      s = warp_sum(s);
+      q = warp_sum(q);
+      l = warp_sum(l);
+      if (lane == 0) {
+        const double var = (q - s * s / B) / (B - 1);
+        const double wa = 1.0 / sqrt(fmax(var, 0.0) + (double)eps);
+        w[(long long)a * C + col] = (float)wa;
+        wl_all[a] = wa * l;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      double t = 0.0;
+      for (int i = 0; i < A; ++i) t += wl_all[i];
+      m[col] = (float)(t / A / B);
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // phase 1: the tiles (p, q), p <= q, of TA x TA arm pairs, one pass over
+  // the slab each; a tile's sums a <= d go to this block's partials
+  const int nt = (A + TA - 1) / TA;
+  const int n = (r1 - r0) * C;
+  for (int p = 0; p < nt; ++p)
+    for (int q = p; q < nt; ++q) {
+      float acc[TA][TA];
+#pragma unroll
+      for (int u = 0; u < TA; ++u)
+#pragma unroll
+        for (int v = 0; v < TA; ++v) acc[u][v] = 0.f;
+      for (int i = tid; i < n; i += GTHREADS) {
+        const int row = r0 + i / C, col = i % C;
+        const float mv = __ldcg(m + col);
+        float pa[TA], pd[TA];
+#pragma unroll
+        for (int u = 0; u < TA; ++u) {
+          const int a = p * TA + u, d = q * TA + u;
+          pa[u] = a < A ? logf(__ldg(c + ((long long)a * B + row) * C + col)
+                               + eps) * __ldcg(w + (long long)a * C + col)
+                          - mv
+                        : 0.f;
+          if (p != q)
+            pd[u] = d < A ? logf(__ldg(c + ((long long)d * B + row) * C
+                                       + col) + eps)
+                                * __ldcg(w + (long long)d * C + col) - mv
+                          : 0.f;
+        }
+        if (p == q)
+#pragma unroll
+          for (int u = 0; u < TA; ++u) pd[u] = pa[u];
+#pragma unroll
+        for (int u = 0; u < TA; ++u)
+#pragma unroll
+          for (int v = 0; v < TA; ++v)
+            acc[u][v] = fmaf(pa[u], pd[v], acc[u][v]);
+      }
+#pragma unroll
+      for (int u = 0; u < TA; ++u)
+#pragma unroll
+        for (int v = 0; v < TA; ++v) {
+          const float s = warp_sum(acc[u][v]);
+          if (lane == 0) red[u * TA + v][warp] = s;
+        }
+      __syncthreads();
+      if (tid < TP) {
+        const int a = p * TA + tid / TA, d = q * TA + tid % TA;
+        if (a < A && d < A && a <= d) {
+          float t = 0.f;
+#pragma unroll
+          for (int wp = 0; wp < GWARPS; ++wp) t += red[tid][wp];
+          // k of (a, d) in the order a = 0.., d = a..
+          const long long k = (long long)a * A - (long long)a * (a - 1) / 2
+                              + (d - a);
+          gpart[(long long)blk * NP + k] = t;
+        }
+      }
+      __syncthreads();  // red is free for the next tile
+    }
+
+  // the last block to arrive sums the Gram partials in block order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1u) == (unsigned)(nb - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (long long k = warp; k < NP; k += GWARPS) {
+    double s = 0.0;
+    for (int b = lane; b < nb; b += 32)
+      s += (double)__ldcg(gpart + (long long)b * NP + k);
+    s = warp_sum(s);
+    if (lane == 0) gsum[k] = s;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double tr = 0.0, total = 0.0;
+    long long k = 0;
+    for (int a = 0; a < A; ++a)
+      for (int d = a; d < A; ++d) {
+        const double v = gsum[k++];
+        buf_out[(long long)a * A + d] = (float)v;
+        buf_out[(long long)d * A + a] = (float)v;
+        if (d == a) {
+          tr += v;
+          total += v;
+        } else {
+          total += 2.0 * v;
+        }
+      }
+    buf_out[(long long)A * A] = (float)((A * tr - total) / B);
+  }
+}
+
+int launch_general(const float* c, int A, int B, int C, float eps,
+                   const Plan& pl, float* buf, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(&coupling_general);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  Plan p = pl;
+  void* args[] = {(void*)&c, (void*)&A, (void*)&B, (void*)&C, (void*)&eps,
+                  (void*)&p, (void*)&buf};
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(pl.nb), dim3(GTHREADS),
+                                          args, (size_t)pl.smem, st);
+}
+
 template <int A>
 int launch(const float* c, int B, int C, float eps, const Plan& pl,
            float* buf, cudaStream_t st) {
@@ -340,28 +548,27 @@ int launch(const float* c, int B, int C, float eps, const Plan& pl,
 }
 
 bool shape_ok(int A, int B, int C) {
-  return A >= 1 && A <= MAX_ARMS && B >= 2 && C >= 1 && C <= MAX_C;
+  return A >= 1 && B >= 2 && C >= 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-int coupling_max_arms() { return MAX_ARMS; }
-int coupling_max_c() { return MAX_C; }
-
 // Floats of the one buffer a call needs (the output first, A * A + 1
 // floats: G row by row, then the distance; then the workspace); -1 if the
 // shape is refused.
 long long coupling_buffer_floats(int A, int B, int C) {
   if (!shape_ok(A, B, C)) return -1;
-  return make_layout(A, C, make_plan(A, B, C).nb).total;
+  const Plan p = make_plan(A, B, C);
+  return make_layout(A, C, p.nb, p.general).total;
 }
 
 // The launch plan for the shape: out[0] blocks, out[1] rows a slab,
 // out[2] rows a piece, out[3] logs kept in shared memory (1) or taken
-// again (0), out[4] dynamic shared memory a block in bytes.  0, or -1 if
-// the shape is refused.
+// again (0), out[4] dynamic shared memory a block in bytes, out[5] the
+// general kernel (1) or the templated one (0).  0, or -1 if the shape is
+// refused.
 int coupling_plan(int A, int B, int C, long long* out) {
   if (!shape_ok(A, B, C)) return -1;
   const Plan p = make_plan(A, B, C);
@@ -370,6 +577,7 @@ int coupling_plan(int A, int B, int C, long long* out) {
   out[2] = p.piece;
   out[3] = p.keep;
   out[4] = p.smem;
+  out[5] = p.general;
   return 0;
 }
 
@@ -380,6 +588,7 @@ int coupling_gram_f32(const void* c, float eps, int A, int B, int C,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* cc = static_cast<const float*>(c);
   float* buf = static_cast<float*>(buffer);
+  if (pl.general) return launch_general(cc, A, B, C, eps, pl, buf, st);
   switch (A) {
     case 1: return launch<1>(cc, B, C, eps, pl, buf, st);
     case 2: return launch<2>(cc, B, C, eps, pl, buf, st);

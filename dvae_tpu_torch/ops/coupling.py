@@ -7,7 +7,9 @@ Counterpart of dvae_tpu/ops/coupling_pallas.py.  The eager form
 scaled tensor, two (A, B, C) tensors, before the Gram contraction; the
 hand-written CUDA kernel of ``csrc/coupling.cu`` (its source note states
 the bound, the design and the workspace) reads ``c`` once, in one
-cooperative launch, and emits only the Gram matrix and the distance —
+cooperative launch, for any A and C (past 10 arms or 1024 categories its
+general form, which tiles the arm pairs and keeps c out of shared memory),
+and emits only the Gram matrix and the distance —
 kernel #11 (``_kernel``, coupling_pallas.py:51), counted once per launch by
 ``coupling_gram_fused.launches``:
 
@@ -48,9 +50,6 @@ def _lib() -> ctypes.CDLL:
         lib.coupling_plan.argtypes = [i, i, i,
                                       ctypes.POINTER(ctypes.c_longlong)]
         lib.coupling_plan.restype = i
-        for fn in (lib.coupling_max_arms, lib.coupling_max_c):
-            fn.argtypes = []
-            fn.restype = i
         lib._dvae_bound = True
     return lib
 
@@ -95,21 +94,29 @@ def coupling_distance_plain(c: torch.Tensor, eps: float) -> torch.Tensor:
 COUPLING_SLOTS = 132      # most blocks
 COUPLING_MIN_ROWS = 8     # fewest rows a block's slab holds
 COUPLING_SLAB_BYTES = 160 * 1024  # shared memory for a slab's logs
+COUPLING_TILED_ARMS = 10  # the templated kernel's most arms
+COUPLING_TILED_C = 1024   # and categories; past either, the general kernel
 
 
 def coupling_plan(A: int, B: int, C: int) -> dict:
     """The plan the kernel makes for c (A, B, C): ``nb`` blocks, each
-    owning ``rows`` consecutive rows of every arm; ``keep`` when the slab's
-    logs fit its shared memory (else it walks ``piece`` rows at a time and
-    phase 1 reads c again); ``smem``, a block's dynamic shared memory in
-    bytes (the slab's piece and the weights w, m)."""
+    owning ``rows`` consecutive rows of every arm.  Up to
+    ``COUPLING_TILED_ARMS`` arms and ``COUPLING_TILED_C`` categories the
+    templated kernel runs: ``keep`` when the slab's logs fit its shared
+    memory (else it walks ``piece`` rows at a time and phase 1 reads c
+    again); ``smem``, a block's dynamic shared memory in bytes (the slab's
+    piece and the weights w, m).  Past either, ``general``: no slab in
+    shared memory (``piece`` 0), only each arm's w·SL in double."""
     nb = min(COUPLING_SLOTS, -(-B // COUPLING_MIN_ROWS))
     rows = -(-B // nb)
+    if A > COUPLING_TILED_ARMS or C > COUPLING_TILED_C:
+        return {"nb": nb, "rows": rows, "piece": 0, "keep": False,
+                "smem": 8 * A, "general": True}
     row_bytes = 4 * A * C
     keep = rows * row_bytes <= COUPLING_SLAB_BYTES
     piece = rows if keep else max(1, COUPLING_SLAB_BYTES // row_bytes)
     return {"nb": nb, "rows": rows, "piece": piece, "keep": keep,
-            "smem": piece * row_bytes + 4 * (A + 1) * C}
+            "smem": piece * row_bytes + 4 * (A + 1) * C, "general": False}
 
 
 def _launch(c: torch.Tensor, eps: float) -> torch.Tensor:
@@ -122,10 +129,6 @@ def _launch(c: torch.Tensor, eps: float) -> torch.Tensor:
     if not c.is_contiguous():
         raise ValueError("c is not contiguous")
     lib = _lib()
-    if A > lib.coupling_max_arms() or C > lib.coupling_max_c():
-        raise ValueError(f"A = {A}, C = {C} exceed the coupling kernel's "
-                         f"limits of {lib.coupling_max_arms()} arms and "
-                         f"{lib.coupling_max_c()} categories")
     buf = torch.empty(lib.coupling_buffer_floats(A, B, C), device=c.device,
                       dtype=torch.float32)
     with torch.cuda.device(c.device):

@@ -31,9 +31,16 @@ on, its own noisy view of each batch, made on the device inside the chunk.
 and every arm pair's consensus matrix into the run folder at the end of
 training (``utils/plots.py``).
 
+``stream`` keeps the training set on the host and streams each batch to
+the device (``data/stream.py``); the trainer switches to it by itself when
+the dataset would take more than 0.7 of the card's memory, as the JAX
+package does.  A scipy sparse matrix becomes CSR once and stays on the
+host.  The eval surfaces take a host matrix too: a CSR matrix, or a dense
+one that would not fit the card, stays on the host and goes to the device
+one batch at a time, densified in the eval dtype.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: streaming (``stream``, and the switch to it when the dataset does
-not fit the device) and a mesh of several devices.
+ignored: a mesh of several devices.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch
 
 from dvae_tpu_torch.config import (MeshConfig, ShardingStrategy, TrainConfig,
                                    VAEConfig)
+from dvae_tpu_torch.data.stream import make_streaming_runner
 from dvae_tpu_torch.eval.metrics import (consensus_device_both,
                                          consensus_from_labels,
                                          per_category_agreement)
@@ -63,6 +71,7 @@ from dvae_tpu_torch.utils.checkpoint import (adam_state_from_jax,
                                              load_checkpoint,
                                              newest_checkpoint,
                                              params_from_jax, save_checkpoint)
+from dvae_tpu_torch.utils.host_ops import as_host_tensor
 from dvae_tpu_torch.utils.logging import (MetricLogger, device_memory_mb,
                                           mprint)
 
@@ -78,6 +87,32 @@ def _resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+def _dataset_exceeds_device(x, store_dtype: torch.dtype, device) -> bool:
+    """True when ``x`` in ``store_dtype`` would take more than
+    ``_DEVICE_DATASET_FRACTION`` of the card's memory
+    (dvae_tpu/train/cpl_mixvae.py:108-130).  The shape product counts, not
+    ``.size``: a scipy sparse matrix lands on the device dense.  Never on
+    the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return False
+    nbytes = int(np.prod(x.shape)) * torch.empty(
+        (), dtype=store_dtype).element_size()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return nbytes > _DEVICE_DATASET_FRACTION * total
+
+
+def _host_matrix(x, dtype: torch.dtype):
+    """The streamed training set on the host: CSR for a sparse matrix
+    (converted once at ingestion, since the label passes slice it too), else
+    a CPU tensor in the storage dtype, cast once (no copy for f32 numpy)."""
+    if hasattr(x, "toarray"):
+        return x.tocsr()
+    if isinstance(x, torch.Tensor):
+        return x.to(device="cpu", dtype=dtype)
+    return as_host_tensor(np.asarray(x, np.float32)).to(dtype)
 
 
 def _seed_from_key_data(key_data) -> int:
@@ -194,8 +229,6 @@ class CplMixVAE:
     def _refuse_later_slices(cfg: VAEConfig, tcfg: TrainConfig) -> None:
         if cfg.mode not in ("MSE", "ZINB"):
             raise ValueError(f"unknown reconstruction mode {cfg.mode!r}")
-        if tcfg.stream:
-            raise _not_ported("streaming (stream=True)", "streaming")
         if tcfg.mesh.n_devices > 1:
             raise _not_ported("a mesh of several devices", "multi-GPU")
 
@@ -345,19 +378,9 @@ class CplMixVAE:
 
     def _resident(self, x, dtype) -> torch.Tensor:
         """The dataset on the model's device in ``dtype`` (used in place
-        when it is there already).  Refuses a dataset that would not leave
-        room for training on the card: streaming is a later slice."""
+        when it is there already)."""
         if hasattr(x, "toarray"):  # the resident path is dense
             x = x.toarray()
-        if self.device.type == "cuda" and not (
-                isinstance(x, torch.Tensor) and x.device == self.device):
-            nbytes = int(np.prod(x.shape)) * torch.empty(
-                (), dtype=dtype).element_size()
-            total = torch.cuda.get_device_properties(self.device).total_memory
-            if nbytes > _DEVICE_DATASET_FRACTION * total:
-                raise _not_ported(
-                    f"a dataset of {nbytes / 2**30:.1f} GiB on a "
-                    f"{total / 2**30:.0f} GiB card (streaming)", "streaming")
         return torch.as_tensor(x).to(device=self.device, dtype=dtype)
 
     def train(self, x_train, x_val=None, n_epoch: int = 100,
@@ -373,10 +396,15 @@ class CplMixVAE:
         cpl_mixvae.py:323-1448; dvae_tpu/train/cpl_mixvae.py:420-600).
         Returns the final checkpoint's path.
 
-        ``x_train`` (N, D): numpy, or a tensor (used in place when it is on
-        the model's device in the storage dtype, f32 or bf16 under
-        ``bf16``).  ``c_p``: the (N_total, C) ref-prior table gathered by
-        ``train_idx`` (and ``val_idx`` for validation) under ref_prior.
+        ``x_train`` (N, D): numpy, a scipy sparse matrix, or a tensor (used
+        in place when it is on the model's device in the storage dtype, f32
+        or bf16 under ``bf16``).  Under ``stream`` (or when the dataset
+        would take more than 0.7 of the card's memory, which switches it
+        on) it stays on the host, cast once to the storage dtype, a sparse
+        matrix as CSR, and batches stream to the device.  A sparse
+        ``x_val`` stays on the host; a dense one goes to the device once.
+        ``c_p``: the (N_total, C) ref-prior table gathered by ``train_idx``
+        (and ``val_idx`` for validation) under ref_prior.
         After ``load_model`` the checkpoint's progress carries over:
         completed main epochs and prune iterations count.  ``run_name`` is
         accepted for the JAX signature (it named a wandb run).
@@ -403,24 +431,39 @@ class CplMixVAE:
 
         n_train = x_train.shape[0]
         store = torch.bfloat16 if tcfg.bf16 else torch.float32
-        x_all = self._resident(x_train, store)
+        if not tcfg.stream and _dataset_exceeds_device(x_train, store,
+                                                       self.device):
+            mprint("dataset does not fit in device memory alongside the "
+                   "training state — falling back to host→device "
+                   "streaming (TrainConfig.stream)")
+            tcfg = self.tcfg = tcfg.replace(stream=True)
         prior_all = prior_val = None
         if cfg.ref_prior and c_p is not None:
             idx = np.arange(n_train) if train_idx is None else train_idx
-            prior_all = self._resident(np.asarray(c_p)[idx], torch.float32)
-        runners = {}
+            prior_all = np.asarray(np.asarray(c_p)[idx], np.float32)
         self._reset_eval_fns()
         augment = self._augment_fn()
+        if tcfg.stream:
+            x_all = _host_matrix(x_train, store)
+            runner = make_streaming_runner(cfg, tcfg, self.tx, n_train,
+                                           augment=augment,
+                                           device=self.device)
+        else:
+            x_all = self._resident(x_train, store)
+            if prior_all is not None:
+                prior_all = self._resident(prior_all, torch.float32)
+            runners = {}
 
-        def runner(n_chunk: int):
-            if n_chunk not in runners:
-                runners[n_chunk] = make_epoch_runner(
-                    cfg, tcfg, self.tx, n_train, epochs_per_chunk=n_chunk,
-                    augment=augment)
-            return runners[n_chunk]
+            def runner(n_chunk: int):
+                if n_chunk not in runners:
+                    runners[n_chunk] = make_epoch_runner(
+                        cfg, tcfg, self.tx, n_train,
+                        epochs_per_chunk=n_chunk, augment=augment)
+                return runners[n_chunk]
 
         if x_val is not None:
-            x_val = self._resident(x_val, self._eval_dtype())
+            x_val = (x_val.tocsr() if hasattr(x_val, "toarray")
+                     else self._resident(x_val, self._eval_dtype()))
             if cfg.ref_prior and c_p is not None:
                 if val_idx is not None:
                     prior_val = np.asarray(c_p)[val_idx]
@@ -622,23 +665,33 @@ class CplMixVAE:
             self._eval_runner = make_eval_runner(self.cfg, self.tcfg,
                                                  self._augment_fn())
 
-    def _to_device(self, x) -> torch.Tensor:
-        """The dataset on the model's device in the eval dtype (no copy
-        when it is there already)."""
-        return torch.as_tensor(x).to(device=self.device,
-                                     dtype=self._eval_dtype())
+    def _eval_input(self, x):
+        """The dataset as the eval surfaces take it: a sparse matrix as CSR
+        on the host, a dense host matrix that would not fit the card as a
+        CPU tensor, anything else on the model's device in the eval dtype
+        (no copy when it is there already)."""
+        if hasattr(x, "toarray"):
+            return x.tocsr()
+        dtype = self._eval_dtype()
+        if (not (isinstance(x, torch.Tensor) and x.device == self.device)
+                and _dataset_exceeds_device(x, dtype, self.device)):
+            return as_host_tensor(x)
+        return torch.as_tensor(x).to(device=self.device, dtype=dtype)
 
-    def _eval_batches(self, x_all: torch.Tensor, batch_size: int, c_p=None):
+    def _eval_batches(self, x_all, batch_size: int, c_p=None):
         """Yield ``("chunk", x (K, B, D), prior)`` chunks of K ≤ 8 full
         batches for the eval runner, then ``("batch", x (b, D), prior)``
-        for the leftovers (dvae_tpu/train/cpl_mixvae.py:788-823)."""
+        for the leftovers (dvae_tpu/train/cpl_mixvae.py:788-823).  A host
+        matrix (``_eval_input``) goes batch by batch: each (b, D) slice is
+        densified and cast to the eval dtype on the host, then moved."""
         n = x_all.shape[0]
         prior = (None if c_p is None else
                  torch.as_tensor(np.asarray(c_p), dtype=torch.float32)
                  .to(self.device))
+        host = hasattr(x_all, "toarray") or x_all.device != self.device
         i = 0
         K = min(8, n // batch_size)
-        if K >= 2:
+        if not host and K >= 2:
             while n - i >= K * batch_size:
                 chunk = x_all[i: i + K * batch_size].reshape(
                     K, batch_size, *x_all.shape[1:])
@@ -648,12 +701,17 @@ class CplMixVAE:
                 i += K * batch_size
         for i in range(i, n, batch_size):
             pb = None if prior is None else prior[i: i + batch_size]
-            yield "batch", x_all[i: i + batch_size], pb
+            xb = x_all[i: i + batch_size]
+            if host:
+                if hasattr(xb, "toarray"):
+                    xb = torch.from_numpy(xb.toarray())
+                xb = xb.to(self._eval_dtype()).to(self.device)
+            yield "batch", xb, pb
 
     def _predict_labels(self, x_all, temp, batch_size: int = 5000):
         """Eval-mode argmax labels over a dataset → (A, N) numpy."""
         self._ensure_eval_fns()
-        x_all = self._to_device(x_all)
+        x_all = self._eval_input(x_all)
         outs = []
         for kind, xb, _ in self._eval_batches(x_all, batch_size):
             if kind == "chunk":
@@ -669,7 +727,7 @@ class CplMixVAE:
         """Validation losses + consensus (reference val loop,
         cpl_mixvae.py:563-761)."""
         self._ensure_eval_fns()
-        x = self._to_device(x_val)
+        x = self._eval_input(x_val)
         tot, recs, labels, sizes = [], [], [], []
         for kind, xb, pb in self._eval_batches(x, batch_size, c_p):
             if kind == "chunk":
@@ -699,8 +757,9 @@ class CplMixVAE:
                    c_p=None) -> dict:
         """Batched no-grad inference over a dataset (reference
         ``eval_model``, cpl_mixvae.py:1450-1619).  ``x``: (N, D) numpy
-        array or tensor; a tensor already on the device in the eval dtype
-        is used in place.
+        array, scipy sparse matrix or tensor; a tensor already on the
+        device in the eval dtype is used in place, a sparse matrix (or a
+        dense one too large for the card) goes batch by batch.
 
         Returns per-arm ``c_prob`` (A,N,C), ``state_mu``/``state_logvar``
         (A,N,S), ``x_low`` (A,N,L), ``pred_label`` (A,N), the batch-size
@@ -708,7 +767,7 @@ class CplMixVAE:
         over arms and the category ``mask`` — all numpy.
         """
         self._ensure_eval_fns()
-        xd = self._to_device(x)
+        xd = self._eval_input(x)
         keys = ("c", "s_mean", "s_logvar", "x_low", "lab")
         fields = {k: {"dev": [], "host": []} for k in keys}
         recs, totals, sizes = [], [], []

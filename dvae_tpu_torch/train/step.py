@@ -311,6 +311,17 @@ def chunk_rngs(seed: int, epoch: int, device):
     return gen, host
 
 
+def epoch_metrics(ms, consensus: torch.Tensor) -> EpochMetrics:
+    """One epoch's row of ``EpochMetrics`` from its steps' metrics (the
+    means of dvae_tpu/train/step.py:373-382) and its consensus."""
+    st = StepMetrics(*(torch.stack(v) for v in zip(*ms)))
+    return EpochMetrics(
+        total=st.total.mean(), loss_rec=st.loss_rec.mean(dim=0),
+        loss_joint=st.loss_joint.mean(), neg_entropy=st.neg_entropy.mean(),
+        c_dist=st.c_dist.mean(), c_l2_dist=st.c_l2_dist.mean(),
+        kl=st.kl.mean(dim=0), consensus=consensus.float())
+
+
 def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                       n_train: int, epochs_per_chunk: Optional[int] = None,
                       consensus_every_epoch: bool = True,
@@ -367,13 +378,7 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                 cons = consensus_device(labels, K)
             else:
                 cons = torch.full((), -1.0, device=dev)
-            st = StepMetrics(*(torch.stack(v) for v in zip(*ms)))
-            per_epoch.append(EpochMetrics(
-                total=st.total.mean(), loss_rec=st.loss_rec.mean(dim=0),
-                loss_joint=st.loss_joint.mean(),
-                neg_entropy=st.neg_entropy.mean(), c_dist=st.c_dist.mean(),
-                c_l2_dist=st.c_l2_dist.mean(), kl=st.kl.mean(dim=0),
-                consensus=cons.float()))
+            per_epoch.append(epoch_metrics(ms, cons))
             state = state._replace(epoch=state.epoch + 1)
         return state, EpochMetrics(*(torch.stack(v)
                                      for v in zip(*per_epoch)))

@@ -204,3 +204,72 @@ def test_coupling_plan_keeps_the_logs_at_the_production_shape():
     q = tcoupling.coupling_plan(10, 5000, 1024)
     assert (q["nb"], q["rows"], q["piece"], q["keep"]) == (132, 38, 4, False)
     assert q["smem"] == 208896
+
+
+# ---------------------------------------------------------------------------
+# Fault C8: any A and C.  Past 10 arms or 1024 categories the CUDA kernel
+# runs its general form (arm pairs in tiles, c kept out of shared memory);
+# the plain version it is held against on the card is held here against
+# the interpreted TPU kernel at the same shapes.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(12, 64, 1100), (16, 130, 92)])
+def test_many_arms_and_categories_match_the_interpreted_kernel(shape):
+    """The Gram within 2e-4 of its largest entry (chip_smoke.py's
+    ``TOL_GRAM``): with 16 arms its off-diagonal entries, about 1e4, are
+    sums of terms that cancel against a diagonal of 2e6, so an entry-wise
+    tolerance would hold the summation order, not the algorithm; the
+    distance within 1e-4, relative."""
+    c = _probs(*shape, seed=11)
+    want = np.asarray(jcoupling.coupling_gram_pallas(jnp.asarray(c), EPS))
+    got = tcoupling.coupling_gram_plain(torch.from_numpy(c), EPS).numpy()
+    assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()
+    np.testing.assert_array_equal(got, got.T)
+    d_want = float(jcoupling.coupling_distance_pallas(jnp.asarray(c), EPS))
+    d_got = float(tcoupling.coupling_distance_fused(torch.from_numpy(c), EPS))
+    assert d_got == pytest.approx(d_want, rel=1e-4)
+
+
+def test_coupling_plan_takes_any_arms_and_categories():
+    """The twin of #11's plan for A from 1 to 16 and C from 1 to 4099: the
+    templated kernel up to 10 arms and 1024 categories, with the plan of
+    the earlier sweep; past either, the general kernel, whose shared
+    memory is A doubles.  Every plan fits one block's shared memory and
+    its slabs cover B once."""
+    cs = sorted({1, 2, 7, 92, 100, 511, 1023, 1024, 1025, 1100, 2048, 4099}
+                | set(range(1, 4100, 97)))
+    for A in range(1, 17):
+        for C in cs:
+            for B in (2, 130, 5000):
+                p = tcoupling.coupling_plan(A, B, C)
+                assert p["general"] == (A > 10 or C > 1024), (A, B, C)
+                assert p["nb"] == min(132, -(-B // 8))
+                assert p["rows"] == -(-B // p["nb"])
+                assert p["nb"] * p["rows"] >= B > (p["nb"] - 1) * p["rows"]
+                assert p["smem"] <= 232448
+                if p["general"]:
+                    assert (p["piece"], p["keep"], p["smem"]) == (0, False,
+                                                                  8 * A)
+                else:
+                    assert 1 <= p["piece"] <= p["rows"]
+                    assert p["smem"] == (4 * A * C * p["piece"]
+                                         + 4 * (A + 1) * C)
+
+
+def test_no_limit_is_named_or_checked():
+    """The wrapper and the kernel's source take any A >= 1, B >= 2 and
+    C >= 1: no limit is exported, checked or named in a message, and the
+    wrapper serves A=12, C=1100 (the plain version here)."""
+    import inspect
+    import pathlib
+    src = inspect.getsource(tcoupling)
+    cu = (pathlib.Path(tcoupling.__file__).parents[1] / "csrc"
+          / "coupling.cu").read_text()
+    for text in (src, cu):
+        assert "coupling_max_arms" not in text
+        assert "coupling_max_c" not in text
+    assert "return A >= 1 && B >= 2 && C >= 1;" in cu
+    assert "exceed" not in src
+    c = torch.from_numpy(_probs(12, 4, 1100, seed=2))
+    g = tcoupling.coupling_gram_fused(c, EPS)
+    assert g.shape == (12, 12) and bool(torch.isfinite(g).all())

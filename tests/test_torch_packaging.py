@@ -6,7 +6,7 @@ its command line against the JAX package's.
 * The ``train`` and ``evaluate`` parsers of ``dvae_tpu_torch.cli`` know
   every option string of ``dvae_tpu.cli``'s; the options of features still
   to port raise the trainer's ``NotImplementedError``, the ported ones
-  reach the trainer.
+  (``--stream`` and the dataset flags among them) reach the trainer.
 """
 
 import argparse
@@ -152,7 +152,7 @@ def _train_args(tmp_path, *extra):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--stream"], ["--sharding", "full"], ["--sharding", "ddp"],
+    ["--sharding", "full"], ["--sharding", "ddp"],
     ["--mesh_data", "2"], ["--mesh_arm", "2"], ["--mesh_fsdp", "2"],
     ["--coordinator", "localhost:1234"], ["--num_processes", "2"],
     ["--process_id", "0"], ["--wandb"], ["--rng_impl", "rbg"]],
@@ -169,16 +169,30 @@ def test_cli_train_refuses_what_is_not_ported(extra, tmp_path, monkeypatch):
                                    ["--dataset", "mouse_smartseq"],
                                    ["--n_gene", "100"]],
                          ids=lambda e: e[0])
-def test_cli_refuses_a_dataset_without_synthetic(cmd, extra, tmp_path,
-                                                 monkeypatch):
+def test_cli_takes_the_dataset_flags(cmd, extra, tmp_path, monkeypatch):
+    """``--toml``/``--dataset``/``--n_gene`` are taken, with or without
+    ``--synthetic``; where the TOML names no file that exists the dataset
+    is the synthetic one, as in ``dvae_tpu.cli``."""
     monkeypatch.chdir(tmp_path)
     argv = ([cmd, "--device", "cpu", *extra] if cmd == "train"
             else [cmd, "--device", "cpu", "--ckpt", "none.ckpt", *extra])
-    with pytest.raises(NotImplementedError, match="reading a dataset"):
-        tcli.main(argv)
-    # with --synthetic the reference ignores them, and so does the port
-    args = tcli.build_parser().parse_args(argv + ["--synthetic"])
-    tcli._refuse_unported(args)
+    for more in ([], ["--synthetic"]):
+        args = tcli.build_parser().parse_args(
+            argv + more + ["--syn_cells", "20", "--syn_genes", "6"])
+        tcli._refuse_unported(args)
+        ds = tcli._load_dataset(args)
+        assert ds.log1p.shape == (20, 6)
+
+
+def test_cli_train_streams(tmp_path, monkeypatch):
+    """``train --stream`` reaches the trainer: the dataset stays on the
+    host and the checkpoint records the mode."""
+    monkeypatch.chdir(tmp_path)
+    assert tcli.main(_train_args(tmp_path, "--stream")) == 0
+    ckpts = sorted(tmp_path.glob("*/cpl_mixVAE_model_epoch_1.ckpt"))
+    assert len(ckpts) == 1
+    _, meta = tckpt.load_checkpoint(str(ckpts[0]))
+    assert meta["tcfg"]["stream"] is True
 
 
 def test_cli_train_passes_the_ported_model_flags(tmp_path, monkeypatch):

@@ -802,6 +802,13 @@ dpath = d.train(x, x_val=x[:8], n_epoch=2, early_stop_consensus=0)
 ds = CplMixVAE(aug_file=aug_file, device="cpu")
 ds.load_model(dpath)
 dres = ds.eval_model(x, batch_size=8)
+import scipy.sparse as sp
+st = CplMixVAE(device="cpu", seed=5)
+st.init_model(n_arm=2, input_dim={D}, fc_dim=8, lowD_dim=4, n_categories=4,
+              fused=True, stream=True, batch_size=8, epochs_per_jit=1)
+xs = sp.csr_matrix(x * (x > 0.5))
+st.train(xs, x_val=xs[:8], n_epoch=2, early_stop_consensus=0)
+sres = st.eval_model(xs, batch_size=8)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu"))
 print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
@@ -815,7 +822,11 @@ print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
                   "decoder_steps": d.state.opt_state.count,
                   "decoder_flag": bool(ds.cfg.fused_decoder),
                   "decoder_loss_finite": bool(np.isfinite(
-                      dres["total_loss"]))}}))
+                      dres["total_loss"])),
+                  "stream_steps": st.state.opt_state.count,
+                  "stream_labels": sres["pred_label"].shape,
+                  "stream_loss_finite": bool(np.isfinite(
+                      sres["total_loss"]))}}))
 """.format(D=D)
 
 
@@ -831,7 +842,9 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
     batches), then trains (2 steps) and serves a ZINB model, then trains
     (4 steps, an alignment after each epoch) and serves with use_pallas,
     then trains (4 steps), reloads and serves with fused_decoder and a
-    frozen augmenter, without loading JAX, optax or dvae_tpu."""
+    frozen augmenter, then trains streamed from a CSR matrix (4 steps,
+    validating on CSR rows) and serves the CSR matrix, without loading
+    JAX, optax or dvae_tpu."""
     _, ckpts = jax_checkpoints
     proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
     assert proc.returncode == 0, proc.stderr
@@ -840,7 +853,8 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
                    "zinb_steps": 2, "zinb_rec_finite": True,
                    "pallas_steps": 4, "pallas_loss_finite": True,
                    "decoder_steps": 4, "decoder_flag": True,
-                   "decoder_loss_finite": True}
+                   "decoder_loss_finite": True, "stream_steps": 4,
+                   "stream_labels": [2, 20], "stream_loss_finite": True}
 
 
 def test_cli_evaluate_on_cpu(jax_checkpoints, tmp_path):

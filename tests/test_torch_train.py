@@ -511,17 +511,17 @@ def test_trainer_phases_on_the_cpu(small_data, tmp_path):
     again.load_model(path)
     assert again.resume_progress == {"main_epochs": 2, "pr_it": 1,
                                      "prune_epochs": 1}
-    for kw in ({"stream": True}, {"mesh": tcfg_mod.MeshConfig(data=2)}):
-        with pytest.raises(NotImplementedError):
-            CplMixVAE(device="cpu").init_model(**SMALL, **kw)
+    with pytest.raises(NotImplementedError):
+        CplMixVAE(device="cpu").init_model(
+            **SMALL, mesh=tcfg_mod.MeshConfig(data=2))
     for kw in ({"use_pallas": True}, {"align_arms_every": 5},
-               {"fused_decoder": True}):
+               {"fused_decoder": True}, {"stream": True}):
         taken = CplMixVAE(device="cpu")
         taken.init_model(**SMALL, **kw)
         assert (taken.cfg.use_pallas, taken.tcfg.align_arms_every,
-                taken.cfg.fused_decoder) == (
+                taken.cfg.fused_decoder, taken.tcfg.stream) == (
             kw.get("use_pallas", False), kw.get("align_arms_every", 0),
-            kw.get("fused_decoder", False))
+            kw.get("fused_decoder", False), kw.get("stream", False))
     # aug_file is taken: the constructor loads the augmenter it names
     acfg = taug.AugmenterConfig(input_dim=SMALL["input_dim"], n_dim=20,
                                 noise_dim=6, latent_dim=4)
