@@ -116,7 +116,22 @@ Phases (any failure exits non-zero and prints no result line):
      resident ms/step, the host gather, the pinned link rate, feed_census's
      predicted overlap against the measured one, host waits and
      synchronising calls per chunk;
- 11. print the kernels line, the card's name and power limit, and last the
+ 11. the GAN that trains an augmenter and the quality recipe at production
+     width: one GAN step (AugmenterConfig(), DiscriminatorConfig(5032), 2,000
+     hard synthetic cells; MSE and ZINB, f32 and bf16) on the card against
+     the CPU path and an f64 step with the same explicit noise (losses, the
+     gate's decision, the f64 step the same function on both, every
+     gradient leaf against f64, parameters after Adam; the trainer's 0.1%
+     rule at the CPU tests' widths); train_augmenter over the 17,962
+     training cells of that dataset, batch 5000, 3 epochs, MSE and ZINB in
+     bf16 (finite metrics, mse_recon falling, one host read a chunk and no
+     synchronising call inside it, the D-skip share, the peak memory
+     rise), ms a step in f32 and bf16;
+     the MSE augmenter it wrote through ``CplMixVAE(aug_file=...)`` (4
+     steps, counted launches); examples.hard_synthetic.run at its recipe
+     (A=2, bf16, batch 5000, 20,000 cells) for 4 epochs with that
+     augmenter, its counted launches and numpy AMIs;
+ 12. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
 Every ``train`` call passes ``save_plots=False``: the plot artifacts would
@@ -193,6 +208,37 @@ N_ARM_WIDE = 12       # fault C8: more arms than #11's templated kernel
 # smaller ones for the exact checks, the ZINB run on CSR and the timing
 N_STREAM, N_STREAM_SMALL = 150000, 20000
 N_STREAM_ZINB, N_STREAM_TIMED = 10000, 40000
+# phase 11, the GAN and the quality recipe: train_augmenter's epochs at
+# production width; the short n_epoch of examples.hard_synthetic.run
+GAN_EPOCHS, HS_EPOCHS = 3, 4
+# the GAN step, card vs CPU: losses in f32 (the binarized fakes' threshold
+# and Bernoulli draws part on a few of 1e7 elements, each moving a BCE term
+# by 1e-5); bf16 as tests/test_augment.py holds bf16 against f32.
+TOL_GAN_LOSS = {False: 1e-4, True: 5e-2}
+# The reference is the same step in f64 (cast_gan_state): the card's f64
+# and the CPU path's agree to 6.7e-14 of a leaf's largest gradient.  Every
+# gradient leaf, ‖Δ‖ / ‖f64‖ (scripts/torch_gan_precision.py; NVIDIA H100
+# 80GB HBM3, 700 W): f32 read at most 1.7e-2 on the card and on the CPU.
+# The cause is the ReLUs: a unit whose input lies within f32 rounding of 0
+# is on in one precision and off in the other, 10-13 of the 1e7 output
+# units and 0-4 a hidden norm, and each one moves a gradient leaf by
+# ~1e-3; the card's f32 products carry 2.5x the CPU's rounding and switch
+# more of them.  bf16 read at most 0.58: the 8-bit activations' rounding
+# left after the norms subtract their batch means.  A gradient without one
+# of its terms, of the wrong sign or twice too large reads 1 or more.
+# After Adam's first step (about lr·sign(g)) the share of parameters
+# beyond 1e-5 of the f64 step's reads 0.53% (card) and 0.35% (CPU) in MSE,
+# 0.12% and 0.13% in ZINB: entries whose f64 gradient is ~3e-7 of the
+# largest, so that rounding sets their sign.  The trainer's 0.1% holds at
+# the tests' widths (0.002%) and for no f32 step at this width, the CPU's
+# included; the share is held at 1% (a bf16 step reads 6-11%).
+TOL_GAN_F64 = 1e-10
+TOL_GAN_GRAD = {False: 5e-2, True: 0.85}
+TOL_GAN_SHARE = 1e-2
+# the biases of the layers that feed a batch norm: true gradient 0, what is
+# computed is rounding
+GAN_BN_FED = {"fc1", "fc2", "fc3", "fc4", "fc5", "fc5_plain", "fc6", "fc7",
+              "fc8", "fc9", "fc10", "fc_mu"}
 # Gumbel and coupling kernels vs their plain versions.  y, dphi and the
 # Gram, max |Δ| / max |plain|: the same f32 formulas with logs, exps and
 # sums a few roundings apart (fused multiply-adds, another summation
@@ -4213,6 +4259,393 @@ def phase_streaming(torch, check, tmp, zinb_host) -> dict:
     return out
 
 
+def gan_noise(torch, g, a_cfg, rows: int, zinb: bool):
+    """An explicit GanNoise of one step at ``rows`` cells, drawn on the card
+    from ``g``: the two augmenter forwards' dropout masks and normals, the
+    five discriminator keep-masks (P(keep) 0.8), the ZINB uniforms."""
+    from dvae_tpu_torch.augment.augmenter import AugNoise
+    from dvae_tpu_torch.augment.train import GanNoise
+    D_ = a_cfg.input_dim
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=DEV)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=DEV)
+
+    def aug():
+        return AugNoise(rand(rows, D_) < 1 - a_cfg.p_drop,
+                        normal(rows, a_cfg.noise_dim),
+                        normal(rows, a_cfg.latent_dim))
+    return GanNoise(aug(), aug(), tuple(rand(rows, D_) < 0.8
+                                        for _ in range(3)),
+                    tuple(rand(rows, D_) < 0.8 for _ in range(2)),
+                    rand(rows, D_) if zinb else None,
+                    rand(rows, D_) if zinb else None)
+
+
+def _noise_on(noise, dev, dtype=None):
+    """A GanNoise (or AugNoise, or tuple) with every tensor moved to dev,
+    its floating ones in ``dtype`` when given (masks stay bool)."""
+    if noise is None:
+        return None
+    if isinstance(noise, tuple):
+        parts = [_noise_on(v, dev, dtype) for v in noise]
+        return type(noise)(*parts) if hasattr(noise, "_fields") \
+            else tuple(parts)
+    return noise.to(dev, dtype if noise.is_floating_point() else None)
+
+
+def gan_step_parity(torch, check, x_small) -> None:
+    """11(a): one GAN step at full width (AugmenterConfig(), D=5032, n_dim
+    500, noise 50, latent 10; DiscriminatorConfig(5032)) from the same state
+    with the same explicit noise on the card, on the CPU path and in f64
+    (the reference, on both), MSE and ZINB, f32 and bf16: losses, the gate,
+    every gradient leaf against the card's f64, parameters after Adam."""
+    import dvae_tpu_torch.augment.train as gt
+    from dvae_tpu_torch.augment.augmenter import (AugmenterConfig,
+                                                  DiscriminatorConfig)
+
+    class RecordingAdam(gt.GatedAdam):
+        """Keeps the gradients of its last update."""
+
+        def update(self, grads, state, params, gate=None):
+            self.grads = [g.detach().double().cpu() for g in grads]
+            return super().update(grads, state, params, gate)
+
+    def one(dev, x, nz, dtype, bf16):
+        tx = RecordingAdam(LR), RecordingAdam(LR)
+        state = gt.cast_gan_state(gt.init_gan_state(SEED, a_cfg, d_cfg, *tx,
+                                                    dev), dtype)
+        step = gt.make_gan_step(a_cfg, d_cfg, *tx, mode=mode, bf16=bf16)
+        t0 = time.perf_counter()
+        state, m = step(state, x.to(dtype), _noise_on(nz, dev, dtype))
+        m = {k: float(v) for k, v in m._asdict().items()}
+        return dict(state=state, m=m, s=time.perf_counter() - t0,
+                    grads=tx[0].grads + tx[1].grads,
+                    params=[t.detach().double().cpu() for t in
+                            gt.tree_leaves(state.a_params)
+                            + gt.tree_leaves(state.d_params)])
+
+    def gap(u, v, share=False):
+        """Per held leaf ‖u − v‖ / ‖v‖ (gradients), or the count beyond
+        1e-5 (parameters); the biases that feed a batch norm left out."""
+        out = []
+        for nm, a, b in zip(names, u, v):
+            if nm.endswith(".b") and nm.split(".")[1] in GAN_BN_FED:
+                continue
+            if share:
+                out.append((int(((a - b).abs() > 1e-5).sum()), b.numel()))
+            elif b.any():
+                out.append(((a - b).norm().item() / b.norm().item(), nm))
+        return (sum(f for f, _ in out) / sum(n for _, n in out) if share
+                else sorted(out, reverse=True))
+
+    def names_of(st):
+        return [f"{t[0]}.{n}.{k}" for t in ("a_params", "d_params")
+                for n in sorted(getattr(st, t))
+                for k in sorted(getattr(st, t)[n])
+                if getattr(st, t)[n][k] is not None]
+
+    rows = x_small.shape[0]
+    g = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    for mode in ("MSE", "ZINB"):
+        a_cfg = AugmenterConfig(input_dim=D, n_zim=2 if mode == "ZINB"
+                                else 1)
+        d_cfg = DiscriminatorConfig(D)
+        noise = gan_noise(torch, g, a_cfg, rows, mode == "ZINB")
+        cpu_x, cpu_nz = x_small.cpu(), _noise_on(noise, "cpu")
+        ref = one(DEV, x_small, noise, torch.float64, False)
+        ref_cpu = one("cpu", cpu_x, cpu_nz, torch.float64, False)
+        names = names_of(ref["state"])
+        f64_err = max(((u - v).abs().max() / v.abs().max()).item()
+                      for nm, u, v in zip(names, ref["grads"],
+                                          ref_cpu["grads"])
+                      if v.any() and not (nm.endswith(".b") and nm.split(
+                          ".")[1] in GAN_BN_FED))
+        loss_err = max(abs(ref["m"][k] - ref_cpu["m"][k])
+                       / max(abs(ref_cpu["m"][k]), 1e-6) for k in ref["m"])
+        check(f64_err <= TOL_GAN_F64 and loss_err <= TOL_GAN_F64,
+              f"11(a) GAN step {mode} f64, card vs CPU path: every gradient "
+              f"leaf (the biases that feed a batch norm left out) max "
+              f"|diff| / max |CPU| {f64_err:.2e}, losses rel "
+              f"{loss_err:.2e} (tol {TOL_GAN_F64:.0e}); card "
+              f"{ref['s']:.2f} s, CPU {ref_cpu['s']:.2f} s")
+        for bf16 in (False, True):
+            name = f"{mode} {'bf16' if bf16 else 'f32'}"
+            card = one(DEV, x_small, noise, torch.float32, bf16)
+            cpu = one("cpu", cpu_x, cpu_nz, torch.float32, bf16)
+            mg, mc = card["m"], cpu["m"]
+            tol = TOL_GAN_LOSS[bf16]
+            held = ("a_loss", "d_loss") if bf16 else tuple(mc)
+            rels = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)
+                    for k in mc}
+            check(all(rels[k] <= tol for k in held),
+                  f"11(a) GAN step {name}, {rows} cells, card vs CPU path: "
+                  + ", ".join(f"{k} {mg[k]:.6g}/{mc[k]:.6g}" for k in mc)
+                  + f"; held {held} rel <= {tol:.0e} (worst "
+                  f"{max(rels[k] for k in held):.2e}); card "
+                  f"{card['s']:.2f} s, CPU {cpu['s']:.2f} s")
+            check(mg["d_skipped"] == mc["d_skipped"] == ref["m"]["d_skipped"],
+                  f"11(a) {name}: the gate's decision equal on both sides "
+                  f"and in f64 (D step "
+                  f"{'skipped' if mc['d_skipped'] else 'taken'})")
+            errs, errs_cpu = (gap(r["grads"], ref["grads"])
+                              for r in (card, cpu))
+            tol = TOL_GAN_GRAD[bf16]
+            check(errs[0][0] <= tol and (bf16 or errs_cpu[0][0] <= tol),
+                  f"11(a) {name}: every gradient leaf against the card's "
+                  f"f64, ‖diff‖ / ‖f64‖ <= {tol:g}; worst on the card "
+                  + ", ".join(f"{nm} {e:.2e}" for e, nm in errs[:3])
+                  + "; on the CPU path "
+                  + ", ".join(f"{nm} {e:.2e}" for e, nm in errs_cpu[:3]))
+            dmax = max((u - v).abs().max().item() for u, v in
+                       zip(card["params"], cpu["params"]))
+            share, share_cpu, share_pair = (
+                gap(a["params"], b["params"], share=True)
+                for a, b in ((card, ref), (cpu, ref), (card, cpu)))
+            counts = (int(card["state"].d_opt.count),
+                      int(cpu["state"].d_opt.count),
+                      int(card["state"].a_opt.count))
+            check(dmax <= 2 * LR and counts[0] == counts[1]
+                  and counts[2] == 1
+                  and (bf16 or share <= TOL_GAN_SHARE),
+                  f"11(a) {name}: parameters after Adam, card vs CPU max "
+                  f"|diff| {dmax:.2e} (tol 2*lr); beyond 1e-5 of the f64 "
+                  f"step's, the biases that feed a batch norm left out: "
+                  f"card {share:.3%}"
+                  + ("" if bf16 else f" (tol {TOL_GAN_SHARE:.0%})")
+                  + f", CPU path {share_cpu:.3%}; card vs CPU "
+                  f"{share_pair:.3%}")
+            del card, cpu
+        del ref, ref_cpu
+
+    # the trainer's rule where f32 rounding allows it: the CPU tests' widths
+    for mode in ("MSE", "ZINB"):
+        a_cfg = AugmenterConfig(input_dim=50, n_dim=20, noise_dim=10,
+                                latent_dim=4,
+                                n_zim=2 if mode == "ZINB" else 1)
+        d_cfg = DiscriminatorConfig(50)
+        x = x_small[:32, :50].contiguous()
+        noise = gan_noise(torch, g, a_cfg, 32, mode == "ZINB")
+        card = one(DEV, x, noise, torch.float32, False)
+        cpu = one("cpu", x.cpu(), _noise_on(noise, "cpu"), torch.float32,
+                  False)
+        names = names_of(card["state"])
+        share = gap(card["params"], cpu["params"], share=True)
+        dmax = max((u - v).abs().max().item() for u, v in
+                   zip(card["params"], cpu["params"]))
+        check(dmax <= 2 * LR and share <= 1e-3,
+              f"11(a) {mode} f32 at the CPU tests' widths (D 50, n_dim 20, "
+              f"32 cells): parameters after Adam, card vs CPU max |diff| "
+              f"{dmax:.2e} (tol 2*lr), {share:.3%} beyond 1e-5, the biases "
+              "that feed a batch norm left out (tol 0.1%, the trainer's "
+              "rule)")
+    torch.cuda.empty_cache()
+
+
+def gan_training(torch, check, tmp, x_train) -> str:
+    """11(b): train_augmenter at production width (batch 5000, the 17,962
+    training cells), MSE and ZINB in bf16, 3 epochs in one chunk each: finite
+    metrics, mse_recon falling, the synchronising calls of the whole call
+    (one host read per chunk, at the read, none inside), the D-skip share,
+    the peak memory rise; ms a step in f32 and bf16 in turns by CUDA
+    events.  Returns the path of the MSE augmenter it wrote."""
+    import dvae_tpu_torch.augment.train as gt
+    from dvae_tpu_torch.augment.augmenter import (AugmenterConfig,
+                                                  DiscriminatorConfig,
+                                                  save_augmenter)
+    n = x_train.shape[0]
+    steps = n // B
+    path = os.path.join(tmp, "gan", "augmenter_MSE.ckpt")
+    for mode in ("MSE", "ZINB"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                params, bn, cfg, hist = gt.train_augmenter(
+                    x_train, n_epochs=GAN_EPOCHS, batch_size=B, mode=mode,
+                    seed=546, bf16=True, epochs_per_jit=GAN_EPOCHS,
+                    verbose=False, device=DEV)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        wall = time.perf_counter() - t0
+        rise = (torch.cuda.max_memory_allocated() - base) / 1e6
+        syncs = [(os.path.basename(w.filename), w.lineno) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        in_train = sorted({s for s in syncs if s[0] == "train.py"})
+        n_train_syncs = sum(s[0] == "train.py" for s in syncs)
+        mse = [h["mse_recon"] for h in hist]
+        skipped = sum(h["d_skipped"] for h in hist) / len(hist)
+        print(f"  11(b) train_augmenter {mode} bf16: {GAN_EPOCHS} epochs of "
+              f"{steps} steps ({n} cells, batch {B}) in {wall:.3f} s cold; "
+              f"mse_recon {[round(v, 5) for v in mse]}; a_loss "
+              f"{[round(h['a_loss'], 4) for h in hist]}; D steps skipped "
+              f"{skipped:.3f}; peak max_memory_allocated rise {rise:.1f} MB "
+              f"(base {base / 1e6:.1f} MB); synchronising calls {len(syncs)}"
+              f" ({sorted(set(syncs))})")
+        check(all(math.isfinite(v) for h in hist for v in h.values())
+              and len(hist) == GAN_EPOCHS and cfg.n_zim == (
+                  2 if mode == "ZINB" else 1),
+              f"11(b) {mode}: finite metrics for every epoch")
+        check(mse[-1] < mse[0], f"11(b) {mode}: mse_recon falls "
+                                f"({mse[0]:.5f} -> {mse[-1]:.5f})")
+        check(n_train_syncs == 1 and len(in_train) == 1,
+              f"11(b) {mode}: synchronising calls in the GAN loop: "
+              f"{n_train_syncs} at {in_train} (expect one host read for "
+              "the one chunk, 0 inside it; the others are the initial "
+              "weights' copies to the card)")
+        if mode == "MSE":
+            save_augmenter(path, params, bn, cfg)
+        del params, bn
+    torch.cuda.empty_cache()
+
+    # ms a step, f32 and bf16 in turns; the runner alone has no sync
+    a_cfg, d_cfg = AugmenterConfig(input_dim=D), DiscriminatorConfig(D)
+    runs = {}
+    for bf16 in (False, True):
+        tx = gt.GatedAdam(LR), gt.GatedAdam(LR)
+        state = gt.init_gan_state(SEED, a_cfg, d_cfg, *tx, DEV)
+        run = gt.make_gan_runner(gt.make_gan_step(a_cfg, d_cfg, *tx,
+                                                  bf16=bf16), n, B)
+        state, _ = run(state, x_train, 1)   # warm
+        runs[bf16] = [run, state]
+    ms = {False: [], True: []}
+    for bf16 in (False, True, True, False):
+        run, state = runs[bf16]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, m = run(state, x_train, 1)
+        end.record()
+        host = (time.perf_counter() - t0) / steps * 1e3
+        torch.cuda.synchronize()
+        runs[bf16][1] = state
+        ms[bf16].append((start.elapsed_time(end) / steps, host))
+    for bf16 in (False, True):
+        ev = [round(v[0], 3) for v in ms[bf16]]
+        print(f"  11(b) GAN step {'bf16' if bf16 else 'f32'} (MSE, batch "
+              f"{B}): {sum(ev) / 2:.3f} ms a step by CUDA events {ev}; host "
+              f"enqueue {[round(v[1], 3) for v in ms[bf16]]} ms a step")
+    # where a bf16 step's device time goes, and the kernels it enqueues
+    from torch.profiler import ProfilerActivity, profile
+    run, state = runs[True]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = run(state, x_train, 1)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [(e.self_device_time_total, e.count, e.key)
+               for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(k[0] for k in kernels)
+    if busy:
+        gemm = sum(t for t, _, k in kernels
+                   if "gemm" in k.lower() or "sm90" in k.lower())
+        launches = sum(n for _, n, _ in kernels)
+        print(f"  11(b) profiled bf16 GAN epoch: device busy "
+              f"{busy / 1e3 / steps:.3f} ms a step (products "
+              f"{gemm / 1e3 / steps:.3f}, the rest "
+              f"{(busy - gemm) / 1e3 / steps:.3f}); {launches / steps:.0f} "
+              f"kernel launches a step; the host's "
+              f"{sum(v[1] for v in ms[True]) / 2:.3f} ms a step above")
+        for t, n_, k in sorted(kernels, reverse=True)[:6]:
+            print(f"    {t / 1e3 / steps:8.3f} ms/step {n_ // steps:4d}x  "
+                  f"{k[:80]}")
+    else:
+        print("  11(b) profiler: no device time recorded (not measured)")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, m = run(state, x_train, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n_sync = sum("called a synchronizing" in str(w.message) for w in caught)
+    check(n_sync == 0 and bool(torch.isfinite(m).all()),
+          f"11(b) {n_sync} synchronising calls inside a GAN chunk of one "
+          f"epoch ({steps} steps, bf16)")
+    del runs, state
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_gan(torch, check, tmp) -> dict:
+    """Phase 11: the GAN that trains an augmenter and the hard-synthetic
+    quality recipe at production width.  (a) one GAN step, card vs the CPU
+    path; (b) train_augmenter's runs, syncs, ms a step, memory; (c) the
+    augmenter it wrote through CplMixVAE(aug_file=...), 4 MSE steps with
+    the augmented path's launches; (d) examples.hard_synthetic.run at its
+    recipe (A=2, bf16, batch 5000, 20,000 cells of 5032 genes) for
+    HS_EPOCHS epochs with that augmenter: its launches and numpy AMIs.
+    Returns the launch counts of (c) and (d)."""
+    from dvae_tpu_torch.data.pipeline import stratified_split_indices
+    from dvae_tpu_torch.examples import hard_synthetic
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print("phase 11: GAN and quality recipe")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ds = hard_synthetic._dataset(3, DEV)
+    tr, te = stratified_split_indices(ds.cluster_label, 0.9, 3)
+    print(f"  hard synthetic dataset {ds.log1p.shape} (data_seed 3), "
+          f"{len(tr)} training cells, made in {time.perf_counter() - t0:.1f}"
+          " s")
+    x_train = torch.from_numpy(ds.log1p[tr]).to(DEV)
+    gan_step_parity(torch, check, x_train[:N_SMALL].contiguous())
+    path = gan_training(torch, check, tmp, x_train)
+    out = {}
+
+    # (c) the port-trained augmenter in the mixVAE trainer
+    trainer = CplMixVAE(saving_folder=os.path.join(tmp, "gan_aug"),
+                        aug_file=path, device=DEV, seed=SEED)
+    trainer.init_model(n_arm=A, n_categories=C, input_dim=D, fc_dim=F,
+                       lowD_dim=10, state_dim=2, batch_size=B,
+                       epochs_per_jit=2)
+    reset_launch_counts()
+    trainer.train(x_train[:2 * B], n_epoch=2, early_stop_consensus=0,
+                  save_plots=False)
+    torch.cuda.synchronize()
+    counts = out["gan_augmented_training"] = launch_counts()
+    want = {**dict.fromkeys(counts, 0), "encoder_fwd": 4, "encoder_bwd": 4,
+            "recon_fwdbwd": 4}
+    check(counts == want and not trainer._halted and math.isfinite(
+        float(trainer.state.params["fc1"]["w"].sum())),
+          f"11(c) the port-trained augmenter through CplMixVAE(aug_file=...)"
+          f": 4 MSE steps, launches {counts} (expect {want})")
+    del trainer, x_train
+    torch.cuda.empty_cache()
+
+    # (d) the quality recipe, short
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = hard_synthetic.run(n_epoch=HS_EPOCHS, aug_file=path, device=DEV,
+                             folder=os.path.join(tmp, "hard_syn"),
+                             verbose=False)
+    torch.cuda.synchronize()
+    counts = out["hard_synthetic"] = launch_counts()
+    steps = HS_EPOCHS * (len(tr) // hard_synthetic.BATCH_SIZE)
+    print(f"  11(d) examples.hard_synthetic.run(n_epoch={HS_EPOCHS}, "
+          f"aug_file=<port-trained>) in {time.perf_counter() - t0:.1f} s: "
+          f"leaf AMI {res['ami_leaf']}, root AMI {res['ami_root']}, arm-arm "
+          f"{res['ami_arm_arm']:.4f}, test consensus "
+          f"{res['test_consensus']:.4f}, scored at epoch "
+          f"{res['final_epoch']}; launches {counts}")
+    amis = res["ami_leaf"] + res["ami_root"] + [res["ami_arm_arm"]]
+    check(counts["encoder_fwd"] == counts["encoder_bwd"]
+          == counts["recon_fwdbwd"] == steps and counts["recon_fwd"] >= 1
+          and all(math.isfinite(v) and -1.0 <= v <= 1.0 for v in amis),
+          f"11(d) the recipe through the counted kernels ({steps} steps: "
+          f"encoder_fwd/bwd and recon_fwdbwd each {steps}, recon_fwd "
+          f"{counts['recon_fwd']} in its scoring) and finite AMIs")
+    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     only = [a for a in sys.argv[1:] if a.startswith("--kernels-only")]
     kernels_only = bool(only)
@@ -4283,6 +4716,8 @@ def main() -> int:
             del x
             torch.cuda.empty_cache()
             paths.update(phase_streaming(torch, check, tmp, zinb_host))
+            del zinb_host
+            paths.update(phase_gan(torch, check, tmp))
             on_path = ("recon_fwd", "recon_fwdbwd", "encoder_fwd",
                        "encoder_bwd", "zinb_fwd", "zinb_fwdbwd",
                        "gumbel_fwd", "gumbel_bwd", "coupling",

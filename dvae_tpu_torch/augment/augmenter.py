@@ -24,8 +24,13 @@ leaves to XLA outside any kernel: they stay ``torch.matmul``.  The three
 random draws (the input dropout mask, the noise ``z``, the
 reparameterization ``e``) come from a ``torch.Generator`` or, explicitly,
 from an ``AugNoise`` bundle, so a test can hand both packages the same
-numbers.  The GAN that trains the augmenter (generator, discriminator,
-``augment/train.py``) is not ported yet.
+numbers.
+
+The GAN half (dvae_tpu/augment/augmenter.py:268-386): ``kl_dist``, the
+plain-VAE ``Generator`` and the ``Discriminator`` that
+``augment/train.py`` trains the augmenter against.  Their random draws
+(the input dropout's keep-mask; the generator's reparameterization noise)
+are explicit arguments too.
 """
 
 from __future__ import annotations
@@ -97,29 +102,36 @@ def _bn_dims(cfg: AugmenterConfig) -> dict:
     return dims
 
 
+def _init_linears(generator: torch.Generator, shapes: dict, device, dtype):
+    """``nn.Linear``'s default init, U(±1/sqrt(fan_in)) for weight and bias,
+    drawn in ``shapes``' order on the generator's device."""
+    params = {}
+    for name, (fan_in, fan_out) in shapes.items():
+        bound = 1.0 / fan_in ** 0.5
+        params[name] = {
+            leaf: ((2.0 * torch.rand(shape, generator=generator,
+                                     device=generator.device) - 1.0)
+                   * bound).to(device=device, dtype=dtype)
+            for leaf, shape in (("w", (fan_in, fan_out)), ("b", (fan_out,)))}
+    return params
+
+
+def _bn_init(dims: dict, device, dtype):
+    return {name: {"mean": torch.zeros(d, device=device, dtype=dtype),
+                   "var": torch.ones(d, device=device, dtype=dtype)}
+            for name, d in dims.items()}
+
+
 def init_augmenter(generator: torch.Generator, cfg: AugmenterConfig,
                    device="cpu", dtype=torch.float32):
     """(params, bn_state) with ``nn.Linear``'s default init; the numbers
     are drawn on the generator's device and moved to ``device``."""
-    params = {}
-    for name, (fan_in, fan_out) in _linear_shapes(cfg).items():
-        bound = 1.0 / fan_in ** 0.5
-        layer = {}
-        for leaf, shape in (("w", (fan_in, fan_out)), ("b", (fan_out,))):
-            u = torch.rand(shape, generator=generator,
-                           device=generator.device, dtype=torch.float32)
-            layer[leaf] = ((2.0 * u - 1.0) * bound).to(device=device,
-                                                       dtype=dtype)
-        if name == "noise":
-            layer["b"] = None
-        params[name] = layer
-    bn = {}
-    for name, d in _bn_dims(cfg).items():
-        bn[name] = {"mean": torch.zeros(d, device=device, dtype=dtype),
-                    "var": torch.ones(d, device=device, dtype=dtype)}
-        if name == "bnz":  # affine
-            bn[name]["scale"] = torch.ones(d, device=device, dtype=dtype)
-            bn[name]["bias"] = torch.zeros(d, device=device, dtype=dtype)
+    params = _init_linears(generator, _linear_shapes(cfg), device, dtype)
+    params["noise"]["b"] = None  # bias-free (udagan.py:28)
+    bn = _bn_init(_bn_dims(cfg), device, dtype)
+    # bnz is affine
+    bn["bnz"]["scale"] = torch.ones(cfg.noise_dim, device=device, dtype=dtype)
+    bn["bnz"]["bias"] = torch.zeros(cfg.noise_dim, device=device, dtype=dtype)
     return params, bn
 
 
@@ -265,6 +277,119 @@ def augment_arms(params, bn, cfg: AugmenterConfig, x: torch.Tensor,
     return x_mu
 
 
+def kl_dist(mu1, var1, mu2, var2, eps: float = 1e-6):
+    """KL divergence between two diagonal Gaussians, summed over dims and
+    averaged over the batch (reference ``KL_dist``,
+    mmidas/augmentation/aug_utils.py:20-27)."""
+    logli = (torch.log((var2 + eps) / (var1 + eps))
+             + (var1 + (mu1 - mu2) ** 2) / (2.0 * var2 + eps) - 0.5)
+    return logli.sum(dim=1).mean()
+
+
+@dataclass(frozen=True)
+class GeneratorConfig:
+    """The reference ``Generator`` (udagan.py:148-214): a plain VAE with its
+    own narrower topology, fc1 (D -> n_dim), fc2/fc3, mu/sigma from n_dim,
+    the decoder fc6/fc7/fc10 (no noise path).  No reference entry point uses
+    it; it is part of the module's surface."""
+
+    latent_dim: int = 10
+    input_dim: int = 5032
+    n_dim: int = 100
+    n_zim: int = 1
+    p_drop: float = 0.1
+
+
+def init_generator(generator: torch.Generator, cfg: GeneratorConfig,
+                   device="cuda", dtype=torch.float32):
+    """(params, bn_state) for ``apply_generator``, drawn on the
+    generator's device and moved to ``device``."""
+    D, H, Z = cfg.input_dim, cfg.n_dim, cfg.latent_dim
+    shapes = {"fc1": (D, H), "fc2": (H, H), "fc3": (H, H),
+              "fc_mu": (H, Z), "fc_sigma": (H, Z),
+              "fc6": (Z, H), "fc7": (H, H), "fc10": (H, H), "fc11": (H, D)}
+    if cfg.n_zim > 1:
+        shapes["fc11_p"] = (H, D)
+    dims = {"bn1": H, "bn2": H, "bn3": H, "bn_mu": Z, "bn6": H, "bn7": H,
+            "bn10": H}
+    return (_init_linears(generator, shapes, device, dtype),
+            _bn_init(dims, device, dtype))
+
+
+def apply_generator(params, bn, cfg: GeneratorConfig, x: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    train: bool = False, draws: AugNoise = AugNoise()):
+    """Forward (udagan.py:198-213).  Returns (s, x_out, new_bn); x_out is
+    (..., 2D) [x_mu, x_p] when n_zim > 1.  ``draws.drop_mask`` and
+    ``draws.e`` are the explicit dropout keep-mask and reparameterization
+    noise (``draws.z`` is unused: the generator has no noise path)."""
+    new_bn = dict(bn)
+
+    def bnr(name, h, act=torch.relu):
+        y, new_bn[name] = _bn(h, bn[name], train)
+        return act(y) if act else y
+
+    h = x
+    if train and (cfg.p_drop > 0 or draws.drop_mask is not None):
+        h = dropout(x, cfg.p_drop, generator, draws.drop_mask)
+    for fc, norm in (("fc1", "bn1"), ("fc2", "bn2"), ("fc3", "bn3")):
+        h = bnr(norm, _lin(params[fc], h))
+    mu = bnr("bn_mu", _lin(params["fc_mu"], h), act=None)
+    sigma = torch.sigmoid(_lin(params["fc_sigma"], h))
+    e = draws.e
+    if e is None:
+        e = _draw("normal", mu.shape, mu, generator)
+    s = mu + e.to(mu.dtype) * sigma
+    h = s
+    for fc, norm in (("fc6", "bn6"), ("fc7", "bn7"), ("fc10", "bn10")):
+        h = bnr(norm, _lin(params[fc], h))
+    x_mu = torch.relu(_lin(params["fc11"], h))
+    if cfg.n_zim > 1:
+        x_p = torch.sigmoid(_lin(params["fc11_p"], h))
+        return s, torch.cat([x_mu, x_p], dim=-1), new_bn
+    return s, x_mu, new_bn
+
+
+# ---------------------------------------------------------------------------
+# Discriminator (udagan.py:121-145)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class DiscriminatorConfig:
+    input_dim: int = 5032
+    p_drop: float = 0.2
+
+
+def init_discriminator(generator: torch.Generator, cfg: DiscriminatorConfig,
+                       device="cuda", dtype=torch.float32):
+    """(params, bn_state) on ``device``: fc1 (D, D//5), fc2 (D//5, D//5),
+    disc (D//5, 1); batch norms bn1, bn2 without affine."""
+    D5 = cfg.input_dim // 5
+    shapes = {"fc1": (cfg.input_dim, D5), "fc2": (D5, D5), "disc": (D5, 1)}
+    return (_init_linears(generator, shapes, device, dtype),
+            _bn_init({"bn1": D5, "bn2": D5}, device, dtype))
+
+
+def apply_discriminator(params, bn, cfg: DiscriminatorConfig,
+                        x: torch.Tensor,
+                        generator: Optional[torch.Generator] = None,
+                        train: bool = False,
+                        drop_mask: Optional[torch.Tensor] = None):
+    """Returns (features, probs, new_bn): dropout (train mode; the keep-mask
+    ``drop_mask`` or one drawn from ``generator``), two fc + batch norm +
+    ReLU layers, a sigmoid head of one unit."""
+    new_bn = dict(bn)
+    h = x
+    if train and (cfg.p_drop > 0 or drop_mask is not None):
+        h = dropout(x, cfg.p_drop, generator, drop_mask)
+    h, new_bn["bn1"] = _bn(_lin(params["fc1"], h), bn["bn1"], train)
+    h = torch.relu(h)
+    h, new_bn["bn2"] = _bn(_lin(params["fc2"], h), bn["bn2"], train)
+    h = torch.relu(h)
+    probs = torch.sigmoid(_lin(params["disc"], h))
+    return h, probs, new_bn
+
+
 # ---------------------------------------------------------------------------
 # Checkpoints and the closures the training loop takes
 # ---------------------------------------------------------------------------
@@ -314,7 +439,7 @@ def make_augment_apply(params, bn, cfg: AugmenterConfig, dtype=None):
 
 def frozen_random_augment_fn(input_dim: int, bf16: bool = False, n_dim=None,
                              seed: int = 7, scale: float = 0.1,
-                             device="cpu"):
+                             device="cuda"):
     """Random-weight frozen augmenter closure fn(x, n_arm, generator=None,
     draws=AugNoise()) -> (A, B, D): the forward cost of a trained augmenter
     without shipping a checkpoint.  ``n_dim`` overrides the hidden width
@@ -333,7 +458,7 @@ def frozen_random_augment_fn(input_dim: int, bf16: bool = False, n_dim=None,
     return fn
 
 
-def load_augmenter_apply(path: str, dtype=None, device="cpu"):
+def load_augmenter_apply(path: str, dtype=None, device="cuda"):
     """``make_augment_apply`` over a checkpoint file (reference
     ``mk_augmenter``, cpl_mixvae.py:128-149)."""
     params, bn, cfg = load_augmenter(path, device)

@@ -1,10 +1,13 @@
-"""Command-line entry points of the PyTorch port: ``train`` and ``evaluate``.
+"""Command-line entry points of the PyTorch port: ``train``, ``evaluate``
+and ``train-augmenter``.
 
-Counterparts of ``dvae_tpu.cli train`` and ``evaluate`` (dvae_tpu/cli.py
-:92-164, :185-215; reference train.py:172-267, evaluation.py:92-127):
+Counterparts of ``dvae_tpu.cli train``, ``evaluate`` and
+``train-augmenter`` (dvae_tpu/cli.py:92-164, :185-236; reference
+train.py:172-267, evaluation.py:92-127, dist/train_agumenter.py):
 
     python -m dvae_tpu_torch.cli train --n_arm 2 --n_epoch 1000 ...
     python -m dvae_tpu_torch.cli evaluate --ckpt model.ckpt --synthetic
+    python -m dvae_tpu_torch.cli train-augmenter --n_epoch 50 --out aug.ckpt
 
 ``train`` trains in an auto-numbered ``{saving_folder}K…_RUN{n}`` folder
 and, with ``--resume``, continues the newest such folder from its latest
@@ -24,11 +27,14 @@ names in the section ``--dataset`` (its ``data_path`` and
 absent, or with ``--synthetic``, a synthetic one
 (``--syn_cells``/``--syn_genes``/``--syn_types``): planted Gaussian
 programs, or with ``--syn_hard`` (alias ``--hard_synthetic``) ZINB counts
-with library-size variation, dropout and overlapping types.  Both parsers
+with library-size variation, dropout and overlapping types.  The parsers
 accept every option of the JAX package's; the options of features still to
 port (``--sharding``/``--mesh_*``/``--coordinator``/``--num_processes``/
-``--process_id``, ``--wandb``, ``--rng_impl rbg``) raise the trainer's
-``NotImplementedError``.
+``--process_id``, ``--wandb``) raise the trainer's ``NotImplementedError``.
+``--rng_impl`` is kept in the checkpoint's metadata: the port draws from
+``torch.Generator`` whatever it names.  ``train-augmenter`` trains the
+VAE-GAN augmenter (``augment/train.py``) on the same datasets and writes a
+checkpoint that ``train --aug_file`` (of either package) loads.
 """
 
 from __future__ import annotations
@@ -97,7 +103,7 @@ def cmd_train(args) -> int:
         variational=args.variational, n_pr=args.n_pr,
         mode=args.loss_mode, batch_size=args.batch_size,
         epochs_per_jit=args.epochs_per_jit, bf16=args.bf16,
-        optimizer=args.optimizer,
+        optimizer=args.optimizer, rng_impl=args.rng_impl,
         fused={"auto": None, "on": True, "off": False}[args.fused],
         shuffle_block=args.shuffle_block, stream=args.stream,
         ckpt_every=args.ckpt_every,
@@ -148,6 +154,27 @@ def cmd_evaluate(args) -> int:
     np.save(os.path.join(args.out_dir,
                          f"A{n_arm}-RUN{args.run}-E{args.n_epoch}.npy"), res)
     print(json.dumps(res, default=float))
+    return 0
+
+
+def cmd_train_augmenter(args) -> int:
+    from dvae_tpu_torch.augment.augmenter import AugmenterConfig
+    from dvae_tpu_torch.augment.train import train_augmenter
+
+    ds = _load_dataset(args)
+    cfg = AugmenterConfig(noise_dim=args.noise_dim, latent_dim=args.z_dim,
+                          input_dim=ds.n_genes, n_dim=args.n_dim,
+                          p_drop=args.p_drop)
+    out = args.out or (f"trained_augmenter_bs_{args.batch_size}"
+                       f"_dn_{args.noise_dim}_dz_{args.z_dim}"
+                       f"_l1_{args.lambda_[0]}_l2_{args.lambda_[1]}"
+                       f"_l3_{args.lambda_[2]}_l4_{args.lambda_[3]}.ckpt")
+    train_augmenter(ds.log1p, cfg, n_epochs=args.n_epoch,
+                    batch_size=args.batch_size, lr=args.lr,
+                    lambdas=tuple(args.lambda_), alpha=args.alpha,
+                    mode=args.mode, seed=args.seed, saving_path=out,
+                    bf16=args.gan_bf16, device=args.device)
+    print(f"saved augmenter: {out}")
     return 0
 
 
@@ -205,16 +232,14 @@ def _refuse_unported(args) -> None:
     for flag in ("coordinator", "num_processes", "process_id"):
         if getattr(args, flag, None) is not None:
             raise _not_ported(f"several processes (--{flag})", "multi-GPU")
-    if getattr(args, "rng_impl", "threefry2x32") != "threefry2x32":
-        raise _not_ported(f"--rng_impl {args.rng_impl}", "random-number")
     if getattr(args, "wandb", False):
         raise _not_ported("wandb logging (--wandb)", "logging")
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The ``train`` and ``evaluate`` parsers: every option of the JAX
-    package's (dvae_tpu/cli.py:256-331) and the port's own ``--device``,
-    ``--aug_file`` and ``--out_dir``."""
+    """The ``train``, ``evaluate`` and ``train-augmenter`` parsers: every
+    option of the JAX package's (dvae_tpu/cli.py:256-353) and the port's own
+    ``--device``, ``--aug_file`` and ``--out_dir``."""
     parser = argparse.ArgumentParser(prog="dvae_tpu_torch",
                                      description=__doc__.splitlines()[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -234,8 +259,8 @@ def build_parser() -> argparse.ArgumentParser:
         pt.add_argument(flag, type=typ, default=default)
     pt.add_argument("--rng_impl", type=str, default="threefry2x32",
                     choices=["threefry2x32", "rbg"],
-                    help="kept for the checkpoint's metadata; only the "
-                         "default is taken")
+                    help="kept in the checkpoint's metadata; the port "
+                         "draws from torch.Generator whatever it names")
     pt.add_argument("--aug_file", type=str, default=None,
                     help="checkpoint of a frozen augmenter: every arm "
                          "trains on its own noisy view of each batch")
@@ -281,6 +306,26 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--device", type=str, default="cuda",
                     help="torch device of the model (cuda or cpu)")
     pe.set_defaults(fn=cmd_evaluate)
+
+    pa = sub.add_parser("train-augmenter", help="train the VAE-GAN augmenter")
+    _add_data_flags(pa)
+    for flag, typ, default in (
+            ("--n_epoch", int, 50), ("--batch_size", int, 1000),
+            ("--noise_dim", int, 50), ("--z_dim", int, 10),
+            ("--n_dim", int, 500), ("--p_drop", float, 0.5),
+            ("--lr", float, 1e-3), ("--alpha", float, 0.2),
+            ("--out", str, None), ("--seed", int, 546)):
+        pa.add_argument(flag, type=typ, default=default)
+    pa.add_argument("--lambda", dest="lambda_", type=float, nargs=4,
+                    default=[1.0, 0.5, 0.1, 0.5])
+    pa.add_argument("--mode", type=str, default="MSE",
+                    choices=["MSE", "ZINB"])
+    pa.add_argument("--gan_bf16", action="store_true",
+                    help="mixed-precision GAN step (bf16 products, f32 "
+                         "losses and master weights)")
+    pa.add_argument("--device", type=str, default="cuda",
+                    help="torch device of the GAN (cuda or cpu)")
+    pa.set_defaults(fn=cmd_train_augmenter)
     return parser
 
 

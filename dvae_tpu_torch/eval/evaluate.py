@@ -4,6 +4,8 @@ scipy only).
 Counterpart of dvae_tpu/eval/evaluate.py:34-287:
   * ``summarize_inference`` — mmidas/eval_models.py:8-134
   * ``mutinfo`` / ``avg_consensus`` / ``avg_max`` — evaluation.py:25-66
+  * ``adjusted_mutual_info_score`` — sklearn's, which the examples score
+    with (dvae_tpu/examples/hard_synthetic.py:130)
 ``mutinfo`` runs the numpy expected-MI path; the port does not load the
 JAX package's native helpers.
 """
@@ -126,6 +128,60 @@ def mutinfo(probs: np.ndarray, targets: np.ndarray) -> np.ndarray:
     single_u = (tf == 0) | (tf == N)
     both_single = single_u[:, None] & np.full((1, C), C == 1)
     return np.where(both_single, 1.0, ami)
+
+
+def _entropy_of_counts(counts: np.ndarray) -> float:
+    """Shannon entropy (nats) of a labeling from its cluster sizes."""
+    counts = counts[counts > 0].astype(np.float64)
+    total = counts.sum()
+    return float(-np.sum((counts / total) * (np.log(counts) - np.log(total))))
+
+
+def adjusted_mutual_info_score(labels_true, labels_pred) -> float:
+    """Adjusted mutual information of two labelings of the same N samples,
+    with arithmetic normalisation: ``sklearn.metrics.
+    adjusted_mutual_info_score`` in numpy (the card machine has no sklearn).
+
+    AMI = (MI − E[MI]) / (mean(H_true, H_pred) − E[MI]) over the general
+    R×C contingency table (kept sparse); E[MI] is the sum of ``_emi_cell``
+    over the cluster sizes' pairs (Vinh et al. 2010), each distinct pair of
+    sizes computed once.  sklearn's conventions for degenerate labelings:
+    1.0 when both have one cluster (or none); 0.0 when only one does; the
+    numerator and the denominator kept at least machine epsilon from 0 with
+    their signs.  Labelings equal up to a renaming of their clusters give
+    1.0."""
+    t = np.asarray(labels_true).ravel()
+    p = np.asarray(labels_pred).ravel()
+    if t.shape != p.shape:
+        raise ValueError(f"labelings of {t.size} and {p.size} samples")
+    classes, ti = np.unique(t, return_inverse=True)
+    clusters, pj = np.unique(p, return_inverse=True)
+    R, C = len(classes), len(clusters)
+    if R == C == 1 or R == C == 0:
+        return 1.0
+    if R == 1 or C == 1:
+        return 0.0
+    N = t.size
+    cells, nij = np.unique(ti.astype(np.int64) * C + pj, return_counts=True)
+    if len(cells) == R == C:   # a renaming: MI = H_true = H_pred
+        return 1.0
+    a, b = np.bincount(ti, minlength=R), np.bincount(pj, minlength=C)
+    ai, bj = a[cells // C].astype(np.int64), b[cells % C].astype(np.int64)
+    frac = nij / N
+    mi = (frac * (np.log(nij) - np.log(N))
+          + frac * (-np.log(ai * bj) + 2.0 * np.log(N)))
+    mi = float(np.clip(np.where(np.abs(mi) < np.finfo(np.float64).eps,
+                                0.0, mi).sum(), 0.0, None))
+    ua, na = np.unique(a, return_counts=True)
+    ub, nb = np.unique(b, return_counts=True)
+    emi = float(np.sum(na[:, None] * nb[None, :] * _emi_cell(
+        ua[:, None], ub[None, :], N, _lngamma_table(N))))
+    eps = np.finfo(np.float64).eps
+    den = 0.5 * (_entropy_of_counts(a) + _entropy_of_counts(b)) - emi
+    den = min(den, -eps) if den < 0 else max(den, eps)
+    num = mi - emi
+    num = min(num, -eps) if num < 0 else max(num, eps)
+    return float(num / den)
 
 
 def avg_max(a: np.ndarray) -> float:

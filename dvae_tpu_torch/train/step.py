@@ -95,7 +95,10 @@ class EvalFields(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def tree_leaves(tree) -> list:
-    return [tree[n][k] for n in sorted(tree) for k in sorted(tree[n])]
+    """The tensors of a parameter tree in JAX's leaf order; a bias-free
+    layer's None (the augmenter's ``noise`` layer) is no leaf."""
+    return [tree[n][k] for n in sorted(tree) for k in sorted(tree[n])
+            if tree[n][k] is not None]
 
 
 def tree_like(tree, leaves) -> dict:
@@ -111,6 +114,25 @@ def _cast_params(params, dtype):
 # ---------------------------------------------------------------------------
 # Optimizer
 # ---------------------------------------------------------------------------
+
+def adam_direction(grads: list, mu: list, nu: list, b1: float, b2: float,
+                   bc1, bc2, eps: float, eps_root: float = 0.0) -> list:
+    """optax's ``scale_by_adam`` on lists of leaves: moves the moments in
+    place and returns m̂ / (sqrt(v̂ + eps_root) + eps).  ``bc1``, ``bc2``
+    are the bias corrections 1 − b^t, floats or device scalars."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, torch._foreach_mul(grads, grads), alpha=1.0 - b2)
+    upd = list(torch._foreach_div(mu, bc1))
+    den = torch._foreach_div(nu, bc2)
+    if eps_root:
+        torch._foreach_add_(den, eps_root)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    torch._foreach_div_(upd, den)
+    return upd
+
 
 class AdamState(NamedTuple):
     """optax ``ScaleByAdamState``: the step count (a host integer here) and
@@ -143,19 +165,10 @@ class Adam:
         p, g = tree_leaves(params), tree_leaves(grads)
         mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
         count = state.count + 1
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1.0 - self.b2)
         bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.float32(count))
                     for b in (self.b1, self.b2))
-        upd = torch._foreach_div(mu, bc1)
-        den = torch._foreach_div(nu, bc2)
-        if self.eps_root:
-            torch._foreach_add_(den, self.eps_root)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        torch._foreach_div_(upd, den)
+        upd = adam_direction(g, mu, nu, self.b1, self.b2, bc1, bc2, self.eps,
+                             self.eps_root)
         if self.weight_decay:
             torch._foreach_add_(upd, p, alpha=self.weight_decay)
         torch._foreach_add_(p, upd, alpha=-self.lr)

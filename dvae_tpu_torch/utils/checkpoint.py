@@ -22,8 +22,9 @@ names, so the JAX package reads a checkpoint of the port with plain
 ``params_from_jax`` / ``bn_from_jax`` turn the numpy pytrees into tensors
 (and ``*_to_jax`` back): the weight bridge between the two packages.  The
 layout is the JAX one, stacked leading arm axis, ``(A, fan_in, fan_out)``.
-``augmenter_from_jax`` does the same for the frozen augmenter's trees
-(``augment/augmenter.py``), whose checkpoints use this format too.
+``augmenter_from_jax`` / ``augmenter_to_jax`` do the same for the trees
+of the augmenter, its generator and its discriminator
+(``augment/augmenter.py``); augmenter checkpoints use this format too.
 """
 
 from __future__ import annotations
@@ -205,14 +206,23 @@ def bn_from_jax(tree, device="cpu", dtype=None):
 
 
 def augmenter_from_jax(params, bn, device="cpu", dtype=torch.float32):
-    """The augmenter's numpy pytrees (dvae_tpu/augment/augmenter.py: flat
-    ``(fan_in, fan_out)`` weights, the bias-free ``noise`` layer whose ``b``
-    is None, ``bnz`` with its affine ``scale``/``bias``) → (params, bn) of
-    tensors; layout unchanged.  The weights are cast to ``dtype``: the
-    committed checkpoints store them in bf16, which JAX promotes against
-    f32 activations in every product and torch does not, so the port widens
-    them once (exactly).  The statistics keep their stored f32."""
+    """The numpy pytrees of the augmenter, its generator or its
+    discriminator (dvae_tpu/augment/augmenter.py: flat ``(fan_in,
+    fan_out)`` weights; the augmenter's bias-free ``noise`` layer, whose
+    ``b`` is None, and ``bnz`` with its affine ``scale``/``bias``) →
+    (params, bn) of tensors; layout unchanged.  The weights are cast to
+    ``dtype``: the committed checkpoints store them in bf16, which JAX
+    promotes against f32 activations in every product and torch does not,
+    so the port widens them once (exactly).  The statistics keep their
+    stored f32."""
     return _tree_to_torch(params, device, dtype), _tree_to_torch(bn, device)
+
+
+def augmenter_to_jax(params, bn):
+    """Inverse of ``augmenter_from_jax``: the (params, bn) numpy trees the
+    JAX package's augmenter, generator and discriminator take (a None leaf
+    stays None)."""
+    return _to_numpy(params), _to_numpy(bn)
 
 
 def params_to_jax(tree):

@@ -178,7 +178,7 @@ def test_checkpoints_cross_the_packages_both_ways(tmp_path):
     got = taug.augment_arms(tp, tb, cfg, torch.from_numpy(x), A, 0.1,
                             draws=draws)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
-    apply = taug.load_augmenter_apply(path)
+    apply = taug.load_augmenter_apply(path, device="cpu")
     assert torch.equal(apply(torch.from_numpy(x), A, 0.1, None, draws), got)
     # written by the port, read by the JAX package
     back = taug.save_augmenter(str(tmp_path / "port_aug.ckpt"), tp, tb, cfg)
@@ -239,7 +239,7 @@ def test_closures_cast_once_and_keep_the_statistics_f32():
     # bf16 weights and activations: eight mantissa bits through 14 layers
     err = (bf16.float() - f32).abs().max() / f32.abs().max()
     assert float(err) < 0.1
-    rand = taug.frozen_random_augment_fn(D, n_dim=20)
+    rand = taug.frozen_random_augment_fn(D, n_dim=20, device="cpu")
     v = rand(torch.from_numpy(x), A, torch.Generator().manual_seed(1))
     assert tuple(v.shape) == (A, B, D) and torch.isfinite(v).all()
     assert bool((v >= 0).all())

@@ -130,7 +130,7 @@ def _options(parser) -> dict:
             for opt in action.option_strings}
 
 
-@pytest.mark.parametrize("cmd", ["train", "evaluate"])
+@pytest.mark.parametrize("cmd", ["train", "evaluate", "train-augmenter"])
 def test_cli_knows_every_option_of_the_reference(cmd, monkeypatch):
     want = _options(_subparsers(_reference_parser(monkeypatch))[cmd])
     got = _options(_subparsers(tcli.build_parser())[cmd])
@@ -155,7 +155,7 @@ def _train_args(tmp_path, *extra):
     ["--sharding", "full"], ["--sharding", "ddp"],
     ["--mesh_data", "2"], ["--mesh_arm", "2"], ["--mesh_fsdp", "2"],
     ["--coordinator", "localhost:1234"], ["--num_processes", "2"],
-    ["--process_id", "0"], ["--wandb"], ["--rng_impl", "rbg"]],
+    ["--process_id", "0"], ["--wandb"]],
     ids=lambda e: " ".join(e))
 def test_cli_train_refuses_what_is_not_ported(extra, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -193,6 +193,17 @@ def test_cli_train_streams(tmp_path, monkeypatch):
     assert len(ckpts) == 1
     _, meta = tckpt.load_checkpoint(str(ckpts[0]))
     assert meta["tcfg"]["stream"] is True
+
+
+def test_cli_train_takes_rng_impl_rbg(tmp_path, monkeypatch):
+    """``--rng_impl rbg``, which ``dvae_tpu.cli train`` takes (fault C9):
+    one epoch trains on the CPU and the checkpoint records the name."""
+    monkeypatch.chdir(tmp_path)
+    assert tcli.main(_train_args(tmp_path, "--rng_impl", "rbg")) == 0
+    ckpts = sorted(tmp_path.glob("*/cpl_mixVAE_model_epoch_1.ckpt"))
+    assert len(ckpts) == 1
+    _, meta = tckpt.load_checkpoint(str(ckpts[0]))
+    assert meta["tcfg"]["rng_impl"] == "rbg"
 
 
 def test_cli_train_passes_the_ported_model_flags(tmp_path, monkeypatch):

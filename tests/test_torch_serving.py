@@ -809,8 +809,21 @@ st.init_model(n_arm=2, input_dim={D}, fc_dim=8, lowD_dim=4, n_categories=4,
 xs = sp.csr_matrix(x * (x > 0.5))
 st.train(xs, x_val=xs[:8], n_epoch=2, early_stop_consensus=0)
 sres = st.eval_model(xs, batch_size=8)
+from dvae_tpu_torch.augment.train import train_augmenter
+_, _, gcfg, ghist = train_augmenter(
+    x, AugmenterConfig(input_dim={D}, n_dim=20, noise_dim=6, latent_dim=4),
+    n_epochs=2, batch_size=10, mode="ZINB", verbose=False, device="cpu")
+from dvae_tpu_torch import cli
+cli.main(["train-augmenter", "--device", "cpu", "--synthetic", "--syn_cells",
+          "40", "--syn_genes", "{D}", "--syn_types", "3", "--n_epoch", "1",
+          "--batch_size", "20", "--n_dim", "20", "--noise_dim", "6",
+          "--z_dim", "4", "--out", "cli_aug.ckpt"])
+from dvae_tpu_torch.eval.evaluate import adjusted_mutual_info_score
+ami = adjusted_mutual_info_score(res["pred_label"][0], res["pred_label"][-1])
+import os
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu",
+                                    "sklearn"))
 print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
                   "steps": cpl.state.opt_state.count,
                   "zinb_steps": z.state.opt_state.count,
@@ -826,7 +839,10 @@ print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
                   "stream_steps": st.state.opt_state.count,
                   "stream_labels": sres["pred_label"].shape,
                   "stream_loss_finite": bool(np.isfinite(
-                      sres["total_loss"]))}}))
+                      sres["total_loss"])),
+                  "gan_epochs": len(ghist), "gan_n_zim": gcfg.n_zim,
+                  "cli_augmenter": os.path.exists("cli_aug.ckpt"),
+                  "ami_finite": bool(np.isfinite(ami))}}))
 """.format(D=D)
 
 
@@ -843,8 +859,10 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
     (4 steps, an alignment after each epoch) and serves with use_pallas,
     then trains (4 steps), reloads and serves with fused_decoder and a
     frozen augmenter, then trains streamed from a CSR matrix (4 steps,
-    validating on CSR rows) and serves the CSR matrix, without loading
-    JAX, optax or dvae_tpu."""
+    validating on CSR rows) and serves the CSR matrix, then trains an
+    augmenter (ZINB, 2 epochs) through the API and through ``cli
+    train-augmenter`` and scores an AMI, without loading JAX, optax,
+    sklearn or dvae_tpu."""
     _, ckpts = jax_checkpoints
     proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
     assert proc.returncode == 0, proc.stderr
@@ -854,7 +872,9 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
                    "pallas_steps": 4, "pallas_loss_finite": True,
                    "decoder_steps": 4, "decoder_flag": True,
                    "decoder_loss_finite": True, "stream_steps": 4,
-                   "stream_labels": [2, 20], "stream_loss_finite": True}
+                   "stream_labels": [2, 20], "stream_loss_finite": True,
+                   "gan_epochs": 2, "gan_n_zim": 2, "cli_augmenter": True,
+                   "ami_finite": True}
 
 
 def test_cli_evaluate_on_cpu(jax_checkpoints, tmp_path):
