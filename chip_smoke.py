@@ -131,7 +131,20 @@ Phases (any failure exits non-zero and prints no result line):
      steps, counted launches); examples.hard_synthetic.run at its recipe
      (A=2, bf16, batch 5000, 20,000 cells) for 4 epochs with that
      augmenter, its counted launches and numpy AMIs;
- 12. print the kernels line, the card's name and power limit, and last the
+ 12. the analysis and interop path at the same width: models.api.load_vae
+     of phase 6's use_pallas checkpoint → generate over 12,000 cells (three
+     batches, the last padded; one coupling launch a batch and no other
+     kernel; the peak memory rise) against eval_model on the same noise
+     and against the CPU path on 2,000 cells (labels, c_prob, state_mu,
+     loss_rec, recon); mixvae.state_changes (d_s 0, 8 samples, 2,000
+     cells) card against CPU, and the traversal study; evals2_files on
+     phase 3's and phase 6's checkpoints over 22,000 cells (eval_model's
+     launches; equal to evals2 of the two label sets); ``cli import-torch``
+     of reference-layout .pth files made with torch from a seed (MSE with
+     Adam moments, MSE with a pruned fcc, ZINB with Adam moments): the
+     parameters, mask and moments bit for bit, then served on the card
+     (recon_fwd or zinb_fwd) against the CPU path;
+ 13. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
 Every ``train`` call passes ``save_plots=False``: the plot artifacts would
@@ -2910,7 +2923,7 @@ def phase_breakdown(torch, server, x) -> None:
 
 def phase_serving(torch, check, tmp):
     """Serving path end to end; returns (launch counts of the run, the
-    dataset, the dataset on the card)."""
+    dataset, the dataset on the card, the checkpoint it served)."""
     import numpy as np
     from dvae_tpu_torch.data.anndata_io import synthetic_dataset
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
@@ -2967,7 +2980,37 @@ def phase_serving(torch, check, tmp):
 
     phase_breakdown(torch, server, x)
     serving_parity(check, server, ckpt, ds.log1p[:N_SMALL], x[:N_SMALL])
-    return counts, ds, x
+    return counts, ds, x, ckpt
+
+
+def _recon_err(got, want) -> float:
+    import numpy as np
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _served_within_limits(check, got, want, what: str,
+                          loss: str = "loss_rec") -> None:
+    """The serving limits of PERF.md §2 on two result dicts of eval_model or
+    generate: labels agree on ≥ 0.999 of the cells, c_prob (on the agreeing
+    cells) and state_mu within 1e-3, the per-arm reconstruction loss
+    (``loss``) within 1e-3 relative, recon within 1e-4 of its largest
+    entry; each where both dicts hold it."""
+    import numpy as np
+    agree = got["pred_label"] == want["pred_label"]
+    check(float(agree.mean()) >= 0.999,
+          f"{what}: labels agree on {float(agree.mean()):.6f} (min 0.999)")
+    rows = np.all(agree, axis=0)
+    dc = float(np.abs(got["c_prob"][:, rows] - want["c_prob"][:, rows]).max())
+    check(dc <= 1e-3, f"{what}: c_prob max abs diff {dc:.2e} (tol 1e-3)")
+    dmu = float(np.abs(got["state_mu"] - want["state_mu"]).max())
+    check(dmu <= 1e-3, f"{what}: state_mu max abs diff {dmu:.2e} (tol 1e-3)")
+    if loss in got and loss in want:
+        rl = float(np.max(np.abs(got[loss] - want[loss]) / np.abs(want[loss])))
+        check(rl <= 1e-3, f"{what}: {loss} max rel diff {rl:.2e} (tol 1e-3)")
+    if "recon" in got and "recon" in want:
+        dr = _recon_err(got["recon"], want["recon"])
+        check(dr <= 1e-4, f"{what}: recon max|Δ|/max|recon| {dr:.2e} "
+                          "(tol 1e-4)")
 
 
 def serving_parity(check, server, ckpt, small, small_dev,
@@ -2975,26 +3018,14 @@ def serving_parity(check, server, ckpt, small, small_dev,
     """One served batch on the card against the port's CPU path (plain
     PyTorch) from the same checkpoint (and the same augmenter: eval draws
     its noise from a CPU generator on either device)."""
-    import numpy as np
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
     ref = CplMixVAE(device="cpu", aug_file=aug_file)
     ref.load_model(ckpt)
     want = ref.eval_model(small, batch_size=B)
     got = server.eval_model(small_dev, batch_size=B)
-    agree = got["pred_label"] == want["pred_label"]
-    check(float(agree.mean()) >= 0.999,
-          f"labels vs CPU path on {small.shape[0]} cells: agreement "
-          f"{float(agree.mean()):.6f} (min 0.999)")
-    rows = np.all(agree, axis=0)
-    dc = float(np.abs(got["c_prob"][:, rows] - want["c_prob"][:, rows]).max())
-    check(dc <= 1e-3, f"c_prob vs CPU path: max abs diff {dc:.2e} (tol 1e-3)")
-    dmu = float(np.abs(got["state_mu"] - want["state_mu"]).max())
-    check(dmu <= 1e-3, f"state_mu vs CPU path: max abs diff {dmu:.2e} "
-                       "(tol 1e-3)")
-    rl = float(np.max(np.abs(got["total_loss_rec"] - want["total_loss_rec"])
-                      / np.abs(want["total_loss_rec"])))
-    check(rl <= 1e-3, f"total_loss_rec vs CPU path: max rel diff {rl:.2e} "
-                      "(tol 1e-3)")
+    _served_within_limits(check, got, want,
+                          f"served vs CPU path on {small.shape[0]} cells",
+                          loss="total_loss_rec")
 
 
 def phase_parity_step(torch, check, path, x, aug_file=None) -> None:
@@ -3378,7 +3409,8 @@ def phase_categorical_path(torch, check, tmp, x, x_zinb) -> dict:
     Gumbel sampler and coupling distance) with cross-arm alignment, in MSE
     mode through training, a fresh load and serving, then a short ZINB
     run.  Returns {"training", "serving", "zinb"}: the launch counts of
-    the three counted runs."""
+    the three counted runs, and "checkpoint": the trained use_pallas
+    checkpoint (phase 12 serves it again)."""
     import numpy as np
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
     print("phase 6: use_pallas + alignment end to end")
@@ -3532,7 +3564,8 @@ def phase_categorical_path(torch, check, tmp, x, x_zinb) -> dict:
           f"(expect {want})")
     del ztrainer
     torch.cuda.empty_cache()
-    return {"training": trained, "serving": served, "zinb": zinb}
+    return {"training": trained, "serving": served, "zinb": zinb,
+            "checkpoint": path}
 
 
 def phase_wide_categories(torch, check, tmp, x) -> dict:
@@ -4646,6 +4679,327 @@ def phase_gan(torch, check, tmp) -> dict:
     return out
 
 
+# phase 12, the analysis and interop path: generate over three batches
+# (the last padded), the traversal, cross-run consensus over 22,000 cells
+N_GEN, N_EVALS2, TRAV_SAMP = 12000, 22000, 8
+# generate's peak memory rise, in (A, B, D) f32 tensors: the plain MSE loss
+# holds at once x_rec, binarize(x_rec), t·log p, (1 − t) expanded, 1 − p and
+# _safe_log's bool mask, clamp, log and fill (models/losses.bce), 8.25 of
+# them, beside the (B, D) batch and its binarized copy (0.2 each): below 9
+GEN_PEAK_ABD = 9
+
+
+def _eval_noise(torch, seed: int, rows: int, pad_to: int):
+    """The reparameterisation draw eval_model makes for a batch of ``rows``
+    cells (a CPU generator seeded with the state's seed), zero-padded to
+    ``pad_to`` rows for generate's padded batch."""
+    e = torch.zeros((A, pad_to, 2))
+    e[:, :rows] = torch.randn((A, rows, 2),
+                              generator=torch.Generator().manual_seed(seed))
+    return e
+
+
+def _reference_pth(torch, path: str, zinb: bool, pruned: bool, adam: bool,
+                   seed: int) -> None:
+    """A reference MMIDAS trainer checkpoint at the production width, made
+    with torch alone from a seed: per-arm ModuleList names, nn.Linear's
+    default init, random running statistics, a pruned fcc (its last two
+    categories masked) and Adam moments in parameters() order on request.
+    Written to ``path``; returns nothing."""
+    g = torch.Generator().manual_seed(seed)
+    S, L = 2, 10
+    dims = {"fc1": (F, D), "fc2": (F, F), "fc3": (F, F), "fc4": (F, F),
+            "fc5": (L, F), "fcc": (C, L), "fc_mu": (S, L + C),
+            "fc_sigma": (S, L + C), "fc6": (L, C + S), "fc7": (F, L),
+            "fc8": (F, F), "fc9": (F, F), "fc10": (F, F), "fc11": (D, F)}
+    if zinb:
+        dims["fc11_p"] = dims["fc11_r"] = (D, F)
+    sd = {}
+    for name, (o, i) in dims.items():
+        for a in range(A):
+            bound = 1.0 / i ** 0.5
+            w = (2 * torch.rand((o, i), generator=g) - 1) * bound
+            if pruned and name == "fcc":
+                mask = torch.ones(o, i)
+                mask[-2:] = 0.0
+                sd[f"{name}.{a}.weight_orig"] = w
+                sd[f"{name}.{a}.weight_mask"] = mask
+            else:
+                sd[f"{name}.{a}.weight"] = w
+            sd[f"{name}.{a}.bias"] = (2 * torch.rand(o, generator=g) - 1) \
+                * bound
+    for i, d in zip(range(1, 6), (F, F, F, F, L)):
+        for a in range(A):
+            sd[f"batch_l{i}.{a}.running_mean"] = 0.1 * torch.randn(
+                d, generator=g)
+            sd[f"batch_l{i}.{a}.running_var"] = 0.5 + torch.rand(
+                d, generator=g)
+            sd[f"batch_l{i}.{a}.num_batches_tracked"] = torch.tensor(7)
+    ckpt = {"model_state_dict": sd}
+    if adam:
+        keys = [k for k in sd if not k.startswith("batch_")]
+        ckpt["optimizer_state_dict"] = {
+            "state": {j: {"step": torch.tensor(11.0),
+                          "exp_avg": 1e-3 * torch.randn(sd[k].shape,
+                                                        generator=g),
+                          "exp_avg_sq": 1e-6 * torch.rand(sd[k].shape,
+                                                          generator=g)}
+                      for j, k in enumerate(keys)},
+            "param_groups": [{"lr": 2e-3, "params": list(range(len(keys)))}]}
+    torch.save(ckpt, path)
+
+
+def _import_checks(torch, check, ckpt: dict, out: str, what: str) -> None:
+    """The imported checkpoint against the reference dict it came from: the
+    parameters its transposed tensors bit for bit (a pruned weight as
+    weight_orig · weight_mask), the statistics, the category mask and the
+    Adam moments bit for bit."""
+    import numpy as np
+    from dvae_tpu_torch.utils.checkpoint import (adam_state_from_jax,
+                                                 load_checkpoint)
+    tree, meta = load_checkpoint(out)
+    sd = ckpt["model_state_dict"]
+    same = True
+    for name, layer in tree["params"].items():
+        for a in range(A):
+            if f"{name}.{a}.weight" in sd:
+                w = sd[f"{name}.{a}.weight"]
+            else:
+                w = sd[f"{name}.{a}.weight_orig"] * sd[f"{name}.{a}.weight_mask"]
+            same &= layer["w"][a].tobytes() == w.numpy().T.tobytes()
+            same &= layer["b"][a].tobytes() == sd[f"{name}.{a}.bias"] \
+                .numpy().tobytes()
+    for i in range(1, 6):
+        for a in range(A):
+            for ours, ref in (("mean", "running_mean"), ("var", "running_var")):
+                same &= (tree["bn"][f"bn{i}"][ours][a].tobytes()
+                         == sd[f"batch_l{i}.{a}.{ref}"].numpy().tobytes())
+    check(same, f"{what}: parameters and statistics are the state dict's "
+                "(transposed) tensors bit for bit")
+    pruned = "fcc.0.weight_mask" in sd
+    want_mask = np.ones(C, np.float32)
+    if pruned:
+        want_mask[-2:] = 0.0
+    check(np.array_equal(tree["mask"], want_mask)
+          and (not pruned or not np.any(tree["params"]["fcc"]["w"][:, :, -2:])),
+          f"{what}: category mask {int(tree['mask'].sum())} of {C}"
+          + (", the pruning mask folded into fcc" if pruned else ""))
+    opt = ckpt.get("optimizer_state_dict")
+    count, mu, nu = adam_state_from_jax(tree["opt_state"])
+    if opt and not pruned:
+        keys = [k for k in sd if not k.startswith("batch_")]
+        ok = meta["moments_imported"] and count == 11
+        for j, k in enumerate(keys):
+            name, a, kind = k.split(".")
+            leaf = "w" if kind == "weight" else "b"
+            m, v = (opt["state"][j][s].numpy() for s in ("exp_avg",
+                                                          "exp_avg_sq"))
+            if leaf == "w":
+                m, v = m.T, v.T
+            ok &= mu[name][leaf][int(a)].tobytes() == m.tobytes()
+            ok &= nu[name][leaf][int(a)].tobytes() == v.tobytes()
+        check(ok, f"{what}: Adam count 11 and both moments bit for bit in "
+                  "the checkpoint's key order")
+    else:
+        check(count == 0 and not meta["moments_imported"],
+              f"{what}: a fresh optimizer state (count {count})")
+
+
+def phase_analysis(torch, check, tmp, x_host, mse_ckpt, pallas_ckpt) -> dict:
+    """The analysis and interop path at full width: generate, the traversal
+    study, cross-run consensus and import-torch.  Returns the launch counts
+    of its counted runs."""
+    import numpy as np
+    from dvae_tpu_torch.eval.evaluate import evals2, evals2_files
+    from dvae_tpu_torch.examples.state_traversal import traversal_study
+    from dvae_tpu_torch.models import mixvae
+    from dvae_tpu_torch.models.api import generate, load_vae
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print("phase 12: the analysis and interop path")
+    t_phase = time.perf_counter()
+    counts = {}
+
+    # (a) load_vae -> generate over 12,000 cells, the last batch padded
+    cfg, params, bn, mask = load_vae(pallas_ckpt, device=DEV)
+    cpu_model = load_vae(pallas_ckpt, device="cpu")
+    check(cfg.use_pallas, "load_vae takes use_pallas from the checkpoint")
+    server = CplMixVAE(device=DEV)
+    server.load_model(pallas_ckpt)
+    seed = server.state.seed
+    sizes = [min(B, N_GEN - i) for i in range(0, N_GEN, B)]
+    noise = [_eval_noise(torch, seed, n, B) for n in sizes]
+    xg = x_host[:N_GEN]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    gen = generate(cfg, params, bn, xg, mask=mask, batch_size=B, noise=noise)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["analysis_generate"] = launched = launch_counts()
+    rise = torch.cuda.max_memory_allocated() - base
+    unit = A * B * D * 4
+    print(f"  generate: {N_GEN} cells in {wall:.4f} s ({len(sizes)} batches, "
+          f"the last of {sizes[-1]} padded to {B}); peak allocated rise "
+          f"{rise / 1e6:.1f} MB = {rise / unit:.3f} (A,B,D) f32 tensors")
+    check(launched == {**dict.fromkeys(launched, 0),
+                       "coupling": len(sizes)},
+          f"launches of generate: {launched} (expect coupling "
+          f"{len(sizes)}, one a batch, and no other kernel)")
+    check(rise < GEN_PEAK_ABD * unit,
+          f"generate's peak rise below {GEN_PEAK_ABD} (A,B,D) f32 tensors "
+          f"({GEN_PEAK_ABD * unit / 1e6:.0f} MB)")
+    shapes = {"recon": (A, N_GEN, D), "c_prob": (A, N_GEN, C),
+              "c_smp": (A, N_GEN, C), "state": (A, N_GEN, 2),
+              "state_mu": (A, N_GEN, 2), "state_logvar": (A, N_GEN, 2),
+              "x_low": (A, N_GEN, 10), "pred_label": (A, N_GEN),
+              "loss_rec": (A,)}
+    check(all(gen[k].shape == v and bool(np.isfinite(gen[k]).all())
+              for k, v in shapes.items()),
+          "generate's outputs: JAX's keys and shapes, finite")
+    served = server.eval_model(xg, batch_size=B)
+    _served_within_limits(check, gen, served,
+                          "generate vs eval_model on the card")
+    # the card against the CPU path on the first 2,000 cells, same noise
+    small_noise = [noise[0][:, :N_SMALL]]
+    want = generate(*cpu_model[:3], xg[:N_SMALL], mask=cpu_model[3],
+                    batch_size=N_SMALL, noise=small_noise)
+    got = generate(cfg, params, bn, xg[:N_SMALL], mask=mask,
+                   batch_size=N_SMALL, noise=small_noise)
+    _served_within_limits(check, got, want,
+                          f"generate on {N_SMALL} cells, card vs CPU")
+    head = {k: v[:, :N_SMALL] for k, v in gen.items() if k != "loss_rec"}
+    _served_within_limits(check, head, want,
+                          f"the {N_GEN}-cell run's first {N_SMALL} cells vs "
+                          "the CPU")
+    del gen, served, head
+
+    # (b) state_changes and the traversal study
+    g = torch.Generator().manual_seed(SEED + 12)
+    e = torch.randn((A, N_SMALL, 2), generator=g)
+    draws = torch.randn((TRAV_SAMP, A, N_SMALL), generator=g)
+    xs = torch.as_tensor(xg[:N_SMALL])
+    t0 = time.perf_counter()
+    recon, s_vals = mixvae.state_changes(params, bn, cfg, xs.to(DEV), d_s=0,
+                                         n_samp=TRAV_SAMP, noise=e,
+                                         draws=draws)
+    torch.cuda.synchronize()
+    print(f"  state_changes: {tuple(recon.shape)} "
+          f"({recon.numel() * 4 / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.4f} s")
+    r_cpu, s_cpu = mixvae.state_changes(cpu_model[1], cpu_model[2], cfg, xs,
+                                        d_s=0, n_samp=TRAV_SAMP, noise=e,
+                                        draws=draws)
+    dr = rel_err(torch, recon.cpu(), r_cpu)
+    ds = rel_err(torch, s_vals.cpu(), s_cpu)
+    check(dr <= 1e-4 and ds <= 1e-4,
+          f"state_changes card vs CPU: recon {dr:.2e}, values {ds:.2e} of "
+          "their largest entries (tol 1e-4)")
+    check(bool((s_vals[:, 1:] >= s_vals[:, :-1]).all()),
+          "the values ascend along the sample axis")
+    del recon, s_vals, r_cpu, s_cpu
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    study = traversal_study(cfg, params, bn, xg[:N_SMALL], d_s=0,
+                            n_samp=TRAV_SAMP)
+    corr = study["gene_corr_sorted"]
+    print(f"  traversal_study on {N_SMALL} cells, {TRAV_SAMP} samples: "
+          f"{time.perf_counter() - t0:.3f} s; top genes "
+          f"{study['gene_order'][-5:][::-1].tolist()}, max |r| "
+          f"{corr[-1]:.4f}")
+    check(corr.shape == (D,) and bool(np.isfinite(corr).all())
+          and bool((np.diff(corr) >= 0).all()),
+          "the traversal's sorted correlations are finite and ascending")
+    del study, server, params, bn, cpu_model
+    torch.cuda.empty_cache()
+
+    # (c) evals2_files on the MSE and use_pallas checkpoints
+    xe = x_host[:N_EVALS2]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    e2 = evals2_files(mse_ckpt, pallas_ckpt, xe, batch_size=B, device=DEV)
+    torch.cuda.synchronize()
+    counts["analysis_evals2"] = launched = launch_counts()
+    n_b = -(-N_EVALS2 // B)
+    print(f"  evals2_files over {N_EVALS2} cells in "
+          f"{time.perf_counter() - t0:.3f} s; mean between-run consensus "
+          f"{float(e2['between'].mean()):.4f}")
+    check(launched == {**dict.fromkeys(launched, 0), "recon_fwd": 2 * n_b,
+                       "coupling": n_b},
+          f"launches of evals2_files: {launched} (expect eval_model's: "
+          f"recon_fwd {2 * n_b}, coupling {n_b})")
+    mats = [e2[k] for k in ("within_a", "within_b", "between", "l2_between")]
+    check(all(np.array_equal(np.diag(e2[k]), np.ones(A))
+              for k in ("within_a", "within_b"))
+          and all(bool(((m >= 0) & (m <= 1)).all()) for m in mats[:3])
+          and bool(np.isfinite(mats[3]).all()),
+          "within-run diagonals 1, every consensus in [0, 1], L2 finite")
+    labels = []
+    for f in (mse_ckpt, pallas_ckpt):
+        cpl = CplMixVAE(device=DEV)
+        cpl.load_model(f)
+        labels.append(cpl.eval_model(xe, batch_size=B)["pred_label"])
+    again = evals2(*labels, K=C)
+    check(all(np.array_equal(e2[k], again[k])
+              for k in ("within_a", "within_b", "between")),
+          "within_a, within_b and between equal evals2 of the two "
+          "eval_model label sets exactly")
+    del e2, labels, cpl
+
+    # (d) import-torch of reference .pth files at the production width: the
+    # three commands run at once (each a fresh interpreter).  The ZINB model
+    # serves count data (the hard synthetic generator's): the synthetic
+    # MSE data reach log1p 30, counts past the ZINB kernels' clamp of 1e12
+    # (ops/zinb.py, as zinb_pallas.py), where the CPU path, unfused for a
+    # checkpoint without fused_recon, takes torch.lgamma of the raw count
+    from dvae_tpu_torch.data.anndata_io import hard_synthetic_dataset
+    x_counts = hard_synthetic_dataset(n_cells=N_SMALL, n_genes=D, n_types=C,
+                                      seed=SEED, device=DEV).log1p
+    cases = (("mse_adam", False, False, True, "auto"),
+             ("mse_pruned", False, True, False, "model"),
+             ("zinb_adam", True, False, True, "auto"))
+    jobs = []
+    for tag, zinb, pruned, adam, kind in cases:
+        pth = os.path.join(tmp, f"cpl_mixVAE_model_epoch_40_{tag}.pth")
+        _reference_pth(torch, pth, zinb, pruned, adam, seed=SEED + len(tag))
+        out = os.path.join(tmp, f"imported_{tag}.ckpt")
+        jobs.append((pth, out, subprocess.Popen(
+            [sys.executable, "-m", "dvae_tpu_torch.cli", "import-torch", pth,
+             "--kind", kind, "--out", out], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=_HERE)))
+    t0 = time.perf_counter()
+    for (tag, zinb, _, _, kind), (pth, out, proc) in zip(cases, jobs):
+        stdout, stderr = proc.communicate(timeout=300)
+        check(proc.returncode == 0 and os.path.exists(out),
+              f"cli import-torch --kind {kind} {tag}: rc {proc.returncode} "
+              f"({time.perf_counter() - t0:.2f} s for the three so far) "
+              f"{stdout.strip().splitlines()[-1:]}{stderr[-300:]}")
+        _import_checks(torch, check, torch.load(pth, weights_only=False),
+                       out, tag)
+        srv = CplMixVAE(device=DEV)
+        srv.load_model(out)
+        check(srv.cfg.mode == ("ZINB" if zinb else "MSE")
+              and srv.cfg.fused_recon
+              and all(v.is_contiguous() for layer in srv.state.params.values()
+                      for v in layer.values()),
+              f"{tag}: served in {srv.cfg.mode} mode through the kernels, "
+              "every parameter contiguous (fault C10)")
+        xi = x_counts if zinb else x_host[:N_SMALL]
+        reset_launch_counts()
+        srv.eval_model(xi, batch_size=B)
+        torch.cuda.synchronize()
+        counts[f"analysis_import_{tag}"] = launched = launch_counts()
+        kernel = "zinb_fwd" if zinb else "recon_fwd"
+        check(launched == {**dict.fromkeys(launched, 0), kernel: 1},
+              f"{tag}: launches serving {N_SMALL} cells {launched} (expect "
+              f"{kernel} 1)")
+        serving_parity(check, srv, out, xi, torch.as_tensor(xi).to(DEV))
+        del srv
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     only = [a for a in sys.argv[1:] if a.startswith("--kernels-only")]
     kernels_only = bool(only)
@@ -4695,7 +5049,7 @@ def main() -> int:
             if wanted is None or name in wanted:
                 records.update(run())
         if not kernels_only:
-            served, _, x = phase_serving(torch, check, tmp)
+            served, _, x, mse_ckpt = phase_serving(torch, check, tmp)
             paths = {"serving": served,
                      "training": phase_training(torch, check, tmp, x)}
             zinb, x_zinb = phase_zinb_path(torch, check, tmp)
@@ -4705,6 +5059,7 @@ def main() -> int:
             paths["categorical_training"] = cat["training"]
             paths["categorical_serving"] = cat["serving"]
             paths["categorical_zinb"] = cat["zinb"]
+            pallas_ckpt = cat["checkpoint"]
             paths.update(phase_wide_categories(torch, check, tmp, x))
             paths.update(phase_many_arms(torch, check, tmp, x))
             phase_augmenter(torch, check, x, x_zinb)
@@ -4713,11 +5068,15 @@ def main() -> int:
             del x_zinb
             torch.cuda.empty_cache()
             paths.update(phase_decoder_path(torch, check, tmp, x))
+            x_analysis = x[:N_EVALS2].cpu().numpy()
             del x
             torch.cuda.empty_cache()
             paths.update(phase_streaming(torch, check, tmp, zinb_host))
             del zinb_host
             paths.update(phase_gan(torch, check, tmp))
+            torch.cuda.empty_cache()
+            paths.update(phase_analysis(torch, check, tmp, x_analysis,
+                                        mse_ckpt, pallas_ckpt))
             on_path = ("recon_fwd", "recon_fwdbwd", "encoder_fwd",
                        "encoder_bwd", "zinb_fwd", "zinb_fwdbwd",
                        "gumbel_fwd", "gumbel_bwd", "coupling",

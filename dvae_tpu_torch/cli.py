@@ -1,13 +1,14 @@
-"""Command-line entry points of the PyTorch port: ``train``, ``evaluate``
-and ``train-augmenter``.
+"""Command-line entry points of the PyTorch port: ``train``, ``evaluate``,
+``train-augmenter`` and ``import-torch``.
 
-Counterparts of ``dvae_tpu.cli train``, ``evaluate`` and
-``train-augmenter`` (dvae_tpu/cli.py:92-164, :185-236; reference
-train.py:172-267, evaluation.py:92-127, dist/train_agumenter.py):
+Counterparts of ``dvae_tpu.cli train``, ``evaluate``, ``train-augmenter``
+and ``import-torch`` (dvae_tpu/cli.py:92-236; reference train.py:172-267,
+evaluation.py:92-127, dist/train_agumenter.py):
 
     python -m dvae_tpu_torch.cli train --n_arm 2 --n_epoch 1000 ...
     python -m dvae_tpu_torch.cli evaluate --ckpt model.ckpt --synthetic
     python -m dvae_tpu_torch.cli train-augmenter --n_epoch 50 --out aug.ckpt
+    python -m dvae_tpu_torch.cli import-torch cpl_mixVAE_model_epoch_40.pth
 
 ``train`` trains in an auto-numbered ``{saving_folder}K…_RUN{n}`` folder
 and, with ``--resume``, continues the newest such folder from its latest
@@ -30,11 +31,16 @@ programs, or with ``--syn_hard`` (alias ``--hard_synthetic``) ZINB counts
 with library-size variation, dropout and overlapping types.  The parsers
 accept every option of the JAX package's; the options of features still to
 port (``--sharding``/``--mesh_*``/``--coordinator``/``--num_processes``/
-``--process_id``, ``--wandb``) raise the trainer's ``NotImplementedError``.
+``--process_id``) raise the trainer's ``NotImplementedError``.
 ``--rng_impl`` is kept in the checkpoint's metadata: the port draws from
-``torch.Generator`` whatever it names.  ``train-augmenter`` trains the
-VAE-GAN augmenter (``augment/train.py``) on the same datasets and writes a
-checkpoint that ``train --aug_file`` (of either package) loads.
+``torch.Generator`` whatever it names.  ``train --wandb`` forwards the
+metrics to wandb where it imports (else one line says so and the run logs
+locally).  ``train-augmenter`` trains the VAE-GAN augmenter
+(``augment/train.py``) on the same datasets and writes a checkpoint that
+``train --aug_file`` (of either package) loads.  ``import-torch`` converts
+a reference PyTorch ``.pth`` (a trainer's or an augmenter's, ``--kind
+auto`` tells them apart) into a checkpoint that both packages load
+(``utils/torch_import.py``).
 """
 
 from __future__ import annotations
@@ -92,7 +98,8 @@ def cmd_train(args) -> int:
 
     tr, te = stratified_split_indices(ds.cluster_label, 0.9, args.seed)
     cpl = CplMixVAE(saving_folder=folder, aug_file=args.aug_file,
-                    seed=args.seed, device=args.device)
+                    seed=args.seed, device=args.device,
+                    use_wandb=args.wandb)
     cpl.init_model(
         n_categories=args.n_categories, state_dim=args.state_dim,
         input_dim=ds.log1p.shape[1], fc_dim=args.fc_dim,
@@ -178,6 +185,23 @@ def cmd_train_augmenter(args) -> int:
     return 0
 
 
+def cmd_import_torch(args) -> int:
+    from dvae_tpu_torch.utils.torch_import import (
+        _load_torch, import_augmenter_checkpoint, import_mixvae_checkpoint)
+    kind, ckpt = args.kind, None
+    if kind == "auto":
+        ckpt = _load_torch(args.path)   # loaded once, converted below
+        kind = "augmenter" if "netA" in ckpt else "model"
+    if kind == "augmenter":
+        out = import_augmenter_checkpoint(args.path, args.out, ckpt=ckpt)
+    else:
+        out = import_mixvae_checkpoint(
+            args.path, args.out, import_optimizer=not args.no_optimizer,
+            ckpt=ckpt)
+    print(f"imported {kind} checkpoint -> {out}")
+    return 0
+
+
 def _add_model_flags(p: argparse.ArgumentParser) -> None:
     """The reference's mixVAE hyperparameters (dvae_tpu/cli.py:28-49)."""
     for flag, typ, default in (
@@ -232,14 +256,12 @@ def _refuse_unported(args) -> None:
     for flag in ("coordinator", "num_processes", "process_id"):
         if getattr(args, flag, None) is not None:
             raise _not_ported(f"several processes (--{flag})", "multi-GPU")
-    if getattr(args, "wandb", False):
-        raise _not_ported("wandb logging (--wandb)", "logging")
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The ``train``, ``evaluate`` and ``train-augmenter`` parsers: every
-    option of the JAX package's (dvae_tpu/cli.py:256-353) and the port's own
-    ``--device``, ``--aug_file`` and ``--out_dir``."""
+    """The ``train``, ``evaluate``, ``train-augmenter`` and ``import-torch``
+    parsers: every option of the JAX package's (dvae_tpu/cli.py:256-366)
+    and the port's own ``--device``, ``--aug_file`` and ``--out_dir``."""
     parser = argparse.ArgumentParser(prog="dvae_tpu_torch",
                                      description=__doc__.splitlines()[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -286,7 +308,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-group (ghost) batch-norm statistics over the "
                          "mesh's data blocks (one group on one device)")
     pt.add_argument("--wandb", action="store_true",
-                    help="not ported yet: refused")
+                    help="log the metrics to wandb (where it is installed)")
     pt.add_argument("--device", type=str, default="cuda",
                     help="torch device of the model (cuda or cpu)")
     pt.set_defaults(fn=cmd_train)
@@ -326,6 +348,19 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--device", type=str, default="cuda",
                     help="torch device of the GAN (cuda or cpu)")
     pa.set_defaults(fn=cmd_train_augmenter)
+
+    pi = sub.add_parser(
+        "import-torch",
+        help="convert a reference PyTorch .pth checkpoint (trainer or "
+             "augmenter) to the checkpoint format of both packages")
+    pi.add_argument("path", type=str, help=".pth file to convert")
+    pi.add_argument("--out", type=str, default=None,
+                    help="output path (default: alongside, .ckpt)")
+    pi.add_argument("--kind", type=str, default="auto",
+                    choices=["auto", "model", "augmenter"])
+    pi.add_argument("--no-optimizer", action="store_true",
+                    help="skip the Adam moments (fresh optimizer state)")
+    pi.set_defaults(fn=cmd_import_torch)
     return parser
 
 

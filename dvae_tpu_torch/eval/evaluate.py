@@ -1,9 +1,13 @@
-"""Inference summary and north-star metrics of the PyTorch port (numpy and
-scipy only).
+"""Inference summary, cross-run reproducibility and north-star metrics of
+the PyTorch port (numpy and scipy only).
 
-Counterpart of dvae_tpu/eval/evaluate.py:34-287:
+Counterpart of dvae_tpu/eval/evaluate.py:
   * ``summarize_inference`` — mmidas/eval_models.py:8-134
-  * ``mutinfo`` / ``avg_consensus`` / ``avg_max`` — evaluation.py:25-66
+  * ``mutinfo`` / ``avg_consensus`` / ``avg_max`` — evaluation.py:25-66,
+    and ``mutinfo_oracle``, the sklearn double loop that ``mutinfo``
+    replaces (sklearn imported inside it: the card machine has none)
+  * ``evals2`` / ``evals2_files`` — mmidas/_evals.py:8-230
+  * ``compute_consensus_statistics`` — mmidas/_utils.py:131-276
   * ``adjusted_mutual_info_score`` — sklearn's, which the examples score
     with (dvae_tpu/examples/hard_synthetic.py:130)
 ``mutinfo`` runs the numpy expected-MI path; the port does not load the
@@ -13,13 +17,34 @@ JAX package's native helpers.
 from __future__ import annotations
 
 import pickle
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
 from dvae_tpu_torch.eval.metrics import (compute_confmat, confmat_mean,
                                          confmat_normalize,
-                                         per_category_agreement)
+                                         consensus_from_labels,
+                                         per_category_agreement, reassign)
+
+
+def mutinfo_oracle(probs: np.ndarray, targets: np.ndarray) -> np.ndarray:
+    """Reference transcription of ``mutinfo`` (evaluation.py:25-41): sklearn's
+    AMI for every (reference type, cluster) pair, the oracle of ``mutinfo``.
+    Minutes at production size; needs scikit-learn."""
+    from sklearn.metrics.cluster import adjusted_mutual_info_score
+
+    preds = np.argmax(probs, axis=1)
+    uniq = np.unique(preds)
+    prediction = np.zeros(len(preds))
+    for i, c in enumerate(uniq):
+        prediction[preds == c] = i
+    F = len(np.unique(np.argmax(targets, axis=-1)))
+    mi = np.zeros((F, len(uniq)))
+    for c in range(mi.shape[1]):
+        per_c = (prediction == c).astype(int)
+        for f in range(F):
+            mi[f, c] = adjusted_mutual_info_score(targets[:, f], per_c)
+    return mi
 
 
 def _lngamma_table(n: int) -> np.ndarray:
@@ -246,3 +271,96 @@ def summarize_inference(cpl, files, x, saving_file: Optional[str] = None
         with open(saving_file, "wb") as fh:
             pickle.dump(out, fh, protocol=pickle.HIGHEST_PROTOCOL)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Cross-run reproducibility (mmidas/_evals.py)
+# ---------------------------------------------------------------------------
+
+def evals2(labels_a: np.ndarray, labels_b: np.ndarray,
+           c_prob_a: Optional[np.ndarray] = None,
+           c_prob_b: Optional[np.ndarray] = None,
+           K: Optional[int] = None) -> dict:
+    """Within-run and between-run consensus of two trained models on the
+    same cells (reference ``evals2``, mmidas/_evals.py:8-230).
+
+    ``labels_*``: (A, N) argmax labels; ``c_prob_*``: optional (A, N, C)
+    posteriors.  Returns 'within_a'/'within_b' (A, A) consensus of the arm
+    pairs of one run, 'between' (A_a, A_b) consensus of arms across runs,
+    and with posteriors 'l2_between', the mean squared L2 distance.  Only
+    the between-run pairs are Hungarian-aligned before the diagonal is
+    read (_evals.py:90): two runs may name the same clusters differently,
+    while the arms of one run share category indices (:138, :186)."""
+    if K is None:
+        K = int(max(labels_a.max(), labels_b.max())) + 1
+
+    def pair_consensus(la, lb, align=False):
+        cm = confmat_normalize(compute_confmat(la, lb, K))
+        return confmat_mean(reassign(cm) if align else cm)
+
+    def within(labels):
+        A = labels.shape[0]
+        m = np.eye(A)
+        for a in range(A):
+            for b in range(a + 1, A):
+                m[a, b] = m[b, a] = pair_consensus(labels[a], labels[b])
+        return m
+
+    Aa, Ab = labels_a.shape[0], labels_b.shape[0]
+    between = np.zeros((Aa, Ab))
+    for a in range(Aa):
+        for b in range(Ab):
+            between[a, b] = pair_consensus(labels_a[a], labels_b[b],
+                                           align=True)
+    out = {"within_a": within(labels_a), "within_b": within(labels_b),
+           "between": between}
+    if c_prob_a is not None and c_prob_b is not None:
+        l2 = np.zeros((Aa, Ab))
+        for a in range(Aa):
+            for b in range(Ab):
+                l2[a, b] = float(np.mean(
+                    np.sum((c_prob_a[a] - c_prob_b[b]) ** 2, axis=-1)))
+        out["l2_between"] = l2
+    return out
+
+
+def evals2_files(file_a: str, file_b: str, x, batch_size: int = 5000,
+                 with_probs: bool = True, device="cuda") -> dict:
+    """Cross-run reproducibility from two checkpoint files (the reference's
+    ``evals2(fa, fb, dl)`` workflow, mmidas/_evals.py:8): each checkpoint,
+    written by either package, is loaded by a fresh ``CplMixVAE`` on
+    ``device``, served over ``x`` by ``eval_model`` (on CUDA through the
+    serving kernels) and the two label sets go to ``evals2``.  Returns its
+    dict plus ``labels_a``/``labels_b``."""
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+
+    results = []
+    for f in (file_a, file_b):
+        cpl = CplMixVAE(device=device)
+        cpl.load_model(f)
+        results.append(cpl.eval_model(x, batch_size=batch_size))
+    ra, rb = results
+    K = max(r["c_prob"].shape[-1] for r in results)
+    out = evals2(ra["pred_label"], rb["pred_label"],
+                 c_prob_a=ra["c_prob"] if with_probs else None,
+                 c_prob_b=rb["c_prob"] if with_probs else None, K=K)
+    out["labels_a"], out["labels_b"] = ra["pred_label"], rb["pred_label"]
+    return out
+
+
+def compute_consensus_statistics(runs_labels: Sequence[np.ndarray],
+                                 K: int) -> dict:
+    """Within-run and between-run consensus over many runs (reference
+    mmidas/_utils.py:131-276); ``runs_labels``: one (A, N) label array a
+    run."""
+    n_runs = len(runs_labels)
+    within = [consensus_from_labels(lb, K) for lb in runs_labels]
+    between = np.eye(n_runs)
+    for i in range(n_runs):
+        for j in range(i + 1, n_runs):
+            e = evals2(runs_labels[i], runs_labels[j], K=K)
+            between[i, j] = between[j, i] = float(np.mean(e["between"]))
+    return {"within_run": np.asarray(within), "between_run": between,
+            "mean_within": float(np.mean(within)),
+            "mean_between": float(np.mean(between[np.triu_indices(n_runs, 1)]))
+            if n_runs > 1 else 1.0}

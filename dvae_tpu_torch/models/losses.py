@@ -122,6 +122,28 @@ def neg_entropy(c: torch.Tensor, logc: torch.Tensor) -> torch.Tensor:
     return (c * logc).sum(dim=-1).mean(dim=-1)
 
 
+def arm_combs(A: int) -> float:
+    """Number of unordered arm pairs, at least 1 (reference
+    mmidas/nn_model.py:48-50)."""
+    return max(A * (A - 1) / 2, 1)
+
+
+def l2_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance along the last axis (reference
+    mmidas/nn_model.py:53-54)."""
+    return ((a - b) ** 2).sum(dim=-1)
+
+
+def simplex_dist(a, b) -> torch.Tensor:
+    """Precision-scaled simplex distance of two arms' posteriors (reference
+    mmidas/nn_model.py:57-62): each argument is a ``(log c, inv_sd)`` pair
+    and the distance is ``l2_dist`` of their products — the per-pair form
+    of what ``coupling_distance`` sums over every pair."""
+    loga, inv_vara = a
+    logb, inv_varb = b
+    return l2_dist(loga * inv_vara, logb * inv_varb)
+
+
 def _pair_sums_from_gram(v: torch.Tensor) -> torch.Tensor:
     """Σ_{a<b} mean_B ‖v_a − v_b‖² for v (A, B, C), from one Gram matrix:
     A·tr(G) − Σ G with G = v vᵀ / B.  v is centred first — dead
@@ -152,6 +174,17 @@ def coupling_distance_naive(c: torch.Tensor, eps: float) -> torch.Tensor:
         for b in range(a + 1, A):
             pb = torch.log(c[b] + eps) * inv_sd(c[b], eps)
             total = total + ((pa - pb) ** 2).sum(dim=-1).mean()
+    return total
+
+
+def l2_pair_sum_naive(v: torch.Tensor) -> torch.Tensor:
+    """Loop-over-pairs oracle of ``_pair_sums_from_gram``:
+    Σ_{a<b} mean_B ‖v_a − v_b‖²."""
+    A = v.shape[0]
+    total = v.new_zeros(())
+    for a in range(A):
+        for b in range(a + 1, A):
+            total = total + ((v[a] - v[b]) ** 2).sum(dim=-1).mean()
     return total
 
 

@@ -28,8 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dvae_tpu_torch.config import VAEConfig
-from dvae_tpu_torch.models.sampling import (dropout, gumbel_softmax,
+from dvae_tpu_torch.config import ReparamNoise, VAEConfig
+from dvae_tpu_torch.models.sampling import (_draw, dropout, gumbel_softmax,
                                             reparameterize)
 
 
@@ -112,6 +112,13 @@ def init_bn_state(cfg: VAEConfig, device="cpu",
     return {name: {"mean": torch.zeros((A, d), device=device, dtype=dtype),
                    "var": torch.ones((A, d), device=device, dtype=dtype)}
             for name, d in dims.items()}
+
+
+def param_count(params) -> int:
+    """Number of scalars in a parameter tree (None leaves count 0)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return 0 if params is None else int(params.numel())
 
 
 # ---------------------------------------------------------------------------
@@ -367,3 +374,58 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
     outs = MixVAEOutputs(x_rec, p_x, r_x, x_low, c, s_smp, c_smp,
                          s_mean, s_logvar, c_prob)
     return outs, new_bn
+
+
+def state_changes(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
+                  d_s: int, n_samp: int = 100,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  draws: Optional[torch.Tensor] = None):
+    """Continuous-traversal study: reconstructions as state dimension
+    ``d_s`` is resampled (reference ``state_changes``,
+    mmidas/nn_model.py:370-411; dvae_tpu/models/mixvae.py:425-465).
+
+    The eval forward of x (B, D) gives each arm's state posterior and
+    one-hot category; sample i sets dimension ``d_s`` of the state mean to
+    ``mean + e_i·std`` and decodes, the other state dimensions at their
+    mean.  ``noise`` is the eval forward's (A, B, S) reparameterisation
+    draw, ``draws`` the (n_samp, A, B) traversal draws, uniform or normal
+    by ``cfg.reparam_noise``; what is not given comes from ``generator``
+    (the eval draw first, then one (A, B) draw a sample).
+
+    Returns the (A, n_samp, B, D) reconstructions and the (A, n_samp, B)
+    state values, ordered along the sample axis by the values with a
+    stable sort, as ``jnp.argsort`` sorts.  The values are sorted first
+    and each sorted sample decoded once into its slot: a row's decode
+    depends on that row alone, so the numbers are those of decoding in
+    draw order and permuting, without a second (A, n_samp, B, D) tensor.
+    """
+    with torch.no_grad():
+        if noise is not None:
+            noise = noise.to(x.device)
+        outs, _ = apply(params, bn_state, cfg, x, temp=1.0, train=False,
+                        noise=noise, generator=generator)
+        mean = outs.s_mean[..., d_s]
+        std = torch.sqrt(torch.exp(outs.s_logvar[..., d_s]))
+        kind = ("uniform" if cfg.reparam_noise == ReparamNoise.UNIFORM
+                else "normal")
+        vals = []
+        for i in range(n_samp):
+            e = (draws[i].to(mean) if draws is not None
+                 else _draw(kind, mean.shape, mean, generator))
+            vals.append(mean + e * std)
+        s_vals = torch.stack(vals, dim=1)                  # (A, n_samp, B)
+        order = torch.argsort(s_vals, dim=1, stable=True)
+        s_sorted = torch.take_along_dim(s_vals, order, dim=1)
+        c_in = outs.c_smp.to(outs.x_low.dtype)
+        A, B = mean.shape
+        recon = None
+        for i in range(n_samp):
+            s = outs.s_mean.clone()
+            s[..., d_s] = s_sorted[:, i]
+            x_rec = torch.relu(_linear(params["fc11"],
+                                       _decode_hidden(params, c_in, s)))
+            if recon is None:
+                recon = x_rec.new_empty((A, n_samp, B, x_rec.shape[-1]))
+            recon[:, i] = x_rec
+    return recon, s_sorted

@@ -39,6 +39,11 @@ host.  The eval surfaces take a host matrix too: a CSR matrix, or a dense
 one that would not fit the card, stays on the host and goes to the device
 one batch at a time, densified in the eval dtype.
 
+``use_wandb`` forwards the training metrics to wandb when it imports;
+without it the logger prints one line and logs locally, as the JAX
+package's does.  ``append`` builds further models beside the trainer's own
+(``self.models``); ``save_file``/``load_file`` pickle named arrays.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: a mesh of several devices.
 """
@@ -47,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 import signal
 import time
 from typing import Optional
@@ -170,12 +176,14 @@ class CplMixVAE:
     inference."""
 
     def __init__(self, saving_folder: str = "", aug_file: Optional[str] = None,
-                 device="cuda", seed: int = 546):
+                 device="cuda", seed: int = 546, use_wandb: bool = False):
         self.folder = saving_folder
         if saving_folder:
             os.makedirs(saving_folder, exist_ok=True)
         self.device = _resolve_device(device)
         self.seed = seed
+        self.use_wandb = use_wandb
+        self.models: list[dict] = []   # filled by append()
         self.aug_file = aug_file
         self._aug_loaded = None  # (params, bn, cfg) of the frozen augmenter
         self._aug_apply = None   # its closure in the compute dtype (cached)
@@ -288,6 +296,24 @@ class CplMixVAE:
         self._reset_eval_fns()
         if trained_model:
             self.load_model(trained_model)
+
+    def append(self, **kwargs) -> dict:
+        """Build one more model (cfg, tcfg, state, optimizer) and add it to
+        ``self.models`` (reference ``append``, cpl_mixvae.py:288-315): the
+        keywords of ``init_model``, ``trained_model=`` included.  The
+        trainer's own model is left as it was."""
+        saved = (self.cfg, self.tcfg, self.state, self.tx, self.temp,
+                 self.resume_progress)
+        try:
+            self.init_model(**kwargs)
+            entry = {"cfg": self.cfg, "tcfg": self.tcfg, "state": self.state,
+                     "tx": self.tx}
+            self.models.append(entry)
+            return entry
+        finally:
+            (self.cfg, self.tcfg, self.state, self.tx, self.temp,
+             self.resume_progress) = saved
+            self._reset_eval_fns()
 
     def _reset_eval_fns(self) -> None:
         """Drop the cached eval functions and the cast augmenter closure:
@@ -406,8 +432,8 @@ class CplMixVAE:
         ``c_p``: the (N_total, C) ref-prior table gathered by ``train_idx``
         (and ``val_idx`` for validation) under ref_prior.
         After ``load_model`` the checkpoint's progress carries over:
-        completed main epochs and prune iterations count.  ``run_name`` is
-        accepted for the JAX signature (it named a wandb run).
+        completed main epochs and prune iterations count.  ``run_name``
+        names the wandb run under ``use_wandb``.
         ``save_plots``: at the end, with a run folder, write the loss curve
         and the consensus matrices there (one more labelling pass over
         ``x_train``)."""
@@ -425,6 +451,7 @@ class CplMixVAE:
         stop_con = (tcfg.good_enuf_consensus if early_stop_consensus is None
                     else early_stop_consensus)
         logger = MetricLogger(
+            use_wandb=self.use_wandb, run_name=run_name,
             jsonl_path=(os.path.join(self.folder, "metrics.jsonl")
                         if self.folder else None),
             config={**cfg.__dict__, "n_epoch": n_epoch})
@@ -826,3 +853,17 @@ class CplMixVAE:
             "consensus": consensus_from_labels(labels, self.cfg.n_categories),
             "mask": self.state.mask.cpu().numpy(),
         }
+
+    # -- files of named arrays -----------------------------------------------
+
+    def save_file(self, fname: str, **kwargs) -> None:
+        """Pickle named arrays (reference ``save_file``,
+        cpl_mixvae.py:1621-1639)."""
+        with open(fname, "wb") as f:
+            pickle.dump(kwargs, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+    def load_file(self, fname: str) -> dict:
+        """Unpickle a ``save_file`` file (reference ``load_file``,
+        cpl_mixvae.py:1641-1650)."""
+        with open(fname, "rb") as f:
+            return pickle.load(f)

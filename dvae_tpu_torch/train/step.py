@@ -233,6 +233,16 @@ def _mask_grads(grads, mask, cfg: VAEConfig):
 # Loss and train step
 # ---------------------------------------------------------------------------
 
+def expand_arms(x: torch.Tensor, n_arm: int, generator=None,
+                draws=None) -> torch.Tensor:
+    """The no-augmentation ``AugmentFn``: every arm sees the same batch, an
+    (A, B, D) ``expand`` view of x (B, D), no copy (reference
+    ``x.expand(A, -1, -1)``, cpl_mixvae.py:433-436;
+    dvae_tpu/train/step.py:102).  It draws nothing."""
+    del generator, draws
+    return x.expand(n_arm, *x.shape)
+
+
 def _apply_with_loss(params, bn, cfg: VAEConfig, x, generator, temp, mask,
                      prior_c, train: bool = False, noise=None,
                      enc_seed: Optional[int] = None):

@@ -25,6 +25,11 @@ layout is the JAX one, stacked leading arm axis, ``(A, fan_in, fan_out)``.
 ``augmenter_from_jax`` / ``augmenter_to_jax`` do the same for the trees
 of the augmenter, its generator and its discriminator
 (``augment/augmenter.py``); augmenter checkpoints use this format too.
+
+``abstract_like`` (a tree of ``meta`` tensors: shapes and dtypes, no
+bytes) and ``compare_pytrees`` (the reference's ``compare_state_dicts``)
+walk trees of dicts, lists, tuples and named tuples, dict keys in sorted
+order and None as an empty subtree, as JAX's tree utilities do.
 """
 
 from __future__ import annotations
@@ -184,7 +189,10 @@ def _tree_to_torch(tree, device, dtype=None):
         return {k: _tree_to_torch(v, device, dtype) for k, v in tree.items()}
     if tree is None:  # a bias-free layer's "b"
         return None
-    arr = np.array(tree)  # a copy: JAX arrays are read-only
+    # a C-ordered copy: JAX arrays are read-only, and an array the pickle
+    # kept in another layout (Fortran order survives pickle protocol 5)
+    # would become a strided tensor, which the CUDA kernels refuse
+    arr = np.array(tree, order="C")
     if arr.dtype.type is Bfloat16Bits or arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     else:
@@ -290,3 +298,80 @@ def latest_run_dir(base: str, prefix: str = "") -> Optional[str]:
     runs = [r for r in glob.glob(f"{_run_base(base, prefix)}_RUN*")
             if num(r) >= 0]
     return max(runs, key=num) if runs else None
+
+
+# ---------------------------------------------------------------------------
+# Tree utilities (dvae_tpu/utils/checkpoint.py:65-75, :178-201)
+# ---------------------------------------------------------------------------
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _structure(tree):
+    """Hashable description of a tree's nodes (not its leaves)."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _structure(tree[k])) for k in sorted(tree)))
+    if _is_namedtuple(tree):
+        return (type(tree), tuple(_structure(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), tuple(_structure(v) for v in tree))
+    return None if tree is None else "leaf"
+
+
+def _leaves_with_path(tree, path=""):
+    """(path, leaf) pairs in JAX's order, paths spelled as
+    ``jax.tree_util.keystr`` spells them."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_with_path(tree[k], f"{path}[{k!r}]")
+    elif _is_namedtuple(tree):
+        for name, v in zip(tree._fields, tree):
+            yield from _leaves_with_path(v, f"{path}.{name}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves_with_path(v, f"{path}[{i}]")
+    elif tree is not None:
+        yield path, tree
+
+
+def abstract_like(tree):
+    """The tree with every leaf replaced by a ``meta`` tensor of its shape
+    and dtype (the port's ``jax.ShapeDtypeStruct``): a template that holds
+    no bytes.  numpy leaves get the torch dtype of their numpy dtype."""
+
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return torch.empty(x.shape, dtype=x.dtype, device="meta")
+        a = np.asarray(x)
+        dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+        return torch.empty(a.shape, dtype=dtype, device="meta")
+
+    return _tree_map(one, tree)
+
+
+def compare_pytrees(a, b, rtol: float = 0.0, atol: float = 0.0) -> dict:
+    """Structural and numerical comparison of two trees of tensors or
+    arrays (reference ``compare_state_dicts``, mmidas/_utils.py:296-310):
+    ``{'match', 'structure_equal', 'mismatched_paths'}``, a leaf mismatched
+    when its shape differs or ``np.allclose`` fails."""
+    if _structure(a) != _structure(b):
+        return {"match": False, "structure_equal": False,
+                "mismatched_paths": ["<tree structure differs>"]}
+    bad = []
+    for (path, x), (_, y) in zip(_leaves_with_path(a), _leaves_with_path(b)):
+        x, y = _to_numpy(x), _to_numpy(y)
+        if x.shape != y.shape or not np.allclose(x, y, rtol=rtol, atol=atol):
+            bad.append(path)
+    return {"match": not bad, "structure_equal": True,
+            "mismatched_paths": bad}

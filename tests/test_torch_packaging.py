@@ -13,6 +13,7 @@ import argparse
 import fnmatch
 import os
 import re
+import sys
 import tomllib
 
 import pytest
@@ -130,7 +131,8 @@ def _options(parser) -> dict:
             for opt in action.option_strings}
 
 
-@pytest.mark.parametrize("cmd", ["train", "evaluate", "train-augmenter"])
+@pytest.mark.parametrize("cmd", ["train", "evaluate", "train-augmenter",
+                                 "import-torch"])
 def test_cli_knows_every_option_of_the_reference(cmd, monkeypatch):
     want = _options(_subparsers(_reference_parser(monkeypatch))[cmd])
     got = _options(_subparsers(tcli.build_parser())[cmd])
@@ -155,7 +157,7 @@ def _train_args(tmp_path, *extra):
     ["--sharding", "full"], ["--sharding", "ddp"],
     ["--mesh_data", "2"], ["--mesh_arm", "2"], ["--mesh_fsdp", "2"],
     ["--coordinator", "localhost:1234"], ["--num_processes", "2"],
-    ["--process_id", "0"], ["--wandb"]],
+    ["--process_id", "0"]],
     ids=lambda e: " ".join(e))
 def test_cli_train_refuses_what_is_not_ported(extra, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -204,6 +206,18 @@ def test_cli_train_takes_rng_impl_rbg(tmp_path, monkeypatch):
     assert len(ckpts) == 1
     _, meta = tckpt.load_checkpoint(str(ckpts[0]))
     assert meta["tcfg"]["rng_impl"] == "rbg"
+
+
+def test_cli_train_takes_wandb(tmp_path, monkeypatch, capsys):
+    """``--wandb``, which ``dvae_tpu.cli train`` takes: without wandb
+    installed the logger says so in one line and one epoch trains
+    locally, as in the JAX package."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setitem(sys.modules, "wandb", None)   # import fails
+    assert tcli.main(_train_args(tmp_path, "--wandb")) == 0
+    assert "falling back to local logging" in capsys.readouterr().out
+    ckpts = sorted(tmp_path.glob("*/cpl_mixVAE_model_epoch_1.ckpt"))
+    assert len(ckpts) == 1
 
 
 def test_cli_train_passes_the_ported_model_flags(tmp_path, monkeypatch):

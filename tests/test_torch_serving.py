@@ -768,15 +768,29 @@ def test_cuda_entry_points_fail_without_a_card():
 # ---------------------------------------------------------------------------
 
 _GUARD = """
-import json, sys
+import importlib.abc, json, sys
 import numpy as np
 import torch
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "optax", "pandas",
+                                  "sklearn", "dvae_tpu"):
+            raise ImportError(f"{{name}} is blocked")
+        return None
+sys.meta_path.insert(0, Block())
 torch.set_num_threads(1)
+import dvae_tpu_torch.analysis.tree_based
+import dvae_tpu_torch.analysis.tree_helpers
+import dvae_tpu_torch.examples.state_traversal
+import dvae_tpu_torch.utils.torch_import
+from dvae_tpu_torch.models import api
 from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
 cpl = CplMixVAE(device="cpu")
 cpl.load_model(sys.argv[1])
 x = np.random.default_rng(0).random((20, {D})).astype("float32")
 res = cpl.eval_model(x, batch_size=8)
+gen = api.generate(*api.load_vae(sys.argv[1], device="cpu")[:3], x,
+                   batch_size=8)
 cpl.tcfg = cpl.tcfg.replace(batch_size=8, epochs_per_jit=1)
 cpl.train(x, n_epoch=2, early_stop_consensus=0)
 z = CplMixVAE(device="cpu", seed=1)
@@ -823,8 +837,10 @@ ami = adjusted_mutual_info_score(res["pred_label"][0], res["pred_label"][-1])
 import os
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu",
-                                    "sklearn"))
+                                    "sklearn", "pandas"))
 print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
+                  "generate_labels": bool(np.array_equal(
+                      gen["pred_label"], res["pred_label"])),
                   "steps": cpl.state.opt_state.count,
                   "zinb_steps": z.state.opt_state.count,
                   "zinb_rec_finite": bool(np.isfinite(
@@ -862,12 +878,18 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
     validating on CSR rows) and serves the CSR matrix, then trains an
     augmenter (ZINB, 2 epochs) through the API and through ``cli
     train-augmenter`` and scores an AMI, without loading JAX, optax,
-    sklearn or dvae_tpu."""
+    sklearn, pandas or dvae_tpu: once torch is loaded, importing any of
+    them raises.  It also imports the analysis and interop modules
+    (``models.api``, ``analysis.tree_based``, ``analysis.tree_helpers``,
+    ``utils.torch_import``, ``examples.state_traversal``) and serves the
+    JAX checkpoint through ``load_vae`` → ``generate``, whose labels are
+    ``eval_model``'s."""
     _, ckpts = jax_checkpoints
     proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"bad": [], "labels": [A, 20], "steps": 4,
+    assert out == {"bad": [], "labels": [A, 20], "generate_labels": True,
+                   "steps": 4,
                    "zinb_steps": 2, "zinb_rec_finite": True,
                    "pallas_steps": 4, "pallas_loss_finite": True,
                    "decoder_steps": 4, "decoder_flag": True,
