@@ -144,7 +144,19 @@ Phases (any failure exits non-zero and prints no result line):
      Adam moments, MSE with a pruned fcc, ZINB with Adam moments): the
      parameters, mask and moments bit for bit, then served on the card
      (recon_fwd or zinb_fwd) against the CPU path;
- 13. print the kernels line, the card's name and power limit, and last the
+ 13. the taxonomy and clusterability path at the same width:
+     examples.taxonomy_study.run on a planted taxonomy of 64 leaves (20,000
+     cells, 96 categories, A=5, batch 5000, 4 epochs: 12 steps of
+     encoder_fwd, encoder_bwd and recon_fwdbwd, recon_fwd for the label
+     pass and any validation, every other counter 0), its merge sweep
+     rerun exactly, the card's labels against the CPU path's from the
+     checkpoint it served; tree_based.get_merged_types from a dend CSV
+     (read without pandas) equal to the tree in memory at every level
+     2..64; then LDA and QDA 3-fold, the silhouette (card against CPU,
+     1e-10), cluster_compare's PCA and K_selection on phase 12's generate
+     output (x_low of arm 0, 12,000 cells), and the random forest: run
+     where scikit-learn is, ImportError naming it where it is not;
+ 14. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
 Every ``train`` call passes ``save_plots=False``: the plot artifacts would
@@ -4805,10 +4817,10 @@ def _import_checks(torch, check, ckpt: dict, out: str, what: str) -> None:
               f"{what}: a fresh optimizer state (count {count})")
 
 
-def phase_analysis(torch, check, tmp, x_host, mse_ckpt, pallas_ckpt) -> dict:
+def phase_analysis(torch, check, tmp, x_host, mse_ckpt, pallas_ckpt):
     """The analysis and interop path at full width: generate, the traversal
     study, cross-run consensus and import-torch.  Returns the launch counts
-    of its counted runs."""
+    of its counted runs and generate's (x_low, pred_label) of arm 0."""
     import numpy as np
     from dvae_tpu_torch.eval.evaluate import evals2, evals2_files
     from dvae_tpu_torch.examples.state_traversal import traversal_study
@@ -4873,6 +4885,8 @@ def phase_analysis(torch, check, tmp, x_host, mse_ckpt, pallas_ckpt) -> dict:
     _served_within_limits(check, head, want,
                           f"the {N_GEN}-cell run's first {N_SMALL} cells vs "
                           "the CPU")
+    # phase 13 scores arm 0's latent space and labels
+    latent = (gen["x_low"][0].copy(), gen["pred_label"][0].copy())
     del gen, served, head
 
     # (b) state_changes and the traversal study
@@ -4997,6 +5011,271 @@ def phase_analysis(torch, check, tmp, x_host, mse_ckpt, pallas_ckpt) -> dict:
         serving_parity(check, srv, out, xi, torch.as_tensor(xi).to(DEV))
         del srv
     print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return counts, latent
+
+
+# phase 13, the taxonomy and clusterability path: the taxonomy study at the
+# production width on a planted taxonomy of 64 leaves (96 categories), cut
+# to 4 epochs (its own default is 4000), in one chunk; clusterability on
+# phase 12's generate output
+TAX_DEPTH, TAX_CELLS, TAX_EPOCHS = 6, 20000, 4
+TAX_ROOT = "n1"
+CLUS_KFOLD, CLUS_PC = 3, 5
+# the silhouette on the card against the same call on the CPU: f64 sums of
+# the same direct distances in another order
+TOL_SILH = 1e-10
+# the PCA transform's silhouettes, card against CPU: one f64 SVD each
+TOL_PCA_SILH = 1e-8
+
+
+def write_dend_csv(tree, path: str) -> None:
+    """``tree`` as a dend CSV in the Allen schema (x, y, leaf, label,
+    parent, col), written with the csv module the way R exports it: TRUE
+    and FALSE, NA for the root's parent."""
+    import csv
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["x", "y", "leaf", "label", "parent", "col"])
+        for i in range(len(tree.child)):
+            w.writerow([repr(float(tree.x[i])), repr(float(tree.y[i])),
+                        "TRUE" if tree.isleaf[i] else "FALSE",
+                        tree.child[i],
+                        "NA" if tree.parent[i] == "root" else tree.parent[i],
+                        tree.col[i]])
+
+
+def same_tree(a, b) -> bool:
+    import numpy as np
+    return (all(getattr(a, k).tolist() == getattr(b, k).tolist()
+                for k in ("child", "parent", "col", "isleaf"))
+            and all(np.array_equal(getattr(a, k), getattr(b, k),
+                                   equal_nan=True) for k in ("x", "y")))
+
+
+def phase_taxonomy(torch, check, tmp, latent) -> dict:
+    """The taxonomy and clusterability path at full width: the taxonomy
+    study (training through the kernels, the merge sweep), merged types
+    from a dend CSV at every level, and the clusterability scores of
+    phase 12's generate output.  Returns the launch counts of its counted
+    runs."""
+    import numpy as np
+    from dvae_tpu_torch.analysis import tree_based
+    from dvae_tpu_torch.config import TrainConfig
+    from dvae_tpu_torch.data.pipeline import stratified_split_indices
+    from dvae_tpu_torch.eval import cluster_analysis as ca
+    from dvae_tpu_torch.examples import taxonomy_study
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print("phase 13: the taxonomy and clusterability path")
+    t_phase = time.perf_counter()
+    card = card_line()
+    counts = {}
+    study_seed = 546   # taxonomy_study.run's default
+
+    # (a) the study through its entry point; the arguments of its merge
+    # sweep are kept for the checks that follow
+    seen = {}
+    sweep = taxonomy_study.merge_sweep
+
+    def spy(tree, truth, pred):
+        seen.update(tree=tree, truth=truth, pred=pred)
+        return sweep(tree, truth, pred)
+
+    folder = os.path.join(tmp, "taxonomy")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    taxonomy_study.merge_sweep = spy
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = taxonomy_study.run(
+            depth=TAX_DEPTH, n_cells=TAX_CELLS, n_genes=D, n_arm=A,
+            batch_size=B, n_epoch=TAX_EPOCHS, epochs_per_jit=TAX_EPOCHS,
+            folder=folder, save_plots=False, verbose=False, device=DEV)
+    finally:
+        taxonomy_study.merge_sweep = sweep
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["taxonomy_study"] = launched = launch_counts()
+    rise = torch.cuda.max_memory_allocated() - base
+    n_leaves, n_test = 2 ** TAX_DEPTH, len(seen["truth"])
+    steps = TAX_EPOCHS * ((TAX_CELLS - n_test) // B)
+    # one chunk of TAX_EPOCHS epochs: a validation when it crosses
+    # eval_every; each eval pass one recon_fwd a batch
+    n_val = int(TAX_EPOCHS >= TrainConfig().eval_every)
+    eval_batches = -(-n_test // B)
+    want = {**dict.fromkeys(launched, 0), "encoder_fwd": steps,
+            "encoder_bwd": steps, "recon_fwdbwd": steps,
+            "recon_fwd": (n_val + 1) * eval_batches}
+    check(launched == want,
+          f"launches of the taxonomy study: {launched} (expect {steps} "
+          f"training steps of encoder_fwd, encoder_bwd, recon_fwdbwd; "
+          f"recon_fwd {(n_val + 1) * eval_batches}: {n_val} validations and "
+          f"the label pass over {n_test} cells; every other 0)")
+    with open(os.path.join(folder, "metrics.jsonl")) as f:
+        epoch_s = [json.loads(line)["train/epoch_time_s"] for line in f
+                   if "train/epoch_time_s" in line]
+    ms_step = 1e3 * epoch_s[-1] * TAX_EPOCHS / steps if epoch_s else math.nan
+    levels = out["levels"]
+    print(f"  taxonomy study: {TAX_CELLS} cells x {D} genes, {n_leaves} "
+          f"leaves, {out['n_categories']} categories, A={A}, {steps} steps "
+          f"in {wall:.2f} s (with the data's generation and the sweep); "
+          f"training {ms_step:.3f} ms/step (the trainer's first chunk, host "
+          f"clock); peak allocated rise {rise / 1e6:.1f} MB; leaf AMI "
+          f"{[round(a, 4) for a in out['leaf_ami']]}; {len(levels)} levels, "
+          f"best {out['best_level']['n_classes']} classes; {card}")
+    check(out["n_leaves"] == n_leaves
+          and out["n_categories"] == int(1.5 * n_leaves),
+          f"the study's tree: {n_leaves} leaves, {int(1.5 * n_leaves)} "
+          "categories")
+    check(len(out["leaf_ami"]) == A
+          and bool(np.isfinite(out["leaf_ami"]).all())
+          and len(levels) == n_leaves - 1
+          and all(len(r["ami"]) == A and np.isfinite(r["ami"]).all()
+                  for r in levels),
+          f"leaf AMI and every one of the {len(levels)} levels' AMIs "
+          "finite, one a arm")
+    again = taxonomy_study.merge_sweep(seen["tree"], seen["truth"],
+                                       seen["pred"])
+    check(again == levels,
+          "merge_sweep run again on the card's labels (a host function) "
+          "equals the study's levels exactly")
+    # the card's labels against the CPU path's, from the checkpoint the
+    # study served (the same data and split, remade on the host)
+    _, X, labels = taxonomy_study.hierarchical_synthetic(
+        TAX_DEPTH, TAX_CELLS, D, study_seed)
+    _, te = stratified_split_indices(labels, 0.9, study_seed)
+    check(labels[te].tolist() == seen["truth"].tolist(),
+          "the remade test split is the study's")
+    cpu = CplMixVAE(device="cpu")
+    cpu.load_model(os.path.join(folder, "cpl_mixVAE_model_best_train.ckpt"))
+    cpu_pred = cpu._predict_labels(X[te], 1.0)
+    agree = (cpu_pred == seen["pred"]).mean(axis=1)
+    cpu_levels = taxonomy_study.merge_sweep(seen["tree"], seen["truth"],
+                                            cpu_pred)
+    gap = max(abs(a - b) for r, c in zip(levels, cpu_levels)
+              for a, b in zip(r["ami"], c["ami"]))
+    print(f"  the card's test labels against the CPU path's: agreement by "
+          f"arm {agree.round(5).tolist()}; largest AMI gap over the levels "
+          f"{gap:.2e}; {card}")
+    check(bool((agree >= 0.999).all())
+          and [r["n_classes"] for r in cpu_levels]
+          == [r["n_classes"] for r in levels] and gap <= 1e-2,
+          "labels card vs CPU ≥ 0.999 agree (the serving limit); the "
+          "sweep's AMIs within 1e-2")
+    del X, labels, cpu
+
+    # (b) the taxonomy without pandas: merged types from a dend CSV equal
+    # the tree in memory at every level
+    tree, truth = seen["tree"], seen["truth"]
+    dend = os.path.join(tmp, "taxonomy_dend.csv")
+    write_dend_csv(tree, dend)
+    t0 = time.perf_counter()
+    bad = []
+    for k in range(2, n_leaves + 1):
+        got = tree_based.get_merged_types(dend, truth, num_classes=k,
+                                          node=TAX_ROOT)
+        mem = tree.get_merged_types(truth, num_classes=k, node=TAX_ROOT)
+        if not (got[0].tolist() == mem[0].tolist()
+                and same_tree(got[1], mem[1])
+                and same_tree(got[2], mem[2])):
+            bad.append(k)
+    print(f"  get_merged_types from the dend CSV at {n_leaves - 1} levels: "
+          f"{time.perf_counter() - t0:.2f} s on the host; {card}")
+    check(not bad, f"get_merged_types(csv) equals the tree in memory for "
+                   f"every k in 2..{n_leaves}: labels and mod_subtree's "
+                   f"columns (differing at {bad})")
+    check("pandas" not in sys.modules,
+          "the taxonomy path ran without loading pandas")
+
+    # (c) clusterability of phase 12's generate output (x_low of arm 0)
+    x_low, found, ref = latent
+    label_sets = {"discovered": found, "reference": ref}
+    reset_launch_counts()
+    xd = torch.as_tensor(x_low).to(DEV)
+    t0 = time.perf_counter()
+    for kind in ("lda", "qda"):
+        acc, _, pred = ca.kfold_classifier(x_low, label_sets,
+                                           kfold=CLUS_KFOLD, kind=kind)
+        print(f"  {kind} {CLUS_KFOLD}-fold accuracy on {x_low.shape}: "
+              + ", ".join(f"{k} {np.mean(v):.4f}" for k, v in acc.items())
+              + f"; {card}")
+        check(all(len(v) == CLUS_KFOLD and all(0.0 <= a <= 1.0 for a in v)
+                  for v in acc.values())
+              and sum(len(p) for p in pred["reference"]) == len(ref),
+              f"{kind}: {CLUS_KFOLD} accuracies in [0, 1] a label set, "
+              "every cell predicted once")
+    lda_s = time.perf_counter() - t0
+    smp_card = ca.silhouette_samples(xd, found)  # warm-up and the values
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per, overall = ca.get_SilhScore(xd, found)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per_cpu, overall_cpu = ca.get_SilhScore(x_low, found, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    host = ca.silhouette_samples(x_low, found, device="cpu")
+    d_smp = float(np.abs(smp_card - host).max())
+    d_per = float(np.abs(per - per_cpu).max())
+    n = len(found)
+    print(f"  silhouette over {n} cells ({n * n / 1e6:.0f}e6 distances): "
+          f"card {card_s * 1e3:.1f} ms, CPU {cpu_s * 1e3:.1f} ms (host "
+          f"clock, f64); overall {overall:.6f}; card vs CPU samples "
+          f"{d_smp:.2e}, per cluster {d_per:.2e}, overall "
+          f"{abs(overall - overall_cpu):.2e}; LDA and QDA {lda_s:.2f} s; "
+          f"{card}")
+    check(max(d_smp, d_per, abs(overall - overall_cpu)) <= TOL_SILH
+          and bool(np.isfinite(smp_card).all()),
+          f"get_SilhScore on the card equals the CPU call within "
+          f"{TOL_SILH:g}")
+    fig, smp, sil, size = ca.cluster_compare(xd, label_sets,
+                                             num_pc=CLUS_PC)
+    _, smp_cpu, sil_cpu, size_cpu = ca.cluster_compare(
+        x_low, label_sets, num_pc=CLUS_PC, device="cpu")
+    d_pca = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                for a, b in zip(smp + [sil], smp_cpu + [sil_cpu]))
+    print(f"  cluster_compare ({CLUS_PC} PCs): silhouettes "
+          f"{[round(v, 6) for v in sil]}, card vs CPU {d_pca:.2e}; {card}")
+    check(fig is None and d_pca <= TOL_PCA_SILH
+          and all(int(c.sum()) == n for c in size)
+          and all(np.array_equal(a, b) for a, b in zip(size, size_cpu)),
+          f"cluster_compare on the card equals the CPU call within "
+          f"{TOL_PCA_SILH:g}; cluster sizes cover every cell")
+    num = [r["n_classes"] for r in levels]
+    ami = np.array([r["ami"] for r in levels]).T      # (A, levels)
+    con = ami.mean(axis=0)
+    ordered, _, ordered_con, K = ca.K_selection(num, ami, con,
+                                                thr=float(np.median(con)))
+    print(f"  K_selection over the study's {len(num)} levels (consensus: "
+          f"the arms' mean AMI, thr its median): K = {K}")
+    check(list(ordered) == sorted(num) and K in num
+          and bool(np.all(np.diff(ordered) >= 0)),
+          "K_selection orders the levels and picks one of them")
+    try:
+        import sklearn  # noqa: F401
+        has_sklearn = True
+    except ImportError:
+        has_sklearn = False
+    if has_sklearn:
+        acc, _, _ = ca.kfold_classifier(x_low, label_sets, kfold=CLUS_KFOLD,
+                                        kind="rf")
+        check(all(0.0 <= a <= 1.0 for v in acc.values() for a in v),
+              "rf (scikit-learn present): accuracies in [0, 1]")
+    else:
+        try:
+            ca.kfold_classifier(x_low, label_sets, kfold=CLUS_KFOLD,
+                                kind="rf")
+            raised = None
+        except ImportError as e:
+            raised = str(e)
+        check(raised is not None and "scikit-learn" in raised,
+              f"rf without scikit-learn raises ImportError naming it: "
+              f"{raised!r}")
+    counts["clusterability"] = launched = launch_counts()
+    check(not any(launched.values()),
+          f"clusterability launches no kernel: {launched}")
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s; {card}")
     return counts
 
 
@@ -5049,7 +5328,9 @@ def main() -> int:
             if wanted is None or name in wanted:
                 records.update(run())
         if not kernels_only:
-            served, _, x, mse_ckpt = phase_serving(torch, check, tmp)
+            served, ds, x, mse_ckpt = phase_serving(torch, check, tmp)
+            ref_labels = ds.cluster_label[:N_GEN].copy()
+            del ds
             paths = {"serving": served,
                      "training": phase_training(torch, check, tmp, x)}
             zinb, x_zinb = phase_zinb_path(torch, check, tmp)
@@ -5075,8 +5356,13 @@ def main() -> int:
             del zinb_host
             paths.update(phase_gan(torch, check, tmp))
             torch.cuda.empty_cache()
-            paths.update(phase_analysis(torch, check, tmp, x_analysis,
-                                        mse_ckpt, pallas_ckpt))
+            analysis, latent = phase_analysis(torch, check, tmp, x_analysis,
+                                              mse_ckpt, pallas_ckpt)
+            paths.update(analysis)
+            del x_analysis
+            torch.cuda.empty_cache()
+            paths.update(phase_taxonomy(torch, check, tmp,
+                                        (*latent, ref_labels)))
             on_path = ("recon_fwd", "recon_fwdbwd", "encoder_fwd",
                        "encoder_bwd", "zinb_fwd", "zinb_fwdbwd",
                        "gumbel_fwd", "gumbel_bwd", "coupling",

@@ -6,14 +6,16 @@ Counterpart of dvae_tpu/analysis/tree_based.py (reference
     each continuous state dimension with each gene over the cells that
     express it, vectorised over genes; ``corr_analysis_naive`` is the
     reference's per-gene scipy loop, kept as the oracle.
-  * ``get_merged_types`` :62-115 needs the taxonomy tree (``HTree``, which
-    reads its CSV with pandas) and arrives with the taxonomy slice of the
-    port.  This module imports without pandas.
+  * ``get_merged_types`` :62-115 — labels merged along the taxonomy tree
+    of a dend CSV (``analysis/taxonomy.HTree``, which reads it without
+    pandas).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from dvae_tpu_torch.analysis.taxonomy import HTree
 
 
 def masked_pearson(state_col: np.ndarray, cell: np.ndarray,
@@ -77,9 +79,12 @@ def corr_analysis_naive(state: np.ndarray, cell: np.ndarray,
 
 def get_merged_types(htree_file: str, cells_labels, num_classes: int = 0,
                      ref_leaf=(), node: str = "n4"):
-    """Merge labels along the taxonomy tree of ``htree_file`` (reference
-    tree_based_analysis.py:62-115).  Not ported yet: it needs the taxonomy
-    tree (``analysis/taxonomy.HTree``)."""
-    from dvae_tpu_torch.train.cpl_mixvae import _not_ported
-    raise _not_ported("get_merged_types (the taxonomy tree, HTree)",
-                      "taxonomy (ROADMAP A9b)")
+    """Load the taxonomy CSV and merge labels (reference
+    tree_based_analysis.py:62-115) through the port's ``HTree``, which
+    reads the CSV without pandas."""
+    from dvae_tpu_torch.analysis.taxonomy import HTree
+
+    tree = HTree(htree_file=htree_file)
+    return tree.get_merged_types(np.asarray(cells_labels, dtype=object),
+                                 num_classes=num_classes,
+                                 ref_leaf=ref_leaf, node=node)

@@ -96,11 +96,14 @@ def _emi_cell(a: np.ndarray, b: np.ndarray, N: int, T: np.ndarray,
     return out.reshape(shape)
 
 
-def mutinfo(probs: np.ndarray, targets: np.ndarray) -> np.ndarray:
+def mutinfo(probs: np.ndarray, targets: np.ndarray,
+            verbose: bool = False) -> np.ndarray:
     """Per-(reference-type, discovered-cluster) adjusted mutual information
     of one arm's (N, C) posterior against (N, F) one-hot reference labels:
     the (F, C_used) matrix of reference evaluation.py:25-41, from 2x2
-    contingency counts in closed form (sklearn's 'arithmetic' AMI)."""
+    contingency counts in closed form (sklearn's 'arithmetic' AMI).
+    ``verbose`` is accepted and discarded, as in the JAX package."""
+    del verbose
     preds = np.argmax(probs, axis=1)
     uniq, prediction = np.unique(preds, return_inverse=True)
     C = len(uniq)

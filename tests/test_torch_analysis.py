@@ -373,9 +373,38 @@ def test_corr_analysis_matches_jax_and_the_scipy_loop():
         np.testing.assert_array_equal(s, j)
 
 
-def test_get_merged_types_waits_for_the_taxonomy_slice():
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ttree.get_merged_types("tree.csv", ["a", "b"])
+def test_get_merged_types_waits_for_the_taxonomy_slice(tmp_path):
+    """The taxonomy slice has landed: ``get_merged_types`` of a dend CSV
+    runs (no refusal) and equals JAX's at every level."""
+    import pandas as pd
+    rows = [dict(x=0, y=0, leaf=True, label="a", parent="n1", col="#1"),
+            dict(x=1, y=0, leaf=True, label="b", parent="n1", col="#2"),
+            dict(x=2, y=0, leaf=True, label="c", parent="n0", col="#3"),
+            dict(x=0.5, y=1, leaf=False, label="n1", parent="n0", col=None),
+            dict(x=1.5, y=2, leaf=False, label="n0", parent=None, col=None)]
+    p = tmp_path / "tree.csv"
+    pd.DataFrame(rows).to_csv(p, index=False)
+    cells = ["a", "b", "c", "a"]
+    for k in range(4):
+        got = ttree.get_merged_types(str(p), cells, num_classes=k, node="n0")
+        want = jtree.get_merged_types(str(p), cells, num_classes=k,
+                                      node="n0")
+        assert got[0].tolist() == want[0].tolist()
+        assert got[1].child.tolist() == list(want[1].child)
+
+
+def test_mutinfo_takes_verbose_as_jax_does():
+    """Fault C11: ``mutinfo(probs, targets, verbose=True)`` is accepted and
+    equals the JAX call."""
+    rng = np.random.default_rng(11)
+    probs = rng.dirichlet(np.ones(C), size=200)
+    targets = np.eye(4)[rng.integers(0, 4, size=200)].astype(int)
+    np.testing.assert_allclose(
+        tevaluate.mutinfo(probs, targets, verbose=True),
+        jevaluate.mutinfo(probs, targets, verbose=True), atol=1e-10)
+    np.testing.assert_array_equal(
+        tevaluate.mutinfo(probs, targets, verbose=True),
+        tevaluate.mutinfo(probs, targets))
 
 
 def _cv_fixture(tmp_path):

@@ -405,7 +405,7 @@ def test_cli_train_with_wandb_flag_trains(tmp_path, monkeypatch, capsys):
 
 
 def test_append_builds_the_jax_entry_and_leaves_the_trainer(tmp_path):
-    port = CplMixVAE(device="cpu", seed=2)
+    port = CplMixVAE(saving_folder=str(tmp_path), device="cpu", seed=2)
     port.init_model(**DIMS, batch_size=16)
     before = port.state.params["fc1"]["w"].clone()
     cfg0, state0 = port.cfg, port.state
@@ -422,6 +422,8 @@ def test_append_builds_the_jax_entry_and_leaves_the_trainer(tmp_path):
     assert got["state"].params["fc11_p"]["w"].shape == (A, F, D)
     # trained_model= loads weights into the new entry only
     path = port.save_checkpoint("e0")
+    # the checkpoint lands in the run folder, never the working directory
+    assert os.path.dirname(os.path.abspath(path)) == str(tmp_path)
     again = port.append(**DIMS, trained_model=path)
     assert torch.equal(again["state"].params["fc1"]["w"], before)
     assert len(port.models) == 2 and port.state is state0

@@ -251,3 +251,33 @@ def test_cli_evaluate_takes_the_model_flags_and_batch_size(tmp_path,
                       "--batch_size", "16", "--p_drop", "0.5",
                       "--out_dir", str(tmp_path / "evaluation")]) == 0
     assert (tmp_path / "evaluation" / "A2-RUN0-E0.npy").exists()
+
+
+# ---------------------------------------------------------------------------
+# The package's top level against the JAX package's (fault C12)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["CplMixVAE", "mixvae_loss", "LossOutputs",
+                                  "MixVAEOutputs", "apply", "init_params",
+                                  "init_bn_state", "generate", "load_vae"])
+def test_top_level_names_are_the_port_modules_objects(name):
+    """Every lazy name of ``dvae_tpu`` resolves on the port to the object
+    of the port's module of the same name (identity), without JAX."""
+    import importlib
+
+    import dvae_tpu
+    import dvae_tpu_torch
+    assert name in dvae_tpu._LAZY
+    jmod, attr = dvae_tpu._LAZY[name]
+    port_mod = importlib.import_module(jmod.replace("dvae_tpu.",
+                                                    "dvae_tpu_torch.", 1))
+    assert getattr(dvae_tpu_torch, name) is getattr(port_mod, attr)
+    with pytest.raises(AttributeError):
+        getattr(dvae_tpu_torch, name + "_missing")
+
+
+def test_top_level_covers_the_jax_lazy_table_and_version():
+    import dvae_tpu
+    import dvae_tpu_torch
+    assert sorted(dvae_tpu_torch._LAZY) == sorted(dvae_tpu._LAZY)
+    assert dvae_tpu_torch.__version__ == dvae_tpu.__version__

@@ -774,7 +774,7 @@ import torch
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "optax", "pandas",
-                                  "sklearn", "dvae_tpu"):
+                                  "sklearn", "matplotlib", "dvae_tpu"):
             raise ImportError(f"{{name}} is blocked")
         return None
 sys.meta_path.insert(0, Block())
@@ -834,10 +834,43 @@ cli.main(["train-augmenter", "--device", "cpu", "--synthetic", "--syn_cells",
           "--z_dim", "4", "--out", "cli_aug.ckpt"])
 from dvae_tpu_torch.eval.evaluate import adjusted_mutual_info_score
 ami = adjusted_mutual_info_score(res["pred_label"][0], res["pred_label"][-1])
+from dvae_tpu_torch.analysis import hierarchy_viz, tree_based
+from dvae_tpu_torch.analysis.taxonomy import HTree, simplify_tree
+from dvae_tpu_torch.eval import cluster_analysis as ca
+from dvae_tpu_torch.examples import clusterability, taxonomy_study
+tm = HTree(htree_df={{"x": [0, 1, 0.5, 0.5], "y": [0, 0, 1, 2],
+                      "leaf": [True, True, False, False],
+                      "label": ["a", "b", "m", "top"],
+                      "parent": ["m", "m", "top", None], "col": [None] * 4}})
+with open("dend.csv", "w") as f:
+    f.write("x,y,leaf,label,parent,col\\n0,0,TRUE,a,m,#1\\n"
+            "1,0,TRUE,b,m,\\n0.5,1,,m,top,\\n0.5,2,,top,NA,\\n")
+tc = HTree(htree_file="dend.csv")
+merged = tree_based.get_merged_types("dend.csv", ["a", "b", "a"],
+                                     num_classes=2, node="top")[0]
+simple, skipped = simplify_tree(tc)
+study = taxonomy_study.run(depth=2, n_cells=80, n_genes=12, n_arm=2,
+                           batch_size=20, n_epoch=2, epochs_per_jit=2,
+                           folder="taxonomy", save_plots=False,
+                           verbose=False, device="cpu")
+xl = np.random.default_rng(1).normal(size=(60, 4)) + np.repeat(
+    np.eye(4)[:3] * 4, 20, axis=0)
+yl = np.repeat(np.arange(3), 20)
+lda = ca.kfold_classifier(xl, {{"y": yl}}, kfold=3, kind="lda")[0]["y"]
+qda = ca.kfold_classifier(xl, {{"y": yl}}, kfold=3, kind="qda")[0]["y"]
+silh = ca.get_SilhScore(xl, yl)[1]
+pca_sil = ca.cluster_compare(xl, {{"y": yl}}, num_pc=2)[2]
+k_sel = ca.K_selection([4, 6, 8], [[1.0, 2.0, 3.0]], [0.9, 0.97, 0.99],
+                       thr=0.95)[3]
+try:
+    ca.kfold_classifier(xl, {{"y": yl}}, kfold=3, kind="rf")
+    rf = "ran"
+except ImportError as e:
+    rf = "scikit-learn" in str(e)
 import os
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu",
-                                    "sklearn", "pandas"))
+                                    "sklearn", "pandas", "matplotlib"))
 print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
                   "generate_labels": bool(np.array_equal(
                       gen["pred_label"], res["pred_label"])),
@@ -858,7 +891,19 @@ print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
                       sres["total_loss"])),
                   "gan_epochs": len(ghist), "gan_n_zim": gcfg.n_zim,
                   "cli_augmenter": os.path.exists("cli_aug.ckpt"),
-                  "ami_finite": bool(np.isfinite(ami))}}))
+                  "ami_finite": bool(np.isfinite(ami)),
+                  "tree_mapping_csv_equal": tm.child.tolist()
+                  == tc.child.tolist() == ["a", "b", "m", "top"],
+                  "merged": merged.tolist(), "skipped": skipped,
+                  "simplified": simple.child.tolist(),
+                  "nodes": hierarchy_viz.cell_nodes_dict(tc)["a"],
+                  "study_leaves": study["n_leaves"],
+                  "study_finite": bool(np.isfinite(study["leaf_ami"]).all()
+                                       and study["levels"] != []),
+                  "lda_qda": [len(lda), len(qda), min(lda + qda) > 0.9],
+                  "silhouette": bool(0.5 < silh <= 1.0),
+                  "pca_silhouette": bool(0.5 < pca_sil[0] <= 1.0),
+                  "k_selection": k_sel, "rf_import_error": rf}}))
 """.format(D=D)
 
 
@@ -878,9 +923,15 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
     validating on CSR rows) and serves the CSR matrix, then trains an
     augmenter (ZINB, 2 epochs) through the API and through ``cli
     train-augmenter`` and scores an AMI, without loading JAX, optax,
-    sklearn, pandas or dvae_tpu: once torch is loaded, importing any of
-    them raises.  It also imports the analysis and interop modules
-    (``models.api``, ``analysis.tree_based``, ``analysis.tree_helpers``,
+    sklearn, pandas, matplotlib or dvae_tpu: once torch is loaded,
+    importing any of them raises.  The taxonomy and clusterability path
+    runs there too: ``HTree`` from a mapping and from a dend CSV,
+    ``tree_based.get_merged_types``, ``simplify_tree``, ``cell_nodes_dict``,
+    ``taxonomy_study.run(save_plots=False)`` at a tiny size, LDA, QDA, the
+    silhouette, ``cluster_compare``'s PCA and ``K_selection``; the random
+    forest raises ``ImportError`` naming scikit-learn.  It also imports
+    the analysis and interop modules (``models.api``,
+    ``analysis.tree_based``, ``analysis.tree_helpers``,
     ``utils.torch_import``, ``examples.state_traversal``) and serves the
     JAX checkpoint through ``load_vae`` → ``generate``, whose labels are
     ``eval_model``'s."""
@@ -896,7 +947,14 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
                    "decoder_loss_finite": True, "stream_steps": 4,
                    "stream_labels": [2, 20], "stream_loss_finite": True,
                    "gan_epochs": 2, "gan_n_zim": 2, "cli_augmenter": True,
-                   "ami_finite": True}
+                   "ami_finite": True, "tree_mapping_csv_equal": True,
+                   "merged": ["m", "m", "m"], "skipped": ["top", "root"],
+                   "simplified": ["a", "b", "m"],
+                   "nodes": ["m", "top", "root"],
+                   "study_leaves": 4, "study_finite": True,
+                   "lda_qda": [3, 3, True], "silhouette": True,
+                   "pca_silhouette": True, "k_selection": 6,
+                   "rf_import_error": True}
 
 
 def test_cli_evaluate_on_cpu(jax_checkpoints, tmp_path):
