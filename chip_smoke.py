@@ -169,7 +169,32 @@ Phases (any failure exits non-zero and prints no result line):
      under the six strategies bit for bit and in bf16/fp16; the host-op
      twins on (5, 1,000,000) labels against eval/metrics (1e-12); the
      probe of the card;
- 15. print the kernels line, the card's name and power limit, and last the
+ 15. the mesh (``dvae_tpu_torch.parallel``), as two ranks on the one card
+     over gloo (``chip_smoke.py --mesh-rank=r``, spawned together under a
+     time limit that kills both; a rank that fails or hangs fails the
+     script): (a) the partitioned kernels (#1 and #2, #4 and #5 with an
+     explicit mask and with the in-kernel one of seed_r, #6 and #7) on
+     each rank's 2,500 rows against the same kernel on the whole 5,000
+     rows; (b) init_model(mesh=MeshConfig(data=2) and MeshConfig(fsdp=2),
+     sharding=s) → train 4 steps → save for the six strategies (x_drop 0:
+     losses equal, and equal to one process's: one step's loss at 1e-4
+     and its gradients within 10× the gap a reordering of the rows makes
+     on one process, 4 steps at JAX's 5e-4 and, at an Adam eps above
+     every first gradient, at 1e-4; each
+     rank 4 launches of encoder_fwd, encoder_bwd,
+     recon_fwdbwd on 2,500 rows; 0 synchronising calls inside a chunk
+     apart from the collectives; the checkpoint served on one card within
+     the serving limits), and once at x_drop 0.5; (c) one step each of
+     ZINB on fsdp=2 (full), use_pallas + alignment on arm=2 with 4 arms
+     and with 5 (the axis dropped), fused_decoder on data=2 (the fc11-only
+     kernel), local_bn_stats; (d) a fresh load_model places the
+     checkpoint on the mesh and eval_model runs 22,001 cells (the 2,001-row
+     tail whole on each rank, through kernel #1) against one process's
+     labels; (e) ``cli train`` in two processes for one chunk.  It prints
+     each rank's ms a step and the ms of one all-reduce and one
+     reduce-scatter of the gradients' bytes, labelled "two ranks on one
+     card over gloo: not a multi-GPU figure";
+ 16. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
 Every ``train`` call passes ``save_plots=False``: the plot artifacts would
@@ -5604,7 +5629,726 @@ def phase_tools(torch, check, tmp) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the mesh on the card (two ranks on one card over gloo)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_TIMEOUT = 600            # s: the ranks' world is killed after it
+MESH_LABEL = "two ranks on one card over gloo: not a multi-GPU figure"
+N_MESH_TRAIN = 4 * B          # 4 steps of 5,000 rows, 2,500 a rank
+N_MESH_EVAL = 4 * B + 2001    # one 4-batch chunk and a trailing 2,001 rows
+TOL_MESH_OPS = 1e-5           # PERF.md §2: f32 sums relative, the rest
+                              # max|Δ|/max|whole-batch kernel|
+TOL_MESH_STRATEGY = 1e-5      # tests/test_sharding.py:59-77
+TOL_MESH_STEP = 1e-4          # one step against one process (PERF.md §2),
+                              # and the 4 steps at an Adam eps above
+                              # every first gradient
+MESH_GRAD_FLOOR = 10          # the first step's gradients, mesh against
+                              # one process: each leaf's ‖Δ‖/‖g‖ (MESH_BN_
+                              # FED's biases left out) ≤ this × the gap a
+                              # reordering of the batch's rows makes on
+                              # one process, or ≤ TOL_MESH_OPS
+TOL_MESH_EPOCH = 5e-4         # 4 steps against one process, x_drop 0, at
+                              # Adam's eps 1e-8: JAX's multi- against one-
+                              # device tolerance (tests/test_sharding.py
+                              # :214).  Adam's first update, g/(|g| + eps),
+                              # is ≈ lr·sign(g) there, so a weight whose
+                              # gradient the two runs' rounding leaves of
+                              # either sign moves by up to 2·lr between them
+TOL_MESH_PARAM = 1e-6         # the weights' gap printed: how many past it
+# the layers whose biases feed a batch norm (through a ReLU): their true
+# gradient is 0 wherever a unit is on for every row, what is left rounding
+MESH_BN_FED = ("fc1", "fc2", "fc3", "fc4", "fc5")
+MESH_STEP_KERNELS = ("encoder_fwd", "encoder_bwd", "recon_fwdbwd")
+# the meshes the six strategies train on: data=2 places them alike, fsdp=2
+# runs the ZeRO update (sharded moments, the reduce-scatter, fsdp gathers)
+MESH_STRATEGY_MESHES = {"data": dict(data=2), "fsdp": dict(fsdp=2)}
+N_MESH_CLI = 2 * B + 1000     # cli train's synthetic cells: one 5,000-row
+                              # step in 90% of them
+
+
+def _rel_max(a, b) -> float:
+    """max|a − b| / max|b|."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _rel_each(a, b) -> float:
+    """The largest elementwise |a − b| / |b| (the per-arm f32 sums)."""
+    a, b = a.detach().float(), b.detach().float()
+    return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+
+def _mesh_ops(torch, mesh) -> dict:
+    """Each partitioned op on this rank's 2,500 rows, all-reduced, against
+    the same kernel on the whole 5,000-row batch in this process; the
+    encoder also on its in-kernel mask against the plain version fed
+    ``kernel_keep_mask(seed_r, local shape)``."""
+    from dvae_tpu_torch.ops import encoder, partitioned as P, recon, zinb
+    from dvae_tpu_torch.parallel.runtime import all_reduce
+    half = B // MESH_RANKS
+    rows = slice(mesh.rank * half, (mesh.rank + 1) * half)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 15)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=DEV)
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_()
+
+    out = {}
+    # recon: #2 with a gradient, #1 without
+    h, w, b = rnd(A, B, F), rnd(A, F, D, scale=0.1), rnd(A, D, scale=0.1)
+    x = torch.relu(rnd(B, D) + 0.5)
+    s0, m0, dh0, dw0, db0 = recon.recon_fwdbwd(h, w, b, x)
+    with torch.no_grad():
+        v0, vm0 = recon.fused_recon_mse(h, w, b, x)
+    op = P.make_partitioned_recon((), ("data",), mesh)
+    hl, wl, bl = leaf(h[:, rows].contiguous()), leaf(w), leaf(b)
+    xl = x[rows].contiguous()
+    s, m = op(hl, wl, bl, xl)
+    s.sum().backward()
+    with torch.no_grad():
+        vs, vm = op(hl.detach(), w, b, xl)
+    out.update(recon_sumsq=_rel_each(s, s0), recon_dh=_rel_max(
+        hl.grad, dh0[:, rows]), recon_dw=_rel_max(wl.grad, dw0),
+        recon_db=_rel_max(bl.grad, db0), recon_value=_rel_each(vs, v0),
+        recon_mism=bool(torch.equal(m, m0) and torch.equal(vm, vm0)))
+    # encoder: #4 and #5, explicit mask and in-kernel mask
+    xe = torch.relu(rnd(B, D) + 0.5)
+    we, be, ge = rnd(A, D, F, scale=0.1), rnd(A, F, scale=0.1), rnd(A, B, F)
+    mask = torch.rand((A, B, D), generator=g, device=DEV) < 1.0 - RATE
+    seed = 1234567
+    y0 = encoder.encoder_fwd(seed, xe, we, be, RATE, mask)
+    dwe0, dbe0 = encoder.encoder_bwd(seed, xe, ge, RATE, mask)
+    enc = P.make_partitioned_dropout_fc1((), ("data",), mesh, RATE)
+    xel, gel = xe[rows].contiguous(), ge[:, rows].contiguous()
+    wl, bl = leaf(we), leaf(be)
+    y = enc(seed, xel, wl, bl, mask[:, rows].contiguous())
+    (y * gel).sum().backward()
+    out.update(enc_y=_rel_max(y, y0[:, rows]), enc_dw=_rel_max(wl.grad, dwe0),
+               enc_db=_rel_max(bl.grad, dbe0))
+    seed_r = P.local_seed(seed, enc.offset)
+    km = encoder.kernel_keep_mask(seed_r, (A, half, D), RATE, DEV)
+    wl, bl = leaf(we), leaf(be)
+    y = enc(seed, xel, wl, bl)
+    (y * gel).sum().backward()
+    yp = encoder.dropout_fc1_reference(xel, we, be, RATE, km)
+    dwp, dbp = encoder.dropout_fc1_grad_reference(xel, gel, RATE, km)
+    dwp, dbp = (all_reduce(t, mesh.batch_group) for t in (dwp, dbp))
+    out.update(enc_seed_r=seed_r, enc_offset=enc.offset,
+               enc_kernel_mask_y=_rel_max(y, yp),
+               enc_kernel_mask_dw=_rel_max(wl.grad, dwp),
+               enc_kernel_mask_db=_rel_max(bl.grad, dbp))
+    # ZINB: #7 with a gradient, #6 without
+    hz = rnd(A, B, F)
+    heads = [rnd(A, F, D, scale=0.1) if i % 2 == 0 else rnd(A, D, scale=0.1)
+             for i in range(6)]
+    counts = torch.floor(6.0 * torch.rand((B, D), generator=g, device=DEV))
+    xz = torch.log1p(counts * (torch.rand((B, D), generator=g, device=DEV)
+                               > 0.5))
+    l0, dhz0, *hg0 = zinb.zinb_fwdbwd(hz, *heads, xz)
+    hg0 = [t for pair in hg0 for t in pair]
+    with torch.no_grad():
+        lv0 = zinb.fused_zinb(hz, *heads, xz)
+    zop = P.make_partitioned_zinb((), ("data",), mesh)
+    hzl = leaf(hz[:, rows].contiguous())
+    hl_ = [leaf(t) for t in heads]
+    xzl = xz[rows].contiguous()
+    loss = zop(hzl, *hl_, xzl)
+    loss.sum().backward()
+    with torch.no_grad():
+        lv = zop(hzl.detach(), *heads, xzl)
+    out.update(zinb_loss=_rel_each(loss, l0), zinb_value=_rel_each(lv, lv0),
+               zinb_dh=_rel_max(hzl.grad, dhz0[:, rows]),
+               zinb_heads=max(_rel_max(a.grad, b_) for a, b_ in zip(hl_,
+                                                                    hg0)))
+    return out
+
+
+def _record_rows(torch):
+    """Record the rows of every launch the partitioned ops make: wrap the
+    kernel wrappers ``ops/partitioned`` calls.  Returns the record."""
+    from dvae_tpu_torch.ops import partitioned as P
+    seen = {name: set() for name in MESH_STEP_KERNELS}
+    for name, arg, dim in (("recon_fwdbwd", 0, 1), ("encoder_fwd", 1, -2),
+                           ("encoder_bwd", 1, -2)):
+        orig = getattr(P, name)
+
+        def wrapped(*a, _orig=orig, _name=name, _arg=arg, _dim=dim, **k):
+            seen[_name].add(int(a[_arg].shape[_dim]))
+            return _orig(*a, **k)
+        setattr(P, name, wrapped)
+    return seen
+
+
+def _last_loss(folder: str) -> float:
+    with open(os.path.join(folder, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r["train/loss"] for r in rows if "train/loss" in r][-1]
+
+
+def _mesh_kw(**kw) -> dict:
+    return {**dict(n_arm=A, input_dim=D, fc_dim=F, n_categories=C,
+                   batch_size=B, epochs_per_jit=1), **kw}
+
+
+def _mesh_train_once(torch, folder, x, adam_eps=None, **kw) -> dict:
+    """init_model(**kw) → train one epoch (Adam's eps ``adam_eps`` if
+    given): the launches it made, the loss rank 0 logged, the checkpoint,
+    the trainer."""
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    cpl = CplMixVAE(saving_folder=folder, device=DEV, seed=SEED + 17)
+    cpl.init_model(**_mesh_kw(**kw))
+    if adam_eps is not None:
+        cpl.tx.eps = adam_eps
+    before = launch_counts()
+    path = cpl.train(x, n_epoch=1, save_plots=False, early_stop_consensus=0)
+    counts = {k: v - before[k] for k, v in launch_counts().items()}
+    return {"path": path, "counts": counts, "loss": _last_loss(folder),
+            "device": str(cpl.device), "bn_groups": cpl.cfg.bn_groups,
+            "cpl": cpl}
+
+
+def _mesh_step_timing(torch, cpl, x) -> dict:
+    """ms a step of a warm chunk (4 steps), the synchronising calls inside
+    it (those the collectives make apart), and ms of one all-reduce and of
+    one reduce-scatter of the gradients' bytes over the batch group."""
+    from dvae_tpu_torch.parallel.runtime import (flat_all_reduce,
+                                                 flat_reduce_scatter)
+    from dvae_tpu_torch.train.step import make_epoch_runner
+    run = make_epoch_runner(cpl.cfg, cpl.tcfg, cpl.tx, x.shape[0],
+                            epochs_per_chunk=1, mesh=cpl.mesh)
+    xd = x.to(cpl.device)
+    state, _ = run(cpl.state, xd, None, 1.0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            state, ems = run(state, xd, None, 1.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    total = float(ems.total[0])
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / (x.shape[0] // B)
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    coll = sum(any(k in (w.filename or "") for k in ("distributed",
+                                                       "parallel"))
+               for w in syncs)
+    from dvae_tpu_torch.models.mixvae import _arm_shapes
+    n_params = sum(cpl.cfg.n_arm * (fi * fo + fo)
+                   for fi, fo in _arm_shapes(cpl.cfg).values())
+    group = cpl.mesh.batch_group
+    n_params += -n_params % group.size
+    buf = torch.ones(n_params, device=cpl.device)
+    ms = {}
+    for name, fn in (("allreduce_ms", lambda: flat_all_reduce([buf], group)),
+                     ("reduce_scatter_ms", lambda: flat_reduce_scatter(
+                         [buf], [0], group))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / 5
+    return {"ms_step": ms_step, **ms, "allreduce_mb": n_params * 4 / 1e6,
+            "syncs": len(syncs) - coll, "collective_syncs": coll,
+            "total": total}
+
+
+def _mesh_first_step(torch, x, mesh, sharding="no", perm=None):
+    """One train step (x_drop 0) from init on the first batch and its
+    whole (A, B, ·) draws from a seeded generator, on ``mesh`` or, with
+    None, on one device; ``perm`` reorders the batch's rows and their
+    draws alike (the same sums in another order).  Returns its loss and
+    the gradients Adam received, summed over the batch group, whole and
+    on the host."""
+    import dvae_tpu_torch.train.step as step_mod
+    from dvae_tpu_torch.config import MeshConfig
+    from dvae_tpu_torch.models.mixvae import Noise
+    from dvae_tpu_torch.parallel.sharding import gather_tree
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    cpl = CplMixVAE(device=DEV, seed=SEED + 17)
+    cpl.init_model(**_mesh_kw(x_drop=0.0, mesh=mesh or MeshConfig(),
+                              sharding=sharding))
+    cfg = cpl.cfg
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    whole = (cfg.n_arm, B)
+    noise = Noise(
+        gumbel_u=torch.rand(whole + (cfg.n_categories,), generator=gen,
+                            device=DEV),
+        reparam_e=torch.randn(whole + (cfg.state_dim,), generator=gen,
+                              device=DEV),
+        s_mask=torch.rand(whole + (cfg.state_dim,), generator=gen,
+                          device=DEV) < 1.0 - cfg.s_drop)
+    x = x[:B].to(DEV)
+    if perm is not None:
+        x = x[perm]
+        noise = noise._replace(**{k: getattr(noise, k)[:, perm] for k in (
+            "gumbel_u", "reparam_e", "s_mask")})
+    got = {}
+
+    def keep(grads):
+        got.update({n: {k: g.detach().cpu().clone()
+                        for k, g in layer.items()}
+                    for n, layer in grads.items()})
+    orig_mesh, orig_one = step_mod._mesh_update, cpl.tx.update
+
+    def mesh_update(opt, grads, state, specs, m):
+        keep(gather_tree(grads, specs.moments, m))
+        return orig_mesh(opt, grads, state, specs, m)
+
+    def one_update(grads, state, params):
+        keep(grads)
+        return orig_one(grads, state, params)
+    step_mod._mesh_update, cpl.tx.update = mesh_update, one_update
+    try:
+        step = step_mod.make_train_step(cpl.cfg, cpl.tcfg, cpl.tx,
+                                        mesh=cpl.mesh)
+        _, m, _ = step(cpl.state, x, None, 1.0, enc_seed=SEED + 22,
+                       noise=noise)
+    finally:
+        step_mod._mesh_update = orig_mesh
+    return float(m.total), got
+
+
+def _eps_above(grads) -> float:
+    """The power of 10 at or above every |g|: an Adam eps under which the
+    update lr·m̂/(√v̂ + eps) is continuous in the gradient."""
+    top = max(float(g.abs().max()) for layer in grads.values()
+              for g in layer.values())
+    return float(10.0 ** math.ceil(math.log10(max(top, 1e-30))))
+
+
+def _weight_gap(path_a, path_b) -> dict:
+    """The weights of two checkpoints after the same steps: max|Δ| and how
+    many lie past TOL_MESH_PARAM."""
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    p = []
+    for path in (path_a, path_b):
+        cpl = CplMixVAE(device="cpu")
+        cpl.load_model(path)
+        p.append(cpl.state.params)
+    out = {"n": 0, "n_past": 0, "max": 0.0}
+    for name, layer in p[1].items():
+        for k, w in layer.items():
+            d = (p[0][name][k] - w).abs()
+            out["n"] += d.numel()
+            out["n_past"] += int((d > TOL_MESH_PARAM).sum())
+            out["max"] = max(out["max"], float(d.max()))
+    return out
+
+
+def _mesh_paths(torch, out_dir, rank) -> dict:
+    """(b)-(d) on this rank: the six strategies on data=2 and on fsdp=2,
+    the 4 steps under a large Adam eps, one step of each other
+    configuration, eval_model over 22,001 cells."""
+    import numpy as np
+    from dvae_tpu_torch.config import MeshConfig, ShardingStrategy
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    res = {}
+    seen = _record_rows(torch)
+    x = streaming_dataset(torch, N_MESH_TRAIN, SEED + 16)
+    for axis, shape in MESH_STRATEGY_MESHES.items():
+        mesh = MeshConfig(**shape)
+        for s in ShardingStrategy:
+            r = _mesh_train_once(
+                torch, os.path.join(out_dir, f"{axis}_{s.value}"), x,
+                x_drop=0.0, mesh=mesh, sharding=s.value)
+            cpl = r.pop("cpl")
+            if s == ShardingStrategy.FULL_SHARD:
+                res[f"timing/{axis}"] = _mesh_step_timing(torch, cpl, x)
+            res[f"{axis}/{s.value}"] = r
+            print(f"rank {rank}: {axis}=2 {s.value} done", flush=True)
+        loss, grads = _mesh_first_step(torch, x, mesh, "full")
+        res[f"first_step/{axis}"] = loss
+        res[f"adam_eps/{axis}"] = eps = _eps_above(grads)
+        if rank == 0:
+            torch.save(grads, os.path.join(out_dir, f"grads_{axis}.pt"))
+        r = _mesh_train_once(torch, os.path.join(out_dir, f"{axis}_eps"), x,
+                             adam_eps=eps, x_drop=0.0, mesh=mesh,
+                             sharding="full")
+        r.pop("cpl")
+        res[f"eps/{axis}"] = r
+    res["rows"] = {k: sorted(v) for k, v in seen.items()}
+    # the in-kernel mask on the mesh path (x_drop of the model)
+    r = _mesh_train_once(torch, os.path.join(out_dir, "drop"), x,
+                         mesh=MeshConfig(data=2), sharding="full")
+    r.pop("cpl")
+    res["train/drop"] = r
+    # (c) one step each
+    x1 = x[:B]
+    gz = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    xz = torch.log1p(torch.poisson(2.0 * torch.rand(
+        (B, D), generator=gz, device=DEV), generator=gz)).cpu()
+    for name, data, kw in (
+            ("zinb_fsdp", xz, dict(mode="ZINB", mesh=MeshConfig(fsdp=2),
+                                   sharding="full")),
+            ("pallas_arm4", x1, dict(n_arm=4, use_pallas=True,
+                                     align_arms_every=1,
+                                     mesh=MeshConfig(arm=2))),
+            ("pallas_arm5", x1, dict(use_pallas=True,
+                                     mesh=MeshConfig(arm=2))),
+            ("decoder_data", x1, dict(fused_decoder=True,
+                                      mesh=MeshConfig(data=2))),
+            ("local_bn", x1, dict(local_bn_stats=True,
+                                  mesh=MeshConfig(data=2)))):
+        r = _mesh_train_once(torch, os.path.join(out_dir, name), data, **kw)
+        r.pop("cpl")
+        res[f"one/{name}"] = r
+        print(f"rank {rank}: {name} done", flush=True)
+    # (d) eval_model over 22,001 cells from the `full` checkpoint, placed on
+    # the mesh by a fresh load_model
+    xe = streaming_dataset(torch, N_MESH_EVAL, SEED + 18)
+    cpl = CplMixVAE(device=DEV)
+    cpl.load_model(res["data/full"]["path"])
+    before = launch_counts()
+    ev = cpl.eval_model(xe, batch_size=B)
+    res["eval"] = {"counts": {k: v - before[k]
+                              for k, v in launch_counts().items()},
+                   "mesh": [cpl.tcfg.mesh.data, cpl.tcfg.mesh.arm,
+                            cpl.tcfg.mesh.fsdp],
+                   "shape": list(ev["pred_label"].shape)}
+    if rank == 0:
+        np.save(os.path.join(out_dir, "eval_labels.npy"), ev["pred_label"])
+    return res
+
+
+def mesh_rank_main(rank: int, port: int, out_dir: str) -> int:
+    """One rank of phase 15's world (``chip_smoke.py --mesh-rank=r``)."""
+    import torch
+    from dvae_tpu_torch.config import MeshConfig
+    from dvae_tpu_torch.parallel.runtime import (initialize_distributed,
+                                                 shutdown)
+    from dvae_tpu_torch.parallel.sharding import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the host's cores shared by the ranks and the parent
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (MESH_RANKS + 1)))
+    initialize_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank,
+                           backend="gloo", device=DEV, timeout_s=300)
+    res = {"rank": rank, "ops": _mesh_ops(torch, make_mesh(MeshConfig(
+        data=MESH_RANKS)))}
+    print(f"rank {rank}: partitioned ops done", flush=True)
+    reset_launch_counts()  # the comparisons above are no path's launches
+    res.update(_mesh_paths(torch, out_dir, rank))
+    res["counts"] = launch_counts()
+    shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_world(argvs, logs, timeout) -> str:
+    """Start one process per argv, wait for all under ``timeout`` s; kill
+    every one on the first failure or on expiry.  Returns what went wrong
+    ("" when every process exited 0)."""
+    procs = [subprocess.Popen(a, stdout=log, stderr=subprocess.STDOUT,
+                              cwd=_HERE) for a, log in zip(argvs, logs)]
+    deadline = time.monotonic() + timeout
+    failed = ""
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"process {bad[0]} exited {procs[bad[0]].poll()}"
+                break
+            if time.monotonic() > deadline:
+                failed = f"the world outlived its {timeout} s limit"
+                break
+            time.sleep(0.1)
+        if not failed:
+            bad = [i for i, p in enumerate(procs) if p.returncode]
+            if bad:
+                failed = f"process {bad[0]} exited {procs[bad[0]].returncode}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    return failed
+
+
+def _tail(path: str, n: int = 6000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def _mesh_cli(torch, check, tmp) -> None:
+    """(e) ``cli train`` in two processes for one chunk on the card."""
+    folder = os.path.join(tmp, "mesh_cli")
+    port = _free_port()
+    argvs, logs = [], []
+    for r in range(MESH_RANKS):
+        argvs.append([
+            sys.executable, "-m", "dvae_tpu_torch.cli", "train", "--device",
+            DEV, "--dist_backend", "gloo", "--synthetic", "--syn_cells",
+            str(N_MESH_CLI), "--syn_genes", str(D), "--syn_types", str(C),
+            "--n_categories", str(C), "--n_arm", str(A), "--batch_size",
+            str(B), "--n_epoch", "1", "--epochs_per_jit", "1", "--fused",
+            "on", "--mesh_data", "2", "--num_processes", "2",
+            "--process_id", str(r), "--coordinator", f"127.0.0.1:{port}",
+            "--saving_folder", folder + "/"])
+        logs.append(open(os.path.join(tmp, f"mesh_cli{r}.log"), "w"))
+    t0 = time.perf_counter()
+    failed = _run_world(argvs, logs, MESH_TIMEOUT)
+    for log in logs:
+        log.close()
+    ok = check(not failed, f"cli train --mesh_data 2 --num_processes 2 "
+                           f"(gloo, one card): {failed or 'both exit 0'} in "
+                           f"{time.perf_counter() - t0:.1f} s")
+    if not ok:
+        for r in range(MESH_RANKS):
+            print(_tail(os.path.join(tmp, f"mesh_cli{r}.log")))
+        return
+    runs = [p for p in os.listdir(folder)
+            if os.path.isdir(os.path.join(folder, p))]
+    check(len(runs) == 1, f"cli: one run folder for the world ({runs})")
+    run = os.path.join(folder, runs[0])
+    loss = _last_loss(run)
+    check(math.isfinite(loss) and os.path.exists(
+        os.path.join(run, "cpl_mixVAE_model_epoch_1.ckpt")),
+        f"cli: one chunk, loss {loss:.6g}, epoch_1 checkpoint written")
+
+
+def phase_mesh(torch, check, tmp) -> dict:
+    """Phase 15: the mesh through the partitioned kernels, the six
+    strategies, the other configurations, eval and the CLI, on two ranks
+    of one card over gloo.  Returns each rank's launches on the paths."""
+    import numpy as np
+    from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
+    print(f"phase 15: the mesh ({MESH_LABEL})")
+    t_phase = time.perf_counter()
+    card = card_line()
+    d = os.path.join(tmp, "mesh")
+    os.makedirs(d)
+    port = _free_port()
+    argvs = [[sys.executable, os.path.abspath(__file__), f"--mesh-rank={r}",
+              f"--mesh-port={port}", f"--mesh-dir={d}"]
+             for r in range(MESH_RANKS)]
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w")
+            for r in range(MESH_RANKS)]
+    failed = _run_world(argvs, logs, MESH_TIMEOUT)
+    for log in logs:
+        log.close()
+    if not check(not failed, f"the ranks' world: {failed or 'both exit 0'} "
+                             f"in {time.perf_counter() - t_phase:.1f} s"):
+        for r in range(MESH_RANKS):
+            print(_tail(os.path.join(d, f"rank{r}.log")))
+        return {}
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    # (a) the partitioned kernels
+    for res in ranks:
+        o, r = res["ops"], res["rank"]
+        for key in ("recon_sumsq", "recon_value", "recon_dh", "recon_dw",
+                    "recon_db", "enc_y", "enc_dw", "enc_db",
+                    "enc_kernel_mask_y", "enc_kernel_mask_dw",
+                    "enc_kernel_mask_db", "zinb_loss", "zinb_value",
+                    "zinb_dh", "zinb_heads"):
+            check(o[key] <= TOL_MESH_OPS, f"rank {r} partitioned {key}: "
+                                          f"{o[key]:.2e} (tol {TOL_MESH_OPS})")
+        check(o["recon_mism"], f"rank {r} partitioned recon: mismatch "
+                               "counts equal the whole batch's")
+        check(o["enc_offset"] == r, f"rank {r}: encoder seed offset "
+                                    f"{o['enc_offset']}, seed_r "
+                                    f"{o['enc_seed_r']}")
+    # (b) the six strategies on data=2 and on fsdp=2
+    strategies = ("full", "grad-op", "no", "hybrid", "hybrid-zero2", "ddp")
+    for axis in MESH_STRATEGY_MESHES:
+        loss = {s: ranks[0][f"{axis}/{s}"]["loss"] for s in strategies}
+        for s in strategies:
+            rl = abs(loss[s] - loss["ddp"]) / abs(loss["ddp"])
+            check(rl <= TOL_MESH_STRATEGY,
+                  f"{axis}=2, strategy {s}: loss {loss[s]:.7g} vs ddp "
+                  f"{loss['ddp']:.7g} ({rl:.1e})")
+            for res in ranks:
+                c = res[f"{axis}/{s}"]["counts"]
+                check(all(c[k] == N_MESH_TRAIN // B
+                          for k in MESH_STEP_KERNELS)
+                      and c["recon_fwd"] == 0 and c["decoder_fwdbwd"] == 0,
+                      f"rank {res['rank']} {axis}=2 {s}: " + ", ".join(
+                          f"{k} {c[k]}" for k in MESH_STEP_KERNELS)
+                      + f" (one a step), recon_fwd {c['recon_fwd']}")
+    for res in ranks:
+        check(all(v == [B // MESH_RANKS] for v in res["rows"].values()),
+              f"rank {res['rank']}: rows a launch {res['rows']} "
+              f"({B // MESH_RANKS} expected)")
+    # against one process: one step (its loss and gradients); 4 steps at
+    # Adam's eps 1e-8 (JAX's tolerance) and at an eps above every first
+    # gradient (TOL_MESH_STEP, the weights at TOL_MESH_PARAM)
+    x_one = streaming_dataset(torch, N_MESH_TRAIN, SEED + 16)
+    eps_big = sorted({ranks[0][f"adam_eps/{a}"] for a in MESH_STRATEGY_MESHES})
+    one = {}
+    for eps in [None] + eps_big:
+        one_dir = os.path.join(tmp, f"mesh_one_{eps}")
+        cpl = CplMixVAE(saving_folder=one_dir, device=DEV, seed=SEED + 17)
+        cpl.init_model(**_mesh_kw(x_drop=0.0))
+        if eps is not None:
+            cpl.tx.eps = eps
+        path = cpl.train(x_one, n_epoch=1, save_plots=False,
+                         early_stop_consensus=0)
+        one[eps] = {"loss": _last_loss(one_dir), "path": path}
+        del cpl
+    first, g_one = _mesh_first_step(torch, x_one, None)
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(
+        SEED + 23)).to(DEV)
+    _, g_perm = _mesh_first_step(torch, x_one, None, perm=perm)
+    for axis in MESH_STRATEGY_MESHES:
+        for res in ranks:
+            fs = res[f"first_step/{axis}"]
+            rl = abs(fs - first) / abs(first)
+            check(rl <= TOL_MESH_STEP, f"rank {res['rank']} {axis}=2 full: "
+                                       f"one step against one process: "
+                                       f"{fs:.7g} vs {first:.7g} ({rl:.1e},"
+                                       f" tol {TOL_MESH_STEP})")
+        g_mesh = torch.load(os.path.join(d, f"grads_{axis}.pt"))
+        worst, most, n_sign, n_perm, n_all = None, None, 0, 0, 0
+        for name, layer in g_one.items():
+            for k, g in layer.items():
+                n_sign += int((torch.sign(g_mesh[name][k])
+                               != torch.sign(g)).sum())
+                n_perm += int((torch.sign(g_perm[name][k])
+                               != torch.sign(g)).sum())
+                n_all += g.numel()
+                if k == "b" and name in MESH_BN_FED:
+                    continue
+                norm = g.norm().clamp_min(1e-30)
+                gap = float((g_mesh[name][k] - g).norm() / norm)
+                floor = float((g_perm[name][k] - g).norm() / norm)
+                ratio = gap / max(MESH_GRAD_FLOOR * floor, TOL_MESH_OPS)
+                if worst is None or ratio > worst[3]:
+                    worst = (f"{name}.{k}", gap, floor, ratio)
+                if most is None or gap > most[1]:
+                    most = (f"{name}.{k}", gap, floor)
+        check(worst[3] <= 1.0,
+              f"{axis}=2 full: the first step's gradients against one "
+              f"process: the leaf nearest its limit {worst[0]}, ‖Δ‖/‖g‖ "
+              f"{worst[1]:.2e} against {worst[2]:.2e} for the rows "
+              f"reordered on one process (limit {MESH_GRAD_FLOOR}× that "
+              f"or {TOL_MESH_OPS:g}; the biases of "
+              f"{'/'.join(MESH_BN_FED)} left out); the largest gap "
+              f"{most[0]} {most[1]:.2e} (reordered {most[2]:.2e}); "
+              f"entries of the "
+              f"opposite sign {n_sign} (reordered {n_perm}) of {n_all}, "
+              "which Adam's first update at eps 1e-8 moves 2·lr apart")
+        for s in strategies:
+            ls, lo = ranks[0][f"{axis}/{s}"]["loss"], one[None]["loss"]
+            rl = abs(ls - lo) / abs(lo)
+            check(rl <= TOL_MESH_EPOCH, f"{axis}=2 {s}, 4 steps, against one "
+                                        f"process: {ls:.7g} vs {lo:.7g} "
+                                        f"({rl:.1e}, tol {TOL_MESH_EPOCH})")
+        gap = _weight_gap(ranks[0][f"{axis}/full"]["path"], one[None]["path"])
+        print(f"  {axis}=2 full, eps 1e-8: the weights after 4 steps against "
+              f"one process: max|Δ| {gap['max']:.2e}, {gap['n_past']} of "
+              f"{gap['n']} past {TOL_MESH_PARAM:g}")
+        eps = ranks[0][f"adam_eps/{axis}"]
+        ls, lo = ranks[0][f"eps/{axis}"]["loss"], one[eps]["loss"]
+        rl = abs(ls - lo) / abs(lo)
+        check(rl <= TOL_MESH_STEP, f"{axis}=2 full, 4 steps at Adam's eps "
+                                   f"{eps:g} (above every first gradient), "
+                                   f"against one process: {ls:.7g} vs "
+                                   f"{lo:.7g} ({rl:.1e}, tol "
+                                   f"{TOL_MESH_STEP})")
+        gap = _weight_gap(ranks[0][f"eps/{axis}"]["path"], one[eps]["path"])
+        print(f"  {axis}=2 full, eps {eps:g}: the weights after 4 steps "
+              f"against one process: max|Δ| {gap['max']:.2e}, "
+              f"{gap['n_past']} of {gap['n']} past {TOL_MESH_PARAM:g}")
+    drop = ranks[0]["train/drop"]
+    check(math.isfinite(drop["loss"]), f"x_drop {RATE} (in-kernel masks "
+                                       f"on the mesh): loss "
+                                       f"{drop['loss']:.7g}")
+    ckpt = ranks[0]["data/full"]["path"]
+    x_small = streaming_dataset(torch, N_SMALL, SEED + 20).numpy()
+    served = {}
+    for dev in (DEV, "cpu"):
+        server = CplMixVAE(device=dev)
+        server.load_model(ckpt)
+        served[dev] = server.eval_model(x_small, batch_size=1000)
+        del server
+    _served_within_limits(check, served[DEV], served["cpu"],
+                          "the mesh checkpoint served on one card vs CPU")
+    for res in ranks:
+        for axis in MESH_STRATEGY_MESHES:
+            t = res[f"timing/{axis}"]
+            check(t["syncs"] == 0, f"rank {res['rank']} {axis}=2: "
+                                   f"{t['syncs']} synchronising calls inside "
+                                   f"a chunk apart from the collectives' "
+                                   f"{t['collective_syncs']}")
+            print(f"  rank {res['rank']} ({MESH_LABEL}): {axis}=2 full, "
+                  f"{t['ms_step']:.2f} ms a step (2,500 rows); the "
+                  f"gradients' {t['allreduce_mb']:.1f} MB: all-reduce "
+                  f"{t['allreduce_ms']:.2f} ms, reduce-scatter "
+                  f"{t['reduce_scatter_ms']:.2f} ms; {card}")
+    # (c) one step each
+    for res in ranks:
+        r = res["rank"]
+        z = res["one/zinb_fsdp"]["counts"]
+        check(z["zinb_fwdbwd"] == 1 and z["recon_fwdbwd"] == 0,
+              f"rank {r} ZINB, fsdp=2 full: zinb_fwdbwd {z['zinb_fwdbwd']}")
+        p4 = res["one/pallas_arm4"]["counts"]
+        check(p4["gumbel_fwd"] == 1 and p4["gumbel_bwd"] == 1
+              and p4["coupling"] >= 1,
+              f"rank {r} use_pallas + alignment, arm=2, 4 arms: gumbel_fwd "
+              f"{p4['gumbel_fwd']}, gumbel_bwd {p4['gumbel_bwd']}, "
+              f"coupling {p4['coupling']}")
+        p5 = res["one/pallas_arm5"]["counts"]
+        check(p5["gumbel_fwd"] == 1, f"rank {r} 5 arms on arm=2 (the axis "
+                                     f"dropped): gumbel_fwd "
+                                     f"{p5['gumbel_fwd']}")
+        dc = res["one/decoder_data"]["counts"]
+        check(dc["decoder_fwdbwd"] == 0 and dc["recon_fwdbwd"] == 1,
+              f"rank {r} fused_decoder, data=2: decoder_fwdbwd "
+              f"{dc['decoder_fwdbwd']}, recon_fwdbwd {dc['recon_fwdbwd']}")
+        check(res["one/local_bn"]["bn_groups"] == 2,
+              f"rank {r} local_bn_stats: bn_groups "
+              f"{res['one/local_bn']['bn_groups']}")
+    for name in ("zinb_fsdp", "pallas_arm4", "pallas_arm5", "decoder_data",
+                 "local_bn"):
+        lv = ranks[0][f"one/{name}"]["loss"]
+        check(math.isfinite(lv), f"{name}: one step, loss {lv:.7g}")
+    # (d) eval over 22,001 cells
+    for res in ranks:
+        e = res["eval"]
+        check(e["mesh"] == [2, 1, 1] and e["shape"] == [A, N_MESH_EVAL]
+              and e["counts"]["recon_fwd"] == 5,
+              f"rank {res['rank']} eval_model over {N_MESH_EVAL} cells on "
+              f"the loaded mesh: labels {e['shape']}, recon_fwd "
+              f"{e['counts']['recon_fwd']} (the 4-batch chunk, 2,500 rows "
+              "a rank, and the 2,001-row tail whole on each rank)")
+    one = CplMixVAE(device=DEV)
+    one.load_model(ckpt)
+    lab1 = one.eval_model(streaming_dataset(torch, N_MESH_EVAL, SEED + 18),
+                          batch_size=B)["pred_label"]
+    del one
+    agree = float(np.mean(np.load(os.path.join(d, "eval_labels.npy"))
+                          == lab1))
+    check(agree >= 0.999, f"eval labels agree with one process on "
+                          f"{agree:.6f} (min 0.999)")
+    _mesh_cli(torch, check, tmp)
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return {f"mesh_rank{res['rank']}": res["counts"] for res in ranks}
+
+
 def main() -> int:
+    rank = [a for a in sys.argv[1:] if a.startswith("--mesh-")]
+    if rank:
+        kw = dict(a[len("--mesh-"):].split("=", 1) for a in rank)
+        return mesh_rank_main(int(kw["rank"]), int(kw["port"]), kw["dir"])
     only = [a for a in sys.argv[1:] if a.startswith("--kernels-only")]
     kernels_only = bool(only)
     # --kernels-only=decoder,coupling: just those kernel phases
@@ -5690,6 +6434,8 @@ def main() -> int:
                                         (*latent, ref_labels)))
             torch.cuda.empty_cache()
             paths.update(phase_tools(torch, check, tmp))
+            torch.cuda.empty_cache()
+            paths.update(phase_mesh(torch, check, tmp))
             on_path = ("recon_fwd", "recon_fwdbwd", "encoder_fwd",
                        "encoder_bwd", "zinb_fwd", "zinb_fwdbwd",
                        "gumbel_fwd", "gumbel_bwd", "coupling",

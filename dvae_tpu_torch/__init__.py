@@ -16,10 +16,13 @@ path (``analysis.taxonomy.HTree`` without pandas, the taxonomy study,
 ``eval.cluster_analysis`` without scikit-learn but for its random
 forest), and the single-device tools (the fit ``Trainer`` and the MNIST
 tutorial on one device, ``data.prep``, profiling, the probe of the card,
-the parser and the host-op twins).  The commands are
-``python -m dvae_tpu_torch.cli {train,evaluate,train-augmenter,
-import-torch}``; the model runs on ``--device cuda`` unless ``cpu`` is
-asked for.
+the parser and the host-op twins), and the mesh of several devices, one
+process each joined by ``torch.distributed`` (``parallel/``: the six
+sharding strategies, the fused kernels on each rank's shards, the mesh
+through the trainer, checkpoints, sampler, streamer and ``cli train``).
+The commands are ``python -m dvae_tpu_torch.cli {train,evaluate,
+train-augmenter,import-torch}``; the model runs on ``--device cuda``
+unless ``cpu`` is asked for.
 """
 
 __version__ = "0.1.0"

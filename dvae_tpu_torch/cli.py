@@ -29,9 +29,14 @@ absent, or with ``--synthetic``, a synthetic one
 (``--syn_cells``/``--syn_genes``/``--syn_types``): planted Gaussian
 programs, or with ``--syn_hard`` (alias ``--hard_synthetic``) ZINB counts
 with library-size variation, dropout and overlapping types.  The parsers
-accept every option of the JAX package's; the options of features still to
-port (``--sharding``/``--mesh_*``/``--coordinator``/``--num_processes``/
-``--process_id``) raise the trainer's ``NotImplementedError``.
+accept every option of the JAX package's.  ``train --mesh_data/--mesh_arm/
+--mesh_fsdp`` lay a mesh over one process per device: start the product
+of the three processes, each with ``--num_processes N --process_id r
+--coordinator host:port`` (``--dist_backend gloo`` puts several ranks on
+one card or runs them on the CPU; NCCL is the default on CUDA); rank 0
+makes the run folder and writes the checkpoints.  ``--sharding`` picks one
+of the six strategies (parallel/sharding.py), on one device too, where
+every strategy places alike.
 ``--rng_impl`` is kept in the checkpoint's metadata: the port draws from
 ``torch.Generator`` whatever it names.  ``train --wandb`` forwards the
 metrics to wandb where it imports (else one line says so and the run logs
@@ -77,7 +82,26 @@ def _load_dataset(args):
 
 
 def cmd_train(args) -> int:
+    from dvae_tpu_torch.parallel.runtime import (initialize_distributed,
+                                                 shutdown)
+
+    # the rendezvous of one process per device (a no-op for one process;
+    # dvae_tpu/cli.py:102-103)
+    initialize_distributed(args.coordinator, args.num_processes,
+                           args.process_id, backend=args.dist_backend,
+                           device=args.device)
+    try:
+        return _train(args)
+    finally:
+        shutdown()
+
+
+def _train(args) -> int:
+    from dvae_tpu_torch.config import MeshConfig
     from dvae_tpu_torch.data.pipeline import stratified_split_indices
+    from dvae_tpu_torch.parallel.runtime import (broadcast_string,
+                                                 process_info, rank_device,
+                                                 world_group)
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
     from dvae_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                                  latest_run_dir,
@@ -90,10 +114,14 @@ def cmd_train(args) -> int:
               f"_LR{args.lr}_A{args.n_arm}_B{args.batch_size}"
               f"_E{args.n_epoch}_Ep{args.n_epoch_p}")
     base = args.saving_folder or "results/"
-    folder = latest_run_dir(base, prefix) if args.resume else None
-    if args.resume and folder is None:
-        print("--resume: no existing run folder; starting fresh")
-    folder = folder or make_run_dir(base, prefix)
+    folder = None
+    if process_info()[0] == 0:  # one folder for the world, made by rank 0
+        folder = latest_run_dir(base, prefix) if args.resume else None
+        if args.resume and folder is None:
+            print("--resume: no existing run folder; starting fresh")
+        folder = folder or make_run_dir(base, prefix)
+    folder = broadcast_string(folder, world_group(),
+                              rank_device(args.device))
     print(f"run folder: {folder}")
 
     tr, te = stratified_split_indices(ds.cluster_label, 0.9, args.seed)
@@ -110,6 +138,9 @@ def cmd_train(args) -> int:
         variational=args.variational, n_pr=args.n_pr,
         mode=args.loss_mode, batch_size=args.batch_size,
         epochs_per_jit=args.epochs_per_jit, bf16=args.bf16,
+        sharding=args.sharding,
+        mesh=MeshConfig(data=args.mesh_data, arm=args.mesh_arm,
+                        fsdp=args.mesh_fsdp),
         optimizer=args.optimizer, rng_impl=args.rng_impl,
         fused={"auto": None, "on": True, "off": False}[args.fused],
         shuffle_block=args.shuffle_block, stream=args.stream,
@@ -244,18 +275,25 @@ def _add_data_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--syn_types", type=int, default=20)
 
 
-def _refuse_unported(args) -> None:
-    """Raise the trainer's NotImplementedError for a flag whose feature
-    arrives with a later slice of the port."""
-    from dvae_tpu_torch.utils.device import not_ported
-    if getattr(args, "sharding", "no") != "no":
-        raise not_ported(f"--sharding {args.sharding}", "multi-GPU")
-    for flag in ("mesh_data", "mesh_arm", "mesh_fsdp"):
-        if getattr(args, flag, 1) != 1:
-            raise not_ported("a mesh of several devices", "multi-GPU")
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag, None) is not None:
-            raise not_ported(f"several processes (--{flag})", "multi-GPU")
+def _check_mesh_flags(args) -> None:
+    """Refuse, before anything is written or joined, mesh flags that do not
+    describe one process per device: the product of ``--mesh_data``,
+    ``--mesh_arm`` and ``--mesh_fsdp`` must equal ``--num_processes``
+    (1 without it), and several processes need ``--coordinator`` and
+    ``--process_id``."""
+    if getattr(args, "cmd", None) != "train":
+        return
+    n = args.mesh_data * args.mesh_arm * args.mesh_fsdp
+    procs = args.num_processes or 1
+    if n != procs:
+        raise ValueError(
+            f"--mesh_data × --mesh_arm × --mesh_fsdp = {n} devices needs "
+            f"{n} processes, one per device, and --num_processes is "
+            f"{procs}: start {n} processes with --num_processes {n} "
+            "--coordinator host:port --process_id r")
+    if procs > 1 and (args.coordinator is None or args.process_id is None):
+        raise ValueError(f"--num_processes {procs} needs --coordinator "
+                         "host:port and --process_id r")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -292,7 +330,14 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--sharding", type=str, default="no",
                     choices=["full", "grad-op", "no", "hybrid",
                              "hybrid-zero2", "ddp"])
-    pt.add_argument("--coordinator", type=str, default=None)
+    pt.add_argument("--coordinator", type=str, default=None,
+                    help="host:port of rank 0's rendezvous "
+                         "(torch.distributed, tcp://)")
+    pt.add_argument("--dist_backend", type=str, default=None,
+                    choices=["nccl", "gloo"],
+                    help="torch.distributed backend (default: nccl on "
+                         "cuda, gloo on cpu; gloo runs several ranks on "
+                         "one card)")
     pt.add_argument("--bf16", action="store_true")
     pt.add_argument("--fused", type=str, default="auto",
                     choices=["auto", "on", "off"],
@@ -366,7 +411,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    _check_mesh_flags(args)
     return args.fn(args)
 
 

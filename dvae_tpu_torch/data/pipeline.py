@@ -5,7 +5,7 @@ indices from the same seed, and the host iterators ``BatchIterator``
 (:89) and ``get_loaders`` (:130), the same batches.  Training batches its
 data in the epoch runner (``train/step.make_epoch_runner``, on the
 device) or the streamer (``data/stream.py``); ``shard_for_process``
-arrives with the multi-GPU slice.
+(:65) is a process's slice of an index set.
 """
 
 from __future__ import annotations
@@ -38,6 +38,25 @@ def stratified_split_indices(labels: np.ndarray, train_size: float,
         train_ind.append(idx[perm[:k]])
         test_ind.append(idx[perm[k:]])
     return np.concatenate(train_ind), np.concatenate(test_ind)
+
+
+def shard_for_process(indices: np.ndarray, process_index: int,
+                      process_count: int, *, even: bool = True) -> np.ndarray:
+    """This process's slice of a global index set
+    (dvae_tpu/data/pipeline.py:65-81).
+
+    ``even=True`` pads by wrapping (DistributedSampler semantics: every
+    rank sees the same number of samples, padding with repeats), so no
+    rank runs out of batches before the others and leaves them waiting at
+    a collective."""
+    if process_count <= 1:
+        return indices
+    n = len(indices)
+    if even:
+        per = -(-n // process_count)  # ceil
+        padded = np.resize(indices, per * process_count)
+        return padded[process_index::process_count]
+    return indices[process_index::process_count]
 
 
 # ---------------------------------------------------------------------------
@@ -94,12 +113,9 @@ def get_loaders(dataset: np.ndarray, label=(), seed: Optional[int] = None,
     """Reference loader factory (dvae_tpu/data/pipeline.py:130,
     dataloader.py:86-168): (train, test, alldata) ``BatchIterator``s of
     numpy (x, index) pairs: stratified shuffled drop_last train batches,
-    B=1 sequential test, a sequential full pass.  A distributed sampler over
-    several processes arrives with the multi-GPU slice."""
-    if use_dist_sampler and world_size > 1:
-        from dvae_tpu_torch.utils.device import not_ported
-        raise not_ported("a distributed sampler over several processes",
-                          "multi-GPU")
+    B=1 sequential test, a sequential full pass.  With ``use_dist_sampler``
+    over ``world_size`` > 1 processes the train and test sets are this
+    ``rank``'s ``shard_for_process`` slices."""
     dataset = np.asarray(dataset, dtype=np.float32)
     n = dataset.shape[0]
     if len(label) > 0:
@@ -107,6 +123,9 @@ def get_loaders(dataset: np.ndarray, label=(), seed: Optional[int] = None,
             np.asarray(label), train_size, seed)
     else:
         train_ind, test_ind = train_test_split_indices(n, train_size, seed)
+    if use_dist_sampler and world_size > 1:
+        train_ind = shard_for_process(train_ind, rank, world_size)
+        test_ind = shard_for_process(test_ind, rank, world_size)
     train = BatchIterator(dataset[train_ind], train_ind, batch_size,
                           shuffle=True, drop_last=True, seed=seed or 0)
     test = BatchIterator(dataset[test_ind], test_ind, 1,

@@ -44,9 +44,14 @@ from a resident one in its batch plan, and the generator's draws after
 it are another stretch of the same chain: the two runs are statistically,
 not bitwise, interchangeable, as in the JAX package.
 
-The multi-process parts of the JAX module (``_local_span``, the sharding
-checks, a mesh) arrive with the multi-GPU slice; the trainer refuses a
-mesh before it streams.
+On a mesh (dvae_tpu/data/stream.py:125-175) every rank holds the whole
+host dataset, draws the same plan, and gathers on the host only its rows
+of each batch (``_local_span``: the rows of its batch-shard index, when the
+batch axes divide the batch; the whole batch where they do not, as the
+step then computes it whole).  A world of several processes without a
+mesh is a ``ValueError``, as is a batch the batch axes cannot divide.
+Under a frozen augmenter the streaming runner has every rank stream the
+whole batch: the augmenter's draws are made whole, like the model's.
 """
 
 from __future__ import annotations
@@ -61,8 +66,10 @@ import torch
 
 from dvae_tpu_torch.eval.metrics import consensus_device
 from dvae_tpu_torch.models.mixvae import Noise
-from dvae_tpu_torch.train.step import (EpochMetrics, chunk_rngs,
-                                       epoch_metrics, make_train_step)
+from dvae_tpu_torch.parallel.runtime import process_info
+from dvae_tpu_torch.train.step import (EpochMetrics, _gather_rows_arms,
+                                       _spmd, chunk_rngs, epoch_metrics,
+                                       make_train_step)
 from dvae_tpu_torch.utils.host_ops import as_host_tensor, gather_rows
 
 
@@ -118,16 +125,34 @@ class BatchStreamer:
       dtype: the batches' dtype (a torch or numpy dtype; None keeps x's).
       device: where batches land (``"cuda"`` by default).
       prefetch: batches in flight beyond the current one (at least 1).
+      mesh: this rank's ``parallel.sharding.Mesh`` in a world of several
+        processes: ``batch_size`` is the whole batch's, and each batch
+        holds this rank's rows of it (``rows_local``).
+      whole_batch: on a mesh, stream every rank the whole batch.
     """
 
     def __init__(self, x, batch_size: int, *,
                  prior: Optional[np.ndarray] = None, seed: int = 0,
                  shuffle: bool = True, dtype=None, device="cuda",
-                 prefetch: int = 2, record_stats: bool = False):
+                 prefetch: int = 2, record_stats: bool = False, mesh=None,
+                 whole_batch: bool = False):
         self.stats = StreamStats() if record_stats else None
         if batch_size > x.shape[0]:
             raise ValueError(
                 f"batch_size {batch_size} > dataset size {x.shape[0]}")
+        if process_info()[1] > 1 and mesh is None:
+            raise ValueError(
+                "multi-process streaming needs the mesh: every rank holds "
+                "the whole dataset and streams its rows of each batch")
+        self._span = None   # (start, rows) of this rank's rows of a batch
+        n = 1 if mesh is None else mesh.axis_size(("data", "fsdp"))
+        if n > 1 and not whole_batch:
+            if batch_size % n:
+                raise ValueError(
+                    f"global batch_size {batch_size} must divide evenly "
+                    f"over the {n}-device row axis")
+            k = batch_size // n
+            self._span = (mesh.batch_index * k, k)
         if hasattr(x, "tocsr"):
             x = x.tocsr()  # row gathers on CSC/COO are pathological
             src_dtype = _torch_dtype(x.dtype)
@@ -155,6 +180,18 @@ class BatchStreamer:
     def __len__(self) -> int:
         return self.steps_per_epoch
 
+    @property
+    def rows_local(self) -> bool:
+        """True when a batch holds this rank's rows only."""
+        return self._span is not None
+
+    def _local_span(self, sel: np.ndarray) -> np.ndarray:
+        """This rank's row indices of a global batch selection."""
+        if self._span is None:
+            return sel
+        start, k = self._span
+        return sel[start: start + k]
+
     def plan(self, epoch_idx: int) -> np.ndarray:
         """(steps, batch_size) row indices of the epoch's batches."""
         n = self.x.shape[0]
@@ -168,7 +205,8 @@ class BatchStreamer:
         """Ring entry of batch ``i``: pinned host buffers for x and the
         prior, and the event of the copy that last read them."""
         if not self._slots:
-            B, D = self.batch_size, self.x.shape[1]
+            B = self.batch_size if self._span is None else self._span[1]
+            D = self.x.shape[1]
             for _ in range(self.prefetch + 1):
                 xs = torch.empty((B, D), dtype=self.dtype, pin_memory=True)
                 ps = (None if self.prior is None else
@@ -182,6 +220,7 @@ class BatchStreamer:
         """Gather the rows ``sel`` on the host and start their copy: the
         batch and the event the consumer waits on (None on the CPU)."""
         st = self.stats
+        sel = self._local_span(sel)
         t0 = time.perf_counter()
         if not self._cuda:
             xb = gather_rows(self.x, sel, self.dtype)
@@ -295,7 +334,7 @@ def feed_census(x, batch_size: int, *, dtype=None, n_batches: int = 8,
 
 def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
                           prefetch: int = 2, device="cuda",
-                          record_stats: bool = False):
+                          record_stats: bool = False, mesh=None):
     """Streaming twin of ``train.step.make_epoch_runner``.
 
     Returns ``runner(n_chunk)`` → ``run(state, x_host, prior_host, temp)``
@@ -303,12 +342,16 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
     stacked over ``n_chunk`` epochs), so ``CplMixVAE._run_phase`` drives
     either.  ``x_host``/``prior_host`` stay on the host; the device holds
     the batches in flight.  One streamer (and its pinned ring) serves
-    every chunk of a dataset; ``runner.streamer`` is the last one used."""
+    every chunk of a dataset; ``runner.streamer`` is the last one used.
+    On a ``mesh`` each rank streams its rows of each batch (the whole batch
+    under an augmenter) and the labels are gathered for the consensus, as
+    in the resident runner."""
     B = tcfg.batch_size
     steps = n_train // B
     if steps == 0:
         raise ValueError(f"batch_size {B} > dataset size {n_train}")
-    step_fn = make_train_step(cfg, tcfg, opt, augment)
+    step_fn = make_train_step(cfg, tcfg, opt, augment, mesh)
+    spmd = _spmd(cfg, tcfg, mesh, B)
     store = torch.bfloat16 if tcfg.bf16 else torch.float32
     dev = torch.device(device)
     A, K = cfg.n_arm, cfg.n_categories
@@ -320,7 +363,8 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
             cache["key"] = key
             cache["streamer"] = BatchStreamer(
                 x_host, B, prior=prior_host, seed=tcfg.seed, dtype=store,
-                device=dev, prefetch=prefetch, record_stats=record_stats)
+                device=dev, prefetch=prefetch, record_stats=record_stats,
+                mesh=mesh, whole_batch=augment is not None)
         runner.streamer = cache["streamer"]
         return cache["streamer"]
 
@@ -329,8 +373,10 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
         gen, host = chunk_rngs(state.seed, state.epoch, dev)
         cuda = dev.type == "cuda"
         per_epoch = []
+        local = {"n_rows": B} if streamer.rows_local else {}
         for e in range(n_chunk):
-            labels = torch.empty((A, steps * B), dtype=torch.long, device=dev)
+            labels = (torch.empty((A, steps * B), dtype=torch.long,
+                                  device=dev) if spmd is None else [])
             ms, done = [], []
             for s, batch in enumerate(streamer.epoch(state.epoch)):
                 enc_seed = int(host.integers(0, 2 ** 31 - 1))
@@ -339,8 +385,11 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
                     if cfg.use_pallas else None)
                 state, m, lab = step_fn(state, batch.x, batch.prior, temp,
                                         generator=gen, enc_seed=enc_seed,
-                                        noise=noise)
-                labels[:, s * B:(s + 1) * B] = lab
+                                        noise=noise, **local)
+                if spmd is None:
+                    labels[:, s * B:(s + 1) * B] = lab
+                else:
+                    labels.append(lab)
                 ms.append(m)
                 if cuda:
                     # backpressure: the step issued ``prefetch`` iterations
@@ -352,6 +401,9 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
                         _wait(done[s - prefetch], streamer.stats)
                         done[s - prefetch] = None
             del batch
+            if spmd is not None:  # (A_l, steps, B_l) → (A, steps·B)
+                labels = _gather_rows_arms(torch.stack(labels, dim=1), spmd,
+                                           2).reshape(A, steps * B)
             per_epoch.append(epoch_metrics(ms, consensus_device(labels, K)))
             state = state._replace(epoch=state.epoch + 1)
         return state, EpochMetrics(*(torch.stack(v)

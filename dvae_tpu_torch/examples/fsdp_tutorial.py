@@ -8,8 +8,9 @@ mixed precision :231-236, timing :401-452, the run artifact :477-495).
 On one device a ``ShardingStrategy`` is a placement only, so every
 strategy runs here and gives the same numbers bit for bit.  Placement
 across several cards (``make_mesh_1d``, ``mlp_shardings``, ``n_devices``
-above 1) arrives with the multi-GPU slice of the port and is refused until
-then.  Mixed precision is a compute-dtype cast (f32 master weights).
+above 1) arrives with the second multi-GPU slice of the port (A6-2) and
+is refused until then.  Mixed precision is a compute-dtype cast (f32
+master weights).
 MNIST images are synthesized (``synthetic_mnist``, numpy, the JAX
 function's bits); pass ``data=(x, y)`` to use real MNIST.
 """
@@ -93,17 +94,19 @@ def apply_mlp(params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def make_mesh_1d(n_devices: Optional[int] = None):
-    raise not_ported("a device mesh", "multi-GPU")
+    raise not_ported("a device mesh", "multi-GPU (A6-2)")
 
 
 def mlp_shardings(params, mesh, strategy: ShardingStrategy):
-    raise not_ported("parameter sharding across devices", "multi-GPU")
+    raise not_ported("parameter sharding across devices",
+                     "multi-GPU (A6-2)")
 
 
 def _one_device(n_devices: Optional[int], device) -> torch.device:
     """The one card (or the CPU) a run uses; more devices are refused."""
     if n_devices not in (None, 1):
-        raise not_ported(f"a run on {n_devices} devices", "multi-GPU")
+        raise not_ported(f"a run on {n_devices} devices",
+                         "multi-GPU (A6-2)")
     return resolve_device(device)
 
 

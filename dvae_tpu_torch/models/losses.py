@@ -15,6 +15,15 @@ both MSE branches, as in the JAX package (dvae_tpu/models/losses.py:105,
 :353).  Under ``cfg.use_pallas`` the coupling distance goes through the
 fused kernel of ``ops/coupling.py``, in training and in eval
 (dvae_tpu/models/losses.py:396-401); its gradient is the eager form's.
+
+On a mesh (``spmd``) ``outs`` and ``x`` are this rank's blocks.  The
+reconstruction runs through the partitioned kernels of
+``ops/partitioned.py`` (dvae_tpu/models/losses.py:262, :297-340), or on the
+plain path as sums over the local rows; per-arm terms are summed over the
+batch group and gathered over the arm group, and the coupling terms are
+computed on the gathered (A, B, C) posteriors.  Every rank gets the same
+loss; the collectives' backwards (``parallel.runtime``) count each term
+once.
 """
 
 from __future__ import annotations
@@ -27,6 +36,9 @@ import torch
 from dvae_tpu_torch.config import VAEConfig
 from dvae_tpu_torch.models.mixvae import MixVAEOutputs
 from dvae_tpu_torch.models.sampling import hard_one_hot_st
+from dvae_tpu_torch.parallel.runtime import (all_gather,
+                                             gather_for_replicated,
+                                             sum_for_replicated)
 
 _LOG_CLAMP = -100.0  # torch binary_cross_entropy clamps log at -100
 _P_TINY = 1e-37      # smallest guard that stays a normal f32
@@ -224,10 +236,19 @@ def mixvae_loss_naive(cfg: VAEConfig, outs: MixVAEOutputs,
 # Full loss
 # ---------------------------------------------------------------------------
 
+def _gather_all(t: torch.Tensor, spmd) -> torch.Tensor:
+    """Stacked (k, A_l, B_l, ·) blocks → the whole (k, A, B, ·) tensors on
+    every rank, each block's gradient back to its owner only."""
+    if spmd is None:
+        return t
+    t = gather_for_replicated(t, spmd.batch_group, 2)
+    return gather_for_replicated(t, spmd.arm_group, 1)
+
+
 def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
                 prior_c: Optional[torch.Tensor] = None,
                 fused_recon_args: Optional[tuple] = None,
-                fused_trunk: bool = False) -> LossOutputs:
+                fused_trunk: bool = False, spmd=None) -> LossOutputs:
     """Total cpl-mixVAE loss (reference mmidas/nn_model.py:495-598):
 
       total = scaler·Σ_a (rec_a + β·KL_a)
@@ -240,17 +261,27 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
     (A, B, D).  With ``fused_trunk`` (MSE mode, ``cfg.fused_decoder``)
     ``outs.x_rec`` holds the decoder input z (A, B, C+S) instead and the
     whole fc6..fc11 chain runs in ``ops/decoder.fused_decoder_mse``.
+    ``spmd``: this rank's shards on a mesh (see the module docstring).
     """
     A, C = cfg.n_arm, cfg.n_categories
-    B, D = x.shape[-2], x.shape[-1]
+    B_l, D = x.shape[-2], x.shape[-1]
+    B = B_l if spmd is None else spmd.n_rows
+    frac = B_l / B   # this rank's share of the rows (1 off a mesh)
     eps = cfg.eps
+    bg = None if spmd is None else spmd.batch_group
+    ag = None if spmd is None else spmd.arm_group
 
-    nan_a = torch.full((A,), torch.nan, device=x.device, dtype=torch.float32)
+    nan_a = torch.full((outs.c.shape[0],), torch.nan, device=x.device,
+                       dtype=torch.float32)
     if fused_recon_args is not None and cfg.mode == "ZINB":
         # the head names are the reference's: fc11 is the rate head,
         # fc11_p the success probability, fc11_r the zero inflation
         from dvae_tpu_torch.ops.zinb import fused_zinb
         fparams, x_target = fused_recon_args
+        if spmd is not None:
+            from dvae_tpu_torch.ops.partitioned import make_partitioned_zinb
+            fused_zinb = make_partitioned_zinb(spmd.arm_axes, spmd.batch_axes,
+                                               spmd.mesh)
         sums = fused_zinb(outs.x_rec,
                           fparams["fc11"]["w"], fparams["fc11"]["b"],
                           fparams["fc11_p"]["w"], fparams["fc11_p"]["b"],
@@ -269,9 +300,16 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
                                             0.1, cfg.recon_bce_metric)
         else:
             from dvae_tpu_torch.ops.recon import fused_recon_mse
-            sumsq, mism = fused_recon_mse(outs.x_rec, fparams["fc11"]["w"],
-                                          fparams["fc11"]["b"], x_target,
-                                          0.1, cfg.recon_bce_metric)
+            recon_op = lambda h, w, b, xt: fused_recon_mse(  # noqa: E731
+                h, w, b, xt, 0.1, cfg.recon_bce_metric)
+            if spmd is not None:
+                from dvae_tpu_torch.ops.partitioned import (
+                    make_partitioned_recon)
+                recon_op = make_partitioned_recon(
+                    spmd.arm_axes, spmd.batch_axes, spmd.mesh, 0.1,
+                    cfg.recon_bce_metric)
+            sumsq, mism = recon_op(outs.x_rec, fparams["fc11"]["w"],
+                                   fparams["fc11"]["b"], x_target)
         loss_rec = 0.5 * sumsq / B
         if cfg.recon_bce_metric:
             # BCE on hard-binarized inputs ≡ 100 · mismatch fraction; a
@@ -285,21 +323,46 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
         elif cfg.recon_bce_metric:
             loss_rec = recon_loss_mse(outs.x_rec, x)
         else:
-            loss_rec = 0.5 * ((outs.x_rec - x) ** 2).sum(dim=(1, 2)) / B
-        ll = ((outs.x_rec - x) ** 2).mean(dim=(1, 2)) \
-            + B * math.log(2 * math.pi)
+            loss_rec = 0.5 * ((outs.x_rec - x) ** 2).sum(dim=(1, 2)) / B_l
+        ll = ((outs.x_rec - x) ** 2).mean(dim=(1, 2))
 
     if cfg.variational:
         # f32: bf16 cancellation in the mean/var reductions corrupts KL
         kl = kl_gaussian(outs.s_mean.float(), outs.s_logvar.float())
     else:
-        kl = torch.zeros((A,), device=x.device, dtype=torch.float32)
+        kl = torch.zeros_like(nan_a)
+    if spmd is not None:
+        # the per-arm means over this rank's rows → over the whole batch
+        # (one all-reduce), then this rank's arms → every arm (one gather)
+        rowed = fused_recon_args is None
+        parts = [loss_rec, ll] if rowed else []
+        if cfg.variational:
+            parts.append(kl)
+        if parts:
+            parts = sum_for_replicated(torch.stack([
+                p.float() * frac for p in parts]), bg).unbind(0)
+            if rowed:
+                loss_rec, ll, *parts = parts
+            if cfg.variational:
+                kl = parts[-1]
+    if fused_recon_args is None:
+        ll = ll + B * math.log(2 * math.pi)
     rec_nll = loss_rec if cfg.mode == "ZINB" else nan_a
+    if spmd is not None:
+        loss_rec, kl, ll, rec_nll = gather_for_replicated(
+            torch.stack([loss_rec.float(), kl.float(), ll.float(),
+                         rec_nll.float()], dim=1), ag, 0).unbind(dim=1)
 
     loss_ind_sum = (loss_rec + cfg.beta * kl).sum()
 
-    # coupling terms, always f32 (dvae_tpu/models/losses.py:388-391)
-    c = outs.c.float()
+    # coupling terms, always f32 (dvae_tpu/models/losses.py:388-391), on
+    # the posteriors of every arm and row
+    c, c_smp = outs.c.float(), outs.c_smp
+    if spmd is not None:
+        c, c_smp = _gather_all(torch.stack([c, c_smp.float()]),
+                               spmd).unbind(0)
+    if spmd is not None and prior_c is not None:
+        prior_c = all_gather(prior_c, bg, 0)
     logc = torch.log(c + eps)
     negent = neg_entropy(c, logc)                         # (A,)
     n_pairs = A * (A - 1) // 2
@@ -309,7 +372,7 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
             sum_c_dists = coupling_distance_fused(c, eps)
         else:
             sum_c_dists = coupling_distance(c, eps)
-        sum_c_l2 = _pair_sums_from_gram(outs.c_smp)
+        sum_c_l2 = _pair_sums_from_gram(c_smp)
         sum_c_ents = (A - 1) * negent.sum()
     else:
         sum_c_dists = sum_c_l2 = sum_c_ents = x.new_zeros(())
@@ -318,7 +381,7 @@ def mixvae_loss(cfg: VAEConfig, outs: MixVAEOutputs, x: torch.Tensor,
     if cfg.ref_prior and prior_c is not None:
         c_bin = hard_one_hot_st(c)
         prior_bce = bce(c_bin, prior_c.float().expand_as(c_bin), dim=(1, 2))
-        prior_l2 = ((outs.c_smp - prior_c) ** 2).sum(dim=-1).mean(dim=-1)
+        prior_l2 = ((c_smp - prior_c) ** 2).sum(dim=-1).mean(dim=-1)
         sum_c_ents = sum_c_ents + negent.sum()
         sum_c_l2 = sum_c_l2 + prior_l2.sum()
         sum_c_dists = sum_c_dists + cfg.lam_pc * prior_bce.sum()

@@ -20,6 +20,14 @@ its mask in-kernel from a seed, so no (A, B, D) dropped input exists.
 Under ``cfg.use_pallas`` the train-mode categorical sample runs as one
 hand-written kernel (``ops/gumbel.gumbel_softmax_fused``) that draws its
 uniforms in-kernel from a seed.
+
+On a mesh (``spmd``, a ``parallel.sharding.Spmd``) the forward runs on this
+rank's arms and rows: x, prior_c, the parameters and the running
+statistics are this rank's blocks, while the ``Noise`` tensors are whole
+(A, B, ·) and every draw from the generator is made whole and sliced, so
+the numbers are those of one device (dvae_tpu/models/mixvae.py:372-385
+routes fc1 through the partitioned kernel likewise).  Batch norm over a
+sharded batch is global; the Gumbel kernel runs on the gathered posterior.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import torch
 from dvae_tpu_torch.config import ReparamNoise, VAEConfig
 from dvae_tpu_torch.models.sampling import (_draw, dropout, gumbel_softmax,
                                             reparameterize)
+from dvae_tpu_torch.parallel.runtime import (all_gather, all_reduce,
+                                             gather_for_replicated)
 
 
 class MixVAEOutputs(NamedTuple):
@@ -167,8 +177,43 @@ class _NormalizeTrain(torch.autograd.Function):
         return gx * rstd, None
 
 
+class _NormalizeGlobal(torch.autograd.Function):
+    """``_NormalizeTrain`` over the rows of every rank of ``group``: x
+    (A, n_local, F) f32, every rank with as many rows, ``n`` the rows of
+    the whole batch.  The forward all-gathers each rank's per-feature mean
+    and sum of squared deviations and combines them (Chan's pairwise
+    update, in rank order: every rank gets the same mean and variance,
+    without the cancellation of Σx²); the backward all-reduces Σ gy and
+    Σ gy·x̂."""
+
+    @staticmethod
+    def forward(ctx, x, eps, group, n):
+        m = x.mean(dim=1, keepdim=True)
+        d = x - m
+        parts = all_gather(torch.stack([m, (d * d).sum(dim=1, keepdim=True)]
+                                       )[None], group)   # (ranks, 2, A, 1, F)
+        mean = parts[:, 0].mean(dim=0)
+        spread = parts[:, 0] - mean
+        var = (parts[:, 1].sum(dim=0)
+               + x.shape[1] * (spread * spread).sum(dim=0)) / n
+        rstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, mean, rstd)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return (x - mean) * rstd, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mean, rstd = ctx.saved_tensors
+        xhat = (x - mean) * rstd
+        sums = all_reduce(torch.stack([gy.sum(dim=1, keepdim=True),
+                                       (gy * xhat).sum(dim=1, keepdim=True)]),
+                          ctx.group) / ctx.n
+        return (gy - sums[0] - xhat * sums[1]) * rstd, None, None, None
+
+
 def _batch_norm(h: torch.Tensor, stats: dict, train: bool, momentum: float,
-                eps: float, groups: int = 1):
+                eps: float, groups: int = 1, spmd=None):
     """BatchNorm1d(affine=False) with torch semantics on (A, B, F), per arm
     (dvae_tpu/models/mixvae.py:146-208), in f32 with ``cfg.eps`` (1e-8,
     not torch's default 1e-5).  Returns (y in h's dtype, new stats).
@@ -176,12 +221,31 @@ def _batch_norm(h: torch.Tensor, stats: dict, train: bool, momentum: float,
     Train: normalise with the biased batch variance, update the running
     variance with the unbiased one; ``groups`` > 1 is ghost batch norm,
     statistics per contiguous row block, running stats updated with the
-    blocks' mean.  Eval: normalise with the running statistics."""
+    blocks' mean.  Eval: normalise with the running statistics.
+
+    On a mesh whose batch group shards the rows, the statistics are the
+    whole batch's (``_NormalizeGlobal``, one collective each way); with
+    ``groups`` > 1 the rank normalises its ``groups / (data·fsdp)`` blocks
+    locally, without a collective, and the train step averages the
+    running statistics over the batch group."""
     if not train:
         mean = stats["mean"].float()[:, None, :]
         var = stats["var"].float()[:, None, :]
         return ((h.float() - mean) * torch.rsqrt(var + eps)).to(h.dtype), stats
     A, n, F = h.shape
+    group = None if spmd is None else spmd.batch_group
+    if group is not None and groups == 1:
+        N = spmd.n_rows
+        y, mean, var = _NormalizeGlobal.apply(h.float(), eps, group, N)
+        unbiased = var[:, 0] * (N / max(N - 1, 1))
+        new = {"mean": (1 - momentum) * stats["mean"] + momentum * mean[:, 0],
+               "var": (1 - momentum) * stats["var"] + momentum * unbiased}
+        return y.to(h.dtype), new
+    if group is not None:
+        if groups % group.size:
+            raise ValueError(f"bn_groups={groups} does not divide over the "
+                             f"{group.size} ranks of the batch group")
+        groups //= group.size
     if n % groups:
         raise ValueError(f"batch {n} not divisible by bn_groups={groups}")
     ng = n // groups
@@ -194,60 +258,94 @@ def _batch_norm(h: torch.Tensor, stats: dict, train: bool, momentum: float,
     return y.reshape(A, n, F).to(h.dtype), new
 
 
+def _whole(spmd, rows: int) -> int:
+    """Rows of the whole batch: this rank's ``rows`` off a mesh."""
+    return rows if spmd is None else spmd.n_rows
+
+
+def _local(spmd, t):
+    """This rank's (arms, rows) block of a whole (A, B, ...) tensor."""
+    return t if (spmd is None or t is None) else spmd.local(t)
+
+
 def _fused_fc1(params, x, cfg: VAEConfig, noise: Noise, generator,
-               enc_seed: Optional[int]) -> torch.Tensor:
+               enc_seed: Optional[int], spmd=None) -> torch.Tensor:
     """fc1 pre-activation through the fused dropout+fc1 kernel.  On the CPU
     the mask is drawn on the host, as the JAX package does off the TPU
     (dvae_tpu/models/mixvae.py:369-371); on CUDA the kernel draws it from
-    ``enc_seed``."""
+    ``enc_seed``.  On a mesh the partitioned op (``ops/partitioned.py``)
+    offsets the seed by this rank's shard and sums dW, db over the batch
+    group; a host mask is drawn whole and sliced."""
     from dvae_tpu_torch.ops.encoder import (dropout_mask_host,
                                             fused_dropout_fc1)
     A, D = cfg.n_arm, cfg.input_dim
     mask = noise.x_mask
     if mask is None and x.device.type == "cpu" and cfg.x_drop > 0:
-        mask = dropout_mask_host(generator, (A, x.shape[-2], D), cfg.x_drop)
+        mask = dropout_mask_host(generator, (A, _whole(spmd, x.shape[-2]), D),
+                                 cfg.x_drop)
+    mask = _local(spmd, mask)
     if enc_seed is None:
         dev = generator.device if generator is not None else x.device
         enc_seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
                                      device=dev))
-    return fused_dropout_fc1(enc_seed, x, params["fc1"]["w"],
-                             params["fc1"]["b"], cfg.x_drop,
-                             None if mask is None else mask.to(x.device))
+    mask = None if mask is None else mask.to(x.device)
+    w, b = params["fc1"]["w"], params["fc1"]["b"]
+    if spmd is None:
+        return fused_dropout_fc1(enc_seed, x, w, b, cfg.x_drop, mask)
+    from dvae_tpu_torch.ops.partitioned import make_partitioned_dropout_fc1
+    return make_partitioned_dropout_fc1(
+        spmd.arm_axes, spmd.batch_axes, spmd.mesh, cfg.x_drop)(
+            enc_seed, x, w, b, mask)
+
+
+def _keep_mask(shape, rate: float, like: torch.Tensor, generator):
+    """The keep-mask ``sampling.dropout`` draws for a tensor of ``shape``
+    (the same numbers from the same generator)."""
+    dev = generator.device if generator is not None else like.device
+    return (torch.rand(shape, generator=generator, device=dev)
+            < 1.0 - rate).to(like.device)
 
 
 def _encoder(params, bn, x, cfg: VAEConfig, train: bool = False,
              noise: Noise = Noise(), generator=None,
-             enc_seed: Optional[int] = None):
+             enc_seed: Optional[int] = None, spmd=None):
     """(x_low, c_prob, new_bn) — reference mmidas/nn_model.py:263-269."""
     eps, mom, g = cfg.eps, cfg.momentum, cfg.bn_groups
+    A_l = params["fc1"]["w"].shape[0]
     if train and cfg.fused_encoder:
-        y1 = _fused_fc1(params, x, cfg, noise, generator, enc_seed)
+        y1 = _fused_fc1(params, x, cfg, noise, generator, enc_seed, spmd)
     elif train and (cfg.x_drop > 0 or noise.x_mask is not None):
-        xs = x if x.dim() == 3 else x.expand(cfg.n_arm, *x.shape)
+        xs = x if x.dim() == 3 else x.expand(A_l, *x.shape)
+        mask = noise.x_mask
+        if spmd is not None and mask is None:
+            mask = _keep_mask((cfg.n_arm, spmd.n_rows, x.shape[-1]),
+                              cfg.x_drop, x, generator)
         y1 = _linear(params["fc1"], dropout(xs, cfg.x_drop, generator,
-                                            noise.x_mask))
+                                            _local(spmd, mask)))
     else:
         y1 = _fc1(params["fc1"], x)
     new_bn = {}
     h, new_bn["bn1"] = _batch_norm(torch.relu(y1), bn["bn1"], train, mom, eps,
-                                   g)
+                                   g, spmd)
     for layer, norm in (("fc2", "bn2"), ("fc3", "bn3"), ("fc4", "bn4")):
         h, new_bn[norm] = _batch_norm(torch.relu(_linear(params[layer], h)),
-                                      bn[norm], train, mom, eps, g)
+                                      bn[norm], train, mom, eps, g, spmd)
     x_low, new_bn["bn5"] = _batch_norm(torch.relu(_linear(params["fc5"], h)),
-                                       bn["bn5"], train, mom, eps, g)
+                                       bn["bn5"], train, mom, eps, g, spmd)
     c_prob = torch.softmax(_linear(params["fcc"], x_low), dim=-1)
     return x_low, c_prob, new_bn
 
 
 def _sample_categorical(c, cfg: VAEConfig, temp, train: bool, noise: Noise,
-                        generator) -> torch.Tensor:
+                        generator, spmd=None) -> torch.Tensor:
     """Gumbel sample of the stacked (A, B, C) posterior
     (dvae_tpu/models/mixvae.py:312-323): in train mode under
     ``cfg.use_pallas`` through the fused kernel, which draws its own
     uniforms from ``noise.gumbel_seed`` (or a seed from ``generator``)
     unless ``noise.gumbel_u`` gives them; eval is the deterministic
-    one-hot."""
+    one-hot.  On a mesh the kernel runs on the gathered (A, B, C)
+    posterior and this rank keeps its block of the sample; off the kernel
+    the uniforms are drawn whole and sliced."""
     if train and cfg.use_pallas:
         from dvae_tpu_torch.ops.gumbel import gumbel_softmax_fused
         seed = noise.gumbel_seed
@@ -255,11 +353,18 @@ def _sample_categorical(c, cfg: VAEConfig, temp, train: bool, noise: Noise,
             dev = generator.device if generator is not None else c.device
             seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
                                      device=dev))
-        return gumbel_softmax_fused(0 if seed is None else seed, c,
-                                    noise.gumbel_u, temp, cfg.eps, cfg.hard)
+        c_all = c if spmd is None else gather_for_replicated(
+            gather_for_replicated(c, spmd.batch_group, 1), spmd.arm_group, 0)
+        smp = gumbel_softmax_fused(0 if seed is None else seed, c_all,
+                                   noise.gumbel_u, temp, cfg.eps, cfg.hard)
+        return _local(spmd, smp)
     if train:
+        u = noise.gumbel_u
+        if spmd is not None and u is None:
+            u = _draw("uniform", (cfg.n_arm, spmd.n_rows, c.shape[-1]), c,
+                      generator)
         return gumbel_softmax(c, temp, cfg.eps, hard=cfg.hard,
-                              generator=generator, u=noise.gumbel_u)
+                              generator=generator, u=_local(spmd, u))
     return gumbel_softmax(c, temp, cfg.eps, hard=True, gumbel_noise=False)
 
 
@@ -283,7 +388,8 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
           skip_trunk: bool = False,
           noise=None,
           generator: Optional[torch.Generator] = None,
-          enc_seed: Optional[int] = None):
+          enc_seed: Optional[int] = None,
+          spmd=None):
     """Forward of all A arms at once.
 
     Args:
@@ -309,6 +415,9 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
         ``cfg.fused_encoder``); drawn from ``generator`` when None.  The
         fused Gumbel kernel's seed (train mode under ``cfg.use_pallas``)
         rides in ``noise.gumbel_seed`` likewise.
+      spmd: this rank's shards on a mesh (``parallel.sharding.Spmd``): x,
+        prior_c, params and bn_state are this rank's blocks, the outputs
+        are too; the noise tensors are whole.
 
     Returns (MixVAEOutputs, bn_state) — the updated running statistics in
     train mode, the given ones in eval.
@@ -319,12 +428,12 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
         noise = Noise()
     elif isinstance(noise, torch.Tensor):
         noise = Noise(reparam_e=noise)
-    A = cfg.n_arm
+    A = params["fc1"]["w"].shape[0]  # this rank's arms (all off a mesh)
     if x.dim() == 3 and x.shape[0] != A:
         raise ValueError(f"expected leading arm axis {A}, got {tuple(x.shape)}")
 
     x_low, c_prob, new_bn = _encoder(params, bn_state, x, cfg, train, noise,
-                                     generator, enc_seed)
+                                     generator, enc_seed, spmd)
     if not train:
         new_bn = bn_state
 
@@ -335,23 +444,31 @@ def apply(params, bn_state, cfg: VAEConfig, x: torch.Tensor,
         logits_tau = torch.where(mask > 0, logits_tau,
                                  torch.full_like(logits_tau, -torch.inf))
     c = torch.softmax(logits_tau, dim=-1)
-    c_smp = _sample_categorical(c, cfg, temp, train, noise, generator)
+    c_smp = _sample_categorical(c, cfg, temp, train, noise, generator, spmd)
     c_in = c_smp.to(x_low.dtype)
 
     y_cat = (prior_c.to(x_low.dtype).expand(A, *prior_c.shape)
              if cfg.ref_prior and prior_c is not None else c_in)
     y = torch.cat([x_low, y_cat], dim=-1)
     s_mean = _linear(params["fc_mu"], y)
+    whole = (cfg.n_arm, _whole(spmd, x_low.shape[1]), s_mean.shape[-1])
     if cfg.variational:
         s_var = torch.sigmoid(_linear(params["fc_sigma"], y))
         s_logvar = torch.log(s_var + cfg.eps)
+        e = noise.reparam_e
+        if spmd is not None and e is None:
+            e = _draw("uniform" if cfg.reparam_noise == ReparamNoise.UNIFORM
+                      else "normal", whole, s_mean, generator)
         s_smp = reparameterize(s_mean, s_logvar, cfg.reparam_noise,
-                               generator=generator, e=noise.reparam_e)
+                               generator=generator, e=_local(spmd, e))
     else:
         s_logvar = torch.zeros_like(s_mean)
         s_smp = s_mean
 
-    s_dec = (dropout(s_smp, cfg.s_drop, generator, noise.s_mask)
+    s_mask = noise.s_mask
+    if train and spmd is not None and s_mask is None and cfg.s_drop > 0:
+        s_mask = _keep_mask(whole, cfg.s_drop, s_smp, generator)
+    s_dec = (dropout(s_smp, cfg.s_drop, generator, _local(spmd, s_mask))
              if train else s_smp)
     if skip_trunk:
         x_rec = torch.cat([c_in, s_dec], dim=-1)

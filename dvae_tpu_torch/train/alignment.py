@@ -29,6 +29,13 @@ The permuted tensors are new tensors on the old ones' device: the training
 step updates parameters and moments in place, so the state returned here is
 the one to train on — the tensors of the state passed in are left as they
 were and no longer belong to the run.
+
+On a mesh (``shards``: the state's ``parallel.sharding.StateSpecs`` and the
+rank's mesh; dvae_tpu/train/alignment.py:103-121) the labels are the
+gathered ones every rank holds, so every rank finds the same permutation;
+each category-indexed leaf is gathered whole, permuted the same way on
+every rank and cut back to this rank's block, and moments that live in
+host memory stay there.
 """
 
 from __future__ import annotations
@@ -144,8 +151,28 @@ def moved_counts(m: np.ndarray, labels: np.ndarray) -> Tuple[int, int]:
     return int(changed.sum()), int((changed & support).sum())
 
 
+_CATEGORY_LEAVES = (("fcc", "w"), ("fcc", "b"), ("fc_mu", "w"),
+                    ("fc_sigma", "w"), ("fc6", "w"))
+
+
+def _permute_blocks(tree: dict, specs: dict, mesh, m: np.ndarray,
+                    cfg: VAEConfig) -> dict:
+    """``permute_categories`` of a tree of this rank's blocks: the category
+    leaves gathered whole, permuted, and cut back (every rank must call)."""
+    from dvae_tpu_torch.parallel.sharding import full_leaf, place
+    whole = {k: dict(v) for k, v in tree.items()}
+    for name, leaf in _CATEGORY_LEAVES:
+        whole[name][leaf] = full_leaf(tree[name][leaf], specs[name][leaf],
+                                      mesh)
+    moved = permute_categories(whole, m, cfg)
+    out = {k: dict(v) for k, v in tree.items()}
+    for name, leaf in _CATEGORY_LEAVES:
+        out[name][leaf] = place(moved[name][leaf], specs[name][leaf], mesh)
+    return out
+
+
 def align_state(state, labels: np.ndarray, cfg: VAEConfig, ref_arm: int = 0,
-                mask: Optional[np.ndarray] = None
+                mask: Optional[np.ndarray] = None, shards=None
                 ) -> Tuple[object, np.ndarray, int]:
     """Hungarian-align every arm to ``ref_arm`` and permute the parameters
     and the Adam moments.  Returns ``(new_state, m, moved)`` with ``moved``
@@ -154,7 +181,7 @@ def align_state(state, labels: np.ndarray, cfg: VAEConfig, ref_arm: int = 0,
 
     ``mask``: optional (C,) pruning keep-mask.  The match is restricted to
     active categories (pruned indices are fixed points), so the shared mask
-    needs no update.
+    needs no update.  ``shards``: (StateSpecs, Mesh) on a mesh.
     """
     K = cfg.n_categories
     active = None
@@ -166,6 +193,16 @@ def align_state(state, labels: np.ndarray, cfg: VAEConfig, ref_arm: int = 0,
     moved = int((m != np.arange(K)).sum())
     if moved == 0:
         return state, m, 0
+    if shards is not None:
+        specs, mesh = shards
+        opt = state.opt_state
+        if hasattr(opt, "mu") and hasattr(opt, "nu"):
+            opt = opt._replace(
+                mu=_permute_blocks(opt.mu, specs.moments, mesh, m, cfg),
+                nu=_permute_blocks(opt.nu, specs.moments, mesh, m, cfg))
+        return state._replace(
+            params=_permute_blocks(state.params, specs.params, mesh, m, cfg),
+            opt_state=opt), m, moved
     return state._replace(
         params=permute_categories(state.params, m, cfg),
         opt_state=permute_opt_state(state.opt_state, m, cfg)), m, moved

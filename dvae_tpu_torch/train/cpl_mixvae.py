@@ -44,8 +44,17 @@ without it the logger prints one line and logs locally, as the JAX
 package's does.  ``append`` builds further models beside the trainer's own
 (``self.models``); ``save_file``/``load_file`` pickle named arrays.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: a mesh of several devices.
+``mesh`` (a ``MeshConfig`` of several devices) trains and serves on a world
+of one process per device (``parallel/``; its model is in
+parallel/sharding.py): every process builds the same ``CplMixVAE`` after
+``parallel.runtime.initialize_distributed``, keeps its blocks of the state
+under ``sharding``, and computes on its arms and rows of every batch.  The
+metrics, the consensus and ``eval_model``'s arrays are the whole run's on
+every rank.  Rank 0 writes the checkpoints, from gathered leaves, in the
+one-device format; ``load_model`` on a mesh places the blocks, and a
+checkpoint whose mesh exceeds the world loads onto one device.  Every
+rank must call every method, in the same order: the collectives inside
+them are matched across ranks.
 """
 
 from __future__ import annotations
@@ -77,7 +86,11 @@ from dvae_tpu_torch.utils.checkpoint import (adam_state_from_jax,
                                              load_checkpoint,
                                              newest_checkpoint,
                                              params_from_jax, save_checkpoint)
-from dvae_tpu_torch.utils.device import not_ported, resolve_device
+from dvae_tpu_torch.parallel.runtime import barrier, process_info, rank_device
+from dvae_tpu_torch.parallel.sharding import (gather_state, make_mesh,
+                                              place_state, put_dataset,
+                                              state_specs)
+from dvae_tpu_torch.utils.device import resolve_device
 from dvae_tpu_torch.utils.host_ops import as_host_tensor
 from dvae_tpu_torch.utils.logging import (MetricLogger, device_memory_mb,
                                           mprint)
@@ -179,6 +192,8 @@ class CplMixVAE:
         self.tcfg: Optional[TrainConfig] = None
         self.state: Optional[TrainState] = None
         self.tx = None
+        self.mesh = None   # parallel.sharding.Mesh on several devices
+        self.specs = None  # its StateSpecs
         self.temp = 1.0
         self.resume_progress: dict = {}
         self._preempt: Optional[PreemptionGuard] = None
@@ -222,11 +237,32 @@ class CplMixVAE:
         return self.device.type == "cuda"
 
     @staticmethod
-    def _refuse_later_slices(cfg: VAEConfig, tcfg: TrainConfig) -> None:
+    def _check_mode(cfg: VAEConfig) -> None:
         if cfg.mode not in ("MSE", "ZINB"):
             raise ValueError(f"unknown reconstruction mode {cfg.mode!r}")
-        if tcfg.mesh.n_devices > 1:
-            raise not_ported("a mesh of several devices", "multi-GPU")
+
+    def _use_mesh(self, mesh: MeshConfig) -> None:
+        """Join ``mesh`` (several devices: this process's rank of the world
+        it has joined, which must have ``mesh.n_devices`` processes) or
+        leave any."""
+        if mesh.n_devices > 1:
+            self.mesh = make_mesh(mesh)
+            self.device = rank_device(self.device)
+        else:
+            self.mesh = None
+
+    def _place(self, state: TrainState) -> TrainState:
+        """A whole state cut to this rank's blocks (as is off a mesh)."""
+        if self.mesh is None:
+            self.specs = None
+            return state
+        self.specs = state_specs(self.cfg, self.tcfg.sharding, self.mesh)
+        return place_state(state, self.specs, self.mesh)
+
+    @property
+    def is_writer(self) -> bool:
+        """True on the rank that writes files (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def init_model(self, n_categories: int = 92, state_dim: int = 2,
                    input_dim: int = 5032, fc_dim: int = 100,
@@ -274,13 +310,15 @@ class CplMixVAE:
             shuffle_block=shuffle_block, stream=stream,
             ckpt_every=ckpt_every, eval_every=eval_every,
             align_arms_every=align_arms_every)
-        self._refuse_later_slices(cfg, tcfg)
+        self._check_mode(cfg)
+        self._use_mesh(mesh)
         self.cfg, self.tcfg, self.temp = cfg, tcfg, temp
         self.tx = make_optimizer(cfg, optimizer)
-        self.state = init_train_state(self.seed, cfg, self.tx, self.device)
+        state = init_train_state(self.seed, cfg, self.tx, self.device)
         if n_pr > 0:
             # start with the n_pr last categories pruned (reference n_pr)
-            self.state.mask[-n_pr:] = 0.0
+            state.mask[-n_pr:] = 0.0
+        self.state = self._place(state)
         self._reset_eval_fns()
         if trained_model:
             self.load_model(trained_model)
@@ -291,16 +329,17 @@ class CplMixVAE:
         keywords of ``init_model``, ``trained_model=`` included.  The
         trainer's own model is left as it was."""
         saved = (self.cfg, self.tcfg, self.state, self.tx, self.temp,
-                 self.resume_progress)
+                 self.resume_progress, self.mesh, self.specs, self.device)
         try:
             self.init_model(**kwargs)
             entry = {"cfg": self.cfg, "tcfg": self.tcfg, "state": self.state,
-                     "tx": self.tx}
+                     "tx": self.tx, "mesh": self.mesh}
             self.models.append(entry)
             return entry
         finally:
             (self.cfg, self.tcfg, self.state, self.tx, self.temp,
-             self.resume_progress) = saved
+             self.resume_progress, self.mesh, self.specs,
+             self.device) = saved
             self._reset_eval_fns()
 
     def _reset_eval_fns(self) -> None:
@@ -331,11 +370,15 @@ class CplMixVAE:
             self.cfg = VAEConfig(**cfg_d)
             self.tcfg = TrainConfig(**tcfg_d)
             self.temp = self.cfg.temp
-            if self.tcfg.mesh.n_devices > 1:
-                mprint(f"checkpoint was trained on a "
-                       f"{self.tcfg.mesh.n_devices}-device mesh; loading it "
-                       "onto one device")
+            # a checkpoint of a mesh larger than this world still serves:
+            # inference needs no mesh (dvae_tpu/train/cpl_mixvae.py:321-331)
+            want, (_, world) = self.tcfg.mesh, process_info()
+            if want.n_devices > 1 and want.n_devices > world:
+                mprint(f"checkpoint was trained on a {want.n_devices}-device "
+                       f"mesh; this world has {world} — loading unsharded "
+                       "(fine for eval; re-init for training)")
                 self.tcfg = self.tcfg.replace(mesh=MeshConfig())
+            self._use_mesh(self.tcfg.mesh)
             if self._fused_default():
                 # how the model was trained does not decide how it runs
                 # here: on CUDA the kernels are the path
@@ -352,10 +395,10 @@ class CplMixVAE:
             count, mu, nu = adam
             opt_state = AdamState(count, params_from_jax(mu, self.device),
                                   params_from_jax(nu, self.device))
-        self.state = TrainState(
+        self.state = self._place(TrainState(
             params=params, bn=bn_from_jax(tree["bn"], self.device),
             mask=torch.from_numpy(np.array(tree["mask"])).to(self.device),
-            seed=seed, epoch=int(meta.get("epoch", 0)), opt_state=opt_state)
+            seed=seed, epoch=int(meta.get("epoch", 0)), opt_state=opt_state))
         self.resume_progress = dict(
             meta.get("progress")
             or {"main_epochs": int(meta.get("epoch", 0)), "pr_it": 0})
@@ -365,9 +408,13 @@ class CplMixVAE:
     def save_checkpoint(self, tag: str) -> str:
         """Write the state in the JAX package's checkpoint format: the
         optimizer state as optax's, the noise seed as raw key words, and
-        the phase progress for a resume."""
+        the phase progress for a resume.  On a mesh every rank gathers the
+        whole state and rank 0 writes it; every rank returns the path once
+        the file is there."""
         path = os.path.join(self.folder or ".", f"cpl_mixVAE_model_{tag}.ckpt")
         st = self.state
+        if self.mesh is not None:
+            st = gather_state(st, self.specs, self.mesh)
         opt = st.opt_state
         if isinstance(opt, AdamState):
             opt = adam_state_to_jax(
@@ -383,7 +430,11 @@ class CplMixVAE:
                 "cfg": dict(self.cfg.__dict__),
                 "tcfg": {**dataclasses.asdict(self.tcfg),
                          "sharding": self.tcfg.sharding.value}}
-        return save_checkpoint(path, tree, meta)
+        if self.is_writer:
+            save_checkpoint(path, tree, meta)
+        if self.mesh is not None:
+            barrier(self.mesh.world, self.device)
+        return path
 
     # -- training -----------------------------------------------------------
 
@@ -395,7 +446,7 @@ class CplMixVAE:
         when it is there already)."""
         if hasattr(x, "toarray"):  # the resident path is dense
             x = x.toarray()
-        return torch.as_tensor(x).to(device=self.device, dtype=dtype)
+        return put_dataset(x, dtype, self.device)
 
     def train(self, x_train, x_val=None, n_epoch: int = 100,
               n_epoch_p: int = 0, c_p: Optional[np.ndarray] = None,
@@ -428,7 +479,7 @@ class CplMixVAE:
         if self.state is None:
             raise RuntimeError("call init_model or load_model first")
         cfg, tcfg = self.cfg, self.tcfg
-        self._refuse_later_slices(cfg, tcfg)
+        self._check_mode(cfg)
         temp = self.temp if temp is None else temp
         prog = self.resume_progress or {}
         self._main_done = int(prog.get("main_epochs", 0))
@@ -441,7 +492,7 @@ class CplMixVAE:
         logger = MetricLogger(
             use_wandb=self.use_wandb, run_name=run_name,
             jsonl_path=(os.path.join(self.folder, "metrics.jsonl")
-                        if self.folder else None),
+                        if self.folder and self.is_writer else None),
             config={**cfg.__dict__, "n_epoch": n_epoch})
 
         n_train = x_train.shape[0]
@@ -462,7 +513,8 @@ class CplMixVAE:
             x_all = _host_matrix(x_train, store)
             runner = make_streaming_runner(cfg, tcfg, self.tx, n_train,
                                            augment=augment,
-                                           device=self.device)
+                                           device=self.device,
+                                           mesh=self.mesh)
         else:
             x_all = self._resident(x_train, store)
             if prior_all is not None:
@@ -473,7 +525,8 @@ class CplMixVAE:
                 if n_chunk not in runners:
                     runners[n_chunk] = make_epoch_runner(
                         cfg, tcfg, self.tx, n_train,
-                        epochs_per_chunk=n_chunk, augment=augment)
+                        epochs_per_chunk=n_chunk, augment=augment,
+                        mesh=self.mesh)
                 return runners[n_chunk]
 
         if x_val is not None:
@@ -510,9 +563,10 @@ class CplMixVAE:
                     from dvae_tpu_torch.utils.plots import (
                         save_training_artifacts)
                     labels = self._predict_labels(x_all, temp)
-                    save_training_artifacts(self.folder, logger.history,
-                                            labels=labels,
-                                            K=cfg.n_categories)
+                    if self.is_writer:
+                        save_training_artifacts(self.folder, logger.history,
+                                                labels=labels,
+                                                K=cfg.n_categories)
         finally:
             self._preempt = None
             logger.finish()
@@ -649,7 +703,8 @@ class CplMixVAE:
         lab = self._predict_labels(x_all[:n_sub], temp,
                                    batch_size=tcfg.batch_size)
         self.state, m, moved = align_state(
-            self.state, lab, cfg, mask=self.state.mask.cpu().numpy())
+            self.state, lab, cfg, mask=self.state.mask.cpu().numpy(),
+            shards=None if self.mesh is None else (self.specs, self.mesh))
         if not moved:
             return
         # the eval functions may hold a cast copy of the old parameters
@@ -675,10 +730,11 @@ class CplMixVAE:
             raise RuntimeError("call init_model or load_model first")
         if self._eval_step is None:
             self._eval_step = make_eval_step(self.cfg, self.tcfg,
-                                             self._augment_fn())
+                                             self._augment_fn(), self.mesh)
         if self._eval_runner is None:
             self._eval_runner = make_eval_runner(self.cfg, self.tcfg,
-                                                 self._augment_fn())
+                                                 self._augment_fn(),
+                                                 self.mesh)
 
     def _eval_input(self, x):
         """The dataset as the eval surfaces take it: a sparse matrix as CSR

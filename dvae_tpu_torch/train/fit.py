@@ -12,9 +12,10 @@ memory / loss logging :53-75, the post-run averages :191-207):
     update is the port's optax-semantics ``Adam``.
   * ``strategy`` keeps the ``ShardingStrategy`` matrix.  On one device a
     strategy is a placement only, so all six give the same numbers;
-    ``devices`` above 1 arrives with the multi-GPU slice of the port and is
-    refused until then, and ``use_distributed_sampler`` (shard the batch or
-    replicate it across devices) changes nothing on one.
+    ``devices`` above 1 arrives with the second multi-GPU slice of the
+    port (A6-2) and is refused until then, and
+    ``use_distributed_sampler`` (shard the batch or replicate it across
+    devices) changes nothing on one.
   * The batches are staged on the device once as ``(steps, B, ...)``; the
     epoch loops over them in Python with every metric left on the device,
     and reads them back once when the epoch ends (JAX runs the epoch as one
@@ -107,7 +108,7 @@ class Trainer:
         ShardingStrategy(self.strategy)
         if self.devices not in (None, 1):
             raise not_ported(f"a Trainer on {self.devices} devices",
-                              "multi-GPU")
+                              "multi-GPU (A6-2)")
         dev = resolve_device(self.device)
         logger = self.logger or MetricLogger()
 

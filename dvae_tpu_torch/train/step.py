@@ -24,6 +24,17 @@ Eval: every batch is evaluated from the same state, as in the JAX package
 mode comes from a fresh CPU ``torch.Generator`` seeded with
 ``TrainState.seed`` for each batch, so a run's numbers do not depend on
 how the batches were chunked, nor on the device.
+
+On a mesh (``mesh``, a ``parallel.sharding.Mesh`` of several devices; the
+model of such a run is in parallel/sharding.py) the state holds this
+rank's blocks under ``TrainConfig.sharding``, the step takes the whole
+batch and computes on this rank's arms and rows (``_spmd``, after
+dvae_tpu/train/step.py:162-198), sums the gradients over the batch group
+(the partitioned kernels have summed theirs), and updates this rank's
+blocks of the parameters and the Adam moments (``_mesh_update``).  The
+epoch runner gathers each epoch's labels over the batch and arm groups
+for the consensus; the eval step gathers its outputs, so every rank
+returns the whole arrays.
 """
 
 from __future__ import annotations
@@ -37,6 +48,10 @@ from dvae_tpu_torch.config import TrainConfig, VAEConfig
 from dvae_tpu_torch.eval.metrics import consensus_device
 from dvae_tpu_torch.models import mixvae
 from dvae_tpu_torch.models.losses import LossOutputs, mixvae_loss
+from dvae_tpu_torch.parallel.runtime import (all_gather, flat_all_reduce,
+                                             flat_reduce_scatter)
+from dvae_tpu_torch.parallel.sharding import (BATCH_AXES, Spmd, local_block,
+                                              reshard, state_specs)
 
 
 # (x (B, D), n_arm, generator, draws) → (A, B, D) per-arm views: the frozen
@@ -241,10 +256,12 @@ def init_train_state(seed: int, cfg: VAEConfig, opt: Adam, device="cpu",
 # Pruning masks
 # ---------------------------------------------------------------------------
 
-def _mask_params(params, mask, cfg: VAEConfig, inplace: bool = False):
+def _mask_params(params, mask, cfg: VAEConfig, inplace: bool = False,
+                 local=None):
     """Multiplicative category masks (dvae_tpu/train/step.py:248-271): fcc's
     output columns, the C input rows of fc_mu/fc_sigma and of fc6.  With
-    ``inplace`` the tensors of ``params`` are scaled where they are."""
+    ``inplace`` the tensors of ``params`` are scaled where they are.
+    ``local(name, leaf, scale)`` cuts a scale to a sharded leaf's block."""
     L, S = cfg.lowD_dim, cfg.state_dim
     ones = lambda n: torch.ones(n, device=mask.device, dtype=mask.dtype)  # noqa: E731
     row_mu = torch.cat([ones(L), mask])
@@ -253,6 +270,8 @@ def _mask_params(params, mask, cfg: VAEConfig, inplace: bool = False):
              ("fc_mu", "w"): row_mu[None, :, None],
              ("fc_sigma", "w"): row_mu[None, :, None],
              ("fc6", "w"): row_dec[None, :, None]}
+    if local is not None:
+        scale = {k: local(*k, v) for k, v in scale.items()}
     if inplace:
         for (name, leaf), s in scale.items():
             params[name][leaf].mul_(s.to(params[name][leaf].dtype))
@@ -282,43 +301,272 @@ def expand_arms(x: torch.Tensor, n_arm: int, generator=None,
     return x.expand(n_arm, *x.shape)
 
 
+def _fused_trunk(cfg: VAEConfig, spmd: Optional[Spmd],
+                 fused: bool) -> bool:
+    """The whole-decoder kernel runs off batch axes only: under them the
+    fc11-only kernel takes over (dvae_tpu/train/step.py:144-147)."""
+    return (fused and cfg.fused_decoder and cfg.mode != "ZINB"
+            and (spmd is None or not spmd.batch_axes))
+
+
 def _apply_with_loss(params, bn, cfg: VAEConfig, x, generator, temp, mask,
                      prior_c, train: bool = False, noise=None,
-                     enc_seed: Optional[int] = None):
+                     enc_seed: Optional[int] = None,
+                     spmd: Optional[Spmd] = None):
     """Forward + loss with the fused-recon wiring in one place
     (dvae_tpu/train/step.py:135-159); train and eval share it.  Under
     ``cfg.fused_decoder`` (MSE mode only; ZINB ignores the flag) the model
     stops before the decoder trunk and the whole-decoder kernel takes it
     from there.  Returns (outs, new_bn, aux)."""
     fused = cfg.fused_recon
-    fused_trunk = fused and cfg.fused_decoder and cfg.mode != "ZINB"
+    fused_trunk = _fused_trunk(cfg, spmd, fused)
     outs, new_bn = mixvae.apply(params, bn, cfg, x, temp=temp, train=train,
                                 mask=mask, prior_c=prior_c, skip_recon=fused,
                                 skip_trunk=fused_trunk, noise=noise,
-                                generator=generator, enc_seed=enc_seed)
+                                generator=generator, enc_seed=enc_seed,
+                                spmd=spmd)
     aux = mixvae_loss(cfg, outs, x, prior_c,
                       fused_recon_args=(params, x) if fused else None,
-                      fused_trunk=fused_trunk)
+                      fused_trunk=fused_trunk, spmd=spmd)
     return outs, new_bn, aux
 
 
 def loss_fn(params, bn, cfg: VAEConfig, x, temp, mask, prior_c,
             compute_dtype=None, noise=None, generator=None,
-            enc_seed: Optional[int] = None):
+            enc_seed: Optional[int] = None, spmd: Optional[Spmd] = None):
     """Train-mode loss; returns (total f32, (aux, new_bn, labels (A, B))).
-    ``x`` is (B, D), shared by the arms, or (A, B, D)."""
+    ``x`` is (B, D), shared by the arms, or (A, B, D); on a mesh this
+    rank's block, and the labels are this rank's."""
     if compute_dtype is not None and compute_dtype != torch.float32:
         params = _cast_params(params, compute_dtype)
         x = x.to(compute_dtype)
     outs, new_bn, aux = _apply_with_loss(params, bn, cfg, x, generator, temp,
                                          mask, prior_c, train=True,
-                                         noise=noise, enc_seed=enc_seed)
+                                         noise=noise, enc_seed=enc_seed,
+                                         spmd=spmd)
     labels = torch.argmax(outs.c, dim=-1)
     return aux.total.float(), (aux, new_bn, labels)
 
 
+# ---------------------------------------------------------------------------
+# Mesh (dvae_tpu/train/step.py:162-198)
+# ---------------------------------------------------------------------------
+
+def _spmd_axes(cfg: VAEConfig, tcfg: TrainConfig):
+    """(arm_axes, batch_axes) a step shards over on a mesh of several
+    devices, None on one: an axis that does not divide its dimension is
+    dropped (arm ∤ A, or data·fsdp ∤ B), and every rank of it computes
+    the whole dimension.  The JAX package's ``_fused_spmd_axes``
+    (dvae_tpu/train/step.py:162-181) without its condition on the fused
+    kernels: XLA shards JAX's plain path by itself, the port's by these
+    axes as well."""
+    m = tcfg.mesh
+    if m.n_devices <= 1:
+        return None
+    arm_axes = ("arm",) if (m.arm > 1 and cfg.n_arm % m.arm == 0) else ()
+    n_batch = m.data * m.fsdp
+    batch_axes = tuple(
+        ax for ax, sz in (("data", m.data), ("fsdp", m.fsdp)) if sz > 1
+    ) if tcfg.batch_size % max(n_batch, 1) == 0 else ()
+    return arm_axes, batch_axes
+
+
+def _batch_ns(mesh, n_rows: int) -> Optional[slice]:
+    """This rank's rows of an ``n_rows`` batch laid over the batch axes, or
+    None when the mesh is absent or trivial or does not divide ``n_rows``
+    (the counterpart of dvae_tpu/train/step.py:184-198's sharding)."""
+    if mesh is None:
+        return None
+    n = mesh.axis_size(BATCH_AXES)
+    if n == 1 or n_rows % n:
+        return None
+    k = n_rows // n
+    return slice(mesh.batch_index * k, mesh.batch_index * k + k)
+
+
+def _spmd(cfg: VAEConfig, tcfg: TrainConfig, mesh,
+          n_rows: int) -> Optional[Spmd]:
+    """This rank's shards of a step on an ``n_rows`` batch (None off a
+    mesh); a batch the batch axes do not divide is computed whole."""
+    axes = _spmd_axes(cfg, tcfg) if mesh is not None else None
+    if axes is None:
+        return None
+    arm_axes, batch_axes = axes
+    if batch_axes and _batch_ns(mesh, n_rows) is None:
+        batch_axes = ()
+    return Spmd(mesh, arm_axes, batch_axes, cfg.n_arm, n_rows)
+
+
+def _leaf_items(tree):
+    """(name, leaf) pairs of a two-level parameter tree in sorted order."""
+    return [(n, k) for n in sorted(tree) for k in sorted(tree[n])]
+
+
+def _compute_params(params, specs, mesh):
+    """The parameters a step computes on: this rank's arms, gathered over
+    fsdp (the stored tensors themselves where nothing is sharded)."""
+    return {n: {k: reshard(v, specs.params[n][k], specs.compute[n][k], mesh)
+                for k, v in layer.items()} for n, layer in params.items()}
+
+
+def _reduced_in_op(cfg: VAEConfig, spmd: Spmd) -> set:
+    """Gradient leaves the partitioned kernels summed over the batch group
+    already (fc1 under the fused encoder, fc11's heads under the fused
+    reconstruction loss)."""
+    out = set()
+    if cfg.fused_encoder:
+        out |= {("fc1", "w"), ("fc1", "b")}
+    if cfg.fused_recon and not _fused_trunk(cfg, spmd, True):
+        heads = ("fc11", "fc11_p", "fc11_r") if cfg.mode == "ZINB" \
+            else ("fc11",)
+        out |= {(h, k) for h in heads for k in ("w", "b")}
+    return out
+
+
+def _fsdp_dim(spec) -> Optional[int]:
+    """The dimension ``spec`` shards over fsdp, or None."""
+    return next((i for i, e in enumerate(spec) if e == "fsdp"), None)
+
+
+def _sync_grads(grads, cfg: VAEConfig, spmd: Spmd, specs):
+    """The gradients summed over the batch group, each moved to its Adam
+    moments' spec.  A leaf whose moments the fsdp axis shards (the ZeRO
+    strategies) is reduce-scattered over fsdp and all-reduced over data;
+    the others are all-reduced over the batch group (one collective for
+    each kind), then sliced or gathered to their moments' spec.  The
+    leaves the partitioned kernels reduced are only moved."""
+    done = _reduced_in_op(cfg, spmd)
+    mesh = spmd.mesh
+    scatter = "fsdp" in spmd.batch_axes
+    items = [it for it in _leaf_items(grads) if it not in done]
+    part = [it for it in items
+            if scatter and _fsdp_dim(specs.moments[it[0]][it[1]]) is not None]
+    rest = [it for it in items if it not in part]
+    out = {n: dict(layer) for n, layer in grads.items()}
+    summed = flat_all_reduce([grads[n][k] for n, k in rest],
+                             spmd.batch_group)
+    for (n, k), g in zip(rest, summed):
+        out[n][k] = g
+    blocks = flat_all_reduce(flat_reduce_scatter(
+        [grads[n][k] for n, k in part],
+        [_fsdp_dim(specs.moments[n][k]) for n, k in part],
+        mesh.fsdp_group), mesh.data_group)
+    for (n, k), g in zip(part, blocks):
+        out[n][k] = g
+    return {n: {k: g if (n, k) in part else reshard(
+        g, specs.compute[n][k], specs.moments[n][k], mesh)
+        for k, g in layer.items()} for n, layer in out.items()}
+
+
+def _sync_bn(bn, cfg: VAEConfig, spmd: Spmd):
+    """Ghost batch norm on a mesh: each rank updated the running statistics
+    from its own row blocks; their mean over the batch group is the JAX
+    package's mean over every block (models/mixvae.py:171-175 there)."""
+    group = spmd.batch_group
+    if cfg.bn_groups == 1 or group is None:
+        return bn
+    items = _leaf_items(bn)
+    summed = flat_all_reduce([bn[n][k] for n, k in items], group)
+    out = {n: dict(layer) for n, layer in bn.items()}
+    for (n, k), v in zip(items, summed):
+        out[n][k] = v / group.size
+    return out
+
+
+def _mesh_update(opt: "Adam", grads, state: "TrainState", specs, mesh):
+    """One Adam update of this rank's blocks, in place (optax semantics,
+    ``Adam.update``): the gradients come in their moments' spec
+    (``_sync_grads``), the moments update there, and the update moves to
+    the parameters' spec (a gather over fsdp under grad-op/hybrid-zero2).
+    Moments in host memory are staged through the device."""
+    items = _leaf_items(state.params)
+    opt_state = state.opt_state
+    count = opt_state.count + 1
+    bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.float32(count))
+                for b in (opt.b1, opt.b2))
+    g_m, mu, nu, staged = [], [], [], []
+    for n, k in items:
+        g = grads[n][k]
+        g_m.append(g)
+        pair = [opt_state.mu[n][k], opt_state.nu[n][k]]
+        if pair[0].device != g.device:
+            staged.append((len(mu), pair))
+            pair = [t.to(g.device) for t in pair]
+        mu.append(pair[0])
+        nu.append(pair[1])
+    upd = adam_direction(g_m, mu, nu, opt.b1, opt.b2, bc1, bc2, opt.eps,
+                         opt.eps_root)
+    for i, (m_host, v_host) in staged:
+        m_host.copy_(mu[i])
+        v_host.copy_(nu[i])
+    p = [state.params[n][k] for n, k in items]
+    if opt.weight_decay:
+        torch._foreach_add_(upd, [
+            reshard(t, specs.params[n][k], specs.moments[n][k], mesh)
+            for t, (n, k) in zip(p, items)], alpha=opt.weight_decay)
+    upd = [reshard(u, specs.moments[n][k], specs.params[n][k], mesh)
+           for u, (n, k) in zip(upd, items)]
+    torch._foreach_add_(p, upd, alpha=-opt.lr)
+    return AdamState(count, opt_state.mu, opt_state.nu)
+
+
+def _gather_rows_arms(t: torch.Tensor, spmd: Spmd, row_dim: int = 1):
+    """A block (no gradient) → the whole tensor: rows over the batch group,
+    then arms over the arm group."""
+    return all_gather(all_gather(t, spmd.batch_group, row_dim),
+                      spmd.arm_group, 0)
+
+
+def _make_mesh_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: "Adam",
+                          augment, mesh):
+    compute_dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
+    specs = state_specs(cfg, tcfg.sharding, mesh)
+
+    def local(name, leaf, scale):
+        return local_block(scale, specs.params[name][leaf], mesh)
+
+    def step(state: TrainState, x, prior_c, temp, generator=None,
+             enc_seed: Optional[int] = None, noise=None, aug_draws=None,
+             n_rows: Optional[int] = None):
+        whole = n_rows is None
+        spmd = _spmd(cfg, tcfg, mesh, x.shape[0] if whole else n_rows)
+        if not whole and spmd.batch_axes == () and x.shape[0] != n_rows:
+            raise ValueError(f"a batch of {n_rows} rows that the batch "
+                             "axes do not divide needs the whole batch")
+        if augment is not None:
+            if not whole:
+                raise ValueError("an augmenter needs the whole batch on "
+                                 "every rank")
+            x = spmd.local(augment(x, cfg.n_arm, generator, aug_draws))
+        elif whole:
+            x = spmd.local_rows(x)
+        if whole and prior_c is not None:
+            prior_c = spmd.local_rows(prior_c)
+        params_c = _compute_params(state.params, specs, mesh)
+        _, (aux, new_bn, labels), grads = value_and_grad(
+            lambda p: loss_fn(p, state.bn, cfg, x, temp, state.mask, prior_c,
+                              compute_dtype, noise, generator, enc_seed,
+                              spmd), params_c)
+        del params_c
+        grads = _sync_grads(_mask_grads(grads, state.mask, cfg), cfg, spmd,
+                            specs)
+        new_bn = _sync_bn(new_bn, cfg, spmd)
+        with torch.no_grad():
+            opt_state = _mesh_update(opt, grads, state, specs, mesh)
+            _mask_params(state.params, state.mask, cfg, inplace=True,
+                         local=local)
+        metrics = StepMetrics(*(v.detach().float() for v in (
+            aux.total, aux.loss_rec, aux.loss_joint, aux.neg_entropy,
+            aux.c_dist, aux.c_l2_dist, aux.kl)))
+        return (state._replace(bn=new_bn, opt_state=opt_state), metrics,
+                labels)
+
+    step.specs = specs
+    return step
+
+
 def make_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
-                    augment: Optional[AugmentFn] = None):
+                    augment: Optional[AugmentFn] = None, mesh=None):
     """step(state, x (B, D), prior_c (B, C) | None, temp, generator=None,
     enc_seed=None, noise=None, aug_draws=None) → (state, StepMetrics,
     labels (A, B)).
@@ -328,7 +576,15 @@ def make_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
     The parameters and the Adam moments are updated in place.  Without an
     augmenter every arm shares the (B, D) batch, and that is what the model
     and the kernels get; with one, its (A, B, D) per-arm views, made on the
-    batch's device from ``generator`` (or the explicit ``aug_draws``)."""
+    batch's device from ``generator`` (or the explicit ``aug_draws``).
+
+    ``mesh`` (several devices): the state is this rank's blocks, x the
+    whole batch (or, with ``n_rows=`` the whole batch's row count, this
+    rank's rows of it), the noise tensors whole; the labels returned are
+    this rank's (A_l, B_l) block and the metrics those of the whole
+    batch, the same on every rank."""
+    if mesh is not None and mesh.cfg.n_devices > 1:
+        return _make_mesh_train_step(cfg, tcfg, opt, augment, mesh)
     compute_dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
 
     def step(state: TrainState, x, prior_c, temp, generator=None,
@@ -380,7 +636,7 @@ def epoch_metrics(ms, consensus: torch.Tensor) -> EpochMetrics:
 def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                       n_train: int, epochs_per_chunk: Optional[int] = None,
                       consensus_every_epoch: bool = True,
-                      augment: Optional[AugmentFn] = None):
+                      augment: Optional[AugmentFn] = None, mesh=None):
     """run_epochs(state, x_all (N, D), prior_all (N, C) | None, temp) →
     (state, EpochMetrics), everything on x_all's device.
 
@@ -389,13 +645,17 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
     :297-394); ``steps`` train steps; the argmax labels gathered into an
     (A, n_used) buffer and the all-pairs consensus computed on the
     device.  ``augment`` makes each step's per-arm views inside the chunk,
-    on the device, from the chunk's generator."""
+    on the device, from the chunk's generator.  On a ``mesh`` every rank
+    holds x_all whole and draws the same permutation; a step computes on
+    this rank's rows of each batch, and the epoch's labels are gathered
+    over the batch and arm groups for the consensus."""
     E = epochs_per_chunk or tcfg.epochs_per_jit
     B = tcfg.batch_size
     steps = n_train // B
     if steps == 0:
         raise ValueError(f"batch_size {B} > dataset size {n_train}")
-    step_fn = make_train_step(cfg, tcfg, opt, augment)
+    step_fn = make_train_step(cfg, tcfg, opt, augment, mesh)
+    spmd = _spmd(cfg, tcfg, mesh, B)
     n_used = steps * B
     sb = tcfg.shuffle_block
     if sb > 1 and B % sb:
@@ -413,7 +673,8 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
         for i in range(E):
             perm = torch.randperm(n_blocks, generator=gen, device=dev)
             plan = perm[: n_used // sb].reshape(steps, B // sb)
-            labels = torch.empty((A, n_used), dtype=torch.long, device=dev)
+            labels = (torch.empty((A, n_used), dtype=torch.long, device=dev)
+                      if spmd is None else [])
             ms = []
             for s in range(steps):
                 sel = plan[s]
@@ -426,10 +687,17 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                     if cfg.use_pallas else None)
                 state, m, lab = step_fn(state, x, prior, temp, generator=gen,
                                         enc_seed=enc_seed, noise=noise)
-                labels[:, s * B:(s + 1) * B] = lab
+                if spmd is None:
+                    labels[:, s * B:(s + 1) * B] = lab
+                else:
+                    labels.append(lab)
                 ms.append(m)
             del x, prior  # the last batch need not outlive the epoch
             if consensus_every_epoch or i == E - 1:
+                if spmd is not None:  # (A_l, steps, B_l) → (A, steps·B)
+                    labels = _gather_rows_arms(
+                        torch.stack(labels, dim=1), spmd, 2).reshape(
+                            A, n_used)
                 cons = consensus_device(labels, K)
             else:
                 cons = torch.full((), -1.0, device=dev)
@@ -446,7 +714,7 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
 # ---------------------------------------------------------------------------
 
 def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig,
-                   augment: Optional[AugmentFn] = None):
+                   augment: Optional[AugmentFn] = None, mesh=None):
     """Validation forward: no grad, eval semantics (hard one-hot, running
     BN statistics), the training compute dtype (bf16 under ``tcfg.bf16``)
     with the f32 islands of the loss.  Metrics leave in f32.  With an
@@ -455,19 +723,32 @@ def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig,
 
     step(state, x (B, D), prior_c (B, C) | None, temp) →
         (LossOutputs, labels (A, B), MixVAEOutputs)
+
+    On a ``mesh`` each rank evaluates its rows and arms of the batch and
+    the outputs are gathered: the labels and every (A, B, ·) field of the
+    outputs but x_rec, p_x and r_x (which stay this rank's block) are
+    whole on every rank.  A batch the batch axes cannot divide (the
+    trailing one) is evaluated whole on every rank, through the same
+    kernels as the others: the JAX package takes the materialising path
+    there (dvae_tpu/train/step.py:496-520) because its partitioning rule
+    cannot split the batch, which the port's ops need not do.
     """
     compute_dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
     cache = {}
+    specs = (state_specs(cfg, tcfg.sharding, mesh)
+             if mesh is not None and mesh.cfg.n_devices > 1 else None)
 
     @torch.no_grad()
     def eval_step(state: TrainState, x, prior_c, temp):
         params = state.params
-        if compute_dtype != torch.float32:
-            # cast once per state, not once per batch; the training step
-            # updates the parameters in place, so the cache also keys on
-            # the optimizer step count
+        if specs is not None or compute_dtype != torch.float32:
+            # gather and cast once per state, not once per batch; the
+            # training step updates the parameters in place, so the cache
+            # also keys on the optimizer step count
             key = (id(params), getattr(state.opt_state, "count", None))
             if cache.get("key") != key:
+                if specs is not None:
+                    params = _compute_params(params, specs, mesh)
                 cache["key"], cache["cast"] = key, _cast_params(
                     params, compute_dtype)
             params = cache["cast"]
@@ -475,9 +756,19 @@ def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig,
         gen = torch.Generator(device="cpu").manual_seed(state.seed)
         if augment is not None:
             x = augment(x, cfg.n_arm, gen, None)
+        spmd = _spmd(cfg, tcfg, mesh, x.shape[-2])
+        if spmd is not None:
+            x = (spmd.local(x) if x.dim() == 3 else spmd.local_rows(x))
+            prior_c = spmd.local_rows(prior_c)
         outs, _, aux = _apply_with_loss(params, state.bn, cfg, x, gen, temp,
-                                        state.mask, prior_c)
+                                        state.mask, prior_c, spmd=spmd)
         labels = torch.argmax(outs.c, dim=-1)
+        if spmd is not None:
+            labels = _gather_rows_arms(labels, spmd)
+            outs = outs._replace(**{
+                k: _gather_rows_arms(getattr(outs, k), spmd)
+                for k in ("x_low", "c", "s_smp", "c_smp", "s_mean",
+                          "s_logvar", "c_prob")})
         aux = LossOutputs(*(v.float() for v in aux))
         return aux, labels, outs
 
@@ -485,12 +776,12 @@ def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig,
 
 
 def make_eval_runner(cfg: VAEConfig, tcfg: TrainConfig,
-                     augment: Optional[AugmentFn] = None):
+                     augment: Optional[AugmentFn] = None, mesh=None):
     """run(state, x_chunk (K, B, D), temp, prior_chunk (K, B, C) | None) →
     (LossOutputs stacked (K, ...), EvalFields (A, K·B, ·)).
 
     Per-batch numerics are those of ``make_eval_step``."""
-    ev = make_eval_step(cfg, tcfg, augment)
+    ev = make_eval_step(cfg, tcfg, augment, mesh)
 
     def run(state: TrainState, x_chunk, temp,
             prior_chunk: Optional[torch.Tensor] = None):

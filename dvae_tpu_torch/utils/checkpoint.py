@@ -19,6 +19,13 @@ names, so the JAX package reads a checkpoint of the port with plain
 ``adam_state_from_jax`` / ``adam_state_to_jax`` map optax's
 ``ScaleByAdamState(count, mu, nu)`` to and from the port's Adam state.
 
+On a mesh the file holds whole leaves, as one device's does: the trainer
+gathers them on every rank before rank 0 writes
+(``parallel.sharding.gather_state``), and cuts each rank's blocks out of
+what it read (``place_state``), so a mesh's checkpoint serves on one
+device and the other way round.  The orbax directories of the JAX
+package's ``save_sharded`` stay unread (ROADMAP A6-2).
+
 ``params_from_jax`` / ``bn_from_jax`` turn the numpy pytrees into tensors
 (and ``*_to_jax`` back): the weight bridge between the two packages.  The
 layout is the JAX one, stacked leading arm axis, ``(A, fan_in, fan_out)``.

@@ -191,9 +191,19 @@ def test_get_loaders_give_the_jax_packages_batches(label):
     it.set_epoch(4)
     jt.set_epoch(4)
     assert [i.tolist() for _, i in it] == [i.tolist() for _, i in jt]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tpipeline.get_loaders(data, labels, use_dist_sampler=True,
-                              world_size=2)
+    # the distributed sampler: each rank's wrap-padded slices, as in JAX
+    for rank in range(2):
+        got = tpipeline.get_loaders(data, labels, seed=5, batch_size=16,
+                                    use_dist_sampler=True, world_size=2,
+                                    rank=rank)
+        want = jpipeline.get_loaders(data, labels, seed=5, batch_size=16,
+                                     use_dist_sampler=True, world_size=2,
+                                     rank=rank)
+        for g, w in zip(got, want):
+            assert len(g) == len(w)
+            for (gx, gi), (wx, wi) in zip(g, w):
+                np.testing.assert_array_equal(gx, wx)
+                np.testing.assert_array_equal(gi, wi)
 
 
 def _toml(tmp_path, anndata_file):

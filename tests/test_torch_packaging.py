@@ -4,13 +4,14 @@ its command line against the JAX package's.
 * The package data cover every header a kernel source includes, and the
   kernels build into the directory that ``DVAE_TORCH_BUILD_DIR`` names.
 * The ``train`` and ``evaluate`` parsers of ``dvae_tpu_torch.cli`` know
-  every option string of ``dvae_tpu.cli``'s; the options of features still
-  to port raise the trainer's ``NotImplementedError``, the ported ones
-  (``--stream`` and the dataset flags among them) reach the trainer.
+  every option string of ``dvae_tpu.cli``'s, and the options reach the
+  trainer (``--stream``, the dataset flags and the mesh flags among them;
+  a strategy on one device is fault C15's repair).
 """
 
 import argparse
 import fnmatch
+import json
 import os
 import re
 import sys
@@ -160,10 +161,42 @@ def _train_args(tmp_path, *extra):
     ["--process_id", "0"]],
     ids=lambda e: " ".join(e))
 def test_cli_train_refuses_what_is_not_ported(extra, tmp_path, monkeypatch):
+    """The mesh options of ``dvae_tpu.cli train`` are ported: on one device
+    a strategy trains (fault C15), ``--coordinator`` or ``--process_id``
+    alone change nothing, as in the JAX package, and a mesh or a process
+    count that does not describe one process per device is refused before
+    anything is written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcli.main(_train_args(tmp_path, *extra))
-    assert not os.listdir(tmp_path)  # refused before anything was written
+    if extra[0] in ("--mesh_data", "--mesh_arm", "--mesh_fsdp",
+                    "--num_processes"):
+        with pytest.raises(ValueError, match="one per device"):
+            tcli.main(_train_args(tmp_path, *extra))
+        assert not os.listdir(tmp_path)  # refused before anything was written
+    else:
+        assert tcli.main(_train_args(tmp_path, *extra)) == 0
+        assert len(list(tmp_path.glob("*/cpl_mixVAE_model_epoch_1.ckpt"))) == 1
+
+
+def test_cli_train_takes_every_strategy_on_one_device(tmp_path, monkeypatch):
+    """Fault C15: ``--sharding full`` (and every other strategy) trains on
+    a one-device mesh, as ``dvae_tpu.cli`` does (its placement is a no-op
+    there, dvae_tpu/train/cpl_mixvae.py:249-250), with the losses of
+    ``--sharding no`` bit for bit."""
+    monkeypatch.chdir(tmp_path)
+    losses = {}
+    for strategy in ("no", "full", "ddp"):
+        out = tmp_path / strategy
+        assert tcli.main(_train_args(out, "--sharding", strategy,
+                                     "--n_epoch", "2")) == 0
+        (run,) = [p for p in out.iterdir() if p.is_dir()]
+        with open(run / "metrics.jsonl") as f:
+            losses[strategy] = [json.loads(line)["train/loss"] for line in f
+                                if "train/loss" in json.loads(line)]
+        _, meta = tckpt.load_checkpoint(
+            str(run / "cpl_mixVAE_model_epoch_2.ckpt"))
+        assert meta["tcfg"]["sharding"] == strategy
+    assert len(losses["no"]) == 2
+    assert losses["full"] == losses["no"] == losses["ddp"]
 
 
 @pytest.mark.parametrize("cmd", ["train", "evaluate"])
@@ -181,7 +214,7 @@ def test_cli_takes_the_dataset_flags(cmd, extra, tmp_path, monkeypatch):
     for more in ([], ["--synthetic"]):
         args = tcli.build_parser().parse_args(
             argv + more + ["--syn_cells", "20", "--syn_genes", "6"])
-        tcli._refuse_unported(args)
+        tcli._check_mesh_flags(args)
         ds = tcli._load_dataset(args)
         assert ds.log1p.shape == (20, 6)
 

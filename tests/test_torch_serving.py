@@ -792,6 +792,9 @@ import dvae_tpu_torch.analysis.tree_based
 import dvae_tpu_torch.analysis.tree_helpers
 import dvae_tpu_torch.examples.state_traversal
 import dvae_tpu_torch.utils.torch_import
+import dvae_tpu_torch.ops.partitioned
+import dvae_tpu_torch.parallel.runtime
+import dvae_tpu_torch.parallel.sharding
 from dvae_tpu_torch.models import api
 from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
 cpl = CplMixVAE(device="cpu")
@@ -990,9 +993,10 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
     ``StepTimer`` and the parser.  It also imports
     the analysis and interop modules (``models.api``,
     ``analysis.tree_based``, ``analysis.tree_helpers``,
-    ``utils.torch_import``, ``examples.state_traversal``) and serves the
-    JAX checkpoint through ``load_vae`` → ``generate``, whose labels are
-    ``eval_model``'s."""
+    ``utils.torch_import``, ``examples.state_traversal``) and the mesh
+    layer (``parallel.runtime``, ``parallel.sharding``,
+    ``ops.partitioned``), and serves the JAX checkpoint through
+    ``load_vae`` → ``generate``, whose labels are ``eval_model``'s."""
     _, ckpts = jax_checkpoints
     proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
     assert proc.returncode == 0, proc.stderr

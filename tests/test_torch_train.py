@@ -490,8 +490,8 @@ def test_port_checkpoint_trains_on_in_jax(small_data, tmp_path):
 
 def test_trainer_phases_on_the_cpu(small_data, tmp_path):
     """Checkpoint cadence, best_ files, a pruning iteration, the metrics
-    log, resume of the progress, flags not ported yet refused and the
-    opt-in ones taken."""
+    log, resume of the progress, a mesh without its world refused and the
+    opt-in flags taken."""
     cpl = CplMixVAE(saving_folder=str(tmp_path), device="cpu", seed=2)
     cpl.init_model(**SMALL, batch_size=32, epochs_per_jit=1, ckpt_every=2,
                    eval_every=1)
@@ -511,7 +511,8 @@ def test_trainer_phases_on_the_cpu(small_data, tmp_path):
     again.load_model(path)
     assert again.resume_progress == {"main_epochs": 2, "pr_it": 1,
                                      "prune_epochs": 1}
-    with pytest.raises(NotImplementedError):
+    # a mesh of two devices needs a world of two processes
+    with pytest.raises(ValueError, match="--num_processes 2"):
         CplMixVAE(device="cpu").init_model(
             **SMALL, mesh=tcfg_mod.MeshConfig(data=2))
     for kw in ({"use_pallas": True}, {"align_arms_every": 5},
