@@ -194,7 +194,24 @@ Phases (any failure exits non-zero and prints no result line):
      each rank's ms a step and the ms of one all-reduce and one
      reduce-scatter of the gradients' bytes, labelled "two ranks on one
      card over gloo: not a multi-GPU figure";
- 16. print the kernels line, the card's name and power limit, and last the
+ 16. the rest of multi-GPU, two ranks on the one card over gloo again
+     (``chip_smoke.py --multi-rank=r``): (a) the census rows
+     (parallel/census.production_row: one step at the production shape,
+     bf16, the fused kernels) for the six strategies × MSE, ZINB and aug
+     on fsdp=2 and the six × MSE on data=2, each clean (ring-consistent,
+     no collective of an (A_l, B_l, D) tensor's bytes) with 1 launch each
+     of encoder_fwd, encoder_bwd and recon_fwdbwd or zinb_fwdbwd a rank,
+     its wire MB a step and the step's ms printed; (b)
+     small_equality("MSE"); (c) Trainer(devices=2) and
+     train_mnist_fsdp(n_devices=2) over the six strategies (shallow
+     model) and the deep model under full, losses within 1e-4 of one
+     process on the card; (d) a two-config sweep (one JSONL record a
+     config, by rank 0); (e) benchmark_arm_strategies with n_arm=2,
+     sharded (equal to the stacked forward of one process); (f)
+     save_sharded/restore_sharded of the production state under full on
+     fsdp=2 (the next step bit for bit), then a restore onto no on
+     data=2 (the whole state bit for bit);
+ 17. print the kernels line, the card's name and power limit, and last the
      ``{"ok": true, "device": ...}`` line.
 
 Every ``train`` call passes ``save_plots=False``: the plot artifacts would
@@ -6344,11 +6361,346 @@ def phase_mesh(torch, check, tmp) -> dict:
     return {f"mesh_rank{res['rank']}": res["counts"] for res in ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the rest of multi-GPU (census, Trainer, tutorial, sweep, arm
+# study, sharded checkpoints), two ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+MULTI_TIMEOUT = 600           # s: the ranks' world is killed after it
+MULTI_MESHES = {"fsdp": dict(fsdp=2), "data": dict(data=2)}
+TOL_MULTI_LOSS = 1e-4         # the Trainer's and the tutorial's losses
+                              # against one process on the card: relative,
+                              # each epoch
+MULTI_ROUNDING = 2            # the Trainer's losses: or within this many
+                              # times the same fit's gap between the card
+                              # and the CPU (one process each).  Adam's
+                              # first updates, ≈ lr·sign(g), move the
+                              # weights whose gradient rounding leaves of
+                              # either sign 2·lr apart, and 16 steps carry
+                              # that into the loss: an H100 (700 W)
+                              # against the CPU read 1.4e-4 in the second
+                              # epoch (30,685 of 802,816 fc1 weights past
+                              # 1e-5; the first step's gradients 1.0e-6
+                              # apart, no sign
+                              # flipped), the two ranks against one process
+                              # 1.4e-4 too
+TOL_MULTI_ARM = 1e-5          # the sharded arm study against the stacked
+                              # forward of one process (per-arm terms)
+N_FIT = 4096                  # the Trainer's and the tutorial's rows
+N_FIT_VAL = 1024
+N_DEEP = 1024                 # the deep model: 2 steps of 512
+
+
+def _multi_census(torch, mesh_of, dev) -> dict:
+    """(a) the census rows with each row's launches; (b) small_equality."""
+    from dvae_tpu_torch.parallel import census
+    from dvae_tpu_torch.config import ShardingStrategy
+    rows = []
+    for axis, modes in (("fsdp", census.MODES), ("data", ("MSE",))):
+        for mode in modes:
+            for s in ShardingStrategy:
+                before = launch_counts()
+                row = census.production_row(s, mode, mesh_of[axis],
+                                            n_train=B, batch=B, device=dev)
+                rows.append({"axis": axis, **row.to_json(), "launches": {
+                    k: v - before[k] for k, v in launch_counts().items()}})
+    eq = census.small_equality("MSE", mesh_of["fsdp"], device=dev)
+    return {"rows": rows, "equality": {k: v.tolist() for k, v in eq.items()}}
+
+
+def _fit_data():
+    from dvae_tpu_torch.examples.fsdp_tutorial import synthetic_mnist
+    return (synthetic_mnist(N_FIT, SEED + 30),
+            synthetic_mnist(N_FIT_VAL, SEED + 31),
+            synthetic_mnist(N_DEEP, SEED + 32))
+
+
+def _fit_runs(torch, n, dev, strategies, with_deep: bool = True) -> dict:
+    """(c) Trainer and tutorial on ``n`` devices: their epoch losses (and
+    the deep model's under full)."""
+    from dvae_tpu_torch.examples.fsdp_tutorial import train_mnist_fsdp
+    from dvae_tpu_torch.train.fit import MNISTFitModule, Trainer
+    train, val, deep = _fit_data()
+    out = {}
+    for s in strategies:
+        t = Trainer(max_epochs=2, strategy=s, devices=n, device=dev)
+        t.fit(MNISTFitModule("net"), train, val_data=val, batch_size=512,
+              val_batch_size=512)
+        out[f"trainer/{s}"] = [[r["train_loss"]] for r in t.history]
+        out[f"trainer_val/{s}"] = [[r[k] for k in ("val_loss", "val_acc")]
+                                   for r in t.history]
+        res = train_mnist_fsdp("shallow", s, n_epochs=2, batch_size=512,
+                               n_devices=n, data=train, test_data=val,
+                               verbose=False, device=dev)
+        out[f"tutorial/{s}"] = res.train_losses
+        out[f"tutorial_n/{s}"] = res.n_devices
+    if with_deep:
+        res = train_mnist_fsdp("deep", "full", n_epochs=1, batch_size=512,
+                               n_devices=n, data=deep, test_data=val,
+                               verbose=False, device=dev)
+        out["deep/full"] = res.train_losses
+    return out
+
+
+def _multi_arm(torch, dev) -> dict:
+    """(e) the arm study sharded over both ranks; the sharded forward's
+    per-arm terms."""
+    from dvae_tpu_torch.config import VAEConfig
+    from dvae_tpu_torch.examples import arm_parallelism as ap
+    from dvae_tpu_torch.models import mixvae
+    cfg = VAEConfig(n_arm=2, input_dim=1024, n_categories=32, fc_dim=64,
+                    lowD_dim=16, tau=0.1)
+    res = ap.benchmark_arm_strategies(cfg, shard=True, device=dev)
+    with torch.no_grad():
+        params = mixvae.init_params(torch.Generator().manual_seed(0), cfg,
+                                    device=dev)
+        bn = mixvae.init_bn_state(cfg, dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.rand((1024, cfg.input_dim), generator=g, device=dev)
+        xs = x.expand(cfg.n_arm, *x.shape)
+        noise = ap.arm_draws(cfg, 1024, g)
+        stacked = ap.stacked_forward(params, bn, cfg, xs, noise)
+        p_l, bn_l, xs_l, noise_l, spmd = ap.sharded_inputs(
+            ap.arm_mesh(cfg.n_arm), params, bn, cfg, xs, noise)
+        sharded = ap.stacked_forward(p_l, bn_l, cfg, xs_l, noise_l, spmd)
+    err = max(_rel_each(a, b) for a, b in zip(sharded[1:], stacked[1:]))
+    return {"keys": sorted(res), "ms": res, "err": err}
+
+
+def _multi_ckpt(torch, mesh_of, out_dir, dev) -> dict:
+    """(f) the production state under full on fsdp=2: one chunk, saved,
+    restored to a fresh state of the same specs, one more chunk of each;
+    then restored onto no on data=2."""
+    from dvae_tpu_torch.config import TrainConfig
+    from dvae_tpu_torch.parallel import census
+    from dvae_tpu_torch.parallel.sharding import (gather_state, place_state,
+                                                  state_specs)
+    from dvae_tpu_torch.train import step as ts
+    from dvae_tpu_torch.utils.checkpoint import restore_sharded, save_sharded
+    cfg = census.production_cfg("MSE")
+    x = streaming_dataset(torch, B, SEED + 33).to(dev)
+    opt = ts.make_optimizer(cfg)
+
+    def runner(mesh):
+        tcfg = TrainConfig(batch_size=B, epochs_per_jit=1, mesh=mesh.cfg,
+                           sharding="full")
+        return ts.make_epoch_runner(cfg, tcfg, opt, B, mesh=mesh)
+
+    def fresh(specs, mesh, seed):
+        return place_state(ts.init_train_state(seed, cfg, opt, device=dev),
+                           specs, mesh)
+
+    mesh = mesh_of["fsdp"]
+    specs = state_specs(cfg, "full", mesh)
+    run = runner(mesh)
+    st, _ = run(fresh(specs, mesh, SEED + 34), x, None, 1.0)
+    path = os.path.join(out_dir, "sharded")
+    t0 = time.perf_counter()
+    save_sharded(path, st, {"epoch": st.epoch}, specs=specs, mesh=mesh)
+    save_s = time.perf_counter() - t0
+    saved = gather_state(st, specs, mesh)
+    t0 = time.perf_counter()
+    back, meta = restore_sharded(path, fresh(specs, mesh, SEED + 35),
+                                 specs=specs, mesh=mesh)
+    restore_s = time.perf_counter() - t0
+    leaves = ts.tree_leaves
+    same_blocks = all(torch.equal(a, b) for a, b in zip(
+        leaves([st.params, st.bn, st.opt_state.mu, st.opt_state.nu]),
+        leaves([back.params, back.bn, back.opt_state.mu, back.opt_state.nu])))
+    st, ems_a = run(st, x, None, 1.0)
+    back, ems_b = run(back, x, None, 1.0)
+    next_same = bool(torch.equal(ems_a.total, ems_b.total)) and all(
+        torch.equal(a, b) for a, b in zip(leaves(st.params),
+                                          leaves(back.params)))
+    m_no = mesh_of["data"]
+    s_no = state_specs(cfg, "no", m_no)
+    other, _ = restore_sharded(path, fresh(s_no, m_no, SEED + 36),
+                               specs=s_no, mesh=m_no)
+    whole = gather_state(other, s_no, m_no)
+    onto_no = all(torch.equal(a, b) for a, b in zip(
+        leaves([saved.params, saved.bn, saved.opt_state.mu,
+                saved.opt_state.nu, saved.mask]),
+        leaves([whole.params, whole.bn, whole.opt_state.mu,
+                whole.opt_state.nu, whole.mask])))
+    return {"epoch": [meta["epoch"], back.epoch - 1, saved.epoch],
+            "same_blocks": same_blocks, "next_same": next_same,
+            "loss": float(ems_a.total[0]), "onto_no": onto_no,
+            "ints": [whole.seed, whole.epoch, whole.opt_state.count,
+                     saved.seed, saved.epoch, saved.opt_state.count],
+            "save_s": save_s, "restore_s": restore_s}
+
+
+def multi_rank_main(rank: int, port: int, out_dir: str) -> int:
+    """One rank of phase 16's world (``chip_smoke.py --multi-rank=r``)."""
+    import torch
+    from dvae_tpu_torch.bench import sweep
+    from dvae_tpu_torch.config import MeshConfig
+    from dvae_tpu_torch.parallel.runtime import (initialize_distributed,
+                                                 rank_device, shutdown)
+    from dvae_tpu_torch.parallel.sharding import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (MESH_RANKS + 1)))
+    initialize_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank,
+                           backend="gloo", device=DEV, timeout_s=300)
+    dev = rank_device(DEV)
+    reset_launch_counts()
+    mesh_of = {k: make_mesh(MeshConfig(**v)) for k, v in MULTI_MESHES.items()}
+    t0 = time.perf_counter()
+    res = {"rank": rank, "census": _multi_census(torch, mesh_of, dev)}
+    res["census_s"] = time.perf_counter() - t0
+    print(f"rank {rank}: census done", flush=True)
+    t0 = time.perf_counter()
+    res["fit"] = _fit_runs(torch, MESH_RANKS, DEV,
+                           ("full", "grad-op", "no", "hybrid",
+                            "hybrid-zero2", "ddp"))
+    res["fit_s"] = time.perf_counter() - t0
+    print(f"rank {rank}: Trainer and tutorial done", flush=True)
+    train, val, _ = _fit_data()
+    res["sweep"] = len(sweep.run_sweep(
+        sweep.gen_configs(strategies=("full", "ddp"), n_epochs=1),
+        out_path=os.path.join(out_dir, "sweep.jsonl"), verbose=False,
+        device=DEV, data=train, test_data=val))
+    res["arm"] = _multi_arm(torch, DEV)
+    res["ckpt"] = _multi_ckpt(torch, mesh_of, out_dir, dev)
+    res["counts"] = launch_counts()
+    shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_multi(torch, check, tmp) -> dict:
+    """Phase 16: the census rows, small_equality, the Trainer and the
+    tutorial, the sweep, the arm study and sharded checkpoints on two
+    ranks of one card over gloo.  Returns each rank's launches."""
+    import numpy as np
+    print(f"phase 16: the rest of multi-GPU ({MESH_LABEL})")
+    t_phase = time.perf_counter()
+    card = card_line()
+    d = os.path.join(tmp, "multi")
+    os.makedirs(d)
+    port = _free_port()
+    argvs = [[sys.executable, os.path.abspath(__file__), f"--multi-rank={r}",
+              f"--multi-port={port}", f"--multi-dir={d}"]
+             for r in range(MESH_RANKS)]
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w")
+            for r in range(MESH_RANKS)]
+    failed = _run_world(argvs, logs, MULTI_TIMEOUT)
+    for log in logs:
+        log.close()
+    if not check(not failed, f"the ranks' world: {failed or 'both exit 0'} "
+                             f"in {time.perf_counter() - t_phase:.1f} s"):
+        for r in range(MESH_RANKS):
+            print(_tail(os.path.join(d, f"rank{r}.log")))
+        return {}
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    # (a) the census rows
+    for res in ranks:
+        r = res["rank"]
+        for row in res["census"]["rows"]:
+            rec = "zinb_fwdbwd" if row["mode"] == "ZINB" else "recon_fwdbwd"
+            other = "recon_fwdbwd" if rec == "zinb_fwdbwd" else "zinb_fwdbwd"
+            n = row["launches"]
+            tag = f"{row['axis']}=2 {row['strategy']}/{row['mode']}"
+            check(not row["warnings"] and row["analytic_ok"],
+                  f"rank {r} census {tag}: {row['analytic_why']}, "
+                  f"{len(row['warnings'])} activation-sized collectives "
+                  + "; ".join(row["warnings"][:2]))
+            check(n["encoder_fwd"] == n["encoder_bwd"] == n[rec] == 1
+                  and n[other] == 0 and n["recon_fwd"] == 0,
+                  f"rank {r} census {tag}: encoder_fwd {n['encoder_fwd']}, "
+                  f"encoder_bwd {n['encoder_bwd']}, {rec} {n[rec]} (1 each)")
+            if r == 0:
+                print(f"  census {tag}: wire {row['wire_bytes'] / 1e6:.2f} "
+                      f"MB a step ({row['counts']}), the step "
+                      f"{row['compile_s'] * 1e3:.1f} ms ({MESH_LABEL}); "
+                      f"{card}")
+    # (b) small_equality
+    eq = ranks[0]["census"]["equality"]
+    check(len(eq) == 6 and all(math.isfinite(v[0]) for v in eq.values()),
+          f"small_equality(MSE) on fsdp=2: six strategies within 2e-4 "
+          f"(losses {sorted(set(round(v[0], 4) for v in eq.values()))})")
+    # (c) the Trainer and the tutorial against one process on the card
+    one = _fit_runs(torch, 1, DEV, ("full",))
+    cpu = _fit_runs(torch, 1, "cpu", ("full",), with_deep=False)
+
+    def rel(a, b) -> float:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+    for res in ranks:
+        for key, got in res["fit"].items():
+            kind = key.split("/")[0]
+            ref = one[f"{kind}/full"]
+            tag = f"rank {res['rank']} {key} on 2 devices against one process"
+            if kind == "tutorial_n":
+                check(got == MESH_RANKS, f"rank {res['rank']} {key}: {got}")
+            elif kind.startswith("trainer"):
+                loss, ref_loss = np.asarray(got)[..., 0], \
+                    np.asarray(ref)[..., 0]
+                floor = MULTI_ROUNDING * rel(
+                    np.asarray(cpu[f"{kind}/full"])[..., 0], ref_loss)
+                check(rel(loss, ref_loss) <= max(TOL_MULTI_LOSS, floor)
+                      and np.array_equal(np.asarray(got)[..., 1:],
+                                         np.asarray(ref)[..., 1:]),
+                      f"{tag}: {rel(loss, ref_loss):.1e} (tol "
+                      f"{TOL_MULTI_LOSS:g}, or {MULTI_ROUNDING}× the card's "
+                      f"gap to the CPU, {floor / MULTI_ROUNDING:.1e}), "
+                      f"{loss.tolist()} against {ref_loss.tolist()}"
+                      + (", val_acc equal" if kind == "trainer_val" else ""))
+            else:
+                check(rel(got, ref) <= TOL_MULTI_LOSS,
+                      f"{tag}: {rel(got, ref):.1e} (tol {TOL_MULTI_LOSS})")
+    print(f"  census {ranks[0]['census_s']:.1f} s, Trainer and tutorial "
+          f"{ranks[0]['fit_s']:.1f} s ({MESH_LABEL}); {card}")
+    # (d) the sweep
+    with open(os.path.join(d, "sweep.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    check(len(recs) == 2 and all(r["n_devices"] == MESH_RANKS for r in recs)
+          and all(res["sweep"] == 2 for res in ranks),
+          f"sweep: {len(recs)} records by rank 0, n_devices "
+          f"{[r['n_devices'] for r in recs]}")
+    # (e) the arm study
+    for res in ranks:
+        a = res["arm"]
+        check("sharded_ms" in a["keys"] and a["err"] <= TOL_MULTI_ARM,
+              f"rank {res['rank']} arm study, n_arm=2 sharded: keys "
+              f"{a['keys']}, per-arm terms against the stacked forward "
+              f"{a['err']:.1e} (tol {TOL_MULTI_ARM})")
+    a = ranks[0]["arm"]["ms"]
+    print(f"  arm study (n_arm=2, B=1024): loop {a['loop_ms']:.3f} ms, "
+          f"stacked {a['vmap_ms']:.3f} ms, sharded {a['sharded_ms']:.3f} ms "
+          f"({MESH_LABEL}); {card}")
+    # (f) sharded checkpoints
+    for res in ranks:
+        c = res["ckpt"]
+        check(c["same_blocks"] and c["next_same"]
+              and c["epoch"][0] == c["epoch"][1] == c["epoch"][2] == 1,
+              f"rank {res['rank']} save_sharded/restore_sharded, full on "
+              f"fsdp=2: blocks bit for bit, the next step's loss "
+              f"{c['loss']:.7g} and parameters bit for bit, epochs "
+              f"{c['epoch']}")
+        check(c["onto_no"] and c["ints"][:3] == c["ints"][3:],
+              f"rank {res['rank']} restore onto no on data=2: the whole "
+              f"state bit for bit, seed/epoch/count {c['ints'][:3]}")
+    c = ranks[0]["ckpt"]
+    print(f"  sharded checkpoint of the production state: save "
+          f"{c['save_s']:.2f} s, restore {c['restore_s']:.2f} s "
+          f"({MESH_LABEL}); {card}")
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return {f"multi_rank{res['rank']}": res["counts"] for res in ranks}
+
+
 def main() -> int:
-    rank = [a for a in sys.argv[1:] if a.startswith("--mesh-")]
-    if rank:
-        kw = dict(a[len("--mesh-"):].split("=", 1) for a in rank)
-        return mesh_rank_main(int(kw["rank"]), int(kw["port"]), kw["dir"])
+    for prefix, fn in (("--mesh-", mesh_rank_main),
+                       ("--multi-", multi_rank_main)):
+        rank = [a for a in sys.argv[1:] if a.startswith(prefix)]
+        if rank:
+            kw = dict(a[len(prefix):].split("=", 1) for a in rank)
+            return fn(int(kw["rank"]), int(kw["port"]), kw["dir"])
     only = [a for a in sys.argv[1:] if a.startswith("--kernels-only")]
     kernels_only = bool(only)
     # --kernels-only=decoder,coupling: just those kernel phases
@@ -6436,6 +6788,8 @@ def main() -> int:
             paths.update(phase_tools(torch, check, tmp))
             torch.cuda.empty_cache()
             paths.update(phase_mesh(torch, check, tmp))
+            torch.cuda.empty_cache()
+            paths.update(phase_multi(torch, check, tmp))
             on_path = ("recon_fwd", "recon_fwdbwd", "encoder_fwd",
                        "encoder_bwd", "zinb_fwd", "zinb_fwdbwd",
                        "gumbel_fwd", "gumbel_bwd", "coupling",

@@ -441,7 +441,8 @@ def frozen_random_augment_fn(input_dim: int, bf16: bool = False, n_dim=None,
                              seed: int = 7, scale: float = 0.1,
                              device="cuda"):
     """Random-weight frozen augmenter closure fn(x, n_arm, generator=None,
-    draws=AugNoise()) -> (A, B, D): the forward cost of a trained augmenter
+    draws=None) -> (A, B, D) (the trainer's ``AugmentFn``; None draws
+    from ``generator``): the forward cost of a trained augmenter
     without shipping a checkpoint.  ``n_dim`` overrides the hidden width
     for small shapes."""
     kw = {"input_dim": input_dim}
@@ -453,8 +454,8 @@ def frozen_random_augment_fn(input_dim: int, bf16: bool = False, n_dim=None,
     apply = make_augment_apply(params, bn, acfg,
                                torch.bfloat16 if bf16 else None)
 
-    def fn(x, n_arm, generator=None, draws=AugNoise()):
-        return apply(x, n_arm, scale, generator, draws)
+    def fn(x, n_arm, generator=None, draws=None):
+        return apply(x, n_arm, scale, generator, draws or AugNoise())
     return fn
 
 

@@ -21,6 +21,14 @@ the port runs one process per device, joined by ``torch.distributed``:
     int32 and uint8, so one code path serves NCCL on several cards, gloo
     on the CPU and gloo with several ranks on one card.
 
+``record_collectives`` is the port's counterpart of the optimised HLO
+module that the JAX package's census parses: while it is open, every
+collective this process issues through these functions appends one
+``CollectiveRecord`` (its kind under XLA's name, dtype, local payload
+bytes and group size).  A group of one rank records nothing (the no-op
+path), and a closed recorder costs one test of a list and never a
+synchronising call.
+
 A ``Group`` is a process group and the ranks in it.  A group of one rank
 (an axis of size 1, or an axis the step does not shard) makes every
 collective a no-op, so callers never branch on the mesh.
@@ -34,9 +42,10 @@ computed identically on every rank reaches each rank's parameters once.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -166,6 +175,55 @@ def global_batch(local_data, group: Optional[Group] = None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The collective recorder
+# ---------------------------------------------------------------------------
+
+class CollectiveRecord(NamedTuple):
+    """One collective as the census counts it: ``kind`` is XLA's name
+    (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``broadcast``),
+    ``nbytes`` the payload of the ring model (the all-reduced tensor, the
+    gathered result, the reduce-scatter's whole input, the broadcast
+    tensor), ``group_size`` the ranks it spans.  ``kind == "step"`` is a
+    mark the epoch runner leaves after each train step (no payload)."""
+
+    kind: str
+    dtype: str
+    nbytes: int
+    group_size: int
+
+
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """A list that, while the block runs, receives one ``CollectiveRecord``
+    for each collective this process issues through this module."""
+    rec: list = []
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def _record(kind: str, t: torch.Tensor, group: Group) -> None:
+    """Record a collective whose ring-model payload is the whole of ``t``."""
+    if _RECORDERS:
+        r = CollectiveRecord(kind, str(t.dtype).replace("torch.", ""),
+                             t.numel() * t.element_size(), group.size)
+        for rec in _RECORDERS:
+            rec.append(r)
+
+
+def record_mark(kind: str = "step") -> None:
+    """Leave a mark (a record without payload) in every open recorder."""
+    if _RECORDERS:
+        for rec in _RECORDERS:
+            rec.append(CollectiveRecord(kind, "", 0, 0))
+
+
+# ---------------------------------------------------------------------------
 # Collectives: the same calls on every backend (gloo takes CUDA tensors in
 # all of them)
 # ---------------------------------------------------------------------------
@@ -181,6 +239,7 @@ def all_reduce(t: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     if _single(group):
         return t
     out = t.detach().contiguous().clone()
+    _record("all-reduce", out, group)
     dist.all_reduce(out, group=group.pg)
     return out
 
@@ -194,6 +253,7 @@ def all_gather(t: torch.Tensor, group: Optional[Group],
         return t
     src = t.detach().movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] * group.size,) + src.shape[1:])
+    _record("all-gather", out, group)
     dist.all_gather_into_tensor(out, src, group=group.pg)
     return out.movedim(0, dim).contiguous()
 
@@ -204,6 +264,7 @@ def broadcast(t: torch.Tensor, src_index: int,
     if _single(group):
         return t
     t = t.contiguous()
+    _record("broadcast", t, group)
     dist.broadcast(t, src=group.ranks[src_index], group=group.pg)
     return t
 
@@ -239,6 +300,7 @@ def flat_all_reduce(tensors: Sequence[torch.Tensor],
     if _single(group) or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1) for t in tensors])
+    _record("all-reduce", flat, group)
     dist.all_reduce(flat, group=group.pg)
     out, i = [], 0
     for t in tensors:
@@ -259,6 +321,7 @@ def flat_reduce_scatter(tensors: Sequence[torch.Tensor], dims: Sequence[int],
     rows = [t.movedim(d, 0).reshape(n, -1) for t, d in zip(tensors, dims)]
     flat = torch.cat(rows, dim=1)  # (n, Σ block sizes): row j is block j
     mine = flat.new_empty(flat.shape[1])
+    _record("reduce-scatter", flat, group)
     dist.reduce_scatter_tensor(mine, flat.reshape(-1), group=group.pg)
     out, i = [], 0
     for t, d, r in zip(tensors, dims, rows):

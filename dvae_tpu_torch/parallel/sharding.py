@@ -101,7 +101,8 @@ import torch
 import torch.distributed as dist
 
 from dvae_tpu_torch.config import MeshConfig, ShardingStrategy
-from dvae_tpu_torch.parallel.runtime import Group, all_gather, process_info
+from dvae_tpu_torch.parallel.runtime import (Group, all_gather, process_info,
+                                             world_group)
 
 AXES = ("data", "arm", "fsdp")
 BATCH_AXES = ("data", "fsdp")  # every device computes a distinct micro-batch
@@ -243,22 +244,95 @@ def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
             f"{n} --coordinator host:port --process_id r, or set "
             "--mesh_data/--mesh_arm/--mesh_fsdp to multiply to "
             f"{world}")
-    mesh = Mesh(cfg, rank)
-    if n == 1:
+    return _mesh_over(cfg, prefix_group(n))
+
+
+def _mesh_over(cfg: MeshConfig, group: Optional[Group]) -> Optional[Mesh]:
+    """The mesh ``cfg`` over ``group``, the world's first ranks (None on a
+    rank outside it).  Every rank of the world creates every group of
+    every family, in ``_FAMILIES``' order, and keeps its own."""
+    rank = process_info()[0]
+    mesh = Mesh(cfg, rank) if group is not None else None
+    if cfg.n_devices == 1:
         return mesh
-    mesh.groups["world"] = Group(tuple(range(n)), rank, dist.group.WORLD)
+    if mesh is not None:
+        mesh.groups["world"] = group
     for fam in _FAMILIES:
         if _span(cfg, fam) == 1:
             continue  # every group of the family has one rank
         for ranks in _family_members(cfg, fam):
             pg = dist.new_group(ranks)
-            if rank in ranks:
+            if mesh is not None and rank in ranks:
                 mesh.groups[fam] = Group(tuple(ranks), ranks.index(rank), pg)
     return mesh
 
 
 def _span(cfg: MeshConfig, fam) -> int:
     return int(np.prod([getattr(cfg, ax) for ax in fam]))
+
+
+_PREFIX_GROUPS: dict = {}
+
+
+def prefix_group(n: Optional[int]) -> Optional[Group]:
+    """The group of the world's first ``n`` ranks (None: the whole world),
+    or None on a rank outside it.  A count above the world size is a
+    ``ValueError`` naming it.  Every rank of the world must call, in the
+    same order (a group's creation is collective); the groups are kept,
+    one for each count."""
+    rank, world = process_info()
+    n = world if n is None else int(n)
+    if not 1 <= n <= world:
+        raise ValueError(
+            f"{n} devices asked for in a world of {world} process(es), one "
+            f"per device: start {n} processes with --num_processes {n} "
+            "--coordinator host:port --process_id r "
+            "(parallel.runtime.initialize_distributed)")
+    if n == world:
+        return world_group() or Group((0,), 0)
+    if n == 1:
+        return Group((0,), 0) if rank == 0 else None
+    key = (n, id(dist.distributed_c10d._get_default_group()))
+    if key not in _PREFIX_GROUPS:
+        _PREFIX_GROUPS[key] = dist.new_group(list(range(n)))
+    return (Group(tuple(range(n)), rank, _PREFIX_GROUPS[key]) if rank < n
+            else None)
+
+
+@dataclass(frozen=True)
+class DPMesh:
+    """A 1-D data-parallel mesh ``("dp",)`` over a group of ranks (the JAX
+    package's ``Mesh(devices[:n], ("dp",))``), with the axis interface of
+    ``Mesh`` that ``local_block``, ``full_leaf`` and ``reshard`` use."""
+
+    dp: Group
+
+    @property
+    def size(self) -> int:
+        return self.dp.size
+
+    def axis_size(self, axes) -> int:
+        return self.size if "dp" in _axes(axes) else 1
+
+    def axis_index(self, axes) -> int:
+        return self.dp.index if "dp" in _axes(axes) else 0
+
+    def group(self, axes) -> Optional[Group]:
+        return self.dp if "dp" in _axes(axes) and self.size > 1 else None
+
+
+def make_dp_mesh(n_devices: Optional[int] = None) -> Optional[DPMesh]:
+    """The ``dp`` mesh of the world's first ``n_devices`` ranks (None: the
+    whole world, one device outside a world); None on the ranks outside
+    it, which take no part.  Every rank of the world must call."""
+    group = prefix_group(n_devices)
+    return None if group is None else DPMesh(group)
+
+
+def make_submesh(cfg: MeshConfig) -> Optional[Mesh]:
+    """``make_mesh`` over the world's first ``cfg.n_devices`` ranks; None
+    on the others.  Every rank of the world must call."""
+    return _mesh_over(cfg, prefix_group(cfg.n_devices))
 
 
 # ---------------------------------------------------------------------------

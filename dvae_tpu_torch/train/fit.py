@@ -1,5 +1,5 @@
 """Declarative high-level trainer of the PyTorch port — the Lightning-style
-``Trainer``, on one card.
+``Trainer``, on one card or on a data-parallel group of several.
 
 Counterpart of dvae_tpu/train/fit.py (the reference's PyTorch-Lightning
 take on the MNIST benchmark, ``dist/pl.py``: ``LightningModule`` subclasses
@@ -10,12 +10,18 @@ memory / loss logging :53-75, the post-run averages :191-207):
     (nested dicts and lists of tensors, the JAX trees' keys) that the
     Trainer owns; ``training_step`` is differentiated by autograd and the
     update is the port's optax-semantics ``Adam``.
-  * ``strategy`` keeps the ``ShardingStrategy`` matrix.  On one device a
-    strategy is a placement only, so all six give the same numbers;
-    ``devices`` above 1 arrives with the second multi-GPU slice of the
-    port (A6-2) and is refused until then, and
-    ``use_distributed_sampler`` (shard the batch or replicate it across
-    devices) changes nothing on one.
+  * ``strategy`` keeps the ``ShardingStrategy`` matrix over a 1-D ``dp``
+    group of ``devices`` ranks (None: the whole ``torch.distributed``
+    world, one device outside one; one process per device, a rank outside
+    the group takes no part): each leaf of two or more dimensions shards
+    its largest dimension the group divides (``_generic_shardings``), the
+    parameters under FULL_SHARD/HYBRID, the Adam moments under the four
+    ZeRO strategies.  On one device a strategy is a placement only.
+  * ``use_distributed_sampler`` keeps its reference meaning: True splits
+    each batch over the group and averages the gradients; False gives
+    every rank the whole batch (duplicated work, nothing summed).  A
+    validation set smaller than the group's span is evaluated whole on
+    every rank.
   * The batches are staged on the device once as ``(steps, B, ...)``; the
     epoch loops over them in Python with every metric left on the device,
     and reads them back once when the epoch ends (JAX runs the epoch as one
@@ -34,9 +40,12 @@ import torch
 import torch.nn.functional as F
 
 from dvae_tpu_torch.config import ShardingStrategy
-from dvae_tpu_torch.utils.device import not_ported, resolve_device
-from dvae_tpu_torch.train.step import (Adam, optimizer_step, tree_leaves,
-                                       tree_like)
+from dvae_tpu_torch.parallel.runtime import flat_all_reduce, rank_device
+from dvae_tpu_torch.parallel.sharding import (DPMesh, gather_tree,
+                                              make_dp_mesh, place, tree_map)
+from dvae_tpu_torch.train.step import (Adam, sharded_optimizer_step,
+                                       tree_leaves, tree_like)
+from dvae_tpu_torch.utils.device import resolve_device
 from dvae_tpu_torch.utils.host_ops import to_device
 from dvae_tpu_torch.utils.logging import MetricLogger, avg, device_memory_mb
 
@@ -70,6 +79,27 @@ class FitModule:
     validation_step: Any = None
 
 
+def _generic_shardings(tree, mesh: DPMesh, shard: bool, axis: str = "dp"):
+    """Shard each leaf's largest mesh-divisible dim (2-D+ leaves only);
+    replicate the rest (dvae_tpu/train/fit.py:76-93), as spec tuples."""
+    n = mesh.size
+
+    def rule(leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if not (shard and len(shape) >= 2):
+            return ()
+        cands = [(shape[i], i) for i in range(len(shape))
+                 if shape[i] % n == 0]
+        if not cands:
+            return ()
+        _, i = max(cands)
+        spec = [None] * len(shape)
+        spec[i] = axis
+        return tuple(spec)
+
+    return tree_map(rule, tree)
+
+
 def _step_seed(seed: int, epoch: int, step: int) -> int:
     """The seed of one step's generator, from (seed, epoch, step)."""
     return int(np.random.SeedSequence([seed, epoch, step]).generate_state(
@@ -78,12 +108,14 @@ def _step_seed(seed: int, epoch: int, step: int) -> int:
 
 @dataclass
 class Trainer:
-    """``L.Trainer`` equivalent (reference dist/pl.py:181-187) on one
-    device: ``device`` ("cuda" unless "cpu" is asked for)."""
+    """``L.Trainer`` equivalent (reference dist/pl.py:181-187): ``device``
+    ("cuda" unless "cpu" is asked for; each rank's own card on a group).
+    ``devices``: the world's first ranks it trains on (None: the whole
+    world; more than the world's ranks is a ``ValueError``)."""
 
     max_epochs: int = 10
     strategy: ShardingStrategy | str = ShardingStrategy.FULL_SHARD
-    devices: Optional[int] = None          # None or 1: one device
+    devices: Optional[int] = None          # None = the whole world
     use_distributed_sampler: bool = True
     shuffle: bool = False                  # reference loaders use shuffle=False
     seed: int = 1                          # reference default (dist/pl.py:215)
@@ -105,18 +137,39 @@ class Trainer:
         JAX, whose keys fold the epoch into ``seed`` and split it by step.
         """
         self.history = []
-        ShardingStrategy(self.strategy)
-        if self.devices not in (None, 1):
-            raise not_ported(f"a Trainer on {self.devices} devices",
-                              "multi-GPU (A6-2)")
+        strategy = ShardingStrategy(self.strategy)
         dev = resolve_device(self.device)
+        mesh = make_dp_mesh(self.devices)
+        if mesh is None:
+            return None   # this rank is outside the group
+        if mesh.size > 1:
+            dev = rank_device(dev)
         logger = self.logger or MetricLogger()
+        shard_params = strategy in (ShardingStrategy.FULL_SHARD,
+                                    ShardingStrategy.HYBRID_SHARD)
+        shard_opt = strategy in (
+            ShardingStrategy.FULL_SHARD, ShardingStrategy.HYBRID_SHARD,
+            ShardingStrategy.SHARD_GRAD_OP,
+            ShardingStrategy.HYBRID_SHARD_ZERO2)
 
         params = module.init_params(torch.Generator().manual_seed(self.seed))
         params = tree_like(params, [to_device(p, dev)
                                     for p in tree_leaves(params)])
         tx = module.configure_optimizer()
         opt_state = tx.init(params)
+        p_sh = _generic_shardings(params, mesh, shard_params)
+        o_sh = _generic_shardings(params, mesh, shard_opt)
+        params = place(params, p_sh, mesh)
+        opt_state = opt_state._replace(mu=place(opt_state.mu, o_sh, mesh),
+                                       nu=place(opt_state.nu, o_sh, mesh))
+        dp = mesh.size if self.use_distributed_sampler else 1
+        group = mesh.group("dp") if dp > 1 else None
+
+        def rows(bs):
+            """This rank's rows of a ``bs``-row batch."""
+            k = bs // dp
+            i = mesh.dp.index if dp > 1 else 0
+            return slice(i * k, i * k + k)
 
         def stage(data, bs):
             """(steps, B, ...) device tensors, remainder dropped."""
@@ -128,21 +181,33 @@ class Trainer:
                 to_device(np.asarray(a[: steps * bs]), dev).reshape(
                     (steps, bs) + tuple(a.shape[1:])) for a in data)
 
+        if batch_size % dp:
+            raise ValueError(f"batch_size {batch_size} does not divide over "
+                             f"the sampler's {dp} devices")
         n_steps, tbatches = stage(train_data, batch_size)
-        vbatches = None
+        mine = rows(batch_size)
+        vbatches, vgroup = None, None
         if val_data is not None and module.validation_step is not None:
-            # a validation set smaller than val_batch_size evaluates as one
-            # batch; JAX then rounds the batch down to a multiple of the
-            # sampler's device span (fit.py:159-174), which is 1 here
+            # clamp: a validation set smaller than val_batch_size evaluates
+            # as one batch; the batch must stay divisible by the sampler's
+            # span, and fewer rows than the span evaluate whole on every
+            # rank (dvae_tpu/train/fit.py:159-174)
             n_val = val_data[0].shape[0]
-            n_vsteps, vbatches = stage(val_data, min(val_batch_size, n_val))
+            vbs = min(val_batch_size, n_val)
+            vbs = max(dp, vbs - vbs % dp)
+            if vbs > n_val:
+                n_vsteps, vbatches = stage(val_data, n_val)
+            else:
+                n_vsteps, vbatches = stage(val_data, vbs)
+                vbatches = tuple(a[:, rows(vbs)] for a in vbatches)
+                vgroup = group
 
         gen = torch.Generator(device=dev)
 
         def grad_step(opt_state, batch):
-            opt_state, loss, metrics = optimizer_step(
+            opt_state, loss, metrics = sharded_optimizer_step(
                 lambda p: module.training_step(p, batch, gen), params, tx,
-                opt_state)
+                opt_state, p_sh, o_sh, mesh, group)
             # a module-provided 'train_loss' metric wins over the raw loss
             return opt_state, {"train_loss": loss,
                                **{k: torch.as_tensor(v).detach()
@@ -165,14 +230,22 @@ class Trainer:
             for s in range(n_steps):
                 gen.manual_seed(_step_seed(self.seed, epoch, s))
                 opt_state, ms = grad_step(opt_state,
-                                          tuple(a[s] for a in eb))
+                                          tuple(a[s, mine] for a in eb))
                 steps.append(ms)
             ms = means(steps)
             if vbatches is not None:
                 with torch.no_grad():
+                    whole = gather_tree(params, p_sh, mesh)
                     vms = means([module.validation_step(
-                        params, tuple(a[b] for a in vbatches))
+                        whole, tuple(a[b] for a in vbatches))
                         for b in range(n_vsteps)])
+                    del whole
+                    if vgroup is not None:   # the mean of the ranks' means
+                        keys = list(vms)
+                        summed = flat_all_reduce(
+                            [vms[k].reshape(1) for k in keys], vgroup)
+                        vms = {k: v[0] / vgroup.size
+                               for k, v in zip(keys, summed)}
                 ms.update({k if k.startswith("val_") else f"val_{k}": v
                            for k, v in vms.items()})
             # the epoch's one host read
@@ -196,12 +269,13 @@ class Trainer:
                                     for r in self.history),
         }
         logger.log(summary)
-        self._fitted = (params, opt_state)
+        self._fitted = (gather_tree(params, p_sh, mesh), opt_state)
         return summary
 
     @property
     def params(self):
-        """Trained parameters from the last ``fit`` call."""
+        """Trained parameters from the last ``fit`` call, whole on every
+        rank of the group."""
         if self._fitted is None:
             raise RuntimeError("Trainer.params: no completed fit() yet")
         return self._fitted[0]

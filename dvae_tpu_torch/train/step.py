@@ -49,7 +49,7 @@ from dvae_tpu_torch.eval.metrics import consensus_device
 from dvae_tpu_torch.models import mixvae
 from dvae_tpu_torch.models.losses import LossOutputs, mixvae_loss
 from dvae_tpu_torch.parallel.runtime import (all_gather, flat_all_reduce,
-                                             flat_reduce_scatter)
+                                             flat_reduce_scatter, record_mark)
 from dvae_tpu_torch.parallel.sharding import (BATCH_AXES, Spmd, local_block,
                                               reshard, state_specs)
 
@@ -158,6 +158,54 @@ def optimizer_step(loss_fn, params, opt, opt_state):
     with torch.no_grad():
         opt_state = opt.update(grads, opt_state, params)
     return opt_state, loss.detach(), aux
+
+
+def leaf_specs(tree, specs) -> list:
+    """The spec of each leaf of ``tree`` in ``tree_leaves``' order, from a
+    spec tree of its structure whose leaves are spec tuples."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in leaf_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for i, sub in enumerate(tree)
+                for s in leaf_specs(sub, specs[i])]
+    return [] if tree is None else [specs]
+
+
+def sharded_optimizer_step(loss_fn, params, opt, opt_state, p_specs, o_specs,
+                           mesh, group):
+    """``optimizer_step`` on a data-parallel mesh (``parallel.sharding
+    .DPMesh``): ``params`` are this rank's blocks under ``p_specs``, the
+    optimizer's state its blocks under ``o_specs``.  ``loss_fn`` takes the
+    whole parameters (gathered over the mesh) and returns the loss of this
+    rank's rows; the loss and the gradients are averaged over ``group``
+    (None: every rank computed the whole batch, and nothing is summed).
+    ``opt.update`` then runs on the moments' blocks: of the gradients and
+    of the parameters (views into them), and a parameter whose moments the
+    mesh shards more than itself is gathered back whole.  On a mesh of one
+    rank it is ``optimizer_step``, operation for operation.  Returns (opt
+    state, loss detached, aux)."""
+    from dvae_tpu_torch.parallel.sharding import full_leaf, local_block
+    p = tree_leaves(params)
+    ps, ms = leaf_specs(params, p_specs), leaf_specs(params, o_specs)
+    whole = tree_like(params, [full_leaf(t, s, mesh) for t, s in zip(p, ps)])
+    loss, aux, grads = value_and_grad(loss_fn, whole)
+    loss = loss.detach()
+    g = tree_leaves(grads)
+    del whole, grads
+    if group is not None and group.size > 1:
+        loss, *g = flat_all_reduce([loss.float().reshape(1), *g], group)
+        torch._foreach_mul_([loss, *g], 1.0 / group.size)
+        loss = loss[0]
+    with torch.no_grad():
+        views = [reshard(t, s, m, mesh) for t, s, m in zip(p, ps, ms)]
+        opt_state = opt.update(
+            tree_like(params, [local_block(t, m, mesh)
+                               for t, m in zip(g, ms)]),
+            opt_state, tree_like(params, views))
+        for t, v, s, m in zip(p, views, ps, ms):
+            if v is not t:   # the moments' block of a wider parameter
+                t.copy_(reshard(v, m, s, mesh))
+    return opt_state, loss, aux
 
 
 def _cast_params(params, dtype):
@@ -687,6 +735,7 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                     if cfg.use_pallas else None)
                 state, m, lab = step_fn(state, x, prior, temp, generator=gen,
                                         enc_seed=enc_seed, noise=noise)
+                record_mark("step")  # the census's step boundary
                 if spmd is None:
                     labels[:, s * B:(s + 1) * B] = lab
                 else:

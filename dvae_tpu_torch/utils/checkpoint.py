@@ -23,8 +23,17 @@ On a mesh the file holds whole leaves, as one device's does: the trainer
 gathers them on every rank before rank 0 writes
 (``parallel.sharding.gather_state``), and cuts each rank's blocks out of
 what it read (``place_state``), so a mesh's checkpoint serves on one
-device and the other way round.  The orbax directories of the JAX
-package's ``save_sharded`` stay unread (ROADMAP A6-2).
+device and the other way round.
+
+``save_sharded`` / ``restore_sharded`` are the multi-process path
+(dvae_tpu/utils/checkpoint.py:79-125) on ``torch.distributed.checkpoint``
+(DCP): every rank writes only its own blocks of a sharded tree, rank 0
+writes ``dvae_meta.json``, and a restore lands each leaf in the
+template's placement, which may be another mesh or strategy (DCP
+reshards on load).  A block carries no spec, so both take ``specs=`` and
+``mesh=``.  Such a directory is not the JAX package's orbax one (the
+card's machine has no JAX): sharded checkpoints do not cross the
+packages, and ``load_checkpoint`` refuses either kind of directory.
 
 ``params_from_jax`` / ``bn_from_jax`` turn the numpy pytrees into tensors
 (and ``*_to_jax`` back): the weight bridge between the two packages.  The
@@ -178,13 +187,206 @@ def save_checkpoint(path: str, tree: Any,
 
 def load_checkpoint(path: str):
     """(tree, metadata) of a pickle checkpoint written by either package.
-    Orbax directories (the JAX package's other format) are not read."""
+    A directory (``save_sharded``'s, or the JAX package's orbax one) is
+    not read here."""
     if os.path.isdir(path):
+        if os.path.exists(os.path.join(path, ".metadata")):
+            raise ValueError(f"{path} is a sharded checkpoint directory: "
+                             "read it with restore_sharded(path, template, "
+                             "specs=..., mesh=...) on the ranks of a mesh")
         raise ValueError(f"{path} is an orbax directory; the port reads the "
                          "pickle format only")
     with open(path, "rb") as f:
         out = _PortUnpickler(f).load()
     return out["tree"], out.get("metadata", {})
+
+
+# ---------------------------------------------------------------------------
+# Sharded checkpoints (torch.distributed.checkpoint)
+# ---------------------------------------------------------------------------
+
+def _spec_tree(tree, specs):
+    """``specs`` as a tree of ``tree``'s structure: a
+    ``parallel.sharding.StateSpecs`` becomes the spec tree of a
+    ``train.step.TrainState`` (the mask replicated, the host integers
+    without a spec)."""
+    from dvae_tpu_torch.parallel.sharding import StateSpecs
+    if not isinstance(specs, StateSpecs):
+        return specs
+    opt = tree.opt_state
+    if opt is not None:
+        opt = opt._replace(count=None, mu=specs.moments, nu=specs.moments)
+    return tree._replace(params=specs.params, bn=specs.bn, mask=(),
+                         seed=None, epoch=None, opt_state=opt)
+
+
+def _flat_with_specs(tree, specs, path=""):
+    """(key, leaf, spec) of every leaf of ``tree`` (None leaves skipped),
+    keys spelled ``a/b/0``; a non-tensor leaf's spec is None."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_with_specs(tree[k], None if specs is None
+                                        else specs[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            sub = None if specs is None else specs[i]
+            name = tree._fields[i] if _is_namedtuple(tree) else str(i)
+            yield from _flat_with_specs(v, sub, f"{path}/{name}")
+    elif tree is not None:
+        yield path.lstrip("/"), tree, specs
+
+
+def _device_mesh(mesh, device_type: str):
+    """A ``DeviceMesh`` of the port's (data, arm, fsdp) mesh (rank r at its
+    row-major coordinates), without process groups of its own: DCP plans
+    over the world's default group."""
+    from torch.distributed.device_mesh import DeviceMesh
+    cfg = mesh.cfg
+    ranks = torch.arange(cfg.n_devices).reshape(cfg.data, cfg.arm, cfg.fsdp)
+    return DeviceMesh(device_type, ranks,
+                      mesh_dim_names=("data", "arm", "fsdp"),
+                      _init_backend=False)
+
+
+def _placements(spec, ndim: int):
+    """DTensor placements of a spec tuple: mesh dim m shards tensor dim i
+    where the spec's entry i names m's axis.  An entry of two axes
+    (``("data", "fsdp")``) shards one tensor dim over both, data major,
+    as DTensor orders mesh dims left to right and the port's
+    ``local_block`` does."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for ax in ("data", "arm", "fsdp"):
+        dims = [i for i, e in enumerate(tuple(spec)[:ndim])
+                if e == ax or (isinstance(e, (tuple, list)) and ax in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def _dtensor(block, spec, mesh, dmesh):
+    """``block`` as this rank's piece of the whole leaf under ``spec``."""
+    from torch.distributed.tensor import DTensor
+    shape = list(block.shape)
+    for i, e in enumerate(tuple(spec)[:block.dim()]):
+        shape[i] *= mesh.axis_size(e)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(block, dmesh, _placements(spec, block.dim()),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def _sharded(mesh) -> bool:
+    return (mesh is not None and getattr(mesh, "cfg", None) is not None
+            and mesh.cfg.n_devices > 1)
+
+
+def save_sharded(path: str, tree: Any, metadata: Optional[dict] = None, *,
+                 specs, mesh) -> str:
+    """Distributed save of a sharded tree on ``torch.distributed.checkpoint``.
+
+    ``tree`` holds this rank's blocks, ``specs`` their spec tree (or the
+    ``parallel.sharding.StateSpecs`` of a ``TrainState``), ``mesh`` this
+    rank's ``parallel.sharding.Mesh``.  Every rank calls and writes only
+    its own blocks (a replicated block once); non-tensor leaves (the
+    state's seed, epoch and step count) are stored as objects.  Blocks in
+    host memory (offloaded moments) are staged through the mesh's device.
+    Rank 0 writes ``metadata`` to ``dvae_meta.json``.  Returns the
+    absolute path."""
+    import json
+
+    import torch.distributed.checkpoint as dcp
+
+    from dvae_tpu_torch.parallel.runtime import process_info
+
+    path = os.path.abspath(path)
+    specs = _spec_tree(tree, specs)
+    sharded = _sharded(mesh)
+    dmesh, dev = None, None
+    state = {}
+    for key, leaf, spec in _flat_with_specs(tree, specs):
+        if isinstance(leaf, torch.Tensor) and sharded:
+            if dmesh is None:
+                dev = _mesh_device(tree)
+                dmesh = _device_mesh(mesh, dev.type)
+            leaf = _dtensor(leaf.to(dev), spec, mesh, dmesh)
+        state[key] = leaf
+    os.makedirs(path, exist_ok=True)
+    dcp.save(state, checkpoint_id=path)
+    if metadata and process_info()[0] == 0:
+        with open(os.path.join(path, "dvae_meta.json"), "w") as f:
+            json.dump(metadata, f)
+    return path
+
+
+def _mesh_device(tree) -> torch.device:
+    """The device the mesh's blocks live on: the first tensor leaf's that
+    is not on the host, else the CPU."""
+    devs = [leaf.device for _, leaf in _leaves_with_path(tree)
+            if isinstance(leaf, torch.Tensor)]
+    return next((d for d in devs if d.type not in ("cpu", "meta")),
+                torch.device("cpu"))
+
+
+def restore_sharded(path: str, template: Any, *, specs, mesh):
+    """Restore a ``save_sharded`` directory into ``template``'s placement:
+    ``template`` is a tree of this rank's blocks (a freshly placed state)
+    under ``specs`` on ``mesh``, which may be another mesh or strategy
+    than the save's (DCP reshards on load).  Every rank calls.  Returns
+    (tree, metadata): new tensors of the template's blocks, dtypes and
+    devices (pinned host memory stays so; a ``meta`` leaf, as
+    ``abstract_like`` makes, lands on the mesh's device), the non-tensor
+    leaves as saved."""
+    import json
+
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    specs = _spec_tree(template, specs)
+    sharded = _sharded(mesh)
+    dev = _mesh_device(template)
+    dmesh = _device_mesh(mesh, dev.type) if sharded else None
+    state, blocks = {}, {}
+    for key, leaf, spec in _flat_with_specs(template, specs):
+        if isinstance(leaf, torch.Tensor) and leaf.is_meta and spec is None:
+            leaf = 0   # ``abstract_like`` of a host integer: loaded as saved
+        if isinstance(leaf, torch.Tensor):
+            buf = torch.empty(leaf.shape, dtype=leaf.dtype,
+                              device=dev if sharded or leaf.is_meta
+                              else leaf.device)
+            blocks[key] = buf
+            state[key] = (_dtensor(buf, spec, mesh, dmesh) if sharded
+                          else buf)
+        else:
+            state[key] = leaf
+    dcp.load(state, checkpoint_id=path)
+
+    def rebuild(node, pre=""):
+        if isinstance(node, dict):
+            return {k: rebuild(node[k], f"{pre}/{k}") for k in node}
+        if isinstance(node, (list, tuple)):
+            names = (node._fields if _is_namedtuple(node)
+                     else [str(i) for i in range(len(node))])
+            out = [rebuild(v, f"{pre}/{n}") for v, n in zip(node, names)]
+            return type(node)(*out) if _is_namedtuple(node) \
+                else type(node)(out)
+        if node is None:
+            return None
+        key = pre.lstrip("/")
+        if key in blocks:
+            out = blocks[key]
+            if not node.is_meta and out.device != node.device:
+                out = out.to(node.device)
+                if node.is_pinned():
+                    out = out.pin_memory()
+            return out
+        return state[key]
+
+    meta_path = os.path.join(path, "dvae_meta.json")
+    metadata = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            metadata = json.load(f)
+    return rebuild(template), metadata
 
 
 # ---------------------------------------------------------------------------

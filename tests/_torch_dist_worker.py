@@ -376,9 +376,220 @@ def case_stream(ctx):
             out[f"stream/{e}/{i}/prior"] = b.prior.numpy()
 
 
+def _json(out, key, obj):
+    out[key] = [json.dumps(obj)]
+
+
+def case_census(ctx):
+    """The collective census: the runner's collectives at test_collective_
+    cost.py's CFG/TCFG on (2, 1, 4), the census rows of the six strategies
+    × three modes on the world's (2, 2, 2) mesh, and ``small_equality`` on
+    the port's own draws and on JAX's (weights and noise carried)."""
+    import torch
+    from dvae_tpu_torch.config import (MeshConfig, ShardingStrategy,
+                                       TrainConfig, VAEConfig)
+    from dvae_tpu_torch.models.mixvae import Noise
+    from dvae_tpu_torch.parallel import census
+    from dvae_tpu_torch.parallel.collective_cost import (
+        epoch_runner_collective_stats)
+    from dvae_tpu_torch.parallel.sharding import make_mesh
+    from dvae_tpu_torch.train import step as ts
+    from dvae_tpu_torch.utils.checkpoint import bn_from_jax, params_from_jax
+    out, mesh, arr = ctx["out"], ctx["mesh"], ctx["inputs"]
+    spec = ctx["cases"]["census"]
+    m214 = make_mesh(MeshConfig(2, 1, 4))
+    cfg = VAEConfig(**spec["cfg"])
+    tcfg = TrainConfig(batch_size=spec["batch"], epochs_per_jit=1)
+    for s in ("ddp", "full", "no"):
+        st = epoch_runner_collective_stats(cfg, tcfg, ShardingStrategy(s),
+                                           m214, n_train=spec["n_train"],
+                                           device="cpu")
+        _json(out, f"census/stats/{s}", dict(
+            counts=st.counts, bytes_by_kind=st.bytes_by_kind,
+            wire_bytes=st.wire_bytes))
+    rows = []
+    for mode in census.MODES:
+        for s in ShardingStrategy:
+            row = census.production_row(
+                s, mode, mesh, n_train=2 * spec["row_batch"],
+                batch=spec["row_batch"], cfg=census.small_cfg(mode).replace(
+                    input_dim=spec["row_genes"]), bf16=False, device="cpu")
+            rows.append(row.to_json())
+    _json(out, "census/rows", rows)
+    for mode in census.MODES:
+        losses = census.small_equality(mode, mesh, device="cpu")
+        _json(out, f"census/equality/{mode}",
+              {k: v.tolist() for k, v in losses.items()})
+    for mode in spec["jax_modes"]:
+        pre = f"census/jax/{mode}"
+        state = ts.TrainState(
+            params_from_jax(unflat(f"{pre}/params", arr)),
+            bn_from_jax(unflat(f"{pre}/bn", arr)),
+            torch.ones(8), 0, 0)
+        draws = [(torch.from_numpy(arr[f"{pre}/x"][i]), Noise(*(
+            torch.from_numpy(arr[f"{pre}/noise/{k}"][i])
+            for k in ("x_mask", "gumbel_u", "reparam_e", "s_mask"))))
+            for i in range(arr[f"{pre}/x"].shape[0])]
+        losses = census.small_equality(mode, mesh, device="cpu", state=state,
+                                       draws=draws)
+        _json(out, f"census/carried/{mode}",
+              {k: v.tolist() for k, v in losses.items()})
+
+
+def _carried(weights, cfg):
+    """An MNIST FitModule whose weights are JAX's ``init_mlp`` draw."""
+    from dvae_tpu_torch.train.fit import MNISTFitModule
+    from dvae_tpu_torch.utils.checkpoint import mlp_params_from_jax
+
+    class Carried(MNISTFitModule):
+        def init_params(self, generator):
+            return mlp_params_from_jax(weights)
+    return Carried(cfg=cfg)
+
+
+def _mlp_weights(arr, prefix):
+    n = len({k.split("/")[2] for k in arr if k.startswith(prefix + "/")})
+    return [{k: arr[f"{prefix}/{i}/{k}"] for k in ("w", "b")}
+            for i in range(n)]
+
+
+def case_fit(ctx):
+    """``Trainer(devices=8)`` from JAX's weights for each run of
+    cases.json, and ``train_mnist_fsdp(n_devices=8)``."""
+    from dvae_tpu_torch.examples import fsdp_tutorial as tt
+    from dvae_tpu_torch.train.fit import Trainer
+    from dvae_tpu_torch.utils.checkpoint import mlp_params_from_jax
+    out, arr = ctx["out"], ctx["inputs"]
+    spec = ctx["cases"]["fit"]
+    cfg = tt.MLPConfig(widths=tuple(spec["widths"]))
+    w = _mlp_weights(arr, "fit/w")
+    for run in spec["runs"]:
+        t = Trainer(max_epochs=2, strategy=run["strategy"], devices=8,
+                    use_distributed_sampler=run["sampler"], device="cpu")
+        t.fit(_carried(w, cfg), (arr["fit/x"], arr["fit/y"]),
+              val_data=(arr[f"fit/{run['val']}x"], arr[f"fit/{run['val']}y"]),
+              batch_size=128, val_batch_size=run["vbs"])
+        _json(out, f"fit/{run['name']}/history", t.history)
+        for i, layer in enumerate(t.params):
+            for k, v in layer.items():
+                out[f"fit/{run['name']}/params/{i}/{k}"] = v.numpy()
+    wt = _mlp_weights(arr, "tut/w")
+    tt.init_mlp = lambda g, c, device="cuda": mlp_params_from_jax(wt, device)
+    for s in spec["tutorial"]:
+        res = tt.train_mnist_fsdp(
+            model="shallow", strategy=s, n_epochs=2, batch_size=256,
+            lr=1e-2, verbose=False, n_devices=8,
+            data=(arr["tut/x"], arr["tut/y"]),
+            test_data=(arr["tut/tx"], arr["tut/ty"]), device="cpu")
+        _json(out, f"tut/{s}", res._asdict())
+
+
+def case_sweep(ctx):
+    """``run_sweep`` over full and ddp on the whole world and on its first
+    4 ranks."""
+    from dvae_tpu_torch.bench import sweep
+    out, arr = ctx["out"], ctx["inputs"]
+    spec = ctx["cases"]["sweep"]
+    cfgs = sweep.gen_configs(strategies=("full", "ddp"),
+                             device_counts=(None, 4), n_epochs=1,
+                             batch_size=256)
+    res = sweep.run_sweep(cfgs, out_path=spec["out"], verbose=False,
+                          device="cpu", data=(arr["tut/x"], arr["tut/y"]),
+                          test_data=(arr["tut/tx"], arr["tut/ty"]))
+    _json(out, "sweep/results", res)
+
+
+def case_arm(ctx):
+    """The stacked forward on an ``arm=2`` mesh of the world's first two
+    ranks, and the benchmark with ``shard``."""
+    import torch
+    from dvae_tpu_torch.config import VAEConfig
+    from dvae_tpu_torch.examples import arm_parallelism as ap
+    from dvae_tpu_torch.models import mixvae
+    out = ctx["out"]
+    spec = ctx["cases"]["arm"]
+    cfg = VAEConfig(**spec["cfg"])
+    params = mixvae.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    bn = mixvae.init_bn_state(cfg, "cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand((spec["batch"], cfg.input_dim), generator=g)
+    xs = x.expand(cfg.n_arm, *x.shape)
+    noise = ap.arm_draws(cfg, spec["batch"], g)
+    mesh = ap.arm_mesh(cfg.n_arm)
+    if mesh is not None:
+        p_l, bn_l, xs_l, noise_l, spmd = ap.sharded_inputs(
+            mesh, params, bn, cfg, xs, noise)
+        total, rec, kl = ap.stacked_forward(p_l, bn_l, cfg, xs_l, noise_l,
+                                            spmd)
+        out["arm/total"] = [float(total)]
+        out["arm/loss_rec"] = rec.numpy()
+        out["arm/kl"] = kl.numpy()
+    res = ap.benchmark_arm_strategies(cfg, batch_size=spec["batch"],
+                                      n_iters=2, shard=True, device="cpu")
+    _json(out, "arm/keys", sorted(res))
+
+
+def case_ckpt(ctx):
+    """``save_sharded`` of a trained ``full`` state on (2, 2, 2); restored
+    to the same specs (the next chunk of both), onto ``no`` on (8, 1, 1)
+    and, with ``offload_host`` moments, to the same specs."""
+    import torch
+    from dvae_tpu_torch.config import MeshConfig
+    from dvae_tpu_torch.parallel.sharding import (gather_state, make_mesh,
+                                                  place_state, state_specs)
+    from dvae_tpu_torch.train import step as ts
+    from dvae_tpu_torch.utils.checkpoint import restore_sharded, save_sharded
+    out, mesh, arr = ctx["out"], ctx["mesh"], ctx["inputs"]
+    spec = ctx["cases"]["ckpt"]
+    cfg, tcfg = _configs(spec)
+    opt = ts.make_optimizer(cfg)
+    x = torch.from_numpy(arr["ckpt/x"])
+    run = ts.make_epoch_runner(cfg, tcfg, opt, x.shape[0], mesh=mesh)
+
+    def fresh(specs, m, seed):
+        return place_state(ts.init_train_state(seed, cfg, opt), specs, m)
+
+    specs = state_specs(cfg, "full", mesh)
+    st, _ = run(fresh(specs, mesh, 5), x, None, 1.0)
+    save_sharded(spec["dir"], st, {"epoch": st.epoch}, specs=specs, mesh=mesh)
+    saved = gather_state(st, specs, mesh)
+    back, meta = restore_sharded(spec["dir"], fresh(specs, mesh, 9),
+                                 specs=specs, mesh=mesh)
+    out["ckpt/meta_epoch"] = [meta["epoch"], back.epoch, st.epoch]
+    for name, state in (("orig", st), ("restored", back)):
+        state, ems = run(state, x, None, 1.0)
+        out[f"ckpt/{name}/total"] = ems.total.numpy()
+        flat(f"ckpt/{name}/params", _numpy(
+            gather_state(state, specs, mesh).params), out)
+    m811 = make_mesh(MeshConfig(8, 1, 1))
+    s_no = state_specs(cfg, "no", m811)
+    other, _ = restore_sharded(spec["dir"], fresh(s_no, m811, 9),
+                               specs=s_no, mesh=m811)
+    _state_out(out, "ckpt/saved", saved)
+    _state_out(out, "ckpt/no", gather_state(other, s_no, m811))
+    s_off = state_specs(cfg, "full", mesh, offload_host=True)
+    st_off = fresh(s_off, mesh, 11)
+    save_sharded(spec["dir"] + "_off", st_off, specs=s_off, mesh=mesh)
+    back_off, _ = restore_sharded(spec["dir"] + "_off", fresh(s_off, mesh, 12),
+                                  specs=s_off, mesh=mesh)
+    _state_out(out, "ckpt/off_saved", gather_state(st_off, s_off, mesh))
+    _state_out(out, "ckpt/off_back", gather_state(back_off, s_off, mesh))
+
+
+def _state_out(out, pre, st):
+    for k in ("params", "bn"):
+        flat(f"{pre}/{k}", _numpy(getattr(st, k)), out)
+    flat(f"{pre}/mu", _numpy(st.opt_state.mu), out)
+    flat(f"{pre}/nu", _numpy(st.opt_state.nu), out)
+    out[f"{pre}/ints"] = [st.seed, st.epoch, st.opt_state.count]
+
+
 CASES = {"ops": case_ops, "train": case_train,
          "strategies": case_strategies, "align": case_align,
-         "eval": case_eval, "trainer": case_trainer, "stream": case_stream}
+         "eval": case_eval, "trainer": case_trainer, "stream": case_stream,
+         "census": case_census, "fit": case_fit, "sweep": case_sweep,
+         "arm": case_arm, "ckpt": case_ckpt}
 
 
 def main() -> None:

@@ -292,15 +292,18 @@ def test_tree_helpers_follow_jax_and_release_their_leaves():
         gc.enable()
 
 
-def test_more_devices_are_refused():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+def test_more_devices_than_the_world_are_refused():
+    """Outside a torch.distributed world the world has one process: two
+    devices are a ValueError naming that size, and a rank without a mesh
+    has no shardings."""
+    with pytest.raises(ValueError, match="world of 1"):
         tf.Trainer(devices=2, device="cpu").fit(
             _mod(), tt.synthetic_mnist(128, 0), batch_size=64)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="world of 1"):
         tt.train_mnist_fsdp(n_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="world of 1"):
         tt.make_mesh_1d(2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="world of 1"):
         tt.mlp_shardings([], None, ShardingStrategy.FULL_SHARD)
     t = tf.Trainer(devices=1, max_epochs=1, device="cpu")
     t.fit(_mod(), tt.synthetic_mnist(128, 0), batch_size=64)

@@ -912,6 +912,28 @@ timer = profiling.StepTimer()
 timer.start()
 timer.stop(sync_on={{"a": torch.ones(1)}})
 parsed = parser.parse(parser.many(parser.any_digit()), "12a")
+from dvae_tpu_torch.bench import sweep
+from dvae_tpu_torch.config import MeshConfig, VAEConfig
+from dvae_tpu_torch.examples import arm_parallelism
+from dvae_tpu_torch.parallel import census, collective_cost
+from dvae_tpu_torch.parallel.sharding import make_mesh, state_specs
+from dvae_tpu_torch.train import step as tstep
+from dvae_tpu_torch.utils.checkpoint import restore_sharded, save_sharded
+cen = census.run_census(make_mesh(MeshConfig()), budget_s=0.0,
+                        log=lambda *_: None, device="cpu")
+grid = sweep.gen_configs(strategies=("full", "ddp"))
+arm_res = arm_parallelism.benchmark_arm_strategies(
+    VAEConfig(n_arm=2, input_dim={D}, n_categories=4, fc_dim=8, lowD_dim=4),
+    batch_size=16, n_iters=1, device="cpu")
+scfg = VAEConfig(n_arm=2, input_dim={D}, fc_dim=8, lowD_dim=4,
+                 n_categories=4)
+sopt = tstep.make_optimizer(scfg)
+sstate = tstep.init_train_state(6, scfg, sopt)._replace(epoch=3)
+smesh = make_mesh(MeshConfig())
+sspecs = state_specs(scfg, "full", smesh)
+save_sharded("sharded", sstate, {{"epoch": 3}}, specs=sspecs, mesh=smesh)
+sback, smeta = restore_sharded("sharded", tstep.init_train_state(
+    7, scfg, sopt), specs=sspecs, mesh=smesh)
 import os
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "dvae_tpu",
@@ -959,7 +981,14 @@ print(json.dumps({{"bad": bad, "labels": res["pred_label"].shape,
                   "trace_ms": trace_ms,
                   "snapshot": sorted(snap) == ["cpu"] or all(
                       k.startswith("cuda:") for k in snap),
-                  "timer_n": timer.summary()["n"], "parsed": parsed}}))
+                  "timer_n": timer.summary()["n"], "parsed": parsed,
+                  "census_skipped": len(cen["skipped"]),
+                  "census_clean": cen["clean"], "sweep_grid": len(grid),
+                  "arm_keys": sorted(arm_res),
+                  "sharded": [smeta["epoch"], sback.epoch, bool(all(
+                      torch.equal(a, b) for a, b in zip(
+                          tstep.tree_leaves(sback.params),
+                          tstep.tree_leaves(sstate.params))))]}}))
 """.format(D=D)
 
 
@@ -996,7 +1025,10 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
     ``utils.torch_import``, ``examples.state_traversal``) and the mesh
     layer (``parallel.runtime``, ``parallel.sharding``,
     ``ops.partitioned``), and serves the JAX checkpoint through
-    ``load_vae`` → ``generate``, whose labels are ``eval_model``'s."""
+    ``load_vae`` → ``generate``, whose labels are ``eval_model``'s.  The
+    multi-device tools run in a world of one: ``run_census`` with no
+    budget, ``gen_configs``, ``benchmark_arm_strategies`` at test width,
+    and ``save_sharded`` / ``restore_sharded`` of a state."""
     _, ckpts = jax_checkpoints
     proc = _run_port(["-c", _GUARD, ckpts[True]["path"]], str(tmp_path))
     assert proc.returncode == 0, proc.stderr
@@ -1021,7 +1053,12 @@ def test_port_imports_no_jax(jax_checkpoints, tmp_path):
                    "demo_finite": True, "fsdp_epochs": 1, "fsdp_finite": True,
                    "normalized": [[20, 3], 3], "prep_import_error": True,
                    "host_ops": [True] * 5, "trace_ms": 0.0, "snapshot": True,
-                   "timer_n": 1, "parsed": [["1", "2"], "a"]}
+                   "timer_n": 1, "parsed": [["1", "2"], "a"],
+                   "census_skipped": 21, "census_clean": False,
+                   "sweep_grid": 2,
+                   "arm_keys": ["loop_ms", "speedup_vmap_over_loop",
+                                "vmap_ms"],
+                   "sharded": [3, 3, True]}
 
 
 def test_cli_evaluate_on_cpu(jax_checkpoints, tmp_path):
