@@ -407,6 +407,17 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_events(torch, prof) -> list:
+    """The device rows of a profile's ``key_averages()``: kernels, copies
+    and memsets.  A ``record_function`` range (the program's ``dvae.*``
+    spans) also appears there as a CUDA row whose self time is the whole
+    range, kernels included; it is left out, as torch's own table leaves
+    it out of its device total."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages()
+            if e.device_type == cuda and not e.is_user_annotation]
+
+
 def device_ms(torch, fn, iters: int = 20) -> float:
     """Device time of one call of ``fn``: its kernels' device time summed
     under torch.profiler over ``iters`` calls.  Unlike ``cuda_ms`` it leaves
@@ -420,9 +431,8 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda) / iters / 1e3
+    return sum(e.self_device_time_total
+               for e in cuda_events(torch, prof)) / iters / 1e3
 
 
 def host_ms(torch, fn, iters: int = 100) -> float:
@@ -471,10 +481,9 @@ def kernel_device_ms(torch, fn, iters: int = 5) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == cuda and e.self_device_time_total > 0:
+    for e in cuda_events(torch, prof):
+        if e.self_device_time_total > 0:
             out[e.key] = out.get(e.key, 0.0) + (
                 e.self_device_time_total / iters / 1e3)
     return out
@@ -491,9 +500,8 @@ def kernel_launches(torch, fn, iters: int = 5) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    return {e.key: e.count / iters for e in prof.key_averages()
-            if e.device_type == cuda and e.count}
+    return {e.key: e.count / iters for e in cuda_events(torch, prof)
+            if e.count}
 
 
 def recon_bound_bytes(a, b, f, d, dtype_name: str, per_arm_x: bool):
@@ -2967,10 +2975,8 @@ def phase_breakdown(torch, server, x) -> None:
         server.eval_model(x, batch_size=B)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
     kernels = sorted(((e.self_device_time_total, e.count, e.key)
-                      for e in prof.key_averages() if e.device_type == cuda),
-                     reverse=True)
+                      for e in cuda_events(torch, prof)), reverse=True)
     busy = sum(k[0] for k in kernels)
     if not busy:
         print("  profiler: no device time recorded (not measured)")
@@ -3205,10 +3211,8 @@ def phase_chunk_breakdown(torch, trainer, x_train, top: int = 12) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         state, ems = run(state, x_train, None, 1.0)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     kernels = sorted(((e.self_device_time_total, e.count, e.key)
-                      for e in prof.key_averages() if e.device_type == cuda),
-                     reverse=True)
+                      for e in cuda_events(torch, prof)), reverse=True)
     busy = sum(k[0] for k in kernels)
     if not busy:
         print("  profiler: no device time recorded (not measured)")
@@ -4640,9 +4644,8 @@ def gan_training(torch, check, tmp, x_train) -> str:
                              ProfilerActivity.CUDA]) as prof:
         state, m = run(state, x_train, 1)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     kernels = [(e.self_device_time_total, e.count, e.key)
-               for e in prof.key_averages() if e.device_type == cuda]
+               for e in cuda_events(torch, prof)]
     busy = sum(k[0] for k in kernels)
     if busy:
         gemm = sum(t for t, _, k in kernels
@@ -5443,8 +5446,7 @@ def _tools_training(torch, check, tmp, card) -> dict:
           f"launches of each chunk ({steps} steps, {n_val} validation "
           f"batch): unprofiled {first}, profiled {launched} (expect {want})")
     trace_ms = trace_total_device_ms(run)
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in run.profiler.key_averages() if e.device_type == cuda]
+    events = cuda_events(torch, run.profiler)
     prof_ms = sum(e.self_device_time_total for e in events) / 1e3
     copy_ms = sum(e.self_device_time_total for e in events
                   if e.key.startswith(("Memcpy", "Memset"))) / 1e3

@@ -71,6 +71,7 @@ from dvae_tpu_torch.train.step import (EpochMetrics, _gather_rows_arms,
                                        _spmd, chunk_rngs, epoch_metrics,
                                        make_train_step)
 from dvae_tpu_torch.utils.host_ops import as_host_tensor, gather_rows
+from dvae_tpu_torch.utils.profiling import span, spanned
 
 
 class StreamBatch(NamedTuple):
@@ -368,6 +369,7 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
         runner.streamer = cache["streamer"]
         return cache["streamer"]
 
+    @spanned("runner")
     def run(state, x_host, prior_host, temp, *, n_chunk: int):
         streamer = streamer_for(x_host, prior_host)
         gen, host = chunk_rngs(state.seed, state.epoch, dev)
@@ -383,9 +385,11 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
                 noise = (Noise(gumbel_seed=int(
                     host.integers(0, 2 ** 31 - 1)))
                     if cfg.use_pallas else None)
-                state, m, lab = step_fn(state, batch.x, batch.prior, temp,
-                                        generator=gen, enc_seed=enc_seed,
-                                        noise=noise, **local)
+                with span("step"):
+                    state, m, lab = step_fn(state, batch.x, batch.prior,
+                                            temp, generator=gen,
+                                            enc_seed=enc_seed, noise=noise,
+                                            **local)
                 if spmd is None:
                     labels[:, s * B:(s + 1) * B] = lab
                 else:
@@ -401,10 +405,12 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
                         _wait(done[s - prefetch], streamer.stats)
                         done[s - prefetch] = None
             del batch
-            if spmd is not None:  # (A_l, steps, B_l) → (A, steps·B)
-                labels = _gather_rows_arms(torch.stack(labels, dim=1), spmd,
-                                           2).reshape(A, steps * B)
-            per_epoch.append(epoch_metrics(ms, consensus_device(labels, K)))
+            with span("runner.epoch_end"):
+                if spmd is not None:  # (A_l, steps, B_l) → (A, steps·B)
+                    labels = _gather_rows_arms(torch.stack(labels, dim=1),
+                                               spmd, 2).reshape(A, steps * B)
+                per_epoch.append(epoch_metrics(ms,
+                                               consensus_device(labels, K)))
             state = state._replace(epoch=state.epoch + 1)
         return state, EpochMetrics(*(torch.stack(v)
                                      for v in zip(*per_epoch)))

@@ -94,6 +94,7 @@ from dvae_tpu_torch.utils.device import resolve_device
 from dvae_tpu_torch.utils.host_ops import as_host_tensor
 from dvae_tpu_torch.utils.logging import (MetricLogger, device_memory_mb,
                                           mprint)
+from dvae_tpu_torch.utils.profiling import span, spanned
 
 _EVAL_FLUSH_BYTES = 1 << 30  # eval_model drains device accumulators to
                              # host past this many retained bytes
@@ -405,12 +406,13 @@ class CplMixVAE:
         self._reset_eval_fns()
         return int(meta.get("epoch", -1))
 
+    @spanned("checkpoint")
     def save_checkpoint(self, tag: str) -> str:
         """Write the state in the JAX package's checkpoint format: the
         optimizer state as optax's, the noise seed as raw key words, and
         the phase progress for a resume.  On a mesh every rank gathers the
         whole state and rank 0 writes it; every rank returns the path once
-        the file is there."""
+        the file is there (the span ``dvae.checkpoint``)."""
         path = os.path.join(self.folder or ".", f"cpl_mixVAE_model_{tag}.ckpt")
         st = self.state
         if self.mesh is not None:
@@ -785,45 +787,54 @@ class CplMixVAE:
         x_all = self._eval_input(x_all)
         outs = []
         for kind, xb, _ in self._eval_batches(x_all, batch_size):
-            if kind == "chunk":
-                _, f = self._eval_runner(self.state, xb, temp)
-                outs.append(f.lab)
-            else:
-                _, labels, _ = self._eval_step(self.state, xb, None, temp)
-                outs.append(labels)
-        return torch.cat(outs, dim=1).cpu().numpy()
+            with span("eval.batch"):
+                if kind == "chunk":
+                    _, f = self._eval_runner(self.state, xb, temp)
+                    outs.append(f.lab)
+                else:
+                    _, labels, _ = self._eval_step(self.state, xb, None, temp)
+                    outs.append(labels)
+        with span("eval.drain"):
+            return torch.cat(outs, dim=1).cpu().numpy()
 
+    @spanned("validate")
     def validate(self, x_val, temp: float = 1.0, batch_size: int = 5000,
                  c_p=None) -> dict:
         """Validation losses + consensus (reference val loop,
-        cpl_mixvae.py:563-761)."""
+        cpl_mixvae.py:563-761).  Spans: ``dvae.validate`` around the call,
+        ``dvae.eval.batch`` a batch or chunk, ``dvae.eval.drain`` the reads
+        of the losses, ``dvae.eval.finish`` the consensus and averages."""
         self._ensure_eval_fns()
         x = self._eval_input(x_val)
         tot, recs, labels, sizes = [], [], [], []
         for kind, xb, pb in self._eval_batches(x, batch_size, c_p):
-            if kind == "chunk":
-                aux, f = self._eval_runner(self.state, xb, temp, pb)
-                tot.append(aux.total)
-                recs.append(aux.loss_rec)
-                labels.append(f.lab)
-                sizes.extend([batch_size] * xb.shape[0])
-            else:
-                aux, lab, _ = self._eval_step(self.state, xb, pb, temp)
-                tot.append(aux.total[None])
-                recs.append(aux.loss_rec[None])
-                labels.append(lab)
-                sizes.append(xb.shape[0])
-        tot = torch.cat(tot).cpu().numpy()
-        recs = torch.cat(recs, dim=0).cpu().numpy()
-        cons, cons_active = (float(v) for v in consensus_device_both(
-            torch.cat(labels, dim=1), self.cfg.n_categories))
-        rec = np.average(recs, axis=0, weights=sizes)
+            with span("eval.batch"):
+                if kind == "chunk":
+                    aux, f = self._eval_runner(self.state, xb, temp, pb)
+                    tot.append(aux.total)
+                    recs.append(aux.loss_rec)
+                    labels.append(f.lab)
+                    sizes.extend([batch_size] * xb.shape[0])
+                else:
+                    aux, lab, _ = self._eval_step(self.state, xb, pb, temp)
+                    tot.append(aux.total[None])
+                    recs.append(aux.loss_rec[None])
+                    labels.append(lab)
+                    sizes.append(xb.shape[0])
+        with span("eval.drain"):
+            tot = torch.cat(tot).cpu().numpy()
+            recs = torch.cat(recs, dim=0).cpu().numpy()
+        with span("eval.finish"):
+            cons, cons_active = (float(v) for v in consensus_device_both(
+                torch.cat(labels, dim=1), self.cfg.n_categories))
+            rec = np.average(recs, axis=0, weights=sizes)
         return {"loss": float(np.average(tot, weights=sizes)),
                 "consensus": cons,
                 "consensus_active": cons_active,
                 **{f"rec_loss_arm{a}": float(rec[a])
                    for a in range(self.cfg.n_arm)}}
 
+    @spanned("eval")
     def eval_model(self, x, temp: float = 1.0, batch_size: int = 5000,
                    c_p=None) -> dict:
         """Batched no-grad inference over a dataset (reference
@@ -836,6 +847,11 @@ class CplMixVAE:
         (A,N,S), ``x_low`` (A,N,L), ``pred_label`` (A,N), the batch-size
         weighted ``total_loss`` and ``total_loss_rec`` (A,), the consensus
         over arms and the category ``mask`` — all numpy.
+
+        Spans: ``dvae.eval`` around the call, ``dvae.eval.batch`` a batch
+        or chunk enqueued, ``dvae.eval.drain`` each read of results (the
+        wait for the card and the copy into numpy), ``dvae.eval.finish``
+        the weighted averages and the consensus after the last read.
         """
         self._ensure_eval_fns()
         xd = self._eval_input(x)
@@ -853,26 +869,28 @@ class CplMixVAE:
                 d["dev"].clear()
 
         for kind, xb, pb in self._eval_batches(xd, batch_size, c_p):
-            if kind == "chunk":
-                aux, f = self._eval_runner(self.state, xb, temp, pb)
-                vals = f._asdict()
-                recs.append(aux.loss_rec)
-                totals.append(aux.total)
-                sizes.extend([batch_size] * xb.shape[0])
-            else:
-                aux, lab, outs = self._eval_step(self.state, xb, pb, temp)
-                vals = {"c": outs.c, "s_mean": outs.s_mean,
-                        "s_logvar": outs.s_logvar, "x_low": outs.x_low,
-                        "lab": lab}
-                recs.append(aux.loss_rec[None])
-                totals.append(aux.total[None])
-                sizes.append(xb.shape[0])
-            for k in keys:
-                fields[k]["dev"].append(vals[k])
-                pending += vals[k].numel() * vals[k].element_size()
+            with span("eval.batch"):
+                if kind == "chunk":
+                    aux, f = self._eval_runner(self.state, xb, temp, pb)
+                    vals = f._asdict()
+                    recs.append(aux.loss_rec)
+                    totals.append(aux.total)
+                    sizes.extend([batch_size] * xb.shape[0])
+                else:
+                    aux, lab, outs = self._eval_step(self.state, xb, pb, temp)
+                    vals = {"c": outs.c, "s_mean": outs.s_mean,
+                            "s_logvar": outs.s_logvar, "x_low": outs.x_low,
+                            "lab": lab}
+                    recs.append(aux.loss_rec[None])
+                    totals.append(aux.total[None])
+                    sizes.append(xb.shape[0])
+                for k in keys:
+                    fields[k]["dev"].append(vals[k])
+                    pending += vals[k].numel() * vals[k].element_size()
             if pending >= _EVAL_FLUSH_BYTES:
-                for d in fields.values():
-                    drain_field(d)
+                with span("eval.drain"):
+                    for d in fields.values():
+                        drain_field(d)
                 pending = 0
 
         def flush(key):
@@ -882,21 +900,22 @@ class CplMixVAE:
             return parts[0] if len(parts) == 1 else np.concatenate(parts,
                                                                    axis=1)
 
-        labels = flush("lab")
-        w = np.asarray(sizes, np.float64)
-        totals = torch.cat(totals).cpu().numpy()
-        recs = torch.cat(recs, dim=0).cpu().numpy()
-        return {
-            "c_prob": flush("c"),
-            "state_mu": flush("s_mean"),
-            "state_logvar": flush("s_logvar"),
-            "x_low": flush("x_low"),
-            "pred_label": labels,
-            "total_loss": float(np.average(totals, weights=w)),
-            "total_loss_rec": np.average(recs, axis=0, weights=w),
-            "consensus": consensus_from_labels(labels, self.cfg.n_categories),
-            "mask": self.state.mask.cpu().numpy(),
-        }
+        with span("eval.drain"):  # every read before the host finish
+            labels = flush("lab")
+            out = {"c_prob": flush("c"), "state_mu": flush("s_mean"),
+                   "state_logvar": flush("s_logvar"),
+                   "x_low": flush("x_low"), "pred_label": labels}
+            totals = torch.cat(totals).cpu().numpy()
+            recs = torch.cat(recs, dim=0).cpu().numpy()
+            mask = self.state.mask.cpu().numpy()
+        with span("eval.finish"):
+            w = np.asarray(sizes, np.float64)
+            out["total_loss"] = float(np.average(totals, weights=w))
+            out["total_loss_rec"] = np.average(recs, axis=0, weights=w)
+            out["consensus"] = consensus_from_labels(labels,
+                                                     self.cfg.n_categories)
+        out["mask"] = mask
+        return out
 
     # -- files of named arrays -----------------------------------------------
 

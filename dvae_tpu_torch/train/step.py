@@ -52,6 +52,7 @@ from dvae_tpu_torch.parallel.runtime import (all_gather, flat_all_reduce,
                                              flat_reduce_scatter, record_mark)
 from dvae_tpu_torch.parallel.sharding import (BATCH_AXES, Spmd, local_block,
                                               reshard, state_specs)
+from dvae_tpu_torch.utils.profiling import span, spanned
 
 
 # (x (B, D), n_arm, generator, draws) → (A, B, D) per-arm views: the frozen
@@ -139,12 +140,16 @@ def tree_like(tree, leaves):
 def value_and_grad(loss_fn, params):
     """(loss, aux, grads) of ``loss_fn(params) -> (loss, aux)`` by autograd;
     ``grads`` is a tree like ``params``, each leaf in its parameter's dtype,
-    zeros for a leaf the loss does not use.  ``params`` is not changed."""
+    zeros for a leaf the loss does not use.  ``params`` is not changed.
+    The forward and the backward are the spans ``dvae.step.forward`` and
+    ``dvae.step.backward`` of a profile."""
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
-        loss, aux = loss_fn(tree_like(params, live))
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        with span("step.forward"):
+            loss, aux = loss_fn(tree_like(params, live))
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
     return loss, aux, tree_like(params, [
         torch.zeros_like(p) if g is None else g.to(p.dtype)
         for g, p in zip(grads, leaves)])
@@ -596,16 +601,17 @@ def _make_mesh_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: "Adam",
                               compute_dtype, noise, generator, enc_seed,
                               spmd), params_c)
         del params_c
-        grads = _sync_grads(_mask_grads(grads, state.mask, cfg), cfg, spmd,
-                            specs)
-        new_bn = _sync_bn(new_bn, cfg, spmd)
-        with torch.no_grad():
-            opt_state = _mesh_update(opt, grads, state, specs, mesh)
-            _mask_params(state.params, state.mask, cfg, inplace=True,
-                         local=local)
-        metrics = StepMetrics(*(v.detach().float() for v in (
-            aux.total, aux.loss_rec, aux.loss_joint, aux.neg_entropy,
-            aux.c_dist, aux.c_l2_dist, aux.kl)))
+        with span("step.update"):
+            grads = _sync_grads(_mask_grads(grads, state.mask, cfg), cfg,
+                                spmd, specs)
+            new_bn = _sync_bn(new_bn, cfg, spmd)
+            with torch.no_grad():
+                opt_state = _mesh_update(opt, grads, state, specs, mesh)
+                _mask_params(state.params, state.mask, cfg, inplace=True,
+                             local=local)
+            metrics = StepMetrics(*(v.detach().float() for v in (
+                aux.total, aux.loss_rec, aux.loss_joint, aux.neg_entropy,
+                aux.c_dist, aux.c_l2_dist, aux.kl)))
         return (state._replace(bn=new_bn, opt_state=opt_state), metrics,
                 labels)
 
@@ -643,13 +649,14 @@ def make_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
             lambda p: loss_fn(p, state.bn, cfg, x, temp, state.mask, prior_c,
                               compute_dtype, noise, generator, enc_seed),
             state.params)
-        grads = _mask_grads(grads, state.mask, cfg)
-        with torch.no_grad():
-            opt_state = opt.update(grads, state.opt_state, state.params)
-            _mask_params(state.params, state.mask, cfg, inplace=True)
-        metrics = StepMetrics(*(v.detach().float() for v in (
-            aux.total, aux.loss_rec, aux.loss_joint, aux.neg_entropy,
-            aux.c_dist, aux.c_l2_dist, aux.kl)))
+        with span("step.update"):
+            grads = _mask_grads(grads, state.mask, cfg)
+            with torch.no_grad():
+                opt_state = opt.update(grads, state.opt_state, state.params)
+                _mask_params(state.params, state.mask, cfg, inplace=True)
+            metrics = StepMetrics(*(v.detach().float() for v in (
+                aux.total, aux.loss_rec, aux.loss_joint, aux.neg_entropy,
+                aux.c_dist, aux.c_l2_dist, aux.kl)))
         return (state._replace(bn=new_bn, opt_state=opt_state), metrics,
                 labels)
 
@@ -711,6 +718,7 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
     n_blocks = n_train // sb
     A, K = cfg.n_arm, cfg.n_categories
 
+    @spanned("runner")
     def run_epochs(state: TrainState, x_all, prior_all, temp):
         dev = x_all.device
         gen, host = chunk_rngs(state.seed, state.epoch, dev)
@@ -733,8 +741,10 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                 noise = (mixvae.Noise(gumbel_seed=int(
                     host.integers(0, 2 ** 31 - 1)))
                     if cfg.use_pallas else None)
-                state, m, lab = step_fn(state, x, prior, temp, generator=gen,
-                                        enc_seed=enc_seed, noise=noise)
+                with span("step"):
+                    state, m, lab = step_fn(state, x, prior, temp,
+                                            generator=gen, enc_seed=enc_seed,
+                                            noise=noise)
                 record_mark("step")  # the census's step boundary
                 if spmd is None:
                     labels[:, s * B:(s + 1) * B] = lab
@@ -742,15 +752,16 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                     labels.append(lab)
                 ms.append(m)
             del x, prior  # the last batch need not outlive the epoch
-            if consensus_every_epoch or i == E - 1:
-                if spmd is not None:  # (A_l, steps, B_l) → (A, steps·B)
-                    labels = _gather_rows_arms(
-                        torch.stack(labels, dim=1), spmd, 2).reshape(
-                            A, n_used)
-                cons = consensus_device(labels, K)
-            else:
-                cons = torch.full((), -1.0, device=dev)
-            per_epoch.append(epoch_metrics(ms, cons))
+            with span("runner.epoch_end"):
+                if consensus_every_epoch or i == E - 1:
+                    if spmd is not None:  # (A_l, steps, B_l) → (A, S·B)
+                        labels = _gather_rows_arms(
+                            torch.stack(labels, dim=1), spmd, 2).reshape(
+                                A, n_used)
+                    cons = consensus_device(labels, K)
+                else:
+                    cons = torch.full((), -1.0, device=dev)
+                per_epoch.append(epoch_metrics(ms, cons))
             state = state._replace(epoch=state.epoch + 1)
         return state, EpochMetrics(*(torch.stack(v)
                                      for v in zip(*per_epoch)))

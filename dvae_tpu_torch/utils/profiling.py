@@ -4,18 +4,44 @@ Counterpart of dvae_tpu/utils/profiling.py (the reference's profiling kit,
 dist/fsdp.py:44-80 and fsdp_mnist.py:401-452):
   * ``profile_run`` — ``torch.profiler`` around a block, written as a
     Chrome trace (``*.pt.trace.json``) under ``trace_dir``;
+  * ``span`` — the program's own named ranges (``dvae.*``) at its layer
+    boundaries, recorded by that profiler on the clock of its kernels;
+    ``spanned``, the same around every call of a function;
   * ``trace_total_device_ms`` — the device time of such traces (kernels,
-    copies, memsets), in place of ``xplane_total_device_ms``, which reads
-    XProf's ``.xplane.pb`` and has no counterpart here;
+    copies, memsets); it takes the place of the JAX package's XProf
+    readers (``xplane_total_device_ms``, ``op_profile_total_ps``), whose
+    files torch never writes;
   * ``memory_snapshot`` — ``torch.cuda.memory_stats`` of every card (JSON);
-  * ``StepTimer`` — wall-clock steps that wait for the card;
-  * ``op_profile_total_ps`` — a copy of the JAX function (pure Python over
-    an XProf op_profile tree), for trees made elsewhere.
+  * ``StepTimer`` — wall-clock steps that wait for the card.
+
+Tracing a run: wrap the calls in ``profile_run`` and open the written
+trace in Perfetto (ui.perfetto.dev, "Open trace file")::
+
+    with profile_run("profiles/"):
+        model.train(x_train, x_val, n_epoch=10)   # or model.eval_model(x)
+
+Beside the kernels, the host row then shows the span tree:
+
+  * training: ``dvae.runner`` (one chunk of epochs) → ``dvae.step`` (the
+    host's enqueue of one step) → ``dvae.step.forward``,
+    ``dvae.step.backward`` (autograd), ``dvae.step.update`` (gradient
+    mask, Adam, parameter mask); ``dvae.runner.epoch_end`` (the epoch's
+    consensus and metrics); ``dvae.validate``; ``dvae.checkpoint``;
+  * eval (``validate``, ``eval_model``, ``_predict_labels``):
+    ``dvae.eval`` (one ``eval_model`` call) → ``dvae.eval.batch`` (the
+    enqueue of a chunk or batch), ``dvae.eval.drain`` (a device→host read
+    of results: the wait for the card and the copy), ``dvae.eval.finish``
+    (host work after the last read).
+
+A gap in the device row lies inside the spans that held the host then.
+Without an active profiler ``span`` returns one shared null context:
+no flag turns the spans on, and they never touch the card.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import glob
 import json
 import os
@@ -30,6 +56,30 @@ import torch
 # calls, CPU operators and gpu_user_annotation ranges (which enclose
 # kernels) are not device time
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_PREFIX = "dvae."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range ``dvae.<name>`` of the active ``torch.profiler`` (the test
+    torch itself makes, ``torch.autograd._profiler_enabled``); without
+    one, the same null context on every call, which costs a function call
+    and that test.  It touches no tensor and never synchronises."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """A decorator: every call of the function runs inside ``span(name)``
+    (the span for a whole call; ``with span(...)`` marks a part of one)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 class TraceDir(str):
@@ -75,7 +125,9 @@ def trace_total_device_ms(trace_dir: str) -> float:
     ``*.pt.trace.json`` files, recursively.  0.0 for traces without device
     events (a CPU run); ``FileNotFoundError`` when there is no trace.  It
     reads what ``key_averages()``'s device self times sum over the same
-    profile."""
+    profile once its user annotations are left out: a ``record_function``
+    range (``span``) is a CUDA row there whose self time is the whole
+    range, as torch's own table knows (``is_user_annotation``)."""
     files = glob.glob(os.path.join(trace_dir, "**", "*.pt.trace.json"),
                       recursive=True)
     if not files:
@@ -88,38 +140,6 @@ def trace_total_device_ms(trace_dir: str) -> float:
                         if e.get("ph") == "X"
                         and e.get("cat") in DEVICE_CATEGORIES)
     return total_us / 1e3
-
-
-def xplane_total_device_ms(trace_dir: str) -> float:
-    """XProf's ``.xplane.pb`` exists only under JAX; the port's traces are
-    Chrome traces."""
-    raise NotImplementedError(
-        "xplane_total_device_ms reads XProf traces, which torch does not "
-        "write; use trace_total_device_ms on a profile_run directory")
-
-
-def op_profile_total_ps(tree: dict) -> int:
-    """Total device time (picoseconds) of a parsed XProf op_profile tree.
-
-    Sum EXACTLY the op level (byProgram root → program → category → op =
-    depth 3) and never descend past it: op-group nodes ("X and its
-    duplicate(s)") hold the inclusive time of their depth-4 children, and
-    fusion nodes hold all their time themselves with zero-rawTime
-    instruction children.  IDLE branches are not device work."""
-    total_ps = 0
-
-    def walk(node, depth):
-        nonlocal total_ps
-        if "idle" in str(node.get("name", "")).lower():
-            return
-        if depth >= 3:
-            total_ps += node.get("metrics", {}).get("rawTime", 0)
-            return
-        for ch in node.get("children", []):
-            walk(ch, depth + 1)
-
-    walk(tree.get("byProgram", tree), 0)
-    return total_ps
 
 
 def memory_snapshot(path: Optional[str] = None) -> dict:

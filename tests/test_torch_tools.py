@@ -3,9 +3,9 @@
 host metrics, and ``gather_rows``' ``n_threads``), ``utils/profiling.py``,
 ``utils/parser.py`` and ``utils/backend_probe.py``.
 
-Mirrored: ``tests/test_profiling.py``, the ``StepTimer``,
-``memory_snapshot`` and parser cases of ``tests/test_api_utils.py`` and
-``tests/test_analysis_extras.py``, the ``synthetic_h5ad`` case of
+Mirrored: the ``StepTimer``, ``memory_snapshot`` and parser cases of
+``tests/test_api_utils.py`` and ``tests/test_analysis_extras.py``, the
+``synthetic_h5ad`` case of
 ``tests/test_pipeline.py`` and the probe cases of
 ``tests/test_backend_guard.py`` that do not run ``bench.py`` (each under a
 private ``DVAE_PROBE_PIDFILE`` and temporary directory).  Tolerances: the
@@ -34,7 +34,6 @@ from dvae_tpu.eval import evaluate as jev
 from dvae_tpu.eval import metrics as jmetrics
 from dvae_tpu.utils import host_ops as jho
 from dvae_tpu.utils import parser as jparser
-from dvae_tpu.utils import profiling as jprof
 
 from dvae_tpu_torch.data import anndata_io as tio
 from dvae_tpu_torch.data import prep as tprep
@@ -334,66 +333,6 @@ def test_prepare_dataset_roundtrip(tmp_path):
 # Profiling
 # ---------------------------------------------------------------------------
 
-def _node(name, raw, children=()):
-    return {"name": name, "metrics": {"rawTime": raw},
-            "children": list(children)}
-
-
-def _tree(categories):
-    return {"byProgram": _node("root", 0, [
-        _node("program jit_run", 0, categories)])}
-
-
-OP_TREES = {
-    "flat": _tree([_node("convolution", 30, [
-        _node("dot.1", 20), _node("dot.2", 10)])]),
-    "duplicates": _tree([_node("copy", 30, [
-        _node("copy.15 and its duplicate(s)", 30, [
-            _node("copy.15", 18), _node("copy.99", 12)])])]),
-    "fusion": _tree([_node("output fusion", 400, [
-        _node("fusion.777", 400, [
-            _node("fused.multiply", 0), _node("fused.add", 0)])])]),
-    "mixed": _tree([
-        _node("output fusion", 500, [
-            _node("fusion.1", 390, [_node("i.a", 0), _node("i.b", 0)]),
-            _node("fusion.2 and its duplicate(s)", 110,
-                  [_node("fusion.2", 60), _node("fusion.3", 50)])]),
-        _node("non-fusion elementwise", 70, [
-            _node("neg.8 and its duplicate(s)", 70,
-                  [_node("neg.8", 40), _node("neg.9", 30)])])]),
-    "idle": _tree([_node("IDLE", 999, [_node("idle.0", 999)]),
-                   _node("convolution", 25, [_node("dot.1", 25)])]),
-    "no_byprogram": _node("root", 0, [_node("prog", 0, [
-        _node("cat", 7, [_node("op.1", 7)])])]),
-}
-OP_TOTALS = {"flat": 30, "duplicates": 30, "fusion": 400,
-             "mixed": 390 + 110 + 70, "idle": 25, "no_byprogram": 7}
-
-
-@pytest.mark.parametrize("name", sorted(OP_TREES))
-def test_op_profile_total_ps(name):
-    """tests/test_profiling.py's trees on the port, against JAX."""
-    tree = OP_TREES[name]
-    assert tprof.op_profile_total_ps(tree) == OP_TOTALS[name]
-    assert tprof.op_profile_total_ps(tree) == jprof.op_profile_total_ps(tree)
-
-
-_names = st.sampled_from(["op", "fusion.1", "IDLE", "idle.3", "copy x",
-                          "dot"])
-_op_nodes = st.recursive(
-    st.builds(_node, _names, st.integers(0, 10 ** 6)),
-    lambda kids: st.builds(_node, _names, st.integers(0, 10 ** 6),
-                           st.lists(kids, max_size=4)),
-    max_leaves=30)
-
-
-@settings(max_examples=60, deadline=None)
-@given(_op_nodes, st.booleans())
-def test_op_profile_total_ps_random_trees(root, wrap):
-    tree = {"byProgram": root} if wrap else root
-    assert tprof.op_profile_total_ps(tree) == jprof.op_profile_total_ps(tree)
-
-
 def _write_trace(path, events):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
@@ -430,8 +369,6 @@ def test_trace_total_device_ms_sums_device_events(tmp_path):
 def test_trace_total_device_ms_without_a_trace(tmp_path):
     with pytest.raises(FileNotFoundError):
         tprof.trace_total_device_ms(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="trace_total_device_ms"):
-        tprof.xplane_total_device_ms(str(tmp_path))
 
 
 def test_profile_run_on_the_cpu(tmp_path, capsys):
