@@ -67,7 +67,6 @@
 // padding in the workspace and masked in the epilogue: they contribute
 // exactly 0.
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver library linked
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -577,39 +576,12 @@ int prep(const T* src, long long arm, long long ld_row, long long ld_k,
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (so the library needs no -lcuda); nullptr where the driver lacks it.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The map of x as a 2-D tensor (rows: B, or A * B for per-arm x; D
 // columns) read in boxes of 128 rows x XP columns, so that a staged x tile
 // keeps the pitch XP; 0 or a CUDA error.
 template <typename T>
 int x_tensor_map(CUtensorMap* m, const T* x, long long rows, int D) {
-  EncodeTiled enc = encode_tiled();
+  wg::EncodeTiled enc = wg::encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   const cuuint64_t dim[2] = {(cuuint64_t)D, (cuuint64_t)rows};
   const cuuint64_t stride[1] = {(cuuint64_t)D * sizeof(T)};

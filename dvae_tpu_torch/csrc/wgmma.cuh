@@ -1,9 +1,11 @@
 // Hopper's warpgroup products and bulk copies, for the port's kernels that
-// run `wgmma` (recon_fwd.cu).  Device code only; sm_90a.
+// run `wgmma` (recon_fwd.cu, zinb_fwdbwd.cu's column pass).  Device code,
+// and the host's entry to the driver's tensor-map encoder; sm_90a.
 //
 // wgmma: four warps (a warpgroup, 128 threads) issue one asynchronous
-// product D (64 x N, f32, in registers) += A (64 x K) B (K x N), both
-// operands read from shared memory through 64-bit matrix descriptors.
+// product D (64 x N, f32, in registers) += A (64 x K) B (K x N), B read
+// from shared memory through a 64-bit matrix descriptor, A too (`mma_tf32`,
+// `mma_bf16`) or from registers (`mma_*_rs`).
 // The layout used here is the one without swizzle: an operand tile of R
 // rows (M for A, N for B) and K columns, K-major, is stored as "core
 // matrices" of 8 rows x 16 bytes, each 128 contiguous bytes, in the order
@@ -19,7 +21,12 @@
 // Accumulator fragment of m64nNk*, thread = 128-thread index in the
 // warpgroup, w = thread / 32, lane = 4 g + t: d[i] holds row 16 w + g +
 // 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + (i % 2) (PTX ISA, "wgmma
-// register fragment D").
+// register fragment D").  An A fragment in registers is mma.sync's A
+// fragment (mma.cuh) of the warp's 16 rows 16 w..: tf32 a0 (g, t), a1
+// (g+8, t), a2 (g, t+4), a3 (g+8, t+4); bf16 pairs (g, 2t..2t+1), (g+8,
+// 2t..), (g, 2t+8..), (g+8, 2t+8..).  The registers of A and D belong to
+// the product until a wait covers it: ptxas keeps them so (and says so
+// where it has to serialise the products instead).
 //
 // Bulk copies: one thread asks the copy engine for a contiguous run of
 // bytes (16-byte aligned, a multiple of 16), or for a box of a tensor
@@ -29,6 +36,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver library linked
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -148,9 +156,10 @@ __device__ __forceinline__ void wait() {
 
 // Keeps the compiler from moving reads or writes of an accumulator across
 // this point (the products write it behind the compiler's back).
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d += A B, m64n64k8, tf32 operands from shared memory.
@@ -199,6 +208,105 @@ __device__ __forceinline__ void mma_bf16(float (&d)[32], uint64_t a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));  // scale-d: accumulate
+}
+
+
+// d (+)= A B, m64n104k8, tf32: A from registers (4 a thread: the tf32 bits
+// of the fragment above), B from shared memory; scale_d 0 starts the sum
+// from zero.
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[52],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (+)= A B, m64n104k16, bf16: A from registers (4 pairs a thread), B from
+// shared memory, K-major; scale_d 0 starts the sum from zero.
+__device__ __forceinline__ void mma_bf16_rs(float (&d)[52],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// ---- tensor maps (host) --------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (so the library needs no -lcuda); nullptr where the driver lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace wg

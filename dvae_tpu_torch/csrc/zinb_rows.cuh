@@ -13,7 +13,11 @@
 // accumulators as A fragments (for tf32 the k order of a step is permuted
 // to (0,2,4,6,1,3,5,7) on both sides, so that the accumulator layout is the
 // A layout), dh kept in registers for the walk and left as one partial per
-// slice of D.
+// slice of D.  FT > 0 also stores the three cotangents, f32 and unrounded,
+// for zinb_fwdbwd.cu's column pass: transposed, g[(head * A + a) * D +
+// d][b] in rows of a pitch of B rounded up to 4 (rows b in [B, pitch)
+// hold zeros), with streaming stores (each g is read once, by the other
+// pass, long after).
 //
 // FT = 0 is the value-only form: no dh accumulators, no cotangents, no dh
 // product, so the y products and the element math keep the 128 registers
@@ -32,15 +36,16 @@
 // card.
 //
 // F up to FP (128) runs the forms above.  A wider F runs the wide form
-// (template flag WIDE; zinb_fwdbwd.cu's max_f gives the limit its shared
-// memory sets), which walks F in chunks of KC = 128: the h tile stays
-// resident, a step is NK = ceil(F/128) stages of the three heads' W rows
-// (y summed over every chunk in the runs of one long K), then one more
-// stage of x and, in the training form, the W rows of the block's own
-// chunk of dh; a ring of two stages in both forms.  The grid's z axis is
-// (chunk of dh, slice of D); each block recomputes y, and chunk 0 writes
-// the loss partials, so the value-only loss still equals the training
-// kernel's bit for bit.
+// (template flag WIDE; `max_f_rows` gives the limit its shared memory
+// sets, the training kernels' too), which walks F in chunks of KC = 128:
+// the h tile stays resident, a step is NK = ceil(F/128) stages of the
+// three heads' W rows (y summed over every chunk in the runs of one long
+// K), then one more stage of x and, in the training form, the W rows of
+// the block's own chunk of dh; a ring of two stages in both forms.  The
+// grid's z axis is (chunk of dh, slice of D); each block recomputes y,
+// and chunk 0 writes the loss partials, so the value-only loss still
+// equals the training kernel's bit for bit; in the training form chunk 0
+// also stores the cotangents (every chunk computes the same ones).
 
 #pragma once
 
@@ -65,9 +70,6 @@ struct Cfg<float> {
   static constexpr int LDW1 = 8;  // pitches of the pass-1 W and x tiles
   static constexpr int LDX1 = 8;
   static constexpr int HPAD = 4;  // h tile pitch = padded F + HPAD
-  // pass 2 keeps the cotangents split, {hi, lo} pairs (GELEM floats each)
-  static constexpr int LDW2 = 40, LDX2 = 36, LDG2 = 34, GELEM = 2;
-  static constexpr int STAGES2 = 2;
 };
 template <>
 struct Cfg<__nv_bfloat16> {
@@ -76,8 +78,6 @@ struct Cfg<__nv_bfloat16> {
   static constexpr int LDW1 = 24;
   static constexpr int LDX1 = 24;
   static constexpr int HPAD = 8;
-  static constexpr int LDW2 = 40, LDX2 = 40, LDG2 = 40, GELEM = 1;
-  static constexpr int STAGES2 = 3;
 };
 // The pitches keep every fragment load of a warp on 32 distinct banks (or
 // 8 distinct 16-byte groups for ldmatrix).
@@ -139,13 +139,17 @@ size_t smem_rows(int F, bool dh, bool wide = false) {
 
 // Where the dh partial of slice s goes: slice 0 into dh itself, the next
 // `n_in_dw` into the dW buffer (pass 2 overwrites it afterwards), the rest
-// into the spill buffer.
+// into the spill buffer; and where the training form stores the
+// cotangents (see the note at the top).
 struct Partials {
   float* dh;
   float* in_dw;
   float* spill;
   long long stride;  // A * B * F
   int n_in_dw;
+  float* g;
+  long long g_pitch;  // floats a row of g: B rounded up to 4
+  long long g_head;   // A * D * g_pitch: one head's cotangents
   __device__ float* part(int s) const {
     if (s == 0) return dh;
     s -= 1;
@@ -332,6 +336,9 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
           for (int hd = 0; hd < 3; ++hd)
             bias[hd] = to_f32(heads.b[hd][(long long)a * D + col]);
         }
+        float* gcol = nullptr;  // the column's row of stored cotangents
+        if constexpr (DH)
+          gcol = dhp.g + ((long long)a * D + col) * dhp.g_pitch + m0;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int rl = r0 + gq + 8 * half;
@@ -344,6 +351,13 @@ zinb_rows(const T* __restrict__ h, Heads<T> heads, const T* __restrict__ x,
                 loss, g_r, g_p, g_z);
           }
           if (LOSS) s += loss;
+          if constexpr (DH) {
+            if (fc == 0 && col_ok && m0 + rl < dhp.g_pitch) {
+              __stcs(gcol + rl, g_r);
+              __stcs(gcol + rl + dhp.g_head, g_p);
+              __stcs(gcol + rl + 2 * dhp.g_head, g_z);
+            }
+          }
           acc[0][jj][i] = g_r;
           acc[1][jj][i] = g_p;
           acc[2][jj][i] = g_z;
@@ -528,7 +542,7 @@ RowPlan plan(int A, int B, int D) {
 
 // The shapes the row pass takes: the grid's limits, and F up to max_f (the
 // wide form's chunks of dh on the grid's z axis with the slices).  max_f
-// is the row pass's limit; zinb_fwdbwd.cu adds its column pass's.
+// is the row pass's limit; zinb_fwdbwd.cu's column pass takes any F.
 inline bool shape_ok(int A, int B, int F, int D, int max_f) {
   return F >= 1 && F <= max_f && A >= 1 && A <= 65535 && B >= 1 &&
          B <= 0x7fffffff - BM1 && D >= 1;

@@ -1,7 +1,8 @@
 """Fused three-head ZINB loss: the decoder's three output layers (NB rate,
 success probability, zero inflation) and the zero-inflated negative-
 binomial reconstruction loss, forward and backward, without materialising
-any (A, B, D) tensor.
+the pre-activations or r, p, z (the training kernel keeps the three
+cotangents, in a workspace, for its column pass).
 
 Counterpart of dvae_tpu/ops/zinb_pallas.py.  Per arm a,
 
@@ -23,11 +24,16 @@ bound and its design:
     by ``fused_zinb.launches``;
   * ``csrc/zinb_fwdbwd.cu`` — the training forward with the unscaled
     gradients in the same call (``_fwdbwd_kernel``, zinb_pallas.py:450),
-    its products on the tensor cores (bf16, or 3xTF32 for f32 operands);
-    launched by ``zinb_fwdbwd``, counted by ``zinb_fwdbwd.launches``;
+    its products on the tensor cores (bf16, or 3xTF32 for f32 operands):
+    the row pass stores the three cotangents in a workspace, and the column
+    pass forms dW and db from them as a ``wgmma`` product over B; launched
+    by ``zinb_fwdbwd``, counted by ``zinb_fwdbwd.launches`` (the column
+    pass by ``zinb_fwdbwd.wgmma_launches``); ``fwdbwd_plan`` is the
+    launch's plan and workspace, as the library computes them;
   * the same source's separate backward for a given per-arm cotangent
-    (``_bwd_kernel``, zinb_pallas.py:338); launched by ``zinb_bwd``,
-    counted by ``zinb_bwd.launches``.
+    (``_bwd_kernel``, zinb_pallas.py:338), through the same two passes;
+    launched by ``zinb_bwd``, counted by ``zinb_bwd.launches`` and
+    ``zinb_bwd.wgmma_launches``.
 
 CUDA has no ``digamma`` and the kernels need lnΓ and ψ only as
 differences, so ``lgamma``, ``digamma`` and ``_lgdg_diff`` below are the
@@ -301,12 +307,108 @@ def _lib_fwdbwd() -> ctypes.CDLL:
             fn.argtypes = ([ctypes.c_void_p] + _HEAD_ARGTYPES
                            + [ctypes.c_void_p] * 5)
             fn.restype = ctypes.c_int
-        lib.zinb_fwdbwd_workspace.argtypes = [ctypes.c_int] * 5
-        lib.zinb_fwdbwd_workspace.restype = ctypes.c_longlong
+        lib.zinb_fwdbwd_workspace_bytes.argtypes = [ctypes.c_int] * 5
+        lib.zinb_fwdbwd_workspace_bytes.restype = ctypes.c_longlong
+        lib.zinb_fwdbwd_plan.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.zinb_fwdbwd_plan.restype = ctypes.c_int
         lib.zinb_fwdbwd_max_f.argtypes = [ctypes.c_int]
         lib.zinb_fwdbwd_max_f.restype = ctypes.c_int
         lib._dvae_bound = True
     return lib
+
+
+# ---------------------------------------------------------------------------
+# The training kernel's plan (csrc/zinb_rows.cuh `plan`, csrc/zinb_fwdbwd.cu
+# `col_plan`, `layout`), from the shape alone
+# ---------------------------------------------------------------------------
+
+_KS = {torch.float32: 8, torch.bfloat16: 16}        # k of one mma
+_HPAD = {torch.float32: 4, torch.bfloat16: 8}       # h tile pitch - F
+_LD1 = {torch.float32: 8, torch.bfloat16: 24}       # pass-1 W and x pitches
+_FP = _KC = 128           # widest resident F; the wide row pass's chunk
+_SMEM_MAX = 232_448       # dynamic shared memory a block may take
+_PLAN_SLOTS = 132 * 4     # an H100's SMs at four row blocks an SM
+_NT, _KB, _TM = 104, 32, 64  # pass 2: hidden units, rows of B, columns
+_COLS_SMEM = 225 * 1024
+# the library's plan vector, in its order
+PLAN_KEYS = ("form", "n_split", "cols_per_split", "row_tiles", "n_in_dw",
+             "n_spill", "pitch", "k_chunks", "n_ranges", "stages", "smem",
+             "spill_offset", "g_offset", "ht_offset", "bytes")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _smem_rows(F: int, dtype) -> int:
+    """Shared memory of the training row pass at hidden width F."""
+    item, ks = (4 if dtype == torch.float32 else 2), _KS[dtype]
+    fk = _cdiv(F, ks) * ks
+    stage_rows = _KC if F > _FP else fk
+    return item * (64 * (fk + _HPAD[dtype])
+                   + 2 * (3 * stage_rows * _LD1[dtype] + 64 * _LD1[dtype]))
+
+
+def fwdbwd_max_f(dtype) -> int:
+    """The widest F the training kernels take (``zinb_fwdbwd_max_f``):
+    the row pass's wide form while its resident h tile fits a block; the
+    column pass takes any F."""
+    f, ks = _FP, _KS[dtype]
+    while _smem_rows(f + ks, dtype) + 64 <= _SMEM_MAX:
+        f += ks
+    return f
+
+
+def fwdbwd_plan(A: int, B: int, F: int, D: int, dtype) -> dict:
+    """The training kernels' plan of the shape, as ``zinb_fwdbwd_plan``
+    gives it (``PLAN_KEYS``): the row pass's form (13 or 16 tiles of 8
+    hidden units, "wide" past 128) and its slices of D with the dh
+    partials they leave; the column pass's stored cotangents (rows of B
+    rounded up to 4 floats), its chunks of 32 rows of B, ranges of 104
+    hidden units, ring stages and shared memory; the workspace's byte
+    offsets and size.  Raises ValueError for a shape the kernels refuse."""
+    if dtype not in _KS:
+        raise ValueError(f"no ZINB training kernel for {dtype}")
+    limit = fwdbwd_max_f(dtype)
+    _check_width(F, limit, dtype, "the row pass's resident (64, F) tile of h")
+    if (F < 1 or not 1 <= A <= 65535 or not 1 <= B <= 0x7FFFFFFF - 64
+            or D < 1 or 3 * A * D > 0x7FFFFFFF - _TM):
+        raise ValueError(f"zinb_fwdbwd refuses the shape A={A}, B={B}, "
+                         f"F={F}, D={D}")
+    item = 4 if dtype == torch.float32 else 2
+    bn1 = _KS[dtype]
+    row_tiles = _cdiv(B, 64)
+    chunks = _cdiv(D, bn1)
+    cap = (3 * D) // B           # dh partials the dW buffer has room for
+    best, n_split = -1.0, 1
+    for n in range(1, min(8, chunks) + 1):
+        if n - 1 - cap > 2:
+            break
+        blocks = row_tiles * A * n
+        eff = blocks / (_cdiv(blocks, _PLAN_SLOTS) * _PLAN_SLOTS)
+        if eff > best + 1e-9:
+            best, n_split = eff, n
+    n_in_dw = min(cap, n_split - 1)
+    planes = 2 if dtype == torch.float32 else 1
+    stage = _cdiv(3 * _TM * _KB * 4 + planes * _NT * _KB * item, 1024) * 1024
+    stages = min(6, (_COLS_SMEM - 1024) // stage)
+    pitch = _cdiv(B, 4) * 4
+    k_chunks, n_ranges = _cdiv(B, _KB), _cdiv(F, _NT)
+    a256 = lambda n: _cdiv(n, 256) * 256  # noqa: E731
+    spill = a256(A * row_tiles * n_split * 4)
+    g = spill + a256((n_split - 1 - n_in_dw) * A * B * F * 4)
+    ht = g + a256(3 * A * D * pitch * 4)
+    return {"form": 13 if F <= 104 else 16 if F <= _FP else "wide",
+            "n_split": n_split,
+            "cols_per_split": _cdiv(chunks, n_split) * bn1,
+            "row_tiles": row_tiles, "n_in_dw": n_in_dw,
+            "n_spill": n_split - 1 - n_in_dw, "pitch": pitch,
+            "k_chunks": k_chunks, "n_ranges": n_ranges, "stages": stages,
+            "smem": 1024 + stages * stage, "spill_offset": spill,
+            "g_offset": g, "ht_offset": ht,
+            "bytes": ht + a256(A * k_chunks * n_ranges * planes * _NT * _KB
+                               * item)}
 
 
 def _check_width(F: int, limit: int, dtype, what: str) -> None:
@@ -332,17 +434,18 @@ def _kernel_args(tensors, A, B, F, D, eps):
 
 
 def _grad_buffers(lib, dtype, A, B, F, D, dev):
-    """dh, dW, db and the launch's scratch: the loss partials and any dh
-    partials of the row pass beyond the room the dW buffer lends it (none
-    at the production shape)."""
-    _check_width(F, int(lib.zinb_fwdbwd_max_f(int(dtype == torch.bfloat16))),
-                 dtype, "the column pass's three resident (F, 16) tiles of W")
-    n_work = int(lib.zinb_fwdbwd_workspace(int(dtype == torch.bfloat16),
-                                           A, B, F, D))
-    if n_work < 0:
-        raise RuntimeError(f"zinb_fwdbwd refuses the shape A={A}, B={B}, "
-                           f"F={F}, D={D}")
-    work = torch.empty(n_work, device=dev, dtype=torch.float32)
+    """dh, dW, db and the launch's workspace (``fwdbwd_plan``): the loss
+    partials, any dh partials of the row pass beyond the room the dW buffer
+    lends it (none at the production shape), the stored cotangents and the
+    column pass's prepared hᵀ."""
+    n_work = fwdbwd_plan(A, B, F, D, dtype)["bytes"]
+    lib_bytes = int(lib.zinb_fwdbwd_workspace_bytes(
+        int(dtype == torch.bfloat16), A, B, F, D))
+    if lib_bytes != n_work:
+        raise RuntimeError(f"zinb_fwdbwd's library plans {lib_bytes} bytes "
+                           f"of workspace for A={A}, B={B}, F={F}, D={D}, "
+                           f"the wrapper {n_work}")
+    work = torch.empty(n_work, device=dev, dtype=torch.uint8)
     dh = torch.empty((A, B, F), device=dev, dtype=torch.float32)
     dw = torch.empty((3, A, F, D), device=dev, dtype=torch.float32)
     db = torch.empty((3, A, D), device=dev, dtype=torch.float32)
@@ -425,10 +528,12 @@ def zinb_fwdbwd(h, w_r, b_r, w_p, b_p, w_z, b_z, x, eps: float = 1e-6):
         raise RuntimeError(
             f"zinb_fwdbwd kernel launch failed: CUDA error {err}")
     zinb_fwdbwd.launches += 1
+    zinb_fwdbwd.wgmma_launches += 1
     return loss, dh, (dw[0], db[0]), (dw[1], db[1]), (dw[2], db[2])
 
 
 zinb_fwdbwd.launches = 0
+zinb_fwdbwd.wgmma_launches = 0   # of the column pass on wgmma
 
 
 def zinb_bwd(g, h, heads, x, eps: float = 1e-6):
@@ -457,10 +562,12 @@ def zinb_bwd(g, h, heads, x, eps: float = 1e-6):
     if err != 0:
         raise RuntimeError(f"zinb_bwd kernel launch failed: CUDA error {err}")
     zinb_bwd.launches += 1
+    zinb_bwd.wgmma_launches += 1
     return dh, (dw[0], db[0]), (dw[1], db[1]), (dw[2], db[2])
 
 
 zinb_bwd.launches = 0
+zinb_bwd.wgmma_launches = 0
 
 
 class _FusedZINB(torch.autograd.Function):

@@ -355,6 +355,8 @@ def test_wrappers_check_their_operands():
         trecon.recon_bwd(torch.ones(5), t[0], t[1], t[2], t[7])
     assert tzinb.fused_zinb.launches == 0 and tzinb.zinb_fwdbwd.launches == 0
     assert tzinb.zinb_bwd.launches == 0 and trecon.recon_bwd.launches == 0
+    assert tzinb.zinb_fwdbwd.wgmma_launches == tzinb.zinb_bwd.wgmma_launches \
+        == 0
 
 
 # ---------------------------------------------------------------------------
@@ -417,29 +419,39 @@ def _tile_operands(which, seed=5):
     """Production-like operands of one tile product of kernel #7: h ∈
     [0, 1) with exact zeros, head weights in ±0.1 (the smoke run's), and
     cotangents over five decades of both signs (ψ(r) ≈ −1/r makes tiny
-    rates large)."""
+    rates large); the column pass's product at its production depth, B =
+    5000, and width, 104 hidden units (F = 100 and four columns of zeros)."""
     r = np.random.default_rng(seed)
+    if which == "dW^T = g^T h (K=5000)":
+        h = r.random((5000, 104), dtype=np.float32)
+        h[::7] = 0.0
+        h[:, 100:] = 0.0
+        g = (r.standard_normal((64, 5000))
+             * 10.0 ** r.uniform(-3, 2, (64, 5000))).astype(np.float32)
+        return g, h
     h = r.random((64, 100), dtype=np.float32)
     h[::7] = 0.0
     w = ((r.random((100, 64), dtype=np.float32) - 0.5) * 0.2)
     g = (r.standard_normal((64, 64))
          * 10.0 ** r.uniform(-3, 2, (64, 64))).astype(np.float32)
     return {"y = h W (K=100)": (h, w),
-            "dh = g W^T (K=64)": (g, w.T.copy()),
-            "dW = h^T g (K=64)": (h.T.copy(), g)}[which]
+            "dh = g W^T (K=64)": (g, w.T.copy())}[which]
 
 
 @pytest.mark.parametrize("which,run,one_acc", [
     ("y = h W (K=100)", 32, True), ("dh = g W^T (K=64)", 8, False),
-    ("dW = h^T g (K=64)", 32, False)])
+    ("dW^T = g^T h (K=5000)", 32, True)])
 def test_split_tf32_products_keep_f32_accuracy(which, run, one_acc):
     """The 3xTF32 products of zinb_fwdbwd.cu, summed as the kernel sums
     them (y four k steps of 8 at a time in one accumulator, dh one step's
-    8 columns, dW one step's 32 rows), stay within 1e-6 of the f64 product
-    (max |Δ| / max
-    |f64|), the margin under which the f32 tolerances of PERF.md §2
-    (gradients 1e-4, loss 1e-5) stand; plain TF32 misses by orders of
-    magnitude, which is why it is not used."""
+    8 columns, dW^T one stage's 32 rows of B, the column pass's wgmma
+    products lo·hi, hi·hi, hi·lo into one accumulator started from zero),
+    stay within 1e-6 of the f64 product (max |Δ| / max |f64|), the margin
+    under which the f32 tolerances of PERF.md §2 (gradients 1e-4, loss
+    1e-5) stand; plain TF32 misses by orders of magnitude, which is why it
+    is not used.  Over the column pass's 5,000 rows, one accumulator
+    carried through every product (no runs) drifts past 1e-5: why the
+    runs join the sums rounded to nearest."""
     a, b = _tile_operands(which)
     exact = a.astype(np.float64) @ b.astype(np.float64)
     scale = np.abs(exact).max()
@@ -447,3 +459,139 @@ def test_split_tf32_products_keep_f32_accuracy(which, run, one_acc):
     assert err <= 1e-6, err
     plain = _tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)
     assert np.abs(plain - exact).max() / scale > 1e-4
+    if a.shape[1] == 5000:
+        carried = _mma_3xtf32(a, b, run, carry=True)
+        assert np.abs(carried - exact).max() / scale > 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The training kernel's plan (ops/zinb.fwdbwd_plan, the twin of
+# csrc/zinb_fwdbwd.cu's; chip_smoke.py holds the library to it)
+# ---------------------------------------------------------------------------
+
+_PROD = (5, 5000, 100, 5032)
+_HALVES = (torch.float32, torch.bfloat16)
+
+
+def _a256(n):
+    return -(-n // 256) * 256
+
+
+@pytest.mark.parametrize("dtype,ht", [(torch.float32, 20_899_840),
+                                      (torch.bfloat16, 5_224_960)])
+def test_fwdbwd_workspace_at_the_production_shape(dtype, ht):
+    """At A=5, B=5000, F=100, D=5032 the wrapper allocates the loss
+    partials (5 arms × 79 row tiles × 4 slices of D, 6,320 bytes, to 256),
+    no spilled dh partial (the dW buffer holds the 3 beyond dh's own), the
+    three stored cotangents in f32, 3·A·D·B·4 = 1,509,600,000 bytes in
+    either type, and hᵀ prepared for the column pass: 157 stages of 32
+    rows × 104 hidden units, tf32 hi and lo (f32) or bf16."""
+    p = tzinb.fwdbwd_plan(*_PROD, dtype)
+    assert (p["form"], p["n_split"], p["row_tiles"], p["n_in_dw"],
+            p["n_spill"]) == (13, 4, 79, 3, 0)
+    assert (p["pitch"], p["k_chunks"], p["n_ranges"]) == (5000, 157, 1)
+    assert p["spill_offset"] == p["g_offset"] == 6400
+    assert p["ht_offset"] - p["g_offset"] == 1_509_600_000
+    assert p["bytes"] - p["ht_offset"] == ht == 5 * 157 * 104 * 32 * (
+        8 if dtype == torch.float32 else 2)
+    assert p["bytes"] == 6400 + 1_509_600_000 + ht
+
+
+@pytest.mark.parametrize("A,B,D,pitch,chunks,spill", [
+    (5, 4999, 5031, 5000, 157, 0), (5, 2000, 5032, 2000, 63, 0),
+    (5, 1999, 5031, 2000, 63, 0), (3, 37, 13, 40, 2, 0),
+    (2, 600, 40, 600, 19, 2)])
+def test_fwdbwd_workspace_at_ragged_shapes(A, B, D, pitch, chunks, spill):
+    """Ragged B and D: rows of stored g padded to a multiple of 4 floats
+    (16-byte rows for the TMA boxes; the row pass writes zeros there), the
+    last stage's rows past B read as zeros, D a whole number of 64-column
+    blocks only by masking; the dh partials past the dW buffer's room
+    spill (B = 600 against D = 40); every part at a multiple of 256 bytes,
+    in the order partials, spill, g, hᵀ."""
+    F = 100
+    for dtype in _HALVES:
+        p = tzinb.fwdbwd_plan(A, B, F, D, dtype)
+        item = 4 if dtype == torch.float32 else 2
+        planes = 2 if dtype == torch.float32 else 1
+        assert (p["pitch"], p["k_chunks"], p["n_spill"]) == (pitch, chunks,
+                                                            spill)
+        assert p["spill_offset"] == _a256(A * p["row_tiles"] * p["n_split"]
+                                          * 4)
+        assert p["g_offset"] - p["spill_offset"] == _a256(spill * A * B * F
+                                                          * 4)
+        assert p["ht_offset"] - p["g_offset"] == _a256(3 * A * D * pitch * 4)
+        assert p["bytes"] - p["ht_offset"] == _a256(
+            A * chunks * 104 * 32 * item * planes)
+        assert all(p[k] % 256 == 0 for k in ("spill_offset", "g_offset",
+                                             "ht_offset", "bytes"))
+
+
+@pytest.mark.parametrize("F,form,ranges", [
+    (1, 13, 1), (100, 13, 1), (104, 13, 1), (105, 16, 2), (128, 16, 2),
+    (129, "wide", 2), (208, "wide", 2), (209, "wide", 3), (448, "wide", 5),
+    (784, "wide", 8)])
+def test_fwdbwd_form_chosen_by_f(F, form, ranges):
+    """The row pass's form from F (13 or 16 tiles of 8 hidden units of dh
+    in registers, the wide form past 128) and the column pass's ranges of
+    104 hidden units on its grid's z axis; the column pass's shared memory
+    is the same at every F (four stages f32, six bf16), the number
+    tests/test_torch_wide.py's twin gives."""
+    for dtype, smem in ((torch.float32, 205_824), (torch.bfloat16, 191_488)):
+        p = tzinb.fwdbwd_plan(5, 2000, F, 5032, dtype)
+        assert (p["form"], p["n_ranges"], p["smem"]) == (form, ranges, smem)
+        assert p["stages"] == (4 if dtype == torch.float32 else 6)
+
+
+@pytest.mark.parametrize("dtype,limit,ks", [(torch.float32, 784, 8),
+                                            (torch.bfloat16, 1456, 16)])
+def test_fwdbwd_refuses_past_max_f(dtype, limit, ks):
+    """The widest F is the row pass's (its resident h tile), the column
+    pass taking any F: the limit itself is planned, the next width is
+    refused with a ValueError naming the limit, by the plan and by the
+    wrapper before it touches the library; a shape whose stored g has more
+    rows than a TMA coordinate reaches is refused too."""
+    assert tzinb.fwdbwd_max_f(dtype) == limit
+    assert tzinb.fwdbwd_plan(5, 5000, limit, 5032, dtype)["form"] == "wide"
+    for f in (limit + 1, limit + ks):
+        with pytest.raises(ValueError, match=f"F={f} exceeds {limit}"):
+            tzinb.fwdbwd_plan(5, 5000, f, 5032, dtype)
+        with pytest.raises(ValueError, match=f"F={f} exceeds {limit}"):
+            tzinb._grad_buffers(None, dtype, 5, 5000, f, 5032, "cpu")
+    with pytest.raises(ValueError, match="refuses the shape"):
+        tzinb.fwdbwd_plan(3, 64, 100, 2 ** 29, dtype)
+
+
+def _k_row(k, f32):
+    """csrc/zinb_fwdbwd.cu ``k_row``."""
+    if f32:
+        s, j = divmod(k, 8)
+        return 8 * (j % 4) + 2 * s + j // 4
+    s, j = divmod(k, 16)
+    return 8 * ((j % 8) // 2) + 4 * s + 2 * (j // 8) + j % 2
+
+
+@pytest.mark.parametrize("f32", [True, False])
+def test_column_pass_k_order_pairs_g_with_h(f32):
+    """The prep puts row k_row(k) of a stage's 32 rows of B at K position
+    k of the hᵀ tile; lane t of a warpgroup reads rows 8t..8t+7 of its g
+    tile (two 16-byte reads a row) and fills its A fragment's K slots from
+    them: f32 k step s, slot t ← row 8t+2s, slot t+4 ← 8t+2s+1; bf16 k step
+    s, slots 2t, 2t+1 ← 8t+4s, +1 and slots 2t+8, 2t+9 ← 8t+4s+2, +3.
+    k_row is a permutation of the 32 rows and agrees with the lanes' reads,
+    so a stage's product pairs g's row b with hᵀ's row b: gᵀ h exactly."""
+    rows = [_k_row(k, f32) for k in range(32)]
+    assert sorted(rows) == list(range(32))
+    ks = 8 if f32 else 16
+    for t in range(4):
+        for s in range(32 // ks):
+            slots = ({t: 2 * s, t + 4: 2 * s + 1} if f32 else
+                     {2 * t: 4 * s, 2 * t + 1: 4 * s + 1,
+                      2 * t + 8: 4 * s + 2, 2 * t + 9: 4 * s + 3})
+            for slot, j in slots.items():
+                assert rows[ks * s + slot] == 8 * t + j
+    r = np.random.default_rng(3)   # small integers: every sum exact
+    g_t = r.integers(-8, 8, (64, 32)).astype(np.float64)
+    h = r.integers(-8, 8, (32, 104)).astype(np.float64)
+    a_regs = g_t[:, rows]      # the A fragments' values, by K slot
+    b_tile = h[rows, :]        # the prepared hᵀ tile, by K position
+    np.testing.assert_array_equal(a_regs @ b_tile, g_t @ h)
