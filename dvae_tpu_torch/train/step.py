@@ -590,7 +590,8 @@ def _make_mesh_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: "Adam",
             if not whole:
                 raise ValueError("an augmenter needs the whole batch on "
                                  "every rank")
-            x = spmd.local(augment(x, cfg.n_arm, generator, aug_draws))
+            with span("step.augment"):
+                x = spmd.local(augment(x, cfg.n_arm, generator, aug_draws))
         elif whole:
             x = spmd.local_rows(x)
         if whole and prior_c is not None:
@@ -630,7 +631,8 @@ def make_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
     The parameters and the Adam moments are updated in place.  Without an
     augmenter every arm shares the (B, D) batch, and that is what the model
     and the kernels get; with one, its (A, B, D) per-arm views, made on the
-    batch's device from ``generator`` (or the explicit ``aug_draws``).
+    batch's device from ``generator`` (or the explicit ``aug_draws``)
+    inside the span ``dvae.step.augment``.
 
     ``mesh`` (several devices): the state is this rank's blocks, x the
     whole batch (or, with ``n_rows=`` the whole batch's row count, this
@@ -644,7 +646,8 @@ def make_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
     def step(state: TrainState, x, prior_c, temp, generator=None,
              enc_seed: Optional[int] = None, noise=None, aug_draws=None):
         if augment is not None:
-            x = augment(x, cfg.n_arm, generator, aug_draws)
+            with span("step.augment"):
+                x = augment(x, cfg.n_arm, generator, aug_draws)
         _, (aux, new_bn, labels), grads = value_and_grad(
             lambda p: loss_fn(p, state.bn, cfg, x, temp, state.mask, prior_c,
                               compute_dtype, noise, generator, enc_seed),
@@ -779,7 +782,8 @@ def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig,
     BN statistics), the training compute dtype (bf16 under ``tcfg.bf16``)
     with the f32 islands of the loss.  Metrics leave in f32.  With an
     augmenter eval sees per-arm views too (dvae_tpu/train/step.py:509),
-    their noise drawn from the same per-batch generator.
+    their noise drawn from the same per-batch generator, inside the span
+    ``dvae.eval.augment``.
 
     step(state, x (B, D), prior_c (B, C) | None, temp) →
         (LossOutputs, labels (A, B), MixVAEOutputs)
@@ -815,7 +819,8 @@ def make_eval_step(cfg: VAEConfig, tcfg: TrainConfig,
         x = x.to(compute_dtype)
         gen = torch.Generator(device="cpu").manual_seed(state.seed)
         if augment is not None:
-            x = augment(x, cfg.n_arm, gen, None)
+            with span("eval.augment"):
+                x = augment(x, cfg.n_arm, gen, None)
         spmd = _spmd(cfg, tcfg, mesh, x.shape[-2])
         if spmd is not None:
             x = (spmd.local(x) if x.dim() == 3 else spmd.local_rows(x))

@@ -23,15 +23,17 @@ trace in Perfetto (ui.perfetto.dev, "Open trace file")::
 Beside the kernels, the host row then shows the span tree:
 
   * training: ``dvae.runner`` (one chunk of epochs) → ``dvae.step`` (the
-    host's enqueue of one step) → ``dvae.step.forward``,
+    host's enqueue of one step) → ``dvae.step.augment`` (with a frozen
+    augmenter only: its per-arm views of the batch), ``dvae.step.forward``,
     ``dvae.step.backward`` (autograd), ``dvae.step.update`` (gradient
     mask, Adam, parameter mask); ``dvae.runner.epoch_end`` (the epoch's
     consensus and metrics); ``dvae.validate``; ``dvae.checkpoint``;
   * eval (``validate``, ``eval_model``, ``_predict_labels``):
     ``dvae.eval`` (one ``eval_model`` call) → ``dvae.eval.batch`` (the
-    enqueue of a chunk or batch), ``dvae.eval.drain`` (a device→host read
-    of results: the wait for the card and the copy), ``dvae.eval.finish``
-    (host work after the last read).
+    enqueue of a chunk or batch; with a frozen augmenter it holds
+    ``dvae.eval.augment``, each batch's views), ``dvae.eval.drain`` (a
+    device→host read of results: the wait for the card and the copy),
+    ``dvae.eval.finish`` (host work after the last read).
 
 A gap in the device row lies inside the spans that held the host then.
 Without an active profiler ``span`` returns one shared null context:

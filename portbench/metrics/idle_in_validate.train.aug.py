@@ -1,0 +1,6 @@
+"""``idle_in_validate.train`` of the augmented cell: the same reading
+(``metrics/idle_in_validate.train.py``)."""
+
+from portbench.core import spec
+
+read = spec.metric_reader("idle_in_validate.train").read
