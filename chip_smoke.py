@@ -94,17 +94,29 @@ Phases (any failure exits non-zero and prints no result line):
      validation, then 12,000 cells served; counts, finite losses, the
      largest single allocation below one (A, B, D) f32 tensor) and at
      n_arm=12 (fault C8: #11's general kernel, the same run and checks);
-  7. hold the frozen augmenter on the card against the port's CPU path for
-     both committed checkpoints (2,000 cells, the same explicit noise; the
-     per-arm fast path against the forward on the broadcast batch; the ZINB
-     checkpoint's views zero where the data are);
+  7. hold the augmenter's fused layer (csrc/augment_fc.cu) at every routed
+     layer's production shape (the MSE augmenter's weights, A=5, B=5000:
+     K 5032, 1006, 550, 500, 100, 10; N 5032, 1006, 500, 100), f32 and
+     bf16, against its plain version and the layer in float64, repeated
+     launches bit for bit; ragged shapes (M 4,999, K 5,031, N 1,005) with
+     a batch norm and with the ZINB mask;
+     NaNs of both encodings in x and W; the weight cache after an in-place
+     change; fc1, fc10, fc11 timed against the plain layer they replace
+     (``--kernels-only=augment`` runs this alone); then the frozen augmenter
+     on the card against the port's CPU path for both committed
+     checkpoints (2,000 cells, the same explicit noise; eleven launches of
+     the fused layer a call; the per-arm fast path against the forward on
+     the broadcast batch; the ZINB checkpoint's views zero where the data
+     are);
   8. drive fused_decoder at the same width, once on a shared batch and once
      with ``CplMixVAE(aug_file=...)`` (per-arm views, the per-arm-target
      branch of every fused kernel): init_model(fused_decoder=True) → train
      over 20,000 cells with 2,000 for validation (16 steps) → a fresh
      load_model → eval_model, counts reset just before and read just after
      (one decoder_fwdbwd a step, one decoder_fwd an eval batch, recon_fwd
-     and recon_fwdbwd never); peak memory; the card against the CPU path;
+     and recon_fwdbwd never; with the augmenter eleven launches of its
+     fused layer a step, a validation batch and a served batch); peak
+     memory; the card against the CPU path;
      warm throughput with and without the flag and the augmenter in turns,
      profiler breakdowns, synchronising calls; a short run with use_pallas;
   9. hidden widths past 128 (fc_dim=160) in MSE, ZINB and fused_decoder
@@ -223,7 +235,8 @@ add one labelling pass over the training data to the counted launches.
 
 ``--kernels-only`` stops after phase 2 (a short first run of new kernels;
 it prints no result line); ``--kernels-only=decoder,coupling`` runs just
-the named kernel phases.  Imports nothing of JAX or of the JAX package.
+the named kernel phases (``augment``: the fused layer of phase 7).
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -379,6 +392,15 @@ TOL_DEC_MISM = {"float32": TOL_MISM, "bfloat16": TOL_MISM}
 # fused_decoder and the frozen augmenter: 4 steps an epoch
 N_DEC_TRAIN, N_DEC_VAL = 20000, 2000
 N_DEC_PALLAS = 10000
+# the frozen augmenter's fused layer (ops/augment.augment_fc) against its
+# plain version, max |Δ| / max |plain|: f32 the same 3xTF32 products summed
+# in another order; bf16 one bf16 rounding step of the output.  Against the
+# layer in float64: f32's 3xTF32 keeps about f32's accuracy (products of
+# depth up to 5032); bf16 carries the rounding of its operands, the product
+# and the batch norm's output to bf16
+TOL_AUG_FC = {"float32": 1e-5, "bfloat16": TOL_Y_BF16}
+TOL_AUG_F64 = {"float32": 1e-5, "bfloat16": 2e-2}
+AUG_FC_TIMED = ("fc1", "fc10", "fc11")
 _HERE = os.path.dirname(os.path.abspath(__file__))
 AUG_MSE = os.path.join(_HERE, "artifacts", "hard_synthetic",
                        "augmenter_MSE.ckpt")
@@ -560,8 +582,10 @@ def _counted_wrappers() -> dict:
 
 
 def reset_launch_counts() -> None:
+    from dvae_tpu_torch.ops import augment
     for fn in _counted_wrappers().values():
         fn.launches = 0
+    augment.augment_fc.launches = 0
 
 
 def card_line() -> str:
@@ -3879,11 +3903,193 @@ def phase_many_arms(torch, check, tmp, x) -> dict:
     return {"c8_training": trained, "c8_serving": served}
 
 
-def phase_augmenter(torch, check, x_mse, x_zinb) -> None:
-    """The frozen augmenter on the card against the port's CPU path, for
-    both committed checkpoints, on 2,000 cells with the same explicit
-    noise."""
+def _aug_layer_f64(torch, x, w, b, stats, eps):
+    """The augmenter's layer (bias, running batch norm, ReLU) in float64."""
+    y = x.double() @ w.double()
+    if b is not None:
+        y = y + b.double()
+    if stats is not None:
+        y = (y - stats["mean"].double()) / torch.sqrt(
+            stats["var"].double() + eps)
+    return torch.relu(y)
+
+
+def aug_fc_layers(aug) -> list:
+    """The routed layers of the Smart-seq augmenter at A=5, B=5000 (the
+    augmenter's ``FUSED_LAYERS``): (layer, its batch norm, rows); the trunk
+    fc1-fc4 runs on the batch's B rows, the rest on A·B."""
+    return [(fc, norm, B if (fc, norm) in aug._TRUNK else A * B)
+            for fc, norm in aug.FUSED_LAYERS]
+
+
+def _aug_nan_case(torch, check, fc_op, dtype, where: str, bits: int) -> None:
+    """One f32 NaN (the quiet one or the card's own, by ``bits``) in x or W:
+    the kernel's NaNs where the plain version's are, every other output
+    within the limit of the clean case."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    M, K, N = 1000, 1006, 300
+    x = torch.relu(torch.randn((M, K), generator=g, device=DEV)).to(dtype)
+    w = (torch.randn((K, N), generator=g, device=DEV) / 32).to(dtype)
+    b = (torch.randn((N,), generator=g, device=DEV) / 8).to(dtype)
+    if where == "x":
+        x = fc_op.aligned_rows(x.clone())
+        x.view(torch.int32)[17, 301] = bits
+    else:
+        w = w.clone()
+        w.view(torch.int32)[301, 17] = bits
+    xa = fc_op.aligned_rows(x)
+    got = fc_op.augment_fc(xa, w, b)
+    want = fc_op.augment_fc_reference(xa, w, b)
+    same = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    ok = ~torch.isnan(want)
+    err = rel_err(torch, got[ok], want[ok])
+    n_nan = int(torch.isnan(got).sum())
+    check(same and n_nan > 0 and err <= TOL_AUG_FC[str(dtype)[6:]],
+          f"augment_fc {str(dtype)[6:]}: a NaN 0x{bits & 0xFFFFFFFF:08X} in "
+          f"{where}: {n_nan} NaN outputs where the plain version has them "
+          f"({same}), the rest within {err:.2e}")
+
+
+def phase_augment_fc(torch, check) -> dict:
+    """The frozen augmenter's fused layer (ops/augment.augment_fc, kernel
+    csrc/augment_fc.cu) at every routed layer's production shape with the
+    committed MSE augmenter's weights and statistics and non-negative
+    inputs, f32 and bf16: against its plain version and the layer in
+    float64, repeated launches bit for bit; ragged shapes (M 4,999, K 5,031
+    through an aligned copy, N 1,005) with a batch norm and with the ZINB
+    mask; NaNs of both encodings in x and W;
+    the weight cache after an in-place change; the library's constants
+    against the wrapper's layout.  Times fc1, fc10, fc11: kernel, plain
+    version, cuBLAS's product alone and the plain layer it replaces (the
+    product and its elementwise passes).  Returns {layer: timings}."""
     from dvae_tpu_torch.augment import augmenter as aug
+    from dvae_tpu_torch.ops import augment as fc_op
+    print("phase 7a: the augmenter's fused layer, kernel against its plain "
+          "version and float64")
+    for dtype in (torch.float32, torch.bfloat16):
+        consts = fc_op.kernel_consts(dtype == torch.bfloat16)
+        check(consts["bm"] == fc_op.BM and consts["bn"] == fc_op.BN
+              and consts["kt"] == fc_op.k_tile(dtype)
+              and consts["run"] == fc_op.RUN_STAGES[dtype],
+              f"augment_fc {str(dtype)[6:]}: the library's constants "
+              f"{consts} are the wrapper's layout")
+    params, bn, cfg = aug.load_augmenter(AUG_MSE, DEV)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        p = aug.cast_augmenter_params(
+            params, None if dtype == torch.float32 else dtype)
+        peak = PEAK_TF32 if dtype == torch.float32 else PEAK_FLOPS[dname]
+        for name, norm, M in aug_fc_layers(aug):
+            w, b = p[name]["w"], p[name]["b"]
+            K, N = w.shape
+            stats = bn[norm] if norm else None
+            eps = aug.BN_EPS
+            x = fc_op.aligned_rows(torch.relu(torch.randn(
+                (M, K), generator=g, device=DEV)).to(dtype))
+            before = fc_op.augment_fc.launches
+            got = fc_op.augment_fc(x, w, b, stats, eps)
+            again = fc_op.augment_fc(x, w, b, stats, eps)
+            torch.cuda.synchronize()
+            plain = fc_op.augment_fc_reference(x, w, b, stats, eps)
+            f64 = _aug_layer_f64(torch, x, w, b, stats, eps)
+            e_p, e_64 = rel_err(torch, got, plain), rel_err(torch, got, f64)
+            del f64
+            check(bool(torch.isfinite(got).all()) and torch.equal(got, again)
+                  and fc_op.augment_fc.launches - before == 2
+                  and e_p <= TOL_AUG_FC[dname] and e_64 <= TOL_AUG_F64[dname],
+                  f"augment_fc {dname} {name} ({M}, {K}) x ({K}, {N}): "
+                  f"against the plain version {e_p:.2e} (tol "
+                  f"{TOL_AUG_FC[dname]:.0e}), against float64 {e_64:.2e} "
+                  f"(tol {TOL_AUG_F64[dname]:.0e}), finite, two launches "
+                  "bit for bit")
+            if name in AUG_FC_TIMED:
+                flops = 2.0 * M * K * N
+                k_ms = cuda_ms(torch, lambda: fc_op.augment_fc(
+                    x, w, b, stats, eps), iters=10)
+                d_ms = device_ms(torch, lambda: fc_op.augment_fc(
+                    x, w, b, stats, eps), iters=5)
+                p_ms = plain_ms(torch, lambda: fc_op.augment_fc_reference(
+                    x, w, b, stats, eps))
+                xd = x.contiguous()
+                mm_ms = cuda_ms(torch, lambda: xd @ w, iters=10)
+
+                def old_layer():
+                    y = aug._lin(p[name], xd)
+                    if stats is not None:
+                        y = aug._bn(y, stats, False, eps)[0]
+                    return torch.relu(y)
+                lib_ms = cuda_ms(torch, old_layer, iters=10)
+                bound = flops / peak * 1e3
+                rec = {"kernel_ms": k_ms, "device_ms": d_ms,
+                       "bound_ms": bound, "plain_ms": p_ms,
+                       "library_ms": lib_ms, "matmul_ms": mm_ms,
+                       "tflops": flops / k_ms / 1e9}
+                records[f"{name}_{dname}"] = rec
+                print(f"  augment_fc {dname} {name}: kernel {k_ms:.4f} ms "
+                      f"(device {d_ms:.4f}; {flops / k_ms / 1e9:.1f} TFLOP/s "
+                      f"counted once), bound {bound:.4f} ms at "
+                      f"{peak / 1e12:.0f} TFLOP/s ({100 * bound / k_ms:.2f}%),"
+                      f" plain {p_ms:.4f} ms, the layer it replaces "
+                      f"{lib_ms:.4f} ms (its product alone {mm_ms:.4f} ms)")
+                del xd
+            del x, got, again, plain
+            torch.cuda.empty_cache()
+
+        # ragged shapes, the batch norm, the mask
+        M, K, N = 4999, 5031, 1005
+        xr = torch.relu(torch.randn((M, K), generator=g, device=DEV)).to(dtype)
+        w = (torch.randn((K, N), generator=g, device=DEV) / 64).to(dtype)
+        b = (torch.randn((N,), generator=g, device=DEV) / 8).to(dtype)
+        stats = {"mean": torch.randn((N,), generator=g, device=DEV) / 4,
+                 "var": 0.5 + torch.rand((N,), generator=g, device=DEV)}
+        xa = fc_op.aligned_rows(xr)
+        got = fc_op.augment_fc(xa, w, b, stats, 1e-5)
+        want = fc_op.augment_fc_reference(xa, w, b, stats, 1e-5)
+        err = rel_err(torch, got, want)
+        check(xa.data_ptr() != xr.data_ptr() and err <= TOL_AUG_FC[dname],
+              f"augment_fc {dname} ragged ({M}, {K}) x ({K}, {N}) through "
+              f"an aligned copy, batch norm: {err:.2e}")
+        rows = 1000
+        mask = xr[:rows, :N].contiguous()
+        x3 = fc_op.aligned_rows(xr[:3 * rows // 2].repeat(2, 1)[:3 * rows])
+        got = fc_op.augment_fc(x3, w, b, None, 0.0, mask=mask)
+        want = fc_op.augment_fc_reference(x3, w, b, None, 0.0, mask=mask)
+        zero = bool((got.view(3, rows, N)[:, mask == 0] == 0).all())
+        err = rel_err(torch, got, want)
+        check(zero and err <= TOL_AUG_FC[dname],
+              f"augment_fc {dname} with the mask of {rows} rows over "
+              f"{3 * rows}: zero where the mask is, {err:.2e} against the "
+              "plain version")
+        del xr, xa, x3, got, want
+        if dtype == torch.float32:
+            for where in ("x", "w"):
+                for bits in (0x7FC00000, 0x7FFFFFFF):
+                    _aug_nan_case(torch, check, fc_op, dtype, where, bits)
+        torch.cuda.empty_cache()
+
+    # the weight cache follows an in-place change
+    w = params["fc2"]["w"].clone()
+    x = fc_op.aligned_rows(torch.relu(torch.randn(
+        (B, w.shape[0]), generator=g, device=DEV)))
+    first = fc_op.augment_fc(x, w)
+    w.mul_(2.0)
+    second = fc_op.augment_fc(x, w)
+    check(torch.equal(second, 2 * first),
+          "augment_fc: a weight scaled in place by 2 is prepared again (the "
+          "output doubles exactly)")
+    return records
+
+
+def phase_augmenter(torch, check, x_mse, x_zinb) -> dict:
+    """The fused layer (``phase_augment_fc``), then the frozen augmenter on
+    the card against the port's CPU path, for both committed checkpoints,
+    on 2,000 cells with the same explicit noise, every routed layer one
+    launch of the fused kernel.  Returns the fused layer's timings."""
+    from dvae_tpu_torch.augment import augmenter as aug
+    from dvae_tpu_torch.ops import augment as fc_op
+    records = phase_augment_fc(torch, check)
     print("phase 7: the frozen augmenter, card vs the CPU path")
     g = torch.Generator(device="cpu").manual_seed(SEED + 9)
     for name, path, x in (("MSE", AUG_MSE, x_mse), ("ZINB", AUG_ZINB, x_zinb)):
@@ -3894,10 +4100,16 @@ def phase_augmenter(torch, check, x_mse, x_zinb) -> None:
             z=torch.randn((A, N_SMALL, cfg.noise_dim), generator=g),
             e=torch.randn((A, N_SMALL, cfg.latent_dim), generator=g))
         ddraws = aug.AugNoise(None, draws.z.to(DEV), draws.e.to(DEV))
+        reset_launch_counts()
         got = aug.augment_arms(params, bn, cfg, xb, A, 0.1, draws=ddraws)
+        n_fc = fc_op.augment_fc.launches
         want = aug.augment_arms(cparams, cbn, cfg, xb.cpu(), A, 0.1,
                                 draws=draws)
         torch.cuda.synchronize()
+        n_layers = len(aug.FUSED_LAYERS)
+        check(n_fc == n_layers,
+              f"augmenter_{name}: one call launches the fused layer "
+              f"{n_fc} times (expect {n_layers}: fc1-fc11)")
         err = rel_err(torch, got.cpu(), want)
         check(tuple(got.shape) == (A, N_SMALL, D)
               and bool(torch.isfinite(got).all()) and err <= 1e-4,
@@ -3922,6 +4134,7 @@ def phase_augmenter(torch, check, x_mse, x_zinb) -> None:
               "another order), and the arms' views differ")
         del params, bn, got, want, full, views
         torch.cuda.empty_cache()
+    return records
 
 
 def _drive_decoder_training(torch, check, tmp, x, tag, aug_file):
@@ -3929,6 +4142,8 @@ def _drive_decoder_training(torch, check, tmp, x, tag, aug_file):
     counts set to 0 just before each run and read just after.  Returns
     (training counts, serving counts, checkpoint path)."""
     import numpy as np
+    from dvae_tpu_torch.augment.augmenter import FUSED_LAYERS
+    from dvae_tpu_torch.ops import augment as fc_op
     from dvae_tpu_torch.train.cpl_mixvae import CplMixVAE
     folder = os.path.join(tmp, f"decoder_{tag}")
     trainer = CplMixVAE(saving_folder=folder, aug_file=aug_file, device=DEV,
@@ -3966,6 +4181,12 @@ def _drive_decoder_training(torch, check, tmp, x, tag, aug_file):
     check(trained == want, f"[{tag}] launches on the fused_decoder training "
                            f"path: {trained} (expect {want}: recon_fwd and "
                            "recon_fwdbwd never)")
+    n_fc = fc_op.augment_fc.launches
+    want_fc = len(FUSED_LAYERS) * (steps + n_val) if aug_file else 0
+    check(n_fc == want_fc,
+          f"[{tag}] the augmenter's fused layer launched {n_fc} times in "
+          f"training (expect {want_fc}: fc1-fc11 of every step and "
+          "validation batch)")
     with open(os.path.join(folder, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     losses = [r["train/loss"] for r in rows if "train/loss" in r]
@@ -4000,8 +4221,13 @@ def _drive_decoder_training(torch, check, tmp, x, tag, aug_file):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     served = launch_counts()
+    n_fc = fc_op.augment_fc.launches
     rise = torch.cuda.max_memory_allocated() - base
     n_launch = -(-n_cells // B)
+    want_fc = len(FUSED_LAYERS) * n_launch if aug_file else 0
+    check(n_fc == want_fc,
+          f"[{tag}] the augmenter's fused layer launched {n_fc} times in "
+          f"serving (expect {want_fc})")
     print(f"  [{tag}] eval_model: {n_cells} cells in {wall:.4f} s = "
           f"{n_cells / wall:.1f} cells/s; consensus {res['consensus']:.6f}; "
           f"total_loss {res['total_loss']:.6g}; peak rise {rise / 1e6:.1f} MB")
@@ -6830,9 +7056,13 @@ def main() -> int:
             ("gumbel", lambda: phase_gumbel(torch, check)),
             ("coupling", lambda: {"coupling": phase_coupling(torch, check)}),
             ("decoder", lambda: phase_decoder(torch, check)),
-            ("c6", lambda: {"c6": phase_c6(torch, check)}))
+            ("c6", lambda: {"c6": phase_c6(torch, check)}),
+            # phase 7 runs it on the whole path; alone only when named
+            ("augment", lambda: {
+                "augment_fc": phase_augment_fc(torch, check)}))
         for name, run in kernel_phases:
-            if wanted is None or name in wanted:
+            if (name in wanted if wanted is not None
+                    else name != "augment"):
                 records.update(run())
         if not kernels_only:
             served, ds, x, mse_ckpt = phase_serving(torch, check, tmp)
@@ -6850,7 +7080,8 @@ def main() -> int:
             pallas_ckpt = cat["checkpoint"]
             paths.update(phase_wide_categories(torch, check, tmp, x))
             paths.update(phase_many_arms(torch, check, tmp, x))
-            phase_augmenter(torch, check, x, x_zinb)
+            records["augment_fc"] = phase_augmenter(torch, check, x,
+                                                    x_zinb)
             paths.update(phase_c6_path(torch, check, tmp, x, x_zinb))
             zinb_host = x_zinb[:N_STREAM_ZINB + N_VAL].cpu()
             del x_zinb
@@ -6930,7 +7161,10 @@ def main() -> int:
     print(json.dumps({
         "kernels": [entries[n] for n in on_path],
         "kernels_off_path": [entries[n] for n in sources
-                             if n not in on_path]}))
+                             if n not in on_path],
+        "augment_fc": {"name": "augment_fc", "route": "cuda",
+                       "source": "dvae_tpu_torch/csrc/augment_fc.cu",
+                       "replaces": None, **records["augment_fc"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

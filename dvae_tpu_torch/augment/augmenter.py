@@ -20,8 +20,11 @@ The generic variant differs in the fc5 / fc5_plain split (``noise=False``
 takes the plain branch) and both take the ZINB head fc11_p when n_zim > 1.
 
 Every product here is a plain large matrix product that the JAX package
-leaves to XLA outside any kernel: they stay ``torch.matmul``.  The three
-random draws (the input dropout mask, the noise ``z``, the
+leaves to XLA outside any kernel, and stays ``torch.matmul``, except in
+``augment_arms`` on CUDA tensors: there every layer of ``FUSED_LAYERS``
+(fc1-fc11) is one launch of the fused kernel ``ops/augment.augment_fc``
+(product, bias, running batch norm, ReLU).  The three random draws (the
+input dropout mask, the noise ``z``, the
 reparameterization ``e``) come from a ``torch.Generator`` or, explicitly,
 from an ``AugNoise`` bundle, so a test can hand both packages the same
 numbers.
@@ -41,12 +44,24 @@ from typing import NamedTuple, Optional
 import torch
 
 from dvae_tpu_torch.models.sampling import _draw, dropout
+from dvae_tpu_torch.ops._common import on_cpu
 
 BN_EPS = 1e-10
 BN_MOMENTUM = 0.01
 # bnz is a torch-default BatchNorm1d in the reference (udagan.py:227):
 # eps 1e-5, momentum 0.1, unlike every fc batch norm
 _BN_HYPERS = {"bnz": (1e-5, 0.1)}
+
+
+# (layer, its batch norm): the trunk fc1-fc4 and the decoder's fc7-fc10,
+# each a product, a batch norm and a ReLU
+_TRUNK = (("fc1", "bn1"), ("fc2", "bn2"), ("fc3", "bn3"), ("fc4", "bn4"))
+_DECODER = (("fc7", "bn7"), ("fc8", "bn8"), ("fc9", "bn9"), ("fc10", "bn10"))
+# every layer augment_arms runs through its ``layer``: the trunk, fc5
+# (_noise_concat), fc6, the decoder and fc11 without a batch norm
+# (_latent_decode); on CUDA tensors each is one launch of the fused kernel
+FUSED_LAYERS = (_TRUNK + (("fc5", "bn5"), ("fc6", "bn6")) + _DECODER
+                + (("fc11", None),))
 
 
 @dataclass(frozen=True)
@@ -165,37 +180,72 @@ def _bn(x, stats, train: bool, eps: float = BN_EPS,
     return y.to(x.dtype), new
 
 
+def _plain_layer(params, bn_fn):
+    """layer(fc, norm, h, mask=None): ``bn_fn(norm, ·)`` (its ReLU) of h W +
+    b, or the ReLU alone where ``norm`` is None, times (mask > 0) where a
+    mask is given.  The bias and the ReLU are applied where the product was
+    written (autograd allows it: the product saves its inputs, the ReLU its
+    output), and the mask too where no gradient flows, so fc11's output is
+    the one tensor of its size."""
+    def layer(fc, norm, h, mask=None):
+        y = h @ params[fc]["w"]
+        if params[fc]["b"] is not None:
+            y.add_(params[fc]["b"])
+        y = bn_fn(norm, y) if norm else y.relu_()
+        if mask is None:
+            return y
+        m = (mask > 0).to(y.dtype)
+        return y * m if y.requires_grad else y.mul_(m)
+    return layer
+
+
+def _fused_layer(params, bn):
+    """layer(fc, norm, h, mask=None) as ``_plain_layer(params, ev)`` with
+    ``bn``'s running statistics: one launch of ``ops/augment.augment_fc`` on
+    h's rows (copied first where they do not start on 16-byte boundaries),
+    the output in rows that do; mask (B, N) is (x > 0) of an n_zim > 1
+    augmenter's input, its row b for every arm's row b."""
+    from dvae_tpu_torch.ops import augment as fc_op
+
+    def layer(fc, norm, h, mask=None):
+        eps = _BN_HYPERS.get(norm, (BN_EPS, BN_MOMENTUM))[0]
+        y = fc_op.augment_fc(fc_op.aligned_rows(h.reshape(-1, h.shape[-1])),
+                             params[fc]["w"], params[fc]["b"],
+                             bn[norm] if norm else None, eps, mask=mask)
+        return y.view(*h.shape[:-1], y.shape[-1])
+    return layer
+
+
 def _noise_concat(params, bn_fn, cfg: AugmenterConfig, h, scale, generator,
-                  z):
-    """z draw + elu(BNz(W z)) + concat + fc5 (udagan.py:288-296)."""
+                  z, layer=None):
+    """z draw + elu(BNz(W z)) + concat + fc5 (udagan.py:288-296); fc5 through
+    ``layer`` (default ``_plain_layer(params, bn_fn)``)."""
+    layer = layer or _plain_layer(params, bn_fn)
     if z is None:
         z = _draw("normal", h.shape[:-1] + (cfg.noise_dim,), h, generator)
     z = scale * z.to(h.dtype)
     z = bn_fn("bnz", _lin(params["noise"], z), act=torch.nn.functional.elu)
-    return bn_fn("bn5", _lin(params["fc5"], torch.cat([h, z], dim=-1)))
+    return layer("fc5", "bn5", torch.cat([h, z], dim=-1))
 
 
 def _latent_decode(params, bn_fn, h, generator, e, zinb_head: bool,
-                   inplace: bool = False):
+                   mask=None, layer=None):
     """fc_mu/fc_sigma reparameterization + the fc6..fc11 decoder
-    (udagan.py:297-309), shared by ``apply_augmenter`` and ``augment_arms``.
-    Returns (s, x_mu, x_p | None).  ``inplace`` adds fc11's bias and applies
-    its ReLU where the product was written: the output is the one tensor of
-    its size (no autograd through it)."""
+    (udagan.py:297-309), shared by ``apply_augmenter`` and ``augment_arms``;
+    fc6-fc11 through ``layer`` (default ``_plain_layer(params, bn_fn)``),
+    fc11's output times (mask > 0) where a mask is given.  Returns (s,
+    x_mu, x_p | None)."""
+    layer = layer or _plain_layer(params, bn_fn)
     mu = bn_fn("bn_mu", _lin(params["fc_mu"], h), act=None)
     sigma = torch.sigmoid(_lin(params["fc_sigma"], h))
     if e is None:
         e = _draw("normal", mu.shape, mu, generator)
     s = mu + e.to(mu.dtype) * sigma
 
-    h = bn_fn("bn6", _lin(params["fc6"], s))
-    for fc, norm in (("fc7", "bn7"), ("fc8", "bn8"), ("fc9", "bn9"),
-                     ("fc10", "bn10")):
-        h = bn_fn(norm, _lin(params[fc], h))
-    if inplace:
-        x_mu = (h @ params["fc11"]["w"]).add_(params["fc11"]["b"]).relu_()
-    else:
-        x_mu = torch.relu(_lin(params["fc11"], h))
+    h = layer("fc6", "bn6", s)
+    for fc, norm in _DECODER:
+        h = layer(fc, norm, h)
+    x_mu = layer("fc11", None, h, mask)
     x_p = torch.sigmoid(_lin(params["fc11_p"], h)) if zinb_head else None
     return s, x_mu, x_p
 
@@ -216,12 +266,12 @@ def apply_augmenter(params, bn, cfg: AugmenterConfig, x: torch.Tensor,
         y, new_bn[name] = _bn(h, bn[name], train, eps, mom)
         return act(y) if act else y
 
+    layer = _plain_layer(params, bnr)
     h = x
     if train and (cfg.p_drop > 0 or draws.drop_mask is not None):
         h = dropout(x, cfg.p_drop, generator, draws.drop_mask)
-    for fc, norm in (("fc1", "bn1"), ("fc2", "bn2"), ("fc3", "bn3"),
-                     ("fc4", "bn4")):
-        h = bnr(norm, _lin(params[fc], h))
+    for fc, norm in _TRUNK:
+        h = layer(fc, norm, h)
 
     if cfg.variant == "smartseq":
         # smartseq has no deterministic branch (udagan.py:247-251): its
@@ -231,7 +281,7 @@ def apply_augmenter(params, bn, cfg: AugmenterConfig, x: torch.Tensor,
     elif noise:
         h = _noise_concat(params, bnr, cfg, h, scale, generator, draws.z)
     else:
-        h = bnr("bn5_plain", _lin(params["fc5_plain"], h))
+        h = layer("fc5_plain", "bn5_plain", h)
 
     s, x_mu, x_p = _latent_decode(params, bnr, h, generator, draws.e,
                                   zinb_head=cfg.n_zim > 1)
@@ -257,24 +307,27 @@ def augment_arms(params, bn, cfg: AugmenterConfig, x: torch.Tensor,
     discarded here, so it is skipped; an n_zim > 1 augmenter's views are
     masked to where the original was nonzero.  The (A, B, D) result is the
     only tensor of its size: fc11's bias, its ReLU and the mask are applied
-    in place.
+    where it was written.  Every layer of ``FUSED_LAYERS`` is one launch of
+    the fused kernel on CUDA tensors (``_fused_layer``) and plain torch on
+    CPU tensors (``_plain_layer``).
     """
     def ev(name, h, act=torch.relu):
         eps, mom = _BN_HYPERS.get(name, (BN_EPS, BN_MOMENTUM))
         y, _ = _bn(h, bn[name], False, eps, mom)
         return act(y) if act else y
 
+    layer = (_plain_layer(params, ev) if on_cpu(x)
+             else _fused_layer(params, bn))
     h = x
-    for fc, norm in (("fc1", "bn1"), ("fc2", "bn2"), ("fc3", "bn3"),
-                     ("fc4", "bn4")):
-        h = ev(norm, _lin(params[fc], h))
+    for fc, norm in _TRUNK:
+        h = layer(fc, norm, h)
     h = h.expand(n_arm, *h.shape)
-    h = _noise_concat(params, ev, cfg, h, scale, generator, draws.z)
+    h = _noise_concat(params, ev, cfg, h, scale, generator, draws.z, layer)
     _, x_mu, _ = _latent_decode(params, ev, h, generator, draws.e,
-                                zinb_head=False, inplace=True)
-    if cfg.n_zim > 1:
-        x_mu.mul_((x > 0).to(x_mu.dtype))
-    return x_mu
+                                zinb_head=False,
+                                mask=x if cfg.n_zim > 1 else None,
+                                layer=layer)
+    return x_mu.contiguous()
 
 
 def kl_dist(mu1, var1, mu2, var2, eps: float = 1e-6):
@@ -428,8 +481,13 @@ def make_augment_apply(params, bn, cfg: AugmenterConfig, dtype=None):
     fn(x, n_arm, scale=0.1, generator=None, draws=AugNoise()) -> (A, B, D).
     ``dtype`` casts the weights once (bf16 under mixed-precision training;
     ``_bn`` computes in the statistics' f32 and returns the activation's
-    dtype)."""
+    dtype).  Weights on the card are laid out for the fused kernel here,
+    once, beside them (``ops/augment.prepared``)."""
     params = cast_augmenter_params(params, dtype)
+    if not on_cpu(params["fc1"]["w"]):
+        from dvae_tpu_torch.ops.augment import prepared
+        for fc, _ in FUSED_LAYERS:
+            prepared(params[fc]["w"])
 
     def fn(x, n_arm, scale=0.1, generator=None, draws=AugNoise()):
         return augment_arms(params, bn, cfg, x, n_arm, scale, generator,

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"   # the default build directory
 BUILD_DIR_ENV = "DVAE_TORCH_BUILD_DIR"
 KERNELS = ("recon_fwd", "recon_fwdbwd", "encoder_fc1", "zinb_fwd",
-           "zinb_fwdbwd", "gumbel", "coupling", "decoder")
+           "zinb_fwdbwd", "gumbel", "coupling", "decoder", "augment_fc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
