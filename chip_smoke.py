@@ -6225,23 +6225,16 @@ def _mesh_first_step(torch, x, mesh, sharding="no", perm=None):
         got.update({n: {k: g.detach().cpu().clone()
                         for k, g in layer.items()}
                     for n, layer in grads.items()})
-    orig_mesh, orig_one = step_mod._mesh_update, cpl.tx.update
+    update = cpl.tx.update
 
-    def mesh_update(opt, grads, state, specs, m):
-        keep(gather_tree(grads, specs.moments, m))
-        return orig_mesh(opt, grads, state, specs, m)
-
-    def one_update(grads, state, params):
-        keep(grads)
-        return orig_one(grads, state, params)
-    step_mod._mesh_update, cpl.tx.update = mesh_update, one_update
-    try:
-        step = step_mod.make_train_step(cpl.cfg, cpl.tcfg, cpl.tx,
-                                        mesh=cpl.mesh)
-        _, m, _ = step(cpl.state, x, None, 1.0, enc_seed=SEED + 22,
-                       noise=noise)
-    finally:
-        step_mod._mesh_update = orig_mesh
+    def kept(grads, state, params):
+        # on a mesh the gradients arrive as the moments' blocks
+        keep(grads if cpl.mesh is None else
+             gather_tree(grads, cpl.specs.moments, cpl.mesh))
+        return update(grads, state, params)
+    cpl.tx.update = kept
+    step = step_mod.make_train_step(cpl.cfg, cpl.tcfg, cpl.tx, mesh=cpl.mesh)
+    _, m, _ = step(cpl.state, x, None, 1.0, enc_seed=SEED + 22, noise=noise)
     return float(m.total), got
 
 

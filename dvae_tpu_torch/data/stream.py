@@ -31,18 +31,15 @@ batch's memory to the next copy while a step still reads it.  A slot is
 written again only after its copy's event has completed.  On the CPU the
 streamer hands out plain tensors (the path the tests run).
 
-The streaming runner keeps the resident runner's contract: ``(state,
-EpochMetrics)`` stacked over the chunk's epochs, labels and consensus on
-the device, nothing read back inside a chunk.  Its backpressure waits on
-the event of the step issued ``prefetch`` iterations earlier (never on a
-value read back), so at most ``prefetch + 1`` steps and their batches are
-queued on the device.  Noise: each chunk's generator and in-kernel seeds
-come from ``train/step.chunk_rngs``, the chain of the resident runner, so
-it continues across chunks and on resume.  No permutation is drawn from
-the chunk's generator (the plan is numpy's), so a streamed run differs
-from a resident one in its batch plan, and the generator's draws after
-it are another stretch of the same chain: the two runs are statistically,
-not bitwise, interchangeable, as in the JAX package.
+The streaming runner is the resident runner's epoch loop
+(``train/step.make_chunk_loop``: noise chain, steps, consensus) fed from
+the streamer.  Its backpressure waits on the event of the step issued
+``prefetch`` iterations earlier (never on a value read back), so at most
+``prefetch + 1`` steps and their batches are queued on the device.  No
+permutation is drawn from the chunk's generator (the plan is numpy's), so
+a streamed run differs from a resident one in its batch plan and in the
+stretch of the noise chain it draws: the two are statistically, not
+bitwise, interchangeable, as in the JAX package.
 
 On a mesh (dvae_tpu/data/stream.py:125-175) every rank holds the whole
 host dataset, draws the same plan, and gathers on the host only its rows
@@ -64,14 +61,9 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-from dvae_tpu_torch.eval.metrics import consensus_device
-from dvae_tpu_torch.models.mixvae import Noise
 from dvae_tpu_torch.parallel.runtime import process_info
-from dvae_tpu_torch.train.step import (EpochMetrics, _gather_rows_arms,
-                                       _spmd, chunk_rngs, epoch_metrics,
-                                       make_train_step)
+from dvae_tpu_torch.train.step import make_chunk_loop
 from dvae_tpu_torch.utils.host_ops import as_host_tensor, gather_rows
-from dvae_tpu_torch.utils.profiling import span, spanned
 
 
 class StreamBatch(NamedTuple):
@@ -343,19 +335,12 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
     stacked over ``n_chunk`` epochs), so ``CplMixVAE._run_phase`` drives
     either.  ``x_host``/``prior_host`` stay on the host; the device holds
     the batches in flight.  One streamer (and its pinned ring) serves
-    every chunk of a dataset; ``runner.streamer`` is the last one used.
-    On a ``mesh`` each rank streams its rows of each batch (the whole batch
-    under an augmenter) and the labels are gathered for the consensus, as
-    in the resident runner."""
+    every chunk of a dataset; ``runner.streamer`` is the last one used."""
+    loop = make_chunk_loop(cfg, tcfg, opt, n_train, augment, mesh)
     B = tcfg.batch_size
-    steps = n_train // B
-    if steps == 0:
-        raise ValueError(f"batch_size {B} > dataset size {n_train}")
-    step_fn = make_train_step(cfg, tcfg, opt, augment, mesh)
-    spmd = _spmd(cfg, tcfg, mesh, B)
     store = torch.bfloat16 if tcfg.bf16 else torch.float32
     dev = torch.device(device)
-    A, K = cfg.n_arm, cfg.n_categories
+    cuda = dev.type == "cuda"
     cache = {}
 
     def streamer_for(x_host, prior_host) -> BatchStreamer:
@@ -369,51 +354,26 @@ def make_streaming_runner(cfg, tcfg, opt, n_train: int, augment=None,
         runner.streamer = cache["streamer"]
         return cache["streamer"]
 
-    @spanned("runner")
     def run(state, x_host, prior_host, temp, *, n_chunk: int):
         streamer = streamer_for(x_host, prior_host)
-        gen, host = chunk_rngs(state.seed, state.epoch, dev)
-        cuda = dev.type == "cuda"
-        per_epoch = []
-        local = {"n_rows": B} if streamer.rows_local else {}
-        for e in range(n_chunk):
-            labels = (torch.empty((A, steps * B), dtype=torch.long,
-                                  device=dev) if spmd is None else [])
-            ms, done = [], []
-            for s, batch in enumerate(streamer.epoch(state.epoch)):
-                enc_seed = int(host.integers(0, 2 ** 31 - 1))
-                noise = (Noise(gumbel_seed=int(
-                    host.integers(0, 2 ** 31 - 1)))
-                    if cfg.use_pallas else None)
-                with span("step"):
-                    state, m, lab = step_fn(state, batch.x, batch.prior,
-                                            temp, generator=gen,
-                                            enc_seed=enc_seed, noise=noise,
-                                            **local)
-                if spmd is None:
-                    labels[:, s * B:(s + 1) * B] = lab
-                else:
-                    labels.append(lab)
-                ms.append(m)
+
+        def batches(gen, epoch):
+            done = []
+            for s, batch in enumerate(streamer.epoch(epoch)):
+                yield batch
                 if cuda:
-                    # backpressure: the step issued ``prefetch`` iterations
-                    # ago must be done before another batch is gathered
+                    # backpressure, once the step on this batch is issued:
+                    # the step issued ``prefetch`` iterations ago must be
+                    # done before another batch is gathered
                     ev = torch.cuda.Event()
                     ev.record(torch.cuda.current_stream(dev))
                     done.append(ev)
                     if s >= prefetch:
                         _wait(done[s - prefetch], streamer.stats)
                         done[s - prefetch] = None
-            del batch
-            with span("runner.epoch_end"):
-                if spmd is not None:  # (A_l, steps, B_l) → (A, steps·B)
-                    labels = _gather_rows_arms(torch.stack(labels, dim=1),
-                                               spmd, 2).reshape(A, steps * B)
-                per_epoch.append(epoch_metrics(ms,
-                                               consensus_device(labels, K)))
-            state = state._replace(epoch=state.epoch + 1)
-        return state, EpochMetrics(*(torch.stack(v)
-                                     for v in zip(*per_epoch)))
+
+        return loop(state, temp, n_chunk, dev, batches,
+                    **({"n_rows": B} if streamer.rows_local else {}))
 
     def runner(n_chunk: int):
         return lambda state, x_host, prior_host, temp: run(

@@ -25,16 +25,19 @@ mode comes from a fresh CPU ``torch.Generator`` seeded with
 ``TrainState.seed`` for each batch, so a run's numbers do not depend on
 how the batches were chunked, nor on the device.
 
+The resident epoch runner and the streamed one (data/stream.py) differ
+only in where a batch comes from: both run ``make_chunk_loop``.
+
 On a mesh (``mesh``, a ``parallel.sharding.Mesh`` of several devices; the
 model of such a run is in parallel/sharding.py) the state holds this
 rank's blocks under ``TrainConfig.sharding``, the step takes the whole
 batch and computes on this rank's arms and rows (``_spmd``, after
 dvae_tpu/train/step.py:162-198), sums the gradients over the batch group
-(the partitioned kernels have summed theirs), and updates this rank's
-blocks of the parameters and the Adam moments (``_mesh_update``).  The
-epoch runner gathers each epoch's labels over the batch and arm groups
-for the consensus; the eval step gathers its outputs, so every rank
-returns the whole arrays.
+(the partitioned kernels have summed theirs), and runs ``Adam.update`` on
+this rank's blocks of the Adam moments (``update_blocks``).  The epoch
+loop gathers each epoch's labels over the batch and arm groups for the
+consensus; the eval step gathers its outputs, so every rank returns the
+whole arrays.
 """
 
 from __future__ import annotations
@@ -189,7 +192,7 @@ def sharded_optimizer_step(loss_fn, params, opt, opt_state, p_specs, o_specs,
     mesh shards more than itself is gathered back whole.  On a mesh of one
     rank it is ``optimizer_step``, operation for operation.  Returns (opt
     state, loss detached, aux)."""
-    from dvae_tpu_torch.parallel.sharding import full_leaf, local_block
+    from dvae_tpu_torch.parallel.sharding import full_leaf
     p = tree_leaves(params)
     ps, ms = leaf_specs(params, p_specs), leaf_specs(params, o_specs)
     whole = tree_like(params, [full_leaf(t, s, mesh) for t, s in zip(p, ps)])
@@ -202,15 +205,26 @@ def sharded_optimizer_step(loss_fn, params, opt, opt_state, p_specs, o_specs,
         torch._foreach_mul_([loss, *g], 1.0 / group.size)
         loss = loss[0]
     with torch.no_grad():
-        views = [reshard(t, s, m, mesh) for t, s, m in zip(p, ps, ms)]
-        opt_state = opt.update(
-            tree_like(params, [local_block(t, m, mesh)
-                               for t, m in zip(g, ms)]),
-            opt_state, tree_like(params, views))
-        for t, v, s, m in zip(p, views, ps, ms):
-            if v is not t:   # the moments' block of a wider parameter
-                t.copy_(reshard(v, m, s, mesh))
+        opt_state = update_blocks(
+            opt, tree_like(params, [local_block(t, m, mesh)
+                                    for t, m in zip(g, ms)]),
+            opt_state, params, p_specs, o_specs, mesh)
     return opt_state, loss, aux
+
+
+def update_blocks(opt, grads, opt_state, params, p_specs, m_specs, mesh):
+    """``opt.update`` on this rank's blocks of the moments (spec tree
+    ``m_specs``, as ``grads``): ``params`` (``p_specs``) go in as their
+    views in the moments' spec, and one that its moments shard more is
+    gathered back after the update.  Returns the opt state."""
+    p = tree_leaves(params)
+    ps, ms = leaf_specs(params, p_specs), leaf_specs(params, m_specs)
+    views = [reshard(t, s, m, mesh) for t, s, m in zip(p, ps, ms)]
+    opt_state = opt.update(grads, opt_state, tree_like(params, views))
+    for t, v, s, m in zip(p, views, ps, ms):
+        if v is not t:   # the moments' block of a wider parameter
+            t.copy_(reshard(v, m, s, mesh))
+    return opt_state
 
 
 def _cast_params(params, dtype):
@@ -526,43 +540,6 @@ def _sync_bn(bn, cfg: VAEConfig, spmd: Spmd):
     return out
 
 
-def _mesh_update(opt: "Adam", grads, state: "TrainState", specs, mesh):
-    """One Adam update of this rank's blocks, in place (optax semantics,
-    ``Adam.update``): the gradients come in their moments' spec
-    (``_sync_grads``), the moments update there, and the update moves to
-    the parameters' spec (a gather over fsdp under grad-op/hybrid-zero2).
-    Moments in host memory are staged through the device."""
-    items = _leaf_items(state.params)
-    opt_state = state.opt_state
-    count = opt_state.count + 1
-    bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.float32(count))
-                for b in (opt.b1, opt.b2))
-    g_m, mu, nu, staged = [], [], [], []
-    for n, k in items:
-        g = grads[n][k]
-        g_m.append(g)
-        pair = [opt_state.mu[n][k], opt_state.nu[n][k]]
-        if pair[0].device != g.device:
-            staged.append((len(mu), pair))
-            pair = [t.to(g.device) for t in pair]
-        mu.append(pair[0])
-        nu.append(pair[1])
-    upd = adam_direction(g_m, mu, nu, opt.b1, opt.b2, bc1, bc2, opt.eps,
-                         opt.eps_root)
-    for i, (m_host, v_host) in staged:
-        m_host.copy_(mu[i])
-        v_host.copy_(nu[i])
-    p = [state.params[n][k] for n, k in items]
-    if opt.weight_decay:
-        torch._foreach_add_(upd, [
-            reshard(t, specs.params[n][k], specs.moments[n][k], mesh)
-            for t, (n, k) in zip(p, items)], alpha=opt.weight_decay)
-    upd = [reshard(u, specs.moments[n][k], specs.params[n][k], mesh)
-           for u, (n, k) in zip(upd, items)]
-    torch._foreach_add_(p, upd, alpha=-opt.lr)
-    return AdamState(count, opt_state.mu, opt_state.nu)
-
-
 def _gather_rows_arms(t: torch.Tensor, spmd: Spmd, row_dim: int = 1):
     """A block (no gradient) → the whole tensor: rows over the batch group,
     then arms over the arm group."""
@@ -570,93 +547,75 @@ def _gather_rows_arms(t: torch.Tensor, spmd: Spmd, row_dim: int = 1):
                       spmd.arm_group, 0)
 
 
-def _make_mesh_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: "Adam",
-                          augment, mesh):
-    compute_dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
-    specs = state_specs(cfg, tcfg.sharding, mesh)
+def make_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
+                    augment: Optional[AugmentFn] = None, mesh=None):
+    """step(state, x (B, D), prior_c (B, C) | None, temp, generator=None,
+    enc_seed=None, noise=None, aug_draws=None, n_rows=None) → (state,
+    StepMetrics, labels (A, B)).
 
-    def local(name, leaf, scale):
-        return local_block(scale, specs.params[name][leaf], mesh)
+    Value and gradients of ``loss_fn``, pruned-category gradients zeroed,
+    ``opt.update``, pruned parameters zeroed again (dvae_tpu/train/step.py
+    :201-245).  The parameters and the Adam moments are updated in place.
+    Without an augmenter every arm shares the (B, D) batch, and that is
+    what the model and the kernels get; with one, its (A, B, D) per-arm
+    views, made on the batch's device from ``generator`` (or the explicit
+    ``aug_draws``) inside the span ``dvae.step.augment``.
+
+    ``mesh`` (several devices): the state is this rank's blocks, x the
+    whole batch (or, with ``n_rows=`` the whole batch's row count, this
+    rank's rows of it), the noise tensors whole; the update runs on the
+    moments' blocks (``update_blocks``).  The labels returned are this
+    rank's (A_l, B_l) block and the metrics those of the whole batch, the
+    same on every rank."""
+    compute_dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
+    specs = (state_specs(cfg, tcfg.sharding, mesh)
+             if mesh is not None and mesh.cfg.n_devices > 1 else None)
+    local = None if specs is None else (
+        lambda name, leaf, scale: local_block(scale, specs.params[name][leaf],
+                                              mesh))
 
     def step(state: TrainState, x, prior_c, temp, generator=None,
              enc_seed: Optional[int] = None, noise=None, aug_draws=None,
              n_rows: Optional[int] = None):
-        whole = n_rows is None
-        spmd = _spmd(cfg, tcfg, mesh, x.shape[0] if whole else n_rows)
-        if not whole and spmd.batch_axes == () and x.shape[0] != n_rows:
-            raise ValueError(f"a batch of {n_rows} rows that the batch "
-                             "axes do not divide needs the whole batch")
-        if augment is not None:
-            if not whole:
+        spmd, whole = None, n_rows is None
+        if specs is not None:
+            spmd = _spmd(cfg, tcfg, mesh, x.shape[0] if whole else n_rows)
+            if not whole and spmd.batch_axes == () and x.shape[0] != n_rows:
+                raise ValueError(f"a batch of {n_rows} rows that the batch "
+                                 "axes do not divide needs the whole batch")
+            if augment is not None and not whole:
                 raise ValueError("an augmenter needs the whole batch on "
                                  "every rank")
-            with span("step.augment"):
-                x = spmd.local(augment(x, cfg.n_arm, generator, aug_draws))
-        elif whole:
-            x = spmd.local_rows(x)
-        if whole and prior_c is not None:
-            prior_c = spmd.local_rows(prior_c)
-        params_c = _compute_params(state.params, specs, mesh)
-        _, (aux, new_bn, labels), grads = value_and_grad(
-            lambda p: loss_fn(p, state.bn, cfg, x, temp, state.mask, prior_c,
-                              compute_dtype, noise, generator, enc_seed,
-                              spmd), params_c)
-        del params_c
-        with span("step.update"):
-            grads = _sync_grads(_mask_grads(grads, state.mask, cfg), cfg,
-                                spmd, specs)
-            new_bn = _sync_bn(new_bn, cfg, spmd)
-            with torch.no_grad():
-                opt_state = _mesh_update(opt, grads, state, specs, mesh)
-                _mask_params(state.params, state.mask, cfg, inplace=True,
-                             local=local)
-            metrics = StepMetrics(*(v.detach().float() for v in (
-                aux.total, aux.loss_rec, aux.loss_joint, aux.neg_entropy,
-                aux.c_dist, aux.c_l2_dist, aux.kl)))
-        return (state._replace(bn=new_bn, opt_state=opt_state), metrics,
-                labels)
-
-    step.specs = specs
-    return step
-
-
-def make_train_step(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
-                    augment: Optional[AugmentFn] = None, mesh=None):
-    """step(state, x (B, D), prior_c (B, C) | None, temp, generator=None,
-    enc_seed=None, noise=None, aug_draws=None) → (state, StepMetrics,
-    labels (A, B)).
-
-    Value and gradients of ``loss_fn``, pruned-category gradients zeroed,
-    Adam, pruned parameters zeroed again (dvae_tpu/train/step.py:201-245).
-    The parameters and the Adam moments are updated in place.  Without an
-    augmenter every arm shares the (B, D) batch, and that is what the model
-    and the kernels get; with one, its (A, B, D) per-arm views, made on the
-    batch's device from ``generator`` (or the explicit ``aug_draws``)
-    inside the span ``dvae.step.augment``.
-
-    ``mesh`` (several devices): the state is this rank's blocks, x the
-    whole batch (or, with ``n_rows=`` the whole batch's row count, this
-    rank's rows of it), the noise tensors whole; the labels returned are
-    this rank's (A_l, B_l) block and the metrics those of the whole
-    batch, the same on every rank."""
-    if mesh is not None and mesh.cfg.n_devices > 1:
-        return _make_mesh_train_step(cfg, tcfg, opt, augment, mesh)
-    compute_dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
-
-    def step(state: TrainState, x, prior_c, temp, generator=None,
-             enc_seed: Optional[int] = None, noise=None, aug_draws=None):
         if augment is not None:
             with span("step.augment"):
                 x = augment(x, cfg.n_arm, generator, aug_draws)
+                if spmd is not None:
+                    x = spmd.local(x)
+        elif spmd is not None and whole:
+            x = spmd.local_rows(x)
+        if spmd is not None and whole and prior_c is not None:
+            prior_c = spmd.local_rows(prior_c)
+        params = (state.params if specs is None else
+                  _compute_params(state.params, specs, mesh))
         _, (aux, new_bn, labels), grads = value_and_grad(
             lambda p: loss_fn(p, state.bn, cfg, x, temp, state.mask, prior_c,
-                              compute_dtype, noise, generator, enc_seed),
-            state.params)
+                              compute_dtype, noise, generator, enc_seed,
+                              spmd), params)
+        del params
         with span("step.update"):
             grads = _mask_grads(grads, state.mask, cfg)
             with torch.no_grad():
-                opt_state = opt.update(grads, state.opt_state, state.params)
-                _mask_params(state.params, state.mask, cfg, inplace=True)
+                if specs is None:
+                    opt_state = opt.update(grads, state.opt_state,
+                                           state.params)
+                else:
+                    grads = _sync_grads(grads, cfg, spmd, specs)
+                    new_bn = _sync_bn(new_bn, cfg, spmd)
+                    opt_state = update_blocks(
+                        opt, grads, state.opt_state, state.params,
+                        specs.params, specs.moments, mesh)
+                _mask_params(state.params, state.mask, cfg, inplace=True,
+                             local=local)
             metrics = StepMetrics(*(v.detach().float() for v in (
                 aux.total, aux.loss_rec, aux.loss_joint, aux.neg_entropy,
                 aux.c_dist, aux.c_l2_dist, aux.kl)))
@@ -691,23 +650,18 @@ def epoch_metrics(ms, consensus: torch.Tensor) -> EpochMetrics:
         kl=st.kl.mean(dim=0), consensus=consensus.float())
 
 
-def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
-                      n_train: int, epochs_per_chunk: Optional[int] = None,
-                      consensus_every_epoch: bool = True,
-                      augment: Optional[AugmentFn] = None, mesh=None):
-    """run_epochs(state, x_all (N, D), prior_all (N, C) | None, temp) →
-    (state, EpochMetrics), everything on x_all's device.
+def make_chunk_loop(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
+                    n_train: int, augment: Optional[AugmentFn] = None,
+                    mesh=None):
+    """The epoch loop of the resident and the streamed runner: run(state,
+    temp, n_epochs, device, batches, **step_kw) → (state, EpochMetrics).
 
-    Per epoch: a permutation drawn on the device at ``shuffle_block``-row
-    granularity, the last partial batch dropped (dvae_tpu/train/step.py
-    :297-394); ``steps`` train steps; the argmax labels gathered into an
-    (A, n_used) buffer and the all-pairs consensus computed on the
-    device.  ``augment`` makes each step's per-arm views inside the chunk,
-    on the device, from the chunk's generator.  On a ``mesh`` every rank
-    holds x_all whole and draws the same permutation; a step computes on
-    this rank's rows of each batch, and the epoch's labels are gathered
-    over the batch and arm groups for the consensus."""
-    E = epochs_per_chunk or tcfg.epochs_per_jit
+    ``batches(gen, epoch)`` yields epoch ``epoch``'s ``n_train //
+    batch_size`` (x, prior) batches and may draw from ``gen`` before the
+    first.  Per step: the in-kernel seeds from the host generator, the
+    train step (with ``step_kw``) in the span ``dvae.step``, a ``step``
+    mark for the census.  Per epoch: the labels (gathered on a ``mesh``)
+    and their consensus on the device, in ``dvae.runner.epoch_end``."""
     B = tcfg.batch_size
     steps = n_train // B
     if steps == 0:
@@ -715,31 +669,18 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
     step_fn = make_train_step(cfg, tcfg, opt, augment, mesh)
     spmd = _spmd(cfg, tcfg, mesh, B)
     n_used = steps * B
-    sb = tcfg.shuffle_block
-    if sb > 1 and B % sb:
-        raise ValueError(f"shuffle_block {sb} must divide batch_size {B}")
-    n_blocks = n_train // sb
     A, K = cfg.n_arm, cfg.n_categories
 
     @spanned("runner")
-    def run_epochs(state: TrainState, x_all, prior_all, temp):
-        dev = x_all.device
-        gen, host = chunk_rngs(state.seed, state.epoch, dev)
-        x_view = x_all[: n_blocks * sb].reshape(n_blocks, sb, -1)
-        prior_view = (None if prior_all is None else
-                      prior_all[: n_blocks * sb].reshape(n_blocks, sb, -1))
+    def run(state: TrainState, temp, n_epochs: int, device, batches,
+            **step_kw):
+        gen, host = chunk_rngs(state.seed, state.epoch, device)
         per_epoch = []
-        for i in range(E):
-            perm = torch.randperm(n_blocks, generator=gen, device=dev)
-            plan = perm[: n_used // sb].reshape(steps, B // sb)
-            labels = (torch.empty((A, n_used), dtype=torch.long, device=dev)
-                      if spmd is None else [])
+        for _ in range(n_epochs):
+            labels = (torch.empty((A, n_used), dtype=torch.long,
+                                  device=device) if spmd is None else [])
             ms = []
-            for s in range(steps):
-                sel = plan[s]
-                x = x_view.index_select(0, sel).reshape(B, -1)
-                prior = (None if prior_view is None else
-                         prior_view.index_select(0, sel).reshape(B, -1))
+            for s, (x, prior) in enumerate(batches(gen, state.epoch)):
                 enc_seed = int(host.integers(0, 2 ** 31 - 1))
                 noise = (mixvae.Noise(gumbel_seed=int(
                     host.integers(0, 2 ** 31 - 1)))
@@ -747,7 +688,7 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                 with span("step"):
                     state, m, lab = step_fn(state, x, prior, temp,
                                             generator=gen, enc_seed=enc_seed,
-                                            noise=noise)
+                                            noise=noise, **step_kw)
                 record_mark("step")  # the census's step boundary
                 if spmd is None:
                     labels[:, s * B:(s + 1) * B] = lab
@@ -756,18 +697,55 @@ def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
                 ms.append(m)
             del x, prior  # the last batch need not outlive the epoch
             with span("runner.epoch_end"):
-                if consensus_every_epoch or i == E - 1:
-                    if spmd is not None:  # (A_l, steps, B_l) → (A, S·B)
-                        labels = _gather_rows_arms(
-                            torch.stack(labels, dim=1), spmd, 2).reshape(
-                                A, n_used)
-                    cons = consensus_device(labels, K)
-                else:
-                    cons = torch.full((), -1.0, device=dev)
-                per_epoch.append(epoch_metrics(ms, cons))
+                if spmd is not None:  # (A_l, steps, B_l) → (A, S·B)
+                    labels = _gather_rows_arms(
+                        torch.stack(labels, dim=1), spmd, 2).reshape(
+                            A, n_used)
+                per_epoch.append(epoch_metrics(
+                    ms, consensus_device(labels, K)))
             state = state._replace(epoch=state.epoch + 1)
         return state, EpochMetrics(*(torch.stack(v)
                                      for v in zip(*per_epoch)))
+
+    return run
+
+
+def make_epoch_runner(cfg: VAEConfig, tcfg: TrainConfig, opt: Adam,
+                      n_train: int, epochs_per_chunk: Optional[int] = None,
+                      augment: Optional[AugmentFn] = None, mesh=None):
+    """run_epochs(state, x_all (N, D), prior_all (N, C) | None, temp) →
+    (state, EpochMetrics), everything on x_all's device.
+
+    ``make_chunk_loop`` over batches drawn on the device: per epoch a
+    permutation at ``shuffle_block``-row granularity, the last partial
+    batch dropped (dvae_tpu/train/step.py:297-394), each batch an
+    ``index_select`` of x_all.  On a ``mesh`` every rank holds x_all whole
+    and draws the same permutation."""
+    E = epochs_per_chunk or tcfg.epochs_per_jit
+    loop = make_chunk_loop(cfg, tcfg, opt, n_train, augment, mesh)
+    B = tcfg.batch_size
+    steps = n_train // B
+    sb = tcfg.shuffle_block
+    if sb > 1 and B % sb:
+        raise ValueError(f"shuffle_block {sb} must divide batch_size {B}")
+    n_blocks = n_train // sb
+
+    def run_epochs(state: TrainState, x_all, prior_all, temp):
+        dev = x_all.device
+        x_view = x_all[: n_blocks * sb].reshape(n_blocks, sb, -1)
+        prior_view = (None if prior_all is None else
+                      prior_all[: n_blocks * sb].reshape(n_blocks, sb, -1))
+
+        def batches(gen, epoch):
+            perm = torch.randperm(n_blocks, generator=gen, device=dev)
+            plan = perm[: steps * B // sb].reshape(steps, B // sb)
+            for s in range(steps):
+                sel = plan[s]
+                yield (x_view.index_select(0, sel).reshape(B, -1),
+                       None if prior_view is None else
+                       prior_view.index_select(0, sel).reshape(B, -1))
+
+        return loop(state, temp, E, dev, batches)
 
     return run_epochs
 

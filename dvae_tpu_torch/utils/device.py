@@ -1,5 +1,4 @@
-"""Device choice and the refusal of what the port does not run yet,
-shared by every entry point of the port."""
+"""Device choice, shared by every entry point of the port."""
 
 from __future__ import annotations
 
@@ -14,9 +13,3 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
-
-
-def not_ported(what: str, slice_name: str) -> NotImplementedError:
-    """The error that refuses ``what`` until ``slice_name`` of the port."""
-    return NotImplementedError(f"{what} is not ported yet: it arrives with "
-                               f"the {slice_name} slice of the port")

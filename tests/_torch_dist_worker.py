@@ -239,6 +239,8 @@ def _steps(ctx, prefix, cfg, tcfg, mesh, n_steps):
     specs = state_specs(cfg, tcfg.sharding, mesh)
     st = place_state(st, specs, mesh)
     step = ts.make_train_step(cfg, tcfg, opt, mesh=mesh)
+    update, updates = opt.update, []
+    opt.update = lambda *a: updates.append(1) or update(*a)
     totals, recs, labels = [], [], []
     for i in range(n_steps):
         noise = Noise(*(torch.from_numpy(arr[f"{prefix}/noise/{k}"][i])
@@ -250,6 +252,9 @@ def _steps(ctx, prefix, cfg, tcfg, mesh, n_steps):
         totals.append(float(m.total))
         recs.append(m.loss_rec.numpy())
         labels.append(lab.numpy())
+    # the mesh step's update is ``Adam.update`` on the moments' blocks,
+    # once a step
+    assert len(updates) == n_steps == st.opt_state.count, updates
     whole = gather_state(st, specs, mesh)
     return (np.array(totals), np.array(recs), labels, whole)
 

@@ -14,6 +14,8 @@ the copy stream and its events run only on the card (chip_smoke.py phase
   * a streamed chunk equal to a manual loop of ``make_train_step`` over the
     same batches and the same noise chain, bit for bit (MSE, ZINB,
     use_pallas; two chunks, so the chain continues across them);
+  * one ``step`` mark a step in a collective recorder, from the streamed
+    runner as from the resident one (the epoch loop both share);
   * the streamed batches of both packages through three train steps from
     the same weights and noise: the loss trajectory at ``TRAJ`` (rtol
     1e-3, as tests/test_torch_train.py holds the resident steps);
@@ -335,6 +337,27 @@ def test_runner_epoch_metrics_contract():
     assert bool(torch.isfinite(ems.total).all())
     assert bool(((ems.consensus >= 0) & (ems.consensus <= 1)).all())
     assert state.epoch == 3 and runner.streamer.steps_per_epoch == 4
+
+
+@pytest.mark.parametrize("where", ["resident", "streamed"])
+def test_runner_leaves_one_step_mark_a_step(where):
+    """Both runners leave one ``step`` mark a step in an open collective
+    recorder, the boundary ``collective_cost.per_step_records`` splits a
+    run at."""
+    from dvae_tpu_torch.parallel.runtime import record_collectives
+    cfg, tcfg = small_cfgs()
+    opt = tstep.make_optimizer(cfg)
+    x = make_data()
+    if where == "resident":
+        run = tstep.make_epoch_runner(cfg, tcfg, opt, N, epochs_per_chunk=2)
+        x = torch.from_numpy(x)
+    else:
+        run = make_streaming_runner(cfg, tcfg, opt, N, device="cpu")(2)
+    with record_collectives() as records:
+        state, _ = run(tstep.init_train_state(0, cfg, opt), x, None, 1.0)
+    steps = 2 * (N // tcfg.batch_size)
+    assert [r.kind for r in records] == ["step"] * steps
+    assert state.opt_state.count == steps
 
 
 def test_streamed_batches_track_jax_through_the_train_step():

@@ -411,6 +411,29 @@ def test_epoch_runner_shapes_and_noise_chain():
                            torch.rand(8, generator=g2))
 
 
+def test_one_device_step_updates_through_adam_once_a_step(monkeypatch):
+    """The one-device step's update is ``Adam.update``, called once a step
+    on the whole gradients and parameters."""
+    _, tc = _cfgs()
+    tcfg = tcfg_mod.TrainConfig(batch_size=32, epochs_per_jit=2)
+    opt = tstep.make_optimizer(tc)
+    calls = []
+    update = tstep.Adam.update
+
+    def counted(self, grads, state, params):
+        calls.append((self, tstep.tree_leaves(params)))
+        return update(self, grads, state, params)
+    monkeypatch.setattr(tstep.Adam, "update", counted)
+    x = torch.from_numpy(_model(6, n=100)[2])
+    s0 = tstep.init_train_state(1, tc, opt)
+    s1, _ = tstep.make_epoch_runner(tc, tcfg, opt, 100)(s0, x, None, 1.0)
+    assert len(calls) == s1.opt_state.count == 2 * (100 // 32)
+    for who, params in calls:
+        assert who is opt
+        assert all(a is b for a, b in zip(params,
+                                          tstep.tree_leaves(s1.params)))
+
+
 def test_splits_match_jax():
     from dvae_tpu.data import pipeline as jpipeline
     labels = np.random.default_rng(1).integers(0, 5, 97).astype(str)
